@@ -12,6 +12,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels.mix.ref import decavg_mix_ref
+
 __all__ = ["mix_array", "mix_pytree", "mix_pytree_sparse", "failure_receive_matrix"]
 
 Tree = dict[str, Any]
@@ -27,9 +29,9 @@ def _bcast(w: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def mix_array(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x_new[i] = Σ_j m[i, j] x[j]`` over the leading node axis."""
-    out = torch.tensordot(m.to(torch.float32), x.to(torch.float32), dims=([1], [0]))
-    return out.to(x.dtype)
+    """``x_new[i] = Σ_j m[i, j] x[j]`` over the leading node axis: the
+    kernels' plain version on ``x`` flattened to (n, d)."""
+    return decavg_mix_ref(m, x.reshape(x.shape[0], -1)).reshape(x.shape)
 
 
 def mix_pytree(m: torch.Tensor, params: Tree) -> Tree:

@@ -140,42 +140,43 @@ def make_round_fn(
     data_sizes: np.ndarray | None = None,
     link_p: float = 1.0,
     node_p: float = 1.0,
-    reinit_opt: bool = True,
-    aggregate: bool = True,
     device: str | torch.device | None = None,
 ):
     """Build ``round_fn(state, node_batches) -> (state, metrics)``.
 
-    ``plan`` is a compiled ``CommPlan`` or a ``Graph`` (compiled with the
-    "auto" backend on ``device``); ``data_sizes``/``link_p``/``node_p``
-    override the plan's own settings when given.  ``node_batches`` is
-    (x (n, b, bs, ...), y (n, b, bs)) on the state's device.  The round
-    consumes ``state``: its params buffer is updated in place by the local
-    steps.
+    ``plan`` is a compiled ``CommPlan``, which carries its own data sizes
+    and failure model, or a ``Graph``, compiled here with the "auto"
+    backend from ``data_sizes``/``link_p``/``node_p`` on ``device``.
+    ``node_batches`` is (x (n, b, bs, ...), y (n, b, bs)) on the state's
+    device.  The round consumes ``state``: its params buffer is updated in
+    place by the local steps.
     """
-    failures = FailureModel(link_p=link_p, node_p=node_p)
     if isinstance(plan, Graph):
+        failures = FailureModel(link_p=link_p, node_p=node_p)
         plan = compile_plan(plan, backend="auto", data_sizes=data_sizes, failures=failures, device=device)
-    elif failures.active or data_sizes is not None:
-        plan = plan.with_options(data_sizes=data_sizes, failures=failures if failures.active else None)
+    elif data_sizes is not None or link_p != 1.0 or node_p != 1.0 or device is not None:
+        raise ValueError(
+            "a compiled CommPlan carries its own data sizes, failure model and device; "
+            "pass them to compile_plan"
+        )
 
     def round_fn(state: DFLState, node_batches) -> tuple[DFLState, dict]:
         params, opt_state, losses = _local_steps(
             loss_fn, optimizer, state.layout, state.params, state.opt_state, node_batches
         )
-        if aggregate:
-            # double buffer: the kernel writes the mixed ensemble into a new
-            # buffer that is swapped in; the old one goes back to the caching
-            # allocator and becomes the next round's output
-            params = plan.mix(params, state.generator if plan.failures.active else None)
-            if reinit_opt:  # Algorithm 1 line 15
-                opt_state = optimizer.init(params)
+        # double buffer: the kernel writes the mixed ensemble into a new
+        # buffer that is swapped in; the old one goes back to the caching
+        # allocator and becomes the next round's output
+        params = plan.mix(params, state.generator if plan.failures.active else None)
         new_state = dataclasses.replace(
-            state, params=params, opt_state=opt_state, round=state.round + 1
+            state,
+            params=params,
+            opt_state=optimizer.init(params),  # Algorithm 1 line 15
+            round=state.round + 1,
         )
         return new_state, {"train_loss": losses.mean(), "train_loss_per_node": losses}
 
-    round_fn.plan = plan if aggregate else None
+    round_fn.plan = plan
     return round_fn
 
 

@@ -1,12 +1,14 @@
 """The slice as a whole: the port's run_trajectory against the JAX package's
-on the same injected init (JAX ``init_fl_state`` leaves → ``state_from_numpy``),
-the same data and the same batch schedule.  History and final parameters to
+on the same injected init (a numpy-seeded He draw held as a JAX ``DFLState``,
+whose leaves go through ``state_from_numpy``), the same data and the same
+batch schedule.  History and final parameters to
 rtol 1e-4 / atol 1e-5 — not bitwise: the two frameworks sum in different
 orders (and the JAX package's own executor-vs-legacy bitwise asserts differ
 by 1 ulp on jax 0.9.0)."""
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -14,7 +16,6 @@ torch = pytest.importorskip("torch")
 
 from repro.core import commplan as JC  # noqa: E402
 from repro.core import topology as JT  # noqa: E402
-from repro.core.initialisation import InitConfig as JInit  # noqa: E402
 from repro.core.initialisation import gain_from_graph  # noqa: E402
 from repro.data import batch_index_schedule, mnist_like, node_batch_iterator, node_datasets  # noqa: E402
 from repro import fed as JF  # noqa: E402
@@ -59,8 +60,19 @@ def _data(n):
 
 
 def _jax_init(g, gain, opt_j):
-    init_one = lambda k: JPM.init_mlp(JInit("he_normal", gain), k, hidden=HIDDEN)  # noqa: E731
-    return JF.init_fl_state(jax.random.PRNGKey(0), g.n, init_one, opt_j)
+    """He normal at ``gain`` drawn with numpy (JAX's eager ``init_fl_state``
+    costs seconds a call here), with JAX's own optimizer init."""
+    rng = np.random.default_rng(0)
+    dims = (784, *HIDDEN, 10)
+    params = {
+        f"fc{i}": {
+            "w": jnp.asarray((rng.standard_normal((g.n, a, b)) * np.sqrt(2.0 / a) * gain).astype(np.float32)),
+            "b": jnp.zeros((g.n, b), jnp.float32),
+        }
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))
+    }
+    opt_state = jax.vmap(opt_j.init)(params)
+    return JF.DFLState(params=params, opt_state=opt_state, round=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(0))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -164,6 +176,28 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     hist = cli.main(["--device", "cpu", "--nodes", "80", "--rounds", "1", "--topology", "ring",
                      "--items-per-node", "16", "--local-batches", "1", "--no-gain-correction"])
     assert np.isfinite(hist["test_loss"]).all()
+
+
+@pytest.mark.parametrize(
+    "settings",
+    [dict(link_p=0.7), dict(node_p=0.9), dict(data_sizes=np.linspace(1.0, 2.0, 8)), dict(device="cpu")],
+)
+def test_round_fn_settings_go_with_a_graph_only(settings):
+    """A Graph is compiled from the settings; a compiled plan keeps its own
+    and refuses them."""
+    g = PT.complete(8)
+    rf = PF.make_round_fn(torch_loss, PO.sgd(1e-3), g, **{"device": "cpu", **settings})
+    want = PC.compile_plan(
+        g, data_sizes=settings.get("data_sizes"),
+        failures=PC.FailureModel(settings.get("link_p", 1.0), settings.get("node_p", 1.0)), device="cpu",
+    )
+    assert rf.plan.failures == want.failures and rf.plan.backend == "dense"
+    torch.testing.assert_close(rf.plan.receive, want.receive, atol=0, rtol=0)
+    again = PC.compile_plan(g, device="cpu").with_options(data_sizes=want.data_sizes, failures=want.failures)
+    assert again.failures == want.failures
+    torch.testing.assert_close(again.receive, want.receive, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="compile_plan"):
+        PF.make_round_fn(torch_loss, PO.sgd(1e-3), want, **settings)
 
 
 @pytest.mark.parametrize("argv", [["--model", "cnn"], ["--async"], ["--compress", "int8"]])
