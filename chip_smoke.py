@@ -7,18 +7,35 @@ Phases, in order; each prints its own lines and any failed check stops the
 run with a non-zero exit:
 
 1. header  — the card's name and power limit, torch and CUDA versions;
-2. build   — nvcc builds the mixing kernels from ``src/repro_torch/kernels``;
+2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
+   (mixing and flash attention, all at once) and prints ptxas registers and
+   spills;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
-   at bn 64, heavy-tail-40 at bn 8, one masked round), two launches
-   bitwise equal, and timings at the main path's shapes;
+   at bn 64, heavy-tail-40 at bn 8, one masked round; flash attention:
+   every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
+   (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
+   global and local layers 2 × 2048), contiguous bf16 shapes and ragged
+   fp32 shapes), two launches bitwise equal, and timings at the main
+   path's shapes;
 4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
    He init plateaus at ln 10, the gain-corrected init descends, 80 dense
    kernel launches;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device;
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
-   backend, 3 block-sparse launches).
+   backend, 3 block-sparse launches);
+7. serve, full width — qwen2.5-3b in bf16: a 4-node ring ensemble, its
+   consensus served by ``ServeEngine.generate`` (4 × 2048-token prompts, 32
+   new tokens), ``ServeEngine.serve`` per node (4 × 512, 8 new) and
+   ``prefill``, one decode step timed eager and replayed as a CUDA graph
+   (the step's device time without host dispatch); then gemma3-4b
+   (2 × 2048, past its 1024 window, 16 new).
+   Every prefill attention layer is one flash kernel launch: the counts are
+   exact, and the shape, mask and layout of each launch must be among
+   those phase 3 checked;
+8. serve, card vs CPU — reduced qwen2.5-3b and gemma3-4b in fp32 from one
+   init: equal greedy tokens, prefill logits to rtol 1e-4.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -39,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores: bf16 products with fp32 accumulation
 FP32_TOL = 1e-5  # × max|W|: one fp32 FMA chain vs cuBLAS's blocked sum
 # bf16 output, elementwise: one bf16 ulp of |ref| (the two fp32 sums, taken
 # in different orders, may round to neighbouring bf16 values) plus the fp32
@@ -74,8 +92,8 @@ def time_ms(fn, reps: int = 7, flush=None) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -95,22 +113,32 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core import topology as T
     from repro_torch.core.commplan import compile_plan
     from repro_torch.core.initialisation import InitConfig, gain_from_graph
     from repro_torch.core.mixing import receive_matrix
-    from repro_torch.convert import state_from_numpy, to_numpy
-    from repro_torch.data import batch_index_schedule, mnist_like, node_datasets
+    from repro_torch.convert import params_from_numpy, params_to_numpy, state_from_numpy, to_numpy
+    from repro_torch.data import batch_index_schedule, make_token_stream, mnist_like, node_datasets
     from repro_torch.device import resolve_device
-    from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_sweep, run_trajectory
+    from repro_torch.fed import (
+        ServeEngine, consensus_params, decode_one, init_fl_state, make_eval_fn, make_round_fn, prefill,
+        run_sweep, run_trajectory,
+    )
+    from repro_torch.flat import tree_map
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import attention_ref, flash_mha
+    from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul
     from repro_torch.launch import train as cli
+    from repro_torch.models import transformer as TF
     from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
-    kernels = [mix_matmul, mix_bsr]
+    kernels = [mix_matmul, mix_bsr, flash_mha]
 
     # ------------------------------------------------------------ 1. header
     phase("1. header")
@@ -215,6 +243,55 @@ def main() -> int:
     errs["mix_bsr"] = max(errs["mix_bsr"], e)
     del w
 
+    # flash attention.  First every launch phase 7 makes, from the two
+    # configs, in the decoder's layout ((B, S, H, hd) activations passed as
+    # transposed views, as attention_prefill passes them): qwen2.5-3b's
+    # batched prefill (4 × 2048) and per-node serve (1 × 512); gemma3-4b's
+    # global and local layers (2 × 2048, window 1024).  Phase 7 records the
+    # key of each launch and fails on one not held here.  Then contiguous
+    # (B, H, S, hd) bf16 shapes and ragged fp32 shapes.
+    qcfg, gcfg = get_config("qwen2.5-3b"), get_config("gemma3-4b")
+
+    def attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bhsd"):
+        if layout == "bshd":
+            return tuple(torch.randn(b, s_len, n, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+                         for n in (h, kvh, kvh))
+        return tuple(torch.randn(b, n, s_len, hd, generator=gen, device=dev).to(dtype) for n in (h, kvh, kvh))
+
+    def flash_key(q, k, causal, window):
+        layout = "bshd" if q.shape[2] > 1 and q.transpose(1, 2).is_contiguous() else "bhsd"
+        return (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype, bool(causal), int(window), layout)
+
+    def serve_case(label, cfg, b, s_len, window):
+        shape = (b, cfg.n_heads, cfg.n_kv_heads, s_len, cfg.resolved_head_dim, torch.bfloat16)
+        return label, shape, True, window, "bshd"
+
+    flash_cases = [
+        serve_case("qwen prefill", qcfg, 4, 2048, 0),
+        serve_case("qwen serve", qcfg, 1, 512, 0),
+        serve_case("gemma3 global", gcfg, 2, 2048, 0),
+        serve_case("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window),
+        ("qwen prefill", (4, 16, 2, 2048, 128, torch.bfloat16), True, 0, "bhsd"),
+        ("gemma3 local", (1, 8, 4, 2048, 256, torch.bfloat16), True, 1024, "bhsd"),
+    ] + [
+        ("ragged", (2, 2 * group, 2, s_len, hd, torch.float32), causal, 0, "bhsd")
+        for s_len in (1, 77, 300) for hd in (32, 64) for causal in (False, True) for group in (1, 8)
+    ]
+    errs["flash_mha"] = 0.0
+    flash_checked = set()
+    for label, shape, causal, window, layout in flash_cases:
+        q, k, v = attn_inputs(*shape, layout=layout)
+        b, h, kvh, s_len, hd, dtype = shape
+        e = compare(
+            f"flash_mha {label} B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            f"{' causal' if causal else ''}{f' w{window}' if window else ''} {layout}",
+            lambda: flash_mha(q, k, v, causal=causal, window=window),
+            attention_ref(q, k, v, causal=causal, window=window), v, bf16=dtype == torch.bfloat16,
+        )
+        errs["flash_mha"] = max(errs["flash_mha"], e)
+        flash_checked.add(flash_key(q, k, causal, window))
+        del q, k, v
+
     # timings at the main path's shapes: dense at the quickstart's complete-16,
     # block-sparse at the CLI's ring-1024 (bn 32); W fp32 of the full MLP width
     timing = {}
@@ -241,9 +318,29 @@ def main() -> int:
         bound_ms=b_s, bound_by=op_s, shape=f"ring-1024 bn=32 d={D_MAIN} fp32",
     )
     del w1k, m_csr, plan_d, m16
+    # flash at the qwen2.5-3b prefill, on the decoder's (B, S, H, hd) views
+    # as phase 7 launches it (the contiguous layout timed beside it): bytes
+    # are q, k, v read once and o written once; flops 4·hd per kept (q, k)
+    # pair per head (QKᵀ and PV)
+    b, h, kvh, s_len, hd = 4, qcfg.n_heads, qcfg.n_kv_heads, 2048, qcfg.resolved_head_dim
+    q, k, v = attn_inputs(b, h, kvh, s_len, hd, torch.bfloat16, layout="bshd")
+    pairs = s_len * (s_len + 1) // 2  # causal, no window
+    b_f, op_f = bound(2 * (2 * b * h * s_len * hd + 2 * b * kvh * s_len * hd), 4 * b * h * hd * pairs,
+                      PEAK_BF16_FLOPS)
+    timing["flash_mha"] = dict(
+        ms=time_ms(lambda: flash_mha(q, k, v), flush=flush),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=3, flush=flush),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                           flush=flush),
+        bound_ms=b_f, bound_by=op_f, shape=f"B{b} H{h}/{kvh} S{s_len} hd{hd} bf16 causal, (B, S, H, hd) views",
+    )
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), flush=flush)
+    del q, k, v, qc, kc, vc
     for name, t in timing.items():
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    print(f"  flash_mha on contiguous (B, H, S, hd) tensors of the same shape: kernel {flash_contiguous_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. quickstart
@@ -266,8 +363,8 @@ def main() -> int:
     check(states[0].params.shape == (N_NODES, D_MAIN), f"ensemble shape {tuple(states[0].params.shape)}")
     schedule = batch_index_schedule(PER_NODE, N_NODES, 16, ROUNDS * B_LOCAL, seed=0)
     round_fn = make_round_fn(loss_fn, opt, graph, device=dev)
-    for k in kernels:
-        k.launches = 0
+    for kern in kernels:
+        kern.launches = 0
     t0 = time.perf_counter()
     _, hists = run_sweep(
         states, round_fn, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5,
@@ -275,7 +372,7 @@ def main() -> int:
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    quick_launches = {k.__name__: k.launches for k in kernels}
+    quick_launches = {kern.__name__: kern.launches for kern in kernels}
     for label, h in zip(("He (gain 1.00)", f"corrected (gain {gain:.2f})"), hists):
         print(f"  {label:22s} test loss @ {h['round']}:")
         print("    " + "  ".join(f"{v:.3f}" for v in h["test_loss"]))
@@ -284,7 +381,8 @@ def main() -> int:
     check(all(math.isfinite(v) for h in hists for v in h["test_loss"] + h["train_loss"]), "non-finite loss")
     check(abs(he - math.log(10)) < 0.01, f"He final test loss {he} not within 0.01 of ln 10")
     check(corr < 2.0, f"corrected final test loss {corr} not below 2.0")
-    check(quick_launches == {"mix_matmul": 2 * ROUNDS, "mix_bsr": 0}, f"launch counts {quick_launches}")
+    check(quick_launches == {"mix_matmul": 2 * ROUNDS, "mix_bsr": 0, "flash_mha": 0},
+          f"launch counts {quick_launches}")
 
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
@@ -327,8 +425,8 @@ def main() -> int:
 
     # ------------------------------------------------------- 6. CLI, sparse
     phase("6. CLI: ring-1024, sparse backend")
-    for k in kernels:
-        k.launches = 0
+    for kern in kernels:
+        kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = cli.main([
@@ -336,13 +434,156 @@ def main() -> int:
         "--local-batches", "2", "--no-gain-correction",
     ])
     torch.cuda.synchronize()
-    cli_launches = {k.__name__: k.launches for k in kernels}
+    cli_launches = {kern.__name__: kern.launches for kern in kernels}
     print(f"  {time.perf_counter() - t0:.1f} s incl. data generation; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {cli_launches}")
     check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
           "CLI history not finite")
     check(len(hist["round"]) == 3, "CLI recorded rounds")
-    check(cli_launches == {"mix_matmul": 0, "mix_bsr": 3}, f"CLI launch counts {cli_launches}")
+    check(cli_launches == {"mix_matmul": 0, "mix_bsr": 3, "flash_mha": 0}, f"CLI launch counts {cli_launches}")
+
+    # ------------------------------------------------- 7. serve, full width
+    phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, then gemma3-4b (bf16)")
+
+    def since(t0: float) -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def n_elements(tree) -> int:
+        sizes = []
+        tree_map(lambda t: sizes.append(t.numel()), tree)
+        return sum(sizes)
+
+    def tokens(n_prompts, length, vocab, seed):
+        stream = make_token_stream(n_prompts * length, vocab, seed=seed)
+        return torch.as_tensor(stream.reshape(n_prompts, length), device=dev)
+
+    # the decoder reaches the kernel through flash_attention: record the key
+    # of every launch it makes, to hold against the shapes phase 3 checked
+    flash_launched = set()
+
+    def recording_flash_mha(q, k, v, *, causal=True, window=0):
+        flash_launched.add(flash_key(q, k, causal, window))
+        return flash_mha(q, k, v, causal=causal, window=window)
+
+    flash_ops.flash_mha = recording_flash_mha
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen_p = torch.Generator(device=dev).manual_seed(0)
+    ring4 = T.ring(4)
+    t0 = time.perf_counter()
+    ens = TF.init_params(gen_p, qcfg, InitConfig("trunc_normal", torch.full((4,), gain_from_graph(ring4))), device=dev)
+    init_s = since(t0)
+    n_el = n_elements(ens)
+    print(f"  qwen2.5-3b: 4 nodes × {n_el // 4:,} bf16 parameters (ring-4 gain {gain_from_graph(ring4):.2f}), "
+          f"drawn in {init_s:.1f} s")
+    check(n_el == 4 * (qcfg.n_params() + qcfg.d_model), f"ensemble holds {n_el} parameters")
+    t0 = time.perf_counter()
+    cons = consensus_params(ens)
+    cons_s = since(t0)
+    engine = ServeEngine(qcfg, cache_len=4096, device=dev)
+    prompts = tokens(4, 2048, qcfg.vocab_size, seed=0)
+    t0 = time.perf_counter()
+    toks = engine.generate(cons, prompts, 32)
+    gen_s = since(t0)
+    t0 = time.perf_counter()
+    logits = prefill(cons, qcfg, prompts)
+    pre_s = since(t0)
+    check(toks.shape == (4, 32) and int(toks.min()) >= 0 and int(toks.max()) < qcfg.vocab_size, "qwen tokens")
+    check(bool(torch.isfinite(logits).all()), "qwen prefill logits not finite")
+    check(torch.equal(logits.argmax(-1).to(toks.dtype), toks[:, 0]), "prefill argmax differs from generate's first token")
+    # one decode step timed on its own: 8 steps against a 4096-slot cache
+    cache = TF.init_cache(qcfg, (4,), 4096, device=dev)
+    step_tok = toks[:, :1]
+    decode_one(cons, qcfg, cache, step_tok, 2048)
+    t0 = time.perf_counter()
+    for i in range(8):
+        step_logits, cache = decode_one(cons, qcfg, cache, step_tok, 2049 + i)
+    dec_ms = since(t0) / 8 * 1e3
+    check(bool(torch.isfinite(step_logits).all()), "qwen decode logits not finite")
+    # the same step captured once as a CUDA graph and replayed: the device's
+    # time for it with no host dispatch between its kernels (the replays
+    # rewrite one cache slot with the same values)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager_logits = decode_one(cons, qcfg, cache, step_tok, 2057)[0]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_logits = decode_one(cons, qcfg, cache, step_tok, 2057)[0]
+    graph_ms = time_ms(graph.replay)
+    graph_err = float((graph_logits.float() - eager_logits.float()).abs().max())
+    check(graph_err <= 1e-2 * float(eager_logits.float().abs().max()), f"graph-replayed decode differs by {graph_err}")
+    del cache, graph, graph_logits, eager_logits
+    t0 = time.perf_counter()
+    served = engine.serve(ens, [0, 1, 2, 3], tokens(4, 512, qcfg.vocab_size, seed=1), 8)
+    serve_s = since(t0)
+    check(served.shape == (4, 8) and int(served.min()) >= 0 and int(served.max()) < qcfg.vocab_size,
+          "qwen served tokens")
+    qwen_flash = flash_mha.launches
+    qwen_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  consensus in {cons_s:.2f} s; generate 4 × 2048 → 32 tokens in {gen_s:.2f} s; prefill 4 × 2048 "
+          f"{pre_s * 1e3:.1f} ms; decode {dec_ms:.2f} ms per step (4 sequences), {graph_ms:.2f} ms as a "
+          f"replayed CUDA graph (device busy {graph_ms / dec_ms:.1%} of an eager step); serve 4 nodes × 512 → 8 "
+          f"in {serve_s:.2f} s; peak device memory {qwen_peak:.2f} GiB")
+    print(f"  first tokens {toks[:, :6].tolist()}; node answers {served[:, :4].tolist()}")
+    # every layer attends: one flash launch per layer per prefill (36 for qwen2.5-3b), 6 prefills
+    check(qwen_flash == qcfg.n_layers * (1 + 4 + 1), f"qwen flash launches {qwen_flash}, want 6 × {qcfg.n_layers}")
+    del ens, cons, logits, step_logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    gparams = TF.init_params(gen_p, gcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    init_s = since(t0)
+    check(n_elements(gparams) == gcfg.n_params() + gcfg.d_model, "gemma parameter count")
+    g_prompts = tokens(2, 2048, gcfg.vocab_size, seed=2)
+    t0 = time.perf_counter()
+    g_toks = ServeEngine(gcfg, cache_len=4096, device=dev).generate(gparams, g_prompts, 16)
+    gen_s = since(t0)
+    t0 = time.perf_counter()
+    g_logits = prefill(gparams, gcfg, g_prompts)
+    pre_s = since(t0)
+    check(g_toks.shape == (2, 16) and int(g_toks.min()) >= 0 and int(g_toks.max()) < gcfg.vocab_size,
+          "gemma tokens")
+    check(bool(torch.isfinite(g_logits).all()), "gemma prefill logits not finite")
+    check(torch.equal(g_logits.argmax(-1).to(g_toks.dtype), g_toks[:, 0]), "gemma prefill argmax differs")
+    print(f"  gemma3-4b: {gcfg.n_params():,} parameters drawn in {init_s:.1f} s; generate 2 × 2048 (window "
+          f"{gcfg.sliding_window}) → 16 tokens in {gen_s:.2f} s; prefill {pre_s * 1e3:.1f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    serve_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  launches {serve_launches}")
+    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers},
+          f"serve launch counts {serve_launches}, want 2 gemma prefills × {gcfg.n_layers} more")
+    flash_ops.flash_mha = flash_mha
+    check(flash_launched <= flash_checked,
+          f"phase 7 launched flash at {sorted(flash_launched - flash_checked, key=str)}, not checked in phase 3")
+    print(f"  flash launch shapes: {len(flash_launched)} distinct, each held against the plain version in phase 3")
+    del gparams, g_logits
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 8. serve, card vs CPU
+    phase("8. serve, card vs CPU (reduced qwen2.5-3b and gemma3-4b, fp32, one init)")
+    for arch in ("qwen2.5-3b", "gemma3-4b"):
+        rcfg = get_reduced_config(arch)
+        init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
+        p_np = params_to_numpy(init)
+        prompt = make_token_stream(2 * 40, rcfg.vocab_size, seed=3).reshape(2, 40)  # past gemma's window 16
+        out = {}
+        for d_name in ("cuda", "cpu"):
+            p = params_from_numpy(p_np, device=d_name)
+            out[d_name] = (
+                ServeEngine(rcfg, cache_len=64, device=d_name).generate(p, prompt, 8).cpu().numpy(),
+                prefill(p, rcfg, torch.as_tensor(prompt, device=d_name)).cpu().numpy(),
+            )
+        (t_gpu, l_gpu), (t_cpu, l_cpu) = out["cuda"], out["cpu"]
+        print(f"  {arch}: tokens cuda {t_gpu.tolist()} cpu {t_cpu.tolist()}; prefill logits max abs diff "
+              f"{float(np.abs(l_gpu - l_cpu).max()):.2e} (max abs {float(np.abs(l_cpu).max()):.2f})")
+        check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU greedy tokens differ")
+        check(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5), f"{arch}: card vs CPU prefill logits")
 
     # ------------------------------------------------------------- result
     src = "src/repro_torch/kernels/mix/csrc"
@@ -350,6 +591,8 @@ def main() -> int:
     for name, replaces, source, launches in (
         ("mix_matmul", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", quick_launches["mix_matmul"]),
         ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
+        ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
+         serve_launches["flash_mha"]),
     ):
         t = timing[name]
         rows.append({

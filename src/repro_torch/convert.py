@@ -1,4 +1,4 @@
-"""Conversion between the JAX package's state layout (as numpy) and the port's flat buffers.
+"""Conversion between the JAX package's state layout (as numpy) and the port's.
 
 The JAX ``DFLState`` keeps node-stacked pytrees (``fc{i}.w`` ``(n, in, out)``,
 ``fc{i}.b`` ``(n, out)``); as numpy arrays (``np.asarray`` of each leaf)
@@ -6,6 +6,10 @@ those have exactly the port's leaf layout, so the conversion is a copy into
 one flat ``(n, d)`` buffer in the same leaf order.  Optimizer states are
 recognised by their fields: ``momentum`` (SGD) or ``step``/``mu``/``nu``
 (AdamW, with a per-node ``step`` after the JAX package's vmapped init).
+
+Decoder parameter trees (nested dicts with ``stack`` / ``tail`` lists, one
+parameter set or node-stacked) convert leaf for leaf with
+``params_from_numpy`` / ``params_to_numpy``: the layouts are the same.
 """
 from __future__ import annotations
 
@@ -16,10 +20,10 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fed.trainer import DFLState
-from repro_torch.flat import FlatLayout, tree_from_leaves, tree_leaves
+from repro_torch.flat import FlatLayout, tree_from_leaves, tree_leaves, tree_map
 from repro_torch.optim import AdamWState, Optimizer, SgdState
 
-__all__ = ["state_from_numpy", "to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy", "to_numpy"]
 
 Tree = dict[str, Any]
 
@@ -86,3 +90,28 @@ def to_numpy(state: DFLState) -> tuple[Tree, Any]:
         else:
             fields[name] = value.detach().cpu().numpy()
     return params, type(opt)(**fields)
+
+
+def _leaf_tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as bf16 jax arrays convert
+        return torch.tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
+def params_from_numpy(tree: Any, *, device: str | torch.device | None = None) -> Any:
+    """A decoder parameter tree of numpy arrays (the JAX package's layout,
+    node-stacked or not) as tensors on ``device`` (default ``cuda``); bf16
+    arrays (numpy's view of bf16 jax arrays) stay bf16."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_tensor(a, dev), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The tree back as numpy arrays; bf16 leaves come back as fp32 (numpy
+    has no bf16), exactly."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)

@@ -1,7 +1,14 @@
-"""Datasets, partitions and batch schedules (numpy copies of ``repro.data``)."""
+"""Datasets, token streams, partitions and batch schedules (numpy copies of ``repro.data``)."""
 from .partition import node_datasets, partition_iid
 from .pipeline import NodeBatches, batch_index_schedule, node_batch_iterator
-from .synthetic import ImageDataset, cifar10_like, make_image_classification, mnist_like, so2sat_like
+from .synthetic import (
+    ImageDataset,
+    cifar10_like,
+    make_image_classification,
+    make_token_stream,
+    mnist_like,
+    so2sat_like,
+)
 
 __all__ = [
     "ImageDataset",
@@ -9,6 +16,7 @@ __all__ = [
     "batch_index_schedule",
     "cifar10_like",
     "make_image_classification",
+    "make_token_stream",
     "mnist_like",
     "node_batch_iterator",
     "node_datasets",

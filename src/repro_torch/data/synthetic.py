@@ -1,8 +1,9 @@
-"""Deterministic synthetic image datasets (counterpart of ``repro/data/synthetic.py``).
+"""Deterministic synthetic datasets (counterpart of ``repro/data/synthetic.py``).
 
 A numpy copy: for the same arguments and seed the arrays are bit-identical
 to the JAX package's.  Seeded class-conditional Gaussian mixtures stand in
-for MNIST / So2Sat / CIFAR-10, with matched shapes and class counts.
+for MNIST / So2Sat / CIFAR-10, with matched shapes and class counts; a
+seeded order-2 Markov token stream supplies the decoders' prompts.
 """
 from __future__ import annotations
 
@@ -10,7 +11,14 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["ImageDataset", "make_image_classification", "mnist_like", "so2sat_like", "cifar10_like"]
+__all__ = [
+    "ImageDataset",
+    "make_image_classification",
+    "mnist_like",
+    "so2sat_like",
+    "cifar10_like",
+    "make_token_stream",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +75,34 @@ def so2sat_like(n_samples: int, seed: int = 0) -> ImageDataset:
 def cifar10_like(n_samples: int, seed: int = 0) -> ImageDataset:
     """32×32×3, 10 classes — stands in for CIFAR-10 (cfg. C)."""
     return make_image_classification(n_samples, (32, 32, 3), 10, seed=seed, name="cifar10-like")
+
+
+def make_token_stream(n_tokens: int, vocab_size: int, seed: int = 0, order_bias: float = 8.0) -> np.ndarray:
+    """Seeded token stream with learnable bigram structure (int32).
+
+    Transition logits are sparse-ish random; ``order_bias`` sharpens them.
+    The vocabulary is bucketed to at most 1024 states, scattered into the
+    full vocabulary, to keep the transition table small for huge vocabs.
+    """
+    rng = np.random.default_rng(seed)
+    n_states = min(vocab_size, 1024)
+    logits = rng.standard_normal((n_states, n_states)) * order_bias / np.sqrt(n_states)
+    # top-32 sparsification per row keeps sampling cheap and structure strong
+    top = 32
+    part = np.argpartition(logits, -top, axis=1)[:, :-top]
+    np.put_along_axis(logits, part, -np.inf, axis=1)
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    cdf = np.cumsum(p, axis=1)
+    toks = np.empty(n_tokens, dtype=np.int64)
+    s = int(rng.integers(n_states))
+    u = rng.random(n_tokens)
+    for t in range(n_tokens):
+        s = int(np.searchsorted(cdf[s], u[t]))
+        s = min(s, n_states - 1)
+        toks[t] = s
+    if vocab_size > n_states:
+        # scatter bucket ids into the full vocab deterministically
+        scatter = rng.permutation(vocab_size)[:n_states]
+        toks = scatter[toks]
+    return toks.astype(np.int32)

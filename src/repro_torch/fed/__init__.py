@@ -1,4 +1,4 @@
-"""Federated training: Algorithm 1's round and the trajectory executor."""
+"""Federated training (Algorithm 1's round, the trajectory executor) and offline serving."""
 from .executor import TrajectoryConfig, run_sweep, run_trajectory, stack_states, unstack_states
 from .trainer import (
     DFLState,
@@ -8,13 +8,20 @@ from .trainer import (
     sigma_metrics,
     train_loop,
 )
+from .serve import ServeEngine, consensus_params, decode_one, generate, generate_tokenwise, prefill
 
 __all__ = [
     "DFLState",
+    "ServeEngine",
     "TrajectoryConfig",
+    "consensus_params",
+    "decode_one",
+    "generate",
+    "generate_tokenwise",
     "init_fl_state",
     "make_eval_fn",
     "make_round_fn",
+    "prefill",
     "run_sweep",
     "run_trajectory",
     "sigma_metrics",

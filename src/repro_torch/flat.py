@@ -17,9 +17,19 @@ from typing import Any
 
 import torch
 
-__all__ = ["FlatLayout", "tree_leaves", "tree_from_leaves"]
+__all__ = ["FlatLayout", "tree_leaves", "tree_from_leaves", "tree_map"]
 
 Tree = dict[str, Any]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts and lists (a decoder's
+    ``stack`` and ``tail`` are lists of block trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def tree_leaves(tree: Tree, prefix: tuple[str, ...] = ()) -> list[tuple[tuple[str, ...], Any]]:

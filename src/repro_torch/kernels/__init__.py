@@ -1,1 +1,2 @@
-"""Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+"""Hand-written CUDA kernels of the port (``mix/``: DecAvg mixing, ``flash/``:
+attention) and their plain PyTorch versions."""

@@ -1,0 +1,25 @@
+"""Launch plumbing shared by every kernel wrapper of the port: pointers and
+streams as ctypes arguments, the dtype codes the C entry points take, and
+the check of the ``cudaError_t`` a launch returns."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["DTYPE_CODES", "ptr", "raise_on_error", "stream_of"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on_error(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

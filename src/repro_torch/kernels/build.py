@@ -23,6 +23,7 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 LIBRARIES = {
     "mix": KERNELS_DIR / "mix" / "csrc" / "mix.cu",
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
+    "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,11 +1,9 @@
-"""Argument checks and launch plumbing shared by the mixing kernels' wrappers."""
+"""Argument checks shared by the mixing kernels' wrappers."""
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from repro_torch.kernels._launch import DTYPE_CODES
 
 
 def check_w(w: torch.Tensor) -> None:
@@ -39,16 +37,3 @@ def vec_width(w: torch.Tensor, y: torch.Tensor) -> int:
         if d % vec == 0 and w.data_ptr() % align == 0 and y.data_ptr() % align == 0:
             return vec
     return 1
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def raise_on_error(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")

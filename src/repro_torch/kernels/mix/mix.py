@@ -12,6 +12,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import _launch as K
 from repro_torch.kernels.build import load_library
 
 from . import _launch as L
@@ -44,10 +45,10 @@ def mix_matmul(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return y
     with torch.cuda.device(w.device):
         err = _lib().mix_dense(
-            L.DTYPE_CODES[w.dtype], L.ptr(m), L.ptr(w), L.ptr(y), n, d,
-            L.vec_width(w, y), L.stream_of(w),
+            K.DTYPE_CODES[w.dtype], K.ptr(m), K.ptr(w), K.ptr(y), n, d,
+            L.vec_width(w, y), K.stream_of(w),
         )
-    L.raise_on_error(err, "mix_matmul")
+    K.raise_on_error(err, "mix_matmul")
     mix_matmul.launches += 1
     return y
 

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import _launch as K
 from repro_torch.kernels.build import load_library
 
 from . import _launch as L
@@ -148,10 +149,10 @@ def mix_bsr(
         return y
     with torch.cuda.device(w.device):
         err = _lib().mix_bsr(
-            L.DTYPE_CODES[w.dtype], L.ptr(block_cols), L.ptr(tiles), L.ptr(counts),
-            L.ptr(w), L.ptr(y), n, d, nrb, max_nnz, bn, L.vec_width(w, y), L.stream_of(w),
+            K.DTYPE_CODES[w.dtype], K.ptr(block_cols), K.ptr(tiles), K.ptr(counts),
+            K.ptr(w), K.ptr(y), n, d, nrb, max_nnz, bn, L.vec_width(w, y), K.stream_of(w),
         )
-    L.raise_on_error(err, "mix_bsr")
+    K.raise_on_error(err, "mix_bsr")
     mix_bsr.launches += 1
     return y
 

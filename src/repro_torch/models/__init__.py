@@ -1,4 +1,5 @@
-"""Models of the port (the paper's MLP so far)."""
+"""Models of the port: the paper's MLP and the decoder zoo's attention-only stack."""
+from . import transformer
 from .paper_models import accuracy, classifier_loss, init_mlp, mlp_forward
 
-__all__ = ["accuracy", "classifier_loss", "init_mlp", "mlp_forward"]
+__all__ = ["accuracy", "classifier_loss", "init_mlp", "mlp_forward", "transformer"]

@@ -1,0 +1,226 @@
+"""Decoder stack (counterpart of ``repro/models/transformer.py``), attention blocks only.
+
+The layer sequence is ``layer_kinds(cfg)`` (attn / swa cycled from
+``cfg.block_pattern``) with a dense FFN per layer.  The parameter tree has
+the JAX package's layout, leaf for leaf:
+
+    stack:  one tree per position in the repeating unit, every leaf with a
+            leading period axis (n_full periods),
+    tail:   the n_layers % unit leftover layers, one tree each
+            (gemma3's 34 = 5×6 + 4).
+
+The JAX package scans over the periods; here a Python loop walks them in the
+same order, reading each period's block as views.  Mamba and RWKV blocks,
+MoE FFNs, modality frontends and ``lm_loss`` are not ported yet and raise.
+With an ``(n,)`` per-node gain, ``init_params`` draws a node-stacked
+ensemble (every leaf with a leading node axis); the forward functions take
+one parameter set (index an ensemble's leaves at a node, or average it with
+``repro_torch.fed.serve.consensus_params``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ffn_kinds, layer_kinds
+from repro_torch.core.initialisation import InitConfig
+from repro_torch.device import resolve_device
+from repro_torch.flat import tree_map
+
+from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
+from .common import dense_init, node_lead, norm_apply, norm_init
+from .mlp import ffn_forward, init_ffn
+
+Tree = dict[str, Any]
+
+__all__ = [
+    "decode_step",
+    "forward",
+    "hidden_to_logits",
+    "init_cache",
+    "init_params",
+    "prefill_cache",
+    "unit_size",
+]
+
+_NOT_PORTED = {
+    "mamba": "mamba blocks are not yet ported (ROADMAP Queue 1 item 15: models/mamba.py)",
+    "rwkv": "rwkv blocks are not yet ported (ROADMAP Queue 1 item 15: models/rwkv.py, kernel 5)",
+    "moe": "MoE FFNs are not yet ported (ROADMAP Queue 1 item 15: models/moe.py)",
+}
+
+
+def _check_cfg(cfg: ArchConfig) -> None:
+    for kind, fk in zip(layer_kinds(cfg), ffn_kinds(cfg)):
+        if kind in _NOT_PORTED:
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+        if kind not in ("attn", "swa"):
+            raise ValueError(f"unknown block kind {kind}")
+        if fk == "moe":
+            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are not yet ported (ROADMAP Queue 1 item 15: the other configs)"
+        )
+
+
+# ----------------------------------------------------------------- structure
+def unit_size(cfg: ArchConfig) -> int:
+    """Length of the repeating layer unit (pattern period ∨ MoE period)."""
+    u = len(cfg.block_pattern)
+    if cfg.is_moe:
+        u = math.lcm(u, cfg.moe_period)
+    return min(u, cfg.n_layers)
+
+
+def _split_layers(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(unit, n_full_periods, n_tail_layers)."""
+    u = unit_size(cfg)
+    n_full = cfg.n_layers // u
+    return u, n_full, cfg.n_layers - n_full * u
+
+
+def _layers(cfg: ArchConfig):
+    """(period or None for the tail, position in unit or tail index, attention window) per layer, in order."""
+    kinds = layer_kinds(cfg)
+    u, n_full, tail = _split_layers(cfg)
+    window = lambda kind: cfg.sliding_window if kind == "swa" else 0  # noqa: E731
+    for per in range(n_full):
+        for j in range(u):
+            yield per, j, window(kinds[j])
+    for j in range(tail):
+        yield None, j, window(kinds[n_full * u + j])
+
+
+def _block_at(tree_stack: list, tree_tail: list, per, j):
+    """Layer (per, j)'s block tree: views into period ``per`` of the stack, or tail layer j."""
+    if per is None:
+        return tree_tail[j]
+    return tree_map(lambda t: t[per], tree_stack[j])
+
+
+# ----------------------------------------------------------------- init
+def _init_block(init_cfg: InitConfig, generator: torch.Generator, cfg: ArchConfig, lead: tuple[int, ...]) -> Tree:
+    dt, dev = cfg.param_dtype, generator.device
+    return {
+        "norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
+        "attn": init_attention(init_cfg, generator, cfg, lead),
+        "norm2": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
+        "ffn": init_ffn(init_cfg, generator, cfg, lead),
+    }
+
+
+def init_params(
+    generator: torch.Generator | int, cfg: ArchConfig, init_cfg: InitConfig, *, device=None
+) -> Tree:
+    """The decoder's parameters on ``device`` (default ``cuda``), drawn from
+    ``generator`` (a ``torch.Generator`` on that device, or an int seed).
+
+    Weights are ``init_cfg``'s distribution with fans from the per-layer
+    shape (the embedding's fan-in is the vocabulary, as ``dense_init`` on
+    (V, d) gives in the JAX package); norm scales are ones, biases zeros.
+    """
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    elif generator.device.type != dev.type:
+        raise ValueError(f"generator lies on {generator.device}, parameters go to {dev}")
+    nodes = node_lead(init_cfg)
+    u, n_full, tail = _split_layers(cfg)
+    dt = cfg.param_dtype
+    params: Tree = {
+        "stack": [_init_block(init_cfg, generator, cfg, (*nodes, n_full)) for _ in range(u)],
+        "tail": [_init_block(init_cfg, generator, cfg, nodes) for _ in range(tail)],
+        "embed": {"tok": dense_init(init_cfg, generator, (cfg.vocab_size, cfg.d_model), dt, lead=nodes)},
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dt, nodes, generator.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(init_cfg, generator, (cfg.d_model, cfg.vocab_size), dt, lead=nodes)
+    return params
+
+
+# ----------------------------------------------------------------- forward
+def _ffn_residual(p: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + ffn_forward(p["ffn"], cfg, norm_apply(p["norm2"], x, cfg.norm))
+
+
+def _embed(params: Tree, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"]["tok"]["w"][tokens.long()]
+
+
+def forward(params: Tree, cfg: ArchConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence pass: tokens (..., S) → (final hidden states (..., S, D),
+    aux loss 0 — no MoE layer is ported)."""
+    _check_cfg(cfg)
+    x = _embed(params, tokens)
+    positions = torch.arange(x.shape[-2], device=x.device)
+    for per, j, window in _layers(cfg):
+        p = _block_at(params["stack"], params["tail"], per, j)
+        x = x + attention_forward(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, window)
+        x = _ffn_residual(p, cfg, x)
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def hidden_to_logits(params: Tree, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.matmul(hidden, params["embed"]["tok"]["w"].transpose(-1, -2))
+    return torch.matmul(hidden, params["lm_head"]["w"])
+
+
+# ----------------------------------------------------------------- decode
+def init_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, *, device=None) -> Tree:
+    """Zeroed KV caches: (n_full, *batch, T, KVH, hd) per unit position and
+    (*batch, T, KVH, hd) per tail layer; T = cache_len for attn layers and
+    min(window, cache_len) for swa layers (a ring buffer)."""
+    _check_cfg(cfg)
+    kinds = layer_kinds(cfg)
+    u, n_full, tail = _split_layers(cfg)
+
+    def one(kind, lead):
+        t = min(cfg.sliding_window, cache_len) if kind == "swa" else cache_len
+        return init_kv_cache(cfg, (*lead, *batch_shape), t, device=device)
+
+    return {
+        "stack": [one(kinds[j], (n_full,)) for j in range(u)],
+        "tail": [one(kinds[n_full * u + j], ()) for j in range(tail)],
+    }
+
+
+@torch.no_grad()
+def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len: int) -> tuple[torch.Tensor, Tree]:
+    """Batched prefill: one full-sequence pass that fills the decode cache.
+
+    tokens (..., S).  Returns (last-position logits (..., V), the cache ready
+    for ``decode_step`` at ``pos = S``), leaf for leaf the JAX package's.
+    """
+    cache = init_cache(cfg, tuple(tokens.shape[:-1]), cache_len, device=tokens.device)
+    x = _embed(params, tokens)
+    positions = torch.arange(x.shape[-2], device=x.device)
+    for per, j, window in _layers(cfg):
+        p = _block_at(params["stack"], params["tail"], per, j)
+        c = _block_at(cache["stack"], cache["tail"], per, j)
+        y, _ = attention_prefill(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, c, window)
+        x = _ffn_residual(p, cfg, x + y)
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    return hidden_to_logits(params, cfg, x[..., -1:, :])[..., 0, :], cache
+
+
+@torch.no_grad()
+def decode_step(
+    params: Tree, cfg: ArchConfig, cache: Tree, tokens: torch.Tensor, pos: int
+) -> tuple[torch.Tensor, Tree]:
+    """One decode step: tokens (..., 1) at absolute position ``pos``.
+
+    Returns (logits (..., 1, V), the cache, updated in place)."""
+    x = _embed(params, tokens)
+    for per, j, window in _layers(cfg):
+        p = _block_at(params["stack"], params["tail"], per, j)
+        c = _block_at(cache["stack"], cache["tail"], per, j)
+        y, _ = attention_decode(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), c, int(pos), window)
+        x = _ffn_residual(p, cfg, x + y)
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    return hidden_to_logits(params, cfg, x), cache

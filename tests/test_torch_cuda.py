@@ -1,8 +1,10 @@
-"""The hand-written mixing kernels against their plain versions on a CUDA
-device, at shapes and layouts the main path does not reach: row groups and
-M chunks past 64 nodes, every vector width, misaligned rows, bf16 through
-the block-sparse kernel, tile sizes up to the limit, padding tiles the walk
-must skip.  Skipped without a CUDA device; on the card run
+"""The hand-written kernels against their plain versions on a CUDA device,
+at shapes and layouts the main path does not reach.  Mixing: row groups
+and M chunks past 64 nodes, every vector width, misaligned rows, bf16
+through the block-sparse kernel, tile sizes up to the limit, padding tiles
+the walk must skip.  Flash attention: every head dim, ragged S, causal and
+windowed masks, GQA groups, strided (B, S, H, hd) views, and the decoder's
+prefill through the kernel.  Skipped without a CUDA device; on the card run
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
+from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
 from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +113,91 @@ def test_plan_rounds_launch_once(dev):
         cpu = compile_plan(g, backend, failures=FailureModel(0.7, 0.9), device="cpu")
         want = cpu.mix(x.cpu(), torch.Generator().manual_seed(1))
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ flash
+def _attn_inputs(dev, b, h, kvh, s, hd, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(b, n, s, hd, generator=g, device=dev).to(dtype) for n in (h, kvh, kvh))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 17), (False, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(dev, hd, s, causal, window, dtype):
+    q, k, v = _attn_inputs(dev, 2, 8, 2, s, hd, dtype, seed=s + hd)
+    before = flash_mha.launches
+    got = flash_mha(q, k, v, causal=causal, window=window)
+    assert flash_mha.launches == before + 1
+    _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
+    assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 1), (12, 3), (16, 2)])
+def test_flash_kernel_gqa_groups(dev, h, kvh):
+    q, k, v = _attn_inputs(dev, 3, h, kvh, 150, 64, torch.float32, seed=h)
+    _close(flash_mha(q, k, v), attention_ref(q, k, v), v)
+
+
+def test_flash_strided_views_need_no_copy(dev):
+    """(B, S, H, hd) activations go in as transposed views, with leading
+    axes folded into B; the output comes back contiguous in that layout."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(2, 3, 96, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(2, 3, 96, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(2, 3, 96, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True, window=40)
+    assert out.shape == q.shape and out.is_contiguous()
+    ref = attention_ref(*(t.reshape(6, 96, -1, 128).transpose(1, 2) for t in (q, k, v)), causal=True, window=40)
+    _close(out, ref.transpose(1, 2).reshape(q.shape), v)
+
+
+@pytest.mark.parametrize(
+    "arch,b,s,swa",
+    [("qwen2.5-3b", 4, 2048, False), ("qwen2.5-3b", 1, 512, False), ("gemma3-4b", 2, 2048, False),
+     ("gemma3-4b", 2, 2048, True)],
+)
+def test_flash_kernel_at_full_width_prefill_shapes(dev, arch, b, s, swa):
+    """The full-width configs' prefill launches, in the decoder's (B, S, H, hd)
+    layout passed as transposed views, bf16."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.sliding_window if swa else 0
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+               for n in (h, kvh, kvh))
+    got = flash_mha(q, k, v, causal=True, window=window)
+    _close(got, attention_ref(q, k, v, causal=True, window=window), v)
+    assert torch.equal(got, flash_mha(q, k, v, causal=True, window=window))
+
+
+def test_flash_rejects_unaligned_rows(dev):
+    q, k, v = _attn_inputs(dev, 1, 2, 2, 16, 32, torch.float32)
+    buf = torch.randn(q.numel() + 1, device=dev)
+    q_off = buf[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_mha(q_off, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_mha(q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16].contiguous())
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b"])
+def test_decoder_prefill_on_the_card_matches_the_cpu(dev, arch):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.fed import generate
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config(arch)
+    p_np = params_to_numpy(TF.init_params(torch.Generator().manual_seed(0), cfg, InitConfig("trunc_normal"),
+                                          device="cpu"))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 50)).astype(np.int32)
+    before = flash_mha.launches
+    toks = generate(params_from_numpy(p_np, device=dev), cfg, prompt, 6, 64, device=dev)
+    assert flash_mha.launches == before + cfg.n_layers
+    want = generate(params_from_numpy(p_np, device="cpu"), cfg, prompt, 6, 64, device="cpu")
+    np.testing.assert_array_equal(toks.cpu().numpy(), want.numpy())

@@ -1,0 +1,95 @@
+"""The port's flash attention on the CPU against the JAX package's.
+
+On a CPU tensor ``flash_mha`` runs its plain version ``attention_ref``; both,
+and the (B, S, H, hd) wrapper ``flash_attention``, are held against the JAX
+Pallas kernel run in interpret mode and against its jnp oracle, on the same
+numpy inputs: fp32 to 1e-5 (the two sum QKᵀ and PV in other orders).  The
+CUDA kernel itself is held against ``attention_ref`` on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash.flash import flash_mha as jax_flash_mha  # noqa: E402
+from repro.kernels.flash.ops import flash_attention as jax_flash_attention  # noqa: E402
+from repro.kernels.flash.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+# (S, hd, KVH, causal, window) with H = 4: every S in {1, 7, 130}, hd in
+# {8, 32}, KVH in {1, 2, 4} (group 4, 2, 1), causal and not, with and
+# without a window (130 spans two of the JAX kernel's 128-blocks)
+CASES = [
+    (1, 8, 1, True, 0),
+    (1, 32, 4, False, 0),
+    (7, 8, 2, True, 3),
+    (7, 32, 4, True, 0),
+    (7, 32, 1, False, 4),
+    (130, 32, 2, True, 0),
+    (130, 8, 4, True, 50),
+    (130, 32, 1, False, 0),
+    (130, 32, 4, False, 64),
+    (130, 8, 2, True, 128),
+]
+
+
+def _qkv(s, hd, kvh, b=2, h=4, seed=0):
+    rng = np.random.default_rng(seed + 31 * s + hd + kvh)
+    q = rng.standard_normal((b, h, s, hd)).astype(np.float32)
+    k = rng.standard_normal((b, kvh, s, hd)).astype(np.float32)
+    v = rng.standard_normal((b, kvh, s, hd)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("s,hd,kvh,causal,window", CASES)
+def test_flash_matches_jax(s, hd, kvh, causal, window):
+    q, k, v = _qkv(s, hd, kvh)
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    want_kernel = np.asarray(jax_flash_mha(qj, kj, vj, causal=causal, window=window, interpret=True))
+    want_ref = np.asarray(jax_attention_ref(qj, kj, vj, causal=causal, window=window))
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    before = flash_mha.launches
+    got = flash_mha(qt, kt, vt, causal=causal, window=window)
+    assert flash_mha.launches == before, "a CPU tensor must not launch the kernel"
+    assert got.shape == (2, 4, s, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_kernel, **TOL)
+    np.testing.assert_allclose(got.numpy(), want_ref, **TOL)
+    np.testing.assert_allclose(attention_ref(qt, kt, vt, causal=causal, window=window).numpy(), want_ref, **TOL)
+    # the (B, S, H, hd) wrapper, with a leading node axis folded into B
+    sw = lambda a: np.swapaxes(a, 1, 2)  # noqa: E731
+    got_bs = flash_attention(*(torch.as_tensor(sw(a)) for a in (q, k, v)), causal=causal, window=window)
+    want_bs = np.asarray(
+        jax_flash_attention(*(jnp.asarray(sw(a)) for a in (q, k, v)), causal=causal, window=window, interpret=True)
+    )
+    np.testing.assert_allclose(got_bs.numpy(), want_bs, **TOL)
+    nodes = flash_attention(*(torch.as_tensor(sw(a)).reshape(1, *sw(a).shape) for a in (q, k, v)),
+                            causal=causal, window=window)
+    assert nodes.shape == (1, 2, s, 4, hd)
+    np.testing.assert_allclose(nodes[0].numpy(), want_bs, **TOL)
+
+
+def test_bf16_keeps_dtype():
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in _qkv(33, 32, 2))
+    got = flash_mha(q, k, v)
+    want = jax_attention_ref(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+def test_rejects_what_the_kernel_cannot_take():
+    q, k, v = (torch.as_tensor(a) for a in _qkv(7, 32, 2))
+    with pytest.raises(ValueError, match="multiple of KVH"):
+        flash_mha(q, k[:, :0], v[:, :0])
+    with pytest.raises(ValueError, match="multiple of KVH"):
+        flash_mha(q[:, :3], k, v)
+    with pytest.raises(TypeError):
+        flash_mha(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="window"):
+        flash_mha(q, k, v, window=-1)
+    # a device that is neither cuda nor cpu is refused, never run on the CPU
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_mha(q.to("meta"), k.to("meta"), v.to("meta"))

@@ -72,6 +72,22 @@ def test_entry_points_default_to_cuda():
         state_from_numpy({"w": np.zeros((4, 3), np.float32)})
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--nodes", "4", "--rounds", "1"])
+    # the serving path: decoder init, conversion, generation, the engine
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.fed import ServeEngine, generate
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config("qwen2.5-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TF.init_params(0, cfg, InitConfig("trunc_normal"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": np.zeros((4, 3), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, cache_len=16)
+    cpu_params = TF.init_params(0, cfg, InitConfig("trunc_normal"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(cpu_params, cfg, np.zeros((1, 4), np.int32), 2, 16)
     # a state built on the CPU still needs the caller to say "cpu"
     state = fed.init_fl_state(0, 4, init_one, opt, device="cpu")
     rf = fed.make_round_fn(lambda p, b: None, opt, T.ring(4), device="cpu")
