@@ -8,8 +8,8 @@ run with a non-zero exit:
 
 1. header  — the card's name and power limit, torch and CUDA versions;
 2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
-   (mixing and flash attention, all at once) and prints ptxas registers and
-   spills;
+   (mixing, flash attention and the RWKV-6 time-mix, all at once) and prints
+   ptxas registers and spills;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
@@ -17,7 +17,11 @@ run with a non-zero exit:
    every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
    global and local layers 2 × 2048), contiguous bf16 shapes and ragged
-   fp32 shapes), two launches bitwise equal, and timings at the main
+   fp32 shapes; the RWKV-6 time-mix: every shape phase 7 launches (rwkv6-3b
+   prefill 4 × 2048, per-node serve 1 × 512 and one 16,384-token prompt,
+   bf16 r/k/v and fp32 w in the decoder's layout), ragged fp32 shapes with
+   and without an initial state, and extreme decays; out and final state
+   both checked), two launches bitwise equal, and timings at the main
    path's shapes;
 4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
    He init plateaus at ln 10, the gain-corrected init descends, 80 dense
@@ -30,12 +34,15 @@ run with a non-zero exit:
    new tokens), ``ServeEngine.serve`` per node (4 × 512, 8 new) and
    ``prefill``, one decode step timed eager and replayed as a CUDA graph
    (the step's device time without host dispatch); then gemma3-4b
-   (2 × 2048, past its 1024 window, 16 new).
-   Every prefill attention layer is one flash kernel launch: the counts are
-   exact, and the shape, mask and layout of each launch must be among
-   those phase 3 checked;
-8. serve, card vs CPU — reduced qwen2.5-3b and gemma3-4b in fp32 from one
-   init: equal greedy tokens, prefill logits to rtol 1e-4.
+   (2 × 2048, past its 1024 window, 16 new); then rwkv6-3b (a 4-node ring
+   ensemble: consensus generate 4 × 2048 → 32, prefill 4 × 2048, one
+   16,384-token prompt, 8 decode steps and one replayed as a CUDA graph,
+   per-node serve 4 × 512 → 8).
+   Every prefill attention layer is one flash kernel launch and every
+   prefill RWKV layer one rwkv kernel launch: the counts are exact, and the
+   key of each launch must be among those phase 3 checked;
+8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b and rwkv6-3b in fp32
+   from one init: equal greedy tokens, prefill logits to rtol 1e-4.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -132,13 +139,16 @@ def main() -> int:
     from repro_torch.kernels.flash import attention_ref, flash_mha
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul
+    from repro_torch.kernels.rwkv import ops as rwkv_ops
+    from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
     from repro_torch.launch import train as cli
     from repro_torch.models import transformer as TF
     from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
-    kernels = [mix_matmul, mix_bsr, flash_mha]
+    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked]
+    t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
     phase("1. header")
@@ -292,6 +302,73 @@ def main() -> int:
         flash_checked.add(flash_key(q, k, causal, window))
         del q, k, v
 
+    # the RWKV-6 time-mix.  First every launch phase 7 makes, from the
+    # config, in the decoder's layout ((B, L, H·M) projections viewed as
+    # (B, L, H, M)): rwkv6-3b's consensus prefill (4 × 2048), per-node serve
+    # (1 × 512) and long prompt (1 × 16,384), bf16 r/k/v, fp32 w, zero
+    # initial state.  Phase 7 records the key of each launch and fails on
+    # one not held here.  Then ragged fp32 shapes with and without an
+    # initial state, and decays alternating at the clamp's two ends.  Out
+    # and final state are both fp32: 5e-5 · max|ref|, the JAX package's
+    # kernel-vs-oracle bound.
+    rcfg = get_config("rwkv6-3b")
+    r_heads, r_hd = rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim
+
+    def rwkv_inputs(b, l_len, h, m, dtype, with_state=False):
+        r, k, v = (torch.randn(b, l_len, h * m, generator=gen, device=dev).to(dtype).view(b, l_len, h, m)
+                   for _ in range(3))
+        z = -6.0 + 7.0 * torch.rand(b, l_len, h * m, generator=gen, device=dev)  # w over the clamp's range
+        w = torch.exp(-torch.exp(z)).view(b, l_len, h, m)
+        u = 0.5 * torch.rand(h, m, generator=gen, device=dev)
+        state = 0.3 * torch.randn(b, h, m, m, generator=gen, device=dev) if with_state else None
+        return r, k, v, w, u, state
+
+    def rwkv_key(r, state):
+        return (*r.shape, r.dtype, state is not None, r.is_contiguous())
+
+    def compare_rwkv(label, args):
+        got, again = rwkv6_chunked(*args), rwkv6_chunked(*args)
+        torch.cuda.synchronize()
+        ref = rwkv6_chunked_ref(*args)
+        errs_r, worst = [], 0.0
+        for g_t, r_t in zip(got, ref):
+            check(g_t.dtype == torch.float32 and g_t.shape == r_t.shape, f"{label}: dtype/shape")
+            e = float((g_t - r_t).abs().max())
+            errs_r.append(e)
+            worst = max(worst, e / (5e-5 * float(r_t.abs().max())))
+        bitwise = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        print(f"  {label:48s} max_abs_err out {errs_r[0]:.3e} state {errs_r[1]:.3e} tol 5e-5·max|ref| "
+              f"(worst err/tol {worst:.3f}) deterministic {bitwise}")
+        check(worst <= 1.0, f"{label}: error above tolerance 5e-5·max|ref| (worst err/tol {worst})")
+        check(bitwise, f"{label}: two launches differ")
+        return errs_r[0]
+
+    rwkv_cases = [
+        ("rwkv prefill", (4, 2048, r_heads, r_hd, torch.bfloat16, False)),
+        ("rwkv serve", (1, 512, r_heads, r_hd, torch.bfloat16, False)),
+        ("rwkv long prompt", (1, 16384, r_heads, r_hd, torch.bfloat16, False)),
+    ] + [
+        ("ragged", (2, l_len, 3, m, torch.float32, with_state))
+        for l_len in (1, 33, 77, 300) for m in (32, 64) for with_state in (False, True)
+    ]
+    errs["rwkv6_chunked"] = 0.0
+    rwkv_checked = set()
+    for label, shape in rwkv_cases:
+        args = rwkv_inputs(*shape)
+        b, l_len, h, m, dtype, with_state = shape
+        e = compare_rwkv(f"rwkv6_chunked {label} B{b} L{l_len} H{h} M{m} "
+                         f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}{' state' if with_state else ''}", args)
+        errs["rwkv6_chunked"] = max(errs["rwkv6_chunked"], e)
+        rwkv_checked.add(rwkv_key(args[0], args[5]))
+        del args
+    ones = torch.ones(2, 128, 1, 32, device=dev)
+    alt = torch.where(torch.arange(128, device=dev) % 2 == 0, 0.066, 0.9997)
+    extreme = (ones, ones, ones, alt[None, :, None, None].expand(2, 128, 1, 32).contiguous(),
+               torch.zeros(1, 32, device=dev), None)
+    check(all(bool(torch.isfinite(t).all()) for t in rwkv6_chunked(*extreme)), "rwkv extreme decay not finite")
+    errs["rwkv6_chunked"] = max(errs["rwkv6_chunked"],
+                                compare_rwkv("rwkv6_chunked extreme decay B2 L128 H1 M32 fp32", extreme))
+
     # timings at the main path's shapes: dense at the quickstart's complete-16,
     # block-sparse at the CLI's ring-1024 (bn 32); W fp32 of the full MLP width
     timing = {}
@@ -337,10 +414,37 @@ def main() -> int:
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), flush=flush)
     del q, k, v, qc, kc, vc
+    # rwkv at the rwkv6-3b consensus prefill (4 × 2048, 40 heads of 64): bytes
+    # are r, k, v (bf16) and w read once, out and the final state written
+    # once; flops per (b, h, chunk of c) are what the chunked form needs:
+    # 2cM² (r·S) and 2cM² (state update), and over the causal pairs only
+    # 2M·c(c−1)/2 (scores, s < t) + 2M·c(c+1)/2 (scores·V, s ≤ t, the bonus
+    # on the diagonal) = 2c²M, fp32
+    r_args = rwkv_inputs(4, 2048, r_heads, r_hd, torch.bfloat16)
+    b, l_len, h, m = r_args[0].shape
+    c, n_chunks = 32, -(-l_len // 32)
+    r_bytes = 3 * r_args[0].numel() * 2 + r_args[3].numel() * 4 + r_args[4].numel() * 4 \
+        + b * l_len * h * m * 4 + b * h * m * m * 4
+    r_flops = (4 * c * m * m + 2 * c * c * m) * b * h * n_chunks
+    b_r, op_r = bound(r_bytes, r_flops)
+    timing["rwkv6_chunked"] = dict(
+        ms=time_ms(lambda: rwkv6_chunked(*r_args), flush=flush),
+        plain_ms=time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush),
+        library_ms=None,  # no one PyTorch call computes this recurrence
+        bound_ms=b_r, bound_by=op_r, shape=f"B{b} L{l_len} H{h} M{m} bf16 r/k/v, fp32 w, zero state",
+    )
+    print(f"  rwkv6_chunked bound at that shape: {r_bytes / 1e6:.1f} MB, "
+          f"{r_flops / 1e9:.3f} GFLOP")
+    del r_args
+    r_args = rwkv_inputs(1, 16384, r_heads, r_hd, torch.bfloat16)  # the long prompt: 40 heads, 512 chunks
+    rwkv_long_ms = time_ms(lambda: rwkv6_chunked(*r_args), flush=flush)
+    del r_args
     for name, t in timing.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+              f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib}")
     print(f"  flash_mha on contiguous (B, H, S, hd) tensors of the same shape: kernel {flash_contiguous_ms:.4f} ms")
+    print(f"  rwkv6_chunked at the long prompt B1 L16384 H{r_heads} M{r_hd} bf16: kernel {rwkv_long_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. quickstart
@@ -381,7 +485,7 @@ def main() -> int:
     check(all(math.isfinite(v) for h in hists for v in h["test_loss"] + h["train_loss"]), "non-finite loss")
     check(abs(he - math.log(10)) < 0.01, f"He final test loss {he} not within 0.01 of ln 10")
     check(corr < 2.0, f"corrected final test loss {corr} not below 2.0")
-    check(quick_launches == {"mix_matmul": 2 * ROUNDS, "mix_bsr": 0, "flash_mha": 0},
+    check(quick_launches == {"mix_matmul": 2 * ROUNDS, "mix_bsr": 0, "flash_mha": 0, "rwkv6_chunked": 0},
           f"launch counts {quick_launches}")
 
     # ------------------------------------------------------ 5. card vs CPU
@@ -440,19 +544,23 @@ def main() -> int:
     check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
           "CLI history not finite")
     check(len(hist["round"]) == 3, "CLI recorded rounds")
-    check(cli_launches == {"mix_matmul": 0, "mix_bsr": 3, "flash_mha": 0}, f"CLI launch counts {cli_launches}")
+    check(cli_launches == {"mix_matmul": 0, "mix_bsr": 3, "flash_mha": 0, "rwkv6_chunked": 0},
+          f"CLI launch counts {cli_launches}")
 
     # ------------------------------------------------- 7. serve, full width
-    phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, then gemma3-4b (bf16)")
+    phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, gemma3-4b, rwkv6-3b 4-node ensemble (bf16)")
 
     def since(t0: float) -> float:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def leaves(tree) -> list:
+        out = []
+        tree_map(out.append, tree)
+        return out
+
     def n_elements(tree) -> int:
-        sizes = []
-        tree_map(lambda t: sizes.append(t.numel()), tree)
-        return sum(sizes)
+        return sum(t.numel() for t in leaves(tree))
 
     def tokens(n_prompts, length, vocab, seed):
         stream = make_token_stream(n_prompts * length, vocab, seed=seed)
@@ -556,7 +664,8 @@ def main() -> int:
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     serve_launches = {kern.__name__: kern.launches for kern in kernels}
     print(f"  launches {serve_launches}")
-    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers},
+    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
+                             "rwkv6_chunked": 0},
           f"serve launch counts {serve_launches}, want 2 gemma prefills × {gcfg.n_layers} more")
     flash_ops.flash_mha = flash_mha
     check(flash_launched <= flash_checked,
@@ -565,9 +674,108 @@ def main() -> int:
     del gparams, g_logits
     torch.cuda.empty_cache()
 
+    # rwkv6-3b: attention-free, an O(1) recurrent state instead of a KV
+    # cache.  The decoder reaches the kernel through rwkv6_attention: record
+    # the key of every launch, to hold against the shapes phase 3 checked.
+    rwkv_launched = set()
+
+    def recording_rwkv6_chunked(r, k, v, w, u, state=None):
+        rwkv_launched.add(rwkv_key(r, state))
+        return rwkv6_chunked(r, k, v, w, u, state)
+
+    rwkv_ops.rwkv6_chunked = recording_rwkv6_chunked
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ens = TF.init_params(gen_p, rcfg, InitConfig("trunc_normal", torch.full((4,), gain_from_graph(ring4))), device=dev)
+    init_s = since(t0)
+    n_el = n_elements(ens)
+    # the JAX package's tree holds 3,089,290,240 elements (jax.eval_shape of
+    # its init_params; tests/test_torch_rwkv.py); n_params() counts fewer
+    print(f"  rwkv6-3b: 4 nodes × {n_el // 4:,} parameters (bf16, decay base / bonus / output norm fp32), "
+          f"drawn in {init_s:.1f} s")
+    check(n_el == 4 * 3_089_290_240, f"rwkv ensemble holds {n_el} parameters")
+    t0 = time.perf_counter()
+    cons = consensus_params(ens)
+    cons_s = since(t0)
+    check(cons["stack"][0]["rwkv"]["tmix"]["decay_base"].dtype == torch.float32, "consensus changed an fp32 leaf")
+    r_engine = ServeEngine(rcfg, cache_len=4096, device=dev)  # the rwkv cache ignores cache_len
+    prompts = tokens(4, 2048, rcfg.vocab_size, seed=3)
+    t0 = time.perf_counter()
+    toks = r_engine.generate(cons, prompts, 32)
+    gen_s = since(t0)
+    t0 = time.perf_counter()
+    logits = prefill(cons, rcfg, prompts)
+    pre_s = since(t0)
+    check(toks.shape == (4, 32) and int(toks.min()) >= 0 and int(toks.max()) < rcfg.vocab_size, "rwkv tokens")
+    check(bool(torch.isfinite(logits).all()), "rwkv prefill logits not finite")
+    check(torch.equal(logits.argmax(-1).to(toks.dtype), toks[:, 0]), "rwkv prefill argmax differs from generate's")
+    long_prompt = tokens(1, 16384, rcfg.vocab_size, seed=4)
+    t0 = time.perf_counter()
+    long_logits = prefill(cons, rcfg, long_prompt)
+    long_s = since(t0)
+    check(bool(torch.isfinite(long_logits).all()), "rwkv long-prompt logits not finite")
+    # decode: 8 eager steps from a zeroed state, then one step captured as a
+    # CUDA graph.  The step updates the state in place, so the replays
+    # advance it: the comparison restores the state, replays once and holds
+    # the logits against one eager step from the same state.
+    cache = TF.init_cache(rcfg, (4,), 0, device=dev)
+    step_tok = toks[:, :1]
+    decode_one(cons, rcfg, cache, step_tok, 0)
+    t0 = time.perf_counter()
+    for i in range(8):
+        step_logits, cache = decode_one(cons, rcfg, cache, step_tok, 1 + i)
+    r_dec_ms = since(t0) / 8 * 1e3
+    check(bool(torch.isfinite(step_logits).all()), "rwkv decode logits not finite")
+    snapshot = tree_map(torch.clone, cache)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager_logits = decode_one(cons, rcfg, cache, step_tok, 9)[0].clone()
+    torch.cuda.current_stream().wait_stream(side)
+    for dst, src_t in zip(leaves(cache), leaves(snapshot)):
+        dst.copy_(src_t)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_logits = decode_one(cons, rcfg, cache, step_tok, 9)[0]
+    r_graph_ms = time_ms(graph.replay)
+    for dst, src_t in zip(leaves(cache), leaves(snapshot)):
+        dst.copy_(src_t)
+    graph.replay()
+    torch.cuda.synchronize()
+    # same state, same inputs, same plain-torch ops: the replay must give
+    # the eager step's bits
+    graph_err = float((graph_logits.float() - eager_logits.float()).abs().max())
+    check(torch.equal(graph_logits, eager_logits), f"rwkv graph-replayed decode differs by {graph_err}")
+    del cache, snapshot, graph, graph_logits, eager_logits
+    t0 = time.perf_counter()
+    served = r_engine.serve(ens, [0, 1, 2, 3], tokens(4, 512, rcfg.vocab_size, seed=5), 8)
+    serve_s = since(t0)
+    check(served.shape == (4, 8) and int(served.min()) >= 0 and int(served.max()) < rcfg.vocab_size,
+          "rwkv served tokens")
+    rwkv_ops.rwkv6_chunked = rwkv6_chunked
+    rwkv_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  consensus in {cons_s:.2f} s; generate 4 × 2048 → 32 tokens in {gen_s:.2f} s; prefill 4 × 2048 "
+          f"{pre_s * 1e3:.1f} ms; prefill 1 × 16384 {long_s * 1e3:.1f} ms; decode {r_dec_ms:.2f} ms per step "
+          f"(4 sequences), {r_graph_ms:.2f} ms as a replayed CUDA graph (device busy {r_graph_ms / r_dec_ms:.1%} "
+          f"of an eager step; replay bitwise the eager step); serve 4 nodes × 512 → 8 in {serve_s:.2f} s; "
+          f"peak device memory {rwkv_peak:.2f} GiB")
+    print(f"  first tokens {toks[:, :6].tolist()}; node answers {served[:, :4].tolist()}")
+    serve_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  launches {serve_launches}")
+    # one rwkv launch per layer per prefill: generate, prefill, the long
+    # prompt and 4 node answers; no attention layer
+    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
+                             "rwkv6_chunked": 7 * rcfg.n_layers},
+          f"serve launch counts {serve_launches}, want 7 rwkv prefills × {rcfg.n_layers}")
+    check(rwkv_launched <= rwkv_checked,
+          f"phase 7 launched rwkv at {sorted(rwkv_launched - rwkv_checked, key=str)}, not checked in phase 3")
+    print(f"  rwkv launch shapes: {len(rwkv_launched)} distinct, each held against the plain version in phase 3")
+    del ens, cons, logits, long_logits, step_logits
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------- 8. serve, card vs CPU
-    phase("8. serve, card vs CPU (reduced qwen2.5-3b and gemma3-4b, fp32, one init)")
-    for arch in ("qwen2.5-3b", "gemma3-4b"):
+    phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b and rwkv6-3b, fp32, one init)")
+    for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b"):
         rcfg = get_reduced_config(arch)
         init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
         p_np = params_to_numpy(init)
@@ -593,6 +801,8 @@ def main() -> int:
         ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
         ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
          serve_launches["flash_mha"]),
+        ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
+         serve_launches["rwkv6_chunked"]),
     ):
         t = timing[name]
         rows.append({
@@ -601,7 +811,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    print(f"\ncard: {smi}")
+    print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"card: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

@@ -76,7 +76,8 @@ class ArchConfig:
     notes: str = ""
     # knobs of the JAX package's XLA lowering (roofline unrolling, chunked /
     # banded attention); kept so configurations read alike, unused here:
-    # every full-sequence attention of the port goes through the flash kernel
+    # every full-sequence attention of the port goes through the flash
+    # kernel, every full-sequence RWKV time-mix through the rwkv kernel
     unroll_scans: bool = False
     attn_impl: str = "full"
     swa_impl: str = "full"
@@ -147,7 +148,7 @@ def ffn_kinds(cfg: ArchConfig) -> list[str]:
 
 
 # ----------------------------------------------------------------------
-_PORTED = ["qwen2p5_3b", "gemma3_4b"]
+_PORTED = ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b"]
 # architectures of the JAX package's zoo that the port does not run yet,
 # with the ROADMAP item that brings their blocks
 _NOT_PORTED = {
@@ -157,7 +158,6 @@ _NOT_PORTED = {
     "stablelm_12b": "ROADMAP Queue 1 item 15 (the other configs)",
     "musicgen_large": "ROADMAP Queue 1 item 15 (the other configs: audio frontend)",
     "qwen1p5_4b": "ROADMAP Queue 1 item 15 (the other configs)",
-    "rwkv6_3b": "ROADMAP Queue 1 item 15 (models/rwkv.py, kernel 5)",
     "llama4_scout_17b_a16e": "ROADMAP Queue 1 item 15 (models/moe.py)",
     "paper_mlp": "the paper MLP lives in repro_torch.models.paper_models",
     "paper_cnn": "ROADMAP Queue 1 item 3",

@@ -6,12 +6,16 @@ serves it two ways:
 
 * ``consensus_params`` averages the ensemble into one parameter set and
   ``generate`` / ``ServeEngine.generate`` answer a batch from it: one
-  batched prefill (``prefill_cache``, every attention layer one flash kernel
-  launch on the card) and then a decode loop, one token per step;
+  batched prefill (``prefill_cache``: on the card every attention layer is
+  one flash kernel launch and every RWKV layer one rwkv kernel launch) and
+  then a decode loop, one token per step;
 * ``ServeEngine.serve`` answers each query from the node it is assigned to,
   reading that node's parameters as views of the ensemble.
 
-Greedy decoding emits the JAX package's tokens on the same parameters.
+The cache is the decoder's: KV caches of ``cache_len`` slots for attention
+layers, an O(1) token-shift and wkv state for RWKV layers, which ignore
+``cache_len``, as in the JAX package.  Greedy decoding emits the JAX
+package's tokens on the same parameters.
 Temperature sampling draws Gumbel noise from a ``torch.Generator`` (one
 (B, V) draw per sampled token), so a run is reproducible for a given
 generator but does not reproduce JAX's threefry draws.  Live serving

@@ -1,2 +1,2 @@
 """Hand-written CUDA kernels of the port (``mix/``: DecAvg mixing, ``flash/``:
-attention) and their plain PyTorch versions."""
+attention, ``rwkv/``: the RWKV-6 time-mix) and their plain PyTorch versions."""

@@ -24,6 +24,7 @@ LIBRARIES = {
     "mix": KERNELS_DIR / "mix" / "csrc" / "mix.cu",
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
     "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
+    "rwkv": KERNELS_DIR / "rwkv" / "csrc" / "rwkv.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,20 +1,24 @@
-"""Decoder stack (counterpart of ``repro/models/transformer.py``), attention blocks only.
+"""Decoder stack (counterpart of ``repro/models/transformer.py``): attention
+and RWKV-6 blocks.
 
-The layer sequence is ``layer_kinds(cfg)`` (attn / swa cycled from
-``cfg.block_pattern``) with a dense FFN per layer.  The parameter tree has
-the JAX package's layout, leaf for leaf:
+The layer sequence is ``layer_kinds(cfg)`` (attn / swa / rwkv cycled from
+``cfg.block_pattern``); an attention block carries a dense FFN, an RWKV
+block its own channel-mix.  The parameter tree has the JAX package's
+layout, leaf for leaf:
 
     stack:  one tree per position in the repeating unit, every leaf with a
             leading period axis (n_full periods),
     tail:   the n_layers % unit leftover layers, one tree each
             (gemma3's 34 = 5×6 + 4).
 
-The JAX package scans over the periods; here a Python loop walks them in the
-same order, reading each period's block as views.  Mamba and RWKV blocks,
-MoE FFNs, modality frontends and ``lm_loss`` are not ported yet and raise.
-With an ``(n,)`` per-node gain, ``init_params`` draws a node-stacked
-ensemble (every leaf with a leading node axis); the forward functions take
-one parameter set (index an ensemble's leaves at a node, or average it with
+An attention block is ``norm1, attn, norm2, ffn``; an RWKV block is
+``norm1, rwkv {tmix, cmix}, norm2`` (no ``ffn``).  The JAX package scans
+over the periods; here a Python loop walks them in the same order, reading
+each period's block as views.  Mamba blocks, MoE FFNs, modality frontends
+and ``lm_loss`` are not ported yet and raise.  With an ``(n,)`` per-node
+gain, ``init_params`` draws a node-stacked ensemble (every leaf with a
+leading node axis); the forward functions take one parameter set (index an
+ensemble's leaves at a node, or average it with
 ``repro_torch.fed.serve.consensus_params``).
 """
 from __future__ import annotations
@@ -32,6 +36,7 @@ from repro_torch.flat import tree_map
 from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
 from .common import dense_init, node_lead, norm_apply, norm_init
 from .mlp import ffn_forward, init_ffn
+from .rwkv import init_rwkv, init_rwkv_cache, rwkv_channel_mix, rwkv_time_mix, rwkv_time_mix_step
 
 Tree = dict[str, Any]
 
@@ -47,7 +52,6 @@ __all__ = [
 
 _NOT_PORTED = {
     "mamba": "mamba blocks are not yet ported (ROADMAP Queue 1 item 15: models/mamba.py)",
-    "rwkv": "rwkv blocks are not yet ported (ROADMAP Queue 1 item 15: models/rwkv.py, kernel 5)",
     "moe": "MoE FFNs are not yet ported (ROADMAP Queue 1 item 15: models/moe.py)",
 }
 
@@ -56,7 +60,7 @@ def _check_cfg(cfg: ArchConfig) -> None:
     for kind, fk in zip(layer_kinds(cfg), ffn_kinds(cfg)):
         if kind in _NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if kind not in ("attn", "swa"):
+        if kind not in ("attn", "swa", "rwkv"):
             raise ValueError(f"unknown block kind {kind}")
         if fk == "moe":
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
@@ -83,15 +87,18 @@ def _split_layers(cfg: ArchConfig) -> tuple[int, int, int]:
 
 
 def _layers(cfg: ArchConfig):
-    """(period or None for the tail, position in unit or tail index, attention window) per layer, in order."""
+    """(period or None for the tail, position in unit or tail index, block kind) per layer, in order."""
     kinds = layer_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
-    window = lambda kind: cfg.sliding_window if kind == "swa" else 0  # noqa: E731
     for per in range(n_full):
         for j in range(u):
-            yield per, j, window(kinds[j])
+            yield per, j, kinds[j]
     for j in range(tail):
-        yield None, j, window(kinds[n_full * u + j])
+        yield None, j, kinds[n_full * u + j]
+
+
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "swa" else 0
 
 
 def _block_at(tree_stack: list, tree_tail: list, per, j):
@@ -102,8 +109,16 @@ def _block_at(tree_stack: list, tree_tail: list, per, j):
 
 
 # ----------------------------------------------------------------- init
-def _init_block(init_cfg: InitConfig, generator: torch.Generator, cfg: ArchConfig, lead: tuple[int, ...]) -> Tree:
+def _init_block(
+    init_cfg: InitConfig, generator: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple[int, ...]
+) -> Tree:
     dt, dev = cfg.param_dtype, generator.device
+    if kind == "rwkv":
+        return {
+            "norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
+            "rwkv": init_rwkv(init_cfg, generator, cfg, lead),
+            "norm2": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
+        }
     return {
         "norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
         "attn": init_attention(init_cfg, generator, cfg, lead),
@@ -129,11 +144,12 @@ def init_params(
     elif generator.device.type != dev.type:
         raise ValueError(f"generator lies on {generator.device}, parameters go to {dev}")
     nodes = node_lead(init_cfg)
+    kinds = layer_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
     dt = cfg.param_dtype
     params: Tree = {
-        "stack": [_init_block(init_cfg, generator, cfg, (*nodes, n_full)) for _ in range(u)],
-        "tail": [_init_block(init_cfg, generator, cfg, nodes) for _ in range(tail)],
+        "stack": [_init_block(init_cfg, generator, cfg, kinds[j], (*nodes, n_full)) for j in range(u)],
+        "tail": [_init_block(init_cfg, generator, cfg, kinds[n_full * u + j], nodes) for j in range(tail)],
         "embed": {"tok": dense_init(init_cfg, generator, (cfg.vocab_size, cfg.d_model), dt, lead=nodes)},
         "final_norm": norm_init(cfg.d_model, cfg.norm, dt, nodes, generator.device),
     }
@@ -147,6 +163,36 @@ def _ffn_residual(p: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x + ffn_forward(p["ffn"], cfg, norm_apply(p["norm2"], x, cfg.norm))
 
 
+def _rwkv_block(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree | None = None) -> torch.Tensor:
+    """x += tmix(ln1(x)); x += cmix(ln2(x)), from a zero shift and state.
+    With ``cache`` (prefill), the final wkv state and the last-token shift
+    inputs are written into it: exactly the decode cache."""
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    prev0 = torch.zeros(*x.shape[:-2], 1, x.shape[-1], dtype=x.dtype, device=x.device)
+    y_t, tshift, state = rwkv_time_mix(p["rwkv"]["tmix"], cfg, h, prev0)
+    x = x + y_t
+    h2 = norm_apply(p["norm2"], x, cfg.norm)
+    y_c, cshift = rwkv_channel_mix(p["rwkv"]["cmix"], h2, prev0)
+    if cache is not None:
+        cache["tshift"].copy_(tshift)
+        cache["cshift"].copy_(cshift)
+        cache["state"].copy_(state)
+    return x + y_c
+
+
+def _rwkv_decode(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree) -> torch.Tensor:
+    """One token through an RWKV block; the cache's shifts and state are updated in place."""
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    y_t, tshift, state = rwkv_time_mix_step(p["rwkv"]["tmix"], cfg, h, cache["tshift"], cache["state"])
+    x = x + y_t
+    h2 = norm_apply(p["norm2"], x, cfg.norm)
+    y_c, cshift = rwkv_channel_mix(p["rwkv"]["cmix"], h2, cache["cshift"].to(h2.dtype))
+    cache["tshift"].copy_(tshift)
+    cache["cshift"].copy_(cshift)
+    cache["state"].copy_(state)
+    return x + y_c
+
+
 def _embed(params: Tree, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["tok"]["w"][tokens.long()]
 
@@ -157,10 +203,13 @@ def forward(params: Tree, cfg: ArchConfig, tokens: torch.Tensor) -> tuple[torch.
     _check_cfg(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
-    for per, j, window in _layers(cfg):
+    for per, j, kind in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
-        x = x + attention_forward(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, window)
-        x = _ffn_residual(p, cfg, x)
+        if kind == "rwkv":
+            x = _rwkv_block(p, cfg, x)
+            continue
+        h = norm_apply(p["norm1"], x, cfg.norm)
+        x = _ffn_residual(p, cfg, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -173,14 +222,18 @@ def hidden_to_logits(params: Tree, cfg: ArchConfig, hidden: torch.Tensor) -> tor
 
 # ----------------------------------------------------------------- decode
 def init_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, *, device=None) -> Tree:
-    """Zeroed KV caches: (n_full, *batch, T, KVH, hd) per unit position and
-    (*batch, T, KVH, hd) per tail layer; T = cache_len for attn layers and
-    min(window, cache_len) for swa layers (a ring buffer)."""
+    """Zeroed caches: KV caches (n_full, *batch, T, KVH, hd) per unit
+    position and (*batch, T, KVH, hd) per tail layer, T = cache_len for attn
+    layers and min(window, cache_len) for swa layers (a ring buffer); for
+    rwkv layers the token shifts (…, 1, D) and the fp32 wkv state
+    (…, H, M, M), whatever ``cache_len``."""
     _check_cfg(cfg)
     kinds = layer_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
 
     def one(kind, lead):
+        if kind == "rwkv":
+            return init_rwkv_cache(cfg, (*lead, *batch_shape), device=device)
         t = min(cfg.sliding_window, cache_len) if kind == "swa" else cache_len
         return init_kv_cache(cfg, (*lead, *batch_shape), t, device=device)
 
@@ -200,10 +253,15 @@ def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len
     cache = init_cache(cfg, tuple(tokens.shape[:-1]), cache_len, device=tokens.device)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
-    for per, j, window in _layers(cfg):
+    for per, j, kind in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
-        y, _ = attention_prefill(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, c, window)
+        if kind == "rwkv":
+            x = _rwkv_block(p, cfg, x, c)
+            continue
+        y, _ = attention_prefill(
+            p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, c, _window(cfg, kind)
+        )
         x = _ffn_residual(p, cfg, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x[..., -1:, :])[..., 0, :], cache
@@ -217,10 +275,15 @@ def decode_step(
 
     Returns (logits (..., 1, V), the cache, updated in place)."""
     x = _embed(params, tokens)
-    for per, j, window in _layers(cfg):
+    for per, j, kind in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
-        y, _ = attention_decode(p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), c, int(pos), window)
+        if kind == "rwkv":
+            x = _rwkv_decode(p, cfg, x, c)
+            continue
+        y, _ = attention_decode(
+            p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), c, int(pos), _window(cfg, kind)
+        )
         x = _ffn_residual(p, cfg, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x), cache

@@ -4,14 +4,20 @@ and M chunks past 64 nodes, every vector width, misaligned rows, bf16
 through the block-sparse kernel, tile sizes up to the limit, padding tiles
 the walk must skip.  Flash attention: every head dim, ragged S, causal and
 windowed masks, GQA groups, strided (B, S, H, hd) views, and the decoder's
-prefill through the kernel.  Skipped without a CUDA device; on the card run
+prefill through the kernel.  RWKV-6 time-mix: ragged L, every head dim,
+fp32 and bf16 r/k/v, zero and given initial states, the full-width serve
+shapes in the decoder's layout, strided views, extreme decays, and the
+reduced rwkv6-3b served on the card.  Skipped without a CUDA device; on the
+card run
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports jax, which the port's
 machine need not have).  fp32 to 1e-5 · max|W| (one FMA chain against
 cuBLAS's blocked sum), bf16 elementwise to one bf16 ulp (2^-7 · |ref|) plus
-that atol, which a kernel accumulating in bf16 would exceed.
+that atol, which a kernel accumulating in bf16 would exceed.  The RWKV
+kernel writes fp32 out and state from either input type: both to
+5e-5 · max|ref|, the JAX package's kernel-vs-oracle bound.
 """
 import numpy as np
 import pytest
@@ -22,6 +28,7 @@ from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
 from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
 from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul  # noqa: E402
+from repro_torch.kernels.rwkv import rwkv6_attention, rwkv6_chunked, rwkv6_chunked_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -199,5 +206,90 @@ def test_decoder_prefill_on_the_card_matches_the_cpu(dev, arch):
     before = flash_mha.launches
     toks = generate(params_from_numpy(p_np, device=dev), cfg, prompt, 6, 64, device=dev)
     assert flash_mha.launches == before + cfg.n_layers
+    want = generate(params_from_numpy(p_np, device="cpu"), cfg, prompt, 6, 64, device="cpu")
+    np.testing.assert_array_equal(toks.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------------------------------ rwkv
+def _rwkv_inputs(dev, b, l, h, m, dtype, with_state=False, seed=0):
+    """r, k, v in the decoder's layout ((B, L, H·M) viewed as (B, L, H, M)),
+    w fp32 over the clamp's range, u (H, M), and an optional state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(b, l, h * m, generator=g, device=dev).to(dtype).view(b, l, h, m) for _ in range(3))
+    z = -6.0 + 7.0 * torch.rand(b, l, h * m, generator=g, device=dev)
+    w = torch.exp(-torch.exp(z)).view(b, l, h, m)
+    u = 0.5 * torch.rand(h, m, generator=g, device=dev)
+    state = 0.3 * torch.randn(b, h, m, m, generator=g, device=dev) if with_state else None
+    return r, k, v, w, u, state
+
+
+def _rwkv_close(args):
+    before = rwkv6_chunked.launches
+    out, state = rwkv6_chunked(*args)
+    assert rwkv6_chunked.launches == before + 1
+    assert out.dtype == torch.float32 and state.dtype == torch.float32
+    ref_out, ref_state = rwkv6_chunked_ref(*args)
+    for got, ref in ((out, ref_out), (state, ref_state)):
+        assert got.shape == ref.shape
+        assert float((got - ref).abs().max()) <= 5e-5 * float(ref.abs().max())
+    again = rwkv6_chunked(*args)
+    assert torch.equal(out, again[0]) and torch.equal(state, again[1])
+
+
+@pytest.mark.parametrize("l", [1, 31, 32, 33, 77, 300])
+@pytest.mark.parametrize("m", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_kernel_matches_plain(dev, l, m, dtype, with_state):
+    _rwkv_close(_rwkv_inputs(dev, 2, l, 3, m, dtype, with_state, seed=l + m))
+
+
+@pytest.mark.parametrize("b,l", [(4, 2048), (1, 512), (1, 16384)])
+def test_rwkv_kernel_at_full_width_serve_shapes(dev, b, l):
+    """rwkv6-3b's prefill launches: 40 heads of 64, bf16 r/k/v, fp32 w."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("rwkv6-3b")
+    h, m = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    _rwkv_close(_rwkv_inputs(dev, b, l, h, m, torch.bfloat16, seed=l))
+
+
+def test_rwkv_kernel_reads_strided_views(dev):
+    """r, k, v, w as slices of wider rows (non-dense (b, l, h) strides) and a
+    folded leading axis: no copy, the same result as contiguous inputs."""
+    r, k, v, w, u, state = _rwkv_inputs(dev, 2, 70, 4, 64, torch.bfloat16, True, seed=3)
+    wide = [torch.cat([t, torch.full_like(t, float("nan"))], dim=-1)[..., :64] for t in (r, k, v, w)]
+    assert wide[0].stride() == (70 * 4 * 128, 4 * 128, 128, 1)
+    got = rwkv6_chunked(*wide, u, state)
+    want = rwkv6_chunked(r, k, v, w, u, state)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    out, st = rwkv6_attention(*(t.view(1, 2, 70, 4, 64) for t in (r, k, v, w)), u, state.view(1, 2, 4, 64, 64))
+    assert torch.equal(out.view(2, 70, 4, 64), want[0]) and torch.equal(st.view(2, 4, 64, 64), want[1])
+
+
+def test_rwkv_kernel_extreme_decay(dev):
+    ones = torch.ones(2, 128, 1, 32, device=dev)
+    alt = torch.where(torch.arange(128, device=dev) % 2 == 0, 0.066, 0.9997)
+    w = alt[None, :, None, None].expand(2, 128, 1, 32).contiguous()
+    args = (ones, ones, ones, w, torch.zeros(1, 32, device=dev), None)
+    out, state = rwkv6_chunked(*args)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    _rwkv_close(args)
+
+
+def test_rwkv_decoder_on_the_card_matches_the_cpu(dev):
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.fed import generate
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config("rwkv6-3b")
+    p_np = params_to_numpy(TF.init_params(torch.Generator().manual_seed(0), cfg, InitConfig("trunc_normal"),
+                                          device="cpu"))
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 50)).astype(np.int32)
+    before = rwkv6_chunked.launches
+    toks = generate(params_from_numpy(p_np, device=dev), cfg, prompt, 6, 64, device=dev)
+    assert rwkv6_chunked.launches == before + cfg.n_layers
     want = generate(params_from_numpy(p_np, device="cpu"), cfg, prompt, 6, 64, device="cpu")
     np.testing.assert_array_equal(toks.cpu().numpy(), want.numpy())

@@ -106,9 +106,10 @@ def test_full_width_parameter_counts():
 
 
 def test_registry_names_what_is_not_ported():
-    assert pbase.list_archs() == ["qwen2p5_3b", "gemma3_4b"]
+    assert pbase.list_archs() == ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b"]
+    assert pbase.get_config("rwkv6-3b").block_pattern == ("rwkv",)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pbase.get_config("rwkv6-3b")
+        pbase.get_config("qwen1.5-4b")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pbase.get_config("granite-moe-1b-a400m")
     with pytest.raises(ValueError, match="unknown"):
