@@ -8,8 +8,8 @@ run with a non-zero exit:
 
 1. header  — the card's name and power limit, torch and CUDA versions;
 2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
-   (mixing, flash attention and the RWKV-6 time-mix, all at once) and prints
-   ptxas registers and spills;
+   (mixing, quantised mixing, flash attention and the RWKV-6 time-mix, all
+   at once) and prints ptxas registers and spills;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
@@ -21,14 +21,25 @@ run with a non-zero exit:
    prefill 4 × 2048, per-node serve 1 × 512 and one 16,384-token prompt,
    bf16 r/k/v and fp32 w in the decoder's layout), ragged fp32 shapes with
    and without an initial state, and extreme decays; out and final state
-   both checked), two launches bitwise equal, and timings at the main
-   path's shapes;
+   both checked); the quantised mix (its scales pass and the dense and
+   block-sparse walks) at complete-16 and ring-1024 with the paper MLP's
+   281-chunk table, int8 and fp8, round mode at γ 1 and 0.5, raw mode (the
+   Pallas kernel's function) in fp32 and bf16, a masked round and the
+   scale floors' edge cases, scales and new mirrors bitwise; two launches
+   bitwise equal, and timings at the main path's shapes;
 4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
    He init plateaus at ln 10, the gain-corrected init descends, 80 dense
    kernel launches;
-5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device;
+4b. compressed quickstart — the gain-corrected quickstart with codecs none,
+   int8, fp8 and qtopk (frac 0.3, γ 0.5): int8 and fp8 end within 2% of
+   the uncompressed test loss, every int8 / fp8 round one quantised-mix
+   launch, qtopk's rounds dense-kernel launches;
+5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
+   uncompressed and int8 (quantisation-code flips counted, each within one
+   code step);
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
-   backend, 3 block-sparse launches);
+   backend, 3 block-sparse launches; then ``--compress int8``, 3 quantised
+   block-sparse launches);
 7. serve, full width — qwen2.5-3b in bf16: a 4-node ring ensemble, its
    consensus served by ``ServeEngine.generate`` (4 × 2048-token prompts, 32
    new tokens), ``ServeEngine.serve`` per node (4 × 512, 8 new) and
@@ -125,6 +136,7 @@ def main() -> int:
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core import topology as T
     from repro_torch.core.commplan import compile_plan
+    from repro_torch.core.compress import Compression
     from repro_torch.core.initialisation import InitConfig, gain_from_graph
     from repro_torch.core.mixing import receive_matrix
     from repro_torch.convert import params_from_numpy, params_to_numpy, state_from_numpy, to_numpy
@@ -134,11 +146,16 @@ def main() -> int:
         ServeEngine, consensus_params, decode_one, init_fl_state, make_eval_fn, make_round_fn, prefill,
         run_sweep, run_trajectory,
     )
-    from repro_torch.flat import tree_map
+    from repro_torch.flat import FlatLayout, tree_map
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash import attention_ref, flash_mha
     from repro_torch.kernels.flash import ops as flash_ops
-    from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul
+    from repro_torch.kernels.mix import (
+        bsr_from_dense, chunk_bounds, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul, pallas_bounds, quant_mix_bsr,
+        quant_mix_dense, quant_scales,
+    )
+    from repro_torch.kernels.mix import ops as mix_ops
+    from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref
     from repro_torch.kernels.rwkv import ops as rwkv_ops
     from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
     from repro_torch.launch import train as cli
@@ -147,7 +164,8 @@ def main() -> int:
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
-    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked]
+    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
+    none_launched = {kern.__name__: 0 for kern in kernels}
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
@@ -439,12 +457,159 @@ def main() -> int:
     r_args = rwkv_inputs(1, 16384, r_heads, r_hd, torch.bfloat16)  # the long prompt: 40 heads, 512 chunks
     rwkv_long_ms = time_ms(lambda: rwkv6_chunked(*r_args), flush=flush)
     del r_args
+    # the quantised mix (kernel 3), at the main path's shapes: the compressed
+    # quickstart's complete-16 (dense) and the CLI's ring-1024 (BSR, bn 32),
+    # the paper MLP's width with its per-leaf chunk table (281 chunks a row at
+    # chunk 2048); int8 and fp8; round mode against a nonzero mirror H at γ 1
+    # and 0.5 (and one dense round without error feedback); raw mode, the
+    # Pallas kernel's function (512-column chunks, its scale floor), in fp32
+    # and bf16; one masked ring round.  Row 0 holds an all-zero chunk of
+    # X − H, row 1 a chunk of absmax 1e-29, where the two scale floors
+    # differ.  Scales and H' must equal the plain version's bit for bit (the
+    # same arithmetic, element for element); X' and Y within 1e-5 · max|X|
+    # (bf16 Y: one ulp more).
+    mlp_layout = FlatLayout.of(init_mlp(InitConfig("he_normal", torch.ones(1, device=dev)), gen))
+    mlp_bounds = chunk_bounds(mlp_layout.sizes, 2048, dev)
+    n_chunks = mlp_bounds.numel() - 1
+    check(mlp_layout.size == D_MAIN and n_chunks == 281, f"MLP chunk table: {n_chunks} chunks of {mlp_layout.size}")
+
+    def quant_inputs(n):
+        x = torch.randn(n, D_MAIN, generator=gen, device=dev) * (0.01 + 5 * torch.rand(n, 1, generator=gen, device=dev))
+        h = 0.3 * torch.randn(n, D_MAIN, generator=gen, device=dev)
+        x[0, :512], h[0, :512] = 0.0, 0.0  # fc0/b: an all-zero chunk of X − H
+        x[1, 512:2560] *= 1e-29 / float(x[1, 512:2560].abs().max())  # fc0/w's first chunk
+        h[1, 512:2560] = 0.0
+        return x, h
+
+    def compare_quant(label, kernel, plain_mix, x, h, bounds, *, codec, gamma, floor="codec", ef=True):
+        scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
+        ref_scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None, floor=floor)
+        check(torch.equal(scales, ref_scales), f"{label}: scales differ from the plain version")
+        got = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef)
+        again = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef)
+        torch.cuda.synchronize()
+        ref = quant_mix_ref(plain_mix, x, h, bounds, ref_scales, codec=codec, gamma=gamma,
+                            error_feedback=ef and h is not None)
+        outs = [("Y", got, again, ref)] if gamma is None else [
+            ("X'", got[0], again[0], ref[0]), ("H'", got[1], again[1], ref[1])]
+        for what, g_t, a_t, r_t in outs:
+            check(g_t.shape == r_t.shape and g_t.dtype == r_t.dtype, f"{label} {what}: dtype/shape")
+            check(torch.equal(g_t, a_t), f"{label} {what}: two launches differ")
+        h_off = 0 if gamma is None else int((got[1] != ref[1]).sum())
+        y, y_ref = outs[0][1].float(), outs[0][3].float()
+        diff = (y - y_ref).abs()
+        err = float(diff.max())
+        atol = FP32_TOL * max(float(x.float().abs().max()), 1.0)
+        bf16 = x.dtype == torch.bfloat16
+        worst = float((diff / (atol + BF16_RTOL * y_ref.abs())).max()) if bf16 else err / atol
+        print(f"  {label:48s} {outs[0][0]} max_abs_err {err:.3e} (worst err/tol {worst:.3f})"
+              + ("" if gamma is None else f", H' elements off the plain version {h_off}") + "; deterministic True")
+        check(h_off == 0, f"{label}: H' differs from the plain version in {h_off} elements")
+        check(worst <= 1.0, f"{label}: error above tolerance (worst err/tol {worst})")
+        del got, again, ref, outs, y, y_ref, diff
+        return err
+
+    def dense_kernel(m):
+        return lambda *a, **kw: quant_mix_dense(m, *a, **kw)
+
+    def bsr_kernel(op_b):
+        return lambda *a, **kw: quant_mix_bsr(*op_b, *a, **kw)
+
+    errs.update(quant_scales=0.0, quant_mix_dense=0.0, quant_mix_bsr=0.0)  # scales: bitwise in every case
+    m16 = compile_plan(T.complete(16), "dense", device=dev).receive
+    x16, h16 = quant_inputs(16)
+    raw16 = pallas_bounds(D_MAIN, 512, dev)
+    for codec in ("int8", "fp8"):
+        for gamma in (1.0, 0.5):
+            e = compare_quant(f"quant_mix_dense {codec} round complete-16 γ={gamma}", dense_kernel(m16),
+                              lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec=codec, gamma=gamma)
+            errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+        e = compare_quant(f"quant_mix_dense {codec} raw complete-16 fp32", dense_kernel(m16),
+                          lambda hq: decavg_mix_ref(m16, hq), x16, None, raw16, codec=codec, gamma=None,
+                          floor="pallas")
+        errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    e = compare_quant("quant_mix_dense int8 round, no error feedback", dense_kernel(m16),
+                      lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec="int8", gamma=0.5, ef=False)
+    errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    x1k, h1k = quant_inputs(1024)
+    ring_bsr = plan_s.bsr
+    for codec in ("int8", "fp8"):
+        for gamma in (1.0, 0.5):
+            e = compare_quant(f"quant_mix_bsr {codec} round ring-1024 γ={gamma}", bsr_kernel(ring_bsr),
+                              lambda hq: mix_bsr_ref(*ring_bsr, hq), x1k, h1k, mlp_bounds, codec=codec, gamma=gamma)
+            errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], e)
+    e = compare_quant("quant_mix_bsr int8 masked ring-1024 round", bsr_kernel(op),
+                      lambda hq: mix_bsr_ref(*op, hq), x1k, h1k, mlp_bounds, codec="int8", gamma=1.0)
+    errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], e)
+    for dtype in (torch.float32, torch.bfloat16):
+        w_raw = x1k.to(dtype)
+        e = compare_quant(f"quantised_mix_bsr raw ring-1024 {str(dtype)[6:]} (Pallas chunks)", bsr_kernel(ring_bsr),
+                          lambda hq: mix_bsr_ref(*ring_bsr, hq), w_raw, None, raw16, codec="int8", gamma=None,
+                          floor="pallas")
+        if dtype == torch.float32:
+            errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], e)
+        del w_raw
+    # the scale floors at row 1's chunk of absmax 1e-29: the codec's is
+    # 1e-29 · fl(1/127), the Pallas kernel's 1e-30
+    s_codec = quant_scales(x1k[:2], None, mlp_bounds, codec="int8")
+    s_pallas = quant_scales(x1k[:2], None, mlp_bounds, codec="int8", floor="pallas")
+    check(float(s_pallas[1, 1]) == float(np.float32(1e-30)) and float(s_codec[1, 1]) < 1e-30
+          and float(s_codec[0, 0]) == float(np.float32(np.float32(1e-30) * np.float32(1 / 127))),
+          f"scale floors: codec {float(s_codec[1, 1])}, Pallas {float(s_pallas[1, 1])}")
+    print(f"  scale floors at absmax 1e-29: codec {float(s_codec[1, 1]):.4e}, Pallas {float(s_pallas[1, 1]):.4e}; "
+          f"all-zero chunk {float(s_codec[0, 0]):.4e}")
+
+    # timings: the round at complete-16 (dense) and ring-1024 (BSR), int8,
+    # γ 1.  Bytes: X and H read once, X' and H' written once (16 per fp32
+    # element), the operator, the scales and the chunk table; flops: the
+    # mix's 2 n² d (dense) or 2 nnz d (BSR) plus ~9 per element to
+    # dequantise a source row once (sub, div, rint, 2 clips, fma) and to
+    # form X' (sub, mul, add).  The scales pass reads X and H and writes
+    # n·C floats; 3 flops per element (sub, abs, max).
+    table_bytes = 8 * (n_chunks + 1)
+    s16 = quant_scales(x16, h16, mlp_bounds, codec="int8")
+    s1k = quant_scales(x1k, h1k, mlp_bounds, codec="int8")
+    b_qs, op_qs = bound(8 * 1024 * D_MAIN + 4 * 1024 * n_chunks + table_bytes, 3 * 1024 * D_MAIN)
+    timing["quant_scales"] = dict(
+        ms=time_ms(lambda: quant_scales(x1k, h1k, mlp_bounds, codec="int8"), flush=flush),
+        plain_ms=time_ms(lambda: quant_scales_ref(x1k, h1k, mlp_bounds, codec="int8"), reps=3, flush=flush),
+        library_ms=None,  # no one PyTorch call computes a per-chunk absmax over a chunk table
+        bound_ms=b_qs, bound_by=op_qs, shape=f"ring-1024 X − H, d={D_MAIN}, {n_chunks} chunks a row, fp32",
+    )
+    b_qd, op_qd = bound(16 * 16 * D_MAIN + 4 * 16 * 16 + 4 * 16 * n_chunks + table_bytes,
+                        2 * 16 * 16 * D_MAIN + 9 * 16 * D_MAIN)
+    timing["quant_mix_dense"] = dict(
+        ms=time_ms(lambda: quant_mix_dense(m16, x16, h16, mlp_bounds, s16, codec="int8", gamma=1.0), flush=flush),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, s16,
+                                               codec="int8", gamma=1.0), flush=flush),
+        library_ms=None,  # no one PyTorch call quantises and mixes
+        bound_ms=b_qd, bound_by=op_qd, shape=f"complete-16 int8 round, d={D_MAIN}, fp32",
+    )
+    b_qb, op_qb = bound(16 * 1024 * D_MAIN + tile_bytes + 4 * 1024 * n_chunks + table_bytes,
+                        2 * nnz * D_MAIN + 9 * 1024 * D_MAIN)
+    timing["quant_mix_bsr"] = dict(
+        ms=time_ms(lambda: quant_mix_bsr(*ring_bsr, x1k, h1k, mlp_bounds, s1k, codec="int8", gamma=1.0), flush=flush),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: mix_bsr_ref(*ring_bsr, hq), x1k, h1k, mlp_bounds, s1k,
+                                               codec="int8", gamma=1.0), reps=3, flush=flush),
+        library_ms=None,
+        bound_ms=b_qb, bound_by=op_qb, shape=f"ring-1024 bn=32 int8 round, d={D_MAIN}, fp32",
+    )
+    round16_ms = time_ms(lambda: mix_ops.quant_mix_flat(m16, x16, h16, mlp_bounds, codec="int8", gamma=1.0),
+                         flush=flush)
+    round1k_ms = time_ms(lambda: mix_ops.quant_mix_flat(ring_bsr, x1k, h1k, mlp_bounds, codec="int8", gamma=1.0),
+                         flush=flush)
+    print(f"  quantised round bytes: complete-16 {16 * 16 * D_MAIN / 1e6:.1f} MB, ring-1024 "
+          f"{16 * 1024 * D_MAIN / 1e9:.3f} GB (16 a fp32 element: X, H in, X', H' out)")
+    del x16, h16, x1k, h1k, s16, s1k, m16
+    torch.cuda.empty_cache()
     for name, t in timing.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib}")
     print(f"  flash_mha on contiguous (B, H, S, hd) tensors of the same shape: kernel {flash_contiguous_ms:.4f} ms")
     print(f"  rwkv6_chunked at the long prompt B1 L16384 H{r_heads} M{r_hd} bf16: kernel {rwkv_long_ms:.4f} ms")
+    print(f"  one int8 round (scales + walk) through quant_mix_flat: complete-16 {round16_ms:.4f} ms, "
+          f"ring-1024 {round1k_ms:.4f} ms")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. quickstart
@@ -485,8 +650,50 @@ def main() -> int:
     check(all(math.isfinite(v) for h in hists for v in h["test_loss"] + h["train_loss"]), "non-finite loss")
     check(abs(he - math.log(10)) < 0.01, f"He final test loss {he} not within 0.01 of ln 10")
     check(corr < 2.0, f"corrected final test loss {corr} not below 2.0")
-    check(quick_launches == {"mix_matmul": 2 * ROUNDS, "mix_bsr": 0, "flash_mha": 0, "rwkv6_chunked": 0},
+    check(quick_launches == {**none_launched, "mix_matmul": 2 * ROUNDS},
           f"launch counts {quick_launches}")
+
+    # ------------------------------------------- 4b. compressed quickstart
+    phase("4b. compressed quickstart (complete-16, full-width MLP, gain-corrected, 40 rounds)")
+    # fig12's codec sweep on the quickstart setup: int8 and fp8 must end
+    # within 2% of the uncompressed final test loss; qtopk at frac 0.3, γ 0.5
+    # is its acceptance codec (4.43x fewer bytes).  Every int8 / fp8 round
+    # is one scales pass and one quantised dense walk; qtopk's h' mixes
+    # through the dense DecAvg kernel.
+    codecs = [("none", None), ("int8", Compression("int8")), ("fp8", Compression("fp8")),
+              ("qtopk", Compression("qtopk", topk_frac=0.3, gamma=0.5))]
+    comp_final, comp_launches = {}, {}
+    for label, comp in codecs:
+        rf = make_round_fn(loss_fn, opt, graph, device=dev, compression=comp)
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        final, h = run_trajectory(
+            states[1], rf, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5, eval_fn=eval_fn, eval_batch=test,
+            b_local=B_LOCAL, device=dev,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        comp_launches[label] = {kern.__name__: kern.launches for kern in kernels}
+        ratio = 1.0 if comp is None else 4 * D_MAIN / sum(comp.leaf_row_bytes(sz, np.float32)
+                                                          for sz in final.layout.sizes)
+        comp_final[label] = h["test_loss"][-1]
+        check(all(math.isfinite(v) for v in h["test_loss"] + h["train_loss"]), f"{label}: non-finite loss")
+        check((final.residual is None) == (comp is None), f"{label}: mirror carried {final.residual is not None}")
+        print(f"  {label:6s} bytes/row reduction {ratio:.3f}x; test loss @ {h['round'][::2]}: "
+              + "  ".join(f"{v:.4f}" for v in h["test_loss"][::2]) + f"; final {comp_final[label]:.4f}; "
+              f"{ROUNDS} rounds in {wall:.2f} s; launches "
+              + str({k: v for k, v in comp_launches[label].items() if v}))
+    for label in ("int8", "fp8"):
+        rel = comp_final[label] / comp_final["none"] - 1
+        print(f"  {label}: final test loss {rel:+.3%} against the uncompressed run")
+        check(abs(rel) <= 0.02, f"{label} final test loss {comp_final[label]} not within 2% of "
+                                f"{comp_final['none']}")
+        check(comp_launches[label] == {**none_launched, "quant_scales": ROUNDS, "quant_mix_dense": ROUNDS},
+              f"{label} launch counts {comp_launches[label]}")
+    for label in ("none", "qtopk"):
+        check(comp_launches[label] == {**none_launched, "mix_matmul": ROUNDS}, f"{label} launch counts "
+                                                                              f"{comp_launches[label]}")
 
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
@@ -527,6 +734,51 @@ def main() -> int:
     print(f"  final params max abs diff {perr:.2e}")
     check(perr < 1e-4, "card vs CPU final params")
 
+    # the same run with int8 gossip (chunk 2048, the MLP's 281-chunk table).
+    # A new mirror is x − h through a rounding, so an ulp of summation-order
+    # drift (cuBLAS against the CPU) can flip a code where x/scale lies within
+    # an ulp of a half-integer.  Elements beyond the tolerance are counted, and
+    # each must lie within one code step: the largest scale of its chunk over
+    # rows and rounds, recorded on the CPU.
+    comp8 = Compression("int8")
+    results = {}
+    for d_name in ("cuda", "cpu"):
+        recorded = []
+
+        def recording_scales(*args, **kw):
+            recorded.append(quant_scales(*args, **kw))
+            return recorded[-1]
+
+        mix_ops.quant_scales = recording_scales
+        st = state_from_numpy(params_np, optimizer=opt, device=d_name)
+        rf = make_round_fn(loss_fn, opt, g8, device=d_name, compression=comp8)
+        st, h = run_trajectory(
+            st, rf, xs8, ys8, sched8, n_rounds=r8, eval_every=1, eval_fn=eval_fn,
+            eval_batch=(ds8.x[-256:], ds8.y[-256:]), track_sigmas=True, b_local=b8, device=d_name,
+        )
+        mix_ops.quant_scales = quant_scales
+        check(len(recorded) == r8, f"{d_name}: {len(recorded)} scales passes in {r8} compressed rounds")
+        results[d_name] = (h, st, torch.stack(recorded).cpu())
+    (h_gpu, st_gpu, _), (h_cpu, st_cpu, scales_cpu) = results["cuda"], results["cpu"]
+    for key in ("train_loss", "test_loss", "sigma_ap", "sigma_an"):
+        a, b = np.asarray(h_gpu[key]), np.asarray(h_cpu[key])
+        print(f"  int8 {key:10s} max abs diff {float(np.max(np.abs(a - b))):.2e}")
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-5), f"card vs CPU, int8, {key}")
+    widths = chunk_bounds(st_cpu.layout.sizes, comp8.chunk)
+    step = scales_cpu.amax(dim=(0, 1))[torch.repeat_interleave(torch.arange(widths.numel() - 1),
+                                                               widths[1:] - widths[:-1])].numpy()
+    flips = {}
+    for what in ("params", "residual"):
+        got, want = getattr(st_gpu, what).cpu().numpy(), getattr(st_cpu, what).numpy()
+        off = np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)
+        within = np.abs(got - want) <= 1.01 * np.broadcast_to(step, want.shape) + 1e-5
+        flips[what] = int(off.sum())
+        print(f"  int8 final {what}: max abs diff {float(np.abs(got - want).max()):.2e}; {flips[what]} of "
+              f"{want.size} elements beyond rtol 1e-4 / atol 1e-5 (quantisation-code flips), "
+              f"{int((off & ~within).sum())} of them beyond one code step")
+        check(bool(np.all(within[off])), f"card vs CPU, int8 {what}: a difference beyond one code step")
+        check(flips[what] <= 1e-3 * want.size, f"card vs CPU, int8 {what}: {flips[what]} code flips")
+
     # ------------------------------------------------------- 6. CLI, sparse
     phase("6. CLI: ring-1024, sparse backend")
     for kern in kernels:
@@ -544,8 +796,31 @@ def main() -> int:
     check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
           "CLI history not finite")
     check(len(hist["round"]) == 3, "CLI recorded rounds")
-    check(cli_launches == {"mix_matmul": 0, "mix_bsr": 3, "flash_mha": 0, "rwkv6_chunked": 0},
+    check(cli_launches == {**none_launched, "mix_bsr": 3},
           f"CLI launch counts {cli_launches}")
+
+    # the same CLI with int8 gossip: every round one scales pass and one
+    # quantised block-sparse walk, no plain block-sparse launch
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = cli.main([
+        "--model", "mlp", "--topology", "ring", "--nodes", "1024", "--rounds", "3",
+        "--local-batches", "2", "--no-gain-correction", "--compress", "int8",
+    ])
+    torch.cuda.synchronize()
+    cli_c_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  --compress int8: {time.perf_counter() - t0:.1f} s incl. data generation; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          + str({k: v for k, v in cli_c_launches.items() if v}))
+    check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
+          "compressed CLI history not finite")
+    check(len(hist["round"]) == 3, "compressed CLI recorded rounds")
+    check(cli_c_launches == {**none_launched, "quant_scales": 3, "quant_mix_bsr": 3},
+          f"compressed CLI launch counts {cli_c_launches}")
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------- 7. serve, full width
     phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, gemma3-4b, rwkv6-3b 4-node ensemble (bf16)")
@@ -664,8 +939,7 @@ def main() -> int:
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     serve_launches = {kern.__name__: kern.launches for kern in kernels}
     print(f"  launches {serve_launches}")
-    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
-                             "rwkv6_chunked": 0},
+    check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers},
           f"serve launch counts {serve_launches}, want 2 gemma prefills × {gcfg.n_layers} more")
     flash_ops.flash_mha = flash_mha
     check(flash_launched <= flash_checked,
@@ -764,7 +1038,7 @@ def main() -> int:
     print(f"  launches {serve_launches}")
     # one rwkv launch per layer per prefill: generate, prefill, the long
     # prompt and 4 node answers; no attention layer
-    check(serve_launches == {"mix_matmul": 0, "mix_bsr": 0, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
+    check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
                              "rwkv6_chunked": 7 * rcfg.n_layers},
           f"serve launch counts {serve_launches}, want 7 rwkv prefills × {rcfg.n_layers}")
     check(rwkv_launched <= rwkv_checked,
@@ -803,6 +1077,15 @@ def main() -> int:
          serve_launches["flash_mha"]),
         ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
          serve_launches["rwkv6_chunked"]),
+        # kernel 3 is three launches here: the scales pass (phases 4b and 6's
+        # compressed runs) and the dense (4b) and block-sparse (6) walks
+        ("quant_scales", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         comp_launches["int8"]["quant_scales"] + comp_launches["fp8"]["quant_scales"]
+         + cli_c_launches["quant_scales"]),
+        ("quant_mix_dense", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         comp_launches["int8"]["quant_mix_dense"] + comp_launches["fp8"]["quant_mix_dense"]),
+        ("quant_mix_bsr", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         cli_c_launches["quant_mix_bsr"]),
     ):
         t = timing[name]
         rows.append({

@@ -6,6 +6,8 @@ those have exactly the port's leaf layout, so the conversion is a copy into
 one flat ``(n, d)`` buffer in the same leaf order.  Optimizer states are
 recognised by their fields: ``momentum`` (SGD) or ``step``/``mu``/``nu``
 (AdamW, with a per-node ``step`` after the JAX package's vmapped init).
+A compressed-gossip mirror (the JAX ``DFLState.residual``, a params-shaped
+fp32 tree) crosses over the same way, into ``DFLState.residual``.
 
 Decoder parameter trees (nested dicts with ``stack`` / ``tail`` lists, one
 parameter set or node-stacked) convert leaf for leaf with
@@ -43,11 +45,13 @@ def state_from_numpy(
     opt_state: Any = None,
     *,
     optimizer: Optimizer | None = None,
+    residual: Tree | None = None,
     device: str | torch.device | None = None,
 ) -> DFLState:
     """A port ``DFLState`` at round 0 from node-stacked numpy params (and
     optionally the optimizer state; without it ``optimizer.init`` builds a
-    fresh one).  The failure-draw generator is a CPU generator seeded 0."""
+    fresh one, and the compressed-gossip mirror ``residual``, a params-shaped
+    tree).  The failure-draw generator is a CPU generator seeded 0."""
     dev = resolve_device(device)
     tree = _tensor_tree(params, dev)
     layout = FlatLayout.of(tree)
@@ -71,25 +75,28 @@ def state_from_numpy(
         layout=layout,
         round=0,
         generator=torch.Generator().manual_seed(0),
+        residual=None if residual is None else layout.flatten(_tensor_tree(residual, dev)).to(torch.float32),
     )
 
 
-def to_numpy(state: DFLState) -> tuple[Tree, Any]:
+def to_numpy(state: DFLState, *, residual: bool = False) -> tuple:
     """(params, opt_state) in the JAX package's layout as numpy: the params
     tree, and the optimizer state's tuple with each flat buffer turned back
-    into a tree (``step`` stays an array)."""
+    into a tree (``step`` stays an array).  With ``residual=True`` a third
+    element: the mirror as a params-shaped tree (None without one)."""
     layout = state.layout
     params = _numpy_tree(layout.views(state.params))
+    mirror = None if state.residual is None else _numpy_tree(layout.views(state.residual))
     opt = state.opt_state
-    if opt is None:
-        return params, None
-    fields = {}
-    for name, value in zip(opt._fields, opt):
-        if value.shape[-1:] == (layout.size,):
-            fields[name] = _numpy_tree(layout.views(value))
-        else:
-            fields[name] = value.detach().cpu().numpy()
-    return params, type(opt)(**fields)
+    if opt is not None:
+        fields = {}
+        for name, value in zip(opt._fields, opt):
+            if value.shape[-1:] == (layout.size,):
+                fields[name] = _numpy_tree(layout.views(value))
+            else:
+                fields[name] = value.detach().cpu().numpy()
+        opt = type(opt)(**fields)
+    return (params, opt, mirror) if residual else (params, opt)
 
 
 def _leaf_tensor(a, dev: torch.device) -> torch.Tensor:

@@ -18,8 +18,11 @@ directions agree) and one Bernoulli(node_p) per node; the effective
 operator renormalises over the surviving neighbourhood, and a dropped
 node's row becomes the identity.  Draws come from a CPU ``torch.Generator``
 and are copied to the plan's device, so the same generator state gives the
-same effective operator on every device.  The ``ppermute`` backend and
-``PlanSchedule`` are not ported yet (see ROADMAP.md).
+same effective operator on every device.  With an active ``compression``
+codec a round is the error-feedback delta form of ``core/compress.py``
+over the same operator (int8 / fp8 through the quantised-mix kernel).  The
+``ppermute`` backend and ``PlanSchedule`` are not ported yet (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.flat import FlatLayout
 from repro_torch.kernels.mix import BSR, bsr_from_dense, bsr_slots, decavg_mix, mix_flat
 
+from .compress import Compression, compressed_mix, init_residuals
 from .decavg import failure_receive_matrix
 from .mixing import receive_matrix
 from .topology import Graph
@@ -117,7 +122,10 @@ class CommPlan:
         *,
         active: torch.Tensor | None = None,
         edge_live: torch.Tensor | None = None,
-    ) -> torch.Tensor | dict[str, Any]:
+        compression: Compression | None = None,
+        residual: torch.Tensor | dict[str, Any] | None = None,
+        layout: FlatLayout | None = None,
+    ):
         """One DecAvg aggregation: ``w_new[i] = Σ_j M[i, j] w[j]``.
 
         ``params`` is the flat ``(n, d)`` buffer (one kernel launch) or a dict
@@ -125,9 +133,22 @@ class CommPlan:
         written.  ``active`` ((n,) bool) and ``edge_live`` ((n_edges,) bool,
         ``Graph.edge_list()`` order) are deterministic membership / fault
         masks AND-composed with the failure draws.
+
+        With an active ``compression`` codec the round runs the
+        error-feedback delta form over this same operator and returns
+        ``(mixed, new_residual)``: thread ``residual`` (the fp32 mirrors,
+        shaped as ``params``) from the previous round; omitted, it is zeros.
+        ``layout`` names the leaves of a flat buffer, which the codec chunks
+        one by one (None: the row is one leaf).  Codec ``"none"`` or
+        ``compression=None`` is the raw operator, bit for bit.
         """
         if self.failures.active and generator is None:
             raise ValueError("failure model active: mix() needs a torch.Generator")
+        if compression is not None and compression.active:
+            return compressed_mix(
+                self, params, init_residuals(params) if residual is None else residual, generator,
+                compression=compression, active=active, edge_live=edge_live, layout=layout,
+            )
         op = self.round_operator(generator, active=active, edge_live=edge_live)
         if isinstance(params, torch.Tensor):
             return mix_flat(op, params)

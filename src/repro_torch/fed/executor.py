@@ -7,8 +7,10 @@ the host iterator yields), metrics are kept as device scalars at the eval
 rounds and read back once at the end.  ``run_sweep`` runs several
 trajectories (seeds × gains ...) over one upload.  The history dict has the
 JAX executor's keys: ``round``, ``train_loss``, ``test_loss``,
-``sigma_ap``, ``sigma_an``.  Checkpointing, wire accounting and the
-sharded / event / elastic / warmup executors are not ported yet.
+``sigma_ap``, ``sigma_an``.  A compressed ``round_fn`` (``make_round_fn(
+compression=...)``) gets zero mirrors seeded into the state before the
+first round.  Checkpointing, wire accounting and the sharded / event /
+elastic / warmup executors are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core.compress import seed_residual
 
 from .trainer import (
     HISTORY_KEYS,
@@ -55,6 +59,7 @@ def stack_states(states: Sequence[DFLState]) -> DFLState:
         layout=s0.layout,
         round=s0.round,
         generator=tuple(s.generator for s in states),
+        residual=None if s0.residual is None else torch.stack([s.residual for s in states]),
     )
 
 
@@ -67,6 +72,7 @@ def unstack_states(states: DFLState) -> list[DFLState]:
             layout=states.layout,
             round=states.round,
             generator=g,
+            residual=None if states.residual is None else states.residual[i],
         )
         for i, g in enumerate(states.generator)
     ]
@@ -128,7 +134,7 @@ def run_trajectory(
         by = ys_d[node_idx, flat].reshape(*idx.shape, *ys_d.shape[2:])
         return bx, by
 
-    state = copy_state(state)
+    state = seed_residual(copy_state(state), getattr(round_fn, "compression", None))
     mask = TrajectoryConfig(n_rounds, eval_every).eval_mask()
     hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
     for r in range(n_rounds):

@@ -10,6 +10,9 @@ and all nodes step together.  One communication round =
 A local step sums the per-node mean losses and calls one backward: node i's
 loss depends only on node i's row of the buffer, so each row of the flat
 gradient is exactly that node's own gradient.
+
+With ``make_round_fn(compression=...)`` step 2 is a compressed gossip round
+(``core/compress.py``) whose per-node fp32 mirrors ride ``DFLState.residual``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.commplan import CommPlan, FailureModel, compile_plan
+from repro_torch.core.compress import Compression
 from repro_torch.core.topology import Graph
 from repro_torch.device import resolve_device
 from repro_torch.flat import FlatLayout
@@ -43,13 +47,16 @@ class DFLState:
     """The ensemble's state.  ``params`` is the flat (n, d) buffer (``(R, n, d)``
     and a tuple of generators after ``stack_states``); ``tree`` views it as
     the model's parameter dict.  ``generator`` is the CPU generator the
-    failure draws consume."""
+    failure draws consume.  ``residual`` is the compressed-gossip carry, each
+    node's transmitted mirror as a flat fp32 buffer shaped as ``params``, or
+    None (uncompressed)."""
 
     params: torch.Tensor
     opt_state: Any
     layout: FlatLayout
     round: int = 0
     generator: torch.Generator | tuple[torch.Generator, ...] | None = None
+    residual: torch.Tensor | None = None
 
     @property
     def tree(self) -> Tree:
@@ -77,6 +84,7 @@ def copy_state(state: DFLState) -> DFLState:
         layout=state.layout,
         round=state.round,
         generator=_copy_generator(state.generator),
+        residual=None if state.residual is None else state.residual.clone(),
     )
 
 
@@ -141,6 +149,7 @@ def make_round_fn(
     link_p: float = 1.0,
     node_p: float = 1.0,
     device: str | torch.device | None = None,
+    compression: Compression | None = None,
 ):
     """Build ``round_fn(state, node_batches) -> (state, metrics)``.
 
@@ -150,6 +159,12 @@ def make_round_fn(
     ``node_batches`` is (x (n, b, bs, ...), y (n, b, bs)) on the state's
     device.  The round consumes ``state``: its params buffer is updated in
     place by the local steps.
+
+    An active ``compression`` codec makes the aggregation the error-feedback
+    delta form over the same operator; the mirrors ride ``state.residual``
+    (zeros when the state has none: ``run_trajectory`` seeds them first).
+    ``compression=None`` or codec ``"none"`` leaves the round unchanged.
+    ``round_fn.compression`` is the active codec or None.
     """
     if isinstance(plan, Graph):
         failures = FailureModel(link_p=link_p, node_p=node_p)
@@ -159,6 +174,7 @@ def make_round_fn(
             "a compiled CommPlan carries its own data sizes, failure model and device; "
             "pass them to compile_plan"
         )
+    comp = compression if compression is not None and compression.active else None
 
     def round_fn(state: DFLState, node_batches) -> tuple[DFLState, dict]:
         params, opt_state, losses = _local_steps(
@@ -167,16 +183,25 @@ def make_round_fn(
         # double buffer: the kernel writes the mixed ensemble into a new
         # buffer that is swapped in; the old one goes back to the caching
         # allocator and becomes the next round's output
-        params = plan.mix(params, state.generator if plan.failures.active else None)
+        generator = state.generator if plan.failures.active else None
+        residual = state.residual
+        if comp is not None:
+            params, residual = plan.mix(
+                params, generator, compression=comp, residual=residual, layout=state.layout
+            )
+        else:
+            params = plan.mix(params, generator)
         new_state = dataclasses.replace(
             state,
             params=params,
             opt_state=optimizer.init(params),  # Algorithm 1 line 15
             round=state.round + 1,
+            residual=residual,
         )
         return new_state, {"train_loss": losses.mean(), "train_loss_per_node": losses}
 
     round_fn.plan = plan
+    round_fn.compression = comp
     return round_fn
 
 

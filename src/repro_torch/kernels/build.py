@@ -23,6 +23,7 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 LIBRARIES = {
     "mix": KERNELS_DIR / "mix" / "csrc" / "mix.cu",
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
+    "quant_mix": KERNELS_DIR / "mix" / "csrc" / "quant_mix.cu",
     "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
     "rwkv": KERNELS_DIR / "rwkv" / "csrc" / "rwkv.cu",
 }

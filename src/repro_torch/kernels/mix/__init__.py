@@ -1,18 +1,28 @@
-"""DecAvg mixing kernels: dense (``mix.py``) and block-sparse (``sparse.py``),
-CUDA sources in ``csrc/``, plain versions beside each wrapper."""
+"""DecAvg mixing kernels: dense (``mix.py``), block-sparse (``sparse.py``) and
+quantised (``quant.py``), CUDA sources in ``csrc/``, plain versions beside
+each wrapper."""
 from .mix import mix_matmul
-from .ops import decavg_mix, mix_flat
-from .ref import decavg_mix_ref
+from .ops import decavg_mix, mix_flat, quant_mix_flat
+from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, quantised_mix_bsr
+from .ref import chunk_bounds, decavg_mix_ref, pallas_bounds, quantised_decavg_mix_ref
 from .sparse import BSR, bsr_from_dense, bsr_slots, mix_bsr, mix_bsr_ref
 
 __all__ = [
     "BSR",
     "bsr_from_dense",
     "bsr_slots",
+    "chunk_bounds",
     "decavg_mix",
     "decavg_mix_ref",
     "mix_bsr",
     "mix_bsr_ref",
     "mix_flat",
     "mix_matmul",
+    "pallas_bounds",
+    "quant_mix_bsr",
+    "quant_mix_dense",
+    "quant_mix_flat",
+    "quant_scales",
+    "quantised_decavg_mix_ref",
+    "quantised_mix_bsr",
 ]

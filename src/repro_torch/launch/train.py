@@ -5,11 +5,15 @@ Examples:
     python -m repro_torch.launch.train --model mlp --topology ring --nodes 1024 --rounds 3
     python -m repro_torch.launch.train --model mlp --no-gain-correction   # Fig. 1 baseline
     python -m repro_torch.launch.train --model mlp --device cpu --nodes 4 --rounds 2
+    # compressed gossip: int8 / fp8 exchanges with error-feedback mirrors
+    python -m repro_torch.launch.train --model mlp --compress int8
+    python -m repro_torch.launch.train --model mlp --compress qtopk --topk-frac 0.3 --gamma 0.5
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
-beyond).  Other models and the JAX launcher's other modes (async, elastic,
-compressed, schedules, checkpointing, telemetry) are not ported yet.
+beyond; an int8 / fp8 round is one pass of the quantised-mix kernel).
+Other models and the JAX launcher's other modes (async, elastic,
+schedules, checkpointing, telemetry) are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +21,10 @@ import argparse
 import json
 import os
 
+import numpy as np
+
 from repro_torch.core import topology as T
+from repro_torch.core.compress import Compression
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
 from repro_torch.data import batch_index_schedule, mnist_like, node_datasets, partition_iid
 from repro_torch.device import resolve_device
@@ -52,6 +59,18 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     p.add_argument("--items-per-node", type=int, default=256)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--local-batches", type=int, default=8)
+    p.add_argument(
+        "--compress", choices=["none", "int8", "fp8", "topk", "qtopk"], default="none",
+        help="compressed gossip (core.compress): quantised / top-k sparsified exchanges with "
+        "per-node error-feedback mirrors (qtopk = top-k with int8 values, 3 bytes/entry)",
+    )
+    p.add_argument("--compress-chunk", type=int, default=2048,
+                   help="codec chunk: elements per fp32 scale (≤ 65536)")
+    p.add_argument("--topk-frac", type=float, default=0.1,
+                   help="fraction of each chunk the topk/qtopk codecs transmit")
+    p.add_argument("--gamma", type=float, default=None,
+                   help="consensus step size of the compressed mix (default 1.0; 0.3 for "
+                   "topk/qtopk, which need the damping on sparse graphs)")
     p.add_argument("--link-p", type=float, default=1.0)
     p.add_argument("--node-p", type=float, default=1.0)
     p.add_argument("--no-gain-correction", action="store_true")
@@ -64,6 +83,19 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     if args.model != "mlp":
         p.error(f"--model {args.model} {NOT_PORTED}")
     dev = resolve_device(args.device)
+    compress_cfg = None
+    if args.compress != "none":
+        sparse = args.compress in ("topk", "qtopk")
+        gamma = args.gamma if args.gamma is not None else (0.3 if sparse else 1.0)
+        compress_cfg = Compression(
+            codec=args.compress, chunk=args.compress_chunk, topk_frac=args.topk_frac, gamma=gamma
+        )
+        ratio = 4.0 / compress_cfg.leaf_row_bytes(args.compress_chunk, np.float32) * args.compress_chunk
+        print(
+            f"compress: {args.compress} chunk={args.compress_chunk} "
+            + (f"topk_frac={args.topk_frac} " if sparse else "")
+            + f"gamma={gamma:g} (~{ratio:.1f}x bytes)"
+        )
 
     n = args.nodes
     graph = build_graph(args.topology, n, args.seed)
@@ -79,7 +111,9 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     def loss_fn(params, batch):
         return classifier_loss(mlp_forward(params, batch[0]), batch[1])
 
-    round_fn = make_round_fn(loss_fn, opt, graph, link_p=args.link_p, node_p=args.node_p, device=dev)
+    round_fn = make_round_fn(
+        loss_fn, opt, graph, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
+    )
     print(f"mixing: {round_fn.plan.backend} backend on {dev}")
     state = init_fl_state(
         args.seed, n, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), opt,

@@ -7,7 +7,12 @@ windowed masks, GQA groups, strided (B, S, H, hd) views, and the decoder's
 prefill through the kernel.  RWKV-6 time-mix: ragged L, every head dim,
 fp32 and bf16 r/k/v, zero and given initial states, the full-width serve
 shapes in the decoder's layout, strided views, extreme decays, and the
-reduced rwkv6-3b served on the card.  Skipped without a CUDA device; on the
+reduced rwkv6-3b served on the card.  Quantised mix: the scales pass and
+the dense and block-sparse walks in raw and round mode, fp32 and bf16, int8
+and fp8, both scale floors, masked operators, frozen mirrors, leaf chunk
+tables, and compressed plan rounds against the CPU (new mirrors bitwise:
+the kernel does the plain version's arithmetic element for element).
+Skipped without a CUDA device; on the
 card run
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -27,7 +32,21 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
 from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
-from repro_torch.kernels.mix import bsr_from_dense, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul  # noqa: E402
+from repro_torch.kernels.mix import (  # noqa: E402
+    bsr_from_dense,
+    chunk_bounds,
+    decavg_mix_ref,
+    mix_bsr,
+    mix_bsr_ref,
+    mix_matmul,
+    pallas_bounds,
+    quant_mix_bsr,
+    quant_mix_dense,
+    quant_scales,
+    quantised_decavg_mix_ref,
+    quantised_mix_bsr,
+)
+from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref  # noqa: E402
 from repro_torch.kernels.rwkv import rwkv6_attention, rwkv6_chunked, rwkv6_chunked_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +312,164 @@ def test_rwkv_decoder_on_the_card_matches_the_cpu(dev):
     assert rwkv6_chunked.launches == before + cfg.n_layers
     want = generate(params_from_numpy(p_np, device="cpu"), cfg, prompt, 6, 64, device="cpu")
     np.testing.assert_array_equal(toks.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------------------------ quantised mix
+def _quant_inputs(dev, n, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, d, generator=g, device=dev) * (0.01 + 5 * torch.rand(n, 1, generator=g, device=dev)))
+    x[0, : min(d, 64)] = 0.0  # an all-zero chunk
+    if n > 1:
+        x[1, : min(d, 64)] *= 1e-29 / float(x[1, : min(d, 64)].abs().max())  # the floors differ here
+    h = 0.3 * torch.randn(n, d, generator=g, device=dev)
+    return x.to(dtype), h
+
+
+def _quant_case(dev, kernel, mix_plain, x, h, bounds, *, codec, gamma, ef=True, keep=None, floor="codec"):
+    """Scales bitwise; H' bitwise; X' or Y within 1e-5 · max|X| (bf16: one
+    ulp more); launches counted; two launches bitwise equal."""
+    s_before, k_before = quant_scales.launches, kernel.launches
+    scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
+    assert quant_scales.launches == s_before + 1
+    assert torch.equal(scales, quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None,
+                                                floor=floor))
+    got = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef, keep=keep)
+    assert kernel.launches == k_before + 1
+    want = quant_mix_ref(mix_plain, x, h, bounds, scales, codec=codec, gamma=gamma,
+                         error_feedback=ef and h is not None, keep=keep)
+    again = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef, keep=keep)
+    if gamma is None:
+        _close(got, want, x)
+        assert torch.equal(got, again)
+        return
+    (xo, ho), (xw, hw) = got, want
+    assert ho.dtype == torch.float32 and xo.dtype == x.dtype
+    assert torch.equal(ho, hw)
+    _close(xo, xw, x)
+    assert torch.equal(xo, again[0]) and torch.equal(ho, again[1])
+
+
+QUANT_MODES = [  # (gamma, with h, error feedback, keep rows)
+    (1.0, True, True, False), (0.5, True, True, True), (0.5, False, False, False), (1.0, True, False, True),
+    (None, False, True, False),
+]
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,sizes,chunk", [(8, (1000,), 128), (33, (500, 1, 300, 201), 64), (16, (4097,), 2048),
+                                           (70, (6,), 4), (100, (777,), 1000)])
+@pytest.mark.parametrize("mode", QUANT_MODES, ids=lambda m: f"g{m[0]}-h{int(m[1])}-ef{int(m[2])}-k{int(m[3])}")
+def test_quant_dense_kernel_matches_plain(dev, codec, dtype, n, sizes, chunk, mode):
+    gamma, with_h, ef, with_keep = mode
+    d = sum(sizes)
+    x, h = _quant_inputs(dev, n, d, dtype, seed=n + d)
+    m = _stochastic(n, dev, n)
+    keep = (torch.arange(n, device=dev) % 3 != 1) if with_keep else None
+    bounds = chunk_bounds(sizes, chunk, dev)
+
+    before = quant_mix_dense.launches
+    _quant_case(dev, _counting(lambda *a, **kw: quant_mix_dense(m, *a, **kw), quant_mix_dense), lambda hq: decavg_mix_ref(m, hq), x,
+                h if with_h else None, bounds, codec=codec, gamma=gamma, ef=ef, keep=keep)
+    assert quant_mix_dense.launches == before + 2
+
+
+def _counting(fn, wrapper):
+    """fn with the launch count of the wrapper it calls."""
+    class Counted:
+        def __call__(self, *args, **kw):
+            return fn(*args, **kw)
+
+        @property
+        def launches(self):
+            return wrapper.launches
+
+    return Counted()
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "graph,bn",
+    [(T.ring(200), 8), (T.random_k_regular(300, 4, seed=0), 64), (T.configuration_heavy_tail(150, 2.2, seed=1), 16),
+     (T.complete(70), 256), (T.torus_lattice((8, 9)), 5), (T.ring(1024), 32)],
+)
+@pytest.mark.parametrize("mode", QUANT_MODES, ids=lambda m: f"g{m[0]}-h{int(m[1])}-ef{int(m[2])}-k{int(m[3])}")
+def test_quant_bsr_kernel_matches_plain(dev, codec, dtype, graph, bn, mode):
+    gamma, with_h, ef, with_keep = mode
+    m = receive_matrix(graph).astype(np.float32)
+    bc, tiles, counts = (torch.as_tensor(a, device=dev) for a in bsr_from_dense(m, bn))
+    sizes = (300, 10, 1, 466)
+    x, h = _quant_inputs(dev, graph.n, sum(sizes), dtype, seed=graph.n + bn)
+    keep = (torch.arange(graph.n, device=dev) % 4 != 2) if with_keep else None
+    before = quant_mix_bsr.launches
+    _quant_case(dev, _counting(lambda *a, **kw: quant_mix_bsr(bc, tiles, counts, *a, **kw), quant_mix_bsr),
+                lambda hq: mix_bsr_ref(bc, tiles, counts, hq), x, h if with_h else None,
+                chunk_bounds(sizes, 128, dev), codec=codec, gamma=gamma, ef=ef, keep=keep)
+    assert quant_mix_bsr.launches == before + 2
+
+
+@pytest.mark.parametrize("floor", ["codec", "pallas"])
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_quant_raw_mode_both_floors(dev, floor, codec):
+    g = T.random_k_regular(64, 4, seed=2)
+    m = receive_matrix(g).astype(np.float32)
+    bc, tiles, counts = (torch.as_tensor(a, device=dev) for a in bsr_from_dense(m, 16))
+    x, _ = _quant_inputs(dev, 64, 1300, torch.float32, seed=7)
+    bounds = pallas_bounds(1300, 512, dev)
+    _quant_case(dev, _counting(lambda *a, **kw: quant_mix_bsr(bc, tiles, counts, *a, **kw), quant_mix_bsr),
+                lambda hq: mix_bsr_ref(bc, tiles, counts, hq), x, None, bounds, codec=codec, gamma=None,
+                floor=floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_quantised_mix_bsr_is_the_pallas_function(dev, dtype, codec):
+    g = T.barabasi_albert(40, 3, seed=0)
+    m = receive_matrix(g).astype(np.float32)
+    bc, tiles, counts = (torch.as_tensor(a, device=dev) for a in bsr_from_dense(m, 8))
+    w, _ = _quant_inputs(dev, 40, 190, dtype, seed=1)
+    before = quant_mix_bsr.launches
+    got = quantised_mix_bsr(bc, tiles, counts, w, codec=codec, block_d=64)
+    assert quant_mix_bsr.launches == before + 1 and got.dtype == dtype
+    _close(got, quantised_decavg_mix_ref(torch.as_tensor(m, device=dev), w, codec=codec, block_d=64), w)
+    cpu = quantised_mix_bsr(*(t.cpu() for t in (bc, tiles, counts, w)), codec=codec, block_d=64)
+    _close(got.cpu(), cpu, w.cpu())
+
+
+def test_quant_kernel_misaligned_rows(dev):
+    """X and H starting one element into their allocations take VEC 1."""
+    n, d = 16, 1000
+    buf = torch.randn(2, n * d + 1, device=dev)
+    x, h = buf[0, 1:].view(n, d), buf[1, 1:].view(n, d)
+    m = _stochastic(n, dev)
+    bounds = chunk_bounds((d,), 256, dev)
+    _quant_case(dev, _counting(lambda *a, **kw: quant_mix_dense(m, *a, **kw), quant_mix_dense),
+                lambda hq: decavg_mix_ref(m, hq), x, h, bounds, codec="int8", gamma=1.0)
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8", "topk", "qtopk"])
+@pytest.mark.parametrize("backend", ["dense", "sparse"])
+def test_compressed_plan_round_on_the_card_matches_the_cpu(dev, codec, backend):
+    """One compressed round under a failure model: int8 / fp8 launch the
+    scales pass and one quantised walk, topk / qtopk one DecAvg kernel;
+    the new mirrors equal the CPU's bit for bit."""
+    from repro_torch.core.commplan import FailureModel, compile_plan
+    from repro_torch.core.compress import Compression
+
+    g = T.ring(100)
+    comp = Compression(codec=codec, chunk=128, topk_frac=0.3, gamma=0.5)
+    x = torch.randn(100, 777, device=dev)
+    h = 0.5 * torch.randn(100, 777, device=dev)
+    plan = compile_plan(g, backend, failures=FailureModel(0.7, 0.9), device=dev)
+    quant = quant_mix_dense if backend == "dense" else quant_mix_bsr
+    plain = mix_matmul if backend == "dense" else mix_bsr
+    counts0 = (quant_scales.launches, quant.launches, plain.launches)
+    xg, hg = plan.mix(x, torch.Generator().manual_seed(1), compression=comp, residual=h)
+    counts1 = (quant_scales.launches, quant.launches, plain.launches)
+    want = (1, 1, 0) if codec in ("int8", "fp8") else (0, 0, 1)
+    assert tuple(b - a for a, b in zip(counts0, counts1)) == want
+    cpu = compile_plan(g, backend, failures=FailureModel(0.7, 0.9), device="cpu")
+    xc, hc = cpu.mix(x.cpu(), torch.Generator().manual_seed(1), compression=comp, residual=h.cpu())
+    assert torch.equal(hg.cpu(), hc)
+    torch.testing.assert_close(xg.cpu(), xc, atol=1e-5 * float(x.abs().max()), rtol=0)
