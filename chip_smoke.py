@@ -8,17 +8,23 @@ run with a non-zero exit:
 
 1. header  — the card's name and power limit, torch and CUDA versions;
 2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
-   (mixing, quantised mixing, flash attention and the RWKV-6 time-mix, all
-   at once) and prints ptxas registers and spills;
+   (mixing, quantised mixing, the two flash attention kernels and the
+   RWKV-6 time-mix, all at once) and prints ptxas registers and spills; the
+   Hopper flash library must spill nothing and its SASS must hold wgmma
+   (``HGMMA``) and TMA loads (``UTMALDG``);
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
    at bn 64, heavy-tail-40 at bn 8, one masked round; flash attention:
    every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
-   global and local layers 2 × 2048), contiguous bf16 shapes and ragged
-   fp32 shapes; the RWKV-6 time-mix: every shape phase 7 launches (rwkv6-3b
-   prefill 4 × 2048, per-node serve 1 × 512 and one 16,384-token prompt,
+   global and local layers 2 × 2048), contiguous bf16 shapes, ragged bf16
+   shapes (S 1 to 2047, hd 64 / 128 / 256, GQA groups 1 / 2 / 8, windows
+   0 / 17 / 1024, both layouts) and ragged fp32 shapes, each case checking
+   which of the two kernels (``route``) it launched, and timings at the
+   four main-path shapes against SDPA; the RWKV-6 time-mix: every shape
+   phase 7 launches (rwkv6-3b prefill 4 × 2048, per-node serve 1 × 512 and
+   one 16,384-token prompt,
    bf16 r/k/v and fp32 w in the decoder's layout), ragged fp32 shapes with
    and without an initial state, and extreme decays; out and final state
    both checked); the quantised mix (its scales pass and the dense and
@@ -49,11 +55,17 @@ run with a non-zero exit:
    ensemble: consensus generate 4 × 2048 → 32, prefill 4 × 2048, one
    16,384-token prompt, 8 decode steps and one replayed as a CUDA graph,
    per-node serve 4 × 512 → 8).
-   Every prefill attention layer is one flash kernel launch and every
-   prefill RWKV layer one rwkv kernel launch: the counts are exact, and the
-   key of each launch must be among those phase 3 checked;
+   Every prefill attention layer is one flash kernel launch (bf16: every
+   one through the wgmma kernel) and every prefill RWKV layer one rwkv
+   kernel launch: the counts are exact, and the key of each launch must be
+   among those phase 3 checked;
+7b. traced prefill — one qwen2.5-3b 4 × 2048 prefill under
+   ``torch.profiler``: the top device kernels and flash's share of device
+   time; and, as a diagnostic, the last position's logits against the same
+   prefill with attention through ``attention_ref``;
 8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b and rwkv6-3b in fp32
-   from one init: equal greedy tokens, prefill logits to rtol 1e-4.
+   from one init: equal greedy tokens, prefill logits to rtol 1e-4 (the
+   attention through the fp32 flash kernel).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -148,7 +160,8 @@ def main() -> int:
     )
     from repro_torch.flat import FlatLayout, tree_map
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.flash import attention_ref, flash_mha
+    from repro_torch.kernels.flash import ROUTES, attention_ref, flash_mha
+    from repro_torch.kernels.flash import route as flash_route
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import (
         bsr_from_dense, chunk_bounds, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul, pallas_bounds, quant_mix_bsr,
@@ -166,6 +179,11 @@ def main() -> int:
     dev = resolve_device("cuda")
     kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
     none_launched = {kern.__name__: 0 for kern in kernels}
+
+    def reset_counts():
+        for kern in kernels:
+            kern.launches = 0
+        flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
@@ -188,6 +206,15 @@ def main() -> int:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
         print(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
               f"registers per thread, {spills} bytes spilled")
+    # the Hopper flash kernel: every instantiation (hd 64, 128, 256) is on
+    # the main path or phase 3's, so none may spill, and its products and
+    # loads must be the tensor-core and TMA instructions
+    sass = kbuild.sass("flash_sm90")
+    n_hgmma, n_utma = sass.count("HGMMA"), sass.count("UTMALDG")
+    print(f"  flash_sm90 SASS: {n_hgmma} HGMMA, {n_utma} UTMALDG")
+    check(n_hgmma > 0 and n_utma > 0, "flash_sm90 SASS lacks HGMMA or UTMALDG")
+    check(sum(int(x) for x in re.findall(r"(\d+) bytes spill", kbuild.build_log("flash_sm90"))) == 0,
+          "flash_sm90 spills")
 
     # --------------------------------------------------- 3. kernels vs plain
     phase("3. kernels vs plain")
@@ -277,7 +304,10 @@ def main() -> int:
     # batched prefill (4 × 2048) and per-node serve (1 × 512); gemma3-4b's
     # global and local layers (2 × 2048, window 1024).  Phase 7 records the
     # key of each launch and fails on one not held here.  Then contiguous
-    # (B, H, S, hd) bf16 shapes and ragged fp32 shapes.
+    # (B, H, S, hd) bf16 shapes, ragged bf16 shapes for the wgmma kernel
+    # (every S of the list at every hd, the GQA group, window, layout and
+    # mask cycling) and ragged fp32 shapes for the FMA kernel.  Each case
+    # checks which kernel it launched.
     qcfg, gcfg = get_config("qwen2.5-3b"), get_config("gemma3-4b")
 
     def attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bhsd"):
@@ -302,21 +332,32 @@ def main() -> int:
         ("qwen prefill", (4, 16, 2, 2048, 128, torch.bfloat16), True, 0, "bhsd"),
         ("gemma3 local", (1, 8, 4, 2048, 256, torch.bfloat16), True, 1024, "bhsd"),
     ] + [
+        ("ragged", (2, 2 * (1, 2, 8)[i % 3], 2, s_len, hd, torch.bfloat16), i % 4 != 3,
+         (0, 17, 1024)[i // 3 % 3], ("bshd", "bhsd")[i % 2])
+        for i, (s_len, hd) in enumerate((s_len, hd) for s_len in (1, 63, 64, 65, 127, 129, 300, 2047)
+                                        for hd in (64, 128, 256))
+    ] + [
         ("ragged", (2, 2 * group, 2, s_len, hd, torch.float32), causal, 0, "bhsd")
         for s_len in (1, 77, 300) for hd in (32, 64) for causal in (False, True) for group in (1, 8)
     ]
-    errs["flash_mha"] = 0.0
+    # errors by kernel: the wgmma kernel's row is flash_mha, the FMA one's flash_mha_fp32
+    row_of = {"wgmma": "flash_mha", "fma": "flash_mha_fp32"}
+    errs.update(dict.fromkeys(row_of.values(), 0.0))
     flash_checked = set()
     for label, shape, causal, window, layout in flash_cases:
         q, k, v = attn_inputs(*shape, layout=layout)
         b, h, kvh, s_len, hd, dtype = shape
+        want = flash_route(dtype, hd)
+        before = dict(flash_mha.launches_by_route)
         e = compare(
             f"flash_mha {label} B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
-            f"{' causal' if causal else ''}{f' w{window}' if window else ''} {layout}",
+            f"{' causal' if causal else ''}{f' w{window}' if window else ''} {layout} ({want})",
             lambda: flash_mha(q, k, v, causal=causal, window=window),
             attention_ref(q, k, v, causal=causal, window=window), v, bf16=dtype == torch.bfloat16,
         )
-        errs["flash_mha"] = max(errs["flash_mha"], e)
+        check(flash_mha.launches_by_route == {**before, want: before[want] + 2},
+              f"{label}: not launched on {want}")
+        errs[row_of[want]] = max(errs[row_of[want]], e)
         flash_checked.add(flash_key(q, k, causal, window))
         del q, k, v
 
@@ -413,25 +454,52 @@ def main() -> int:
         bound_ms=b_s, bound_by=op_s, shape=f"ring-1024 bn=32 d={D_MAIN} fp32",
     )
     del w1k, m_csr, plan_d, m16
-    # flash at the qwen2.5-3b prefill, on the decoder's (B, S, H, hd) views
-    # as phase 7 launches it (the contiguous layout timed beside it): bytes
-    # are q, k, v read once and o written once; flops 4·hd per kept (q, k)
-    # pair per head (QKᵀ and PV)
-    b, h, kvh, s_len, hd = 4, qcfg.n_heads, qcfg.n_kv_heads, 2048, qcfg.resolved_head_dim
-    q, k, v = attn_inputs(b, h, kvh, s_len, hd, torch.bfloat16, layout="bshd")
-    pairs = s_len * (s_len + 1) // 2  # causal, no window
-    b_f, op_f = bound(2 * (2 * b * h * s_len * hd + 2 * b * kvh * s_len * hd), 4 * b * h * hd * pairs,
-                      PEAK_BF16_FLOPS)
-    timing["flash_mha"] = dict(
-        ms=time_ms(lambda: flash_mha(q, k, v), flush=flush),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=3, flush=flush),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-                           flush=flush),
-        bound_ms=b_f, bound_by=op_f, shape=f"B{b} H{h}/{kvh} S{s_len} hd{hd} bf16 causal, (B, S, H, hd) views",
-    )
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), flush=flush)
-    del q, k, v, qc, kc, vc
+    # flash at every shape phase 7 launches, on the decoder's (B, S, H, hd)
+    # views (the qwen2.5-3b prefill's row goes into the kernels line, its
+    # contiguous layout timed beside it).  Bytes are q, k, v read once and
+    # o written once; flops 4·hd per (q, k) pair the mask keeps, per head
+    # (QKᵀ and PV).  The wgmma kernel does 6·hd (PV on bf16 hi and lo
+    # parts of P): its own floor, printed beside.  library: SDPA, with a
+    # boolean mask for the window.
+    def sdpa(q, k, v, window):
+        if not window:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        i = torch.arange(q.shape[2], device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    def time_flash(cfg, b, s_len, window, dtype):
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k, v = attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bshd")
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s_len))
+        size = q.element_size()
+        b_f, op_f = bound(size * (2 * b * h * s_len * hd + 2 * b * kvh * s_len * hd), 4 * b * h * hd * pairs,
+                          PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        return dict(
+            ms=time_ms(lambda: flash_mha(q, k, v, window=window), reps=21, flush=flush),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), reps=3, flush=flush),
+            library_ms=time_ms(lambda: sdpa(q, k, v, window), reps=21, flush=flush),
+            bound_ms=b_f, bound_by=op_f, pairs=pairs,
+            shape=f"B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if dtype == torch.bfloat16 else 'fp32'} causal"
+                  f"{f' w{window}' if window else ''}, (B, S, H, hd) views",
+        ), (q, k, v)
+
+    flash_shapes = {}
+    for label, cfg, b, s_len, window in (
+        ("qwen prefill", qcfg, 4, 2048, 0), ("qwen serve", qcfg, 1, 512, 0),
+        ("gemma3 global", gcfg, 2, 2048, 0), ("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window),
+    ):
+        flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, torch.bfloat16)
+        if label == "qwen prefill":
+            qc, kc, vc = (t.contiguous() for t in qkv)
+            flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), reps=21, flush=flush)
+            del qc, kc, vc
+        del qkv
+    timing["flash_mha"] = flash_shapes["qwen prefill"]
+    # the FMA kernel at phase 8's launches: the reduced qwen2.5-3b, fp32,
+    # 2 prompts of 40
+    timing["flash_mha_fp32"], qkv = time_flash(get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32)
+    del qkv
     # rwkv at the rwkv6-3b consensus prefill (4 × 2048, 40 heads of 64): bytes
     # are r, k, v (bf16) and w read once, out and the final state written
     # once; flops per (b, h, chunk of c) are what the chunked form needs:
@@ -607,6 +675,11 @@ def main() -> int:
         print(f"  {name} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib}")
     print(f"  flash_mha on contiguous (B, H, S, hd) tensors of the same shape: kernel {flash_contiguous_ms:.4f} ms")
+    for label, t in flash_shapes.items():
+        print(f"  flash_mha (wgmma) {label} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['pairs']} kept pairs a head; {t['bound_ms'] / t['ms']:.1%} of it), "
+              f"split-P floor {1.5 * t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"SDPA {t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f}x SDPA's time)")
     print(f"  rwkv6_chunked at the long prompt B1 L16384 H{r_heads} M{r_hd} bf16: kernel {rwkv_long_ms:.4f} ms")
     print(f"  one int8 round (scales + walk) through quant_mix_flat: complete-16 {round16_ms:.4f} ms, "
           f"ring-1024 {round1k_ms:.4f} ms")
@@ -632,8 +705,7 @@ def main() -> int:
     check(states[0].params.shape == (N_NODES, D_MAIN), f"ensemble shape {tuple(states[0].params.shape)}")
     schedule = batch_index_schedule(PER_NODE, N_NODES, 16, ROUNDS * B_LOCAL, seed=0)
     round_fn = make_round_fn(loss_fn, opt, graph, device=dev)
-    for kern in kernels:
-        kern.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     _, hists = run_sweep(
         states, round_fn, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5,
@@ -665,8 +737,7 @@ def main() -> int:
     comp_final, comp_launches = {}, {}
     for label, comp in codecs:
         rf = make_round_fn(loss_fn, opt, graph, device=dev, compression=comp)
-        for kern in kernels:
-            kern.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         final, h = run_trajectory(
             states[1], rf, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5, eval_fn=eval_fn, eval_batch=test,
@@ -781,8 +852,7 @@ def main() -> int:
 
     # ------------------------------------------------------- 6. CLI, sparse
     phase("6. CLI: ring-1024, sparse backend")
-    for kern in kernels:
-        kern.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = cli.main([
@@ -801,8 +871,7 @@ def main() -> int:
 
     # the same CLI with int8 gossip: every round one scales pass and one
     # quantised block-sparse walk, no plain block-sparse launch
-    for kern in kernels:
-        kern.launches = 0
+    reset_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -850,8 +919,7 @@ def main() -> int:
         return flash_mha(q, k, v, causal=causal, window=window)
 
     flash_ops.flash_mha = recording_flash_mha
-    for kern in kernels:
-        kern.launches = 0
+    reset_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen_p = torch.Generator(device=dev).manual_seed(0)
@@ -941,6 +1009,10 @@ def main() -> int:
     print(f"  launches {serve_launches}")
     check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers},
           f"serve launch counts {serve_launches}, want 2 gemma prefills × {gcfg.n_layers} more")
+    # bf16 at hd 128 and 256: every prefill launch took the wgmma kernel
+    check(flash_mha.launches_by_route == {"wgmma": serve_launches["flash_mha"], "fma": 0},
+          f"flash routes {flash_mha.launches_by_route}, want every launch on wgmma")
+    print(f"  flash routes {flash_mha.launches_by_route}")
     flash_ops.flash_mha = flash_mha
     check(flash_launched <= flash_checked,
           f"phase 7 launched flash at {sorted(flash_launched - flash_checked, key=str)}, not checked in phase 3")
@@ -1047,8 +1119,54 @@ def main() -> int:
     del ens, cons, logits, long_logits, step_logits
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 7b. traced prefill
+    # one qwen2.5-3b prefill (4 × 2048, one parameter set) under the
+    # profiler, after a warm-up: device time by kernel, flash's share, and
+    # the device's busy share of the traced wall time
+    phase("7b. traced prefill: qwen2.5-3b 4 × 2048 under torch.profiler")
+    from torch.profiler import ProfilerActivity, profile
+
+    tparams = TF.init_params(gen_p, qcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    t_prompts = tokens(4, 2048, qcfg.vocab_size, seed=0)
+    prefill(tparams, qcfg, t_prompts)
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t_logits = prefill(tparams, qcfg, t_prompts)
+        traced_s = since(t0)
+    traced_launches = {kern.__name__: kern.launches for kern in kernels}
+    check(traced_launches == {**none_launched, "flash_mha": qcfg.n_layers}
+          and flash_mha.launches_by_route == {"wgmma": qcfg.n_layers, "fma": 0},
+          f"traced prefill launches {traced_launches}, routes {flash_mha.launches_by_route}")
+    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
+    total_us = sum(dev_us.values())
+    check(total_us > 0, "the profiler recorded no device time")
+    flash_us = sum(t for name, t in dev_us.items() if "flash_sm90" in name)
+    print(f"  traced prefill {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
+          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); flash kernel {flash_us / 1e3:.2f} ms "
+          f"= {flash_us / total_us:.1%} of device time ({qcfg.n_layers} launches)")
+    counts = {e.key: e.count for e in dev_ops}
+    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
+    # the same prefill with attention through the plain version (fp32
+    # probabilities, einsum products): a diagnostic of the kernel's effect
+    # on the logits, not a gate
+    flash_ops.flash_mha = lambda q, k, v, *, causal=True, window=0: attention_ref(q, k, v, causal=causal,
+                                                                                   window=window)
+    ref_logits = prefill(tparams, qcfg, t_prompts)
+    flash_ops.flash_mha = flash_mha
+    print(f"  last-position logits, kernel vs attention_ref prefill: max abs diff "
+          f"{float((t_logits.float() - ref_logits.float()).abs().max()):.3e} "
+          f"(max abs {float(ref_logits.float().abs().max()):.2f}); argmax equal "
+          f"{bool(torch.equal(t_logits.argmax(-1), ref_logits.argmax(-1)))}")
+    del tparams, t_logits, ref_logits, prof
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------- 8. serve, card vs CPU
     phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b and rwkv6-3b, fp32, one init)")
+    reset_counts()
     for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b"):
         rcfg = get_reduced_config(arch)
         init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
@@ -1066,6 +1184,13 @@ def main() -> int:
               f"{float(np.abs(l_gpu - l_cpu).max()):.2e} (max abs {float(np.abs(l_cpu).max()):.2f})")
         check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU greedy tokens differ")
         check(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5), f"{arch}: card vs CPU prefill logits")
+    # fp32: every attention layer of a generate's prefill and of a prefill
+    # went through the FMA kernel
+    fp32_launches = flash_mha.launches_by_route["fma"]
+    want_fp32 = 2 * sum(get_reduced_config(a).n_layers for a in ("qwen2.5-3b", "gemma3-4b"))
+    check(flash_mha.launches_by_route == {"wgmma": 0, "fma": want_fp32},
+          f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on fma")
+    print(f"  flash routes {flash_mha.launches_by_route}")
 
     # ------------------------------------------------------------- result
     src = "src/repro_torch/kernels/mix/csrc"
@@ -1073,8 +1198,11 @@ def main() -> int:
     for name, replaces, source, launches in (
         ("mix_matmul", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", quick_launches["mix_matmul"]),
         ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
-        ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
+        ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          serve_launches["flash_mha"]),
+        # the fp32 (and bf16 hd 32) route: phase 8's card-vs-CPU serving
+        ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
+         fp32_launches),
         ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
          serve_launches["rwkv6_chunked"]),
         # kernel 3 is three launches here: the scales pass (phases 4b and 6's

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "LIBRARIES", "build", "build_log", "load_library"]
+__all__ = ["BUILD_DIR", "LIBRARIES", "build", "build_log", "load_library", "sass"]
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -25,6 +25,7 @@ LIBRARIES = {
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
     "quant_mix": KERNELS_DIR / "mix" / "csrc" / "quant_mix.cu",
     "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
+    "flash_sm90": KERNELS_DIR / "flash" / "csrc" / "flash_sm90.cu",
     "rwkv": KERNELS_DIR / "rwkv" / "csrc" / "rwkv.cu",
 }
 NVCC_FLAGS = (
@@ -35,14 +36,14 @@ NVCC_FLAGS = (
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+        raise RuntimeError(f"{name} not found: the CUDA kernels build only where the CUDA toolkit is installed")
     return found
 
 
@@ -72,7 +73,7 @@ def build(names=tuple(LIBRARIES)) -> list[str]:
             continue
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         log = target.with_suffix(".log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(LIBRARIES[name])]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(LIBRARIES[name])]
         with open(log, "w") as fh:
             proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
         jobs.append((name, proc, tmp, target, log))
@@ -85,6 +86,13 @@ def build(names=tuple(LIBRARIES)) -> list[str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return [j[0] for j in jobs]
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library: the machine code that runs."""
+    build([name])
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,7 +1,8 @@
-"""Flash attention: the CUDA kernel (``csrc/flash.cu``) behind ``flash_mha``,
-its (…, S, H, hd) wrapper ``flash_attention`` and the plain ``attention_ref``."""
-from .flash import HEAD_DIMS, flash_mha
+"""Flash attention: the CUDA kernels (``csrc/flash_sm90.cu`` for bf16 at hd
+64 / 128 / 256, ``csrc/flash.cu`` otherwise) behind ``flash_mha``, its
+(…, S, H, hd) wrapper ``flash_attention`` and the plain ``attention_ref``."""
+from .flash import HEAD_DIMS, ROUTES, flash_mha, route
 from .ops import flash_attention
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "attention_ref", "flash_attention", "flash_mha"]
+__all__ = ["HEAD_DIMS", "ROUTES", "attention_ref", "flash_attention", "flash_mha", "route"]

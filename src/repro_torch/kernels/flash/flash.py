@@ -1,11 +1,16 @@
-"""Flash attention kernel (counterpart of ``repro/kernels/flash/flash.py``).
+"""Flash attention kernels (counterpart of ``repro/kernels/flash/flash.py``).
 
-``flash_mha`` launches the hand-written CUDA kernel of ``csrc/flash.cu`` on
-CUDA tensors and runs its plain version ``attention_ref`` on CPU tensors; on
-any other device it raises.  There is no fallback from the kernel to the
-plain version.  ``flash_mha.launches`` counts kernel launches.
+``flash_mha`` launches a hand-written CUDA kernel on CUDA tensors and runs
+its plain version ``attention_ref`` on CPU tensors; on any other device it
+raises.  Two kernels, picked by ``route`` from the dtype and head dim alone:
+bf16 at hd 64, 128 or 256 goes to the Hopper kernel of ``csrc/flash_sm90.cu``
+(wgmma + TMA, route ``"wgmma"``); fp32, and bf16 at hd 32, to the fp32-FMA
+kernel of ``csrc/flash.cu`` (route ``"fma"``).  There is no fallback from one
+kernel to the other or to the plain version: a build or launch error is
+raised.  ``flash_mha.launches`` counts kernel launches and
+``flash_mha.launches_by_route`` splits them by route.
 
-The kernel reads q, k and v through their strides (the last axis
+The kernels read q, k and v through their strides (the last axis
 contiguous), so a ``(B, S, H, hd)`` activation transposed to ``(B, H, S, hd)``
 is passed as a view, and the output takes q's memory layout.
 """
@@ -21,23 +26,33 @@ from repro_torch.kernels.build import load_library
 
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "flash_mha"]
+__all__ = ["HEAD_DIMS", "ROUTES", "flash_mha", "route"]
 
-HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are instantiated for
+SM90_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the wgmma kernel
+ROUTES = ("wgmma", "fma")
+_ENTRY = {"wgmma": ("flash_sm90", "flash_sm90_fwd"), "fma": ("flash", "flash_fwd")}  # library, C function
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS else "fma"
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library("flash")
-    lib.flash_fwd.restype = ctypes.c_int
-    lib.flash_fwd.argtypes = (
+def _fn(name: str):
+    """The C entry point of a route; both take the same arguments."""
+    library, symbol = _ENTRY[name]
+    fn = getattr(load_library(library), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
         [ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 4
         + [ctypes.c_longlong] * 12
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     )
-    return lib
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
@@ -89,14 +104,17 @@ def flash_mha(
     if b * h * s == 0:
         return out
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    name = route(q.dtype, hd)
     with torch.cuda.device(q.device):
-        err = _lib().flash_fwd(
+        err = _fn(name)(
             K.DTYPE_CODES[q.dtype], hd, K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out),
             b, h, k.shape[1], s, *strides, int(causal), int(window), 1.0 / (hd**0.5), K.stream_of(q),
         )
-    K.raise_on_error(err, "flash_mha")
+    K.raise_on_error(err, f"flash_mha ({name})")
     flash_mha.launches += 1
+    flash_mha.launches_by_route[name] += 1
     return out
 
 
 flash_mha.launches = 0
+flash_mha.launches_by_route = dict.fromkeys(ROUTES, 0)

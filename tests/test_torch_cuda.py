@@ -4,7 +4,9 @@ and M chunks past 64 nodes, every vector width, misaligned rows, bf16
 through the block-sparse kernel, tile sizes up to the limit, padding tiles
 the walk must skip.  Flash attention: every head dim, ragged S, causal and
 windowed masks, GQA groups, strided (B, S, H, hd) views, and the decoder's
-prefill through the kernel.  RWKV-6 time-mix: ragged L, every head dim,
+prefill through the kernel; each case checks which of the two kernels
+(``route``: wgmma for bf16 at hd 64 / 128 / 256, FMA otherwise) launched,
+and a launch error of the wgmma kernel is raised, not replaced.  RWKV-6 time-mix: ragged L, every head dim,
 fp32 and bf16 r/k/v, zero and given initial states, the full-width serve
 shapes in the decoder's layout, strided views, extreme decays, and the
 reduced rwkv6-3b served on the card.  Quantised mix: the scales pass and
@@ -31,7 +33,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
-from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
+from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha, route  # noqa: E402
 from repro_torch.kernels.mix import (  # noqa: E402
     bsr_from_dense,
     chunk_bounds,
@@ -142,9 +144,23 @@ def test_plan_rounds_launch_once(dev):
 
 
 # ------------------------------------------------------------------ flash
-def _attn_inputs(dev, b, h, kvh, s, hd, dtype, seed=0):
+def _attn_inputs(dev, b, h, kvh, s, hd, dtype, seed=0, layout="bhsd"):
+    """(B, H, S, hd) tensors, or (B, S, H, hd) ones passed as transposed views."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "bshd":
+        return tuple(torch.randn(b, s, n, hd, generator=g, device=dev).to(dtype).transpose(1, 2)
+                     for n in (h, kvh, kvh))
     return tuple(torch.randn(b, n, s, hd, generator=g, device=dev).to(dtype) for n in (h, kvh, kvh))
+
+
+def _launch_once(q, k, v, **mask):
+    """flash_mha, checking it launched exactly once on the route its dtype and hd pick."""
+    want = route(q.dtype, q.shape[-1])
+    before, by_route = flash_mha.launches, dict(flash_mha.launches_by_route)
+    got = flash_mha(q, k, v, **mask)
+    assert flash_mha.launches == before + 1
+    assert flash_mha.launches_by_route == {**by_route, want: by_route[want] + 1}
+    return got
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
@@ -153,17 +169,44 @@ def _attn_inputs(dev, b, h, kvh, s, hd, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, hd, s, causal, window, dtype):
     q, k, v = _attn_inputs(dev, 2, 8, 2, s, hd, dtype, seed=s + hd)
-    before = flash_mha.launches
-    got = flash_mha(q, k, v, causal=causal, window=window)
-    assert flash_mha.launches == before + 1
+    got = _launch_once(q, k, v, causal=causal, window=window)
     _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
     assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 300, 2047])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("window", [0, 17, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_wgmma_kernel_ragged(dev, hd, s, group, window, causal, layout):
+    """The wgmma kernel (bf16, hd 64 / 128 / 256) at ragged S around its
+    64-row tiles, GQA groups, windows inside and past S, both layouts."""
+    q, k, v = _attn_inputs(dev, 2, 2 * group, 2, s, hd, torch.bfloat16, seed=s + hd + group, layout=layout)
+    assert route(q.dtype, hd) == "wgmma"
+    got = _launch_once(q, k, v, causal=causal, window=window)
+    _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
+    assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
+
+
+def test_flash_wgmma_launch_error_is_raised(dev, monkeypatch):
+    """No fallback: a bf16 hd-128 call whose kernel cannot launch raises,
+    and nothing is counted."""
+    from repro_torch.kernels.flash import flash as flash_module
+
+    q, k, v = _attn_inputs(dev, 1, 2, 2, 64, 128, torch.bfloat16)
+    monkeypatch.setattr(flash_module, "_fn", lambda name: lambda *args: 10001)
+    before, by_route = flash_mha.launches, dict(flash_mha.launches_by_route)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        flash_mha(q, k, v)
+    assert flash_mha.launches == before and flash_mha.launches_by_route == by_route
 
 
 @pytest.mark.parametrize("h,kvh", [(4, 4), (8, 1), (12, 3), (16, 2)])
 def test_flash_kernel_gqa_groups(dev, h, kvh):
     q, k, v = _attn_inputs(dev, 3, h, kvh, 150, 64, torch.float32, seed=h)
-    _close(flash_mha(q, k, v), attention_ref(q, k, v), v)
+    _close(_launch_once(q, k, v), attention_ref(q, k, v), v)
 
 
 def test_flash_strided_views_need_no_copy(dev):
@@ -195,7 +238,7 @@ def test_flash_kernel_at_full_width_prefill_shapes(dev, arch, b, s, swa):
     g = torch.Generator(device=dev).manual_seed(s + hd)
     q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
                for n in (h, kvh, kvh))
-    got = flash_mha(q, k, v, causal=True, window=window)
+    got = _launch_once(q, k, v, causal=True, window=window)
     _close(got, attention_ref(q, k, v, causal=True, window=window), v)
     assert torch.equal(got, flash_mha(q, k, v, causal=True, window=window))
 

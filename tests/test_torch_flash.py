@@ -4,8 +4,9 @@ On a CPU tensor ``flash_mha`` runs its plain version ``attention_ref``; both,
 and the (B, S, H, hd) wrapper ``flash_attention``, are held against the JAX
 Pallas kernel run in interpret mode and against its jnp oracle, on the same
 numpy inputs: fp32 to 1e-5 (the two sum QKᵀ and PV in other orders).  The
-CUDA kernel itself is held against ``attention_ref`` on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
+CUDA kernels themselves are held against ``attention_ref`` on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); here the rule
+that picks between them (``route``) is checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash.flash import flash_mha as jax_flash_mha  # noqa: E402
 from repro.kernels.flash.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref  # noqa: E402
-from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha  # noqa: E402
+from repro_torch.kernels.flash import ROUTES, attention_ref, flash_attention, flash_mha, route  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -93,3 +94,23 @@ def test_rejects_what_the_kernel_cannot_take():
     # a device that is neither cuda nor cpu is refused, never run on the CPU
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_mha(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# bf16 at hd 64 / 128 / 256 (every bf16 launch of the full-width serve
+# path) takes the wgmma kernel; fp32 at any hd, and bf16 at hd 32 (the
+# reduced configs), the FMA kernel
+@pytest.mark.parametrize(
+    "dtype,hd,want",
+    [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+     (torch.bfloat16, 32, "fma")] + [(torch.float32, hd, "fma") for hd in (32, 64, 128, 256)],
+)
+def test_route_is_picked_by_dtype_and_head_dim(dtype, hd, want):
+    assert route(dtype, hd) == want
+    assert want in ROUTES and set(flash_mha.launches_by_route) == set(ROUTES)
+
+
+def test_cpu_calls_count_on_no_route():
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in _qkv(9, 64, 2))
+    before = dict(flash_mha.launches_by_route)
+    flash_mha(q, k, v)
+    assert flash_mha.launches_by_route == before
