@@ -9,9 +9,10 @@ run with a non-zero exit:
 1. header  — the card's name and power limit, torch and CUDA versions;
 2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
    (mixing, quantised mixing, the two flash attention kernels and the
-   RWKV-6 time-mix, all at once) and prints ptxas registers and spills; the
-   Hopper flash library must spill nothing and its SASS must hold wgmma
-   (``HGMMA``) and TMA loads (``UTMALDG``);
+   two RWKV-6 time-mix kernels, all at once) and prints ptxas registers and
+   spills; the Hopper flash library must spill nothing and its SASS must
+   hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``); the Hopper rwkv
+   library must spill nothing and its SASS must hold mma.sync (``HMMA``);
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
@@ -24,11 +25,14 @@ run with a non-zero exit:
    which of the two kernels (``route``) it launched, and timings at the
    four main-path shapes against SDPA; the RWKV-6 time-mix: every shape
    phase 7 launches (rwkv6-3b prefill 4 × 2048, per-node serve 1 × 512 and
-   one 16,384-token prompt,
-   bf16 r/k/v and fp32 w in the decoder's layout), ragged fp32 shapes with
-   and without an initial state, and extreme decays; out and final state
-   both checked); the quantised mix (its scales pass and the dense and
-   block-sparse walks) at complete-16 and ring-1024 with the paper MLP's
+   one 16,384-token prompt, bf16 r/k/v and fp32 w in the decoder's
+   layout), ragged bf16 (M 64) and fp32 shapes with and without an initial
+   state, and extreme decays on both kernels (``route``: tc for bf16 at
+   M 64, FMA otherwise), each case checking its route; out and final state
+   both checked; both routes timed in turns on the same bf16 inputs at
+   those shapes, and each of their launches' device time read from
+   ``torch.profiler``); the quantised mix (its scales pass and the dense
+   and block-sparse walks) at complete-16 and ring-1024 with the paper MLP's
    281-chunk table, int8 and fp8, round mode at γ 1 and 0.5, raw mode (the
    Pallas kernel's function) in fp32 and bf16, a masked round and the
    scale floors' edge cases, scales and new mirrors bitwise; two launches
@@ -57,15 +61,19 @@ run with a non-zero exit:
    per-node serve 4 × 512 → 8).
    Every prefill attention layer is one flash kernel launch (bf16: every
    one through the wgmma kernel) and every prefill RWKV layer one rwkv
-   kernel launch: the counts are exact, and the key of each launch must be
-   among those phase 3 checked;
-7b. traced prefill — one qwen2.5-3b 4 × 2048 prefill under
+   kernel launch (bf16 at M 64: every one through the tc kernel), and the
+   rwkv6-3b prefills are timed again with every launch sent to the FMA
+   kernel, in turns: the counts are exact, and the key of each launch must
+   be among those phase 3 checked;
+7b. traced prefills — one qwen2.5-3b 4 × 2048 prefill under
    ``torch.profiler``: the top device kernels and flash's share of device
    time; and, as a diagnostic, the last position's logits against the same
-   prefill with attention through ``attention_ref``;
+   prefill with attention through ``attention_ref``; then one rwkv6-3b
+   4 × 2048 prefill: the top device kernels and the rwkv kernel's share;
 8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b and rwkv6-3b in fp32
    from one init: equal greedy tokens, prefill logits to rtol 1e-4 (the
-   attention through the fp32 flash kernel).
+   attention through the fp32 flash kernel, the time-mix through the FMA
+   rwkv kernel).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -73,6 +81,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -103,8 +112,11 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def time_ms(fn, reps: int = 7, flush=None) -> float:
-    """Median CUDA-event time of one call, with L2 flushed before each."""
+def time_ms(fn, reps: int = 7, flush=None, hold: bool = False) -> float:
+    """Median CUDA-event time of one call, with L2 flushed before each.  With
+    ``hold`` the stream first spins ~0.5 ms, so the whole call is queued
+    before the start event fires: the wrapper's host time (checks, output
+    allocation) is not counted, the gaps between its launches are."""
     import torch
 
     fn()
@@ -113,6 +125,8 @@ def time_ms(fn, reps: int = 7, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if hold:
+            torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -144,6 +158,7 @@ def main() -> int:
     import numpy as np
 
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core import topology as T
@@ -170,6 +185,7 @@ def main() -> int:
     from repro_torch.kernels.mix import ops as mix_ops
     from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref
     from repro_torch.kernels.rwkv import ops as rwkv_ops
+    from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
     from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
     from repro_torch.launch import train as cli
     from repro_torch.models import transformer as TF
@@ -184,6 +200,7 @@ def main() -> int:
         for kern in kernels:
             kern.launches = 0
         flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
+        rwkv6_chunked.launches_by_route.update(dict.fromkeys(rwkv_kernels.ROUTES, 0))
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
@@ -215,6 +232,16 @@ def main() -> int:
     check(n_hgmma > 0 and n_utma > 0, "flash_sm90 SASS lacks HGMMA or UTMALDG")
     check(sum(int(x) for x in re.findall(r"(\d+) bytes spill", kbuild.build_log("flash_sm90"))) == 0,
           "flash_sm90 spills")
+    # the Hopper rwkv kernel: its three launches; the products must be
+    # tensor-core instructions (mma.sync: HMMA)
+    for line in kbuild.build_log("rwkv_sm90").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"    {line.strip()}")
+    n_hmma = kbuild.sass("rwkv_sm90").count("HMMA")
+    print(f"  rwkv_sm90 SASS: {n_hmma} HMMA")
+    check(n_hmma > 0, "rwkv_sm90 SASS lacks HMMA")
+    check(sum(int(x) for x in re.findall(r"(\d+) bytes spill", kbuild.build_log("rwkv_sm90"))) == 0,
+          "rwkv_sm90 spills")
 
     # --------------------------------------------------- 3. kernels vs plain
     phase("3. kernels vs plain")
@@ -366,9 +393,11 @@ def main() -> int:
     # (B, L, H, M)): rwkv6-3b's consensus prefill (4 × 2048), per-node serve
     # (1 × 512) and long prompt (1 × 16,384), bf16 r/k/v, fp32 w, zero
     # initial state.  Phase 7 records the key of each launch and fails on
-    # one not held here.  Then ragged fp32 shapes with and without an
-    # initial state, and decays alternating at the clamp's two ends.  Out
-    # and final state are both fp32: 5e-5 · max|ref|, the JAX package's
+    # one not held here.  Then ragged shapes with and without an initial
+    # state, bf16 at M 64 (the tensor-core kernel, route tc) and fp32 (the
+    # FMA kernel), and decays alternating at the clamp's two ends on both
+    # routes.  Each case checks which kernel it launched.  Out and final
+    # state are both fp32: 5e-5 · max|ref|, the JAX package's
     # kernel-vs-oracle bound.
     rcfg = get_config("rwkv6-3b")
     r_heads, r_hd = rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim
@@ -386,7 +415,11 @@ def main() -> int:
         return (*r.shape, r.dtype, state is not None, r.is_contiguous())
 
     def compare_rwkv(label, args):
+        want = rwkv_kernels.route(args[0].dtype, args[0].shape[-1])
+        before = dict(rwkv6_chunked.launches_by_route)
         got, again = rwkv6_chunked(*args), rwkv6_chunked(*args)
+        check(rwkv6_chunked.launches_by_route == {**before, want: before[want] + 2},
+              f"{label}: not launched on {want}")
         torch.cuda.synchronize()
         ref = rwkv6_chunked_ref(*args)
         errs_r, worst = [], 0.0
@@ -397,36 +430,53 @@ def main() -> int:
             worst = max(worst, e / (5e-5 * float(r_t.abs().max())))
         bitwise = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         print(f"  {label:48s} max_abs_err out {errs_r[0]:.3e} state {errs_r[1]:.3e} tol 5e-5·max|ref| "
-              f"(worst err/tol {worst:.3f}) deterministic {bitwise}")
+              f"(worst err/tol {worst:.3f}) deterministic {bitwise} ({want})")
         check(worst <= 1.0, f"{label}: error above tolerance 5e-5·max|ref| (worst err/tol {worst})")
         check(bitwise, f"{label}: two launches differ")
-        return errs_r[0]
+        return want, errs_r[0]
+
+    @contextlib.contextmanager
+    def rwkv_route(name):
+        """Send every rwkv6_chunked call to route ``name``: both kernels on one
+        input (the counts are reset before each path is driven)."""
+        picked = rwkv_kernels.route
+        rwkv_kernels.route = lambda dtype, m: name
+        try:
+            yield
+        finally:
+            rwkv_kernels.route = picked
 
     rwkv_cases = [
         ("rwkv prefill", (4, 2048, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv serve", (1, 512, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv long prompt", (1, 16384, r_heads, r_hd, torch.bfloat16, False)),
     ] + [
+        ("ragged", (2, l_len, 3, 64, torch.bfloat16, with_state))
+        for l_len in (1, 33, 77, 300, 2049) for with_state in (False, True)
+    ] + [
         ("ragged", (2, l_len, 3, m, torch.float32, with_state))
         for l_len in (1, 33, 77, 300) for m in (32, 64) for with_state in (False, True)
     ]
-    errs["rwkv6_chunked"] = 0.0
+    # errors by kernel: the tc kernel's row is rwkv6_chunked, the FMA one's rwkv6_chunked_fma
+    rwkv_row = {"tc": "rwkv6_chunked", "fma": "rwkv6_chunked_fma"}
+    errs.update(dict.fromkeys(rwkv_row.values(), 0.0))
     rwkv_checked = set()
     for label, shape in rwkv_cases:
         args = rwkv_inputs(*shape)
         b, l_len, h, m, dtype, with_state = shape
-        e = compare_rwkv(f"rwkv6_chunked {label} B{b} L{l_len} H{h} M{m} "
-                         f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}{' state' if with_state else ''}", args)
-        errs["rwkv6_chunked"] = max(errs["rwkv6_chunked"], e)
+        want, e = compare_rwkv(f"rwkv6_chunked {label} B{b} L{l_len} H{h} M{m} "
+                               f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}{' state' if with_state else ''}", args)
+        errs[rwkv_row[want]] = max(errs[rwkv_row[want]], e)
         rwkv_checked.add(rwkv_key(args[0], args[5]))
         del args
-    ones = torch.ones(2, 128, 1, 32, device=dev)
-    alt = torch.where(torch.arange(128, device=dev) % 2 == 0, 0.066, 0.9997)
-    extreme = (ones, ones, ones, alt[None, :, None, None].expand(2, 128, 1, 32).contiguous(),
-               torch.zeros(1, 32, device=dev), None)
-    check(all(bool(torch.isfinite(t).all()) for t in rwkv6_chunked(*extreme)), "rwkv extreme decay not finite")
-    errs["rwkv6_chunked"] = max(errs["rwkv6_chunked"],
-                                compare_rwkv("rwkv6_chunked extreme decay B2 L128 H1 M32 fp32", extreme))
+    for m, dtype, l_len in ((32, torch.float32, 128), (64, torch.bfloat16, 300)):
+        ones = torch.ones(2, l_len, 1, m, device=dev, dtype=dtype)
+        alt = torch.where(torch.arange(l_len, device=dev) % 2 == 0, 0.066, 0.9997)
+        extreme = (ones, ones, ones, alt[None, :, None, None].expand(2, l_len, 1, m).contiguous(),
+                   torch.zeros(1, m, device=dev), None)
+        check(all(bool(torch.isfinite(t).all()) for t in rwkv6_chunked(*extreme)), "rwkv extreme decay not finite")
+        want, e = compare_rwkv(f"rwkv6_chunked extreme decay B2 L{l_len} H1 M{m} {str(dtype)[6:]}", extreme)
+        errs[rwkv_row[want]] = max(errs[rwkv_row[want]], e)
 
     # timings at the main path's shapes: dense at the quickstart's complete-16,
     # block-sparse at the CLI's ring-1024 (bn 32); W fp32 of the full MLP width
@@ -500,30 +550,79 @@ def main() -> int:
     # 2 prompts of 40
     timing["flash_mha_fp32"], qkv = time_flash(get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32)
     del qkv
-    # rwkv at the rwkv6-3b consensus prefill (4 × 2048, 40 heads of 64): bytes
-    # are r, k, v (bf16) and w read once, out and the final state written
-    # once; flops per (b, h, chunk of c) are what the chunked form needs:
-    # 2cM² (r·S) and 2cM² (state update), and over the causal pairs only
-    # 2M·c(c−1)/2 (scores, s < t) + 2M·c(c+1)/2 (scores·V, s ≤ t, the bonus
-    # on the diagonal) = 2c²M, fp32
-    r_args = rwkv_inputs(4, 2048, r_heads, r_hd, torch.bfloat16)
-    b, l_len, h, m = r_args[0].shape
-    c, n_chunks = 32, -(-l_len // 32)
-    r_bytes = 3 * r_args[0].numel() * 2 + r_args[3].numel() * 4 + r_args[4].numel() * 4 \
-        + b * l_len * h * m * 4 + b * h * m * m * 4
-    r_flops = (4 * c * m * m + 2 * c * c * m) * b * h * n_chunks
+    # rwkv at the three shapes phase 7 launches (rwkv6-3b's consensus prefill
+    # 4 × 2048, per-node serve 1 × 512, the long prompt 1 × 16,384; 40 heads
+    # of 64, bf16 r/k/v): bytes are r, k, v and w read once, out and the
+    # final state written once; flops per (b, h, chunk of c) are what the
+    # chunked form needs: 2cM² (r·S) and 2cM² (state update), and over the
+    # causal pairs only 2M·c(c−1)/2 (scores, s < t) + 2M·c(c+1)/2 (scores·V,
+    # s ≤ t, the bonus on the diagonal) = 2c²M.  The tc kernel does them on
+    # the tensor cores as bf16 products of split fp32 operands: three for
+    # fp32 × fp32 (r·S, scores), two for fp32 × bf16 (state update,
+    # scores·V), so 10cM² + 5c²M bf16 flops at the bf16 peak, far below the
+    # bytes: its bound is the byte time.  The fma kernel's is the larger of
+    # the bytes and the fp32 flops at the fp32 peak, printed for the tc row
+    # as a note.  Both routes on the same inputs, in turns (fma, tc, then tc,
+    # fma), through rwkv6_chunked with the route forced, the stream held so
+    # the wrapper's allocations are not timed: each route's time is the mean
+    # of its two medians.  Then three calls of each route under
+    # torch.profiler, L2 flushed before each: the mean device time of each
+    # of its launches (tc: A span deltas, B state scan, C outputs; fma: the
+    # intra-chunk kernel and the state scan).
+    rwkv_phases = {"tc": {"A": "rwkv_span_delta", "B": "rwkv_span_scan", "C": "rwkv_span_out"},
+                   "fma": {"intra": "rwkv6_intra", "state": "rwkv6_state"}}
+    rwkv_shapes = {}
+    for label, b, l_len in (("prefill", 4, 2048), ("serve", 1, 512), ("long prompt", 1, 16384)):
+        r_args = rwkv_inputs(b, l_len, r_heads, r_hd, torch.bfloat16)
+        _, _, h, m = r_args[0].shape
+        c, n_chunks = 32, -(-l_len // 32)
+        r_bytes = 3 * r_args[0].numel() * 2 + r_args[3].numel() * 4 + r_args[4].numel() * 4 \
+            + b * l_len * h * m * 4 + b * h * m * m * 4
+        r_flops = (4 * c * m * m + 2 * c * c * m) * b * h * n_chunks
+        tc_flops = (10 * c * m * m + 5 * c * c * m) * b * h * n_chunks
+        turns = {"fma": [], "tc": []}
+        for name in ("fma", "tc", "tc", "fma"):
+            with rwkv_route(name):
+                turns[name].append(time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True))
+        phases_ms = {}
+        for name, kernel_names in rwkv_phases.items():
+            with rwkv_route(name), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    flush.zero_()
+                    rwkv6_chunked(*r_args)
+                torch.cuda.synchronize()
+            for ph, kname in kernel_names.items():
+                hits = [e for e in prof.key_averages() if kname in e.key]
+                check(len(hits) == 1 and hits[0].count == 3, f"rwkv {name} {ph}: traced {[e.key for e in hits]}")
+                phases_ms[f"{name} {ph}"] = hits[0].self_device_time_total / hits[0].count / 1e3
+            del prof
+        rwkv_shapes[label] = dict(
+            ms={key: sum(v) / 2 for key, v in turns.items()}, turns=turns, phases=phases_ms,
+            bounds={"tc": bound(r_bytes, tc_flops, PEAK_BF16_FLOPS), "fma": bound(r_bytes, r_flops)},
+            bytes=r_bytes, flops=r_flops, tc_flops=tc_flops, fp32_ops_ms=r_flops / PEAK_FP32_FLOPS * 1e3,
+            shape=f"B{b} L{l_len} H{h} M{m} bf16 r/k/v, fp32 w, zero state",
+        )
+        if label == "prefill":
+            b_r, op_r = rwkv_shapes[label]["bounds"]["tc"]
+            timing["rwkv6_chunked"] = dict(
+                ms=rwkv_shapes[label]["ms"]["tc"],
+                plain_ms=time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush),
+                library_ms=None,  # no one PyTorch call computes this recurrence
+                bound_ms=b_r, bound_by=op_r, shape=rwkv_shapes[label]["shape"],
+            )
+        del r_args
+    # the FMA kernel at phase 8's launches: the reduced rwkv6-3b, fp32, 2 prompts of 40
+    red = get_reduced_config("rwkv6-3b")
+    r_args = rwkv_inputs(2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32)
+    _, l_len, h, m = r_args[0].shape
+    r_bytes = 4 * (5 * r_args[0].numel() + r_args[4].numel() + 2 * h * m * m)
+    r_flops = (4 * 32 * m * m + 2 * 32 * 32 * m) * 2 * h * -(-l_len // 32)
     b_r, op_r = bound(r_bytes, r_flops)
-    timing["rwkv6_chunked"] = dict(
-        ms=time_ms(lambda: rwkv6_chunked(*r_args), flush=flush),
+    timing["rwkv6_chunked_fma"] = dict(
+        ms=time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True),
         plain_ms=time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush),
-        library_ms=None,  # no one PyTorch call computes this recurrence
-        bound_ms=b_r, bound_by=op_r, shape=f"B{b} L{l_len} H{h} M{m} bf16 r/k/v, fp32 w, zero state",
+        library_ms=None, bound_ms=b_r, bound_by=op_r, shape=f"B2 L{l_len} H{h} M{m} fp32, zero state",
     )
-    print(f"  rwkv6_chunked bound at that shape: {r_bytes / 1e6:.1f} MB, "
-          f"{r_flops / 1e9:.3f} GFLOP")
-    del r_args
-    r_args = rwkv_inputs(1, 16384, r_heads, r_hd, torch.bfloat16)  # the long prompt: 40 heads, 512 chunks
-    rwkv_long_ms = time_ms(lambda: rwkv6_chunked(*r_args), flush=flush)
     del r_args
     # the quantised mix (kernel 3), at the main path's shapes: the compressed
     # quickstart's complete-16 (dense) and the CLI's ring-1024 (BSR, bn 32),
@@ -680,7 +779,20 @@ def main() -> int:
               f"({t['bound_by']}, {t['pairs']} kept pairs a head; {t['bound_ms'] / t['ms']:.1%} of it), "
               f"split-P floor {1.5 * t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
               f"SDPA {t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f}x SDPA's time)")
-    print(f"  rwkv6_chunked at the long prompt B1 L16384 H{r_heads} M{r_hd} bf16: kernel {rwkv_long_ms:.4f} ms")
+    for label, t in rwkv_shapes.items():
+        print(f"  rwkv6_chunked {label} at {t['shape']}: {t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.3f} GFLOP "
+              f"(tc: {t['tc_flops'] / 1e9:.3f} GFLOP of bf16 products; fp32 flops at the fp32 peak "
+              f"{t['fp32_ops_ms']:.4f} ms); "
+              + "; ".join(f"{key} {ms:.4f} ms (turns " + ", ".join(f"{x:.4f}" for x in t["turns"][key])
+                          + f"; bound {t['bounds'][key][0]:.4f} ms ({t['bounds'][key][1]}), "
+                          f"{t['bounds'][key][0] / ms:.1%} of it)" for key, ms in t["ms"].items())
+              + f"; tc {t['ms']['fma'] / t['ms']['tc']:.2f}x faster than fma")
+        print("    launches, mean device time (profiler): "
+              + ", ".join(f"{key} {ms:.4f} ms" for key, ms in t["phases"].items())
+              + "; sums: " + ", ".join(f"{name} {sum(t['phases'][f'{name} {ph}'] for ph in phases):.4f} ms"
+                                      for name, phases in rwkv_phases.items()))
+    check(all(rwkv_shapes[lab]["ms"]["tc"] < rwkv_shapes[lab]["ms"]["fma"] for lab in ("prefill", "long prompt")),
+          "the tc route is not faster than the fma route at 4 × 2048 and 1 × 16384")
     print(f"  one int8 round (scales + walk) through quant_mix_flat: complete-16 {round16_ms:.4f} ms, "
           f"ring-1024 {round1k_ms:.4f} ms")
     torch.cuda.empty_cache()
@@ -1113,19 +1225,41 @@ def main() -> int:
     check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
                              "rwkv6_chunked": 7 * rcfg.n_layers},
           f"serve launch counts {serve_launches}, want 7 rwkv prefills × {rcfg.n_layers}")
+    # bf16 at M 64: every full-width rwkv launch took the tensor-core kernel
+    check(rwkv6_chunked.launches_by_route == {"tc": 7 * rcfg.n_layers, "fma": 0},
+          f"rwkv routes {rwkv6_chunked.launches_by_route}, want every launch on tc")
+    print(f"  rwkv routes {rwkv6_chunked.launches_by_route}")
     check(rwkv_launched <= rwkv_checked,
           f"phase 7 launched rwkv at {sorted(rwkv_launched - rwkv_checked, key=str)}, not checked in phase 3")
     print(f"  rwkv launch shapes: {len(rwkv_launched)} distinct, each held against the plain version in phase 3")
+    # the same two prefills with the routing sent to the FMA kernel, in turns
+    # with the tc route (fma, tc, three times, after one untimed turn):
+    # the end-to-end effect of the kernel.  Eager prefills swing with the shared host, so each route's
+    # time is the median of its turns, printed beside them.
+    pre_ab, long_ab = {"tc": [], "fma": []}, {"tc": [], "fma": []}
+    for turn in range(4):
+        for name in ("fma", "tc"):
+            with rwkv_route(name):
+                for prompt, ab in ((prompts, pre_ab), (long_prompt, long_ab)):
+                    t0 = time.perf_counter()
+                    prefill(cons, rcfg, prompt)
+                    if turn:  # turn 0 warms both routes up
+                        ab[name].append(since(t0))
+
+    def by_route(ab):
+        return ", ".join(f"{k} {sorted(v)[1] * 1e3:.1f} ms (turns {' / '.join(f'{x * 1e3:.1f}' for x in v)})"
+                         for k, v in ab.items())
+
+    print(f"  rwkv6-3b prefill by route, medians of 3 turns (fma, tc): 4 × 2048 {by_route(pre_ab)}; "
+          f"1 × 16384 {by_route(long_ab)}")
     del ens, cons, logits, long_logits, step_logits
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 7b. traced prefill
+    # ----------------------------------------------- 7b. traced prefills
     # one qwen2.5-3b prefill (4 × 2048, one parameter set) under the
     # profiler, after a warm-up: device time by kernel, flash's share, and
     # the device's busy share of the traced wall time
-    phase("7b. traced prefill: qwen2.5-3b 4 × 2048 under torch.profiler")
-    from torch.profiler import ProfilerActivity, profile
-
+    phase("7b. traced prefills: qwen2.5-3b and rwkv6-3b 4 × 2048 under torch.profiler")
     tparams = TF.init_params(gen_p, qcfg, InitConfig("trunc_normal", 1.0), device=dev)
     t_prompts = tokens(4, 2048, qcfg.vocab_size, seed=0)
     prefill(tparams, qcfg, t_prompts)
@@ -1164,6 +1298,39 @@ def main() -> int:
     del tparams, t_logits, ref_logits, prof
     torch.cuda.empty_cache()
 
+    # one rwkv6-3b 4 × 2048 prefill (one parameter set) under the profiler:
+    # the tc kernel's three launches a layer and their share of device time
+    rparams = TF.init_params(gen_p, rcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    r_prompts = tokens(4, 2048, rcfg.vocab_size, seed=3)
+    prefill(rparams, rcfg, r_prompts)
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r_logits = prefill(rparams, rcfg, r_prompts)
+        traced_s = since(t0)
+    check(bool(torch.isfinite(r_logits).all()), "traced rwkv prefill logits not finite")
+    check(rwkv6_chunked.launches_by_route == {"tc": rcfg.n_layers, "fma": 0},
+          f"traced rwkv prefill routes {rwkv6_chunked.launches_by_route}")
+    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
+    counts = {e.key: e.count for e in dev_ops}
+    total_us = sum(dev_us.values())
+    check(total_us > 0, "the profiler recorded no device time")
+    rwkv_us = {name: t for name, t in dev_us.items() if "rwkv_span" in name}
+    rwkv_total = sum(rwkv_us.values())
+    per_kernel = ", ".join(f"{re.sub(r'.*(rwkv_span_[a-z]+).*', r'\1', n)} {t / 1e3:.2f} ms"
+                           for n, t in rwkv_us.items())
+    print(f"  rwkv6-3b prefill 4 × 2048 traced: {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
+          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); rwkv kernel {rwkv_total / 1e3:.2f} ms = "
+          f"{rwkv_total / total_us:.1%} of device time ({rcfg.n_layers} launches of 3 kernels: {per_kernel})")
+    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
+    check(len(rwkv_us) == 3 and all(counts[n] == rcfg.n_layers for n in rwkv_us),
+          f"traced rwkv kernels {[(n, counts[n]) for n in rwkv_us]}")
+    del rparams, r_logits, prof
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------- 8. serve, card vs CPU
     phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b and rwkv6-3b, fp32, one init)")
     reset_counts()
@@ -1191,6 +1358,12 @@ def main() -> int:
     check(flash_mha.launches_by_route == {"wgmma": 0, "fma": want_fp32},
           f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on fma")
     print(f"  flash routes {flash_mha.launches_by_route}")
+    # fp32 r/k/v: every rwkv layer of the two prefills went through the FMA kernel
+    rwkv_fp32_launches = rwkv6_chunked.launches_by_route["fma"]
+    want_fp32 = 2 * get_reduced_config("rwkv6-3b").n_layers
+    check(rwkv6_chunked.launches_by_route == {"tc": 0, "fma": want_fp32},
+          f"phase 8 rwkv routes {rwkv6_chunked.launches_by_route}, want {want_fp32} on fma")
+    print(f"  rwkv routes {rwkv6_chunked.launches_by_route}")
 
     # ------------------------------------------------------------- result
     src = "src/repro_torch/kernels/mix/csrc"
@@ -1203,8 +1376,11 @@ def main() -> int:
         # the fp32 (and bf16 hd 32) route: phase 8's card-vs-CPU serving
         ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
          fp32_launches),
-        ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
+        ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
          serve_launches["rwkv6_chunked"]),
+        # the fp32 (and bf16 M 32 / 128) route: phase 8's card-vs-CPU serving
+        ("rwkv6_chunked_fma", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
+         rwkv_fp32_launches),
         # kernel 3 is three launches here: the scales pass (phases 4b and 6's
         # compressed runs) and the dense (4b) and block-sparse (6) walks
         ("quant_scales", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",

@@ -7,9 +7,20 @@ import ctypes
 
 import torch
 
-__all__ = ["DTYPE_CODES", "ptr", "raise_on_error", "stream_of"]
+__all__ = ["DTYPE_CODES", "aligned16", "ptr", "raise_on_error", "stream_of"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """The last axis is contiguous and every row over the leading axes starts
+    on a 16-byte boundary (what TMA and 16-byte cp.async copies need)."""
+    size = t.element_size()
+    return (
+        t.stride(-1) == 1
+        and t.data_ptr() % 16 == 0
+        and all((t.stride(i) * size) % 16 == 0 for i in range(t.ndim - 1))
+    )
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -27,6 +27,7 @@ LIBRARIES = {
     "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
     "flash_sm90": KERNELS_DIR / "flash" / "csrc" / "flash_sm90.cu",
     "rwkv": KERNELS_DIR / "rwkv" / "csrc" / "rwkv.cu",
+    "rwkv_sm90": KERNELS_DIR / "rwkv" / "csrc" / "rwkv_sm90.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -70,16 +70,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """Every (b, head, s) row starts on a 16-byte boundary and hd is contiguous."""
-    size = t.element_size()
-    return (
-        t.stride(3) == 1
-        and t.data_ptr() % 16 == 0
-        and all((t.stride(i) * size) % 16 == 0 for i in range(3))
-    )
-
-
 def flash_mha(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
@@ -98,7 +88,7 @@ def flash_mha(
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     out = torch.empty_like(q)  # keeps q's layout when q is a dense view
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if not _aligned(t):
+        if not K.aligned16(t):
             raise ValueError(f"{name}: the kernel needs hd contiguous and 16-byte aligned rows, "
                              f"got strides {t.stride()}")
     if b * h * s == 0:

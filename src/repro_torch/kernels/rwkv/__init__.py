@@ -1,8 +1,9 @@
-"""RWKV-6 time-mix: the CUDA kernel (``csrc/rwkv.cu``) behind ``rwkv6_chunked``,
-its (…, L, H, M) wrapper ``rwkv6_attention`` and the plain versions
+"""RWKV-6 time-mix: the CUDA kernels behind ``rwkv6_chunked`` (``csrc/rwkv_sm90.cu``
+for bf16 at head dim 64, ``csrc/rwkv.cu`` otherwise; ``route`` picks), its
+(…, L, H, M) wrapper ``rwkv6_attention`` and the plain versions
 ``rwkv6_chunked_ref`` (chunked) and ``rwkv6_ref`` (per-token oracle)."""
 from .ops import rwkv6_attention
 from .ref import rwkv6_chunked_ref, rwkv6_ref
-from .rwkv import HEAD_DIMS, rwkv6_chunked
+from .rwkv import HEAD_DIMS, ROUTES, route, rwkv6_chunked
 
-__all__ = ["HEAD_DIMS", "rwkv6_attention", "rwkv6_chunked", "rwkv6_chunked_ref", "rwkv6_ref"]
+__all__ = ["HEAD_DIMS", "ROUTES", "route", "rwkv6_attention", "rwkv6_chunked", "rwkv6_chunked_ref", "rwkv6_ref"]

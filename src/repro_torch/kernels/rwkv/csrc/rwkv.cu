@@ -1,4 +1,6 @@
-// RWKV-6 chunked time-mix for Hopper (sm_90a).
+// RWKV-6 chunked time-mix for Hopper (sm_90a), fp32 FMA: the kernel of
+// route "fma" (fp32 r, k, v, and bf16 at M 32 or 128); bf16 at M 64, every
+// full-width rwkv6-3b launch, goes to rwkv_sm90.cu (route "tc").
 //
 // Replaces: src/repro/kernels/rwkv/rwkv.py::rwkv6_chunked (Pallas body
 // _rwkv_kernel), the TPU kernel of the full-sequence RWKV-6 recurrence
@@ -341,14 +343,13 @@ cudaError_t dispatch_m(int m, const Args& a, int batch, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (r, k and v alike); w, u, the states, out and the
-// scratch are fp32.  Strides are in elements, M is contiguous; u (H, M), the
-// states (B, H, M, M) and the scratch are contiguous, the scratch 16-byte
-// aligned: rq and kf hold B H ceil(L / 32) 32 M floats each, wt
-// B H ceil(L / 32) M.  s_in may be null (zero initial state).  Returns a
+// scratch are fp32.  Strides are in elements, M is contiguous; u (H, M),
+// the states (B, H, M, M) and the scratch are contiguous, the scratch
+// 16-byte aligned, of 2 N + N / 32 floats, N = B H ceil(L / 32) 32 M: rq,
+// kf, then wt.  s_in may be null (zero initial state).  Returns a
 // cudaError_t.
 extern "C" int rwkv6_fwd(int dtype, int m, const void* r, const void* k, const void* v, const float* w,
-                         const float* u, const float* s_in, float* o, float* s_out,
-                         float* scratch_rq, float* scratch_kf, float* scratch_wt,
+                         const float* u, const float* s_in, float* o, float* s_out, float* scratch,
                          int batch, int seq, int heads,
                          long long r_sb, long long r_sl, long long r_sh,
                          long long k_sb, long long k_sl, long long k_sh,
@@ -365,9 +366,6 @@ extern "C" int rwkv6_fwd(int dtype, int m, const void* r, const void* k, const v
   a.s_in = s_in;
   a.o = o;
   a.s_out = s_out;
-  a.rq = scratch_rq;
-  a.kf = scratch_kf;
-  a.wt = scratch_wt;
   a.sr = {r_sb, r_sl, r_sh};
   a.sk = {k_sb, k_sl, k_sh};
   a.sv = {v_sb, v_sl, v_sh};
@@ -376,6 +374,10 @@ extern "C" int rwkv6_fwd(int dtype, int m, const void* r, const void* k, const v
   a.L = seq;
   a.H = heads;
   a.NC = (seq + kC - 1) / kC;
+  const long long n_fac = (long long)batch * heads * a.NC * kC * m;
+  a.rq = scratch;
+  a.kf = scratch + n_fac;
+  a.wt = scratch + 2 * n_fac;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_m<float>(m, a, batch, s);
   if (dtype == 1) return (int)dispatch_m<__nv_bfloat16>(m, a, batch, s);

@@ -7,16 +7,19 @@ and ``repro/models/rwkv.py::_wkv_chunked``).
 model's chunks of ``min(32, L)`` tokens, its mid-chunk-referenced decay
 factorisation, and its padding of a ragged L with k = v = 0 and w = 1.
 CPU tensors run it on the model's path; on the card it is what the kernel
-is held against.
+is held against.  ``rwkv6_spans_ref`` is the span decomposition the Hopper
+kernel (``csrc/rwkv_sm90.cu``) computes, with its split-operand products
+optionally emulated; only the tests use it.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CHUNK", "rwkv6_chunked_ref", "rwkv6_ref", "wkv_step"]
+__all__ = ["CHUNK", "SPAN", "rwkv6_chunked_ref", "rwkv6_ref", "rwkv6_spans_ref", "split_parts", "wkv_step"]
 
 CHUNK = 32
+SPAN = 4 * CHUNK  # tokens a state step of the Hopper kernel (csrc/rwkv_sm90.cu's kSpan)
 
 
 def wkv_step(
@@ -90,3 +93,113 @@ def rwkv6_chunked_ref(
         )
         outs.append(out)
     return torch.cat(outs, dim=-3)[..., :l, :, :], state
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 → the nearest TF32 value (10 fraction bits, ties away from zero),
+    as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_parts(x: torch.Tensor, split: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """An fp32 operand as hi + lo in the tensor cores' input type: hi the
+    nearest value of it, lo the nearest value of x − hi (exact in fp32)."""
+    if split == "bf16":
+        rnd = lambda t: t.bfloat16().float()  # noqa: E731
+    elif split == "tf32":
+        rnd = _round_tf32
+    else:
+        raise ValueError(f"split {split!r} is not bf16 or tf32")
+    hi = rnd(x)
+    return hi, rnd(x - hi)
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, split: str | None) -> torch.Tensor:
+    """einsum of fp32 operands; with a split, the tensor cores' three
+    products hi·hi + hi·lo + lo·hi summed in fp32 (an operand already exact
+    in the input type has lo = 0, so its lo product adds nothing)."""
+    if split is None:
+        return torch.einsum(eq, a, b)
+    (a_hi, a_lo), (b_hi, b_lo) = split_parts(a, split), split_parts(b, split)
+    return torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
+
+
+def rwkv6_spans_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: torch.Tensor | None = None,
+    *,
+    split: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rwkv6_chunked_ref``'s function in the Hopper kernel's three phases:
+    the sequence cut into spans of SPAN tokens, each span into CHUNK-token
+    sub-chunks with the model's exponents.
+
+    A. per span, all in parallel: the state it adds from a zero state, by
+       the recurrence itself over its sub-chunks j,
+       ΔS = e^{last_j} ΔS + Σ_{s ∈ j} (k_s e^{last_j − cum_s})ᵀ v_s (cum the
+       log-decay scan of sub-chunk j, last its final value), and the span's
+       decay W = Π_j e^{last_j};
+    B. the only sequential loop, elementwise: S_in[span] = S, S = W S + ΔS;
+    C. per span, all in parallel: each sub-chunk's output from the state
+       entering it (S_in, then S = e^{last_j} S + kf_jᵀ v_j within the span),
+       its pairs through the mid-chunk factorisation and the bonus.
+
+    ``split`` emulates the kernel's products ("bf16" or "tf32" hi + lo
+    parts, see ``_product``); None takes them in fp32.  Shapes as
+    ``rwkv6_chunked_ref``."""
+    lead = r.shape[:-3]
+    l, h, m = r.shape[-3:]
+    if state is None:
+        state = torch.zeros(*lead, h, m, m, dtype=torch.float32, device=r.device)
+    n_sub, n_span = SPAN // CHUNK, -(-l // SPAN)
+    pad = n_span * SPAN - l
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    if pad:
+        padt = lambda t, value=0.0: F.pad(t, (0, 0, 0, 0, 0, pad), value=value)  # noqa: E731
+        r, k, v, w = padt(r), padt(k), padt(v), padt(w, 1.0)
+    # (..., NS, n_sub, CHUNK, H, M): spans, their sub-chunks, tokens
+    rr, kk, vv, ww = (t.reshape(*lead, n_span, n_sub, CHUNK, h, m) for t in (r, k, v, w))
+    logw = torch.log(ww.clamp_min(1e-20))
+    cum = torch.cumsum(logw, dim=-3)
+    last = cum[..., -1:, :, :]
+    wl = torch.exp(last)  # (..., NS, n_sub, 1, H, M)
+    kf = kk * torch.exp(last - cum)  # sub-chunk-local state factor, exponent <= 0
+
+    # A. every span from a zero state, its sub-chunks in order
+    d_state = torch.zeros(*lead, n_span, h, m, m, dtype=torch.float32, device=r.device)
+    w_span = torch.ones(*lead, n_span, h, m, dtype=torch.float32, device=r.device)
+    for j in range(n_sub):
+        wl_j = wl[..., j, 0, :, :]  # (..., NS, H, M)
+        d_state = d_state * wl_j[..., :, None] + _product("...shm,...shn->...hmn", kf[..., j, :, :, :],
+                                                          vv[..., j, :, :, :], split)
+        w_span = w_span * wl_j
+
+    # B. the state entering each span
+    s_in = []
+    for i in range(n_span):
+        s_in.append(state)
+        state = state * w_span[..., i, :, :, None] + d_state[..., i, :, :, :]
+    s = torch.stack(s_in, dim=-4)  # (..., NS, H, M, M)
+
+    # C. every span at once, its sub-chunks in order
+    u = u.float()
+    tri = torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=r.device).tril(-1)
+    mid = cum[..., CHUNK // 2 : CHUNK // 2 + 1, :, :]
+    outs = []
+    for j in range(n_sub):
+        rj, kj, vj, cj, lj, mj = (t[..., j, :, :, :] for t in (rr, kk, vv, cum, logw, mid))
+        rq = rj * torch.exp(cj - lj)
+        out = _product("...thm,...hmn->...thn", rq, s, split)
+        scores = _product("...thm,...shm->...hts", rj * torch.exp(cj - lj - mj), kj * torch.exp(mj - cj), split)
+        bonus = torch.einsum("...thm,hm,...thm->...ht", rj, u, kj)
+        p = torch.where(tri, scores, torch.zeros((), device=r.device)) + torch.diag_embed(bonus)
+        outs.append(out + _product("...hts,...shm->...thm", p, vj, split))
+        if j + 1 < n_sub:
+            s = s * wl[..., j, 0, :, :, None] + _product("...shm,...shn->...hmn", kf[..., j, :, :, :], vj, split)
+    out = torch.stack(outs, dim=-4).reshape(*lead, n_span * SPAN, h, m)
+    return out[..., :l, :, :], state

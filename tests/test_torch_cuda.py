@@ -9,7 +9,9 @@ prefill through the kernel; each case checks which of the two kernels
 and a launch error of the wgmma kernel is raised, not replaced.  RWKV-6 time-mix: ragged L, every head dim,
 fp32 and bf16 r/k/v, zero and given initial states, the full-width serve
 shapes in the decoder's layout, strided views, extreme decays, and the
-reduced rwkv6-3b served on the card.  Quantised mix: the scales pass and
+reduced rwkv6-3b served on the card; each case checks which of the two
+kernels (``route``: tc for bf16 at M 64, FMA otherwise) launched, and the
+tensor-core kernel rejects unaligned rows.  Quantised mix: the scales pass and
 the dense and block-sparse walks in raw and round mode, fp32 and bf16, int8
 and fp8, both scale floors, masked operators, frozen mirrors, leaf chunk
 tables, and compressed plan rounds against the CPU (new mirrors bitwise:
@@ -49,6 +51,7 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_mix_bsr,
 )
 from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref  # noqa: E402
+from repro_torch.kernels.rwkv import rwkv as rwkv_kernels  # noqa: E402
 from repro_torch.kernels.rwkv import rwkv6_attention, rwkv6_chunked, rwkv6_chunked_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -286,9 +289,13 @@ def _rwkv_inputs(dev, b, l, h, m, dtype, with_state=False, seed=0):
 
 
 def _rwkv_close(args):
-    before = rwkv6_chunked.launches
+    """One launch on the route r's dtype and head dim pick, within 5e-5 ·
+    max|ref| of the plain version (out and state), bitwise repeatable."""
+    want = rwkv_kernels.route(args[0].dtype, args[0].shape[-1])
+    before, by_route = rwkv6_chunked.launches, dict(rwkv6_chunked.launches_by_route)
     out, state = rwkv6_chunked(*args)
     assert rwkv6_chunked.launches == before + 1
+    assert rwkv6_chunked.launches_by_route == {**by_route, want: by_route[want] + 1}
     assert out.dtype == torch.float32 and state.dtype == torch.float32
     ref_out, ref_state = rwkv6_chunked_ref(*args)
     for got, ref in ((out, ref_out), (state, ref_state)):
@@ -337,6 +344,41 @@ def test_rwkv_kernel_extreme_decay(dev):
     out, state = rwkv6_chunked(*args)
     assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
     _rwkv_close(args)
+
+
+@pytest.mark.parametrize("dtype,m,want", [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "fma"),
+                                            (torch.bfloat16, 32, "fma"), (torch.bfloat16, 128, "fma")])
+def test_rwkv_route_and_launches_by_route(dev, dtype, m, want):
+    assert rwkv_kernels.route(dtype, m) == want
+    _rwkv_close(_rwkv_inputs(dev, 1, 40, 2, m, dtype, seed=m))
+
+
+@pytest.mark.parametrize("l", [1, 33, 77, 300, 2049])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_tc_route_ragged(dev, l, with_state):
+    """bf16 at M 64: the tensor-core kernel, spans of 128 cut anywhere."""
+    _rwkv_close(_rwkv_inputs(dev, 2, l, 3, 64, torch.bfloat16, with_state, seed=l))
+
+
+def test_rwkv_tc_route_extreme_decay(dev):
+    """Decays alternating at the clamp's two ends over 300 tokens, bf16 ones."""
+    ones = torch.ones(2, 300, 1, 64, device=dev, dtype=torch.bfloat16)
+    alt = torch.where(torch.arange(300, device=dev) % 2 == 0, 0.066, 0.9997)
+    w = alt[None, :, None, None].expand(2, 300, 1, 64).contiguous()
+    args = (ones, ones, ones, w, torch.zeros(1, 64, device=dev), None)
+    out, state = rwkv6_chunked(*args)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    _rwkv_close(args)
+
+
+def test_rwkv_tc_route_rejects_unaligned_rows(dev):
+    r, k, v, w, u, _ = _rwkv_inputs(dev, 1, 20, 2, 64, torch.bfloat16, seed=5)
+    shifted = torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)[1:].view(r.shape)
+    shifted.copy_(r)
+    before = dict(rwkv6_chunked.launches_by_route)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_chunked(shifted, k, v, w, u)
+    assert rwkv6_chunked.launches_by_route == before
 
 
 def test_rwkv_decoder_on_the_card_matches_the_cpu(dev):

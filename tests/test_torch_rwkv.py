@@ -13,10 +13,14 @@ scaled by max|leaf| where a leaf is larger than 1 (the wkv state sums ~40
 decayed k·v products and reaches ~10); greedy tokens exactly.  Parameters are drawn with numpy
 in the JAX package's tree layout (``jax.eval_shape`` of its ``init_params``)
 and injected into both packages; JAX outputs come from jitted calls in
-module fixtures.  The CUDA kernel itself is held against the plain version
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
+module fixtures.  The CUDA kernels themselves are held against the plain
+version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase
+3); here the Hopper kernel's span decomposition (``rwkv6_spans_ref``), its
+bf16 hi + lo products emulated, is held against the JAX package to the same
+5e-5 · max|ref|, and the routing and layout checks of the wrapper run.
 """
 import dataclasses
+import functools
 import math
 
 import jax
@@ -39,7 +43,9 @@ from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.initialisation import InitConfig  # noqa: E402
 from repro_torch.fed import serve as PS  # noqa: E402
 from repro_torch.flat import tree_map  # noqa: E402
+from repro_torch.kernels.rwkv import rwkv as PK  # noqa: E402
 from repro_torch.kernels.rwkv import rwkv6_attention, rwkv6_chunked, rwkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv.ref import rwkv6_spans_ref, split_parts  # noqa: E402
 from repro_torch.models import common as PC  # noqa: E402
 from repro_torch.models import rwkv as PR  # noqa: E402
 from repro_torch.models import transformer as PTF  # noqa: E402
@@ -165,6 +171,126 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         rwkv6_chunked(x, x, x, x, u, torch.zeros(1, 2, 32, 16))
     with pytest.raises(ValueError, match="meta"):
         rwkv6_chunked(*(t.to("meta") for t in (x, x, x, x, u)))
+
+
+# ------------------------------------------------ the Hopper kernel's decomposition
+def _bf16(x):
+    """numpy fp32 rounded to bf16 values (the tc route's r, k, v), kept fp32."""
+    return torch.as_tensor(x).bfloat16().float().numpy()
+
+
+@functools.cache
+def _span_case(l, with_state):
+    """bf16-valued r, k, v; w over the clamp's range; u; an optional state;
+    and the JAX package's answers: the model's ``_wkv_chunked`` (out, state)
+    and, from a zero state, the Pallas kernel in interpret mode."""
+    b, h, m = 2, 3, 64
+    rng = np.random.default_rng(100 + l)
+    r, k, v = (_bf16(rng.standard_normal((b, l, h, m)).astype(np.float32)) for _ in range(3))
+    w = np.exp(-np.exp(rng.uniform(-6.0, 1.0, (b, l, h, m)))).astype(np.float32)
+    u = (0.5 * rng.random((h, m))).astype(np.float32)
+    s0 = (0.3 * rng.standard_normal((b, h, m, m)) if with_state else np.zeros((b, h, m, m))).astype(np.float32)
+    want = [np.asarray(t) for t in jax.jit(_model_wkv)(*(jnp.asarray(a) for a in (r, k, v, w, u, s0)))]
+    if not with_state:
+        rows = lambda t: jnp.asarray(t.transpose(0, 2, 1, 3).reshape(b * h, l, m))  # noqa: E731
+        pallas = jax_rwkv6_chunked(rows(r), rows(k), rows(v), rows(w), jnp.asarray(np.tile(u, (b, 1))),
+                                   interpret=True)
+        want.append(np.asarray(pallas).reshape(b, h, l, m).transpose(0, 2, 1, 3))
+    return (r, k, v, w, u, s0 if with_state else None), want
+
+
+@pytest.mark.parametrize("l", [1, 33, 77, 300])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("split", [None, "bf16", "tf32"])
+def test_span_decomposition_matches_jax(l, with_state, split):
+    """Phases A, B, C over spans of SPAN tokens, the products in fp32, as the
+    kernel's bf16 hi + lo parts, or as the 3×TF32 alternative, against
+    ``_wkv_chunked`` (out and state) and the Pallas kernel (out, zero state)."""
+    args, want = _span_case(l, with_state)
+    out, state = rwkv6_spans_ref(*(None if a is None else torch.as_tensor(a) for a in args), split=split)
+    _close_scaled(out.numpy(), want[0])
+    _close_scaled(state.numpy(), want[1])
+    if not with_state:
+        _close_scaled(out.numpy(), want[2])
+
+
+@pytest.mark.parametrize("split", [None, "bf16", "tf32"])
+def test_span_decomposition_extreme_decay(split):
+    """``test_extreme_decay_stays_finite``'s decays (0.066, 0.9997 alternating)
+    at the tc route's M = 64 over 300 tokens: finite, and within 5e-5 ·
+    max|ref| of the JAX oracle and the model's ``_wkv_chunked``."""
+    bh, l, m = 2, 300, 64
+    ones = np.ones((bh, l, m), np.float32)
+    w = np.broadcast_to(np.where(np.arange(l)[None, :, None] % 2 == 0, 0.066, 0.9997), (bh, l, m))
+    w = np.ascontiguousarray(w, np.float32)
+    u = np.zeros((bh, m), np.float32)
+    want = np.asarray(jax_rwkv6_ref(*(jnp.asarray(a) for a in (ones, ones, ones, w, u))))
+    heads = [_as_heads(a) for a in (ones, ones, ones, w)]
+    out, state = rwkv6_spans_ref(*heads, torch.as_tensor(u[0]).expand(bh, m), split=split)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())
+    _close_scaled(out[0].transpose(0, 1).numpy(), want)
+    as_model = [a.transpose(0, 1)[None].numpy() for a in map(torch.as_tensor, (ones, ones, ones, w))]
+    want_out, want_state = jax.jit(_model_wkv)(*(jnp.asarray(a) for a in as_model), jnp.asarray(u),
+                                               jnp.zeros((1, bh, m, m), jnp.float32))
+    _close_scaled(out.numpy(), want_out)
+    _close_scaled(state.numpy(), want_state)
+
+
+@pytest.mark.parametrize("split,bits", [("bf16", 8), ("tf32", 11)])
+def test_split_parts_keep_the_fp32_operand(split, bits):
+    """hi is a value of the input type, lo the nearest one to x − hi: hi + lo
+    is x to 2^-2p (p significant bits), and hi carries no bits past p."""
+    scale = np.repeat(10.0 ** np.arange(-8, 8, 4), 1024)  # magnitudes 1e-8 .. 1e4
+    x = torch.as_tensor((np.random.default_rng(0).standard_normal(4096) * scale).astype(np.float32))
+    hi, lo = split_parts(x, split)
+    assert torch.equal(split_parts(hi, split)[0], hi) and not bool(split_parts(hi, split)[1].any())
+    assert bool(((x - hi).abs() <= 2.0**-bits * x.abs()).all())
+    assert bool(((x.double() - hi.double() - lo.double()).abs() <= 2.0 ** (-2 * bits) * x.abs().double()).all())
+    kept = hi.view(torch.int32) & ((1 << (24 - bits)) - 1)
+    assert not bool(kept.any())
+
+
+def test_route_takes_bf16_at_head_dim_64():
+    assert PK.ROUTES == ("tc", "fma")
+    assert PK.route(torch.bfloat16, 64) == "tc"
+    for dtype, m in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 128), (torch.float32, 32)):
+        assert PK.route(dtype, m) == "fma"
+    assert rwkv6_chunked.launches_by_route.keys() == set(PK.ROUTES)
+
+
+@pytest.mark.parametrize("b,l", [(4, 2048), (1, 512), (1, 16384), (2, 1), (2, 2049), (3, 0)])
+def test_scratch_sizing(b, l):
+    """tc: one (M × M) state and one decay row per span of 128 tokens; fma:
+    two factor rows per token of each 32-token chunk and one decay row."""
+    h, m = 40, 64
+    assert PK.scratch_floats("tc", b, l, h, m) == b * h * -(-l // 128) * (m * m + m)
+    n_fac = b * h * -(-l // 32) * 32 * m
+    assert PK.scratch_floats("fma", b, l, h, m) == 2 * n_fac + b * h * -(-l // 32) * m
+    if (b, l) == (4, 2048):  # states of 42.6 MB against the fma route's 170.4 MB of factor rows
+        assert PK.scratch_floats("tc", b, l, h, m) == 10_649_600
+        assert PK.scratch_floats("fma", b, l, h, m) == 42_598_400
+
+
+def test_layout_checks_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(2, 8, 3, 64, dtype=torch.bfloat16)
+    w = torch.zeros(2, 8, 3, 64)
+    PK.check_layout("tc", x, x, x, w)
+    PK.check_layout("fma", x, x, x, w)
+    shifted = torch.zeros(2 * 8 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 3, 64)  # rows 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        PK.check_layout("tc", x, shifted, x, w)
+    PK.check_layout("fma", x, shifted, x, w)  # the FMA kernel reads element by element
+    odd_rows = torch.zeros(2, 8, 3, 68, dtype=torch.bfloat16)[..., :64]  # rows 136 bytes apart
+    with pytest.raises(ValueError, match="16-byte"):
+        PK.check_layout("tc", odd_rows, x, x, w)
+    with pytest.raises(ValueError, match="M contiguous"):
+        PK.check_layout("fma", x, x, x.transpose(1, 3).contiguous().transpose(1, 3), w)
+    y = torch.zeros(2, 8, 3, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        PK.check_layout("tc", y, y, y, y.float())
+    z = torch.zeros(2, 8, 3, 48)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        PK.check_layout("fma", z, z, z, z)
 
 
 # ------------------------------------------------------------------ params
