@@ -13,10 +13,14 @@ run with a non-zero exit:
    spills; the Hopper flash library must spill nothing and its SASS must
    hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``); the Hopper rwkv
    library must spill nothing and its SASS must hold mma.sync (``HMMA``);
+   the two block-sparse libraries (``mix_bsr``, ``quant_mix``) print every
+   entry's registers and spills and must spill nothing;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
-   one bf16 shape; block-sparse: ring-1024 at bn 32, random-4-regular-1024
-   at bn 64, heavy-tail-40 at bn 8, one masked round; flash attention:
+   one bf16 shape; block-sparse: ring-1024 at bn 32 (fp32 and bf16),
+   random-4-regular-1024 at bn 32 and 64, heavy-tail-40 at bn 8, one masked
+   round with all-zero tiles, each also bitwise ``mix_bsr_rows_ref`` on 4096
+   columns; flash attention:
    every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
    global and local layers 2 × 2048), contiguous bf16 shapes, ragged bf16
@@ -35,8 +39,11 @@ run with a non-zero exit:
    and block-sparse walks) at complete-16 and ring-1024 with the paper MLP's
    281-chunk table, int8 and fp8, round mode at γ 1 and 0.5, raw mode (the
    Pallas kernel's function) in fp32 and bf16, a masked round and the
-   scale floors' edge cases, scales and new mirrors bitwise; two launches
-   bitwise equal, and timings at the main path's shapes;
+   scale floors' edge cases, and int8 / fp8 rounds at kreg4-1024, scales
+   and new mirrors bitwise; two launches bitwise equal, and timings at the
+   main path's shapes; both block-sparse walks timed at ring-1024 and
+   kreg4-1024 against the tile walks they replaced (``TILE_WALK_MS``), which
+   they must beat at ring-1024;
 4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
    He init plateaus at ln 10, the gain-corrected init descends, 80 dense
    kernel launches;
@@ -97,6 +104,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # tensor cores: bf16 products with fp32 accumulation
 FP32_TOL = 1e-5  # × max|W|: one fp32 FMA chain vs cuBLAS's blocked sum
+# The tile walks (bn FMAs per tile row) that the walks over the nonzeros of M
+# replaced, as this script's phase 3 timed them on an NVIDIA H100 80GB HBM3
+# at 700 W.  Phase 3 fails unless the walks at ring-1024 beat them.
+TILE_WALK_MS = {("mix_bsr", "ring-1024"): 4.7063, ("mix_bsr", "kreg4-1024"): 42.3145,
+            ("quant_mix_bsr", "ring-1024"): 19.7464, ("quant_mix_bsr", "kreg4-1024"): 100.2908}
 # bf16 output, elementwise: one bf16 ulp of |ref| (the two fp32 sums, taken
 # in different orders, may round to neighbouring bf16 values) plus the fp32
 # atol.  A kernel that accumulated in bf16 would be off by several ulps.
@@ -141,6 +153,27 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes) of every entry in nvcc's ``-Xptxas -v``
+    report, the names demangled where ``c++filt`` is installed."""
+    entries, name, spill = [], "", 0
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            entries.append((name, int(m.group(1)), spill))
+            name = ""
+    with contextlib.suppress(OSError, subprocess.SubprocessError):
+        out = subprocess.run(["c++filt"], input="\n".join(e[0] for e in entries), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        if len(out) == len(entries):
+            entries = [(o.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "), r, sp)
+                       for o, (_, r, sp) in zip(out, entries)]
+    return entries
+
+
 def phase(name: str) -> None:
     print(f"\n=== {name} ===", flush=True)
 
@@ -179,7 +212,8 @@ def main() -> int:
     from repro_torch.kernels.flash import route as flash_route
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import (
-        bsr_from_dense, chunk_bounds, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_matmul, pallas_bounds, quant_mix_bsr,
+        BSR, bsr_from_dense, chunk_bounds, decavg_mix_ref, mix_bsr, mix_bsr_ref, mix_bsr_rows_ref, mix_matmul,
+        pallas_bounds, quant_mix_bsr,
         quant_mix_dense, quant_scales,
     )
     from repro_torch.kernels.mix import ops as mix_ops
@@ -237,6 +271,13 @@ def main() -> int:
     for line in kbuild.build_log("rwkv_sm90").splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"    {line.strip()}")
+    # the block-sparse walks' libraries: registers and spills of every
+    # entry; none may spill
+    for name in ("mix_bsr", "quant_mix"):
+        entries = ptxas_entries(kbuild.build_log(name))
+        for entry, regs, spill in entries:
+            print(f"    {name}: {regs:3d} registers, {spill} bytes spilled  {entry}")
+        check(bool(entries) and all(spill == 0 for _, _, spill in entries), f"{name} spills")
     n_hmma = kbuild.sass("rwkv_sm90").count("HMMA")
     print(f"  rwkv_sm90 SASS: {n_hmma} HMMA")
     check(n_hmma > 0, "rwkv_sm90 SASS lacks HMMA")
@@ -282,8 +323,18 @@ def main() -> int:
     w = torch.randn(16, D_MAIN, generator=gen, device=dev).to(torch.bfloat16)
     compare(f"mix_matmul bf16 n=16 d={D_MAIN}", lambda: mix_matmul(m, w), decavg_mix_ref(m, w), w, bf16=True)
 
+    # the block-sparse walk: against the plain tile walk at full width, and
+    # bitwise against its rendering mix_bsr_rows_ref (the same FMA chains in
+    # the same order) on the first 4096 columns
+    def rows_bitwise(label, op_b, w):
+        w_s = w[:, :4096].contiguous()
+        same = bool(torch.equal(mix_bsr(*op_b, w_s), mix_bsr_rows_ref(*op_b, w_s)))
+        print(f"    {label}: bitwise mix_bsr_rows_ref on 4096 columns {same}")
+        check(same, f"{label}: the walk differs from mix_bsr_rows_ref")
+
     bsr_cases = [
         ("ring-1024 bn=32", T.ring(1024), 32),
+        ("kreg4-1024 bn=32", T.random_k_regular(1024, 4, seed=0), 32),
         ("kreg4-1024 bn=64", T.random_k_regular(1024, 4, seed=0), 64),
         ("heavytail-40 bn=8", T.configuration_heavy_tail(40, 2.2, seed=0), 8),
     ]
@@ -293,6 +344,7 @@ def main() -> int:
         w = torch.randn(g.n, D_MAIN, generator=gen, device=dev)
         ref = mix_bsr_ref(bc, tiles, counts, w)
         e = compare(f"mix_bsr {label} d={D_MAIN}", lambda: mix_bsr(bc, tiles, counts, w), ref, w)
+        rows_bitwise(f"mix_bsr {label}", (bc, tiles, counts), w)
         dense_err = float((ref - decavg_mix_ref(torch.as_tensor(m_np, device=dev), w)).abs().max())
         print(f"    plain BSR vs dense M·W: {dense_err:.3e}; real tiles {int(counts.sum())} "
               f"of {counts.numel() * bc.shape[1]} stored, per row block max {int(counts.max())} "
@@ -300,6 +352,13 @@ def main() -> int:
         check(dense_err <= FP32_TOL * float(w.abs().max()), f"{label}: BSR lowering disagrees with M")
         errs["mix_bsr"] = max(errs["mix_bsr"], e)
         del w, ref
+    ring_bsr_np = bsr_from_dense(receive_matrix(T.ring(1024)).astype(np.float32), 32)
+    ring_bsr_b = BSR(*(torch.as_tensor(a, device=dev) for a in ring_bsr_np))
+    w = torch.randn(1024, D_MAIN, generator=gen, device=dev).to(torch.bfloat16)
+    compare(f"mix_bsr ring-1024 bn=32 bf16 d={D_MAIN}", lambda: mix_bsr(*ring_bsr_b, w), mix_bsr_ref(*ring_bsr_b, w),
+            w, bf16=True)
+    rows_bitwise("mix_bsr ring-1024 bn=32 bf16", ring_bsr_b, w)
+    del w
 
     # tile occupancy at the sizes the sparse backend serves: structure only
     for label, g, bn in (
@@ -312,18 +371,28 @@ def main() -> int:
         print(f"    occupancy {label} bn={bn}: {counts.mean():.2f} of {len(counts)} tiles kept per row block "
               f"(max {counts.max()})")
 
-    # one masked sparse round: injected node/edge masks renormalise the tiles
+    # one masked sparse round: injected node/edge masks renormalise the
+    # tiles; rows 64-127 inactive, so row blocks 2-3 keep only their self
+    # weights and their neighbour tiles are all zero
     ring = T.ring(1024)
     plan_s = compile_plan(ring, "sparse", device=dev)
     plan_d = compile_plan(ring, "dense", device=dev)
     active = torch.as_tensor(rng.random(1024) < 0.8, device=dev)
+    active[64:128] = False
     edge_live = torch.as_tensor(rng.random(plan_s.n_edges) < 0.7, device=dev)
     op = plan_s.round_operator(active=active, edge_live=edge_live)
     m_masked = plan_d.round_operator(active=active, edge_live=edge_live)
+    real = torch.arange(op.tiles.shape[1], device=dev)[None, :] < op.counts[:, None]
+    zero_tiles = int((real & (op.tiles.abs().sum((2, 3)) == 0)).sum())
+    check(zero_tiles > 0, "masked round: no real tile is all zero")
     w = torch.randn(1024, D_MAIN, generator=gen, device=dev)
-    e = compare("mix_bsr masked ring-1024 round", lambda: mix_bsr(*op, w), decavg_mix_ref(m_masked, w), w)
+    e = compare(f"mix_bsr masked ring-1024 round ({zero_tiles} zero tiles)", lambda: mix_bsr(*op, w),
+                decavg_mix_ref(m_masked, w), w)
+    rows_bitwise("mix_bsr masked ring-1024 round", op, w)
     errs["mix_bsr"] = max(errs["mix_bsr"], e)
     del w
+    kreg_np = receive_matrix(T.random_k_regular(1024, 4, seed=0)).astype(np.float32)
+    kreg_bsr = BSR(*(torch.as_tensor(a, device=dev) for a in bsr_from_dense(kreg_np, 32)))
 
     # flash attention.  First every launch phase 7 makes, from the two
     # configs, in the decoder's layout ((B, S, H, hd) activations passed as
@@ -503,7 +572,20 @@ def main() -> int:
         library_ms=time_ms(lambda: torch.sparse.mm(m_csr, w1k), flush=flush),
         bound_ms=b_s, bound_by=op_s, shape=f"ring-1024 bn=32 d={D_MAIN} fp32",
     )
-    del w1k, m_csr, plan_d, m16
+    # both block-sparse walks at kreg4-1024, bn 32: a randomly numbered graph
+    # keeps nearly every tile of a row block (31.5 of 32), with about the
+    # ring's nonzeros a row (5 against 3).  Bounds as ring-1024's: 2 nnz d
+    # flops, W read and Y written once (mix), X and H read and X' and H'
+    # written once (round)
+    kreg_nnz = int(np.count_nonzero(kreg_np))
+    kreg_tile_bytes = sum(t.numel() * 4 for t in kreg_bsr)
+    walks = {("mix_bsr", "ring-1024"): timing["mix_bsr"]}
+    b_w, op_w = bound(kreg_tile_bytes + 2 * 4 * 1024 * D_MAIN, 2 * kreg_nnz * D_MAIN)
+    kreg_csr = torch.as_tensor(kreg_np, device=dev).to_sparse_csr()
+    walks[("mix_bsr", "kreg4-1024")] = dict(ms=time_ms(lambda: mix_bsr(*kreg_bsr, w1k), flush=flush),
+                                            library_ms=time_ms(lambda: torch.sparse.mm(kreg_csr, w1k), flush=flush),
+                                            bound_ms=b_w, bound_by=op_w)
+    del w1k, m_csr, kreg_csr, plan_d, m16
     # flash at every shape phase 7 launches, on the decoder's (B, S, H, hd)
     # views (the qwen2.5-3b prefill's row goes into the kernels line, its
     # contiguous layout timed beside it).  Bytes are q, k, v read once and
@@ -708,6 +790,10 @@ def main() -> int:
     e = compare_quant("quant_mix_bsr int8 masked ring-1024 round", bsr_kernel(op),
                       lambda hq: mix_bsr_ref(*op, hq), x1k, h1k, mlp_bounds, codec="int8", gamma=1.0)
     errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], e)
+    for codec in ("int8", "fp8"):
+        e = compare_quant(f"quant_mix_bsr {codec} round kreg4-1024 γ=1.0", bsr_kernel(kreg_bsr),
+                          lambda hq: mix_bsr_ref(*kreg_bsr, hq), x1k, h1k, mlp_bounds, codec=codec, gamma=1.0)
+        errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], e)
     for dtype in (torch.float32, torch.bfloat16):
         w_raw = x1k.to(dtype)
         e = compare_quant(f"quantised_mix_bsr raw ring-1024 {str(dtype)[6:]} (Pallas chunks)", bsr_kernel(ring_bsr),
@@ -761,6 +847,20 @@ def main() -> int:
         library_ms=None,
         bound_ms=b_qb, bound_by=op_qb, shape=f"ring-1024 bn=32 int8 round, d={D_MAIN}, fp32",
     )
+    walks[("quant_mix_bsr", "ring-1024")] = timing["quant_mix_bsr"]
+    b_w, op_w = bound(16 * 1024 * D_MAIN + kreg_tile_bytes + 4 * 1024 * n_chunks + table_bytes,
+                      2 * kreg_nnz * D_MAIN + 9 * 1024 * D_MAIN)
+    walks[("quant_mix_bsr", "kreg4-1024")] = dict(
+        ms=time_ms(lambda: quant_mix_bsr(*kreg_bsr, x1k, h1k, mlp_bounds, s1k, codec="int8", gamma=1.0), flush=flush),
+        bound_ms=b_w, bound_by=op_w)
+    for (name, graph), t in walks.items():
+        lib = "" if t.get("library_ms") is None else f", torch.sparse.mm {t['library_ms']:.4f} ms"
+        print(f"  {name} at {graph} bn=32 d={D_MAIN} fp32{' int8 round' if name == 'quant_mix_bsr' else ''}: "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bound_ms'] / t['ms']:.1%} of it)"
+              f"{lib}; the tile walk {TILE_WALK_MS[(name, graph)]:.4f} ms")
+    for name in ("mix_bsr", "quant_mix_bsr"):
+        check(walks[(name, "ring-1024")]["ms"] < TILE_WALK_MS[(name, "ring-1024")],
+              f"{name} at ring-1024 is not faster than the tile walk it replaced")
     round16_ms = time_ms(lambda: mix_ops.quant_mix_flat(m16, x16, h16, mlp_bounds, codec="int8", gamma=1.0),
                          flush=flush)
     round1k_ms = time_ms(lambda: mix_ops.quant_mix_flat(ring_bsr, x1k, h1k, mlp_bounds, codec="int8", gamma=1.0),

@@ -5,7 +5,7 @@ from .mix import mix_matmul
 from .ops import decavg_mix, mix_flat, quant_mix_flat
 from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, quantised_mix_bsr
 from .ref import chunk_bounds, decavg_mix_ref, pallas_bounds, quantised_decavg_mix_ref
-from .sparse import BSR, bsr_from_dense, bsr_slots, mix_bsr, mix_bsr_ref
+from .sparse import BSR, bsr_from_dense, bsr_slots, mix_bsr, mix_bsr_ref, mix_bsr_rows_ref
 
 __all__ = [
     "BSR",
@@ -16,6 +16,7 @@ __all__ = [
     "decavg_mix_ref",
     "mix_bsr",
     "mix_bsr_ref",
+    "mix_bsr_rows_ref",
     "mix_flat",
     "mix_matmul",
     "pallas_bounds",

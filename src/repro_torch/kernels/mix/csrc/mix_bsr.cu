@@ -8,67 +8,40 @@
 // (n, d) fp32 or bf16; Y has W's dtype, accumulated in fp32.
 //
 // What bounds it on an H100: the least traffic is reading W once and writing
-// Y once, 8 n d bytes; the flops are 2 bn^2 d per kept tile, which for the
-// paper's sparse families (a few tiles per row block) is far below the fp32
-// rate, so the kernel is memory-bound.  What it cannot avoid is that a W row
-// block is needed by every row block whose tile list names it: on a ring
-// that is 3 row blocks, on a randomly numbered graph nearly all of them.
+// Y once, 8 n d bytes; the flops are 2 d per nonzero of M, which for the
+// paper's sparse families (deg + 1 nonzeros a row) is far below the fp32
+// rate, so the function is memory-bound.  What a walk over whole tiles
+// cannot avoid is bn FMAs a tile row where M has a few nonzeros: on a ring
+// at bn 32 that is 96 FMAs an output element for 3 nonzeros, more than the
+// byte bound in fp32 operations alone, and on a randomly numbered graph,
+// where nearly every tile of a row block is kept, some 1,000 for 5.
 //
-// What the design does about it: one block per (column strip, row block,
-// row group of <= 32 rows); it walks its row block's tile list in the fixed
-// stored order up to counts[i] — the loop that replaces the TPU grid's
-// sequential K axis, and the padded tiles of short row blocks are skipped,
-// not multiplied.  The row group's slice of each tile sits in shared memory,
-// the W strip of the named column block is read with coalesced 16/8/4-byte
-// loads, and the accumulators are fp32 registers.  Row blocks are the
-// fastest-varying launch index, so the blocks that share a W strip run
-// together and re-read it from L2.  Rows past n (the last row block's
-// padding) are neither read nor written.  No atomics: bitwise deterministic.
-#include "mix_common.cuh"
+// What the design does about it: the walk of bsr_walk.cuh.  It multiplies
+// only the nonzeros of M, compacted once per block into shared memory in
+// the fixed order (tile order up to counts[i], ascending column inside a
+// tile), so a row costs deg + 1 FMAs a column, whatever the tiles hold and
+// however the graph is numbered.  The blocks of all row groups walk the same
+// column strips together, so a W row referenced by deg + 1 output rows is
+// read from device memory about once.  Four blocks an SM, each with 48 KB of
+// stages: a block whose lists fit two strips (a ring's 3 nonzeros a row)
+// keeps the next strip's W rows in flight by cp.async; one whose lists need
+// more (a 4-regular graph's 5) walks from registers, four blocks an SM
+// keeping the loads in flight.  Rows past n (the last row block's padding)
+// are neither read nor written.  No atomics: bitwise deterministic.
+#include "bsr_walk.cuh"
 
 namespace {
 
-template <typename T, int VEC, int RG>
-__global__ void __launch_bounds__(mixk::kThreads)
-    mix_bsr_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
-                   const int* __restrict__ counts, const T* __restrict__ w, T* __restrict__ y,
-                   int n, long long d, int nrb, int max_nnz, int bn, int ldt, int n_rg) {
-  extern __shared__ __align__(16) float t_s[];  // RG x ldt slice of one tile
-  unsigned long long b = blockIdx.x;
-  const int g = (int)(b % n_rg);
-  b /= n_rg;
-  const int i = (int)(b % nrb);
-  const long long strip = (long long)(b / nrb);
-  const long long c0 = (strip * mixk::kThreads + threadIdx.x) * VEC;
-  const int rr0 = g * RG;  // first tile row of this row group
-  const int nt = min(counts[i], max_nnz);
-  float acc[RG][VEC];
-#pragma unroll
-  for (int r = 0; r < RG; ++r)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+constexpr int kStageBytes = 48 * 1024;  // dynamic shared memory a block stages in
 
-  for (int t = 0; t < nt; ++t) {
-    const long long slot = (long long)i * max_nnz + t;
-    const float* tile = tiles + slot * bn * bn;
-    for (int e = threadIdx.x; e < RG * ldt; e += mixk::kThreads) {
-      const int r = e / ldt, c = e % ldt;
-      t_s[e] = (rr0 + r < bn && c < bn) ? tile[(rr0 + r) * bn + c] : 0.f;
-    }
-    __syncthreads();
-    if (c0 < d) {
-      const long long row0 = (long long)block_cols[slot] * bn;
-      const long long row_end = min((long long)n, row0 + bn);
-      mixk::accumulate<T, VEC, RG>(acc, t_s, ldt, bn, w, row0, row_end, d, c0);
-    }
-    __syncthreads();
-  }
-  if (c0 >= d) return;
-#pragma unroll
-  for (int r = 0; r < RG; ++r) {
-    const long long row = (long long)i * bn + rr0 + r;
-    if (rr0 + r < bn && row < n) mixk::store_row<T, VEC>(y, row, d, c0, acc[r]);
-  }
+template <typename T, int VEC>
+__global__ void __launch_bounds__(bsrw::kThreads, VEC == 4 ? 3 : 4)
+    mix_bsr_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
+                   const int* __restrict__ counts, const T* __restrict__ w, T* __restrict__ y, int n,
+                   long long d, int max_nnz, int bn, int groups_per_rb, int slices) {
+  bsrw::RowsOf<T, VEC> src{w, d};
+  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
+                                    bsrw::StoreRows<T, VEC>{y, d});
 }
 
 }  // namespace
@@ -81,18 +54,20 @@ extern "C" int mix_bsr(int dtype, const int* block_cols, const float* tiles, con
                        int vec, void* stream) {
   if (n <= 0 || d <= 0 || bn <= 0 || bn > 256 || (long long)nrb * bn < n || max_nnz <= 0)
     return cudaErrorInvalidValue;
-  const int rg = bn <= 8 ? 8 : bn <= 16 ? 16 : 32;
-  const int n_rg = (bn + rg - 1) / rg;
-  const int ldt = (bn + 3) / 4 * 4;
-  const size_t smem = (size_t)rg * ldt * sizeof(float);
-  const long long strip_cols = (long long)mixk::kThreads * vec;
-  const long long blocks = ((d + strip_cols - 1) / strip_cols) * nrb * n_rg;
+  const int groups_per_rb = (bn + bsrw::kRows - 1) / bsrw::kRows;
+  const long long slices = bsrw::slices_of(d, vec);
+  const long long blocks = (long long)nrb * groups_per_rb * slices;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MIX_BSR_CALL(T, VEC, RG)                                                             \
-  mix_bsr_kernel<T, VEC, RG><<<(unsigned)blocks, mixk::kThreads, smem, s>>>(                \
-      block_cols, tiles, counts, static_cast<const T*>(w), static_cast<T*>(y), n, d, nrb,    \
-      max_nnz, bn, ldt, n_rg)
-  return (int)MIXK_DISPATCH(dtype, vec, rg, MIX_BSR_CALL);
+#define MIX_BSR_CALL(T, VEC)                                                                          \
+  {                                                                                                   \
+    const auto kernel = mix_bsr_kernel<T, VEC>;                                                       \
+    const int smem = bsrw::RowsOf<T, VEC>::kStaged ? kStageBytes : 0;                                 \
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                  \
+    kernel<<<(unsigned)blocks, bsrw::kThreads, smem, s>>>(block_cols, tiles, counts,                   \
+                                                          static_cast<const T*>(w), static_cast<T*>(y), \
+                                                          n, d, max_nnz, bn, groups_per_rb, (int)slices); \
+  }
+  return (int)BSRW_DISPATCH(dtype, vec, MIX_BSR_CALL);
 #undef MIX_BSR_CALL
 }

@@ -1,14 +1,16 @@
-// Shared pieces of the DecAvg mixing kernels (mix.cu, mix_bsr.cu).
+// Shared pieces of the DecAvg mixing kernels: the row loads and stores of
+// every walk (mix.cu, bsr_walk.cuh, quant_mix.cu) and the dense walk's
+// accumulation (mix.cu, and quant_mix.cu's with a dequantising load).
 //
-// Both kernels compute output rows  y[r, :] = sum_k M[r, k] * W[k, :]  for a
-// small group of RG rows at a time, over a strip of W's columns.  A thread
-// owns VEC consecutive columns (one 4/8/16-byte load per W row) and keeps
-// RG x VEC fp32 accumulators in registers; the block's slice of M sits in
-// shared memory and is read four k at a time as one broadcast float4, which
-// feeds 4 * VEC fused multiply-adds.  Every output is a sequential fp32
-// FMA chain over k in ascending order: no atomics, so a run is bitwise
-// reproducible.  fp32 stays on the CUDA cores: Hopper's tensor cores take
-// fp32 only as TF32 (10-bit mantissa), which would truncate the
+// The dense walk computes output rows  y[r, :] = sum_k M[r, k] * W[k, :]
+// for a small group of RG rows at a time, over a strip of W's columns.  A
+// thread owns VEC consecutive columns (one 4/8/16-byte load per W row) and
+// keeps RG x VEC fp32 accumulators in registers; the block's slice of M
+// sits in shared memory and is read four k at a time as one broadcast
+// float4, which feeds 4 * VEC fused multiply-adds.  Every output is a
+// sequential fp32 FMA chain over k in ascending order: no atomics, so a run
+// is bitwise reproducible.  fp32 stays on the CUDA cores: Hopper's tensor
+// cores take fp32 only as TF32 (10-bit mantissa), which would truncate the
 // post-diffusion parameter scale that mixing must preserve.
 #pragma once
 

@@ -19,29 +19,35 @@
 //   h'     __fmaf_rn(q, scale, h) (XLA contracts h + q * scale into one
 //          FMA), or __fmul_rn(q, scale) without a mirror.
 //
-// Three kernels.  quant_scales: one block per (row, chunk) reduces the
+// The kernels.  quant_scales: one block per (row, chunk) reduces the
 // chunk's absmax of X - H (a chunk is up to 65,536 columns and need not
 // align with any column strip, so the reduction is a pass of its own;
-// n * C floats out).  quant_mix_dense and quant_mix_bsr: the walks of
-// mix.cu and mix_bsr.cu, with each source element dequantised in
-// registers from X, H and its (row, chunk) scale before the fp32 FMA into
-// the accumulators.  A thread finds the chunk of each of its VEC columns
+// n * C floats out).  quant_mix_dense: mix.cu's walk with each source
+// element dequantised in registers from X, H and its (row, chunk) scale
+// before the fp32 FMA; a thread finds the chunk of each of its VEC columns
 // once, by binary search of the chunk table (C + 1 boundaries), and reads
-// the scale of (source row, chunk) from the n x C table through L1: the
-// threads of a warp mostly share a chunk, so those loads are broadcasts.
+// the scale from the n x C table through L1 (the threads of a warp mostly
+// share a chunk, so those loads are broadcasts).  quant_mix_bsr, the walk
+// of bsr_walk.cuh over the nonzeros of M: in raw mode over the rows peers
+// decode, dequantised in registers per reference; in round mode in two
+// passes, dequant_rows_kernel writing H' (each element decoded once) and
+// then the walk over H' with the X' epilogue.
 //
 // What bounds it on an H100: bytes.  A round reads X and H and writes X'
 // and H' (16 bytes per fp32 element) plus the operator; the flops are the
-// mix's (2 n d per dense row, 2 bn^2 d per kept tile) and a handful per
-// source element to dequantise, below the fp32 rate at the main path's
-// sizes.  A source row is dequantised once per referencing row block
-// (the Pallas kernel does the same: redundant flops, not bytes); the
-// owning block recomputes h'_i in its epilogue from the same inputs, so
-// H' is bitwise what every neighbour mixed.  Each element of Y, X' and
-// H' is written by exactly one block; no atomics: bitwise deterministic.
+// mix's (2 n d per dense row, 2 d per nonzero of a BSR operator) and a
+// handful per source element to dequantise, below the fp32 rate at the
+// main path's sizes.  The BSR round moves 24 bytes an element instead (X
+// and H in and H' out, then H', X in and X' out): on the card the one-pass
+// form, which decodes a source row once per row that references it (a
+// true division, a rint, clips and an FMA), ran slower than that (PERF.md).
+// H' is what every neighbour mixed, bit for bit: the walk reads the H' the
+// first pass wrote, and the dense walk's owning block recomputes h'_i in
+// its epilogue from the same inputs.  Each element of Y, X' and H' is
+// written by exactly one block; no atomics: bitwise deterministic.
 #include <cuda_fp8.h>
 
-#include "mix_common.cuh"
+#include "bsr_walk.cuh"
 
 namespace {
 
@@ -77,6 +83,13 @@ __device__ __forceinline__ float quantise(float t, float s, int codec) {
   return static_cast<float>(q);
 }
 
+// What peers decode from x (and its mirror h) under scale s.
+__device__ __forceinline__ float dequantise(float xv, float hv, float s, const QArgs& qa) {
+  const float t = qa.ef ? xv - hv : xv;
+  const float q = quantise(t, s, qa.codec);
+  return qa.ef ? __fmaf_rn(q, s, hv) : __fmul_rn(q, s);
+}
+
 // Row `row` of X (and H) at columns c0 .. c0+VEC, and what its peers decode
 // there.  Rows outside [0, row_end) read as zero and decode to zero.
 template <typename T, int VEC>
@@ -98,12 +111,7 @@ __device__ __forceinline__ void load_deq(const T* __restrict__ x, const QArgs& q
   }
   const float* srow = qa.scales + row * qa.n_chunks;
 #pragma unroll
-  for (int v = 0; v < VEC; ++v) {
-    const float s = srow[ch[v]];
-    const float t = qa.ef ? xv[v] - hv[v] : xv[v];
-    const float q = quantise(t, s, qa.codec);
-    out[v] = qa.ef ? __fmaf_rn(q, s, hv[v]) : __fmul_rn(q, s);
-  }
+  for (int v = 0; v < VEC; ++v) out[v] = dequantise(xv[v], hv[v], srow[ch[v]], qa);
 }
 
 // acc[r][:] += sum_{k < kc} m_s[r * ldm + k] * deq(row0 + k)[c0 : c0 + VEC]
@@ -186,10 +194,9 @@ __global__ void __launch_bounds__(kScaleThreads)
 }
 
 template <typename T, int VEC, int RG>
-__global__ void __launch_bounds__(kThreads)
-    quant_mix_dense_kernel(const float* __restrict__ m, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
-                           T* __restrict__ x_out, float* __restrict__ h_out, int n, long long d, int n_rg,
-                           float gamma) {
+__device__ __forceinline__ void dense_walk(const float* __restrict__ m, const T* __restrict__ x, QArgs qa,
+                                           T* __restrict__ y, T* __restrict__ x_out, float* __restrict__ h_out,
+                                           int n, long long d, int n_rg, float gamma) {
   __shared__ __align__(16) float m_s[RG * kChunk];
   const long long strip = blockIdx.x / n_rg;
   const int r0 = (blockIdx.x % n_rg) * RG;
@@ -220,48 +227,188 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int VEC, int RG>
 __global__ void __launch_bounds__(kThreads)
-    quant_mix_bsr_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
-                         const int* __restrict__ counts, const T* __restrict__ x, QArgs qa,
-                         T* __restrict__ y, T* __restrict__ x_out, float* __restrict__ h_out, int n,
-                         long long d, int nrb, int max_nnz, int bn, int ldt, int n_rg, float gamma) {
-  extern __shared__ __align__(16) float t_s[];  // RG x ldt slice of one tile
-  unsigned long long b = blockIdx.x;
-  const int g = (int)(b % n_rg);
-  b /= n_rg;
-  const int i = (int)(b % nrb);
-  const long long strip = (long long)(b / nrb);
-  const long long c0 = (strip * kThreads + threadIdx.x) * VEC;
-  const int rr0 = g * RG;
-  const int nt = min(counts[i], max_nnz);
+    quant_mix_dense_kernel(const float* __restrict__ m, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
+                           T* __restrict__ x_out, float* __restrict__ h_out, int n, long long d, int n_rg,
+                           float gamma) {
+  dense_walk<T, VEC, RG>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+}
+
+// VEC 1, RG 32, on its own: under ptxas's own register choice it spills;
+// told of four blocks an SM (128 registers) it does not.  The hint stays off
+// the other instantiations, whose register choice it would change.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+    quant_mix_dense_v1_kernel(const float* __restrict__ m, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
+                              T* __restrict__ x_out, float* __restrict__ h_out, int n, long long d, int n_rg,
+                              float gamma) {
+  dense_walk<T, 1, 32>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+}
+
+template <typename T, int VEC, int RG>
+void launch_dense(unsigned blocks, cudaStream_t s, const float* m, const T* x, const QArgs& qa, T* y, T* x_out,
+                  float* h_out, int n, long long d, int n_rg, float gamma) {
+  if constexpr (VEC == 1 && RG == 32) {
+    quant_mix_dense_v1_kernel<T><<<blocks, kThreads, 0, s>>>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+  } else {
+    quant_mix_dense_kernel<T, VEC, RG><<<blocks, kThreads, 0, s>>>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+  }
+}
+
+// Raw mode's source rows for the BSR walk (bsr_walk.cuh): what peers decode
+// from rows of X.  A thread's chunk of each of its VEC columns advances
+// with its column strip.
+template <typename T, int VEC>
+struct DecodedRows {
+  static constexpr int kBatch = 1;  // kRows sources in flight: their X, H and scales
+  static constexpr bool kStaged = false;
+  const T* __restrict__ x;
+  QArgs qa;
+  long long d;
+  int ch[VEC];
+
+  struct Raw {
+    mixk::Pack<T, VEC> x;
+    mixk::Pack<float, VEC> h;
+    float s[VEC];
+    bool update;
+  };
+
+  __device__ __forceinline__ void begin_strip(long long c0) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v)
+      while (ch[v] + 1 < qa.n_chunks && qa.bounds[ch[v] + 1] <= c0 + v) ++ch[v];
+  }
+
+  template <bool EDGE>
+  __device__ __forceinline__ void fetch(int row, long long c0, Raw& raw) const {
+    const long long off = row * d + c0;
+    if (!EDGE) {
+      raw.x = *reinterpret_cast<const mixk::Pack<T, VEC>*>(x + off);
+      if (qa.h != nullptr) raw.h = *reinterpret_cast<const mixk::Pack<float, VEC>*>(qa.h + off);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        raw.x.v[v] = c0 + v < d ? x[off + v] : mixk::from_f32<T>(0.f);
+        if (qa.h != nullptr) raw.h.v[v] = c0 + v < d ? qa.h[off + v] : 0.f;
+      }
+    }
+    if (qa.h == nullptr) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) raw.h.v[v] = 0.f;
+    }
+    const float* srow = qa.scales + (long long)row * qa.n_chunks;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) raw.s[v] = srow[ch[v]];
+    raw.update = qa.keep == nullptr || qa.keep[row];
+  }
+
+  __device__ __forceinline__ void decode(const Raw& raw, float (&out)[VEC]) const {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const float hv = raw.h.v[v];
+      out[v] = raw.update ? dequantise(mixk::to_f32(raw.x.v[v]), hv, raw.s[v], qa) : hv;
+    }
+  }
+};
+
+// Raw mode, Y = M . Q(X): the walk over the rows peers decode.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(bsrw::kThreads, 2)
+    quant_bsr_raw_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
+                         const int* __restrict__ counts, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
+                         int n, long long d, int max_nnz, int bn, int groups_per_rb, int slices) {
+  DecodedRows<T, VEC> src{x, qa, d, {}};
+  bsrw::rows_walk<VEC, 0>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
+                          bsrw::StoreRows<T, VEC>{y, d});
+}
+
+// Round mode, first pass: H' = the rows peers decode, each element once.  A
+// block covers kDeqStrips strips of one row; a thread's chunk advances with
+// its columns.
+constexpr int kDeqThreads = 256;
+// The second pass: two blocks an SM, 96 KB of stages each (two strips of a
+// ring's or a 4-regular graph's lists and the owned rows' X and h').
+constexpr int kStageBytes = 96 * 1024;
+constexpr int kDeqStrips = 8;
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kDeqThreads)
+    dequant_rows_kernel(const T* __restrict__ x, QArgs qa, float* __restrict__ h_out, int n, long long d,
+                        long long blocks_per_row) {
+  const long long row = blockIdx.x / blocks_per_row;
+  long long c0 = ((blockIdx.x % blocks_per_row) * kDeqStrips * kDeqThreads + threadIdx.x) * VEC;
+  if (c0 >= d) return;
   int ch[VEC];
   chunks_of<VEC>(qa, d, c0, ch);
-  float acc[RG][VEC];
 #pragma unroll
-  for (int r = 0; r < RG; ++r)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
-
-  for (int t = 0; t < nt; ++t) {
-    const long long slot = (long long)i * max_nnz + t;
-    const float* tile = tiles + slot * bn * bn;
-    for (int e = threadIdx.x; e < RG * ldt; e += kThreads) {
-      const int r = e / ldt, c = e % ldt;
-      t_s[e] = (rr0 + r < bn && c < bn) ? tile[(rr0 + r) * bn + c] : 0.f;
-    }
-    __syncthreads();
+  for (int k = 0; k < kDeqStrips; ++k, c0 += kDeqThreads * VEC) {
     if (c0 < d) {
-      const long long row0 = (long long)block_cols[slot] * bn;
-      const long long row_end = min((long long)n, row0 + bn);
-      accumulate_q<T, VEC, RG>(acc, t_s, ldt, bn, x, qa, row0, row_end, d, c0, ch);
-    }
-    __syncthreads();
-  }
-  if (c0 >= d) return;
 #pragma unroll
-  for (int r = 0; r < RG; ++r) {
-    const long long row = (long long)i * bn + rr0 + r;
-    if (rr0 + r < bn && row < n) epilogue<T, VEC>(x, qa, row, n, d, c0, ch, acc[r], y, x_out, h_out, gamma);
+      for (int v = 0; v < VEC; ++v)
+        while (ch[v] + 1 < qa.n_chunks && qa.bounds[ch[v] + 1] <= c0 + v) ++ch[v];
+      float xv[VEC], hq[VEC];
+      load_deq<T, VEC>(x, qa, row, n, d, c0, ch, xv, hq);
+      mixk::store_row<float, VEC>(h_out, row, d, c0, hq);
+    }
   }
+}
+
+// Round mode, second pass: X' = X + gamma (M h' - h') for an owned row,
+// from its X and h' (staged beside the sources, or loaded before the walk).
+template <typename T, int VEC>
+struct StoreRound {
+  static constexpr int kOwn = 2;
+  struct Own {
+    float x[VEC], h[VEC];
+  };
+  const T* __restrict__ x;
+  const float* __restrict__ hq;
+  T* __restrict__ x_out;
+  long long d;
+  float gamma;
+
+  __device__ __forceinline__ void stage_own(int a, int row, long long c0, mixk::Pack<float, VEC>* dst) const {
+    if (a == 0) {
+      bsrw::stage_vec<T, VEC>(x + row * d + c0, c0, d, reinterpret_cast<mixk::Pack<T, VEC>*>(dst));
+    } else {
+      bsrw::stage_vec<float, VEC>(hq + row * d + c0, c0, d, dst);
+    }
+  }
+
+  __device__ __forceinline__ Own own_staged(const void* slot) const {
+    const auto* o = static_cast<const mixk::Pack<float, VEC>*>(slot);
+    const mixk::Pack<T, VEC> xp = *reinterpret_cast<const mixk::Pack<T, VEC>*>(o);
+    const mixk::Pack<float, VEC> hp = o[bsrw::kRows * bsrw::kThreads];
+    Own own;
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) own.x[v] = mixk::to_f32(xp.v[v]), own.h[v] = hp.v[v];
+    return own;
+  }
+
+  __device__ __forceinline__ Own own_load(int row, long long c0) const {
+    Own own;
+    mixk::load_row<T, VEC>(x, row, row + 1, d, c0, own.x);
+    mixk::load_row<float, VEC>(hq, row, row + 1, d, c0, own.h);
+    return own;
+  }
+
+  __device__ __forceinline__ void operator()(int row, long long c0, const float (&acc)[VEC], const Own& own) const {
+    float xo[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) xo[v] = own.x[v] + gamma * (acc[v] - own.h[v]);
+    mixk::store_row<T, VEC>(x_out, row, d, c0, xo);
+  }
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(bsrw::kThreads, 2)
+    quant_bsr_round_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
+                           const int* __restrict__ counts, const T* __restrict__ x, const float* __restrict__ hq,
+                           T* __restrict__ x_out, int n, long long d, int max_nnz, int bn, int groups_per_rb,
+                           int slices, float gamma) {
+  bsrw::RowsOf<float, VEC> src{hq, d};
+  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
+                                    StoreRound<T, VEC>{x, hq, x_out, d, gamma});
 }
 
 // Raw mode writes y and leaves x_out / h_out null; round mode the reverse.
@@ -325,10 +472,9 @@ extern "C" int quant_mix_dense(int dtype, const float* m, const void* x, const f
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const QArgs qa = make_args(bounds, scales, h, keep, n_chunks, codec, ef);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QMIX_DENSE_CALL(T, VEC, RG)                                                               \
-  quant_mix_dense_kernel<T, VEC, RG><<<(unsigned)blocks, kThreads, 0, s>>>(                       \
-      m, static_cast<const T*>(x), qa, static_cast<T*>(y), static_cast<T*>(x_out), h_out, n, d,   \
-      n_rg, gamma)
+#define QMIX_DENSE_CALL(T, VEC, RG)                                                                 \
+  launch_dense<T, VEC, RG>((unsigned)blocks, s, m, static_cast<const T*>(x), qa, static_cast<T*>(y), \
+                           static_cast<T*>(x_out), h_out, n, d, n_rg, gamma)
   return (int)MIXK_DISPATCH(dtype, vec, rg, QMIX_DENSE_CALL);
 #undef QMIX_DENSE_CALL
 }
@@ -343,19 +489,31 @@ extern "C" int quant_mix_bsr(int dtype, const int* block_cols, const float* tile
       max_nnz <= 0 || (ef && h == nullptr) || (keep != nullptr && h == nullptr) || codec < 0 ||
       codec > 1 || bad_outputs(y, x_out, h_out) || (y != nullptr && (h || keep)))
     return cudaErrorInvalidValue;
-  const int rg = bn <= 8 ? 8 : bn <= 16 ? 16 : 32;
-  const int n_rg = (bn + rg - 1) / rg;
-  const int ldt = (bn + 3) / 4 * 4;
-  const size_t smem = (size_t)rg * ldt * sizeof(float);
-  const long long strip_cols = (long long)kThreads * vec;
-  const long long blocks = ((d + strip_cols - 1) / strip_cols) * nrb * n_rg;
+  const int groups_per_rb = (bn + bsrw::kRows - 1) / bsrw::kRows;
+  const long long slices = bsrw::slices_of(d, vec);
+  const long long blocks = (long long)nrb * groups_per_rb * slices;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const QArgs qa = make_args(bounds, scales, h, keep, n_chunks, codec, ef);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QMIX_BSR_CALL(T, VEC, RG)                                                                  \
-  quant_mix_bsr_kernel<T, VEC, RG><<<(unsigned)blocks, kThreads, smem, s>>>(                       \
-      block_cols, tiles, counts, static_cast<const T*>(x), qa, static_cast<T*>(y),                 \
-      static_cast<T*>(x_out), h_out, n, d, nrb, max_nnz, bn, ldt, n_rg, gamma)
-  return (int)MIXK_DISPATCH(dtype, vec, rg, QMIX_BSR_CALL);
+#define QMIX_BSR_CALL(T, VEC)                                                                          \
+  {                                                                                                    \
+    if (y != nullptr) {                                                                                \
+      quant_bsr_raw_kernel<T, VEC><<<(unsigned)blocks, bsrw::kThreads, 0, s>>>(                        \
+          block_cols, tiles, counts, static_cast<const T*>(x), qa, static_cast<T*>(y), n, d, max_nnz,  \
+          bn, groups_per_rb, (int)slices);                                                             \
+    } else {                                                                                           \
+      const long long per_row = (d + (long long)kDeqStrips * kDeqThreads * VEC - 1) /                 \
+                                ((long long)kDeqStrips * kDeqThreads * VEC);                           \
+      if (n * per_row > 0x7fffffffLL) return cudaErrorInvalidConfiguration;                            \
+      dequant_rows_kernel<T, VEC><<<(unsigned)(n * per_row), kDeqThreads, 0, s>>>(                     \
+          static_cast<const T*>(x), qa, h_out, n, d, per_row);                                         \
+      const auto kernel = quant_bsr_round_kernel<T, VEC>;                                              \
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);          \
+      kernel<<<(unsigned)blocks, bsrw::kThreads, kStageBytes, s>>>(                                    \
+          block_cols, tiles, counts, static_cast<const T*>(x), h_out, static_cast<T*>(x_out), n, d,    \
+          max_nnz, bn, groups_per_rb, (int)slices, gamma);                                             \
+    }                                                                                                  \
+  }
+  return (int)BSRW_DISPATCH(dtype, vec, QMIX_BSR_CALL);
 #undef QMIX_BSR_CALL
 }

@@ -8,7 +8,8 @@ CUDA kernel (``csrc/mix_bsr.cu``) uses to skip the padding.
 
 ``mix_bsr`` launches that kernel on CUDA tensors and runs its plain version
 ``mix_bsr_ref`` (a loop over tiles) on CPU tensors; anything else raises.
-``mix_bsr.launches`` counts kernel launches.
+``mix_bsr.launches`` counts kernel launches.  ``mix_bsr_rows_ref`` renders
+the kernel's walk over the nonzeros of M bit for bit, for the tests.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ from repro_torch.kernels import _launch as K
 from repro_torch.kernels.build import load_library
 
 from . import _launch as L
+from .ref import fma_f32
 
-__all__ = ["BSR", "bsr_from_dense", "bsr_slots", "mix_bsr", "mix_bsr_ref"]
+__all__ = ["BSR", "bsr_from_dense", "bsr_slots", "mix_bsr", "mix_bsr_ref", "mix_bsr_rows_ref"]
 
 MAX_BLOCK_N = 256
 
@@ -108,6 +110,45 @@ def mix_bsr_ref(
             if hi > lo:
                 acc += tf[i, t, :, : hi - lo] @ wf[lo:hi]
     return out[:n].to(w.dtype)
+
+
+def mix_bsr_rows_ref(
+    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Plain rendering of the CUDA walk (``csrc/bsr_walk.cuh``), bit for bit.
+
+    Each output row takes the nonzeros of its row block's real tiles in
+    tile order ``t < counts[i]``, then ascending column inside the tile;
+    exact zeros, padding tiles and source rows outside ``[0, n)`` are
+    skipped.  From zero, one fp32 FMA per nonzero in that order
+    (``ref.fma_f32``); Y in W's dtype.  For the tests: the wrapper's CPU
+    path is ``mix_bsr_ref``.
+    """
+    n, d = w.shape
+    nrb, max_nnz, bn, _ = tiles.shape
+    dev = w.device
+    srcs, wts = [], []
+    for i, cnt in enumerate(counts.tolist()):
+        nt = max(0, min(cnt, max_nnz))
+        src = (block_cols[i, :nt].to(torch.int64)[:, None] * bn + torch.arange(bn, device=dev)).reshape(1, -1)
+        wt = tiles[i, :nt].to(torch.float32).transpose(0, 1).reshape(bn, nt * bn)  # row rr: (t, c) order
+        kept = (wt != 0) & (src >= 0) & (src < n)
+        order = torch.argsort((~kept).to(torch.int8), dim=1, stable=True)  # kept entries first, in order
+        srcs.append(torch.where(kept, src, -1).gather(1, order))
+        wts.append(torch.where(kept, wt, 0.0).gather(1, order))
+    length = max([int((s >= 0).sum(1).max()) if s.numel() else 0 for s in srcs], default=0)
+
+    def fit(t, fill):  # every row block's lists to one length
+        return torch.nn.functional.pad(t[:, :length], (0, max(0, length - t.shape[1])), value=fill)
+
+    src = torch.cat([fit(s, -1) for s in srcs])[:n]
+    wt = torch.cat([fit(x, 0.0) for x in wts])[:n]
+    wf = w.to(torch.float32)
+    acc = torch.zeros(n, d, dtype=torch.float32, device=dev)
+    for e in range(length):
+        s_e = src[:, e]
+        acc = torch.where((s_e >= 0)[:, None], fma_f32(wt[:, e : e + 1], wf[s_e.clamp_min(0)], acc), acc)
+    return acc.to(w.dtype)
 
 
 @functools.cache

@@ -50,7 +50,8 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_mix_bsr,
 )
 from repro_torch.kernels.mix import ops as mix_ops  # noqa: E402
-from repro_torch.kernels.mix.ref import fma_f32  # noqa: E402
+from repro_torch.kernels.mix import mix_bsr_rows_ref  # noqa: E402
+from repro_torch.kernels.mix.ref import fma_f32, quant_mix_ref, quant_scales_ref  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.models import paper_models as PPM  # noqa: E402
 
@@ -274,6 +275,18 @@ def test_compressed_round_matches_jax(codec, backend, masked, ef, gamma, stream)
                     edge_live=None if edge_live is None else torch.as_tensor(edge_live))
     _assert_bitwise(hj, layout.views(hf))
     _assert_close_x(xj, layout.views(xf), x)
+    if backend == "sparse" and codec in ("int8", "fp8"):
+        # the quantised round on the CUDA walk's rendering of M·H'
+        op = pp.round_operator(active=None if active is None else torch.as_tensor(active),
+                               edge_live=None if edge_live is None else torch.as_tensor(edge_live))
+        xt, ht = layout.flatten(_torch(x)), layout.flatten(_torch(h))
+        h_in = ht if ef else None
+        bounds = chunk_bounds(layout.sizes, 64)
+        scales = quant_scales_ref(xt, h_in, bounds, codec=codec, error_feedback=ef)
+        xr, hr = quant_mix_ref(lambda hq: mix_bsr_rows_ref(*op, hq), xt, h_in, bounds, scales, codec=codec,
+                               gamma=gamma, error_feedback=ef)
+        _assert_bitwise(hj, layout.views(hr))
+        _assert_close_x(xj, layout.views(xr), x)
 
 
 @pytest.mark.parametrize("codec", ["int8", "topk"])

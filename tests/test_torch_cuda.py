@@ -15,7 +15,10 @@ tensor-core kernel rejects unaligned rows.  Quantised mix: the scales pass and
 the dense and block-sparse walks in raw and round mode, fp32 and bf16, int8
 and fp8, both scale floors, masked operators, frozen mirrors, leaf chunk
 tables, and compressed plan rounds against the CPU (new mirrors bitwise:
-the kernel does the plain version's arithmetic element for element).
+the kernel does the plain version's arithmetic element for element).  The
+block-sparse walks also at kreg4-1024 (bn 32), with rows walked in pieces
+(complete-300 at bn 64) and in a masked round with all-zero tiles;
+``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.
 Skipped without a CUDA device; on the
 card run
 
@@ -42,6 +45,7 @@ from repro_torch.kernels.mix import (  # noqa: E402
     decavg_mix_ref,
     mix_bsr,
     mix_bsr_ref,
+    mix_bsr_rows_ref,
     mix_matmul,
     pallas_bounds,
     quant_mix_bsr,
@@ -105,10 +109,13 @@ def test_dense_kernel_misaligned_rows(dev):
     "graph,bn",
     [(T.ring(200), 8), (T.ring(200), 16), (T.random_k_regular(300, 4, seed=0), 64),
      (T.configuration_heavy_tail(150, 2.2, seed=1), 128), (T.complete(70), 256),
-     (T.torus_lattice((8, 9)), 5)],
+     (T.torus_lattice((8, 9)), 5), (T.random_k_regular(1024, 4, seed=0), 32), (T.complete(300), 64)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bsr_kernel_matches_plain(dev, graph, bn, dtype):
+    """Also bitwise the walk's rendering (mix_bsr_rows_ref): the same FMA
+    chains in the same order (complete-300: 300 nonzeros a row, walked in
+    pieces)."""
     m = receive_matrix(graph).astype(np.float32)
     bc, tiles, counts = (torch.as_tensor(a, device=dev) for a in bsr_from_dense(m, bn))
     w = torch.randn(graph.n, 777, device=dev).to(dtype)
@@ -117,6 +124,7 @@ def test_bsr_kernel_matches_plain(dev, graph, bn, dtype):
     assert mix_bsr.launches == before + 1
     _close(got, mix_bsr_ref(bc, tiles, counts, w), w)
     _close(got, decavg_mix_ref(torch.as_tensor(m, device=dev), w), w)
+    assert torch.equal(got, mix_bsr_rows_ref(bc, tiles, counts, w))
     assert torch.equal(got, mix_bsr(bc, tiles, counts, w))
 
 
@@ -129,6 +137,33 @@ def test_bsr_kernel_skips_padding_tiles(dev):
         dirty[i, c:] = float("nan")
     w = torch.randn(40, 100, device=dev)
     assert torch.equal(mix_bsr(bc, dirty, counts, w), mix_bsr(bc, tiles, counts, w))
+
+
+@pytest.mark.parametrize("codec", [None, "int8", "fp8"])
+def test_bsr_kernels_masked_round_with_zero_tiles(dev, codec):
+    """A masked ring-1024 round in which two row blocks keep only their self
+    weights, so whole real tiles are zero: the walks skip them (mix_bsr
+    bitwise its rendering; quantised H' bitwise, X' within 1e-5 · max|X|)."""
+    from repro_torch.core.commplan import compile_plan
+
+    rng = np.random.default_rng(3)
+    active = torch.as_tensor(rng.random(1024) < 0.8, device=dev)
+    active[64:128] = False
+    plan = compile_plan(T.ring(1024), "sparse", device=dev)
+    kw = dict(active=active, edge_live=torch.as_tensor(rng.random(plan.n_edges) < 0.7, device=dev))
+    op = plan.round_operator(**kw)
+    real = torch.arange(op.tiles.shape[1], device=dev)[None, :] < op.counts[:, None]
+    assert bool((real & (op.tiles.abs().sum((2, 3)) == 0)).any())
+    m = compile_plan(T.ring(1024), "dense", device=dev).round_operator(**kw)
+    if codec is None:
+        w = torch.randn(1024, 777, device=dev)
+        got = mix_bsr(*op, w)
+        _close(got, decavg_mix_ref(m, w), w)
+        assert torch.equal(got, mix_bsr_rows_ref(*op, w))
+        return
+    x, h = _quant_inputs(dev, 1024, 777, torch.float32, seed=5)
+    _quant_case(dev, _counting(lambda *a, **k: quant_mix_bsr(*op, *a, **k), quant_mix_bsr),
+                lambda hq: mix_bsr_rows_ref(*op, hq), x, h, chunk_bounds((777,), 128, dev), codec=codec, gamma=1.0)
 
 
 def test_plan_rounds_launch_once(dev):
@@ -477,7 +512,8 @@ def _counting(fn, wrapper):
 @pytest.mark.parametrize(
     "graph,bn",
     [(T.ring(200), 8), (T.random_k_regular(300, 4, seed=0), 64), (T.configuration_heavy_tail(150, 2.2, seed=1), 16),
-     (T.complete(70), 256), (T.torus_lattice((8, 9)), 5), (T.ring(1024), 32)],
+     (T.complete(70), 256), (T.torus_lattice((8, 9)), 5), (T.ring(1024), 32),
+     (T.random_k_regular(1024, 4, seed=0), 32), (T.complete(300), 64)],
 )
 @pytest.mark.parametrize("mode", QUANT_MODES, ids=lambda m: f"g{m[0]}-h{int(m[1])}-ef{int(m[2])}-k{int(m[3])}")
 def test_quant_bsr_kernel_matches_plain(dev, codec, dtype, graph, bn, mode):

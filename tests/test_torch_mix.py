@@ -1,6 +1,10 @@
 """The mixing kernels' plain versions against the JAX package's Pallas
 kernels run in interpret mode, on the same numpy inputs.  On CPU tensors
 the port's wrappers run the plain versions and never launch a kernel.
+``mix_bsr_rows_ref``, the block-sparse CUDA walk rendered bit for bit (each
+row's nonzeros in tile-then-column order, exact zeros and padding tiles
+skipped, one fp32 FMA each), is held against the plain tile walk and the
+Pallas kernel on the same cases.
 
 Tolerances: fp32 1e-5 (both sides accumulate in fp32, in another order);
 bf16 3e-2 atol/rtol (one bf16 rounding of the output), as the JAX
@@ -24,8 +28,11 @@ from repro_torch.kernels.mix import (  # noqa: E402
     decavg_mix,
     mix_bsr,
     mix_bsr_ref,
+    mix_bsr_rows_ref,
     mix_matmul,
 )
+from repro_torch.core import topology as PT  # noqa: E402
+from repro_torch.core.commplan import compile_plan  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -55,10 +62,12 @@ def _bsr_cases():
         ("heavy_tail-40", JT.configuration_heavy_tail(40, 2.2, seed=0), 8),
         ("ring-64", JT.ring(64), 16),
         ("kreg-48", JT.random_k_regular(48, 4, seed=1), 16),
+        ("heavy_tail-40 bn16", JT.configuration_heavy_tail(40, 2.2, seed=0), 16),  # n not a multiple of bn
+        ("ring-70", JT.ring(70), 32),
     ]
 
 
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(5))
 def test_bsr_lowering_equals_jax(case):
     _, g, bn = _bsr_cases()[case]
     m = JM.receive_matrix(g).astype(np.float32)
@@ -74,9 +83,11 @@ def test_bsr_lowering_equals_jax(case):
         assert not tiles[i, c:].any() and not bc[i, c:].any()
 
 
-@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("case", range(5))
 @pytest.mark.parametrize("d", [96, 513])
 def test_bsr_plain_matches_jax_kernel(case, d):
+    """The plain tile walk and the CUDA walk's rendering, both against the
+    Pallas kernel (interpret) and M @ W."""
     _, g, bn = _bsr_cases()[case]
     m = JM.receive_matrix(g).astype(np.float32)
     w = np.random.default_rng(d).standard_normal((g.n, d)).astype(np.float32)
@@ -84,8 +95,74 @@ def test_bsr_plain_matches_jax_kernel(case, d):
     want = jax_mix_bsr(jnp.asarray(bc_j), jnp.asarray(tiles_j), jnp.asarray(w), interpret=True)
     bc, tiles, counts = (torch.as_tensor(a) for a in bsr_from_dense(m, bn))
     got = mix_bsr(bc, tiles, counts, torch.as_tensor(w))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(got.numpy(), m @ w, atol=1e-5, rtol=1e-5)
+    rows = mix_bsr_rows_ref(bc, tiles, counts, torch.as_tensor(w))
+    for y in (got, rows):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(y.numpy(), m @ w, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(rows.numpy(), got.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _masked_ring_round(n, dead=()):
+    """A masked round of the port's sparse plan on ring-n (CPU): the BSR
+    operator and the same round's dense operator.  ``dead`` rows are
+    inactive, so their row block's off-diagonal tiles become all zero."""
+    rng = np.random.default_rng(n)
+    active = rng.random(n) < 0.8
+    active[list(dead)] = False
+    plan = compile_plan(PT.ring(n), "sparse", device="cpu")
+    edge_live = torch.as_tensor(rng.random(plan.n_edges) < 0.7)
+    kw = dict(active=torch.as_tensor(active), edge_live=edge_live)
+    dense = compile_plan(PT.ring(n), "dense", device="cpu").round_operator(**kw)
+    return plan.round_operator(**kw), dense.numpy()
+
+
+@pytest.mark.parametrize("variant", ["nan_padding", "masked", "masked_zero_tiles", "bf16"])
+def test_bsr_rows_ref_skip_rule(variant):
+    """The CUDA walk's rendering skips padding tiles (NaN there changes
+    nothing) and the exact zeros of a masked round, including tiles that
+    became all zero, and agrees with the plain walk, the Pallas kernel
+    (interpret) and the dense operator."""
+    rng = np.random.default_rng(11)
+    if variant in ("nan_padding", "bf16"):
+        m = JM.receive_matrix(JT.configuration_heavy_tail(40, 2.2, seed=0)).astype(np.float32)
+        bc, tiles, counts = (torch.as_tensor(a) for a in bsr_from_dense(m, 8))
+    else:
+        (bc, tiles, counts), m = _masked_ring_round(64, dead=range(8, 16) if variant == "masked_zero_tiles" else ())
+        kept = np.abs(tiles.numpy()).sum(axis=(2, 3)) > 0
+        real = np.arange(tiles.shape[1])[None, :] < counts.numpy()[:, None]
+        if variant == "masked_zero_tiles":
+            assert (real[1] & ~kept[1]).sum() == 2  # rows 8-15 keep only their self weights
+    w = rng.standard_normal((m.shape[0], 77)).astype(np.float32)
+    want = jax_mix_bsr(jnp.asarray(bc.numpy()), jnp.asarray(tiles.numpy()), jnp.asarray(w), interpret=True)
+    if variant == "bf16":
+        rows = mix_bsr_rows_ref(bc, tiles, counts, torch.as_tensor(w).to(torch.bfloat16))
+        assert rows.dtype == torch.bfloat16
+        np.testing.assert_allclose(rows.float().numpy(), np.asarray(want), atol=3e-2, rtol=3e-2)
+        return
+    rows = mix_bsr_rows_ref(bc, tiles, counts, torch.as_tensor(w))
+    np.testing.assert_allclose(rows.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(rows.numpy(), m @ w, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(rows.numpy(), mix_bsr_ref(bc, tiles, counts, torch.as_tensor(w)).numpy(),
+                               atol=1e-5, rtol=1e-5)
+    if variant == "nan_padding":
+        dirty = tiles.clone()
+        for i, c in enumerate(counts.tolist()):
+            dirty[i, c:] = float("nan")
+        assert torch.equal(mix_bsr_rows_ref(bc, dirty, counts, torch.as_tensor(w)), rows)
+
+
+def test_bsr_rows_ref_adds_nothing_for_a_zero_weight():
+    """By design: an infinite source element behind an exact zero of M adds
+    nothing to the walk over the nonzeros, where the tile product (the plain
+    walk, as the Pallas kernel's jnp.dot) gives NaN."""
+    m = JM.receive_matrix(JT.ring(16)).astype(np.float32)
+    bc, tiles, counts = (torch.as_tensor(a) for a in bsr_from_dense(m, 8))
+    w = torch.ones(16, 3)
+    w[5, 1] = float("inf")  # row 5 is referenced by rows 4, 5 and 6 only
+    rows, tile = mix_bsr_rows_ref(bc, tiles, counts, w), mix_bsr_ref(bc, tiles, counts, w)
+    far = [r for r in range(16) if r not in (4, 5, 6)]
+    assert torch.isfinite(rows[far]).all() and torch.isinf(rows[[4, 5, 6], 1]).all()
+    assert torch.isnan(tile[far[:4], 1]).all()  # rows 0-3 share row 5's tile block
 
 
 def test_bsr_slots_address_every_entry():
