@@ -35,13 +35,15 @@ run with a non-zero exit:
    M 64, FMA otherwise), each case checking its route; out and final state
    both checked; both routes timed in turns on the same bf16 inputs at
    those shapes, and each of their launches' device time read from
-   ``torch.profiler``); the quantised mix (its scales pass and the dense
-   and block-sparse walks) at complete-16 and ring-1024 with the paper MLP's
-   281-chunk table, int8 and fp8, round mode at γ 1 and 0.5, raw mode (the
-   Pallas kernel's function) in fp32 and bf16, a masked round and the
-   scale floors' edge cases, and int8 / fp8 rounds at kreg4-1024, scales
-   and new mirrors bitwise; two launches bitwise equal, and timings at the
-   main path's shapes; both block-sparse walks timed at ring-1024 and
+   ``torch.profiler``); the quantised mix (the one-launch dense round,
+   and the scales pass and block-sparse walk) at complete-16 and ring-1024
+   with the paper MLP's 281-chunk table, int8 and fp8, round mode at γ 1
+   and 0.5, raw mode (the Pallas kernel's function) in fp32 and bf16, a
+   masked round and the scale floors' edge cases, the dense round's wide
+   route (chunks of 65,536 columns) and complete-64, and int8 / fp8 rounds
+   at kreg4-1024, scales and new mirrors bitwise, each dense round checking
+   its route; two launches bitwise equal, and timings at the main path's
+   shapes (the dense round at complete-16 and complete-64); both block-sparse walks timed at ring-1024 and
    kreg4-1024 against the tile walks they replaced (``TILE_WALK_MS``), which
    they must beat at ring-1024;
 4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
@@ -49,8 +51,8 @@ run with a non-zero exit:
    kernel launches;
 4b. compressed quickstart — the gain-corrected quickstart with codecs none,
    int8, fp8 and qtopk (frac 0.3, γ 0.5): int8 and fp8 end within 2% of
-   the uncompressed test loss, every int8 / fp8 round one quantised-mix
-   launch, qtopk's rounds dense-kernel launches;
+   the uncompressed test loss, every int8 / fp8 round one launch of the
+   dense round (no scales pass), qtopk's rounds dense-kernel launches;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step);
@@ -217,6 +219,7 @@ def main() -> int:
         quant_mix_dense, quant_scales,
     )
     from repro_torch.kernels.mix import ops as mix_ops
+    from repro_torch.kernels.mix import quant as mix_quant
     from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref
     from repro_torch.kernels.rwkv import ops as rwkv_ops
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
@@ -235,6 +238,7 @@ def main() -> int:
             kern.launches = 0
         flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
         rwkv6_chunked.launches_by_route.update(dict.fromkeys(rwkv_kernels.ROUTES, 0))
+        quant_mix_dense.launches_by_route.update(dict.fromkeys(quant_mix_dense.launches_by_route, 0))
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
@@ -730,13 +734,35 @@ def main() -> int:
         h[1, 512:2560] = 0.0
         return x, h
 
-    def compare_quant(label, kernel, plain_mix, x, h, bounds, *, codec, gamma, floor="codec", ef=True):
-        scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
+    def compare_quant(label, kernel, plain_mix, x, h, bounds, *, codec, gamma, floor="codec", ef=True, route=None):
+        """With ``route`` the kernel is the dense round: it takes the table as
+        host ints and returns its scales, both its launches take that route,
+        and the host's count of its shared memory is the kernel's; else a BSR
+        walk given the scales pass's."""
         ref_scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None, floor=floor)
-        check(torch.equal(scales, ref_scales), f"{label}: scales differ from the plain version")
-        got = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef)
-        again = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef)
+        kw = dict(codec=codec, gamma=gamma, error_feedback=ef)
+        if route is None:
+            scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
+
+            def run():
+                return kernel(x, h, bounds, scales, **kw), scales
+        else:
+            by_route = dict(quant_mix_dense.launches_by_route)
+            edges = tuple(bounds.tolist())
+            plan = mix_quant.tile_plan(edges, x.shape[0], x.dtype, x.device)[0]
+            args = (x.shape[0], plan.cols, plan.tile_chunks, x.element_size())
+            smem = (mix_quant.round_smem_bytes(*args), mix_quant._lib().quant_round_smem_bytes(*args))
+            check(smem[0] == smem[1], f"{label}: the host counts {smem[0]} bytes of shared memory, the kernel {smem[1]}")
+
+            def run():
+                return kernel(x, h, edges, floor=floor, **kw)
+        (got, scales), (again, scales_again) = run(), run()
         torch.cuda.synchronize()
+        check(torch.equal(scales, ref_scales) and torch.equal(scales, scales_again),
+              f"{label}: scales differ from the plain version")
+        if route is not None:
+            check(quant_mix_dense.launches_by_route == {**by_route, route: by_route[route] + 2},
+                  f"{label}: routes {quant_mix_dense.launches_by_route}, want two launches on {route}")
         ref = quant_mix_ref(plain_mix, x, h, bounds, ref_scales, codec=codec, gamma=gamma,
                             error_feedback=ef and h is not None)
         outs = [("Y", got, again, ref)] if gamma is None else [
@@ -752,7 +778,8 @@ def main() -> int:
         bf16 = x.dtype == torch.bfloat16
         worst = float((diff / (atol + BF16_RTOL * y_ref.abs())).max()) if bf16 else err / atol
         print(f"  {label:48s} {outs[0][0]} max_abs_err {err:.3e} (worst err/tol {worst:.3f})"
-              + ("" if gamma is None else f", H' elements off the plain version {h_off}") + "; deterministic True")
+              + ("" if gamma is None else f", H' elements off the plain version {h_off}")
+              + ("" if route is None else f"; route {route}") + "; scales bitwise; deterministic True")
         check(h_off == 0, f"{label}: H' differs from the plain version in {h_off} elements")
         check(worst <= 1.0, f"{label}: error above tolerance (worst err/tol {worst})")
         del got, again, ref, outs, y, y_ref, diff
@@ -771,14 +798,30 @@ def main() -> int:
     for codec in ("int8", "fp8"):
         for gamma in (1.0, 0.5):
             e = compare_quant(f"quant_mix_dense {codec} round complete-16 γ={gamma}", dense_kernel(m16),
-                              lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec=codec, gamma=gamma)
+                              lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec=codec, gamma=gamma,
+                              route="staged")
             errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
         e = compare_quant(f"quant_mix_dense {codec} raw complete-16 fp32", dense_kernel(m16),
                           lambda hq: decavg_mix_ref(m16, hq), x16, None, raw16, codec=codec, gamma=None,
-                          floor="pallas")
+                          floor="pallas", route="staged")
         errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
     e = compare_quant("quant_mix_dense int8 round, no error feedback", dense_kernel(m16),
-                      lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec="int8", gamma=0.5, ef=False)
+                      lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, codec="int8", gamma=0.5, ef=False,
+                      route="staged")
+    errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    # the wide route: chunks of 65,536 columns (Compression's largest), more
+    # than a cluster stages: fc0/w's six full chunks
+    wide_bounds = chunk_bounds(mlp_layout.sizes, 65536, dev)
+    for codec in ("int8", "fp8"):
+        e = compare_quant(f"quant_mix_dense {codec} round complete-16 chunk 65536", dense_kernel(m16),
+                          lambda hq: decavg_mix_ref(m16, hq), x16, h16, wide_bounds, codec=codec, gamma=1.0,
+                          route="wide")
+        errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    m64 = compile_plan(T.complete(64), "dense", device=dev).receive
+    x64, h64 = quant_inputs(64)
+    e = compare_quant("quant_mix_dense int8 round complete-64 γ=1.0", dense_kernel(m64),
+                      lambda hq: decavg_mix_ref(m64, hq), x64, h64, mlp_bounds, codec="int8", gamma=1.0,
+                      route="staged")
     errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
     x1k, h1k = quant_inputs(1024)
     ring_bsr = plan_s.bsr
@@ -820,7 +863,7 @@ def main() -> int:
     # form X' (sub, mul, add).  The scales pass reads X and H and writes
     # n·C floats; 3 flops per element (sub, abs, max).
     table_bytes = 8 * (n_chunks + 1)
-    s16 = quant_scales(x16, h16, mlp_bounds, codec="int8")
+    mlp_edges = tuple(mlp_bounds.tolist())
     s1k = quant_scales(x1k, h1k, mlp_bounds, codec="int8")
     b_qs, op_qs = bound(8 * 1024 * D_MAIN + 4 * 1024 * n_chunks + table_bytes, 3 * 1024 * D_MAIN)
     timing["quant_scales"] = dict(
@@ -829,15 +872,23 @@ def main() -> int:
         library_ms=None,  # no one PyTorch call computes a per-chunk absmax over a chunk table
         bound_ms=b_qs, bound_by=op_qs, shape=f"ring-1024 X − H, d={D_MAIN}, {n_chunks} chunks a row, fp32",
     )
-    b_qd, op_qd = bound(16 * 16 * D_MAIN + 4 * 16 * 16 + 4 * 16 * n_chunks + table_bytes,
-                        2 * 16 * 16 * D_MAIN + 9 * 16 * D_MAIN)
-    timing["quant_mix_dense"] = dict(
-        ms=time_ms(lambda: quant_mix_dense(m16, x16, h16, mlp_bounds, s16, codec="int8", gamma=1.0), flush=flush),
-        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m16, hq), x16, h16, mlp_bounds, s16,
-                                               codec="int8", gamma=1.0), flush=flush),
-        library_ms=None,  # no one PyTorch call quantises and mixes
-        bound_ms=b_qd, bound_by=op_qd, shape=f"complete-16 int8 round, d={D_MAIN}, fp32",
-    )
+    # the dense round, one launch, device time (the stream held): X and H
+    # in, X' and H' out, M, the scales out and the chunk table; flops: the
+    # mix's 2 n² d and ~12 per element
+    # (sub, abs, max for the scale; div, rint, 2 clips, fma to decode; sub,
+    # mul, add for X')
+    for n_d, m_d, x_d, h_d in ((16, m16, x16, h16), (64, m64, x64, h64)):
+        b_qd, op_qd = bound(16 * n_d * D_MAIN + 4 * n_d * n_d + 4 * n_d * n_chunks + table_bytes,
+                            2 * n_d * n_d * D_MAIN + 12 * n_d * D_MAIN)
+        timing["quant_mix_dense" if n_d == 16 else "quant_mix_dense_64"] = dict(
+            ms=time_ms(lambda: quant_mix_dense(m_d, x_d, h_d, mlp_edges, codec="int8", gamma=1.0),
+                       flush=flush, hold=True),
+            plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m_d, hq), x_d, h_d, mlp_bounds,
+                                                   quant_scales_ref(x_d, h_d, mlp_bounds, codec="int8"),
+                                                   codec="int8", gamma=1.0), flush=flush),
+            library_ms=None,  # no one PyTorch call quantises and mixes
+            bound_ms=b_qd, bound_by=op_qd, shape=f"complete-{n_d} int8 round, d={D_MAIN}, fp32, scales included",
+        )
     b_qb, op_qb = bound(16 * 1024 * D_MAIN + tile_bytes + 4 * 1024 * n_chunks + table_bytes,
                         2 * nnz * D_MAIN + 9 * 1024 * D_MAIN)
     timing["quant_mix_bsr"] = dict(
@@ -861,13 +912,14 @@ def main() -> int:
     for name in ("mix_bsr", "quant_mix_bsr"):
         check(walks[(name, "ring-1024")]["ms"] < TILE_WALK_MS[(name, "ring-1024")],
               f"{name} at ring-1024 is not faster than the tile walk it replaced")
-    round16_ms = time_ms(lambda: mix_ops.quant_mix_flat(m16, x16, h16, mlp_bounds, codec="int8", gamma=1.0),
-                         flush=flush)
-    round1k_ms = time_ms(lambda: mix_ops.quant_mix_flat(ring_bsr, x1k, h1k, mlp_bounds, codec="int8", gamma=1.0),
+    round_ms = {n_d: time_ms(lambda: mix_ops.quant_mix_flat(m_d, x_d, h_d, mlp_edges, codec="int8", gamma=1.0),
+                             flush=flush)
+                for n_d, m_d, x_d, h_d in ((16, m16, x16, h16), (64, m64, x64, h64))}
+    round1k_ms = time_ms(lambda: mix_ops.quant_mix_flat(ring_bsr, x1k, h1k, mlp_edges, codec="int8", gamma=1.0),
                          flush=flush)
     print(f"  quantised round bytes: complete-16 {16 * 16 * D_MAIN / 1e6:.1f} MB, ring-1024 "
           f"{16 * 1024 * D_MAIN / 1e9:.3f} GB (16 a fp32 element: X, H in, X', H' out)")
-    del x16, h16, x1k, h1k, s16, s1k, m16
+    del x16, h16, x1k, h1k, s1k, m16, x64, h64, m64
     torch.cuda.empty_cache()
     for name, t in timing.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
@@ -893,8 +945,12 @@ def main() -> int:
                                       for name, phases in rwkv_phases.items()))
     check(all(rwkv_shapes[lab]["ms"]["tc"] < rwkv_shapes[lab]["ms"]["fma"] for lab in ("prefill", "long prompt")),
           "the tc route is not faster than the fma route at 4 × 2048 and 1 × 16384")
-    print(f"  one int8 round (scales + walk) through quant_mix_flat: complete-16 {round16_ms:.4f} ms, "
-          f"ring-1024 {round1k_ms:.4f} ms")
+    for n_d, key in ((16, "quant_mix_dense"), (64, "quant_mix_dense_64")):
+        t = timing[key]
+        print(f"  one int8 round through quant_mix_flat: complete-{n_d} {round_ms[n_d]:.4f} ms with the wrapper's "
+              f"host time (one launch; its device time {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, "
+              f"{t['bound_ms'] / t['ms']:.1%} of it)")
+    print(f"  one int8 round through quant_mix_flat: ring-1024 {round1k_ms:.4f} ms (scales + BSR walk)")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. quickstart
@@ -942,14 +998,16 @@ def main() -> int:
     # fig12's codec sweep on the quickstart setup: int8 and fp8 must end
     # within 2% of the uncompressed final test loss; qtopk at frac 0.3, γ 0.5
     # is its acceptance codec (4.43x fewer bytes).  Every int8 / fp8 round
-    # is one scales pass and one quantised dense walk; qtopk's h' mixes
-    # through the dense DecAvg kernel.
+    # is one launch of the dense round (scales, decode and mix; no scales
+    # pass), on the staged route; qtopk's h' mixes through the dense DecAvg
+    # kernel.
     codecs = [("none", None), ("int8", Compression("int8")), ("fp8", Compression("fp8")),
               ("qtopk", Compression("qtopk", topk_frac=0.3, gamma=0.5))]
     comp_final, comp_launches = {}, {}
     for label, comp in codecs:
         rf = make_round_fn(loss_fn, opt, graph, device=dev, compression=comp)
         reset_counts()
+        routes_before = dict(quant_mix_dense.launches_by_route)
         t0 = time.perf_counter()
         final, h = run_trajectory(
             states[1], rf, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5, eval_fn=eval_fn, eval_batch=test,
@@ -958,6 +1016,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         comp_launches[label] = {kern.__name__: kern.launches for kern in kernels}
+        comp_routes = {k: v - routes_before[k] for k, v in quant_mix_dense.launches_by_route.items()}
+        check(comp_routes == {"staged": comp_launches[label]["quant_mix_dense"], "wide": 0},
+              f"{label}: dense round routes {comp_routes}")
         ratio = 1.0 if comp is None else 4 * D_MAIN / sum(comp.leaf_row_bytes(sz, np.float32)
                                                           for sz in final.layout.sizes)
         comp_final[label] = h["test_loss"][-1]
@@ -972,7 +1033,7 @@ def main() -> int:
         print(f"  {label}: final test loss {rel:+.3%} against the uncompressed run")
         check(abs(rel) <= 0.02, f"{label} final test loss {comp_final[label]} not within 2% of "
                                 f"{comp_final['none']}")
-        check(comp_launches[label] == {**none_launched, "quant_scales": ROUNDS, "quant_mix_dense": ROUNDS},
+        check(comp_launches[label] == {**none_launched, "quant_mix_dense": ROUNDS},
               f"{label} launch counts {comp_launches[label]}")
     for label in ("none", "qtopk"):
         check(comp_launches[label] == {**none_launched, "mix_matmul": ROUNDS}, f"{label} launch counts "
@@ -1022,25 +1083,27 @@ def main() -> int:
     # drift (cuBLAS against the CPU) can flip a code where x/scale lies within
     # an ulp of a half-integer.  Elements beyond the tolerance are counted, and
     # each must lie within one code step: the largest scale of its chunk over
-    # rows and rounds, recorded on the CPU.
+    # rows and rounds, recorded on the CPU.  Each round's scales are the ones
+    # the dense round returns (it computes them in its one launch).
     comp8 = Compression("int8")
     results = {}
     for d_name in ("cuda", "cpu"):
         recorded = []
 
-        def recording_scales(*args, **kw):
-            recorded.append(quant_scales(*args, **kw))
-            return recorded[-1]
+        def recording_round(*args, **kw):
+            out, scales = quant_mix_dense(*args, **kw)
+            recorded.append(scales)
+            return out, scales
 
-        mix_ops.quant_scales = recording_scales
+        mix_ops.quant_mix_dense = recording_round
         st = state_from_numpy(params_np, optimizer=opt, device=d_name)
         rf = make_round_fn(loss_fn, opt, g8, device=d_name, compression=comp8)
         st, h = run_trajectory(
             st, rf, xs8, ys8, sched8, n_rounds=r8, eval_every=1, eval_fn=eval_fn,
             eval_batch=(ds8.x[-256:], ds8.y[-256:]), track_sigmas=True, b_local=b8, device=d_name,
         )
-        mix_ops.quant_scales = quant_scales
-        check(len(recorded) == r8, f"{d_name}: {len(recorded)} scales passes in {r8} compressed rounds")
+        mix_ops.quant_mix_dense = quant_mix_dense
+        check(len(recorded) == r8, f"{d_name}: {len(recorded)} dense rounds' scales in {r8} compressed rounds")
         results[d_name] = (h, st, torch.stack(recorded).cpu())
     (h_gpu, st_gpu, _), (h_cpu, st_cpu, scales_cpu) = results["cuda"], results["cpu"]
     for key in ("train_loss", "test_loss", "sigma_ap", "sigma_an"):
@@ -1481,8 +1544,8 @@ def main() -> int:
         # the fp32 (and bf16 M 32 / 128) route: phase 8's card-vs-CPU serving
         ("rwkv6_chunked_fma", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
          rwkv_fp32_launches),
-        # kernel 3 is three launches here: the scales pass (phases 4b and 6's
-        # compressed runs) and the dense (4b) and block-sparse (6) walks
+        # kernel 3 is three kernels here: the dense round (4b, one launch a
+        # round), and the scales pass and the block-sparse walk (6)
         ("quant_scales", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
          comp_launches["int8"]["quant_scales"] + comp_launches["fp8"]["quant_scales"]
          + cli_c_launches["quant_scales"]),

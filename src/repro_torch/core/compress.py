@@ -15,10 +15,11 @@ mirror h, the copy of itself its peers hold, and one compressed round is
 
 The port keeps an ensemble in one flat ``(n, d)`` buffer (``repro_torch.flat``):
 its ``FlatLayout`` says where each leaf sits, so the per-leaf chunks become
-one chunk table over the row.  On the card every int8 / fp8 round is one
-pass of the hand-written quantised-mix kernel (``kernels/mix/quant.py``:
-scales, then dequantise-in-registers → mix → H', X' in one walk); topk and
-qtopk quantise in plain torch and mix h' through the DecAvg kernels.  The
+one chunk table over the row.  On the card every int8 / fp8 round runs the
+hand-written quantised-mix kernels (``kernels/mix/quant.py``): with M dense
+one launch that reduces the scales, decodes and mixes in one pass over X
+and H; with M block-sparse the scales pass, then the walk.  topk and qtopk
+quantise in plain torch and mix h' through the DecAvg kernels.  The
 arithmetic is the JAX package's as its executors run it, jitted: see
 ``kernels/mix/ref.py``.
 
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch.flat import FlatLayout, tree_from_leaves, tree_leaves, tree_map
 from repro_torch.kernels.mix import mix_flat, quant_mix_flat
+from repro_torch.kernels.mix.quant import table_bounds
 from repro_torch.kernels.mix.ref import chunk_bounds, dequantise_ref, quant_scales_ref
 
 __all__ = [
@@ -125,9 +127,16 @@ class Compression:
 
 # ------------------------------------------------------------ flat rows
 @functools.lru_cache(maxsize=64)
+def _edges(sizes: tuple[int, ...], chunk: int) -> tuple[int, ...]:
+    """The chunk table of a row of leaves as host ints, built once per
+    (layout, chunk): what the quantised round takes."""
+    return tuple(chunk_bounds(sizes, chunk).tolist())
+
+
 def _bounds(sizes: tuple[int, ...], chunk: int, device: torch.device) -> torch.Tensor:
-    """The chunk table of a row of leaves, built once per (layout, chunk, device)."""
-    return chunk_bounds(sizes, chunk, device)
+    """The same table on ``device``: the copy the quantised round makes of
+    ``_edges`` (``kernels/mix/quant.py::table_bounds``), made once."""
+    return table_bounds(_edges(sizes, chunk), device)
 
 
 def _sizes(x: torch.Tensor, layout: FlatLayout | None) -> tuple[int, ...]:
@@ -277,7 +286,7 @@ def compressed_mix(
 
     The round's operator is drawn once (``plan.round_operator``, one
     failure draw, as an uncompressed round).  int8 / fp8 rounds are one
-    quantised-mix pass (``kernels/mix/ops.py::quant_mix_flat``); topk and
+    quantised mix (``kernels/mix/ops.py::quant_mix_flat``); topk and
     qtopk compute h' in plain torch and mix it with ``mix_flat``.
     ``compression.stream`` gives the same result: nothing here holds an
     ``(n, d)`` temporary that streaming would avoid.
@@ -301,7 +310,7 @@ def compressed_mix(
     op = plan.round_operator(generator, active=active, edge_live=edge_live)
     if comp.codec in ("int8", "fp8"):
         return quant_mix_flat(
-            op, params, residual, _bounds(sizes, comp.chunk, params.device), codec=comp.codec,
+            op, params, residual, _edges(sizes, comp.chunk), codec=comp.codec,
             gamma=comp.gamma, error_feedback=comp.error_feedback, keep=keep,
         )
     h_new = _new_mirror(params, residual, sizes, comp, keep)

@@ -7,8 +7,8 @@
 // that function (raw mode: no H, the Pallas chunking and scale floor) and
 // the compressed gossip round of src/repro/core/compress.py, where a node
 // transmits Q(x - h) against its mirror h and every peer decodes
-// h' = h + Q(x - h) (round mode).  The round's epilogue also writes
-// H' = h' and X' = X + gamma (M h' - h') for the rows a block owns.
+// h' = h + Q(x - h) (round mode), then writes H' = h' and
+// X' = X + gamma (M h' - h').
 //
 // Arithmetic, to the bit of the JAX package as XLA compiles it (jit):
 //   scale  fmaxf(amax, 1e-30f) * fl(1/qmax)      the codec's floor, or
@@ -19,41 +19,38 @@
 //   h'     __fmaf_rn(q, scale, h) (XLA contracts h + q * scale into one
 //          FMA), or __fmul_rn(q, scale) without a mirror.
 //
-// The kernels.  quant_scales: one block per (row, chunk) reduces the
-// chunk's absmax of X - H (a chunk is up to 65,536 columns and need not
-// align with any column strip, so the reduction is a pass of its own;
-// n * C floats out).  quant_mix_dense: mix.cu's walk with each source
-// element dequantised in registers from X, H and its (row, chunk) scale
-// before the fp32 FMA; a thread finds the chunk of each of its VEC columns
-// once, by binary search of the chunk table (C + 1 boundaries), and reads
-// the scale from the n x C table through L1 (the threads of a warp mostly
-// share a chunk, so those loads are broadcasts).  quant_mix_bsr, the walk
-// of bsr_walk.cuh over the nonzeros of M: in raw mode over the rows peers
-// decode, dequantised in registers per reference; in round mode in two
-// passes, dequant_rows_kernel writing H' (each element decoded once) and
-// then the walk over H' with the X' epilogue.
+// The kernels.  quant_mix_dense, M dense: one launch a round,
+// quant_round_kernel (its own section below), which reduces the scales,
+// decodes, mixes and writes in one pass over X and H.  quant_scales: one
+// block per (row, chunk) reduces the chunk's absmax of X - H (n * C floats
+// out), for the block-sparse round.  quant_mix_bsr, the walk of
+// bsr_walk.cuh over the nonzeros of M, with the scales quant_scales gave:
+// in raw mode over the rows peers decode, dequantised in registers per
+// reference; in round mode in two passes, dequant_rows_kernel writing H'
+// (each element decoded once) and then the walk over H' with the X'
+// epilogue.
 //
 // What bounds it on an H100: bytes.  A round reads X and H and writes X'
 // and H' (16 bytes per fp32 element) plus the operator; the flops are the
 // mix's (2 n d per dense row, 2 d per nonzero of a BSR operator) and a
 // handful per source element to dequantise, below the fp32 rate at the
-// main path's sizes.  The BSR round moves 24 bytes an element instead (X
-// and H in and H' out, then H', X in and X' out): on the card the one-pass
-// form, which decodes a source row once per row that references it (a
-// true division, a rint, clips and an FMA), ran slower than that (PERF.md).
-// H' is what every neighbour mixed, bit for bit: the walk reads the H' the
-// first pass wrote, and the dense walk's owning block recomputes h'_i in
-// its epilogue from the same inputs.  Each element of Y, X' and H' is
+// main path's sizes.  The dense round moves those 16 bytes.  The BSR round
+// moves 24 bytes an element, besides the scales pass's 8 (X and H in and H'
+// out, then H', X in and X' out): on the card the one-pass form, which
+// decodes a source row once per row that references it (a true division,
+// a rint, clips and an FMA), ran slower than that (PERF.md).  H' is what
+// every neighbour mixed, bit for bit.  Each element of Y, X' and H' is
 // written by exactly one block; no atomics: bitwise deterministic.
+#include <cooperative_groups.h>
 #include <cuda_fp8.h>
+
+#include <cstdint>
 
 #include "bsr_walk.cuh"
 
 namespace {
 
-using mixk::kThreads;
 
-constexpr int kChunk = 64;           // dense: M columns staged per pass
 constexpr int kScaleThreads = 256;   // quant_scales block
 
 struct QArgs {
@@ -83,11 +80,12 @@ __device__ __forceinline__ float quantise(float t, float s, int codec) {
   return static_cast<float>(q);
 }
 
-// What peers decode from x (and its mirror h) under scale s.
-__device__ __forceinline__ float dequantise(float xv, float hv, float s, const QArgs& qa) {
-  const float t = qa.ef ? xv - hv : xv;
-  const float q = quantise(t, s, qa.codec);
-  return qa.ef ? __fmaf_rn(q, s, hv) : __fmul_rn(q, s);
+// What peers decode from x (and its mirror h) under scale s; ef: x - h was
+// quantised and h is added back.
+__device__ __forceinline__ float decode(float xv, float hv, float s, int codec, int ef) {
+  const float t = ef ? xv - hv : xv;
+  const float q = quantise(t, s, codec);
+  return ef ? __fmaf_rn(q, s, hv) : __fmul_rn(q, s);
 }
 
 // Row `row` of X (and H) at columns c0 .. c0+VEC, and what its peers decode
@@ -111,58 +109,13 @@ __device__ __forceinline__ void load_deq(const T* __restrict__ x, const QArgs& q
   }
   const float* srow = qa.scales + row * qa.n_chunks;
 #pragma unroll
-  for (int v = 0; v < VEC; ++v) out[v] = dequantise(xv[v], hv[v], srow[ch[v]], qa);
-}
-
-// acc[r][:] += sum_{k < kc} m_s[r * ldm + k] * deq(row0 + k)[c0 : c0 + VEC]
-// (mix_common.cuh's accumulate, with the source rows dequantised).
-template <typename T, int VEC, int RG>
-__device__ __forceinline__ void accumulate_q(float (&acc)[RG][VEC], const float* __restrict__ m_s, int ldm,
-                                             int kc, const T* __restrict__ x, const QArgs& qa,
-                                             long long row0, long long row_end, long long d, long long c0,
-                                             const int (&ch)[VEC]) {
-  for (int k = 0; k < kc; k += 4) {
-    float wv[4][VEC], xv[VEC];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) load_deq<T, VEC>(x, qa, row0 + k + j, row_end, d, c0, ch, xv, wv[j]);
-#pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      const float4 mv = *reinterpret_cast<const float4*>(m_s + r * ldm + k);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        float a = acc[r][v];
-        a = fmaf(mv.x, wv[0][v], a);
-        a = fmaf(mv.y, wv[1][v], a);
-        a = fmaf(mv.z, wv[2][v], a);
-        a = fmaf(mv.w, wv[3][v], a);
-        acc[r][v] = a;
-      }
-    }
-  }
+  for (int v = 0; v < VEC; ++v) out[v] = decode(xv[v], hv[v], srow[ch[v]], qa.codec, qa.ef);
 }
 
 template <int VEC>
 __device__ __forceinline__ void chunks_of(const QArgs& qa, long long d, long long c0, int (&ch)[VEC]) {
 #pragma unroll
   for (int v = 0; v < VEC; ++v) ch[v] = c0 + v < d ? find_chunk(qa.bounds, qa.n_chunks, c0 + v) : 0;
-}
-
-// Output row `row`: Y (raw mode), or h'_row and X' = X + gamma (acc - h') (round mode).
-template <typename T, int VEC>
-__device__ __forceinline__ void epilogue(const T* __restrict__ x, const QArgs& qa, long long row, int n,
-                                         long long d, long long c0, const int (&ch)[VEC],
-                                         const float (&acc)[VEC], T* __restrict__ y, T* __restrict__ x_out,
-                                         float* __restrict__ h_out, float gamma) {
-  if (y != nullptr) {
-    mixk::store_row<T, VEC>(y, row, d, c0, acc);
-    return;
-  }
-  float xv[VEC], hq[VEC], xo[VEC];
-  load_deq<T, VEC>(x, qa, row, n, d, c0, ch, xv, hq);
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) xo[v] = xv[v] + gamma * (acc[v] - hq[v]);
-  mixk::store_row<T, VEC>(x_out, row, d, c0, xo);
-  mixk::store_row<float, VEC>(h_out, row, d, c0, hq);
 }
 
 template <typename T>
@@ -193,67 +146,432 @@ __global__ void __launch_bounds__(kScaleThreads)
   }
 }
 
-template <typename T, int VEC, int RG>
-__device__ __forceinline__ void dense_walk(const float* __restrict__ m, const T* __restrict__ x, QArgs qa,
-                                           T* __restrict__ y, T* __restrict__ x_out, float* __restrict__ h_out,
-                                           int n, long long d, int n_rg, float gamma) {
-  __shared__ __align__(16) float m_s[RG * kChunk];
-  const long long strip = blockIdx.x / n_rg;
-  const int r0 = (blockIdx.x % n_rg) * RG;
-  const long long c0 = (strip * kThreads + threadIdx.x) * VEC;
-  int ch[VEC];
-  chunks_of<VEC>(qa, d, c0, ch);
-  float acc[RG][VEC];
-#pragma unroll
-  for (int r = 0; r < RG; ++r)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+// ------------------------------------------------------------ the dense round
+// One launch a round: quant_round_kernel computes the scales, decodes each
+// element once, mixes and writes X' and H' (or Y) in one pass over X and H.
+//
+// Tiles.  The host (quant.py::plan_tiles) cuts the chunk table into column
+// tiles on chunk boundaries: whole chunks, at most tile_chunks of them and
+// at most cluster x cols columns, or one chunk wider than that.  The grid is
+// persistent: as many thread-block clusters as fit on the card at once,
+// each walking the tiles t = c, c + clusters, ...; CTA `rank` of a cluster
+// takes each tile's rank-th slice of ceil(width / cluster) columns, all n
+// rows.
+//
+// Staged route (a tile of at most cluster x cols columns).  A CTA copies its
+// slice of X and H, n rows, into shared memory with 16-byte cp.async (a
+// row's unaligned head and tail element by element: rows are as little as
+// one element aligned).  It reduces each (row, chunk) partial absmax of
+// X - H from the stage and stores it into every peer's shared memory
+// (distributed shared memory: stores, which do not wait, rather than loads,
+// which do); after the cluster's barrier each CTA takes the max of the
+// partials it holds, and rank 0 writes the scale table.  (One cluster
+// barrier at the start, its wait after M^T is filled, makes sure every
+// peer is running before the first such store.)  Each staged
+// element is then decoded once, h' overwrites h in shared memory and goes
+// out as H', and the CTA forms M h' for its columns from shared memory (M
+// there too) and writes X' = X + gamma (M h' - h') from the staged X.  HBM
+// traffic: X and H in, X' and H' out, 16 bytes an fp32 element.  While it
+// works on a tile, the CTA has L2 fetch its slice of the next one.
+//
+// Wide route (one chunk wider than cluster x cols; Compression.chunk allows
+// 65,536 columns).  The CTA reduces its slice's partial absmax straight from
+// device memory, the cluster combines them, then the CTA walks its slice in
+// passes of cols columns, each staged, decoded, mixed and written as above:
+// the chunk is read twice, 24 bytes an element.
+//
+// The mix: a warp owns RG output rows and VEC columns a lane (lanes on
+// neighbouring columns, a lane's columns 32 apart, so the reads of h' are
+// free of bank conflicts); every output is one fp32 FMA chain over k = 0 ..
+// n-1, M^T read as RG / 4 broadcast float4s a k.  Past kMResidentMax
+// rows M does not fit beside the stages and is read from device memory
+// through L1 (MG).  No atomics: two launches are bitwise equal, and the
+// scales and H' are bitwise quant_scales_ref and ref.py's decode (the
+// absmax is a max, exact in any order).
+//
+// What holds it: latency more than bytes.  A tile is a chain of barriers
+// (the stage, the cluster's partials, the decode, the mix), so an SM needs
+// several CTAs at once: each n's (RG, VEC) comes with a thread count and a
+// register cap that keep it free of spills (dispatch_round), chosen in
+// A/Bs on the card (PERF.md): n <= 32 runs 256 threads at 64 registers,
+// four CTAs an SM; up to 128 rows 512 threads at 128.  Two stage buffers
+// (the next tile's copies in flight during this one) halved the CTAs an SM
+// and lost at every shape tried.
+namespace cg = cooperative_groups;
 
-  for (int k0 = 0; k0 < n; k0 += kChunk) {
-    const int kc = min(kChunk, n - k0);
-    for (int i = threadIdx.x; i < RG * kChunk; i += kThreads) {
-      const int r = i / kChunk, k = i % kChunk;
-      m_s[i] = (r0 + r < n && k < kc) ? m[(long long)(r0 + r) * n + k0 + k] : 0.f;
-    }
-    __syncthreads();
-    if (c0 < d) accumulate_q<T, VEC, RG>(acc, m_s, kChunk, kc, x, qa, k0, k0 + kc, d, c0, ch);
-    __syncthreads();
+constexpr int kMResidentMax = 128;        // M sits in shared memory up to this n
+constexpr int kMaxCluster = 8;            // CTAs of a tile (the portable cluster size)
+constexpr long long kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
+
+struct RoundArgs {
+  const float* m;             // (n, n)
+  const void* x;              // (n, d) fp32 or bf16
+  const float* h;             // (n, d) fp32 mirror, or null
+  const unsigned char* keep;  // (n,) or null
+  const long long* bounds;    // (n_chunks + 1,) the chunk table
+  const long long* tiles;     // (n_tiles, 4): first column, end column, first chunk, end chunk
+  float* scales;              // (n, n_chunks) out
+  void* y;                    // raw mode out, X's dtype
+  void* x_out;                // round mode out, X's dtype
+  float* h_out;               // round mode out
+  long long d;
+  int n, n_chunks, n_tiles, cols, tile_chunks, codec, ef, floor_pallas;
+  float gamma;
+};
+
+__host__ __device__ constexpr long long align16(long long b) { return (b + 15) & ~15LL; }
+
+// Byte offsets of the round kernel's dynamic shared memory, for n rows,
+// `cols` staged columns, tables of `tc` chunks and X elements of `xsize`
+// bytes.  Tile i's partials are at part + (i & 1) * part_buf, one (n, tc)
+// table for each CTA of the cluster (each CTA stores its own into every
+// peer's); two, so that a CTA's next tile never overwrites what a peer
+// still reads.
+// quant.py::round_smem_bytes computes `total` on the host, and a card
+// test holds it equal to quant_round_smem_bytes.
+struct RoundSmem {
+  int m_rows, sx, sh, n4;
+  int m, part, part_buf, sc, cb, cc, xb, hb, keep, xs, hs;  // byte offsets: int, as the block's memory is < 227 KB
+  long long total;
+  __host__ __device__ RoundSmem(int n, int cols, int tc, int rg, int xsize, bool m_resident) {
+    const int e = 16 / xsize;
+    n4 = (n + 3) & ~3;
+    m_rows = (n + rg - 1) / rg * rg;
+    sx = (cols + e - 1) / e * e + e;  // room for a row's shift of up to e - 1 elements
+    sh = (cols + 3) / 4 * 4 + 4;
+    long long off = 0;
+    m = (int)off, off += align16(m_resident ? 4LL * m_rows * n : 0);  // M^T, k-major
+    part = (int)off, off += 2 * align16(4LL * kMaxCluster * n * tc);
+    sc = (int)off, off += align16(4LL * n * tc);
+    cb = (int)off, off += align16(8LL * (tc + 1));
+    cc = (int)off, off += align16(cols);
+    xb = (int)off, off += align16(4LL * n4);
+    hb = (int)off, off += align16(4LL * n4);
+    keep = (int)off, off += align16(n);
+    xs = (int)off, off += align16((long long)xsize * n * sx);
+    hs = (int)off, off += align16(4LL * n * sh);
+    part_buf = (int)align16(4LL * kMaxCluster * n * tc);
+    total = off;
   }
-  if (c0 >= d) return;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int r = 0; r < RG; ++r)
-    if (r0 + r < n) epilogue<T, VEC>(x, qa, r0 + r, n, d, c0, ch, acc[r], y, x_out, h_out, gamma);
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
-template <typename T, int VEC, int RG>
-__global__ void __launch_bounds__(kThreads)
-    quant_mix_dense_kernel(const float* __restrict__ m, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
-                           T* __restrict__ x_out, float* __restrict__ h_out, int n, long long d, int n_rg,
-                           float gamma) {
-  dense_walk<T, VEC, RG>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
-}
-
-// VEC 1, RG 32, on its own: under ptxas's own register choice it spills;
-// told of four blocks an SM (128 registers) it does not.  The hint stays off
-// the other instantiations, whose register choice it would change.
+// One warp copies `count` elements of a row into shared memory: element e
+// lands at dst[shift + e], shift being src's element offset in its 16-byte
+// word, so the middle of the row goes over as 16-byte cp.async copies and
+// only the head and tail element by element.  dst is 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 4)
-    quant_mix_dense_v1_kernel(const float* __restrict__ m, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
-                              T* __restrict__ x_out, float* __restrict__ h_out, int n, long long d, int n_rg,
-                              float gamma) {
-  dense_walk<T, 1, 32>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+__device__ __forceinline__ int stage_row(T* dst, const T* src, int count, int lane) {
+  constexpr int kE = 16 / sizeof(T);
+  const int shift = (int)((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % kE);
+  const int head = min(count, (kE - shift) % kE);
+  const int nv = (count - head) / kE;
+  const int tail = head + nv * kE;
+  for (int j = lane; j < nv; j += 32) cp_async16(dst + shift + head + j * kE, src + head + j * kE);
+  if (lane < head) dst[shift + lane] = src[lane];
+  if (tail + lane < count) dst[shift + tail + lane] = src[tail + lane];
+  return shift;
 }
 
-template <typename T, int VEC, int RG>
-void launch_dense(unsigned blocks, cudaStream_t s, const float* m, const T* x, const QArgs& qa, T* y, T* x_out,
-                  float* h_out, int n, long long d, int n_rg, float gamma) {
-  if constexpr (VEC == 1 && RG == 32) {
-    quant_mix_dense_v1_kernel<T><<<blocks, kThreads, 0, s>>>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
-  } else {
-    quant_mix_dense_kernel<T, VEC, RG><<<blocks, kThreads, 0, s>>>(m, x, qa, y, x_out, h_out, n, d, n_rg, gamma);
+// Stage columns [p0, p0 + pw) of every row of X (and H) and record where
+// each row starts in shared memory.  Ends with the block's barrier.
+template <typename T, int WARPS>
+__device__ __forceinline__ void stage(const RoundArgs& a, const RoundSmem& L, char* smem, long long p0, int pw) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* xs = reinterpret_cast<T*>(smem + L.xs);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  int* xb = reinterpret_cast<int*>(smem + L.xb);
+  int* hb = reinterpret_cast<int*>(smem + L.hb);
+  const T* x = static_cast<const T*>(a.x);
+  for (int r = warp; r < a.n; r += WARPS) {
+    const long long off = r * a.d + p0;
+    const int sx = stage_row<T>(xs + (long long)r * L.sx, x + off, pw, lane);
+    const int sh = a.h != nullptr ? stage_row<float>(hs + (long long)r * L.sh, a.h + off, pw, lane) : 0;
+    if (lane == 0) xb[r] = r * L.sx + sx, hb[r] = r * L.sh + sh;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Ask L2 for columns [p0, p0 + pw) of every row of X (and H): one
+// prefetch a 128-byte line, and the row's last element.
+template <typename T, int WARPS>
+__device__ __forceinline__ void prefetch_l2(const RoundArgs& a, long long p0, int pw) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (pw <= 0) return;
+  for (int r = warp; r < a.n; r += WARPS) {
+    const T* xr = static_cast<const T*>(a.x) + r * a.d + p0;
+    const float* hr = a.h != nullptr ? a.h + r * a.d + p0 : nullptr;
+    for (int c = lane * (128 / (int)sizeof(T)); c < pw + 128 / (int)sizeof(T); c += 32 * (128 / (int)sizeof(T)))
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(xr + min(c, pw - 1)));
+    if (hr != nullptr)
+      for (int c = lane * 32; c < pw + 32; c += 32 * 32) asm volatile("prefetch.global.L2 [%0];" ::"l"(hr + min(c, pw - 1)));
   }
 }
 
+// M[r0 .. r0+RG, k], zero past n: from M^T in shared memory (k-major, rows
+// padded to m_rows), RG / 4 broadcast float4 loads; or from device memory.
+template <int RG, bool MG>
+__device__ __forceinline__ void m_column(const RoundArgs& a, const float* m_s, int m_rows, int r0, int k,
+                                         float (&mk)[RG]) {
+  if constexpr (!MG) {
+#pragma unroll
+    for (int q = 0; q < RG / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(m_s + k * m_rows + r0 + 4 * q);
+      mk[4 * q] = v.x, mk[4 * q + 1] = v.y, mk[4 * q + 2] = v.z, mk[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < RG; ++r) mk[r] = r0 + r < a.n ? __ldg(a.m + (long long)(r0 + r) * a.n + k) : 0.f;
+  }
+}
+
+// Tile t as this CTA sees it: its slice [s_lo, s_hi) of the tile's columns.
+struct TileSlice {
+  long long s_lo, s_hi;
+  int j_lo, nch;
+  bool wide;
+};
+
+__device__ __forceinline__ TileSlice slice_of(const RoundArgs& a, long long t, int G, int rank) {
+  const long long* tile = a.tiles + 4 * t;
+  const long long c_lo = tile[0], c_hi = tile[1], width = c_hi - c_lo;
+  const long long sw = (width + G - 1) / G;
+  TileSlice s;
+  s.s_lo = min(c_hi, c_lo + rank * sw);
+  s.s_hi = min(c_hi, s.s_lo + sw);
+  s.j_lo = (int)tile[2];
+  s.nch = (int)(tile[3] - tile[2]);
+  s.wide = width > (long long)G * a.cols;
+  return s;
+}
+
+template <typename T, int RG, int VEC, bool MG, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) quant_round_kernel(RoundArgs a) {
+  constexpr int kWarps = THREADS / 32;
+  extern __shared__ __align__(16) char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long n_clusters = gridDim.x / G;
+  const int n = a.n, tc = a.tile_chunks;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const RoundSmem L(n, a.cols, tc, RG, (int)sizeof(T), !MG);
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  long long* cb = reinterpret_cast<long long*>(smem + L.cb);
+  unsigned char* cc = reinterpret_cast<unsigned char*>(smem + L.cc);
+  unsigned char* keep_s = reinterpret_cast<unsigned char*>(smem + L.keep);
+  const T* xs = reinterpret_cast<const T*>(smem + L.xs);
+  float* hs = reinterpret_cast<float*>(smem + L.hs);
+  const int* xb = reinterpret_cast<const int*>(smem + L.xb);
+  const int* hb = reinterpret_cast<const int*>(smem + L.hb);
+
+  // Every CTA of the cluster is running before any stores into a peer's
+  // shared memory: arrive here, wait once M^T and keep are filled.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if constexpr (!MG) {  // M^T: m_s[k * m_rows + r] = M[r, k]
+    for (int i = tid; i < L.m_rows * n; i += THREADS) {
+      const int k = i / L.m_rows, r = i - k * L.m_rows;
+      m_s[i] = r < n ? a.m[(long long)r * n + k] : 0.f;
+    }
+  }
+  for (int r = tid; r < n; r += THREADS) keep_s[r] = a.keep == nullptr || a.keep[r];
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+
+  const float inv = a.codec == 0 ? 1.0f / 127.0f : 1.0f / 448.0f;
+  const int n_rg = (n + RG - 1) / RG;
+  int it = 0;
+  for (long long t = blockIdx.x / G; t < a.n_tiles; t += n_clusters, ++it) {
+    const TileSlice s = slice_of(a, t, G, rank);
+    float* part = reinterpret_cast<float*>(smem + L.part + (it & 1) * L.part_buf);
+    for (int i = tid; i <= s.nch; i += THREADS) cb[i] = a.bounds[s.j_lo + i];
+
+    // each (row, chunk) partial absmax of X - H over this CTA's slice
+    if (!s.wide) {
+      stage<T, kWarps>(a, L, smem, s.s_lo, (int)(s.s_hi - s.s_lo));
+      if (t + n_clusters < a.n_tiles) {  // the next tile's slice into L2 while this one is worked on
+        const TileSlice s_next = slice_of(a, t + n_clusters, G, rank);
+        if (!s_next.wide) prefetch_l2<T, kWarps>(a, s_next.s_lo, (int)(s_next.s_hi - s_next.s_lo));
+      }
+      for (int r = warp; r < n; r += kWarps) {
+        const T* xr = xs + xb[r];
+        const float* hr = hs + hb[r];
+        for (int jj = 0; jj < s.nch; ++jj) {
+          const int lo = (int)(max(cb[jj], s.s_lo) - s.s_lo), hi = (int)(min(cb[jj + 1], s.s_hi) - s.s_lo);
+          float amax = 0.f;
+#pragma unroll 4
+          for (int c = lo + lane; c < hi; c += 32) {
+            float v = mixk::to_f32(xr[c]);
+            if (a.ef) v = v - hr[c];
+            amax = fmaxf(amax, fabsf(v));
+          }
+          amax = warp_max(amax);
+          if (lane < G) cluster.map_shared_rank(part, lane)[(rank * n + r) * tc + jj] = amax;
+        }
+      }
+    } else {  // one chunk: reduce straight from device memory
+      const T* x = static_cast<const T*>(a.x);
+      for (int r = warp; r < n; r += kWarps) {
+        const T* xr = x + r * a.d;
+        const float* hr = a.ef ? a.h + r * a.d : nullptr;
+        float amax = 0.f;
+#pragma unroll 4
+        for (long long c = s.s_lo + lane; c < s.s_hi; c += 32) {
+          float v = mixk::to_f32(xr[c]);
+          if (hr != nullptr) v = v - hr[c];
+          amax = fmaxf(amax, fabsf(v));
+        }
+        amax = warp_max(amax);
+        if (lane < G) cluster.map_shared_rank(part, lane)[(rank * n + r) * tc] = amax;
+      }
+    }
+    cluster.sync();
+
+    // the max of the cluster's partials, which every CTA stored here: the scales
+    for (int i = tid; i < n * s.nch; i += THREADS) {
+      const int r = i / s.nch, jj = i - r * s.nch;
+      float amax = 0.f;
+      for (int q = 0; q < G; ++q) amax = fmaxf(amax, part[(q * n + r) * tc + jj]);
+      const float sv = a.floor_pallas ? fmaxf(__fmul_rn(amax, inv), 1e-30f) : __fmul_rn(fmaxf(amax, 1e-30f), inv);
+      sc[r * tc + jj] = sv;
+      if (rank == 0) a.scales[(long long)r * a.n_chunks + s.j_lo + jj] = sv;
+    }
+
+    for (long long p0 = s.s_lo; p0 < s.s_hi; p0 += a.cols) {
+      const int pw = (int)min((long long)a.cols, s.s_hi - p0);
+      if (s.wide) {
+        __syncthreads();  // the previous pass is done with the stage
+        stage<T, kWarps>(a, L, smem, p0, pw);
+      }
+      for (int c = tid; c < pw; c += THREADS) {
+        int jj = 0;
+        while (jj + 1 < s.nch && cb[jj + 1] <= p0 + c) ++jj;
+        cc[c] = (unsigned char)jj;
+      }
+      __syncthreads();
+
+      // decode each staged element once: h' over h, and out as H'
+      for (int r = warp; r < n; r += kWarps) {
+        const T* xr = xs + xb[r];
+        float* hr = hs + hb[r];
+        const float* sr = sc + r * tc;
+        const bool upd = keep_s[r];
+        float* ho = a.h_out != nullptr ? a.h_out + r * a.d + p0 : nullptr;
+#pragma unroll 4
+        for (int c = lane; c < pw; c += 32) {
+          const float hv = a.h != nullptr ? hr[c] : 0.f;
+          const float hq = upd ? decode(mixk::to_f32(xr[c]), hv, sr[cc[c]], a.codec, a.ef) : hv;
+          hr[c] = hq;
+          if (ho != nullptr) ho[c] = hq;
+        }
+      }
+      __syncthreads();
+
+      // M h' for the slice's columns; the epilogue writes Y or X'
+      const int nb = (pw + 32 * VEC - 1) / (32 * VEC);
+      for (int item = warp; item < n_rg * nb; item += kWarps) {
+        const int g = item / nb, c0 = (item - g * nb) * 32 * VEC + lane;
+        const int r0 = g * RG;
+        int ci[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) ci[v] = min(c0 + 32 * v, pw - 1);
+        float acc[RG][VEC];
+#pragma unroll
+        for (int r = 0; r < RG; ++r)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < n; ++k) {
+          const float* hr = hs + hb[k];
+          float hv[VEC], mk[RG];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) hv[v] = hr[ci[v]];
+          m_column<RG, MG>(a, m_s, L.m_rows, r0, k, mk);
+#pragma unroll
+          for (int r = 0; r < RG; ++r)
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(mk[r], hv[v], acc[r][v]);
+        }
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const int row = r0 + r;
+          if (row >= n) break;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            const int c = c0 + 32 * v;
+            if (c >= pw) continue;
+            const long long o = row * a.d + p0 + c;
+            if (a.y != nullptr) {
+              static_cast<T*>(a.y)[o] = mixk::from_f32<T>(acc[r][v]);
+            } else {
+              const float xv = mixk::to_f32(xs[xb[row] + c]), hq = hs[hb[row] + c];
+              static_cast<T*>(a.x_out)[o] = mixk::from_f32<T>(xv + a.gamma * (acc[r][v] - hq));
+            }
+          }
+        }
+      }
+      if (!s.wide) break;
+    }
+    __syncthreads();  // the stage, the scales and the chunk map are free for the next tile
+  }
+  cluster.sync();  // no CTA leaves while a peer may still store into its partials
+}
+
+template <typename T, int RG, int VEC, bool MG, int THREADS, int MIN_BLOCKS>
+cudaError_t launch_round(const RoundArgs& a, int cluster, cudaStream_t s) {
+  const RoundSmem L(a.n, a.cols, a.tile_chunks, RG, (int)sizeof(T), !MG);
+  if (L.total > kSmemLimit) return cudaErrorInvalidValue;
+  const auto kernel = quant_round_kernel<T, RG, VEC, MG, THREADS, MIN_BLOCKS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)a.n_tiles * cluster));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = (size_t)L.total;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent: as many clusters as the card holds at once, each walking tiles
+  int resident = 0;
+  err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3((unsigned)((long long)(resident < a.n_tiles ? resident : a.n_tiles) * cluster));
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// A warp's output rows in the round's mix for n rows.
+__host__ __device__ constexpr int round_rg(int n) { return n <= 8 ? 8 : 16; }
+
+// The round's shape for n rows: a warp's output rows RG (round_rg) and a
+// lane's columns VEC, M from device memory (MG) past kMResidentMax rows,
+// the threads of a CTA and the CTAs an SM the registers are capped for.
+template <typename T>
+cudaError_t dispatch_round(const RoundArgs& a, int cluster, cudaStream_t s) {
+  constexpr int kMore = kMResidentMax + 1;
+  if (a.n <= 8) return launch_round<T, round_rg(8), 2, false, 256, 3>(a, cluster, s);
+  if (a.n <= 32) return launch_round<T, round_rg(32), 1, false, 256, 4>(a, cluster, s);
+  if (a.n <= kMResidentMax) return launch_round<T, round_rg(kMResidentMax), 4, false, 512, 1>(a, cluster, s);
+  return launch_round<T, round_rg(kMore), 1, true, 256, 1>(a, cluster, s);
+}
 // Raw mode's source rows for the BSR walk (bsr_walk.cuh): what peers decode
 // from rows of X.  A thread's chunk of each of its VEC columns advances
 // with its column strip.
@@ -306,7 +624,7 @@ struct DecodedRows {
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       const float hv = raw.h.v[v];
-      out[v] = raw.update ? dequantise(mixk::to_f32(raw.x.v[v]), hv, raw.s[v], qa) : hv;
+      out[v] = raw.update ? ::decode(mixk::to_f32(raw.x.v[v]), hv, raw.s[v], qa.codec, qa.ef) : hv;
     }
   }
 };
@@ -455,28 +773,39 @@ extern "C" int quant_scales(int dtype, const void* x, const float* h, const long
   return (int)cudaGetLastError();
 }
 
-// Dense M (n, n) fp32.  Raw mode: y (n, d) in X's dtype, h and keep null.
-// Round mode: x_out (X's dtype) and h_out (fp32), gamma the consensus step.
-// vec in {1, 2, 4} divides d and the host checked every pointer's alignment.
+// Dense M (n, n) fp32: one round, its scales included.  Raw mode: y (n, d)
+// in X's dtype, h and keep null.  Round mode: x_out (X's dtype) and h_out
+// (fp32), gamma the consensus step.  scales (n, n_chunks) fp32 out, floored
+// as quant_scales.  tiles (n_tiles, 4) int64 and cluster, cols and
+// tile_chunks are the host's plan (quant.py::plan_tiles).
 extern "C" int quant_mix_dense(int dtype, const float* m, const void* x, const float* h,
-                               const unsigned char* keep, const long long* bounds, const float* scales,
-                               void* y, void* x_out, float* h_out, int n, long long d, int n_chunks,
-                               int codec, int ef, float gamma, int vec, void* stream) {
-  if (n <= 0 || d <= 0 || n_chunks <= 0 || (ef && h == nullptr) || (keep != nullptr && h == nullptr) ||
-      codec < 0 || codec > 1 || bad_outputs(y, x_out, h_out) || (y != nullptr && (h || keep)))
+                               const unsigned char* keep, const long long* bounds, const long long* tiles,
+                               float* scales, void* y, void* x_out, float* h_out, int n, long long d,
+                               int n_chunks, int n_tiles, int cluster, int cols, int tile_chunks, int codec,
+                               int ef, int floor_pallas, float gamma, void* stream) {
+  if (n <= 0 || d <= 0 || n_chunks <= 0 || n_tiles <= 0 || cols <= 0 || tile_chunks <= 0 || tile_chunks > 255 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || (ef && h == nullptr) ||
+      (keep != nullptr && h == nullptr) || codec < 0 || codec > 1 || bad_outputs(y, x_out, h_out) ||
+      (y != nullptr && (h || keep)))
     return cudaErrorInvalidValue;
-  const int rg = n <= 8 ? 8 : n <= 16 ? 16 : 32;
-  const int n_rg = (n + rg - 1) / rg;
-  const long long strip_cols = (long long)kThreads * vec;
-  const long long blocks = ((d + strip_cols - 1) / strip_cols) * n_rg;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const QArgs qa = make_args(bounds, scales, h, keep, n_chunks, codec, ef);
+  if ((long long)n_tiles * cluster > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  RoundArgs a;
+  a.m = m, a.x = x, a.h = h, a.keep = keep, a.bounds = bounds, a.tiles = tiles, a.scales = scales;
+  a.y = y, a.x_out = x_out, a.h_out = h_out, a.d = d;
+  a.n = n, a.n_chunks = n_chunks, a.n_tiles = n_tiles, a.cols = cols, a.tile_chunks = tile_chunks;
+  a.codec = codec, a.ef = ef;
+  a.floor_pallas = floor_pallas, a.gamma = gamma;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QMIX_DENSE_CALL(T, VEC, RG)                                                                 \
-  launch_dense<T, VEC, RG>((unsigned)blocks, s, m, static_cast<const T*>(x), qa, static_cast<T*>(y), \
-                           static_cast<T*>(x_out), h_out, n, d, n_rg, gamma)
-  return (int)MIXK_DISPATCH(dtype, vec, rg, QMIX_DENSE_CALL);
-#undef QMIX_DENSE_CALL
+  if (dtype == 0) return (int)dispatch_round<float>(a, cluster, s);
+  if (dtype == 1) return (int)dispatch_round<__nv_bfloat16>(a, cluster, s);
+  return cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of quant_mix_dense's kernel for n rows, `cols`
+// staged columns, tables of `tile_chunks` chunks and X elements of `xsize`
+// bytes (quant.py::round_smem_bytes computes the same on the host).
+extern "C" long long quant_round_smem_bytes(int n, int cols, int tile_chunks, int xsize) {
+  return RoundSmem(n, cols, tile_chunks, round_rg(n), xsize, n <= kMResidentMax).total;
 }
 
 // M in BSR form, as mix_bsr.  Outputs and the rest as quant_mix_dense.

@@ -3,8 +3,9 @@
 ``mix_flat(op, w)`` is the entry ``CommPlan.mix`` uses: one flat ``(n, d)``
 buffer, one kernel launch — the dense kernel for an ``(n, n)`` operator
 tensor, the block-sparse kernel for a ``BSR``.  ``quant_mix_flat(op, x, h,
-bounds, ...)`` is its compressed counterpart, one int8 / fp8 gossip round:
-the scales pass, then the dense or block-sparse quantised mix.
+edges, ...)`` is its compressed counterpart, one int8 / fp8 gossip round:
+with M dense one launch that reduces the scales, decodes and mixes; with a
+``BSR`` the scales pass, then the block-sparse quantised mix.
 
 ``decavg_mix(m, tree)`` mixes a dict of node-stacked tensors (the JAX
 wrapper's pytree form, for tests and general use): leaves are flattened per
@@ -22,7 +23,7 @@ import torch
 from repro_torch.flat import tree_from_leaves, tree_leaves
 
 from .mix import mix_matmul
-from .quant import quant_mix_bsr, quant_mix_dense, quant_scales
+from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, table_bounds
 from .sparse import BSR, bsr_from_dense, mix_bsr
 
 __all__ = ["decavg_mix", "mix_flat", "quant_mix_flat"]
@@ -52,7 +53,7 @@ def quant_mix_flat(
     op: torch.Tensor | BSR,
     x: torch.Tensor,
     h: torch.Tensor,
-    bounds: torch.Tensor,
+    edges: tuple[int, ...],
     *,
     codec: str,
     gamma: float,
@@ -61,14 +62,17 @@ def quant_mix_flat(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One compressed round over one flat (n, d) buffer and its fp32 mirror
     ``h``: returns (x', h') with h' = h + Q(x − h) (Q(x) without error
-    feedback) and x' = x + γ (M h' − h').  ``bounds`` is the chunk table;
-    rows where ``keep`` is False keep h."""
+    feedback) and x' = x + γ (M h' − h').  ``edges`` is the chunk table as
+    host ints (``quant.table_bounds`` keeps its device copy); rows where
+    ``keep`` is False keep h."""
     h_in = h if (error_feedback or keep is not None) else None
-    scales = quant_scales(x, h_in, bounds, codec=codec, error_feedback=error_feedback)
     kw = dict(codec=codec, gamma=gamma, error_feedback=error_feedback, keep=keep)
     if isinstance(op, BSR):
+        bounds = table_bounds(tuple(edges), x.device)
+        scales = quant_scales(x, h_in, bounds, codec=codec, error_feedback=error_feedback)
         return quant_mix_bsr(op.block_cols, op.tiles, op.counts, x, h_in, bounds, scales, **kw)
-    return quant_mix_dense(op, x, h_in, bounds, scales, **kw)
+    out, _ = quant_mix_dense(op, x, h_in, edges, **kw)
+    return out
 
 
 def decavg_mix(

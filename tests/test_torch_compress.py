@@ -50,6 +50,7 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_mix_bsr,
 )
 from repro_torch.kernels.mix import ops as mix_ops  # noqa: E402
+from repro_torch.kernels.mix import quant as Q  # noqa: E402
 from repro_torch.kernels.mix import mix_bsr_rows_ref  # noqa: E402
 from repro_torch.kernels.mix.ref import fma_f32, quant_mix_ref, quant_scales_ref  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
@@ -344,7 +345,8 @@ def test_failure_draw_consumed_once_per_round():
 
 def test_kernel_entries_on_cpu_agree():
     """The kernel wrappers take the plain path on CPU tensors: the dense and
-    BSR round entries agree, and ``quant_scales`` is the codec's scale."""
+    BSR round entries agree, the dense round returns the scales
+    ``quant_scales`` gives, and ``quant_scales`` is the codec's scale."""
     g = PT.ring(40)
     m = receive_matrix(g).astype(np.float32)
     bc, tiles, counts = (torch.as_tensor(a) for a in bsr_from_dense(m, 8))
@@ -352,18 +354,145 @@ def test_kernel_entries_on_cpu_agree():
     x = torch.as_tensor(rng.standard_normal((40, 300)).astype(np.float32))
     h = torch.as_tensor(rng.standard_normal((40, 300)).astype(np.float32) * 0.3)
     bounds = chunk_bounds((100, 7, 193), 64)
+    edges = tuple(bounds.tolist())
     for codec in ("int8", "fp8"):
         s = quant_scales(x, h, bounds, codec=codec)
-        xd, hd = quant_mix_dense(torch.as_tensor(m), x, h, bounds, s, codec=codec, gamma=0.5)
+        (xd, hd), sd = quant_mix_dense(torch.as_tensor(m), x, h, edges, codec=codec, gamma=0.5)
+        assert torch.equal(sd, s)
         xb, hb = quant_mix_bsr(bc, tiles, counts, x, h, bounds, s, codec=codec, gamma=0.5)
         assert torch.equal(hd, hb)
         torch.testing.assert_close(xd, xb, atol=1e-5 * float(x.abs().max()), rtol=0)
         with pytest.raises(ValueError, match="raw mode"):
-            quant_mix_dense(torch.as_tensor(m), x, h, bounds, s, codec=codec)
+            quant_mix_dense(torch.as_tensor(m), x, h, edges, codec=codec)
     with pytest.raises(ValueError):
         quant_scales(x, h, bounds, codec="zstd")
     with pytest.raises(ValueError):
         quant_scales(x, h, bounds, codec="int8", floor="other")
+
+
+# ------------------------------------------------ the dense round's tile table
+MLP_SIZES = (512, 401_408, 256, 131_072, 128, 32_768, 10, 1_280)  # FlatLayout order of the paper MLP's leaves
+
+
+@pytest.mark.parametrize(
+    "n,edges,itemsize,route",
+    [
+        (16, ("mlp", 2048), 4, "staged"),
+        (64, ("mlp", 2048), 4, "staged"),
+        (1, ("mlp", 2048), 4, "staged"),
+        (16, ("mlp", 2048), 2, "staged"),
+        (16, ("pallas", 512), 4, "staged"),
+        (64, ("pallas", 512), 2, "staged"),
+        (16, ("mlp", 65536), 4, "wide"),
+        (64, ("leaves", (3 * 65536 + 7,), 65536), 4, "wide"),
+        (16, ("leaves", (20_001,), 2048), 4, "staged"),
+        (33, ("leaves", (500, 1, 300, 201), 64), 2, "staged"),
+        (16, ("leaves", (97,), 1), 4, "staged"),
+        (200, ("leaves", (3000,), 256), 4, "staged"),
+        (200, ("leaves", (5000,), 4096), 2, "wide"),
+    ],
+    ids=["mlp-n16", "mlp-n64", "mlp-n1", "mlp-n16-bf16", "pallas-n16", "pallas-n64-bf16", "mlp-chunk65536",
+         "wide-n64", "odd-d", "leaf-table-n33", "one-column-chunks", "n200", "n200-wide"],
+)
+def test_tile_plan_covers_the_table(n, edges, itemsize, route):
+    """Every column in exactly one tile, in order; tile boundaries on chunk
+    boundaries; a tile at most ``tile_chunks`` whole chunks and a cluster's
+    staged columns, or one wider chunk (the wide route); the kernel's
+    shared memory within a block's."""
+    if edges[0] == "mlp":
+        table = chunk_bounds(MLP_SIZES, edges[1]).tolist()
+    elif edges[0] == "pallas":
+        table = pallas_bounds(MLP_D, edges[1]).tolist()
+    else:
+        table = chunk_bounds(edges[1], edges[2]).tolist()
+    plan = Q.plan_tiles(table, n, itemsize)
+    assert plan.route == route
+    assert plan.cluster in (1, 2, 4, 8) and plan.cols >= 1 and 1 <= plan.tile_chunks <= 16
+    assert Q.round_smem_bytes(n, plan.cols, plan.tile_chunks, itemsize) <= Q.SMEM_LIMIT
+    col, chunk, wide = 0, 0, 0
+    for lo, hi, j_lo, j_hi in plan.tiles:
+        assert (lo, j_lo) == (col, chunk) and j_hi > j_lo
+        assert (table[j_lo], table[j_hi]) == (lo, hi)
+        if hi - lo > plan.cluster * plan.cols:
+            assert j_hi - j_lo == 1
+            wide += 1
+        else:
+            assert j_hi - j_lo <= plan.tile_chunks
+        col, chunk = hi, j_hi
+    assert (col, chunk) == (table[-1], len(table) - 1)
+    assert (wide > 0) == (route == "wide")
+    # one cached plan per chunk table, row count, dtype and device
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    got, tiles = Q.tile_plan(tuple(table), n, dtype, torch.device("cpu"))
+    assert got == plan and Q.tile_plan(tuple(table), n, dtype, torch.device("cpu"))[1] is tiles
+    assert tiles.dtype == torch.int64 and tiles.tolist() == [list(t) for t in plan.tiles]
+
+
+def test_tile_plan_groups_the_mlp_bias_chunks():
+    """The MLP table at n = 16: one 2048-column chunk a tile, a cluster of
+    eight CTAs on 256 columns each; the bias chunks (512, 256, 128, 10
+    columns) and fc3's 1280 share tiles where they fit."""
+    table = chunk_bounds(MLP_SIZES, 2048).tolist()
+    plan = Q.plan_tiles(table, 16, 4)
+    assert (plan.cluster, plan.cols) == (8, 256)
+    assert len(plan.tiles) < len(table) - 1
+    assert any(j_hi - j_lo > 1 for _, _, j_lo, j_hi in plan.tiles)
+    with pytest.raises(ValueError, match="sparse backend"):
+        Q.plan_tiles(table, 20_000, 4)
+
+
+@pytest.mark.parametrize(
+    "edges,match",
+    [((0, 64, 299), "ends at column 299"), ((0, 64, 301), "ends at column 301"), ((1, 64, 300), "rise from 0"),
+     ((0, 200, 100, 300), "rise from 0"), ((0,), "rise from 0"), ((), "rise from 0")],
+    ids=["short", "long", "offset", "falling", "no-chunk", "empty"],
+)
+def test_dense_round_takes_one_table_that_covers_x(edges, match):
+    """The dense round's chunk table is one list of host ints: its device
+    copy (``table_bounds``) is made from it, once per table and device, and
+    a table that does not rise from 0 to X's last column is refused before
+    anything is computed."""
+    x = torch.zeros(4, 300)
+    m = torch.eye(4)
+    with pytest.raises(ValueError, match=match):
+        quant_mix_dense(m, x, x, edges, codec="int8", gamma=1.0)
+    good = (0, 64, 300)
+    assert Q.table_bounds(good, x.device) is Q.table_bounds(good, x.device)
+    assert Q.table_bounds(good, x.device).tolist() == list(good)
+    sizes = (100, 7, 193)
+    assert PCm._bounds(sizes, 64, x.device) is Q.table_bounds(PCm._edges(sizes, 64), x.device)
+    assert PCm._edges(sizes, 64) == tuple(chunk_bounds(sizes, 64).tolist())
+
+
+DENSE_ROUND_CASES = [(codec, gamma, ef, masked) for codec in ("int8", "fp8")
+                     for gamma, ef, masked in ((1.0, True, False), (0.5, True, True), (0.5, False, False),
+                                               (1.0, False, True))]
+
+
+@pytest.mark.parametrize("codec,gamma,ef,masked", DENSE_ROUND_CASES)
+def test_dense_round_on_cpu_matches_jitted_jax(codec, gamma, ef, masked):
+    """``quant_mix_dense`` on CPU tensors: the scales it returns are
+    ``quant_scales_ref``'s, and its round is the jitted JAX
+    ``compressed_mix`` (h' bitwise, x' to 1e-5 · max|x|)."""
+    n, d, chunk = 16, 700, 128
+    rng = np.random.default_rng(11)
+    x = {"w": (rng.standard_normal((n, d)) * rng.uniform(0.01, 5.0, size=(n, 1))).astype(np.float32)}
+    h = {"w": (0.3 * rng.standard_normal((n, d))).astype(np.float32)}
+    mask = np.arange(n) % 3 != 1 if masked else None
+    kw = dict(codec=codec, chunk=chunk, gamma=gamma, error_feedback=ef)
+    pj = JC.compile_plan(JT.complete(n), "dense")
+    xj, hj = jax.jit(lambda x, h, m: JCm.compressed_mix(pj, x, h, compression=JCm.Compression(**kw), update_mask=m))(
+        _jax(x), _jax(h), None if mask is None else jnp.asarray(mask))
+    m = PC.compile_plan(PT.complete(n), "dense", device="cpu").receive
+    xt, ht = torch.as_tensor(x["w"]), torch.as_tensor(h["w"])
+    bounds = chunk_bounds((d,), chunk)
+    h_in = ht if (ef or masked) else None
+    keep = None if mask is None else torch.as_tensor(mask)
+    (xp, hp), scales = quant_mix_dense(m, xt, h_in, tuple(bounds.tolist()), codec=codec, gamma=gamma,
+                                       error_feedback=ef, keep=keep)
+    assert torch.equal(scales, quant_scales_ref(xt, h_in, bounds, codec=codec, error_feedback=ef and h_in is not None))
+    np.testing.assert_array_equal(hp.numpy(), np.asarray(hj["w"]))
+    np.testing.assert_allclose(xp.numpy(), np.asarray(xj["w"]), rtol=0, atol=1e-5 * float(np.abs(x["w"]).max()))
 
 
 # ------------------------------------------------ kernel 3: M·Q(W), Pallas
@@ -462,14 +591,15 @@ def compressed_runs():
     s_t = state_from_numpy(params, optimizer=opt_t, device="cpu")
     rf_t = PF.make_round_fn(tloss, opt_t, PC.compile_plan(PT.ring(N_T), device="cpu"),
                             compression=PCm.Compression(**comp))
-    scales = []  # every round's (n, C) scales: a code step is one of them
+    scales = []  # every round's (n, C) scales, as the dense round returns them: a code step is one of them
 
-    def recording_scales(*args, **kw):
-        scales.append(quant_scales(*args, **kw))
-        return scales[-1]
+    def recording_round(*args, **kw):
+        out, round_scales = quant_mix_dense(*args, **kw)
+        scales.append(round_scales)
+        return out, round_scales
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(mix_ops, "quant_scales", recording_scales)
+        mp.setattr(mix_ops, "quant_mix_dense", recording_round)
         fin_t, h_t = PF.run_trajectory(s_t, rf_t, xs, ys, sched, eval_fn=PF.make_eval_fn(tloss), device="cpu",
                                        **common)
     assert len(scales) == ROUNDS_T

@@ -54,6 +54,8 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_decavg_mix_ref,
     quantised_mix_bsr,
 )
+from repro_torch.kernels.mix.quant import _lib as quant_lib  # noqa: E402
+from repro_torch.kernels.mix.quant import plan_tiles, round_smem_bytes  # noqa: E402
 from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref  # noqa: E402
 from repro_torch.kernels.rwkv import rwkv as rwkv_kernels  # noqa: E402
 from repro_torch.kernels.rwkv import rwkv6_attention, rwkv6_chunked, rwkv6_chunked_ref  # noqa: E402
@@ -445,19 +447,37 @@ def _quant_inputs(dev, n, d, dtype, seed):
     return x.to(dtype), h
 
 
-def _quant_case(dev, kernel, mix_plain, x, h, bounds, *, codec, gamma, ef=True, keep=None, floor="codec"):
+def _quant_case(dev, kernel, mix_plain, x, h, bounds, *, codec, gamma, ef=True, keep=None, floor="codec",
+                route=None):
     """Scales bitwise; H' bitwise; X' or Y within 1e-5 · max|X| (bf16: one
-    ulp more); launches counted; two launches bitwise equal."""
+    ulp more); launches counted; two launches bitwise equal.  With ``route``
+    the kernel is the dense round: one launch, on that route, that returns
+    its scales (no scales pass); without, a BSR walk given quant_scales'."""
+    want_scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None, floor=floor)
     s_before, k_before = quant_scales.launches, kernel.launches
-    scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
-    assert quant_scales.launches == s_before + 1
-    assert torch.equal(scales, quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None,
-                                                floor=floor))
-    got = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef, keep=keep)
+    kw = dict(codec=codec, gamma=gamma, error_feedback=ef, keep=keep)
+    if route is None:
+        scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
+        assert quant_scales.launches == s_before + 1
+
+        def run():
+            return kernel(x, h, bounds, scales, **kw), scales
+    else:
+        by_route = dict(quant_mix_dense.launches_by_route)
+        edges = tuple(bounds.tolist())
+
+        def run():
+            return kernel(x, h, edges, floor=floor, **kw)
+    got, scales = run()
     assert kernel.launches == k_before + 1
+    if route is not None:
+        assert quant_scales.launches == s_before
+        assert quant_mix_dense.launches_by_route == {**by_route, route: by_route[route] + 1}
+    assert torch.equal(scales, want_scales)
     want = quant_mix_ref(mix_plain, x, h, bounds, scales, codec=codec, gamma=gamma,
                          error_feedback=ef and h is not None, keep=keep)
-    again = kernel(x, h, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef, keep=keep)
+    again, scales_again = run()
+    assert torch.equal(scales, scales_again)
     if gamma is None:
         _close(got, want, x)
         assert torch.equal(got, again)
@@ -481,6 +501,7 @@ QUANT_MODES = [  # (gamma, with h, error feedback, keep rows)
                                            (70, (6,), 4), (100, (777,), 1000)])
 @pytest.mark.parametrize("mode", QUANT_MODES, ids=lambda m: f"g{m[0]}-h{int(m[1])}-ef{int(m[2])}-k{int(m[3])}")
 def test_quant_dense_kernel_matches_plain(dev, codec, dtype, n, sizes, chunk, mode):
+    """The dense round: one launch (no scales pass), on the staged route."""
     gamma, with_h, ef, with_keep = mode
     d = sum(sizes)
     x, h = _quant_inputs(dev, n, d, dtype, seed=n + d)
@@ -490,8 +511,65 @@ def test_quant_dense_kernel_matches_plain(dev, codec, dtype, n, sizes, chunk, mo
 
     before = quant_mix_dense.launches
     _quant_case(dev, _counting(lambda *a, **kw: quant_mix_dense(m, *a, **kw), quant_mix_dense), lambda hq: decavg_mix_ref(m, hq), x,
-                h if with_h else None, bounds, codec=codec, gamma=gamma, ef=ef, keep=keep)
+                h if with_h else None, bounds, codec=codec, gamma=gamma, ef=ef, keep=keep, route="staged")
     assert quant_mix_dense.launches == before + 2
+
+
+MLP_SIZES = (784 * 512, 512, 512 * 256, 256, 256 * 128, 128, 128 * 10, 10)  # the paper MLP's leaves
+
+
+@pytest.mark.parametrize(
+    "n,sizes,chunk,dtype,mode,floor,route",
+    [
+        (1, MLP_SIZES, 2048, torch.float32, QUANT_MODES[0], "codec", "staged"),
+        (64, MLP_SIZES, 2048, torch.float32, QUANT_MODES[0], "codec", "staged"),
+        (64, MLP_SIZES, 2048, torch.float32, QUANT_MODES[1], "codec", "staged"),
+        (16, (65536 + 1000, 10), 65536, torch.float32, QUANT_MODES[0], "codec", "wide"),
+        (16, (65536 + 1000, 10), 65536, torch.bfloat16, QUANT_MODES[1], "codec", "wide"),
+        (16, (65536 + 1000, 10), 65536, torch.float32, QUANT_MODES[4], "pallas", "wide"),
+        (64, (3 * 65536 + 7,), 65536, torch.float32, QUANT_MODES[2], "codec", "wide"),
+        (16, (20_001,), 2048, torch.float32, QUANT_MODES[0], "codec", "staged"),
+        (16, (20_001,), 2048, torch.bfloat16, QUANT_MODES[3], "codec", "staged"),
+        (16, (sum(MLP_SIZES),), 512, torch.float32, QUANT_MODES[4], "pallas", "staged"),
+        (16, (sum(MLP_SIZES),), 512, torch.bfloat16, QUANT_MODES[4], "pallas", "staged"),
+        (200, (3000,), 256, torch.float32, QUANT_MODES[1], "codec", "staged"),
+        (200, (5000,), 4096, torch.bfloat16, QUANT_MODES[0], "codec", "wide"),
+    ],
+    ids=["n1-mlp", "n64-mlp", "n64-mlp-keep", "wide-65536", "wide-bf16-keep", "wide-raw-pallas", "wide-n64-no-ef",
+         "odd-d", "odd-d-bf16-keep-no-ef", "raw-pallas-chunks", "raw-pallas-chunks-bf16", "n200-m-from-memory",
+         "n200-wide-bf16"],
+)
+def test_quant_dense_round_routes(dev, n, sizes, chunk, dtype, mode, floor, route):
+    """The dense round at the main path's chunk table (n 1 and 64), chunks
+    of 65,536 columns (the wide route), odd d (rows one element aligned),
+    bf16 X, a keep mask, no error feedback, raw mode at the Pallas chunking
+    and past the rows M can be held in shared memory; each case asserts the
+    route it took."""
+    gamma, with_h, ef, with_keep = mode
+    d = sum(sizes)
+    bounds = chunk_bounds(sizes, chunk, dev) if floor == "codec" else pallas_bounds(d, chunk, dev)
+    assert plan_tiles(bounds.tolist(), n, x_itemsize=dtype.itemsize).route == route
+    x, h = _quant_inputs(dev, n, d, dtype, seed=n + d)
+    m = _stochastic(n, dev, n)
+    keep = (torch.arange(n, device=dev) % 3 != 1) if with_keep else None
+    _quant_case(dev, _counting(lambda *a, **kw: quant_mix_dense(m, *a, **kw), quant_mix_dense),
+                lambda hq: decavg_mix_ref(m, hq), x, h if with_h else None, bounds, codec="int8", gamma=gamma,
+                ef=ef, keep=keep, floor=floor, route=route)
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 16, 32, 33, 64, 128, 129, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_round_smem_bytes_is_the_kernels(dev, n, dtype):
+    """The host's count of the round kernel's shared memory, which sizes the
+    tile plan, is the kernel's own (``quant_round_smem_bytes``) at the plans
+    of the MLP table, Pallas chunking and one wide chunk, and at one column."""
+    lib = quant_lib()
+    d = sum(MLP_SIZES)
+    for edges in (chunk_bounds(MLP_SIZES, 2048), pallas_bounds(d, 512), chunk_bounds((65536 + 1000, 10), 65536)):
+        plan = plan_tiles(edges.tolist(), n, x_itemsize=dtype.itemsize)
+        for cols in (1, plan.cols):
+            want = lib.quant_round_smem_bytes(n, cols, plan.tile_chunks, dtype.itemsize)
+            assert round_smem_bytes(n, cols, plan.tile_chunks, dtype.itemsize) == want
 
 
 def _counting(fn, wrapper):
@@ -566,15 +644,15 @@ def test_quant_kernel_misaligned_rows(dev):
     m = _stochastic(n, dev)
     bounds = chunk_bounds((d,), 256, dev)
     _quant_case(dev, _counting(lambda *a, **kw: quant_mix_dense(m, *a, **kw), quant_mix_dense),
-                lambda hq: decavg_mix_ref(m, hq), x, h, bounds, codec="int8", gamma=1.0)
+                lambda hq: decavg_mix_ref(m, hq), x, h, bounds, codec="int8", gamma=1.0, route="staged")
 
 
 @pytest.mark.parametrize("codec", ["int8", "fp8", "topk", "qtopk"])
 @pytest.mark.parametrize("backend", ["dense", "sparse"])
 def test_compressed_plan_round_on_the_card_matches_the_cpu(dev, codec, backend):
-    """One compressed round under a failure model: int8 / fp8 launch the
-    scales pass and one quantised walk, topk / qtopk one DecAvg kernel;
-    the new mirrors equal the CPU's bit for bit."""
+    """One compressed round under a failure model: int8 / fp8 launch one
+    dense round, or the scales pass and one block-sparse walk; topk / qtopk
+    one DecAvg kernel; the new mirrors equal the CPU's bit for bit."""
     from repro_torch.core.commplan import FailureModel, compile_plan
     from repro_torch.core.compress import Compression
 
@@ -588,7 +666,7 @@ def test_compressed_plan_round_on_the_card_matches_the_cpu(dev, codec, backend):
     counts0 = (quant_scales.launches, quant.launches, plain.launches)
     xg, hg = plan.mix(x, torch.Generator().manual_seed(1), compression=comp, residual=h)
     counts1 = (quant_scales.launches, quant.launches, plain.launches)
-    want = (1, 1, 0) if codec in ("int8", "fp8") else (0, 0, 1)
+    want = ((0 if backend == "dense" else 1), 1, 0) if codec in ("int8", "fp8") else (0, 0, 1)
     assert tuple(b - a for a, b in zip(counts0, counts1)) == want
     cpu = compile_plan(g, backend, failures=FailureModel(0.7, 0.9), device="cpu")
     xc, hc = cpu.mix(x.cpu(), torch.Generator().manual_seed(1), compression=comp, residual=h.cpu())

@@ -6,15 +6,18 @@ on one NVIDIA GPU.
 
 DIR is an unpacked checkout of another commit (``git archive``).  Both
 checkouts' ``mix_bsr`` and ``quant_mix`` libraries are built from their own
-sources with this checkout's nvcc flags and called through the same C entry
-points (their signatures must agree) on the same inputs: the block-sparse mix
-and the int8 block-sparse round (the scales pass, then the walk) at ring-1024
-and kreg4-1024 (bn 32), and the dense int8 round at complete-16, all at the
-paper MLP's width (d = 567,434, fp32, its 281-chunk table).  Each pair times
+sources with this checkout's nvcc flags and called through their C entry
+points on the same inputs: the block-sparse mix and the int8 block-sparse
+round (the scales pass, then the walk) at ring-1024 and kreg4-1024 (bn 32),
+and the dense int8 round at complete-16 and complete-64, all at the paper
+MLP's width (d = 567,434, fp32, its 281-chunk table).  A side whose
+``quant_mix.cu`` has the one-launch round (``quant_round_kernel``) runs it;
+an older side runs its scales pass and then its dense walk.  Each pair times
 the other side, then this one, then this one, then the other (CUDA events,
-L2 flushed, median of 7 each); the script prints every time, each side's
+L2 flushed, the stream held so that only device time counts, median of 7
+each); the script prints every time, each side's
 median, and the card's name and power limit.  The two sides' outputs must
-agree: the new mirrors bitwise, Y and X' within 1e-5 · max|W or X|.
+agree: the scales and new mirrors bitwise, Y and X' within 1e-5 · max|W or X|.
 """
 from __future__ import annotations
 
@@ -65,6 +68,11 @@ def main() -> int:
         for fn in ("mix_bsr",) if name == "mix_bsr" else ("quant_scales", "quant_mix_dense", "quant_mix_bsr"):
             getattr(other[name], fn).restype = ctypes.c_int
             getattr(other[name], fn).argtypes = getattr(this[name], fn).argtypes
+    fused = {"this": True, "other": "quant_round_kernel" in (
+        args.other / kbuild.LIBRARIES["quant_mix"].relative_to(ROOT)).read_text()}
+    if not fused["other"]:  # the scales pass, then the dense walk over them
+        P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        other["quant_mix"].quant_mix_dense.argtypes = [I, P, P, P, P, P, P, P, P, P, I, LL, I, I, I, F, I, P]
     sides = {"other": other, "this": this}
 
     dev = torch.device("cuda")
@@ -79,12 +87,17 @@ def main() -> int:
     w = torch.randn(1024, D_MAIN, generator=gen, device=dev)
     x = torch.randn(1024, D_MAIN, generator=gen, device=dev) * 2
     h = 0.3 * torch.randn(1024, D_MAIN, generator=gen, device=dev)
-    m16 = compile_plan(T.complete(16), "dense", device=dev).receive
-    x16, h16 = x[:16].contiguous(), h[:16].contiguous()
+    dense_n = (16, 64)
+    ms = {n: compile_plan(T.complete(n), "dense", device=dev).receive for n in dense_n}
+    xs = {n: x[:n].contiguous() for n in dense_n}
+    hs = {n: h[:n].contiguous() for n in dense_n}
     stream = K.stream_of(w)
     outs = {side: dict(y=torch.empty_like(w), xo=torch.empty_like(x), ho=torch.empty_like(x),
-                       s=torch.empty(1024, n_chunks, device=dev), xo16=torch.empty_like(x16),
-                       ho16=torch.empty_like(x16)) for side in sides}
+                       s=torch.empty(1024, n_chunks, device=dev),
+                       **{f"{key}{n}": torch.empty(n, *shape, device=dev) for n in dense_n
+                          for key, shape in (("xo", (D_MAIN,)), ("ho", (D_MAIN,)), ("s", (n_chunks,)))})
+            for side in sides}
+    edges = tuple(bounds.tolist())
 
     def mix(side, op):
         o = outs[side]
@@ -104,21 +117,30 @@ def main() -> int:
             K.ptr(o["s"]), None, K.ptr(o["xo"]), K.ptr(o["ho"]), 1024, D_MAIN, n_chunks, op.tiles.shape[0],
             op.tiles.shape[1], op.tiles.shape[2], 0, 1, 1.0, 2, stream)
 
-    def dense_round(side):
+    def dense_round(side, n):
         o = outs[side]
         lib = sides[side]["quant_mix"]
-        s16 = torch.empty(16, n_chunks, device=dev)
-        return lambda: scales(side, x16, h16, s16) or lib.quant_mix_dense(
-            0, K.ptr(m16), K.ptr(x16), K.ptr(h16), None, K.ptr(bounds), K.ptr(s16), None, K.ptr(o["xo16"]),
-            K.ptr(o["ho16"]), 16, D_MAIN, n_chunks, 0, 1, 1.0, 2, stream)
+        xo, ho, s = o[f"xo{n}"], o[f"ho{n}"], o[f"s{n}"]
+        if not fused[side]:
+            return lambda: scales(side, xs[n], hs[n], s) or lib.quant_mix_dense(
+                0, K.ptr(ms[n]), K.ptr(xs[n]), K.ptr(hs[n]), None, K.ptr(bounds), K.ptr(s), None, K.ptr(xo),
+                K.ptr(ho), n, D_MAIN, n_chunks, 0, 1, 1.0, 2, stream)
+        plan, table = Q.tile_plan(edges, n, torch.float32, dev)
+        return lambda: lib.quant_mix_dense(
+            0, K.ptr(ms[n]), K.ptr(xs[n]), K.ptr(hs[n]), None, K.ptr(bounds), K.ptr(table), K.ptr(s), None,
+            K.ptr(xo), K.ptr(ho), n, D_MAIN, n_chunks, len(plan.tiles), plan.cluster, plan.cols, plan.tile_chunks,
+            0, 1, 0, 1.0, stream)
 
     cases = {}
     for g, op in ops.items():
         cases[f"mix_bsr {g}"] = ({side: mix(side, op) for side in sides}, [("y", "tol", w)])
         cases[f"int8 round (scales + BSR walk) {g}"] = ({side: bsr_round(side, op) for side in sides},
                                                         [("ho", "bitwise", x), ("xo", "tol", x)])
-    cases["int8 round (scales + dense walk) complete-16"] = ({side: dense_round(side) for side in sides},
-                                                            [("ho16", "bitwise", x), ("xo16", "tol", x)])
+    for n in dense_n:
+        what = {side: "one launch" if fused[side] else "scales + dense walk" for side in sides}
+        cases[f"int8 dense round complete-{n} (this: {what['this']}; other: {what['other']})"] = (
+            {side: dense_round(side, n) for side in sides},
+            [(f"s{n}", "bitwise", x), (f"ho{n}", "bitwise", x), (f"xo{n}", "tol", x)])
     ok = True
     for label, (runs, checks) in cases.items():
         for side, fn in runs.items():
@@ -134,7 +156,7 @@ def main() -> int:
         times = {side: [] for side in sides}
         for _ in range(args.pairs):
             for side in ("other", "this", "this", "other"):
-                times[side].append(time_ms(runs[side], flush=flush))
+                times[side].append(time_ms(runs[side], flush=flush, hold=True))
         print(f"{label}: " + "; ".join(
             f"{side} median {statistics.median(t):.4f} ms (" + ", ".join(f"{v:.4f}" for v in t) + ")"
             for side, t in times.items()))
