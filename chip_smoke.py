@@ -8,13 +8,14 @@ run with a non-zero exit:
 
 1. header  — the card's name and power limit, torch and CUDA versions;
 2. build   — nvcc builds every kernel library from ``src/repro_torch/kernels``
-   (mixing, quantised mixing, the two flash attention kernels and the
-   two RWKV-6 time-mix kernels, all at once) and prints ptxas registers and
-   spills; the Hopper flash library must spill nothing and its SASS must
-   hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``); the Hopper rwkv
-   library must spill nothing and its SASS must hold mma.sync (``HMMA``);
-   the two block-sparse libraries (``mix_bsr``, ``quant_mix``) print every
-   entry's registers and spills and must spill nothing;
+   (mixing, quantised mixing, flash attention and the RWKV-6 time-mix, all
+   at once) and prints ptxas registers and spills; the flash library
+   (every dtype and head dim) and the rwkv library (every head dim, dtype
+   and launch path) print every entry and must spill nothing, the flash
+   SASS must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``), the rwkv
+   SASS mma.sync (``HMMA``); the two block-sparse libraries (``mix_bsr``,
+   ``quant_mix``) print every entry's registers and spills and must spill
+   nothing;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
    one bf16 shape; block-sparse: ring-1024 at bn 32 (fp32 and bf16),
@@ -25,17 +26,26 @@ run with a non-zero exit:
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
    global and local layers 2 × 2048), contiguous bf16 shapes, ragged bf16
    shapes (S 1 to 2047, hd 64 / 128 / 256, GQA groups 1 / 2 / 8, windows
-   0 / 17 / 1024, both layouts) and ragged fp32 shapes, each case checking
-   which of the two kernels (``route``) it launched, and timings at the
-   four main-path shapes against SDPA; the RWKV-6 time-mix: every shape
-   phase 7 launches (rwkv6-3b prefill 4 × 2048, per-node serve 1 × 512 and
-   one 16,384-token prompt, bf16 r/k/v and fp32 w in the decoder's
-   layout), ragged bf16 (M 64) and fp32 shapes with and without an initial
-   state, and extreme decays on both kernels (``route``: tc for bf16 at
-   M 64, FMA otherwise), each case checking its route; out and final state
-   both checked; both routes timed in turns on the same bf16 inputs at
-   those shapes, and each of their launches' device time read from
-   ``torch.profiler``); the quantised mix (the one-launch dense round,
+   0 / 17 / 1024, both layouts), bf16 at hd 32, ragged fp32 shapes at
+   every hd and fp32 at the full-width prefill shapes (qwen2.5-3b 4 × 2048
+   hd 128, gemma3-4b 2 × 2048 hd 256 global and windowed), each case
+   checking its route (``route``: wgmma for bf16, wgmma_tf32x3 for fp32),
+   and timings at the four bf16 main-path shapes against SDPA, at phase 8's
+   fp32 shape and at the full-width fp32 shapes against SDPA in fp32, each
+   as a caller pays for it (unheld) and in device time (held), with the
+   call's host time; the
+   RWKV-6 time-mix: every shape phase 7 launches (rwkv6-3b prefill
+   4 × 2048, per-node serve 1 × 512 and one 16,384-token prompt, bf16 r/k/v
+   and fp32 w in the decoder's layout), ragged bf16 and fp32 shapes at
+   M 32 / 64 / 128 with and without an initial state, and extreme decays,
+   each case checking its route (``route``: tc for bf16, tc_fp32 for fp32);
+   out and final state both checked; timings at those shapes, at phase
+   8's, at rwkv6-3b 4 × 2048 in fp32 and at M 128, each launch's device
+   time read from ``torch.profiler``; an empty kernel's time, the floor of
+   a launch-bound row; after the timings (after a profiler session later
+   launches can take more host time), the one-launch path (L ≤ 128)
+   at phase 8's shape: one device kernel, out bitwise the three-launch
+   path's); the quantised mix (the one-launch dense round,
    and the scales pass and block-sparse walk) at complete-16 and ring-1024
    with the paper MLP's 281-chunk table, int8 and fp8, round mode at γ 1
    and 0.5, raw mode (the Pallas kernel's function) in fp32 and bf16, a
@@ -69,11 +79,9 @@ run with a non-zero exit:
    16,384-token prompt, 8 decode steps and one replayed as a CUDA graph,
    per-node serve 4 × 512 → 8).
    Every prefill attention layer is one flash kernel launch (bf16: every
-   one through the wgmma kernel) and every prefill RWKV layer one rwkv
-   kernel launch (bf16 at M 64: every one through the tc kernel), and the
-   rwkv6-3b prefills are timed again with every launch sent to the FMA
-   kernel, in turns: the counts are exact, and the key of each launch must
-   be among those phase 3 checked;
+   one on the wgmma route) and every prefill RWKV layer one rwkv kernel
+   launch (bf16: every one on the tc route): the counts are exact, and the
+   key of each launch must be among those phase 3 checked;
 7b. traced prefills — one qwen2.5-3b 4 × 2048 prefill under
    ``torch.profiler``: the top device kernels and flash's share of device
    time; and, as a diagnostic, the last position's logits against the same
@@ -81,8 +89,8 @@ run with a non-zero exit:
    4 × 2048 prefill: the top device kernels and the rwkv kernel's share;
 8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b and rwkv6-3b in fp32
    from one init: equal greedy tokens, prefill logits to rtol 1e-4 (the
-   attention through the fp32 flash kernel, the time-mix through the FMA
-   rwkv kernel).
+   attention on the flash kernel's wgmma_tf32x3 route, the time-mix on the
+   rwkv kernel's tc_fp32 route, each prompt of 40 in one launch).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -105,6 +113,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # tensor cores: bf16 products with fp32 accumulation
+PEAK_TF32_FLOPS = 495e12  # tensor cores: TF32 products with fp32 accumulation
 FP32_TOL = 1e-5  # × max|W|: one fp32 FMA chain vs cuBLAS's blocked sum
 # The tile walks (bn FMAs per tile row) that the walks over the nonzeros of M
 # replaced, as this script's phase 3 timed them on an NVIDIA H100 80GB HBM3
@@ -147,6 +156,22 @@ def time_ms(fn, reps: int = 7, flush=None, hold: bool = False) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def host_ms(fn, reps: int = 21) -> float:
+    """Median host time of one call, the stream idle before it: from the
+    call to its return, what the caller's thread spends to launch it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
     return sorted(times)[len(times) // 2]
 
 
@@ -238,6 +263,7 @@ def main() -> int:
             kern.launches = 0
         flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
         rwkv6_chunked.launches_by_route.update(dict.fromkeys(rwkv_kernels.ROUTES, 0))
+        rwkv6_chunked.one_launch = 0
         quant_mix_dense.launches_by_route.update(dict.fromkeys(quant_mix_dense.launches_by_route, 0))
     t_start = time.perf_counter()
 
@@ -261,32 +287,24 @@ def main() -> int:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", log))
         print(f"  {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
               f"registers per thread, {spills} bytes spilled")
-    # the Hopper flash kernel: every instantiation (hd 64, 128, 256) is on
-    # the main path or phase 3's, so none may spill, and its products and
-    # loads must be the tensor-core and TMA instructions
-    sass = kbuild.sass("flash_sm90")
-    n_hgmma, n_utma = sass.count("HGMMA"), sass.count("UTMALDG")
-    print(f"  flash_sm90 SASS: {n_hgmma} HGMMA, {n_utma} UTMALDG")
-    check(n_hgmma > 0 and n_utma > 0, "flash_sm90 SASS lacks HGMMA or UTMALDG")
-    check(sum(int(x) for x in re.findall(r"(\d+) bytes spill", kbuild.build_log("flash_sm90"))) == 0,
-          "flash_sm90 spills")
-    # the Hopper rwkv kernel: its three launches; the products must be
-    # tensor-core instructions (mma.sync: HMMA)
-    for line in kbuild.build_log("rwkv_sm90").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"    {line.strip()}")
-    # the block-sparse walks' libraries: registers and spills of every
-    # entry; none may spill
-    for name in ("mix_bsr", "quant_mix"):
+    # registers and spills of every entry of the flash library (bf16 and
+    # fp32 at hd 32 / 64 / 128 / 256), the rwkv library (its three kernels
+    # and the one-launch output kernel at every head dim and dtype) and the
+    # block-sparse walks' libraries; each instantiation is on the main path
+    # or phase 3's, so none may spill
+    for name in ("flash_sm90", "rwkv_sm90", "mix_bsr", "quant_mix"):
         entries = ptxas_entries(kbuild.build_log(name))
         for entry, regs, spill in entries:
             print(f"    {name}: {regs:3d} registers, {spill} bytes spilled  {entry}")
         check(bool(entries) and all(spill == 0 for _, _, spill in entries), f"{name} spills")
+    # the products and loads must be the tensor-core and TMA instructions
+    sass = kbuild.sass("flash_sm90")
+    n_hgmma, n_utma = sass.count("HGMMA"), sass.count("UTMALDG")
+    print(f"  flash_sm90 SASS: {n_hgmma} HGMMA, {n_utma} UTMALDG")
+    check(n_hgmma > 0 and n_utma > 0, "flash_sm90 SASS lacks HGMMA or UTMALDG")
     n_hmma = kbuild.sass("rwkv_sm90").count("HMMA")
     print(f"  rwkv_sm90 SASS: {n_hmma} HMMA")
     check(n_hmma > 0, "rwkv_sm90 SASS lacks HMMA")
-    check(sum(int(x) for x in re.findall(r"(\d+) bytes spill", kbuild.build_log("rwkv_sm90"))) == 0,
-          "rwkv_sm90 spills")
 
     # --------------------------------------------------- 3. kernels vs plain
     phase("3. kernels vs plain")
@@ -404,10 +422,11 @@ def main() -> int:
     # batched prefill (4 × 2048) and per-node serve (1 × 512); gemma3-4b's
     # global and local layers (2 × 2048, window 1024).  Phase 7 records the
     # key of each launch and fails on one not held here.  Then contiguous
-    # (B, H, S, hd) bf16 shapes, ragged bf16 shapes for the wgmma kernel
+    # (B, H, S, hd) bf16 shapes, ragged bf16 shapes on the wgmma route
     # (every S of the list at every hd, the GQA group, window, layout and
-    # mask cycling) and ragged fp32 shapes for the FMA kernel.  Each case
-    # checks which kernel it launched.
+    # mask cycling), and on the wgmma_tf32x3 route phase 8's fp32 launch,
+    # the full-width prefill shapes in fp32 and ragged fp32 shapes at every
+    # hd.  Each case checks which route it launched.
     qcfg, gcfg = get_config("qwen2.5-3b"), get_config("gemma3-4b")
 
     def attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bhsd"):
@@ -420,8 +439,8 @@ def main() -> int:
         layout = "bshd" if q.shape[2] > 1 and q.transpose(1, 2).is_contiguous() else "bhsd"
         return (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype, bool(causal), int(window), layout)
 
-    def serve_case(label, cfg, b, s_len, window):
-        shape = (b, cfg.n_heads, cfg.n_kv_heads, s_len, cfg.resolved_head_dim, torch.bfloat16)
+    def serve_case(label, cfg, b, s_len, window, dtype=torch.bfloat16):
+        shape = (b, cfg.n_heads, cfg.n_kv_heads, s_len, cfg.resolved_head_dim, dtype)
         return label, shape, True, window, "bshd"
 
     flash_cases = [
@@ -437,11 +456,20 @@ def main() -> int:
         for i, (s_len, hd) in enumerate((s_len, hd) for s_len in (1, 63, 64, 65, 127, 129, 300, 2047)
                                         for hd in (64, 128, 256))
     ] + [
-        ("ragged", (2, 2 * group, 2, s_len, hd, torch.float32), causal, 0, "bhsd")
-        for s_len in (1, 77, 300) for hd in (32, 64) for causal in (False, True) for group in (1, 8)
+        ("ragged", (2, 2 * (1, 2, 8)[i % 3], 2, s_len, 32, torch.bfloat16), i % 4 != 3, (0, 17)[i % 2],
+         ("bshd", "bhsd")[i // 2 % 2])
+        for i, s_len in enumerate((1, 40, 63, 65, 300, 2047))
+    ] + [
+        serve_case("phase 8", get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32),
+        serve_case("qwen prefill", qcfg, 4, 2048, 0, torch.float32),
+        serve_case("gemma3 global", gcfg, 2, 2048, 0, torch.float32),
+        serve_case("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
+    ] + [
+        ("ragged", (2, 2 * group, 2, s_len, hd, torch.float32), causal, (0, 17)[s_len % 2], ("bshd", "bhsd")[group % 2])
+        for s_len in (1, 77, 300) for hd in (32, 64, 128, 256) for causal in (False, True) for group in (1, 8)
     ]
-    # errors by kernel: the wgmma kernel's row is flash_mha, the FMA one's flash_mha_fp32
-    row_of = {"wgmma": "flash_mha", "fma": "flash_mha_fp32"}
+    # errors by route: the bf16 route's row is flash_mha, the fp32 route's flash_mha_fp32
+    row_of = {"wgmma": "flash_mha", "wgmma_tf32x3": "flash_mha_fp32"}
     errs.update(dict.fromkeys(row_of.values(), 0.0))
     flash_checked = set()
     for label, shape, causal, window, layout in flash_cases:
@@ -467,11 +495,10 @@ def main() -> int:
     # (1 × 512) and long prompt (1 × 16,384), bf16 r/k/v, fp32 w, zero
     # initial state.  Phase 7 records the key of each launch and fails on
     # one not held here.  Then ragged shapes with and without an initial
-    # state, bf16 at M 64 (the tensor-core kernel, route tc) and fp32 (the
-    # FMA kernel), and decays alternating at the clamp's two ends on both
-    # routes.  Each case checks which kernel it launched.  Out and final
-    # state are both fp32: 5e-5 · max|ref|, the JAX package's
-    # kernel-vs-oracle bound.
+    # state, bf16 (route tc) and fp32 (route tc_fp32) at M 32, 64 and 128,
+    # and decays alternating at the clamp's two ends on both routes.  Each
+    # case checks which route it launched.  Out and final state are both
+    # fp32: 5e-5 · max|ref|, the JAX package's kernel-vs-oracle bound.
     rcfg = get_config("rwkv6-3b")
     r_heads, r_hd = rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim
 
@@ -508,30 +535,17 @@ def main() -> int:
         check(bitwise, f"{label}: two launches differ")
         return want, errs_r[0]
 
-    @contextlib.contextmanager
-    def rwkv_route(name):
-        """Send every rwkv6_chunked call to route ``name``: both kernels on one
-        input (the counts are reset before each path is driven)."""
-        picked = rwkv_kernels.route
-        rwkv_kernels.route = lambda dtype, m: name
-        try:
-            yield
-        finally:
-            rwkv_kernels.route = picked
-
     rwkv_cases = [
         ("rwkv prefill", (4, 2048, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv serve", (1, 512, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv long prompt", (1, 16384, r_heads, r_hd, torch.bfloat16, False)),
     ] + [
-        ("ragged", (2, l_len, 3, 64, torch.bfloat16, with_state))
-        for l_len in (1, 33, 77, 300, 2049) for with_state in (False, True)
-    ] + [
-        ("ragged", (2, l_len, 3, m, torch.float32, with_state))
-        for l_len in (1, 33, 77, 300) for m in (32, 64) for with_state in (False, True)
+        ("ragged", (2, l_len, 3, m, dtype, with_state))
+        for dtype in (torch.bfloat16, torch.float32) for m in (32, 64, 128) for l_len in (1, 33, 77, 300, 2049)
+        for with_state in (False, True)
     ]
-    # errors by kernel: the tc kernel's row is rwkv6_chunked, the FMA one's rwkv6_chunked_fma
-    rwkv_row = {"tc": "rwkv6_chunked", "fma": "rwkv6_chunked_fma"}
+    # errors by route: the bf16 route's row is rwkv6_chunked, the fp32 route's rwkv6_chunked_fma
+    rwkv_row = {"tc": "rwkv6_chunked", "tc_fp32": "rwkv6_chunked_fma"}
     errs.update(dict.fromkeys(rwkv_row.values(), 0.0))
     rwkv_checked = set()
     for label, shape in rwkv_cases:
@@ -550,6 +564,7 @@ def main() -> int:
         check(all(bool(torch.isfinite(t).all()) for t in rwkv6_chunked(*extreme)), "rwkv extreme decay not finite")
         want, e = compare_rwkv(f"rwkv6_chunked extreme decay B2 L{l_len} H1 M{m} {str(dtype)[6:]}", extreme)
         errs[rwkv_row[want]] = max(errs[rwkv_row[want]], e)
+    red = get_reduced_config("rwkv6-3b")
 
     # timings at the main path's shapes: dense at the quickstart's complete-16,
     # block-sparse at the CLI's ring-1024 (bn 32); W fp32 of the full MLP width
@@ -592,11 +607,17 @@ def main() -> int:
     del w1k, m_csr, kreg_csr, plan_d, m16
     # flash at every shape phase 7 launches, on the decoder's (B, S, H, hd)
     # views (the qwen2.5-3b prefill's row goes into the kernels line, its
-    # contiguous layout timed beside it).  Bytes are q, k, v read once and
-    # o written once; flops 4·hd per (q, k) pair the mask keeps, per head
-    # (QKᵀ and PV).  The wgmma kernel does 6·hd (PV on bf16 hi and lo
-    # parts of P): its own floor, printed beside.  library: SDPA, with a
-    # boolean mask for the window.
+    # contiguous layout timed beside it), and at phase 8's and the
+    # full-width fp32 shapes.  Each is timed twice: as a caller pays for it
+    # (the kernels line's time: L2 flushed, host time counted where the
+    # wrapper outlasts the flush before it) and with the stream held
+    # (device time only).  Bytes are q, k, v read once and o written once;
+    # flops 4·hd per (q, k) pair the mask keeps, per head (QKᵀ and PV).
+    # bf16: the flops at the bf16 tensor-core peak; the route does 6·hd (PV
+    # on bf16 hi and lo parts of P), its own floor, printed beside.  fp32:
+    # the route's own floor, every product as three TF32 products (12·hd)
+    # at the TF32 peak, since no fp32 rate is faster.  library: SDPA in the
+    # same dtype, with a boolean mask for the window.
     def sdpa(q, k, v, window):
         if not window:
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
@@ -609,107 +630,143 @@ def main() -> int:
         q, k, v = attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bshd")
         pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s_len))
         size = q.element_size()
-        b_f, op_f = bound(size * (2 * b * h * s_len * hd + 2 * b * kvh * s_len * hd), 4 * b * h * hd * pairs,
-                          PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        bf16 = dtype == torch.bfloat16
+        flops = 4 * b * h * hd * pairs
+        b_f, op_f = bound(size * (2 * b * h * s_len * hd + 2 * b * kvh * s_len * hd), flops if bf16 else 3 * flops,
+                          PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS)
         return dict(
             ms=time_ms(lambda: flash_mha(q, k, v, window=window), reps=21, flush=flush),
+            held_ms=time_ms(lambda: flash_mha(q, k, v, window=window), reps=21, flush=flush, hold=True),
+            host_ms=host_ms(lambda: flash_mha(q, k, v, window=window)),
             plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), reps=3, flush=flush),
             library_ms=time_ms(lambda: sdpa(q, k, v, window), reps=21, flush=flush),
             bound_ms=b_f, bound_by=op_f, pairs=pairs,
-            shape=f"B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if dtype == torch.bfloat16 else 'fp32'} causal"
+            floor_ms=1.5 * flops / PEAK_BF16_FLOPS * 1e3 if bf16 else b_f,
+            shape=f"B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if bf16 else 'fp32'} causal"
                   f"{f' w{window}' if window else ''}, (B, S, H, hd) views",
         ), (q, k, v)
 
     flash_shapes = {}
-    for label, cfg, b, s_len, window in (
-        ("qwen prefill", qcfg, 4, 2048, 0), ("qwen serve", qcfg, 1, 512, 0),
-        ("gemma3 global", gcfg, 2, 2048, 0), ("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window),
+    for label, cfg, b, s_len, window, dtype in (
+        ("qwen prefill", qcfg, 4, 2048, 0, torch.bfloat16), ("qwen serve", qcfg, 1, 512, 0, torch.bfloat16),
+        ("gemma3 global", gcfg, 2, 2048, 0, torch.bfloat16),
+        ("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window, torch.bfloat16),
+        ("phase 8 fp32", get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32),
+        ("qwen prefill fp32", qcfg, 4, 2048, 0, torch.float32), ("gemma3 global fp32", gcfg, 2, 2048, 0, torch.float32),
+        ("gemma3 local fp32", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
     ):
-        flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, torch.bfloat16)
+        flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, dtype)
         if label == "qwen prefill":
             qc, kc, vc = (t.contiguous() for t in qkv)
             flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), reps=21, flush=flush)
             del qc, kc, vc
         del qkv
     timing["flash_mha"] = flash_shapes["qwen prefill"]
-    # the FMA kernel at phase 8's launches: the reduced qwen2.5-3b, fp32,
-    # 2 prompts of 40
-    timing["flash_mha_fp32"], qkv = time_flash(get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32)
-    del qkv
+    # the fp32 route's row: phase 8's launches (the reduced qwen2.5-3b, 2 prompts of 40)
+    timing["flash_mha_fp32"] = flash_shapes["phase 8 fp32"]
+    # an empty kernel, queued behind the held stream like the held timings:
+    # the least time any launch takes, the floor of the launch-bound rows
+    empty_ms = time_ms(lambda: torch.cuda._sleep(0), reps=21, hold=True)
     # rwkv at the three shapes phase 7 launches (rwkv6-3b's consensus prefill
     # 4 × 2048, per-node serve 1 × 512, the long prompt 1 × 16,384; 40 heads
-    # of 64, bf16 r/k/v): bytes are r, k, v and w read once, out and the
-    # final state written once; flops per (b, h, chunk of c) are what the
-    # chunked form needs: 2cM² (r·S) and 2cM² (state update), and over the
-    # causal pairs only 2M·c(c−1)/2 (scores, s < t) + 2M·c(c+1)/2 (scores·V,
-    # s ≤ t, the bonus on the diagonal) = 2c²M.  The tc kernel does them on
-    # the tensor cores as bf16 products of split fp32 operands: three for
-    # fp32 × fp32 (r·S, scores), two for fp32 × bf16 (state update,
-    # scores·V), so 10cM² + 5c²M bf16 flops at the bf16 peak, far below the
-    # bytes: its bound is the byte time.  The fma kernel's is the larger of
-    # the bytes and the fp32 flops at the fp32 peak, printed for the tc row
-    # as a note.  Both routes on the same inputs, in turns (fma, tc, then tc,
-    # fma), through rwkv6_chunked with the route forced, the stream held so
-    # the wrapper's allocations are not timed: each route's time is the mean
-    # of its two medians.  Then three calls of each route under
-    # torch.profiler, L2 flushed before each: the mean device time of each
-    # of its launches (tc: A span deltas, B state scan, C outputs; fma: the
-    # intra-chunk kernel and the state scan).
-    rwkv_phases = {"tc": {"A": "rwkv_span_delta", "B": "rwkv_span_scan", "C": "rwkv_span_out"},
-                   "fma": {"intra": "rwkv6_intra", "state": "rwkv6_state"}}
+    # of 64, bf16 r/k/v), at phase 8's (the reduced rwkv6-3b, fp32, 2
+    # prompts of 40: one launch), at 4 × 2048 with fp32 r/k/v
+    # (ArchConfig.dtype fp32) and at M 128 (20 heads of 128, bf16 and
+    # fp32): bytes are r, k, v and w read once, out and the final state
+    # written once; flops per (b, h, chunk of c) are what the chunked form
+    # needs: 2cM² (r·S) and 2cM² (state update), and over the causal pairs
+    # only 2M·c(c−1)/2 (scores, s < t) + 2M·c(c+1)/2 (scores·V, s ≤ t, the
+    # bonus on the diagonal) = 2c²M.  The kernel does them on the tensor
+    # cores as products of split fp32 operands: three for fp32 × fp32 (r·S,
+    # scores; with fp32 v all four), two for fp32 × bf16 (state update,
+    # scores·V with bf16 v), so 10cM² + 5c²M bf16 flops (12cM² + 6c²M TF32
+    # flops with fp32 r/k/v) at the bf16 (TF32) peak, far below the bytes:
+    # its bound is the byte time; the fp32 flops at the fp32 peak are
+    # printed as a note.
+    # Timed with the stream held so the wrapper's allocations are not
+    # timed; then three calls under torch.profiler, L2 flushed before each:
+    # the mean device time of each launch (A span deltas, B state scan,
+    # C outputs).
     rwkv_shapes = {}
-    for label, b, l_len in (("prefill", 4, 2048), ("serve", 1, 512), ("long prompt", 1, 16384)):
-        r_args = rwkv_inputs(b, l_len, r_heads, r_hd, torch.bfloat16)
-        _, _, h, m = r_args[0].shape
+    for label, b, l_len, h, m, dtype in (
+        ("prefill", 4, 2048, r_heads, r_hd, torch.bfloat16), ("serve", 1, 512, r_heads, r_hd, torch.bfloat16),
+        ("long prompt", 1, 16384, r_heads, r_hd, torch.bfloat16),
+        ("phase 8 fp32", 2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32),
+        ("prefill fp32", 4, 2048, r_heads, r_hd, torch.float32),
+        ("M 128 bf16", 4, 2048, rcfg.d_model // 128, 128, torch.bfloat16),
+        ("M 128 fp32", 4, 2048, rcfg.d_model // 128, 128, torch.float32),
+    ):
+        r_args = rwkv_inputs(b, l_len, h, m, dtype)
         c, n_chunks = 32, -(-l_len // 32)
-        r_bytes = 3 * r_args[0].numel() * 2 + r_args[3].numel() * 4 + r_args[4].numel() * 4 \
+        size = r_args[0].element_size()
+        r_bytes = 3 * r_args[0].numel() * size + r_args[3].numel() * 4 + r_args[4].numel() * 4 \
             + b * l_len * h * m * 4 + b * h * m * m * 4
         r_flops = (4 * c * m * m + 2 * c * c * m) * b * h * n_chunks
-        tc_flops = (10 * c * m * m + 5 * c * c * m) * b * h * n_chunks
-        turns = {"fma": [], "tc": []}
-        for name in ("fma", "tc", "tc", "fma"):
-            with rwkv_route(name):
-                turns[name].append(time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True))
+        tc_flops = ((12 if size == 4 else 10) * c * m * m + (6 if size == 4 else 5) * c * c * m) * b * h * n_chunks
+        ms = time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True)
+        r_host_ms = host_ms(lambda: rwkv6_chunked(*r_args))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                flush.zero_()
+                rwkv6_chunked(*r_args)
+            torch.cuda.synchronize()
         phases_ms = {}
-        for name, kernel_names in rwkv_phases.items():
-            with rwkv_route(name), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    flush.zero_()
-                    rwkv6_chunked(*r_args)
-                torch.cuda.synchronize()
-            for ph, kname in kernel_names.items():
-                hits = [e for e in prof.key_averages() if kname in e.key]
-                check(len(hits) == 1 and hits[0].count == 3, f"rwkv {name} {ph}: traced {[e.key for e in hits]}")
-                phases_ms[f"{name} {ph}"] = hits[0].self_device_time_total / hits[0].count / 1e3
-            del prof
+        for ph, kname in (("A", "rwkv_span_delta"), ("B", "rwkv_span_scan"), ("C", "rwkv_span_out")):
+            hits = [e for e in prof.key_averages() if kname in e.key]
+            check(len(hits) <= 1 and all(e.count == 3 for e in hits), f"rwkv {label} {ph}: traced "
+                  f"{[(e.key, e.count) for e in hits]}")
+            if hits:
+                phases_ms[ph] = hits[0].self_device_time_total / hits[0].count / 1e3
+        check(sorted(phases_ms) == (["C"] if l_len <= rwkv_kernels.SPAN else ["A", "B", "C"]),
+              f"rwkv {label}: launched {sorted(phases_ms)}")
+        del prof
+        b_r, op_r = bound(r_bytes, tc_flops, PEAK_BF16_FLOPS if size == 2 else PEAK_TF32_FLOPS)
         rwkv_shapes[label] = dict(
-            ms={key: sum(v) / 2 for key, v in turns.items()}, turns=turns, phases=phases_ms,
-            bounds={"tc": bound(r_bytes, tc_flops, PEAK_BF16_FLOPS), "fma": bound(r_bytes, r_flops)},
-            bytes=r_bytes, flops=r_flops, tc_flops=tc_flops, fp32_ops_ms=r_flops / PEAK_FP32_FLOPS * 1e3,
-            shape=f"B{b} L{l_len} H{h} M{m} bf16 r/k/v, fp32 w, zero state",
+            ms=ms, host_ms=r_host_ms, phases=phases_ms, bound_ms=b_r, bound_by=op_r, bytes=r_bytes, flops=r_flops, tc_flops=tc_flops,
+            fp32_ops_ms=r_flops / PEAK_FP32_FLOPS * 1e3, library_ms=None,  # no one PyTorch call computes this recurrence
+            shape=f"B{b} L{l_len} H{h} M{m} {'bf16' if size == 2 else 'fp32'} r/k/v, fp32 w, zero state",
         )
-        if label == "prefill":
-            b_r, op_r = rwkv_shapes[label]["bounds"]["tc"]
-            timing["rwkv6_chunked"] = dict(
-                ms=rwkv_shapes[label]["ms"]["tc"],
-                plain_ms=time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush),
-                library_ms=None,  # no one PyTorch call computes this recurrence
-                bound_ms=b_r, bound_by=op_r, shape=rwkv_shapes[label]["shape"],
-            )
+        if label in ("prefill", "phase 8 fp32"):
+            rwkv_shapes[label]["plain_ms"] = time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush)
         del r_args
-    # the FMA kernel at phase 8's launches: the reduced rwkv6-3b, fp32, 2 prompts of 40
-    red = get_reduced_config("rwkv6-3b")
-    r_args = rwkv_inputs(2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32)
-    _, l_len, h, m = r_args[0].shape
-    r_bytes = 4 * (5 * r_args[0].numel() + r_args[4].numel() + 2 * h * m * m)
-    r_flops = (4 * 32 * m * m + 2 * 32 * 32 * m) * 2 * h * -(-l_len // 32)
-    b_r, op_r = bound(r_bytes, r_flops)
-    timing["rwkv6_chunked_fma"] = dict(
-        ms=time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True),
-        plain_ms=time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush),
-        library_ms=None, bound_ms=b_r, bound_by=op_r, shape=f"B2 L{l_len} H{h} M{m} fp32, zero state",
-    )
-    del r_args
+    timing["rwkv6_chunked"] = rwkv_shapes["prefill"]
+    # the fp32 route's row: phase 8's launches
+    timing["rwkv6_chunked_fma"] = rwkv_shapes["phase 8 fp32"]
+
+    # (after the flash and mix timings: after a torch.profiler session later
+    # launches can take more host time, which an unheld timing would count)
+    def rwkv_kernels_run(call):
+        """The result of one call and the rwkv kernels it ran on the card,
+        one name a launch (torch.profiler)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = call()
+            torch.cuda.synchronize()
+        return got, [re.sub(r".*(rwkv_span_[a-z]+).*", r"\1", e.key) for e in prof.key_averages()
+                     for _ in range(e.count) if "rwkv_span" in e.key]
+
+    # the one-launch path at phase 8's shape (the reduced rwkv6-3b, fp32, 2
+    # prompts of 40) and at bf16 M 64, with and without a state: one device
+    # kernel (the span outputs), out bitwise the three launches' (the same
+    # state in, the same arithmetic; the kernel given a span's scratch), the
+    # state in the bound
+    for shape in ((2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32, False),
+                  (2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32, True),
+                  (2, 128, 3, 64, torch.bfloat16, True)):
+        args = rwkv_inputs(*shape)
+        (out1, state1), names1 = rwkv_kernels_run(lambda: rwkv6_chunked(*args))
+        (out3, state3), names3 = rwkv_kernels_run(lambda: rwkv_kernels._launch(
+            *args, rwkv_kernels.span_scratch_floats(*shape[:4])))
+        ref_state = rwkv6_chunked_ref(*args)[1]
+        worst = float((state1 - ref_state).abs().max()) / (5e-5 * float(ref_state.abs().max()))
+        print(f"  rwkv6_chunked one launch B{shape[0]} L{shape[1]} H{shape[2]} M{shape[3]} {str(shape[4])[6:]}"
+              f"{' state' if shape[5] else ''}: kernels {names1} against {names3}; out bitwise "
+              f"{torch.equal(out1, out3)}; state worst err/tol {worst:.3f}")
+        check(names1 == ["rwkv_span_out"] and sorted(names3) == ["rwkv_span_delta", "rwkv_span_out", "rwkv_span_scan"],
+              f"one-launch path: kernels {names1}, three-launch path {names3}")
+        check(torch.equal(out1, out3), "one-launch out differs from the three launches'")
+        check(worst <= 1.0, f"one-launch state above 5e-5·max|ref| (worst err/tol {worst})")
+        del args
+
     # the quantised mix (kernel 3), at the main path's shapes: the compressed
     # quickstart's complete-16 (dense) and the CLI's ring-1024 (BSR, bn 32),
     # the paper MLP's width with its per-leaf chunk table (281 chunks a row at
@@ -927,24 +984,22 @@ def main() -> int:
               f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms, library {lib}")
     print(f"  flash_mha on contiguous (B, H, S, hd) tensors of the same shape: kernel {flash_contiguous_ms:.4f} ms")
     for label, t in flash_shapes.items():
-        print(f"  flash_mha (wgmma) {label} at {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}, {t['pairs']} kept pairs a head; {t['bound_ms'] / t['ms']:.1%} of it), "
-              f"split-P floor {1.5 * t['bound_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"SDPA {t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f}x SDPA's time)")
+        print(f"  flash_mha ({flash_route(torch.float32 if 'fp32' in label else torch.bfloat16, 0)}) {label} at "
+              f"{t['shape']}: kernel {t['ms']:.4f} ms (held: {t['held_ms']:.4f} ms; the call's host time "
+              f"{t['host_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['pairs']} kept pairs a head; {t['bound_ms'] / t['held_ms']:.1%} of the held time), "
+              f"the route's own floor "
+              f"{t['floor_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms "
+              f"({t['ms'] / t['library_ms']:.2f}x SDPA's time)")
+    print(f"  an empty kernel: {empty_ms:.4f} ms")
     for label, t in rwkv_shapes.items():
         print(f"  rwkv6_chunked {label} at {t['shape']}: {t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.3f} GFLOP "
-              f"(tc: {t['tc_flops'] / 1e9:.3f} GFLOP of bf16 products; fp32 flops at the fp32 peak "
-              f"{t['fp32_ops_ms']:.4f} ms); "
-              + "; ".join(f"{key} {ms:.4f} ms (turns " + ", ".join(f"{x:.4f}" for x in t["turns"][key])
-                          + f"; bound {t['bounds'][key][0]:.4f} ms ({t['bounds'][key][1]}), "
-                          f"{t['bounds'][key][0] / ms:.1%} of it)" for key, ms in t["ms"].items())
-              + f"; tc {t['ms']['fma'] / t['ms']['tc']:.2f}x faster than fma")
-        print("    launches, mean device time (profiler): "
-              + ", ".join(f"{key} {ms:.4f} ms" for key, ms in t["phases"].items())
-              + "; sums: " + ", ".join(f"{name} {sum(t['phases'][f'{name} {ph}'] for ph in phases):.4f} ms"
-                                      for name, phases in rwkv_phases.items()))
-    check(all(rwkv_shapes[lab]["ms"]["tc"] < rwkv_shapes[lab]["ms"]["fma"] for lab in ("prefill", "long prompt")),
-          "the tc route is not faster than the fma route at 4 × 2048 and 1 × 16384")
+              f"({t['tc_flops'] / 1e9:.3f} GFLOP of tensor-core products; fp32 flops at the fp32 peak "
+              f"{t['fp32_ops_ms']:.4f} ms); kernel {t['ms']:.4f} ms (the call's host time {t['host_ms']:.4f} ms), "
+              f"bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of it); launches, mean device time (profiler): "
+              + ", ".join(f"{ph} {ms:.4f} ms" for ph, ms in t["phases"].items())
+              + f", sum {sum(t['phases'].values()):.4f} ms")
     for n_d, key in ((16, "quant_mix_dense"), (64, "quant_mix_dense_64")):
         t = timing[key]
         print(f"  one int8 round through quant_mix_flat: complete-{n_d} {round_ms[n_d]:.4f} ms with the wrapper's "
@@ -1284,8 +1339,8 @@ def main() -> int:
     print(f"  launches {serve_launches}")
     check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers},
           f"serve launch counts {serve_launches}, want 2 gemma prefills × {gcfg.n_layers} more")
-    # bf16 at hd 128 and 256: every prefill launch took the wgmma kernel
-    check(flash_mha.launches_by_route == {"wgmma": serve_launches["flash_mha"], "fma": 0},
+    # bf16 at hd 128 and 256: every prefill launch took the wgmma route
+    check(flash_mha.launches_by_route == {"wgmma": serve_launches["flash_mha"], "wgmma_tf32x3": 0},
           f"flash routes {flash_mha.launches_by_route}, want every launch on wgmma")
     print(f"  flash routes {flash_mha.launches_by_route}")
     flash_ops.flash_mha = flash_mha
@@ -1388,33 +1443,13 @@ def main() -> int:
     check(serve_launches == {**none_launched, "flash_mha": qwen_flash + 2 * gcfg.n_layers,
                              "rwkv6_chunked": 7 * rcfg.n_layers},
           f"serve launch counts {serve_launches}, want 7 rwkv prefills × {rcfg.n_layers}")
-    # bf16 at M 64: every full-width rwkv launch took the tensor-core kernel
-    check(rwkv6_chunked.launches_by_route == {"tc": 7 * rcfg.n_layers, "fma": 0},
+    # bf16: every full-width rwkv launch took the tc route
+    check(rwkv6_chunked.launches_by_route == {"tc": 7 * rcfg.n_layers, "tc_fp32": 0},
           f"rwkv routes {rwkv6_chunked.launches_by_route}, want every launch on tc")
     print(f"  rwkv routes {rwkv6_chunked.launches_by_route}")
     check(rwkv_launched <= rwkv_checked,
           f"phase 7 launched rwkv at {sorted(rwkv_launched - rwkv_checked, key=str)}, not checked in phase 3")
     print(f"  rwkv launch shapes: {len(rwkv_launched)} distinct, each held against the plain version in phase 3")
-    # the same two prefills with the routing sent to the FMA kernel, in turns
-    # with the tc route (fma, tc, three times, after one untimed turn):
-    # the end-to-end effect of the kernel.  Eager prefills swing with the shared host, so each route's
-    # time is the median of its turns, printed beside them.
-    pre_ab, long_ab = {"tc": [], "fma": []}, {"tc": [], "fma": []}
-    for turn in range(4):
-        for name in ("fma", "tc"):
-            with rwkv_route(name):
-                for prompt, ab in ((prompts, pre_ab), (long_prompt, long_ab)):
-                    t0 = time.perf_counter()
-                    prefill(cons, rcfg, prompt)
-                    if turn:  # turn 0 warms both routes up
-                        ab[name].append(since(t0))
-
-    def by_route(ab):
-        return ", ".join(f"{k} {sorted(v)[1] * 1e3:.1f} ms (turns {' / '.join(f'{x * 1e3:.1f}' for x in v)})"
-                         for k, v in ab.items())
-
-    print(f"  rwkv6-3b prefill by route, medians of 3 turns (fma, tc): 4 × 2048 {by_route(pre_ab)}; "
-          f"1 × 16384 {by_route(long_ab)}")
     del ens, cons, logits, long_logits, step_logits
     torch.cuda.empty_cache()
 
@@ -1434,7 +1469,7 @@ def main() -> int:
         traced_s = since(t0)
     traced_launches = {kern.__name__: kern.launches for kern in kernels}
     check(traced_launches == {**none_launched, "flash_mha": qcfg.n_layers}
-          and flash_mha.launches_by_route == {"wgmma": qcfg.n_layers, "fma": 0},
+          and flash_mha.launches_by_route == {"wgmma": qcfg.n_layers, "wgmma_tf32x3": 0},
           f"traced prefill launches {traced_launches}, routes {flash_mha.launches_by_route}")
     dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = {e.key: e.self_device_time_total for e in dev_ops}
@@ -1473,7 +1508,7 @@ def main() -> int:
         r_logits = prefill(rparams, rcfg, r_prompts)
         traced_s = since(t0)
     check(bool(torch.isfinite(r_logits).all()), "traced rwkv prefill logits not finite")
-    check(rwkv6_chunked.launches_by_route == {"tc": rcfg.n_layers, "fma": 0},
+    check(rwkv6_chunked.launches_by_route == {"tc": rcfg.n_layers, "tc_fp32": 0},
           f"traced rwkv prefill routes {rwkv6_chunked.launches_by_route}")
     dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = {e.key: e.self_device_time_total for e in dev_ops}
@@ -1515,18 +1550,20 @@ def main() -> int:
         check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU greedy tokens differ")
         check(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5), f"{arch}: card vs CPU prefill logits")
     # fp32: every attention layer of a generate's prefill and of a prefill
-    # went through the FMA kernel
-    fp32_launches = flash_mha.launches_by_route["fma"]
+    # went through the flash kernel's fp32 route
+    fp32_launches = flash_mha.launches_by_route["wgmma_tf32x3"]
     want_fp32 = 2 * sum(get_reduced_config(a).n_layers for a in ("qwen2.5-3b", "gemma3-4b"))
-    check(flash_mha.launches_by_route == {"wgmma": 0, "fma": want_fp32},
-          f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on fma")
+    check(flash_mha.launches_by_route == {"wgmma": 0, "wgmma_tf32x3": want_fp32},
+          f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on wgmma_tf32x3")
     print(f"  flash routes {flash_mha.launches_by_route}")
-    # fp32 r/k/v: every rwkv layer of the two prefills went through the FMA kernel
-    rwkv_fp32_launches = rwkv6_chunked.launches_by_route["fma"]
+    # fp32 r/k/v: every rwkv layer of the two prefills went through the rwkv
+    # kernel's fp32 route, each prompt of 40 in one launch
+    rwkv_fp32_launches = rwkv6_chunked.launches_by_route["tc_fp32"]
     want_fp32 = 2 * get_reduced_config("rwkv6-3b").n_layers
-    check(rwkv6_chunked.launches_by_route == {"tc": 0, "fma": want_fp32},
-          f"phase 8 rwkv routes {rwkv6_chunked.launches_by_route}, want {want_fp32} on fma")
-    print(f"  rwkv routes {rwkv6_chunked.launches_by_route}")
+    check(rwkv6_chunked.launches_by_route == {"tc": 0, "tc_fp32": want_fp32} and rwkv6_chunked.one_launch == want_fp32,
+          f"phase 8 rwkv routes {rwkv6_chunked.launches_by_route}, {rwkv6_chunked.one_launch} in one launch, "
+          f"want {want_fp32} on tc_fp32, all in one launch")
+    print(f"  rwkv routes {rwkv6_chunked.launches_by_route}, {rwkv6_chunked.one_launch} in one launch")
 
     # ------------------------------------------------------------- result
     src = "src/repro_torch/kernels/mix/csrc"
@@ -1536,13 +1573,13 @@ def main() -> int:
         ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
         ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          serve_launches["flash_mha"]),
-        # the fp32 (and bf16 hd 32) route: phase 8's card-vs-CPU serving
-        ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash.cu",
+        # the fp32 route: phase 8's card-vs-CPU serving
+        ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          fp32_launches),
         ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
          serve_launches["rwkv6_chunked"]),
-        # the fp32 (and bf16 M 32 / 128) route: phase 8's card-vs-CPU serving
-        ("rwkv6_chunked_fma", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv.cu",
+        # the fp32 route: phase 8's card-vs-CPU serving
+        ("rwkv6_chunked_fma", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
          rwkv_fp32_launches),
         # kernel 3 is three kernels here: the dense round (4b, one launch a
         # round), and the scales pass and the block-sparse walk (6)

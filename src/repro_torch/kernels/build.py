@@ -24,9 +24,7 @@ LIBRARIES = {
     "mix": KERNELS_DIR / "mix" / "csrc" / "mix.cu",
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
     "quant_mix": KERNELS_DIR / "mix" / "csrc" / "quant_mix.cu",
-    "flash": KERNELS_DIR / "flash" / "csrc" / "flash.cu",
     "flash_sm90": KERNELS_DIR / "flash" / "csrc" / "flash_sm90.cu",
-    "rwkv": KERNELS_DIR / "rwkv" / "csrc" / "rwkv.cu",
     "rwkv_sm90": KERNELS_DIR / "rwkv" / "csrc" / "rwkv_sm90.cu",
 }
 NVCC_FLAGS = (

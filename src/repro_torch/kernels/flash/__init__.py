@@ -1,6 +1,6 @@
-"""Flash attention: the CUDA kernels (``csrc/flash_sm90.cu`` for bf16 at hd
-64 / 128 / 256, ``csrc/flash.cu`` otherwise) behind ``flash_mha``, its
-(…, S, H, hd) wrapper ``flash_attention`` and the plain ``attention_ref``."""
+"""Flash attention: the CUDA kernel (``csrc/flash_sm90.cu``, bf16 and fp32 at
+hd 32 / 64 / 128 / 256) behind ``flash_mha``, its (…, S, H, hd) wrapper
+``flash_attention`` and the plain ``attention_ref``."""
 from .flash import HEAD_DIMS, ROUTES, flash_mha, route
 from .ops import flash_attention
 from .ref import attention_ref

@@ -1,14 +1,14 @@
 """Flash attention kernels (counterpart of ``repro/kernels/flash/flash.py``).
 
-``flash_mha`` launches a hand-written CUDA kernel on CUDA tensors and runs
-its plain version ``attention_ref`` on CPU tensors; on any other device it
-raises.  Two kernels, picked by ``route`` from the dtype and head dim alone:
-bf16 at hd 64, 128 or 256 goes to the Hopper kernel of ``csrc/flash_sm90.cu``
-(wgmma + TMA, route ``"wgmma"``); fp32, and bf16 at hd 32, to the fp32-FMA
-kernel of ``csrc/flash.cu`` (route ``"fma"``).  There is no fallback from one
-kernel to the other or to the plain version: a build or launch error is
-raised.  ``flash_mha.launches`` counts kernel launches and
-``flash_mha.launches_by_route`` splits them by route.
+``flash_mha`` launches the hand-written CUDA kernel of ``csrc/flash_sm90.cu``
+(wgmma + TMA) on CUDA tensors and runs its plain version ``attention_ref``
+on CPU tensors; on any other device it raises.  ``route`` names the kernel's
+path from the dtype alone, at every head dim of ``HEAD_DIMS``: bf16 takes
+bf16 products (``"wgmma"``), fp32 three TF32 products of hi + lo parts
+(``"wgmma_tf32x3"``).  There is no fallback to another kernel or to the
+plain version: a build or launch error is raised.  ``flash_mha.launches``
+counts kernel launches and ``flash_mha.launches_by_route`` splits them by
+route.
 
 The kernels read q, k and v through their strides (the last axis
 contiguous), so a ``(B, S, H, hd)`` activation transposed to ``(B, H, S, hd)``
@@ -28,22 +28,19 @@ from .ref import attention_ref
 
 __all__ = ["HEAD_DIMS", "ROUTES", "flash_mha", "route"]
 
-HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernels are instantiated for
-SM90_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the wgmma kernel
-ROUTES = ("wgmma", "fma")
-_ENTRY = {"wgmma": ("flash_sm90", "flash_sm90_fwd"), "fma": ("flash", "flash_fwd")}  # library, C function
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for, in each dtype
+ROUTES = ("wgmma", "wgmma_tf32x3")
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a CUDA call with this dtype and head dim launches."""
-    return "wgmma" if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS else "fma"
+    """The kernel's path for a CUDA call with this dtype (at any hd in HEAD_DIMS)."""
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32x3"
 
 
 @functools.cache
-def _fn(name: str):
-    """The C entry point of a route; both take the same arguments."""
-    library, symbol = _ENTRY[name]
-    fn = getattr(load_library(library), symbol)
+def _fn():
+    """The C entry point; it dispatches on the dtype code and hd itself."""
+    fn = load_library("flash_sm90").flash_sm90_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int, ctypes.c_int]
@@ -96,7 +93,7 @@ def flash_mha(
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     name = route(q.dtype, hd)
     with torch.cuda.device(q.device):
-        err = _fn(name)(
+        err = _fn()(
             K.DTYPE_CODES[q.dtype], hd, K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out),
             b, h, k.shape[1], s, *strides, int(causal), int(window), 1.0 / (hd**0.5), K.stream_of(q),
         )

@@ -1,5 +1,5 @@
-"""RWKV-6 time-mix: the CUDA kernels behind ``rwkv6_chunked`` (``csrc/rwkv_sm90.cu``
-for bf16 at head dim 64, ``csrc/rwkv.cu`` otherwise; ``route`` picks), its
+"""RWKV-6 time-mix: the CUDA kernel behind ``rwkv6_chunked`` (``csrc/rwkv_sm90.cu``,
+bf16 and fp32 r/k/v at head dims 32 / 64 / 128; ``route`` names its path), its
 (…, L, H, M) wrapper ``rwkv6_attention`` and the plain versions
 ``rwkv6_chunked_ref`` (chunked) and ``rwkv6_ref`` (per-token oracle)."""
 from .ops import rwkv6_attention

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.split import split_parts, split_product
+
 __all__ = ["CHUNK", "SPAN", "rwkv6_chunked_ref", "rwkv6_ref", "rwkv6_spans_ref", "split_parts", "wkv_step"]
 
 CHUNK = 32
@@ -95,36 +97,6 @@ def rwkv6_chunked_ref(
     return torch.cat(outs, dim=-3)[..., :l, :, :], state
 
 
-def _round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 → the nearest TF32 value (10 fraction bits, ties away from zero),
-    as ``cvt.rna.tf32.f32`` rounds."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_parts(x: torch.Tensor, split: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """An fp32 operand as hi + lo in the tensor cores' input type: hi the
-    nearest value of it, lo the nearest value of x − hi (exact in fp32)."""
-    if split == "bf16":
-        rnd = lambda t: t.bfloat16().float()  # noqa: E731
-    elif split == "tf32":
-        rnd = _round_tf32
-    else:
-        raise ValueError(f"split {split!r} is not bf16 or tf32")
-    hi = rnd(x)
-    return hi, rnd(x - hi)
-
-
-def _product(eq: str, a: torch.Tensor, b: torch.Tensor, split: str | None) -> torch.Tensor:
-    """einsum of fp32 operands; with a split, the tensor cores' three
-    products hi·hi + hi·lo + lo·hi summed in fp32 (an operand already exact
-    in the input type has lo = 0, so its lo product adds nothing)."""
-    if split is None:
-        return torch.einsum(eq, a, b)
-    (a_hi, a_lo), (b_hi, b_lo) = split_parts(a, split), split_parts(b, split)
-    return torch.einsum(eq, a_hi, b_hi) + torch.einsum(eq, a_hi, b_lo) + torch.einsum(eq, a_lo, b_hi)
-
-
 def rwkv6_spans_ref(
     r: torch.Tensor,
     k: torch.Tensor,
@@ -134,6 +106,7 @@ def rwkv6_spans_ref(
     state: torch.Tensor | None = None,
     *,
     split: str | None = None,
+    single_span: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``rwkv6_chunked_ref``'s function in the Hopper kernel's three phases:
     the sequence cut into spans of SPAN tokens, each span into CHUNK-token
@@ -150,10 +123,16 @@ def rwkv6_spans_ref(
        its pairs through the mid-chunk factorisation and the bonus.
 
     ``split`` emulates the kernel's products ("bf16" or "tf32" hi + lo
-    parts, see ``_product``); None takes them in fp32.  Shapes as
+    parts, see ``split_product``); None takes them in fp32.  With
+    ``single_span`` (L ≤ SPAN: the kernel's one-launch path) C runs alone:
+    it starts from the given state and carries it through every sub-chunk,
+    the last included, to the final state, so ``out`` is the three phases'
+    bit for bit and the state sums in another order.  Shapes as
     ``rwkv6_chunked_ref``."""
     lead = r.shape[:-3]
     l, h, m = r.shape[-3:]
+    if single_span and l > SPAN:
+        raise ValueError(f"single_span takes L <= {SPAN}, got {l}")
     if state is None:
         state = torch.zeros(*lead, h, m, m, dtype=torch.float32, device=r.device)
     n_sub, n_span = SPAN // CHUNK, -(-l // SPAN)
@@ -175,7 +154,7 @@ def rwkv6_spans_ref(
     w_span = torch.ones(*lead, n_span, h, m, dtype=torch.float32, device=r.device)
     for j in range(n_sub):
         wl_j = wl[..., j, 0, :, :]  # (..., NS, H, M)
-        d_state = d_state * wl_j[..., :, None] + _product("...shm,...shn->...hmn", kf[..., j, :, :, :],
+        d_state = d_state * wl_j[..., :, None] + split_product("...shm,...shn->...hmn", kf[..., j, :, :, :],
                                                           vv[..., j, :, :, :], split)
         w_span = w_span * wl_j
 
@@ -194,12 +173,12 @@ def rwkv6_spans_ref(
     for j in range(n_sub):
         rj, kj, vj, cj, lj, mj = (t[..., j, :, :, :] for t in (rr, kk, vv, cum, logw, mid))
         rq = rj * torch.exp(cj - lj)
-        out = _product("...thm,...hmn->...thn", rq, s, split)
-        scores = _product("...thm,...shm->...hts", rj * torch.exp(cj - lj - mj), kj * torch.exp(mj - cj), split)
+        out = split_product("...thm,...hmn->...thn", rq, s, split)
+        scores = split_product("...thm,...shm->...hts", rj * torch.exp(cj - lj - mj), kj * torch.exp(mj - cj), split)
         bonus = torch.einsum("...thm,hm,...thm->...ht", rj, u, kj)
         p = torch.where(tri, scores, torch.zeros((), device=r.device)) + torch.diag_embed(bonus)
-        outs.append(out + _product("...hts,...shm->...thm", p, vj, split))
-        if j + 1 < n_sub:
-            s = s * wl[..., j, 0, :, :, None] + _product("...shm,...shn->...hmn", kf[..., j, :, :, :], vj, split)
+        outs.append(out + split_product("...hts,...shm->...thm", p, vj, split))
+        if j + 1 < n_sub or single_span:
+            s = s * wl[..., j, 0, :, :, None] + split_product("...shm,...shn->...hmn", kf[..., j, :, :, :], vj, split)
     out = torch.stack(outs, dim=-4).reshape(*lead, n_span * SPAN, h, m)
-    return out[..., :l, :, :], state
+    return out[..., :l, :, :], s[..., 0, :, :, :] if single_span and n_span else state

@@ -1,16 +1,19 @@
 """RWKV-6 chunked time-mix kernels (counterpart of ``repro/kernels/rwkv/rwkv.py``).
 
-``rwkv6_chunked`` launches a hand-written CUDA kernel on CUDA tensors and
-runs its plain version ``rwkv6_chunked_ref`` on CPU tensors; on any other
-device it raises.  Two kernels, picked by ``route`` from the dtype and head
-dim alone: bf16 r/k/v at M = 64 (every full-width rwkv6-3b launch) goes to
-the Hopper kernel of ``csrc/rwkv_sm90.cu`` (route ``"tc"``: chunk-parallel
-state passing, tensor-core products on split fp32 operands, three launches);
-fp32, and bf16 at M 32 or 128, to the fp32-FMA kernel of ``csrc/rwkv.cu``
-(route ``"fma"``: the intra-chunk kernel, then the sequential state scan).
-There is no fallback from one kernel to the other or to the plain version:
-a build or launch error is raised.  ``rwkv6_chunked.launches`` counts kernel
-launches and ``rwkv6_chunked.launches_by_route`` splits them by route.
+``rwkv6_chunked`` launches the hand-written CUDA kernel of
+``csrc/rwkv_sm90.cu`` (chunk-parallel state passing, tensor-core products on
+split fp32 operands) on CUDA tensors and runs its plain version
+``rwkv6_chunked_ref`` on CPU tensors; on any other device it raises.
+``route`` names the kernel's path from the dtype of r, k, v alone, at every
+head dim of ``HEAD_DIMS``: ``"tc"`` for bf16 (bf16 products, fp32
+operands split into bf16 hi + lo), ``"tc_fp32"`` for fp32 (TF32 products
+on hi + lo parts, v split too).  An L of at most
+SPAN (128, one span) runs in one launch, the span's outputs alone, with no
+scratch; a longer L in three (span deltas, the state scan, span outputs).  There is no fallback to another kernel or
+to the plain version: a build or launch error is raised.
+``rwkv6_chunked.launches`` counts kernel launches,
+``rwkv6_chunked.launches_by_route`` splits them by route and
+``rwkv6_chunked.one_launch`` counts those that ran in one launch.
 
 It differs from the JAX package's Pallas kernel in what it carries out: it
 takes an initial state and returns the final one (the decode cache a
@@ -18,9 +21,9 @@ prefill fills), and its output is fp32, as the model's ``_wkv_chunked``
 returns (the Pallas kernel returns r's dtype).  r, k and v may be fp32 or
 bf16; w, u and the states are fp32 (bf16 would round the slowest decays,
 ~1 - 2^-9, to 1 or 1 - 2^-8).  The kernels read r, k, v and w through
-their (b, l, h) strides with M contiguous, so the model's projections go in
-as views (the tc route also wants each row 16-byte aligned), and u is
-indexed by head, not tiled over the batch.
+their (b, l, h) strides with M contiguous and each row 16-byte aligned, so
+the model's projections go in as views, and u is indexed by head, not tiled
+over the batch.
 """
 from __future__ import annotations
 
@@ -32,36 +35,35 @@ import torch
 from repro_torch.kernels import _launch as K
 from repro_torch.kernels.build import load_library
 
-from .ref import CHUNK, SPAN, rwkv6_chunked_ref
+from .ref import SPAN, rwkv6_chunked_ref
 
-__all__ = ["HEAD_DIMS", "ROUTES", "check_layout", "route", "rwkv6_chunked", "scratch_floats"]
+__all__ = ["HEAD_DIMS", "ROUTES", "check_layout", "route", "rwkv6_chunked", "scratch_floats", "span_scratch_floats"]
 
-HEAD_DIMS = (32, 64, 128)  # head dims the kernels are instantiated for
-SM90_HEAD_DIMS = (64,)  # bf16 head dims of the tensor-core kernel
-ROUTES = ("tc", "fma")
-_ENTRY = {"tc": ("rwkv_sm90", "rwkv6_sm90_fwd"), "fma": ("rwkv", "rwkv6_fwd")}  # library, C function
+HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for, in each dtype
+ROUTES = ("tc", "tc_fp32")
 
 
 def route(dtype: torch.dtype, m: int) -> str:
-    """The kernel a CUDA call with r/k/v of this dtype and head dim launches."""
-    return "tc" if dtype == torch.bfloat16 and m in SM90_HEAD_DIMS else "fma"
+    """The kernel's path for a CUDA call with r/k/v of this dtype (at any M in HEAD_DIMS)."""
+    return "tc" if dtype == torch.bfloat16 else "tc_fp32"
 
 
-def scratch_floats(name: str, b: int, l: int, h: int, m: int) -> int:
-    """fp32 scratch a launch of route ``name`` needs: the fma route two factor
-    rows per token of every 32-token chunk and a decay row per chunk; the tc
-    route a state (M × M) and a decay row per span of SPAN tokens."""
-    if name == "fma":
-        n_fac = b * h * -(-l // CHUNK) * CHUNK * m
-        return 2 * n_fac + n_fac // CHUNK
+def scratch_floats(b: int, l: int, h: int, m: int) -> int:
+    """fp32 scratch a call needs: none for one span (L ≤ SPAN, one launch);
+    else a state (M × M) and a decay row per span of SPAN tokens."""
+    return 0 if l <= SPAN else span_scratch_floats(b, l, h, m)
+
+
+def span_scratch_floats(b: int, l: int, h: int, m: int) -> int:
+    """fp32 scratch of the three launches: a state (M × M) and a decay row
+    per span of SPAN tokens (given for one span, it runs three launches)."""
     return b * h * -(-l // SPAN) * m * (m + 1)
 
 
 @functools.cache
-def _fn(name: str):
-    """The C entry point of a route; both take the same arguments."""
-    library, symbol = _ENTRY[name]
-    fn = getattr(load_library(library), symbol)
+def _fn():
+    """The C entry point; it dispatches on the dtype code and M itself."""
+    fn = load_library("rwkv_sm90").rwkv6_sm90_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_int] * 2
@@ -92,18 +94,18 @@ def _check(r, k, v, w, u, state) -> None:
         raise ValueError(f"r, k, v, w, u, state lie on {sorted(map(str, devices))}")
 
 
-def check_layout(name: str, r, k, v, w) -> None:
-    """Raise on a head dim or a memory layout the route's kernel does not take:
-    both need M in HEAD_DIMS and contiguous, the tc route also M = 64 and
-    every (b, l, h) row starting on a 16-byte boundary (its cp.async copies)."""
+def check_layout(r, k, v, w) -> None:
+    """Raise on a head dim or a memory layout the kernel does not take: M in
+    HEAD_DIMS, contiguous, and every (b, l, h) row starting on a 16-byte
+    boundary (its cp.async copies)."""
     m = r.shape[-1]
-    if m not in HEAD_DIMS or (name == "tc" and m not in SM90_HEAD_DIMS):
-        raise ValueError(f"head_dim {m} not taken by the {name} route")
+    if m not in HEAD_DIMS:
+        raise ValueError(f"head_dim {m} not in {HEAD_DIMS}")
     for label, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(3) != 1:
             raise ValueError(f"{label}: the kernel needs M contiguous, got strides {t.stride()}")
-        if name == "tc" and not K.aligned16(t):
-            raise ValueError(f"{label}: the tc route needs 16-byte aligned (b, l, h) rows, got strides "
+        if not K.aligned16(t):
+            raise ValueError(f"{label}: the kernel needs 16-byte aligned (b, l, h) rows, got strides "
                              f"{t.stride()} at offset {t.data_ptr() % 16} mod 16")
 
 
@@ -125,9 +127,19 @@ def rwkv6_chunked(
         raise ValueError(f"r lies on {r.device}; rwkv6_chunked takes cuda or cpu tensors")
     b, l, h, m = r.shape
     name = route(r.dtype, m)
-    if name == "tc" and r.dtype != torch.bfloat16:
-        raise TypeError(f"the tc route takes bf16 r, k, v, got {r.dtype}")
-    check_layout(name, r, k, v, w)
+    got = _launch(r, k, v, w, u, state, scratch_floats(b, l, h, m))
+    rwkv6_chunked.launches += 1
+    rwkv6_chunked.launches_by_route[name] += 1
+    rwkv6_chunked.one_launch += int(0 < l <= SPAN)
+    return got
+
+
+def _launch(r, k, v, w, u, state, n_scratch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One call of the kernel on checked CUDA tensors, with ``n_scratch``
+    floats of scratch: none runs one span (L ≤ SPAN) in one launch;
+    ``span_scratch_floats`` runs the three launches.  Counts nothing."""
+    b, l, h, m = r.shape
+    check_layout(r, k, v, w)
     u = u.contiguous()
     if state is not None:
         state = state.contiguous()
@@ -135,19 +147,19 @@ def rwkv6_chunked(
             state = state.clone()
     out = torch.empty(b, l, h, m, dtype=torch.float32, device=r.device)
     state_out = torch.empty(b, h, m, m, dtype=torch.float32, device=r.device)
-    scratch = torch.empty(scratch_floats(name, b, l, h, m), dtype=torch.float32, device=r.device)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device)
     strides = [st for t in (r, k, v, w, out) for st in t.stride()[:3]]
-    s_in = ctypes.c_void_p(None) if state is None else K.ptr(state)
+    null = ctypes.c_void_p(None)
     with torch.cuda.device(r.device):
-        err = _fn(name)(
-            K.DTYPE_CODES[r.dtype], m, K.ptr(r), K.ptr(k), K.ptr(v), K.ptr(w), K.ptr(u), s_in,
-            K.ptr(out), K.ptr(state_out), K.ptr(scratch), b, l, h, *strides, K.stream_of(r),
+        err = _fn()(
+            K.DTYPE_CODES[r.dtype], m, K.ptr(r), K.ptr(k), K.ptr(v), K.ptr(w), K.ptr(u),
+            null if state is None else K.ptr(state), K.ptr(out), K.ptr(state_out),
+            K.ptr(scratch) if n_scratch else null, b, l, h, *strides, K.stream_of(r),
         )
-    K.raise_on_error(err, f"rwkv6_chunked ({name})")
-    rwkv6_chunked.launches += 1
-    rwkv6_chunked.launches_by_route[name] += 1
+    K.raise_on_error(err, f"rwkv6_chunked ({route(r.dtype, m)})")
     return out, state_out
 
 
 rwkv6_chunked.launches = 0
 rwkv6_chunked.launches_by_route = dict.fromkeys(ROUTES, 0)
+rwkv6_chunked.one_launch = 0

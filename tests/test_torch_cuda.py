@@ -3,15 +3,16 @@ at shapes and layouts the main path does not reach.  Mixing: row groups
 and M chunks past 64 nodes, every vector width, misaligned rows, bf16
 through the block-sparse kernel, tile sizes up to the limit, padding tiles
 the walk must skip.  Flash attention: every head dim, ragged S, causal and
-windowed masks, GQA groups, strided (B, S, H, hd) views, and the decoder's
-prefill through the kernel; each case checks which of the two kernels
-(``route``: wgmma for bf16 at hd 64 / 128 / 256, FMA otherwise) launched,
-and a launch error of the wgmma kernel is raised, not replaced.  RWKV-6 time-mix: ragged L, every head dim,
-fp32 and bf16 r/k/v, zero and given initial states, the full-width serve
-shapes in the decoder's layout, strided views, extreme decays, and the
-reduced rwkv6-3b served on the card; each case checks which of the two
-kernels (``route``: tc for bf16 at M 64, FMA otherwise) launched, and the
-tensor-core kernel rejects unaligned rows.  Quantised mix: the scales pass and
+windowed masks, GQA groups, strided (B, S, H, hd) views, fp32 at the
+full-width prefill shapes, and the decoder's prefill through the kernel;
+each case checks which route of the one kernel (``route``: wgmma for bf16,
+wgmma_tf32x3 for fp32) launched, and a launch error on either route is
+raised, not replaced.  RWKV-6 time-mix: ragged L, every head dim, fp32 and
+bf16 r/k/v, zero and given initial states, the full-width serve shapes in
+the decoder's layout, strided views, extreme decays, the one-launch path of
+an L up to 128 (one device kernel, out bitwise the three launches'), and
+the reduced rwkv6-3b served on the card; each case checks which route (tc
+for bf16, tc_fp32 for fp32) launched, and unaligned rows are rejected.  Quantised mix: the scales pass and
 the dense and block-sparse walks in raw and round mode, fp32 and bf16, int8
 and fp8, both scale floors, masked operators, frozen mirrors, leaf chunk
 tables, and compressed plan rounds against the CPU (new mirrors bitwise:
@@ -208,6 +209,7 @@ def _launch_once(q, k, v, **mask):
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 17), (False, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(dev, hd, s, causal, window, dtype):
+    assert route(dtype, hd) == ("wgmma" if dtype == torch.bfloat16 else "wgmma_tf32x3")
     q, k, v = _attn_inputs(dev, 2, 8, 2, s, hd, dtype, seed=s + hd)
     got = _launch_once(q, k, v, causal=causal, window=window)
     _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
@@ -230,17 +232,25 @@ def test_flash_wgmma_kernel_ragged(dev, hd, s, group, window, causal, layout):
     assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
 
 
+def _launch_error_is_raised(monkeypatch, q, k, v, name):
+    from repro_torch.kernels.flash import flash as flash_module
+
+    monkeypatch.setattr(flash_module, "_fn", lambda: lambda *args: 10001)
+    before, by_route = flash_mha.launches, dict(flash_mha.launches_by_route)
+    with pytest.raises(RuntimeError, match=name):
+        flash_mha(q, k, v)
+    assert flash_mha.launches == before and flash_mha.launches_by_route == by_route
+
+
 def test_flash_wgmma_launch_error_is_raised(dev, monkeypatch):
     """No fallback: a bf16 hd-128 call whose kernel cannot launch raises,
     and nothing is counted."""
-    from repro_torch.kernels.flash import flash as flash_module
+    _launch_error_is_raised(monkeypatch, *_attn_inputs(dev, 1, 2, 2, 64, 128, torch.bfloat16), "wgmma")
 
-    q, k, v = _attn_inputs(dev, 1, 2, 2, 64, 128, torch.bfloat16)
-    monkeypatch.setattr(flash_module, "_fn", lambda name: lambda *args: 10001)
-    before, by_route = flash_mha.launches, dict(flash_mha.launches_by_route)
-    with pytest.raises(RuntimeError, match="wgmma"):
-        flash_mha(q, k, v)
-    assert flash_mha.launches == before and flash_mha.launches_by_route == by_route
+
+def test_flash_tf32x3_launch_error_is_raised(dev, monkeypatch):
+    """The same on the fp32 route (hd 32, phase 8's reduced decoders)."""
+    _launch_error_is_raised(monkeypatch, *_attn_inputs(dev, 1, 2, 2, 40, 32, torch.float32), "wgmma_tf32x3")
 
 
 @pytest.mark.parametrize("h,kvh", [(4, 4), (8, 1), (12, 3), (16, 2)])
@@ -278,6 +288,26 @@ def test_flash_kernel_at_full_width_prefill_shapes(dev, arch, b, s, swa):
     g = torch.Generator(device=dev).manual_seed(s + hd)
     q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
                for n in (h, kvh, kvh))
+    got = _launch_once(q, k, v, causal=True, window=window)
+    _close(got, attention_ref(q, k, v, causal=True, window=window), v)
+    assert torch.equal(got, flash_mha(q, k, v, causal=True, window=window))
+
+
+@pytest.mark.parametrize(
+    "arch,b,s,swa",
+    [("qwen2.5-3b", 4, 2048, False), ("gemma3-4b", 2, 2048, False), ("gemma3-4b", 2, 2048, True)],
+)
+def test_flash_fp32_at_full_width_shapes(dev, arch, b, s, swa):
+    """fp32 q, k, v (ArchConfig.dtype fp32) at the full-width prefill
+    shapes, hd 128 and 256, in the decoder's layout: the 3×TF32 route."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.sliding_window if swa else 0
+    g = torch.Generator(device=dev).manual_seed(s + hd + window)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).transpose(1, 2) for n in (h, kvh, kvh))
+    assert route(q.dtype, hd) == "wgmma_tf32x3"
     got = _launch_once(q, k, v, causal=True, window=window)
     _close(got, attention_ref(q, k, v, causal=True, window=window), v)
     assert torch.equal(got, flash_mha(q, k, v, causal=True, window=window))
@@ -383,8 +413,8 @@ def test_rwkv_kernel_extreme_decay(dev):
     _rwkv_close(args)
 
 
-@pytest.mark.parametrize("dtype,m,want", [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "fma"),
-                                            (torch.bfloat16, 32, "fma"), (torch.bfloat16, 128, "fma")])
+@pytest.mark.parametrize("dtype,m,want", [(torch.bfloat16, 64, "tc"), (torch.float32, 64, "tc_fp32"),
+                                            (torch.bfloat16, 32, "tc"), (torch.bfloat16, 128, "tc")])
 def test_rwkv_route_and_launches_by_route(dev, dtype, m, want):
     assert rwkv_kernels.route(dtype, m) == want
     _rwkv_close(_rwkv_inputs(dev, 1, 40, 2, m, dtype, seed=m))
@@ -408,8 +438,55 @@ def test_rwkv_tc_route_extreme_decay(dev):
     _rwkv_close(args)
 
 
-def test_rwkv_tc_route_rejects_unaligned_rows(dev):
-    r, k, v, w, u, _ = _rwkv_inputs(dev, 1, 20, 2, 64, torch.bfloat16, seed=5)
+@pytest.mark.parametrize("l", [1, 33, 128, 129, 300, 2049])
+@pytest.mark.parametrize("m", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_head_dims_and_types(dev, l, m, dtype, with_state):
+    """M 32 and 128 (two value blocks of 64 a head) in bf16 and fp32, one
+    span, its edge and several spans."""
+    _rwkv_close(_rwkv_inputs(dev, 2, l, 3, m, dtype, with_state, seed=l + m + 1))
+
+
+def _device_kernels(fn):
+    """fn's result and the names of the rwkv kernels it ran on the card, one
+    entry a launch (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() for _ in range(e.count) if "rwkv_span" in e.key]
+    return out, names
+
+
+@pytest.mark.parametrize("l", [1, 40, 128])
+@pytest.mark.parametrize("m", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_one_launch_path(dev, l, m, dtype, with_state):
+    """L ≤ 128 runs the span outputs alone: one device kernel, no scratch,
+    out bitwise the three-launch path's (the kernel given a span's scratch:
+    the same state in, the same arithmetic), the final state (summed in
+    another order) within 5e-5 · max|ref|."""
+    args = _rwkv_inputs(dev, 2, l, 3, m, dtype, with_state, seed=l + m + 2)
+    before = rwkv6_chunked.one_launch
+    (out1, state1), names1 = _device_kernels(lambda: rwkv6_chunked(*args))
+    assert rwkv6_chunked.one_launch == before + 1
+    assert len(names1) == 1 and "rwkv_span_out" in names1[0], names1
+    (out3, state3), names3 = _device_kernels(
+        lambda: rwkv_kernels._launch(*args, rwkv_kernels.span_scratch_floats(2, l, 3, m)))
+    assert rwkv6_chunked.one_launch == before + 1 and len(names3) == 3, names3
+    assert torch.equal(out1, out3)
+    ref_out, ref_state = rwkv6_chunked_ref(*args)
+    assert float((out1 - ref_out).abs().max()) <= 5e-5 * float(ref_out.abs().max())
+    assert float((state1 - ref_state).abs().max()) <= 5e-5 * float(ref_state.abs().max())
+    assert float((state1 - state3).abs().max()) <= 5e-5 * float(ref_state.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv_tc_route_rejects_unaligned_rows(dev, dtype):
+    r, k, v, w, u, _ = _rwkv_inputs(dev, 1, 20, 2, 64, dtype, seed=5)
     shifted = torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)[1:].view(r.shape)
     shifted.copy_(r)
     before = dict(rwkv6_chunked.launches_by_route)

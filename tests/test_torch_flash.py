@@ -4,9 +4,11 @@ On a CPU tensor ``flash_mha`` runs its plain version ``attention_ref``; both,
 and the (B, S, H, hd) wrapper ``flash_attention``, are held against the JAX
 Pallas kernel run in interpret mode and against its jnp oracle, on the same
 numpy inputs: fp32 to 1e-5 (the two sum QKᵀ and PV in other orders).  The
-CUDA kernels themselves are held against ``attention_ref`` on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); here the rule
-that picks between them (``route``) is checked.
+CUDA kernel itself is held against ``attention_ref`` on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); here its
+arithmetic on fp32 inputs (``attention_split_ref``: 3×TF32 products, P
+split) is held against the JAX package at the same 1e-5, and the rule that
+picks its route (``route``) is checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from repro.kernels.flash.flash import flash_mha as jax_flash_mha  # noqa: E402
 from repro.kernels.flash.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash import ROUTES, attention_ref, flash_attention, flash_mha, route  # noqa: E402
+from repro_torch.kernels.flash.ref import attention_split_ref  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -96,13 +99,40 @@ def test_rejects_what_the_kernel_cannot_take():
         flash_mha(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
-# bf16 at hd 64 / 128 / 256 (every bf16 launch of the full-width serve
-# path) takes the wgmma kernel; fp32 at any hd, and bf16 at hd 32 (the
-# reduced configs), the FMA kernel
+@pytest.mark.parametrize("s,hd,kvh,causal,window", CASES)
+def test_tf32x3_rendering_matches_jax(s, hd, kvh, causal, window):
+    """The fp32 route's arithmetic: S and P·V each as three TF32 products of
+    hi + lo parts (P split too), within 1e-5 of the Pallas kernel and the
+    oracle on fp32 inputs."""
+    q, k, v = _qkv(s, hd, kvh)
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    got = attention_split_ref(*map(torch.as_tensor, (q, k, v)), causal=causal, window=window, split="tf32")
+    assert got.dtype == torch.float32 and got.shape == (2, 4, s, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jax_flash_mha(qj, kj, vj, causal=causal, window=window, interpret=True)), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_attention_ref(qj, kj, vj, causal=causal, window=window)),
+                               **TOL)
+
+
+def test_bf16_split_misses_the_fp32_bound():
+    """The bf16 hi + lo split the bf16 route uses for P leaves ~2^-17 of each
+    term, which exp amplifies: on fp32 inputs it misses 1e-5 on some case,
+    so the fp32 route splits into TF32 parts."""
+    worst = 0.0
+    for s, hd, kvh, causal, window in CASES:
+        q, k, v = _qkv(s, hd, kvh)
+        want = np.asarray(jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal, window=window))
+        got = attention_split_ref(*map(torch.as_tensor, (q, k, v)), causal=causal, window=window, split="bf16")
+        worst = max(worst, float((np.abs(got.numpy() - want) / (TOL["atol"] + TOL["rtol"] * np.abs(want))).max()))
+    assert worst > 1.0, worst
+
+
+# every (dtype, hd) goes to the Hopper kernel: bf16 to its wgmma route with
+# bf16 products, fp32 to its 3×TF32 route
 @pytest.mark.parametrize(
     "dtype,hd,want",
-    [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-     (torch.bfloat16, 32, "fma")] + [(torch.float32, hd, "fma") for hd in (32, 64, 128, 256)],
+    [(torch.bfloat16, hd, "wgmma") for hd in (32, 64, 128, 256)]
+    + [(torch.float32, hd, "wgmma_tf32x3") for hd in (32, 64, 128, 256)],
 )
 def test_route_is_picked_by_dtype_and_head_dim(dtype, hd, want):
     assert route(dtype, hd) == want

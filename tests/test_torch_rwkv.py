@@ -180,13 +180,15 @@ def _bf16(x):
 
 
 @functools.cache
-def _span_case(l, with_state):
-    """bf16-valued r, k, v; w over the clamp's range; u; an optional state;
-    and the JAX package's answers: the model's ``_wkv_chunked`` (out, state)
-    and, from a zero state, the Pallas kernel in interpret mode."""
-    b, h, m = 2, 3, 64
-    rng = np.random.default_rng(100 + l)
-    r, k, v = (_bf16(rng.standard_normal((b, l, h, m)).astype(np.float32)) for _ in range(3))
+def _span_case(l, with_state, m=64, dtype="bf16"):
+    """r, k, v (bf16-valued for ``dtype`` "bf16", fp32 otherwise); w over the
+    clamp's range; u; an optional state; and the JAX package's answers: the
+    model's ``_wkv_chunked`` (out, state) and, from a zero state, the Pallas
+    kernel in interpret mode."""
+    b, h = 2, 3
+    rng = np.random.default_rng(100 + l + m)
+    rkv = (rng.standard_normal((b, l, h, m)).astype(np.float32) for _ in range(3))
+    r, k, v = (_bf16(t) for t in rkv) if dtype == "bf16" else rkv
     w = np.exp(-np.exp(rng.uniform(-6.0, 1.0, (b, l, h, m)))).astype(np.float32)
     u = (0.5 * rng.random((h, m))).astype(np.float32)
     s0 = (0.3 * rng.standard_normal((b, h, m, m)) if with_state else np.zeros((b, h, m, m))).astype(np.float32)
@@ -199,19 +201,68 @@ def _span_case(l, with_state):
     return (r, k, v, w, u, s0 if with_state else None), want
 
 
+# (M, r/k/v values): the bf16 route at M 64 as before, and the head dims and
+# fp32 inputs the kernel now takes
+SPAN_INPUTS = [(64, "bf16"), (64, "fp32"), (32, "bf16"), (32, "fp32"), (128, "bf16"), (128, "fp32")]
+
+
 @pytest.mark.parametrize("l", [1, 33, 77, 300])
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("split", [None, "bf16", "tf32"])
-def test_span_decomposition_matches_jax(l, with_state, split):
+@pytest.mark.parametrize("m,dtype", SPAN_INPUTS)
+def test_span_decomposition_matches_jax(l, with_state, split, m, dtype):
     """Phases A, B, C over spans of SPAN tokens, the products in fp32, as the
     kernel's bf16 hi + lo parts, or as the 3×TF32 alternative, against
-    ``_wkv_chunked`` (out and state) and the Pallas kernel (out, zero state)."""
-    args, want = _span_case(l, with_state)
+    ``_wkv_chunked`` (out and state) and the Pallas kernel (out, zero state),
+    at M 32 / 64 / 128 with bf16-valued or fp32 r, k, v."""
+    args, want = _span_case(l, with_state, m, dtype)
     out, state = rwkv6_spans_ref(*(None if a is None else torch.as_tensor(a) for a in args), split=split)
     _close_scaled(out.numpy(), want[0])
     _close_scaled(state.numpy(), want[1])
     if not with_state:
         _close_scaled(out.numpy(), want[2])
+
+
+@pytest.mark.parametrize("l", [1, 33, 40, 128])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("m,dtype", SPAN_INPUTS)
+def test_single_span_rendering_is_the_three_phases_out(l, with_state, m, dtype):
+    """L ≤ SPAN in one launch (phase C alone, carrying the state to the end):
+    its out equals the three-phase rendering's bit for bit, and its state,
+    summed in another order, is within 5e-5 · max|ref| of ``_wkv_chunked``'s."""
+    args, want = _span_case(l, with_state, m, dtype)
+    targs = [None if a is None else torch.as_tensor(a) for a in args]
+    split = "bf16" if dtype == "bf16" else "tf32"  # the kernel's split for these inputs
+    out3, state3 = rwkv6_spans_ref(*targs, split=split)
+    out1, state1 = rwkv6_spans_ref(*targs, split=split, single_span=True)
+    assert torch.equal(out1, out3)
+    _close_scaled(state1.numpy(), want[1])
+    _close_scaled(state1.numpy(), state3.numpy())
+
+
+@pytest.mark.parametrize("split,meets", [("tf32", True), ("bf16", False)])
+def test_fp32_decoder_logits_take_the_tf32_split(split, meets):
+    """The reduced rwkv6-3b served in fp32 (the card-vs-CPU check: prefill
+    logits to rtol 1e-4, atol 1e-5) with its time-mix through the span
+    rendering: 3×TF32 products meet it, the bf16 split (which meets the
+    kernel's own 5e-5 · max|ref|) does not, so fp32 r, k, v take TF32."""
+    cfg = pbase.get_reduced_config(ARCH)
+    params = PTF.init_params(torch.Generator().manual_seed(3), cfg, InitConfig("trunc_normal", 1.0), device="cpu")
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40)))
+    want = PS.prefill(params, cfg, prompt).numpy()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PR, "rwkv6_attention", lambda r, k, v, w, u, state=None: rwkv6_spans_ref(
+            r, k, v, w, u, state, split=split, single_span=True))
+        got = PS.prefill(params, cfg, prompt).numpy()
+    assert not np.array_equal(got, want)  # the rendering ran
+    assert np.allclose(got, want, **TOL) == meets
+
+
+def test_single_span_rendering_refuses_two_spans():
+    args, _ = _span_case(33, False)
+    long = [torch.as_tensor(np.concatenate([a] * 4, axis=1)) for a in args[:4]]
+    with pytest.raises(ValueError, match="single_span"):
+        rwkv6_spans_ref(*long, torch.as_tensor(args[4]), single_span=True)
 
 
 @pytest.mark.parametrize("split", [None, "bf16", "tf32"])
@@ -251,46 +302,51 @@ def test_split_parts_keep_the_fp32_operand(split, bits):
 
 
 def test_route_takes_bf16_at_head_dim_64():
-    assert PK.ROUTES == ("tc", "fma")
-    assert PK.route(torch.bfloat16, 64) == "tc"
-    for dtype, m in ((torch.float32, 64), (torch.bfloat16, 32), (torch.bfloat16, 128), (torch.float32, 32)):
-        assert PK.route(dtype, m) == "fma"
+    """Every (dtype, M) goes to the Hopper kernel: bf16 r/k/v to route tc,
+    fp32 to tc_fp32, at each head dim."""
+    assert PK.ROUTES == ("tc", "tc_fp32")
+    for m in PK.HEAD_DIMS:
+        assert PK.route(torch.bfloat16, m) == "tc"
+        assert PK.route(torch.float32, m) == "tc_fp32"
     assert rwkv6_chunked.launches_by_route.keys() == set(PK.ROUTES)
 
 
-@pytest.mark.parametrize("b,l", [(4, 2048), (1, 512), (1, 16384), (2, 1), (2, 2049), (3, 0)])
-def test_scratch_sizing(b, l):
-    """tc: one (M × M) state and one decay row per span of 128 tokens; fma:
-    two factor rows per token of each 32-token chunk and one decay row."""
-    h, m = 40, 64
-    assert PK.scratch_floats("tc", b, l, h, m) == b * h * -(-l // 128) * (m * m + m)
-    n_fac = b * h * -(-l // 32) * 32 * m
-    assert PK.scratch_floats("fma", b, l, h, m) == 2 * n_fac + b * h * -(-l // 32) * m
-    if (b, l) == (4, 2048):  # states of 42.6 MB against the fma route's 170.4 MB of factor rows
-        assert PK.scratch_floats("tc", b, l, h, m) == 10_649_600
-        assert PK.scratch_floats("fma", b, l, h, m) == 42_598_400
+@pytest.mark.parametrize("b,l", [(4, 2048), (1, 512), (1, 16384), (2, 1), (2, 2049), (3, 0), (2, 40), (2, 128),
+                                 (2, 129)])
+@pytest.mark.parametrize("m", [32, 64, 128])
+def test_scratch_sizing(b, l, m):
+    """One span (L ≤ 128) runs in one launch with no scratch; a longer L
+    needs one (M × M) state and one decay row per span of 128 tokens, the
+    three launches' scratch, which one span can be given too."""
+    h = 40
+    spans = b * h * -(-l // 128) * (m * m + m)
+    assert PK.span_scratch_floats(b, l, h, m) == spans
+    assert PK.scratch_floats(b, l, h, m) == (0 if l <= 128 else spans)
+    if (b, l, m) == (4, 2048, 64):  # states of 42.6 MB
+        assert PK.scratch_floats(b, l, h, m) == 10_649_600
 
 
 def test_layout_checks_reject_what_the_kernels_do_not_take():
     x = torch.zeros(2, 8, 3, 64, dtype=torch.bfloat16)
     w = torch.zeros(2, 8, 3, 64)
-    PK.check_layout("tc", x, x, x, w)
-    PK.check_layout("fma", x, x, x, w)
+    PK.check_layout(x, x, x, w)
+    PK.check_layout(x.float(), x.float(), x.float(), w)
     shifted = torch.zeros(2 * 8 * 3 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 8, 3, 64)  # rows 2 bytes off
     with pytest.raises(ValueError, match="16-byte"):
-        PK.check_layout("tc", x, shifted, x, w)
-    PK.check_layout("fma", x, shifted, x, w)  # the FMA kernel reads element by element
+        PK.check_layout(x, shifted, x, w)
+    shifted32 = torch.zeros(2 * 8 * 3 * 64 + 1)[1:].view(2, 8, 3, 64)  # fp32 rows 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        PK.check_layout(x.float(), x.float(), x.float(), shifted32)
     odd_rows = torch.zeros(2, 8, 3, 68, dtype=torch.bfloat16)[..., :64]  # rows 136 bytes apart
     with pytest.raises(ValueError, match="16-byte"):
-        PK.check_layout("tc", odd_rows, x, x, w)
+        PK.check_layout(odd_rows, x, x, w)
     with pytest.raises(ValueError, match="M contiguous"):
-        PK.check_layout("fma", x, x, x.transpose(1, 3).contiguous().transpose(1, 3), w)
+        PK.check_layout(x, x, x.transpose(1, 3).contiguous().transpose(1, 3), w)
     y = torch.zeros(2, 8, 3, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        PK.check_layout("tc", y, y, y, y.float())
+    PK.check_layout(y, y, y, y.float())
     z = torch.zeros(2, 8, 3, 48)
     with pytest.raises(ValueError, match="head_dim 48"):
-        PK.check_layout("fma", z, z, z, z)
+        PK.check_layout(z, z, z, z)
 
 
 # ------------------------------------------------------------------ params
