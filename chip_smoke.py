@@ -55,17 +55,37 @@ run with a non-zero exit:
    its route; two launches bitwise equal, and timings at the main path's
    shapes (the dense round at complete-16 and complete-64); both block-sparse walks timed at ring-1024 and
    kreg4-1024 against the tile walks they replaced (``TILE_WALK_MS``), which
-   they must beat at ring-1024;
-4. quickstart — ``examples/quickstart.py``'s setup through ``run_sweep``:
-   He init plateaus at ln 10, the gain-corrected init descends, 80 dense
-   kernel launches;
+   they must beat at ring-1024; at VGG16's width (d = 33,638,218): the dense
+   mix at n = 16 and 64 (n·d > 2^31), n = 16 timed against its byte bound,
+   and the int8 dense round at VGG16's 16,437-chunk table, scales and H'
+   bitwise, its route checked and timed, and at complete-64 (n·d > 2^31)
+   its columns past a 32-bit offset against the plain version;
+4. quickstart — the ported example, ``repro_torch/examples/quickstart.py``
+   (``run_sweep``): He init plateaus at ln 10, the gain-corrected init
+   descends, 80 dense kernel launches;
 4b. compressed quickstart — the gain-corrected quickstart with codecs none,
    int8, fp8 and qtopk (frac 0.3, γ 0.5): int8 and fp8 end within 2% of
    the uncompressed test loss, every int8 / fp8 round one launch of the
    dense round (no scales pass), qtopk's rounds dense-kernel launches;
+4c. paper cfg B and C — the CNN through the CLI (BA(m=8)-16, Zipf α 1.8,
+   30 rounds): the gain-corrected init diverges from round 0 and He stays on
+   the ln 17 plateau, as the JAX package's CLI shows on the CPU; the CLI's
+   VGG16 (width 0.25, kreg4-16, 2 rounds, 2 dense launches); VGG16 at
+   full width (d = 33,638,218 a node, kreg4-16, He init): 2 rounds, then 2
+   int8 rounds, exact launch counts (2 dense mixes, then 2 dense int8
+   rounds), finite losses; one round run three times from one state, bitwise
+   equal; its local steps and mix timed apart, the conv weights' relayout,
+   σ and peak memory;
+4d. figures — ``repro_torch.benchmarks.fig1_scaling`` quick (400 rounds at
+   n 8 / 16 / 32, He and proposed): the proposed init leaves the plateau
+   first at every n and the He plateau ends within the 400 rounds at n = 8
+   only, as in the JAX package's run, 2,400 dense launches, its wall time;
+   fig. 3's diffusion
+   model (kreg32-256): σ_ap within 5% of σ_init‖v_steady‖, the card's
+   trajectory the CPU's (the same draws) to 1e-6;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
-   code step);
+   code step), and the paper CNN (He init);
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
    backend, 3 block-sparse launches; then ``--compress int8``, 3 quantised
    block-sparse launches);
@@ -227,12 +247,16 @@ def main() -> int:
     from repro_torch.core.initialisation import InitConfig, gain_from_graph
     from repro_torch.core.mixing import receive_matrix
     from repro_torch.convert import params_from_numpy, params_to_numpy, state_from_numpy, to_numpy
-    from repro_torch.data import batch_index_schedule, make_token_stream, mnist_like, node_datasets
+    from repro_torch.data import (
+        batch_index_schedule, cifar10_like, make_token_stream, mnist_like, node_datasets, partition_iid, so2sat_like,
+    )
     from repro_torch.device import resolve_device
     from repro_torch.fed import (
         ServeEngine, consensus_params, decode_one, init_fl_state, make_eval_fn, make_round_fn, prefill,
-        run_sweep, run_trajectory,
+        run_trajectory, sigma_metrics,
     )
+    from repro_torch.fed.trainer import _local_steps as local_steps
+    from repro_torch.fed.trainer import copy_state
     from repro_torch.flat import FlatLayout, tree_map
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.flash import ROUTES, attention_ref, flash_mha
@@ -249,9 +273,15 @@ def main() -> int:
     from repro_torch.kernels.rwkv import ops as rwkv_ops
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
     from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
+    from repro_torch.benchmarks import common as fig_common
+    from repro_torch.benchmarks import fig1_scaling
+    from repro_torch.core.diffusion import run_diffusion
+    from repro_torch.examples import quickstart
     from repro_torch.launch import train as cli
     from repro_torch.models import transformer as TF
-    from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+    from repro_torch.models.paper_models import (
+        classifier_loss, cnn_forward, init_cnn, init_mlp, init_vgg16, mlp_forward, vgg16_forward,
+    )
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
@@ -1008,45 +1038,126 @@ def main() -> int:
     print(f"  one int8 round through quant_mix_flat: ring-1024 {round1k_ms:.4f} ms (scales + BSR walk)")
     torch.cuda.empty_cache()
 
+    # paper cfg C's width: VGG16 at full width, d = 33,638,218 a node, the
+    # widest shape any DecAvg kernel takes (phase 4c's rounds).  mix_matmul at
+    # n = 16 (every VGG16 round) and n = 64, where n·d = 2.15e9 > 2^31, so no
+    # int product on the path may overflow; the error against the plain product
+    # reduced over column blocks (each n = 64 buffer is 8.6 GB).  n = 16 is
+    # timed against its byte bound, 8·n·d / 3.35 TB/s.  Then the int8 dense
+    # round at VGG16's chunk table (n = 16, chunk 2048, ~16,400 chunks a row):
+    # scales and H' bitwise the plain version's, its route checked.
+    vgg_layout = FlatLayout.of(init_vgg16(InitConfig("he_normal", torch.ones(1, device=dev)), gen))
+    D_VGG = vgg_layout.size
+    check(D_VGG == 33_638_218, f"VGG16 has {D_VGG} parameters a node")
+
+    def compare_wide(label, m, w):
+        got, again = mix_matmul(m, w), mix_matmul(m, w)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(got, again))
+        del again
+        ref = decavg_mix_ref(m, w)
+        block = 1 << 24
+        err = max(float((got[:, c:c + block] - ref[:, c:c + block]).abs().max()) for c in range(0, w.shape[1], block))
+        atol = FP32_TOL * max(float(w.abs().max()), 1.0)
+        print(f"  {label:48s} max_abs_err {err:.3e} tol {atol:.1e} (worst err/tol {err / atol:.3f}) "
+              f"deterministic {bitwise}")
+        check(got.shape == ref.shape and got.dtype == w.dtype, f"{label}: dtype/shape")
+        check(err <= atol, f"{label}: error above tolerance {atol:.1e} ({err})")
+        check(bitwise, f"{label}: two launches differ")
+        return err
+
+    for n_w in (16, 64):
+        m_w = row_stochastic(n_w)
+        w_w = torch.randn(n_w, D_VGG, generator=gen, device=dev)
+        errs["mix_matmul"] = max(errs["mix_matmul"], compare_wide(f"mix_matmul fp32 n={n_w} d={D_VGG} (VGG16)", m_w, w_w))
+        if n_w == 16:
+            b_v, op_v = bound(4 * 16 * 16 + 2 * 4 * 16 * D_VGG, 2 * 16 * 16 * D_VGG)
+            vgg_mix = dict(
+                ms=time_ms(lambda: mix_matmul(m_w, w_w), flush=flush),
+                plain_ms=time_ms(lambda: decavg_mix_ref(m_w, w_w), reps=3, flush=flush),
+                library_ms=time_ms(lambda: torch.matmul(m_w, w_w), flush=flush),
+                bound_ms=b_v, bound_by=op_v,
+            )
+            print(f"  mix_matmul at n=16 d={D_VGG} fp32 (VGG16): kernel {vgg_mix['ms']:.4f} ms, bound "
+                  f"{vgg_mix['bound_ms']:.4f} ms ({vgg_mix['bound_by']}; {vgg_mix['bound_ms'] / vgg_mix['ms']:.1%} of "
+                  f"it), plain {vgg_mix['plain_ms']:.4f} ms, torch.matmul {vgg_mix['library_ms']:.4f} ms")
+        del m_w, w_w
+        torch.cuda.empty_cache()
+    vgg_bounds = chunk_bounds(vgg_layout.sizes, 2048, dev)
+    vgg_chunks = vgg_bounds.numel() - 1
+    m_k4 = compile_plan(T.random_k_regular(16, 4, seed=0), "dense", device=dev).receive
+    x_v = torch.randn(16, D_VGG, generator=gen, device=dev) * (0.01 + torch.rand(16, 1, generator=gen, device=dev))
+    h_v = 0.3 * torch.randn(16, D_VGG, generator=gen, device=dev)
+    errs["quant_mix_dense"] = max(errs["quant_mix_dense"], compare_quant(
+        f"quant_mix_dense int8 round kreg4-16 VGG16 ({vgg_chunks} chunks)", dense_kernel(m_k4),
+        lambda hq: decavg_mix_ref(m_k4, hq), x_v, h_v, vgg_bounds, codec="int8", gamma=1.0, route="staged"))
+    vgg_edges = tuple(vgg_bounds.tolist())
+    b_qv, op_qv = bound(16 * 16 * D_VGG + 4 * 16 * 16 + 4 * 16 * vgg_chunks + 8 * (vgg_chunks + 1),
+                        2 * 16 * 16 * D_VGG + 12 * 16 * D_VGG)
+    vgg_round = dict(
+        ms=time_ms(lambda: quant_mix_dense(m_k4, x_v, h_v, vgg_edges, codec="int8", gamma=1.0), flush=flush, hold=True),
+        bound_ms=b_qv, bound_by=op_qv,
+    )
+    print(f"  quant_mix_dense int8 round at n=16 d={D_VGG} ({vgg_chunks} chunks) fp32, device time: "
+          f"{vgg_round['ms']:.4f} ms, bound {b_qv:.4f} ms ({op_qv}; {b_qv / vgg_round['ms']:.1%} of it)")
+    del x_v, h_v, m_k4
+    torch.cuda.empty_cache()
+    # the round at n = 64 (n·d = 2.15e9 > 2^31) over the whole table; then,
+    # from the last chunk boundary at or before row 63's 2^31-th element to
+    # the row's end, scales, H' and X' against the plain version on those
+    # columns alone (a chunk's scale and a column's mix read only its own
+    # columns), so every element past a 32-bit offset is held
+    m64v = compile_plan(T.complete(64), "dense", device=dev).receive
+    x_w = torch.randn(64, D_VGG, generator=gen, device=dev) * (0.01 + torch.rand(64, 1, generator=gen, device=dev))
+    h_w = 0.3 * torch.randn(64, D_VGG, generator=gen, device=dev)
+    by_route = dict(quant_mix_dense.launches_by_route)
+    (xo_w, ho_w), sc_w = quant_mix_dense(m64v, x_w, h_w, vgg_edges, codec="int8", gamma=1.0)
+    torch.cuda.synchronize()
+    check(quant_mix_dense.launches_by_route == {**by_route, "staged": by_route["staged"] + 1},
+          f"VGG16 complete-64 round: routes {quant_mix_dense.launches_by_route}")
+    k0 = int(np.searchsorted(np.asarray(vgg_edges), 2**31 - 63 * D_VGG, side="right")) - 1
+    c0 = vgg_edges[k0]
+    sub = vgg_bounds[k0:] - c0
+    xs_w, hs_w = x_w[:, c0:].contiguous(), h_w[:, c0:].contiguous()
+    del x_w, h_w
+    rs_w = quant_scales_ref(xs_w, hs_w, sub, codec="int8", error_feedback=True)
+    rx_w, rh_w = quant_mix_ref(lambda hq: decavg_mix_ref(m64v, hq), xs_w, hs_w, sub, rs_w, codec="int8", gamma=1.0,
+                               error_feedback=True)
+    err_w = float((xo_w[:, c0:] - rx_w).abs().max())
+    atol_w = FP32_TOL * max(float(xs_w.abs().max()), 1.0)
+    h_off = int((ho_w[:, c0:] != rh_w).sum())
+    print(f"  quant_mix_dense int8 round complete-64 VGG16 (n·d = {64 * D_VGG:,}): columns {c0:,}-{D_VGG:,} "
+          f"({vgg_chunks - k0} chunks) against the plain version: scales bitwise "
+          f"{torch.equal(sc_w[:, k0:], rs_w)}, H' elements off {h_off}, X' max_abs_err {err_w:.3e} (tol {atol_w:.1e})")
+    check(torch.equal(sc_w[:, k0:], rs_w) and h_off == 0, "VGG16 complete-64 round: scales or H' differ")
+    check(err_w <= atol_w, f"VGG16 complete-64 round: X' error {err_w} above {atol_w}")
+    errs["quant_mix_dense"] = max(errs["quant_mix_dense"], err_w)
+    del xo_w, ho_w, sc_w, xs_w, hs_w, rs_w, rx_w, rh_w, m64v
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- 4. quickstart
     phase("4. quickstart (complete-16, full-width MLP, He vs gain-corrected)")
-    N_NODES, PER_NODE, ROUNDS, B_LOCAL = 16, 128, 40, 4
-    graph = T.complete(N_NODES)
-    gain = gain_from_graph(graph)
-    ds = mnist_like(N_NODES * PER_NODE + 512, seed=0)
-    parts = [np.arange(i * PER_NODE, (i + 1) * PER_NODE) for i in range(N_NODES)]
-    xs, ys = node_datasets(ds, parts)
-    test = (ds.x[-512:], ds.y[-512:])
-
-    def loss_fn(p, b):
-        return classifier_loss(mlp_forward(p, b[0]), b[1])
-
-    opt = sgd(1e-3, momentum=0.5)
-    eval_fn = make_eval_fn(loss_fn)
-    init_one = lambda g, gains: init_mlp(InitConfig("he_normal", gains), g)  # noqa: E731
-    states = [init_fl_state(0, N_NODES, init_one, opt, gains=gv, device=dev) for gv in (1.0, gain)]
-    check(states[0].params.shape == (N_NODES, D_MAIN), f"ensemble shape {tuple(states[0].params.shape)}")
-    schedule = batch_index_schedule(PER_NODE, N_NODES, 16, ROUNDS * B_LOCAL, seed=0)
-    round_fn = make_round_fn(loss_fn, opt, graph, device=dev)
+    # the ported example itself (repro_torch/examples/quickstart.py), its
+    # trajectories printed as a user sees them
+    ROUNDS = quickstart.ROUNDS
     reset_counts()
     t0 = time.perf_counter()
-    _, hists = run_sweep(
-        states, round_fn, xs, ys, schedule, n_rounds=ROUNDS, eval_every=5,
-        eval_fn=eval_fn, eval_batch=test, b_local=B_LOCAL, device=dev,
-    )
+    gain, hists = quickstart.run(device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     quick_launches = {kern.__name__: kern.launches for kern in kernels}
-    for label, h in zip(("He (gain 1.00)", f"corrected (gain {gain:.2f})"), hists):
-        print(f"  {label:22s} test loss @ {h['round']}:")
-        print("    " + "  ".join(f"{v:.3f}" for v in h["test_loss"]))
     he, corr = hists[0]["test_loss"][-1], hists[1]["test_loss"][-1]
-    print(f"  2 runs x {ROUNDS} rounds in {wall:.2f} s; launches {quick_launches}")
+    print(f"  2 runs x {ROUNDS} rounds in {wall:.2f} s (setup included); launches {quick_launches}")
     check(all(math.isfinite(v) for h in hists for v in h["test_loss"] + h["train_loss"]), "non-finite loss")
     check(abs(he - math.log(10)) < 0.01, f"He final test loss {he} not within 0.01 of ln 10")
     check(corr < 2.0, f"corrected final test loss {corr} not below 2.0")
     check(quick_launches == {**none_launched, "mix_matmul": 2 * ROUNDS},
           f"launch counts {quick_launches}")
+    # the example's setup, for the phases that follow (4b, 5)
+    q = quickstart.setup(dev)
+    graph, xs, ys, test, schedule, B_LOCAL = q.graph, q.xs, q.ys, q.test, q.schedule, quickstart.B_LOCAL
+    loss_fn, opt, eval_fn, states = q.loss_fn, q.opt, q.eval_fn, q.states
+    check(states[0].params.shape == (quickstart.N_NODES, D_MAIN), f"ensemble shape {tuple(states[0].params.shape)}")
 
     # ------------------------------------------- 4b. compressed quickstart
     phase("4b. compressed quickstart (complete-16, full-width MLP, gain-corrected, 40 rounds)")
@@ -1093,6 +1204,192 @@ def main() -> int:
     for label in ("none", "qtopk"):
         check(comp_launches[label] == {**none_launched, "mix_matmul": ROUNDS}, f"{label} launch counts "
                                                                               f"{comp_launches[label]}")
+
+    # ------------------------------------- 4c. paper cfg B and C
+    phase("4c. paper cfg B (CNN, BA(m=8)-16, Zipf α 1.8) and cfg C (VGG16 at full width, kreg4-16)")
+    # cfg B through the CLI, gain-corrected and He, 30 rounds.  The JAX
+    # package's CLI on the CPU at the same settings (--model cnn --topology ba
+    # --zipf 1.8 --nodes 16 --rounds 30) shows: the corrected init (gain 3.95
+    # over six layers) diverges, every recorded loss NaN from round 0; the He
+    # init stays finite on the 17-class plateau, test loss within 0.01 of
+    # ln 17.  The card run is held to the same comparison.
+    cnn_hist = {}
+    for label, extra in (("corrected", []), ("He", ["--no-gain-correction"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        cnn_hist[label] = cli.main(["--model", "cnn", "--topology", "ba", "--zipf", "1.8", "--nodes", "16",
+                                    "--rounds", "30", *extra])
+        torch.cuda.synchronize()
+        cnn_launches = {kern.__name__: kern.launches for kern in kernels}
+        print(f"  CNN {label}: 30 rounds in {time.perf_counter() - t0:.2f} s incl. data generation; launches "
+              + str({k: v for k, v in cnn_launches.items() if v}))
+        check(cnn_launches == {**none_launched, "mix_matmul": 30}, f"CNN {label} launch counts {cnn_launches}")
+    corr_h, he_h = cnn_hist["corrected"], cnn_hist["He"]
+    check(all(math.isnan(v) for v in corr_h["test_loss"] + corr_h["train_loss"]),
+          "CNN corrected: the JAX package's run diverges from round 0, the card's did not")
+    check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in he_h[k]),
+          "CNN He: non-finite history")
+    check(all(abs(v - math.log(17)) < 0.01 for v in he_h["test_loss"]),
+          f"CNN He: test loss off the ln 17 plateau {he_h['test_loss']}")
+    print(f"  as the JAX CPU run: corrected NaN from round 0, He on the ln 17 = {math.log(17):.4f} plateau "
+          f"(test loss {min(he_h['test_loss']):.4f}-{max(he_h['test_loss']):.4f})")
+    # cfg C through the CLI (width 0.25, as the JAX CLI; He, see below)
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = cli.main(["--model", "vgg16", "--topology", "kregular", "--nodes", "16", "--rounds", "2",
+                     "--no-gain-correction"])
+    torch.cuda.synchronize()
+    cli_v_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  CLI VGG16 (width 0.25): 2 rounds in {time.perf_counter() - t0:.2f} s incl. data generation; launches "
+          + str({k: v for k, v in cli_v_launches.items() if v}))
+    check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
+          "CLI VGG16: non-finite history")
+    check(cli_v_launches == {**none_launched, "mix_matmul": 2}, f"CLI VGG16 launch counts {cli_v_launches}")
+
+    # cfg C at full width (d = 33,638,218 a node; 2.15 GB a copy of the
+    # 16-node ensemble): random 4-regular, 2 rounds, then 2 int8 rounds, each
+    # recorded (the eval on 1024 shared images).  He init: the corrected gain
+    # (4.0 over 16 layers) overflows fp32 in the first round, on the card and in
+    # the JAX package's CLI on the CPU (width 0.25: round-0 train loss 7.5e9,
+    # test loss NaN).  Exactly one mix launch a round; then one round run twice
+    # from one state must agree bit for bit (cuDNN's deterministic algorithms,
+    # device.py), and one round's local steps and mix are timed apart.
+    n_v, items_v, b_v = 16, 64, 2
+    g_v = T.random_k_regular(n_v, 4, seed=0)
+    ds_v = cifar10_like(n_v * items_v + 1024, seed=0)
+    xs_v, ys_v = node_datasets(ds_v, partition_iid(n_v * items_v, n_v, seed=0))
+    eval_v = (ds_v.x[-1024:], ds_v.y[-1024:])
+
+    def loss_v(p, b):
+        return classifier_loss(vgg16_forward(p, b[0]), b[1])
+
+    opt_v = sgd(1e-3, 0.5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st_v = init_fl_state(0, n_v, lambda g, gains: init_vgg16(InitConfig("he_normal", gains), g), opt_v, device=dev)
+    check(st_v.params.shape == (n_v, D_VGG), f"VGG16 ensemble {tuple(st_v.params.shape)}")
+    sched_v = batch_index_schedule(items_v, n_v, 16, 4 * b_v, seed=0)
+    vgg_runs, vgg_launches = {}, {}
+    state_v = st_v
+    for label, comp, rows in (("uncompressed", None, slice(0, 2 * b_v)), ("int8", Compression("int8"),
+                                                                         slice(2 * b_v, 4 * b_v))):
+        rf_v = make_round_fn(loss_v, opt_v, g_v, device=dev, compression=comp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state_v, h_v = run_trajectory(
+            state_v, rf_v, xs_v, ys_v, sched_v[rows], n_rounds=2, eval_every=1, eval_fn=make_eval_fn(loss_v),
+            eval_batch=eval_v, track_sigmas=True, b_local=b_v, device=dev,
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vgg_launches[label] = {kern.__name__: kern.launches for kern in kernels}
+        vgg_runs[label] = h_v
+        print(f"  VGG16 {label}: 2 rounds (each with its eval and σ) in {wall:.2f} s; train loss "
+              f"{[round(v, 4) for v in h_v['train_loss']]}, test loss {[round(v, 4) for v in h_v['test_loss']]}, "
+              f"σ_ap {[f'{v:.5f}' for v in h_v['sigma_ap']]}, σ_an {[f'{v:.5f}' for v in h_v['sigma_an']]}; "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches " + str({k: v for k, v in vgg_launches[label].items() if v}))
+        check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in h_v[k]),
+              f"VGG16 {label}: non-finite history")
+    check(vgg_launches["uncompressed"] == {**none_launched, "mix_matmul": 2},
+          f"VGG16 launch counts {vgg_launches['uncompressed']}")
+    check(vgg_launches["int8"] == {**none_launched, "quant_mix_dense": 2},
+          f"VGG16 int8 launch counts {vgg_launches['int8']}")
+    # one round from one state, twice: bitwise; then its parts by the host clock
+    rf_v = make_round_fn(loss_v, opt_v, g_v, device=dev)
+    idx_v = torch.as_tensor(sched_v[:b_v], device=dev).long().permute(1, 0, 2)  # (n, b, bs)
+    node_v = torch.arange(n_v, device=dev)[:, None, None]
+    xs_vd, ys_vd = torch.as_tensor(xs_v, device=dev), torch.as_tensor(ys_v, device=dev)
+    batch_v = (xs_vd[node_v, idx_v], ys_vd[node_v, idx_v])
+    del xs_vd, ys_vd
+    outs, round_s = [], []
+    for _ in range(3):
+        s_copy = copy_state(st_v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_out, _ = rf_v(s_copy, batch_v)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        outs.append(s_out.params)
+        del s_copy, s_out
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    del outs
+    s_copy = copy_state(st_v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_v, _, _ = local_steps(loss_v, opt_v, s_copy.layout, s_copy.params, s_copy.opt_state, batch_v)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rf_v.plan.mix(p_v)
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    # the per-step relayout of the conv weights, HWIO → grouped OIHW in
+    # channels-last memory (paper_models.py::_conv): one copy of every conv
+    # leaf of the ensemble a forward (0.94 GB at n = 16), its gradient copied
+    # back alike in the backward
+    conv_w = [st_v.tree[k]["w"] for k in st_v.tree if k.startswith("conv")]
+    relayout_bytes = 2 * 4 * sum(w.numel() for w in conv_w)
+    relayout_ms = time_ms(lambda: [w.permute(0, 4, 1, 2, 3).contiguous() for w in conv_w], flush=flush)
+    print(f"  VGG16 conv weight relayout: {relayout_ms:.4f} ms a forward for {relayout_bytes / 2 / 1e9:.3f} GB "
+          f"({relayout_bytes / relayout_ms / 1e6:.0f} GB/s read + written)")
+    del conv_w
+    sig = {k: float(v) for k, v in sigma_metrics(st_v.params).items()}
+    vgg_peak = torch.cuda.max_memory_allocated() / 2**30  # since the int8 run began
+    print(f"  VGG16 round (2 local steps of 16 images a node, then the mix), host clock after a sync: "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in round_s)} ms; three runs from one state bitwise equal: {same}")
+    print(f"  VGG16 one round's parts, host clock after a sync (inferred split): local steps {local_s * 1e3:.2f} ms "
+          f"({local_s / (local_s + mix_s):.1%}), mix {mix_s * 1e3:.2f} ms; σ at init {sig}; "
+          f"peak device memory since the int8 run began {vgg_peak:.2f} GiB")
+    check(same, "VGG16: one round from one state differs between runs")
+    del st_v, state_v, s_copy, p_v, batch_v
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 4d. figures
+    phase("4d. figures: fig1 quick (complete 8 / 16 / 32, 400 rounds, He vs proposed) and fig3's diffusion model")
+    reset_counts()
+    fig_common.ROWS.clear()
+    t0 = time.perf_counter()
+    fig1 = fig1_scaling.run(quick=True, device=dev)
+    torch.cuda.synchronize()
+    fig1_wall = time.perf_counter() - t0
+    fig1_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  fig1 quick: {fig1_wall:.1f} s on {smi}; launches " + str({k: v for k, v in fig1_launches.items() if v}))
+    check(fig1_launches == {**none_launched, "mix_matmul": 2 * 400 * len(fig1)}, f"fig1 launch counts {fig1_launches}")
+    jax_final = {8: 0.5634, 16: 0.3826, 32: 0.3915}  # BENCH_rounds.json, the JAX package on the CPU
+    for n_f, (h_he, h_prop) in fig1.items():
+        r_he, r_prop = fig_common.rounds_to_loss(h_he, 2.25), fig_common.rounds_to_loss(h_prop, 2.25)
+        print(f"  n={n_f}: below 2.25 at round {r_prop} (proposed) and {r_he} (He); proposed final test loss "
+              f"{h_prop['test_loss'][-1]:.4f} (the JAX package's, other draws, on the CPU: {jax_final[n_f]})")
+        check(all(math.isfinite(v) for h in (h_he, h_prop) for v in h["test_loss"]), f"fig1 n={n_f}: non-finite")
+        check(r_prop < r_he, f"fig1 n={n_f}: the proposed init did not leave the plateau before He")
+    # The JAX package's fig1 quick on the CPU (other draws): He below 2.25 at
+    # round 204 at n = 8, still above it after 400 rounds at n = 16 and 32
+    # (final 2.279, 2.297), so its μ fit has one point and is NaN.  The card
+    # run is held to the same: the He plateau ends within the 400 rounds at
+    # n = 8 only.
+    ended = {n_f: math.isfinite(fig_common.rounds_to_loss(h_he, 2.25)) for n_f, (h_he, _) in fig1.items()}
+    mu = float(next(r for r in fig_common.ROWS if r.startswith("fig1.scaling_exponent")).split("mu=")[1].split(";")[0])
+    print(f"  He plateau ended within 400 rounds: {ended} (the JAX CPU run: n=8 only); fitted μ {mu} (JAX: nan)")
+    check(ended == {8: True, 16: False, 32: False}, f"fig1: He plateaus ended {ended}, the JAX run's at n=8 only")
+    # fig3's numerical model at the band of tests/test_diffusion.py::
+    # test_sigma_ap_approaches_prediction_regular: σ_ap's last value within
+    # 5% of σ_init‖v_steady‖; the draws are the CPU generator's on either
+    # device, so the card's trajectory is also held to the CPU's, to 1e-6 ·
+    # σ_init (σ_an ends near 1e-5: fp32 sums in another order move it by more
+    # than 1e-4 of itself)
+    res = {d_name: run_diffusion(T.random_k_regular(256, 32, seed=0), d=512, sigma_init=1.0, sigma_noise=1e-5,
+                                 rounds=120, seed=0, device=d_name) for d_name in ("cuda", "cpu")}
+    r_gpu, r_cpu = res["cuda"], res["cpu"]
+    d_ap = float(np.max(np.abs(r_gpu.sigma_ap - r_cpu.sigma_ap)))
+    d_an = float(np.max(np.abs(r_gpu.sigma_an - r_cpu.sigma_an)))
+    print(f"  diffusion kreg32-256: σ_ap {r_gpu.sigma_ap[0]:.4f} → {r_gpu.sigma_ap[-1]:.6f} against the prediction "
+          f"{r_gpu.sigma_ap_prediction:.6f} ({r_gpu.sigma_ap[-1] / r_gpu.sigma_ap_prediction - 1:+.2%}, band ±5%); "
+          f"σ_an {r_gpu.sigma_an[0]:.4f} → {r_gpu.sigma_an[-1]:.3e}; card vs CPU max abs diff σ_ap {d_ap:.1e}, "
+          f"σ_an {d_an:.1e}")
+    check(abs(r_gpu.sigma_ap[-1] / r_gpu.sigma_ap_prediction - 1) <= 0.05, "diffusion: σ_ap off the prediction")
+    check(d_ap <= 1e-6 and d_an <= 1e-6, "diffusion: card vs CPU trajectories differ")
 
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
@@ -1179,6 +1476,44 @@ def main() -> int:
               f"{int((off & ~within).sum())} of them beyond one code step")
         check(bool(np.all(within[off])), f"card vs CPU, int8 {what}: a difference beyond one code step")
         check(flips[what] <= 1e-3 * want.size, f"card vs CPU, int8 {what}: {flips[what]} code flips")
+
+    # the paper CNN (cfg B, d = 198,897) from one numpy He init, complete-8, 3
+    # rounds on each device: grouped cuDNN convolutions (deterministic
+    # algorithms, fp32, no TF32) against the CPU's.  History to rtol 1e-4 /
+    # atol 1e-5, each parameter leaf to rtol 1e-4 / atol 1e-5 · max|leaf|, the
+    # CPU tests' CNN trajectory bounds (tests/test_torch_paper_train.py).  Gain
+    # 1: at the corrected gain the CNN's first losses are in the tens and
+    # softmax saturation amplifies summation-order differences (as there).
+    cnn_np = params_to_numpy(init_cnn(InitConfig("he_normal", torch.ones(n8)), torch.Generator().manual_seed(6)))
+    ds_c = so2sat_like(n8 * per8 + 256, seed=1)
+    xs_c, ys_c = node_datasets(ds_c, [np.arange(i * per8, (i + 1) * per8) for i in range(n8)])
+
+    def loss_c(p, b):
+        return classifier_loss(cnn_forward(p, b[0]), b[1])
+
+    results = {}
+    for d_name in ("cuda", "cpu"):
+        st = state_from_numpy(cnn_np, optimizer=opt, device=d_name)
+        rf = make_round_fn(loss_c, opt, g8, device=d_name)
+        st, h = run_trajectory(
+            st, rf, xs_c, ys_c, sched8, n_rounds=r8, eval_every=1, eval_fn=make_eval_fn(loss_c),
+            eval_batch=(ds_c.x[-256:], ds_c.y[-256:]), track_sigmas=True, b_local=b8, device=d_name,
+        )
+        results[d_name] = (h, to_numpy(st)[0])
+    (h_gpu, p_gpu), (h_cpu, p_cpu) = results["cuda"], results["cpu"]
+    for key in ("train_loss", "test_loss", "sigma_ap", "sigma_an"):
+        a, b = np.asarray(h_gpu[key]), np.asarray(h_cpu[key])
+        print(f"  CNN {key:10s} cuda {np.array2string(a, precision=6)} cpu {np.array2string(b, precision=6)} "
+              f"max abs diff {float(np.max(np.abs(a - b))):.2e}")
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-5), f"card vs CPU, CNN, {key}")
+    worst = 0.0
+    for layer in p_cpu:
+        for leaf in ("w", "b"):
+            got, want = p_gpu[layer][leaf], p_cpu[layer][leaf]
+            scale = float(np.abs(want).max())
+            worst = max(worst, float(np.max(np.abs(got - want) / (1e-5 * scale + 1e-4 * np.abs(want)))))
+    print(f"  CNN final params: worst err / (1e-5·max|leaf| + 1e-4·|p|) {worst:.3f}")
+    check(worst <= 1.0, "card vs CPU, CNN final params")
 
     # ------------------------------------------------------- 6. CLI, sparse
     phase("6. CLI: ring-1024, sparse backend")

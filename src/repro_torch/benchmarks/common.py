@@ -1,0 +1,206 @@
+"""Shared DFL experiment runner for the figure drivers (counterpart of ``benchmarks/common.py``).
+
+The drivers reproduce each figure's claim at small scale (n ≤ 64, the
+paper's MLP on MNIST-like synthetic data, a few hundred rounds) and print
+``name,us_per_call,derived`` CSV rows through ``emit``.  Runs go on ``cuda``
+unless the caller passes ``device="cpu"``.
+
+``run_dfl_mlp(timing=True)`` (the JAX executor's per-chunk compile /
+steady split) is not ported: the port's executor has no chunk hook yet
+(ROADMAP.md Queue 1 item 18).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import topology as T
+from repro_torch.core.initialisation import InitConfig, gain_from_graph
+from repro_torch.data import batch_index_schedule, mnist_like, node_batch_iterator, node_datasets
+from repro_torch.device import resolve_device
+from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_sweep, run_trajectory, train_loop
+from repro_torch.fed.trainer import _local_steps
+from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+from repro_torch.optim import adamw, sgd
+
+__all__ = ["ROWS", "emit", "driver_main", "rounds_to_loss", "run_dfl_mlp", "run_dfl_mlp_sweep"]
+
+ROWS: list[str] = []
+
+
+def emit(name: str, us_per_call: float, derived: str) -> None:
+    row = f"{name},{us_per_call:.1f},{derived}"
+    ROWS.append(row)
+    print(row, flush=True)
+
+
+def _mlp_setup(n_nodes, graph, per_node, hidden, optimizer, seed, test_size):
+    """Shared dataset/model/optimizer setup for the MLP runs."""
+    graph = graph if graph is not None else T.complete(n_nodes)
+    ds = mnist_like(n_nodes * per_node + test_size, seed=seed)
+    parts = [np.arange(i * per_node, (i + 1) * per_node) for i in range(n_nodes)]
+    xs, ys = node_datasets(ds, parts)
+    test = (ds.x[-test_size:], ds.y[-test_size:])
+
+    def loss_fn(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+    opt = sgd(1e-3, 0.5) if optimizer == "sgd" else adamw(1e-3)
+
+    def init_one(g, gains):
+        return init_mlp(InitConfig("he_normal", gains), g, hidden=hidden)
+
+    return graph, xs, ys, test, loss_fn, opt, make_eval_fn(loss_fn), init_one
+
+
+def _isolated_round_fn(loss_fn, optimizer):
+    """The JAX ``make_round_fn(aggregate=False)`` at n = 1: local steps only.
+    With no aggregation there is no optimizer re-initialisation either
+    (Algorithm 1 line 15 follows an aggregation), so momentum carries over
+    from round to round, as in the JAX package."""
+
+    def round_fn(state, node_batches):
+        params, opt_state, losses = _local_steps(
+            loss_fn, optimizer, state.layout, state.params, state.opt_state, node_batches
+        )
+        new_state = dataclasses.replace(state, params=params, opt_state=opt_state, round=state.round + 1)
+        return new_state, {"train_loss": losses.mean(), "train_loss_per_node": losses}
+
+    round_fn.compression = None
+    return round_fn
+
+
+def _host_batches(xs, ys, batch_size, b_local, seed):
+    """The per-round (x (n, b, bs, ...), y (n, b, bs)) the host iterator yields."""
+    it = node_batch_iterator(xs, ys, batch_size, seed=seed)
+    while True:
+        bs = [next(it) for _ in range(b_local)]
+        yield np.stack([b.x for b in bs], axis=1), np.stack([b.y for b in bs], axis=1)
+
+
+def run_dfl_mlp(
+    *,
+    n_nodes: int,
+    graph=None,
+    plan=None,
+    gain: float | None = None,
+    rounds: int = 60,
+    per_node: int = 128,
+    batch_size: int = 16,
+    b_local: int = 2,
+    hidden=(128, 64),
+    optimizer="sgd",
+    link_p: float = 1.0,
+    node_p: float = 1.0,
+    eval_every: int = 5,
+    seed: int = 0,
+    track_sigmas: bool = False,
+    aggregate: bool = True,
+    test_size: int = 512,
+    executor: bool = True,
+    timing: bool = False,
+    compression=None,
+    device: str | torch.device | None = None,
+):
+    """One DFL run of the paper's MLP config on MNIST-like data; returns
+    (history, seconds_per_round).
+
+    Runs through ``run_trajectory`` by default; ``executor=False`` takes the
+    host-fed ``train_loop``.  ``plan`` overrides the mixing operator (a
+    compiled ``CommPlan``) while ``graph`` keeps describing the gain anchor.
+    ``aggregate=False`` (an isolated node, Fig. 7's centralised reference)
+    is accepted at ``n_nodes == 1`` only.
+    """
+    if timing:
+        raise NotImplementedError(
+            "run_dfl_mlp(timing=True) needs the executor's chunk hook, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 18)"
+        )
+    if not aggregate and n_nodes != 1:
+        raise ValueError(f"aggregate=False runs an isolated node: n_nodes must be 1, got {n_nodes}")
+    dev = resolve_device(device)
+    graph, xs, ys, test, loss_fn, opt, eval_fn, init_one = _mlp_setup(
+        n_nodes, graph, per_node, hidden, optimizer, seed, test_size
+    )
+    gain = gain if gain is not None else gain_from_graph(graph)
+    state = init_fl_state(seed, n_nodes, init_one, opt, gains=gain, device=dev)
+    if not aggregate:
+        rf = _isolated_round_fn(loss_fn, opt)
+    elif plan is not None:
+        rf = make_round_fn(loss_fn, opt, plan, link_p=link_p, node_p=node_p, compression=compression)
+    else:
+        rf = make_round_fn(loss_fn, opt, graph, link_p=link_p, node_p=node_p, device=dev, compression=compression)
+
+    common = dict(eval_every=eval_every, eval_fn=eval_fn, eval_batch=test, track_sigmas=track_sigmas, device=dev)
+    t0 = time.perf_counter()
+    if executor:
+        sched = batch_index_schedule(per_node, n_nodes, batch_size, rounds * b_local, seed=seed)
+        state, hist = run_trajectory(state, rf, xs, ys, sched, n_rounds=rounds, b_local=b_local, **common)
+    else:
+        state, hist = train_loop(state, rf, _host_batches(xs, ys, batch_size, b_local, seed), n_rounds=rounds, **common)
+    # the history is read back from the device at the end: the clock stops after the run
+    return hist, (time.perf_counter() - t0) / rounds
+
+
+def run_dfl_mlp_sweep(
+    *,
+    n_nodes: int,
+    gains,
+    seeds=(0,),
+    graph=None,
+    rounds: int = 60,
+    per_node: int = 128,
+    batch_size: int = 16,
+    b_local: int = 2,
+    hidden=(128, 64),
+    optimizer="sgd",
+    eval_every: int = 5,
+    data_seed: int = 0,
+    track_sigmas: bool = False,
+    test_size: int = 512,
+    device: str | torch.device | None = None,
+):
+    """The (gain × seed) grid of MLP trajectories over one dataset, topology
+    and batch order, through ``run_sweep`` (one upload, the runs one after
+    another).  Returns (histories, seconds_per_run) with ``histories[i][j]``
+    the run of gains[i] × seeds[j]."""
+    dev = resolve_device(device)
+    graph, xs, ys, test, loss_fn, opt, eval_fn, init_one = _mlp_setup(
+        n_nodes, graph, per_node, hidden, optimizer, data_seed, test_size
+    )
+    states = [init_fl_state(s, n_nodes, init_one, opt, gains=g, device=dev) for g in gains for s in seeds]
+    rf = make_round_fn(loss_fn, opt, graph, device=dev)
+    sched = batch_index_schedule(per_node, n_nodes, batch_size, rounds * b_local, seed=data_seed)
+    t0 = time.perf_counter()
+    _, hists = run_sweep(
+        states, rf, xs, ys, sched, n_rounds=rounds, eval_every=eval_every, eval_fn=eval_fn,
+        eval_batch=test, track_sigmas=track_sigmas, b_local=b_local, device=dev,
+    )
+    sec_per_run = (time.perf_counter() - t0) / len(states)
+    grid = [[hists[i * len(seeds) + j] for j in range(len(seeds))] for i in range(len(gains))]
+    return grid, sec_per_run
+
+
+def rounds_to_loss(hist: dict, threshold: float) -> float:
+    """First recorded round where mean test loss drops below threshold."""
+    for r, l in zip(hist["round"], hist["test_loss"]):
+        if l < threshold:
+            return r
+    return float("inf")
+
+
+def driver_main(run: Callable[..., None], doc: str | None) -> Callable[[list[str] | None], None]:
+    """The command line of a figure driver: its quick sizes, as the JAX
+    driver's, on ``--device`` (default cuda)."""
+
+    def main(argv: list[str] | None = None) -> None:
+        p = argparse.ArgumentParser(description=doc, formatter_class=argparse.RawDescriptionHelpFormatter)
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        run(quick=True, device=p.parse_args(argv).device)
+
+    return main

@@ -4,7 +4,8 @@
 one configuration module reads the same in both packages; ``param_dtype``
 returns a torch dtype.  The registry resolves only the architectures whose
 blocks the port runs; any other raises and names the ROADMAP item that
-ports it.
+ports it.  The paper's three classifiers (``paper_mlp``, ``paper_cnn``,
+``paper_vgg16``) resolve too; ``list_archs(include_paper=True)`` names them.
 """
 from __future__ import annotations
 
@@ -159,10 +160,8 @@ _NOT_PORTED = {
     "musicgen_large": "ROADMAP Queue 1 item 15 (the other configs: audio frontend)",
     "qwen1p5_4b": "ROADMAP Queue 1 item 15 (the other configs)",
     "llama4_scout_17b_a16e": "ROADMAP Queue 1 item 15 (models/moe.py)",
-    "paper_mlp": "the paper MLP lives in repro_torch.models.paper_models",
-    "paper_cnn": "ROADMAP Queue 1 item 3",
-    "paper_vgg16": "ROADMAP Queue 1 item 3",
 }
+_PAPER = ["paper_mlp", "paper_cnn", "paper_vgg16"]
 
 _ALIASES = {
     "gemma3-4b": "gemma3_4b",
@@ -182,7 +181,7 @@ def _module(arch: str):
     mod = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
     if mod in _NOT_PORTED:
         raise NotImplementedError(f"arch {arch!r} is not yet ported: {_NOT_PORTED[mod]}")
-    if mod not in _PORTED:
+    if mod not in _PORTED and mod not in _PAPER:
         raise ValueError(f"unknown arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
@@ -195,6 +194,6 @@ def get_reduced_config(arch: str) -> ArchConfig:
     return _module(arch).reduced()
 
 
-def list_archs() -> list[str]:
-    """The architectures the port runs."""
-    return list(_PORTED)
+def list_archs(include_paper: bool = False) -> list[str]:
+    """The zoo architectures the port runs (and the paper's, if asked)."""
+    return list(_PORTED) + (list(_PAPER) if include_paper else [])

@@ -166,6 +166,20 @@ class CommPlan:
         """The per-round failure draws (edge_keep, node_active), on the generator's device."""
         return _draw_failure_masks(self.failures, self.n_edges, self.n, generator)
 
+    def wire_messages(self, generator: torch.Generator | None = None) -> torch.Tensor | int:
+        """Messages one round delivers: two per live undirected edge (both
+        endpoints active), as the JAX package's wire accountant counts them.
+        Under an active failure model ``generator`` must be in the state the
+        round's mix drew its masks from (a copy taken before the round): the
+        count replays those draws.  A device scalar then, else an int."""
+        if not self.failures.active:
+            return 2 * self.n_edges
+        edge_keep, node_act = self._round_masks_ext(generator, None, None)
+        if self.backend == "dense":
+            keep = edge_keep[self.edge_uid_matrix] & (self.adjacency > 0)
+            return (keep & node_act[:, None] & node_act[None, :]).sum()
+        return (edge_keep[self.edge_uid] & node_act[self.src] & node_act[self.dst]).sum()
+
     def _round_masks_ext(self, generator, active, edge_live) -> tuple[torch.Tensor, torch.Tensor]:
         """Failure draws AND-composed with the deterministic masks, on the
         plan's device.  An ``edge_live`` shorter than the draw pads with True."""

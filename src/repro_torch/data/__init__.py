@@ -1,5 +1,5 @@
 """Datasets, token streams, partitions and batch schedules (numpy copies of ``repro.data``)."""
-from .partition import node_datasets, partition_iid
+from .partition import node_datasets, partition_iid, partition_zipf
 from .pipeline import NodeBatches, batch_index_schedule, node_batch_iterator
 from .synthetic import (
     ImageDataset,
@@ -21,5 +21,6 @@ __all__ = [
     "node_batch_iterator",
     "node_datasets",
     "partition_iid",
+    "partition_zipf",
     "so2sat_like",
 ]

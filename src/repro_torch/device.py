@@ -14,7 +14,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     Also switches TF32 off for matmuls and cuDNN: DecAvg mixing must
     accumulate in full fp32 (the post-diffusion parameter scale σ·‖v‖ is the
     signal a 10-bit mantissa would truncate), and the local steps are held
-    against an fp32 reference.
+    against an fp32 reference.  And it restricts cuDNN to deterministic
+    algorithms: its default weight-gradient convolutions accumulate with
+    atomics, so two runs of one CNN or VGG16 round from the same state
+    differed in the last bits, and the JAX package promises bit-identical
+    reruns (DESIGN.md §3).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -23,4 +27,5 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     return dev

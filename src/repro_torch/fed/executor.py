@@ -7,10 +7,13 @@ the host iterator yields), metrics are kept as device scalars at the eval
 rounds and read back once at the end.  ``run_sweep`` runs several
 trajectories (seeds × gains ...) over one upload.  The history dict has the
 JAX executor's keys: ``round``, ``train_loss``, ``test_loss``,
-``sigma_ap``, ``sigma_an``.  A compressed ``round_fn`` (``make_round_fn(
-compression=...)``) gets zero mirrors seeded into the state before the
-first round.  Checkpointing, wire accounting and the sharded / event /
-elastic / warmup executors are not ported yet.
+``sigma_ap``, ``sigma_an`` and, for a ``round_fn`` that mixes over an
+undirected ``CommPlan`` (``round_fn.plan``), the wire channels
+``wire_messages`` (two a live edge) and ``wire_bytes`` (messages × one
+node's row, priced at the codec's encoding when compressed).  A compressed
+``round_fn`` (``make_round_fn(compression=...)``) gets zero mirrors seeded
+into the state before the first round.  Checkpointing, the chunk hook and
+the sharded / event / elastic / warmup executors are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.core.compress import seed_residual
 from .trainer import (
     HISTORY_KEYS,
     DFLState,
+    _copy_generator,
     copy_state,
     finish_history,
     record_round,
@@ -120,6 +124,14 @@ def run_trajectory(
     ``batch_index_schedule(...)`` output covering ``n_rounds × b_local``
     minibatches, or already round-shaped (n_rounds, n, b, bs).  The caller's
     state is left untouched."""
+    return _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
+                eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=True)
+
+
+def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, eval_batch, track_sigmas, b_local,
+         device, wire: bool):
+    """``run_trajectory``; ``wire`` adds the wire channels (the JAX
+    package's sweep records none)."""
     dev = state_device(state, device)
     sched = torch.as_tensor(_as_round_schedule(schedule, n_rounds, b_local), device=dev)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
@@ -134,14 +146,36 @@ def run_trajectory(
         by = ys_d[node_idx, flat].reshape(*idx.shape, *ys_d.shape[2:])
         return bx, by
 
-    state = seed_residual(copy_state(state), getattr(round_fn, "compression", None))
+    comp = getattr(round_fn, "compression", None)
+    state = seed_residual(copy_state(state), comp)
+    plan = getattr(round_fn, "plan", None)
+    wire = wire and plan is not None and not plan.graph.directed
     mask = TrajectoryConfig(n_rounds, eval_every).eval_mask()
     hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    messages = []
     for r in range(n_rounds):
+        # the failure draws this round's mix makes, replayed by the wire count
+        before = _copy_generator(state.generator) if wire and mask[r] and plan.failures.active else None
         state, metrics = round_fn(state, gather_batch(sched[r]))
         if mask[r]:
             record_round(hist, r, state, metrics, eval_fn, eval_d, track_sigmas)
-    return state, finish_history(hist)
+            if wire:
+                messages.append(plan.wire_messages(before))
+    out = finish_history(hist)
+    if wire:
+        row_bytes = _row_bytes(state, comp)
+        out["wire_messages"] = [int(m) for m in messages]
+        out["wire_bytes"] = [m * row_bytes for m in out["wire_messages"]]
+    return state, out
+
+
+def _row_bytes(state: DFLState, comp) -> int:
+    """One node's row on the wire: each leaf at its itemsize, or at the
+    codec's encoding (``Compression.leaf_row_bytes``); the total rounded."""
+    dtype = state.params.dtype
+    if comp is None:
+        return int(round(sum(size * state.params.element_size() for size in state.layout.sizes)))
+    return int(round(sum(float(comp.leaf_row_bytes(size, dtype)) for size in state.layout.sizes)))
 
 
 def run_sweep(
@@ -162,16 +196,16 @@ def run_sweep(
     """Several trajectories (seeds × gains ...) sharing one dataset, one
     schedule and one upload, run one after another.  ``states`` is a list
     of per-run states or a stacked one.  Returns the stacked final state
-    and one history per run."""
+    and one history per run, without wire channels (as the JAX package's)."""
     runs = unstack_states(states) if isinstance(states, DFLState) else list(states)
     dev = state_device(runs[0], device)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
     finals, hists = [], []
     for s in runs:
-        final, hist = run_trajectory(
+        final, hist = _run(
             s, round_fn, xs_d, ys_d, schedule, n_rounds=n_rounds, eval_every=eval_every,
             eval_fn=eval_fn, eval_batch=eval_batch, track_sigmas=track_sigmas,
-            b_local=b_local, device=dev,
+            b_local=b_local, device=dev, wire=False,
         )
         finals.append(final)
         hists.append(hist)

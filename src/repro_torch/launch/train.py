@@ -1,10 +1,14 @@
-"""Training launcher of the port: the paper's synchronous MLP path on the card.
+"""Training launcher of the port: the paper's synchronous path (MLP, CNN, VGG16) on the card.
 
 Examples:
     python -m repro_torch.launch.train --model mlp --nodes 16 --rounds 100
     python -m repro_torch.launch.train --model mlp --topology ring --nodes 1024 --rounds 3
     python -m repro_torch.launch.train --model mlp --no-gain-correction   # Fig. 1 baseline
     python -m repro_torch.launch.train --model mlp --device cpu --nodes 4 --rounds 2
+    # paper cfg. B: the CNN on So2Sat-like data, BA(m=8), Zipf α=1.8 label skew
+    python -m repro_torch.launch.train --model cnn --topology ba --zipf 1.8 --rounds 50
+    # paper cfg. C: VGG16 (width 0.25 here, as the JAX launcher) on CIFAR-10-like data
+    python -m repro_torch.launch.train --model vgg16 --topology kregular --rounds 20
     # compressed gossip: int8 / fp8 exchanges with error-feedback mirrors
     python -m repro_torch.launch.train --model mlp --compress int8
     python -m repro_torch.launch.train --model mlp --compress qtopk --topk-frac 0.3 --gamma 0.5
@@ -12,7 +16,8 @@ Examples:
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
 beyond; an int8 / fp8 round is one pass of the quantised-mix kernel).
-Other models and the JAX launcher's other modes (async, elastic,
+Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
+The token models and the JAX launcher's other modes (async, elastic,
 schedules, checkpointing, telemetry) are not ported yet.
 """
 from __future__ import annotations
@@ -26,13 +31,30 @@ import numpy as np
 from repro_torch.core import topology as T
 from repro_torch.core.compress import Compression
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
-from repro_torch.data import batch_index_schedule, mnist_like, node_datasets, partition_iid
+from repro_torch.data import (
+    batch_index_schedule,
+    cifar10_like,
+    mnist_like,
+    node_datasets,
+    partition_iid,
+    partition_zipf,
+    so2sat_like,
+)
 from repro_torch.device import resolve_device
 from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_trajectory
-from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+from repro_torch.models.paper_models import (
+    classifier_loss,
+    cnn_forward,
+    init_cnn,
+    init_mlp,
+    init_vgg16,
+    mlp_forward,
+    vgg16_forward,
+)
 from repro_torch.optim import adamw, sgd
 
 MODELS = ["mlp", "cnn", "vgg16", "transformer", "moe", "rwkv"]
+PAPER_MODELS = ("mlp", "cnn", "vgg16")
 NOT_PORTED = "is not yet ported to the PyTorch launcher; see ROADMAP.md Queue 1"
 
 
@@ -58,6 +80,8 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     p.add_argument("--optimizer", choices=["sgd", "adamw"], default="sgd")
     p.add_argument("--items-per-node", type=int, default=256)
     p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--zipf", type=float, default=0.0,
+                   help="non-iid label skew: Zipf exponent α of each node's class preference (0 = iid)")
     p.add_argument("--local-batches", type=int, default=8)
     p.add_argument(
         "--compress", choices=["none", "int8", "fp8", "topk", "qtopk"], default="none",
@@ -80,7 +104,7 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     args, rest = p.parse_known_args(argv)
     if rest:
         p.error(f"{' '.join(rest)} {NOT_PORTED}")
-    if args.model != "mlp":
+    if args.model not in PAPER_MODELS:
         p.error(f"--model {args.model} {NOT_PORTED}")
     dev = resolve_device(args.device)
     compress_cfg = None
@@ -103,20 +127,33 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     print(f"graph={graph.name} ‖v_steady‖⁻¹ gain={gain:.2f}" + (" (DISABLED)" if args.no_gain_correction else ""))
     opt = sgd(1e-3, 0.5) if args.optimizer == "sgd" else adamw(1e-3)
 
-    ds = mnist_like(n * args.items_per_node + 1024, seed=args.seed)
-    parts = partition_iid(n * args.items_per_node, n, seed=args.seed)
+    ds = {"mlp": mnist_like, "cnn": so2sat_like, "vgg16": cifar10_like}[args.model](
+        n * args.items_per_node + 1024, seed=args.seed
+    )
+    if args.zipf > 0:
+        parts = partition_zipf(ds.y[: n * args.items_per_node], n, alpha=args.zipf, seed=args.seed)
+    else:
+        parts = partition_iid(n * args.items_per_node, n, seed=args.seed)
     xs, ys = node_datasets(ds, parts)
     eval_batch = (ds.x[-1024:], ds.y[-1024:])
+    init_model, forward = {
+        "mlp": (init_mlp, mlp_forward),
+        "cnn": (lambda c, g: init_cnn(c, g, image_shape=ds.x.shape[1:], n_classes=ds.n_classes), cnn_forward),
+        "vgg16": (
+            lambda c, g: init_vgg16(c, g, image_shape=ds.x.shape[1:], n_classes=ds.n_classes, width_mult=0.25),
+            vgg16_forward,
+        ),
+    }[args.model]
 
     def loss_fn(params, batch):
-        return classifier_loss(mlp_forward(params, batch[0]), batch[1])
+        return classifier_loss(forward(params, batch[0]), batch[1])
 
     round_fn = make_round_fn(
         loss_fn, opt, graph, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
     )
     print(f"mixing: {round_fn.plan.backend} backend on {dev}")
     state = init_fl_state(
-        args.seed, n, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), opt,
+        args.seed, n, lambda g, gains: init_model(InitConfig("he_normal", gains), g), opt,
         gains=gain, device=dev,
     )
     sched = batch_index_schedule(
