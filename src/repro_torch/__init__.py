@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the decentralised federated learning system.
 
 The layout mirrors ``src/repro/`` module for module (``core/``, ``data/``,
-``models/``, ``optim/``, ``fed/``, ``kernels/mix/``, ``launch/``), so the
+``models/``, ``optim/``, ``fed/``, ``gossip/``, ``kernels/mix/``, ``launch/``), so the
 counterpart of every JAX module is found at the same path.  The port imports
 torch and numpy only — never jax and nothing of the JAX package.
 

@@ -1,5 +1,6 @@
 """The paper's figure drivers on the port (counterpart of the repository's
 ``benchmarks/``): ``common.py`` runs DFL trajectories of the paper's MLP, and
-each ``figN_*.py`` reproduces one figure's claim.  Every driver runs as
-``python -m repro_torch.benchmarks.figN_... [--device cpu]`` and prints the
+each ``figN_*.py`` reproduces one figure's claim; ``estimates_bench.py``
+times the gossip estimation rounds.  Every driver runs as
+``python -m repro_torch.benchmarks.<name> [--device cpu]`` and prints the
 JAX drivers' ``name,us_per_call,derived`` CSV rows."""

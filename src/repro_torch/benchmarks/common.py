@@ -5,7 +5,9 @@ paper's MLP on MNIST-like synthetic data, a few hundred rounds) and print
 ``name,us_per_call,derived`` CSV rows through ``emit``.  Runs go on ``cuda``
 unless the caller passes ``device="cpu"``.
 
-``run_dfl_mlp(timing=True)`` (the JAX executor's per-chunk compile /
+``run_dfl_mlp_uncoordinated(_sweep)`` run the §4.4 warmup (gossip
+estimate → per-node init → train) through ``run_warmup_trajectory`` /
+``run_warmup_sweep``.  ``run_dfl_mlp(timing=True)`` (the JAX executor's per-chunk compile /
 steady split) is not ported: the port's executor has no chunk hook yet
 (ROADMAP.md Queue 1 item 18).
 """
@@ -23,12 +25,32 @@ from repro_torch.core import topology as T
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
 from repro_torch.data import batch_index_schedule, mnist_like, node_batch_iterator, node_datasets
 from repro_torch.device import resolve_device
-from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_sweep, run_trajectory, train_loop
+from repro_torch.core.commplan import compile_plan
+from repro_torch.fed import (
+    init_fl_state,
+    make_eval_fn,
+    make_round_fn,
+    run_sweep,
+    run_trajectory,
+    run_warmup_sweep,
+    run_warmup_trajectory,
+    train_loop,
+)
 from repro_torch.fed.trainer import _local_steps
+from repro_torch.gossip import make_gain_estimator
 from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
 from repro_torch.optim import adamw, sgd
 
-__all__ = ["ROWS", "emit", "driver_main", "rounds_to_loss", "run_dfl_mlp", "run_dfl_mlp_sweep"]
+__all__ = [
+    "ROWS",
+    "driver_main",
+    "emit",
+    "rounds_to_loss",
+    "run_dfl_mlp",
+    "run_dfl_mlp_sweep",
+    "run_dfl_mlp_uncoordinated",
+    "run_dfl_mlp_uncoordinated_sweep",
+]
 
 ROWS: list[str] = []
 
@@ -183,6 +205,100 @@ def run_dfl_mlp_sweep(
     )
     sec_per_run = (time.perf_counter() - t0) / len(states)
     grid = [[hists[i * len(seeds) + j] for j in range(len(seeds))] for i in range(len(gains))]
+    return grid, sec_per_run
+
+
+def run_dfl_mlp_uncoordinated(
+    *,
+    n_nodes: int,
+    est_rounds: int,
+    graph=None,
+    plan=None,
+    rounds: int = 60,
+    per_node: int = 128,
+    batch_size: int = 16,
+    b_local: int = 2,
+    hidden=(128, 64),
+    optimizer="sgd",
+    mode: str = "vnorm",
+    leaderless: bool = False,
+    eval_every: int = 5,
+    seed: int = 0,
+    test_size: int = 512,
+    device: str | torch.device | None = None,
+):
+    """One uncoordinated DFL run: per-node gains from the gossip engine,
+    ``est_rounds`` rounds each for the power-iteration and push-sum phases,
+    then init and training through ``run_warmup_trajectory``.  ``plan`` (a
+    compiled ``CommPlan``) overrides the operator both phases ride.
+
+    Returns (history, seconds_per_round, gains), ``gains`` the realised
+    (n,) per-node vector.
+    """
+    dev = resolve_device(device)
+    graph, xs, ys, test, loss_fn, opt, eval_fn, init_one = _mlp_setup(
+        n_nodes, graph, per_node, hidden, optimizer, seed, test_size
+    )
+    estimate_fn = make_gain_estimator(
+        plan if plan is not None else compile_plan(graph, device=dev),
+        pi_rounds=est_rounds, ps_rounds=est_rounds, mode=mode, leaderless=leaderless,
+    )
+    rf = make_round_fn(loss_fn, opt, plan) if plan is not None else make_round_fn(loss_fn, opt, graph, device=dev)
+    sched = batch_index_schedule(per_node, n_nodes, batch_size, rounds * b_local, seed=seed)
+    t0 = time.perf_counter()
+    _, hist, gains = run_warmup_trajectory(
+        seed, rf, xs, ys, sched, n_nodes=n_nodes, init_one=init_one, optimizer=opt, estimate_gains=estimate_fn,
+        n_rounds=rounds, eval_every=eval_every, eval_fn=eval_fn, eval_batch=test, b_local=b_local, device=dev,
+    )
+    return hist, (time.perf_counter() - t0) / rounds, gains
+
+
+def run_dfl_mlp_uncoordinated_sweep(
+    *,
+    n_nodes: int,
+    budgets,
+    seeds=(0,),
+    graph=None,
+    plan=None,
+    rounds: int = 60,
+    per_node: int = 128,
+    batch_size: int = 16,
+    b_local: int = 2,
+    hidden=(128, 64),
+    optimizer="sgd",
+    mode: str = "vnorm",
+    leaderless: bool = False,
+    eval_every: int = 5,
+    data_seed: int = 0,
+    test_size: int = 512,
+    device: str | torch.device | None = None,
+):
+    """The (gossip budget × seed) grid of uncoordinated runs over one upload
+    (fig4's sweep): one estimator built at the largest budget, each run
+    ``budget`` rounds a phase (``run_warmup_sweep``).  Returns (grid,
+    seconds_per_run), ``grid[i][j] = (history, gains)`` of budgets[i] ×
+    seeds[j]."""
+    dev = resolve_device(device)
+    graph, xs, ys, test, loss_fn, opt, eval_fn, init_one = _mlp_setup(
+        n_nodes, graph, per_node, hidden, optimizer, data_seed, test_size
+    )
+    max_b = int(max(budgets))
+    estimate_fn = make_gain_estimator(
+        plan if plan is not None else compile_plan(graph, device=dev),
+        pi_rounds=max_b, ps_rounds=max_b, mode=mode, leaderless=leaderless,
+    )
+    rf = make_round_fn(loss_fn, opt, plan) if plan is not None else make_round_fn(loss_fn, opt, graph, device=dev)
+    sched = batch_index_schedule(per_node, n_nodes, batch_size, rounds * b_local, seed=data_seed)
+    run_seeds = [s for _b in budgets for s in seeds]
+    t0 = time.perf_counter()
+    _, hists, gains = run_warmup_sweep(
+        run_seeds, rf, xs, ys, sched, n_nodes=n_nodes, init_one=init_one, optimizer=opt,
+        estimate_gains=estimate_fn, budgets=[b for b in budgets for _s in seeds], n_rounds=rounds,
+        eval_every=eval_every, eval_fn=eval_fn, eval_batch=test, b_local=b_local, device=dev,
+    )
+    sec_per_run = (time.perf_counter() - t0) / len(run_seeds)
+    grid = [[(hists[i * len(seeds) + j], gains[i * len(seeds) + j]) for j in range(len(seeds))]
+            for i in range(len(budgets))]
     return grid, sec_per_run
 
 

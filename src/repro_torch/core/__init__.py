@@ -5,6 +5,7 @@ from .compress import (
     Compression,
     compressed_mix,
     compressed_mix_with,
+    compressed_spread,
     encode_decode,
     init_residuals,
     seed_residual,
@@ -30,6 +31,7 @@ __all__ = [
     "compile_plan",
     "compressed_mix",
     "compressed_mix_with",
+    "compressed_spread",
     "encode_decode",
     "gain_from_estimates",
     "gain_from_graph",

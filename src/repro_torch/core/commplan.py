@@ -12,6 +12,16 @@ the kernels' plain versions on the CPU:
             masked round writes its renormalised weights into zeroed tiles
             by index assignment and runs the same kernel.
 
+``spread`` applies the transpose Mᵀ (column-stochastic, mass-conserving:
+the send form push-sum gossip needs, ``repro_torch.gossip``) through the
+same kernels: a plan builds Mᵀ at its first send-form round and keeps it
+(a plan that only trains never pays for it), dense or as a BSR of its own
+with the slots of every edge at (src, dst) and of the diagonal, and a
+masked round copies M's renormalised weights into those slots, each slot
+once.
+``spread_min`` is the neighbourhood min-exchange of the leaderless size
+sketches, in plain torch.  Both take the same draws and masks as ``mix``.
+
 Failure semantics as in the JAX package: one Bernoulli(link_p) draw per
 undirected edge (keyed on its index in ``Graph.edge_list()``, so both
 directions agree) and one Bernoulli(node_p) per node; the effective
@@ -27,6 +37,7 @@ ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Sequence
 
 import numpy as np
@@ -36,7 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.flat import FlatLayout
 from repro_torch.kernels.mix import BSR, bsr_from_dense, bsr_slots, decavg_mix, mix_flat
 
-from .compress import Compression, compressed_mix, init_residuals
+from .compress import Compression, compressed_mix, compressed_spread, init_residuals
 from .decavg import failure_receive_matrix
 from .mixing import receive_matrix
 from .topology import Graph
@@ -153,6 +164,124 @@ class CommPlan:
         if isinstance(params, torch.Tensor):
             return mix_flat(op, params)
         return decavg_mix(op, params)
+
+    def spread(
+        self,
+        values: torch.Tensor,
+        generator: torch.Generator | None = None,
+        *,
+        active: torch.Tensor | None = None,
+        edge_live: torch.Tensor | None = None,
+        compression: Compression | None = None,
+        residual: torch.Tensor | None = None,
+    ):
+        """One send-form (column-stochastic) round: ``values ← Mᵀ values``,
+        one launch of the mixing kernel over Mᵀ.
+
+        ``values`` is an (n,) or (n, k) payload; the result has its shape,
+        fp32.  The masked M keeps every row summing to 1, so Mᵀ conserves
+        ``values.sum(0)`` under any draw or mask.  ``generator``, ``active``
+        and ``edge_live`` are ``mix``'s: for the same arguments the round
+        rides the same links.  With an active ``compression`` codec the
+        round is the delta form ``v + γ (Mᵀ h' − h')`` of
+        ``core/compress.py::compressed_spread`` and returns ``(values,
+        residual)``, mass-conserving for any codec.
+        """
+        if self.failures.active and generator is None:
+            raise ValueError("failure model active: spread() needs a torch.Generator")
+        if compression is not None and compression.active:
+            return compressed_spread(
+                self, values, residual, generator, compression=compression, active=active, edge_live=edge_live,
+            )
+        x = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        op = self.send_operator(generator, active=active, edge_live=edge_live)
+        out = mix_flat(op, x.reshape(self.n, -1).contiguous())
+        return out.reshape(x.shape)
+
+    def spread_min(
+        self,
+        values: torch.Tensor,
+        generator: torch.Generator | None = None,
+        *,
+        active: torch.Tensor | None = None,
+        edge_live: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """One round of neighbourhood min-exchange over the live links:
+        ``out[i] = min(values[i], min over i's surviving neighbours)``, the
+        transport of the leaderless size sketches, with ``mix``'s draws and
+        masks.  Plain torch (the JAX package has no kernel for it): dense
+        plans take a masked ``amin`` over each row, sparse ones gather each
+        edge's source value and reduce per destination with
+        ``scatter_reduce("amin")``; a min is exact, so the order of the
+        reduction cannot change a bit.  (n,) or (n, k) in, the same out."""
+        if self.failures.active and generator is None:
+            raise ValueError("failure model active: spread_min() needs a torch.Generator")
+        x = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        x2 = x.reshape(self.n, -1)
+        masked = self._masked(active, edge_live)
+        if masked:
+            edge_keep, node_act = self._round_masks_ext(generator, active, edge_live)
+        inf = torch.tensor(float("inf"), device=self.device)
+        if self.backend == "dense":
+            keep = self.adjacency > 0
+            if masked:
+                keep = keep & edge_keep[self.edge_uid_matrix] & node_act[:, None] & node_act[None, :]
+            nbr = torch.where(keep[:, :, None], x2[None, :, :], inf).amin(dim=1)
+        else:
+            gathered = x2[self.src]
+            if masked:
+                keep = edge_keep[self.edge_uid] & node_act[self.src] & node_act[self.dst]
+                gathered = torch.where(keep[:, None], gathered, inf)
+            index = self.dst[:, None].expand_as(gathered)
+            nbr = torch.full_like(x2, float("inf")).scatter_reduce_(0, index, gathered, "amin")
+        return torch.minimum(x2, nbr).reshape(x.shape)
+
+    @functools.cached_property
+    def _send(self) -> tuple:
+        """The static Mᵀ, built at the first send-form round: dense, the
+        contiguous transpose; sparse, (BSR of Mᵀ, slot of each edge's weight
+        at (src, dst) in its tiles, slot of each diagonal entry).  An
+        undirected graph's pattern is symmetric, so Mᵀ keeps M's block
+        structure and only its tiles and slots are new."""
+        if self.backend == "dense":
+            return (self.receive.T.contiguous(),)
+        bn = self.bsr.tiles.shape[-1]
+        if self.graph.directed:
+            pattern = (self.graph.adjacency != 0).astype(np.float32) + np.eye(self.n, dtype=np.float32)
+            block_cols, _, counts = bsr_from_dense(pattern.T, bn)
+        else:
+            block_cols, counts = self.bsr.block_cols.cpu().numpy(), self.bsr.counts.cpu().numpy()
+        src, dst, diag = self.src.cpu().numpy(), self.dst.cpu().numpy(), np.arange(self.n)
+        edge_slot_t = torch.as_tensor(bsr_slots(block_cols, counts, src, dst, bn), device=self.device)
+        self_slot_t = torch.as_tensor(bsr_slots(block_cols, counts, diag, diag, bn), device=self.device)
+        static = BSR(
+            block_cols=torch.as_tensor(block_cols, device=self.device),
+            tiles=torch.zeros(*block_cols.shape, bn, bn, dtype=torch.float32, device=self.device),
+            counts=torch.as_tensor(counts, device=self.device),
+        )
+        return self._transpose_tiles(self.bsr, static, edge_slot_t, self_slot_t), edge_slot_t, self_slot_t
+
+    def _transpose_tiles(self, m: BSR, like: BSR, edge_slot_t, self_slot_t) -> BSR:
+        """M's tiles copied into zeroed Mᵀ tiles: each edge's and each self
+        weight into its slot, plain index assignment, every slot once."""
+        m_flat = m.tiles.reshape(-1)
+        flat = torch.zeros(like.tiles.numel(), dtype=torch.float32, device=self.device)
+        flat[edge_slot_t] = m_flat[self.edge_slot]
+        flat[self_slot_t] = m_flat[self.self_slot]
+        return like._replace(tiles=flat.view(like.tiles.shape))
+
+    def send_operator(
+        self, generator: torch.Generator | None = None, *, active=None, edge_live=None
+    ) -> torch.Tensor | BSR:
+        """This round's Mᵀ: the (n, n) matrix or the BSR tiles.  A masked
+        sparse round renormalises M's tiles (``round_operator``), then
+        copies them into Mᵀ's slots (``_transpose_tiles``)."""
+        if not self._masked(active, edge_live):
+            return self._send[0]
+        m = self.round_operator(generator, active=active, edge_live=edge_live)
+        if self.backend == "dense":
+            return m.T.contiguous()
+        return self._transpose_tiles(m, *self._send)
 
     def round_operator(
         self, generator: torch.Generator | None = None, *, active=None, edge_live=None
@@ -283,9 +412,10 @@ def compile_plan(
         uid_matrix[edges[:, 0], edges[:, 1]] = np.arange(len(edges))
         if not graph.directed:
             uid_matrix[edges[:, 1], edges[:, 0]] = np.arange(len(edges))
+        receive = receive_matrix(graph, sizes)
         return CommPlan(
             **common,
-            receive=f32(receive_matrix(graph, sizes)),
+            receive=f32(receive),
             adjacency=f32(graph.adjacency),
             edge_uid_matrix=i64(uid_matrix),
             sizes=None if sizes is None else f32(sizes),

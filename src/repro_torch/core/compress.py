@@ -32,7 +32,9 @@ topk        Σ_chunks k_c · (4 + 2)         (fp32 value + uint16 index)
 qtopk       Σ_chunks k_c · (1 + 2) + C · 4 (int8 value + uint16 index)
 ==========  ===============================================================
 
-``compressed_spread`` (the send form) waits for ``CommPlan.spread``.
+``compressed_spread`` is the send form, ``CommPlan.spread(compression=)``:
+the same round over Mᵀ, which conserves the payload's total mass exactly
+for any codec (the invariant push-sum estimation needs).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ __all__ = [
     "Compression",
     "compressed_mix",
     "compressed_mix_with",
+    "compressed_spread",
     "encode_decode",
     "init_residuals",
     "seed_residual",
@@ -315,3 +318,44 @@ def compressed_mix(
         )
     h_new = _new_mirror(params, residual, sizes, comp, keep)
     return _delta_step(params, mix_flat(op, h_new), h_new, comp.gamma), h_new
+
+
+def compressed_spread(
+    plan,
+    values: torch.Tensor,
+    residual: torch.Tensor | None,
+    generator: torch.Generator | None = None,
+    *,
+    compression: Compression,
+    active: torch.Tensor | None = None,
+    edge_live: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One compressed send-form (push) round over a ``CommPlan``:
+    ``v' = v + γ (Mᵀ h' − h')`` with ``h' = h + C(v − h)``; returns
+    ``(v', h')``.  ``values`` is an (n,) or (n, k) payload, each row one
+    leaf; ``residual`` the fp32 mirror of its shape (None: zeros).
+
+    Because the masked Mᵀ is column-stochastic, ``sum(Mᵀ h') = sum(h')``
+    and the round conserves the total of ``values`` for any codec.  As
+    ``compressed_mix``: int8 / fp8 are one quantised mix over Mᵀ
+    (``ops.quant_mix_flat``), topk / qtopk the plain codec, then ``mix_flat``.
+    """
+    comp = compression
+    if not comp.active:
+        return plan.spread(values, generator, active=active, edge_live=edge_live), residual
+    if plan.failures.active and generator is None:
+        raise ValueError("failure model active: spread() needs a torch.Generator")
+    v = torch.as_tensor(values, dtype=torch.float32, device=plan.device)
+    x = v.reshape(plan.n, -1).contiguous()
+    h = torch.zeros_like(x) if residual is None else torch.as_tensor(residual, dtype=torch.float32).reshape(x.shape)
+    op = plan.send_operator(generator, active=active, edge_live=edge_live)
+    sizes = (x.shape[1],)
+    if comp.codec in ("int8", "fp8"):
+        x_new, h_new = quant_mix_flat(
+            op, x, h.contiguous(), _edges(sizes, comp.chunk), codec=comp.codec, gamma=comp.gamma,
+            error_feedback=comp.error_feedback,
+        )
+    else:
+        h_new = _new_mirror(x, h, sizes, comp, None)
+        x_new = _delta_step(x, mix_flat(op, h_new), h_new, comp.gamma)
+    return x_new.reshape(v.shape), h_new.reshape(v.shape)

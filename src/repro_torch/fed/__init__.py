@@ -1,5 +1,13 @@
-"""Federated training (Algorithm 1's round, the trajectory executor) and offline serving."""
-from .executor import TrajectoryConfig, run_sweep, run_trajectory, stack_states, unstack_states
+"""Federated training (Algorithm 1's round, the trajectory and warmup executors) and offline serving."""
+from .executor import (
+    TrajectoryConfig,
+    run_sweep,
+    run_trajectory,
+    run_warmup_sweep,
+    run_warmup_trajectory,
+    stack_states,
+    unstack_states,
+)
 from .trainer import (
     DFLState,
     init_fl_state,
@@ -24,6 +32,8 @@ __all__ = [
     "prefill",
     "run_sweep",
     "run_trajectory",
+    "run_warmup_sweep",
+    "run_warmup_trajectory",
     "sigma_metrics",
     "stack_states",
     "train_loop",

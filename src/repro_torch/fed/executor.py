@@ -12,8 +12,14 @@ undirected ``CommPlan`` (``round_fn.plan``), the wire channels
 ``wire_messages`` (two a live edge) and ``wire_bytes`` (messages × one
 node's row, priced at the codec's encoding when compressed).  A compressed
 ``round_fn`` (``make_round_fn(compression=...)``) gets zero mirrors seeded
-into the state before the first round.  Checkpointing, the chunk hook and
-the sharded / event / elastic / warmup executors are not ported yet.
+into the state before the first round.
+
+``run_warmup_trajectory`` is the uncoordinated init of §4.4: the gossip
+estimate of every node's gain (``repro_torch.gossip.make_gain_estimator``),
+``init_fl_state`` with those gains and the trajectory, the gains staying on
+the device between the phases; ``run_warmup_sweep`` runs a (budget × seed)
+grid of them one after another over one upload.  Checkpointing, the chunk
+hook and the sharded / event / elastic executors are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.compress import seed_residual
+from repro_torch.device import resolve_device
+
+from repro_torch.gossip.engine import split_seed
 
 from .trainer import (
     HISTORY_KEYS,
@@ -31,11 +40,20 @@ from .trainer import (
     _copy_generator,
     copy_state,
     finish_history,
+    init_fl_state,
     record_round,
     state_device,
 )
 
-__all__ = ["TrajectoryConfig", "run_trajectory", "run_sweep", "stack_states", "unstack_states"]
+__all__ = [
+    "TrajectoryConfig",
+    "run_sweep",
+    "run_trajectory",
+    "run_warmup_sweep",
+    "run_warmup_trajectory",
+    "stack_states",
+    "unstack_states",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,3 +228,85 @@ def run_sweep(
         finals.append(final)
         hists.append(hist)
     return stack_states(finals), hists
+
+
+def run_warmup_trajectory(
+    seed: int,
+    round_fn: Callable[[DFLState, Any], tuple[DFLState, dict]],
+    xs: np.ndarray,
+    ys: np.ndarray,
+    schedule: np.ndarray,
+    *,
+    n_nodes: int,
+    init_one: Callable,
+    optimizer,
+    estimate_gains: Callable[..., torch.Tensor],
+    n_rounds: int,
+    eval_every: int = 0,
+    eval_fn=None,
+    eval_batch=None,
+    track_sigmas: bool = False,
+    b_local: int | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[DFLState, dict[str, list], np.ndarray]:
+    """**Estimate → per-node gain → init → train** (§4.4).
+
+    ``seed`` splits into (estimation seed, init seed) (``split_seed``):
+    ``estimate_gains(estimation seed)`` (a ``make_gain_estimator``) runs the
+    gossip rounds and returns the (n,) gains on the device, which
+    ``init_fl_state(init seed, ..., gains=)`` draws every node's parameters
+    with, and the trajectory runs as ``run_trajectory``'s, without wire
+    channels (as the JAX package's warmup).  Running those three by hand
+    with the same split gives the same result.  Returns ``(final_state,
+    history, gains)``, the realised gains as numpy.
+    """
+    est_seed, init_seed = split_seed(seed, 2)
+    gains = estimate_gains(est_seed)
+    state = init_fl_state(init_seed, n_nodes, init_one, optimizer, gains=gains, device=device)
+    state, hist = _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
+                       eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=False)
+    return state, hist, gains.cpu().numpy()
+
+
+def run_warmup_sweep(
+    seeds: Sequence[int],
+    round_fn: Callable[[DFLState, Any], tuple[DFLState, dict]],
+    xs: np.ndarray,
+    ys: np.ndarray,
+    schedule: np.ndarray,
+    *,
+    n_nodes: int,
+    init_one: Callable,
+    optimizer,
+    estimate_gains: Callable[..., torch.Tensor],
+    budgets: Sequence[int] | np.ndarray | None = None,
+    n_rounds: int,
+    eval_every: int = 0,
+    eval_fn=None,
+    eval_batch=None,
+    track_sigmas: bool = False,
+    b_local: int | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[DFLState, list[dict[str, list]], np.ndarray]:
+    """A (budget × seed) grid of warmup trajectories over one upload, run
+    one after another: run i is ``run_warmup_trajectory(seeds[i])`` with
+    ``estimate_gains(estimation seed, budgets[i])`` (without ``budgets``:
+    ``estimate_gains(estimation seed)``), so a budget-b cell equals a
+    standalone budget-b run.  Returns ``(stacked_states, histories,
+    gains)``, the gains an (n_runs, n_nodes) numpy array."""
+    if budgets is not None and len(budgets) != len(seeds):
+        raise ValueError(f"budgets has {len(budgets)} entries for {len(seeds)} seeds")
+    dev = resolve_device(device)
+    xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
+    finals, hists, gains = [], [], []
+    for i, seed in enumerate(seeds):
+        estimate = estimate_gains if budgets is None else (lambda s, b=int(budgets[i]): estimate_gains(s, b))
+        final, hist, g = run_warmup_trajectory(
+            int(seed), round_fn, xs_d, ys_d, schedule, n_nodes=n_nodes, init_one=init_one, optimizer=optimizer,
+            estimate_gains=estimate, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
+            eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=dev,
+        )
+        finals.append(final)
+        hists.append(hist)
+        gains.append(g)
+    return stack_states(finals), hists, np.stack(gains)

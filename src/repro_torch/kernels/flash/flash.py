@@ -12,7 +12,13 @@ route.
 
 The kernels read q, k and v through their strides (the last axis
 contiguous), so a ``(B, S, H, hd)`` activation transposed to ``(B, H, S, hd)``
-is passed as a view, and the output takes q's memory layout.
+is passed as a view, and the output takes q's memory layout.  A head dim
+the kernel is not instantiated for (hd 30, 40, 160 ...), or rows that are
+not 16-byte aligned, go through ``padded_head_dim``: q, k and v are copied
+zero-padded up to the next size in ``HEAD_DIMS``, the kernel runs with the
+true hd's softmax scale and the output is sliced back.  Zero columns add
+nothing to q·k, and v's zero columns give zero outputs, which are cut.
+Above 256 it raises.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from repro_torch.kernels.build import load_library
 
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "ROUTES", "flash_mha", "route"]
+__all__ = ["HEAD_DIMS", "ROUTES", "flash_mha", "padded_head_dim", "route"]
 
 HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for, in each dtype
 ROUTES = ("wgmma", "wgmma_tf32x3")
@@ -67,6 +73,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def padded_head_dim(hd: int) -> int:
+    """The instantiated head dim a call at ``hd`` runs at: the least of
+    ``HEAD_DIMS`` at or above it."""
+    for size in HEAD_DIMS:
+        if hd <= size:
+            return size
+    raise ValueError(f"head_dim {hd} exceeds {HEAD_DIMS[-1]}, the largest the flash kernel is instantiated for")
+
+
+def with_padded_head_dim(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **mask) -> torch.Tensor:
+    """``attend(q', k', v', scale=1/√hd, **mask)`` on copies of q, k and v
+    zero-padded on the head axis to ``padded_head_dim(hd)``, the output
+    sliced back to hd (a view of the padded result)."""
+    hd = q.shape[-1]
+    size = padded_head_dim(hd)
+
+    def padded(t):
+        out = torch.zeros(*t.shape[:-1], size, dtype=t.dtype, device=t.device)
+        out[..., :hd] = t
+        return out
+
+    return attend(padded(q), padded(k), padded(v), scale=1.0 / (hd**0.5), **mask)[..., :hd]
+
+
 def flash_mha(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
@@ -80,14 +110,15 @@ def flash_mha(
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}; flash_mha takes cuda or cpu tensors")
+    if q.shape[-1] not in HEAD_DIMS or not all(K.aligned16(t) for t in (q, k, v)):
+        return with_padded_head_dim(_launch, q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, scale=1.0 / (q.shape[-1] ** 0.5), causal=causal, window=window)
+
+
+def _launch(q, k, v, *, scale: float, causal: bool, window: int) -> torch.Tensor:
+    """One kernel launch: hd in ``HEAD_DIMS``, q, k, v rows 16-byte aligned."""
     b, h, s, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     out = torch.empty_like(q)  # keeps q's layout when q is a dense view
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if not K.aligned16(t):
-            raise ValueError(f"{name}: the kernel needs hd contiguous and 16-byte aligned rows, "
-                             f"got strides {t.stride()}")
     if b * h * s == 0:
         return out
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
@@ -95,7 +126,7 @@ def flash_mha(
     with torch.cuda.device(q.device):
         err = _fn()(
             K.DTYPE_CODES[q.dtype], hd, K.ptr(q), K.ptr(k), K.ptr(v), K.ptr(out),
-            b, h, k.shape[1], s, *strides, int(causal), int(window), 1.0 / (hd**0.5), K.stream_of(q),
+            b, h, k.shape[1], s, *strides, int(causal), int(window), scale, K.stream_of(q),
         )
     K.raise_on_error(err, f"flash_mha ({name})")
     flash_mha.launches += 1

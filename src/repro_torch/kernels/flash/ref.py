@@ -25,16 +25,18 @@ def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
 
 
 def attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """q (B, H, S, hd); k/v (B, KVH, S, hd) → (B, H, S, hd).  fp32 scores,
-    softmax and PV; the result in q's dtype."""
+    softmax and PV; the result in q's dtype.  The scores are scaled by
+    ``scale`` (default 1/√hd)."""
     b, h, s, hd = q.shape
     kvh = k.shape[1]
     group = h // kvh
     qg = q.reshape(b, kvh, group, s, hd)
     scores = torch.einsum("bngsd,bntd->bngst", qg.float(), k.float())
-    scores = scores / (hd**0.5)
+    scores = scores / (hd**0.5) if scale is None else scores * scale
     scores = scores.masked_fill(~_mask(s, causal, window, q.device), float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngst,bntd->bngsd", probs, v.float())

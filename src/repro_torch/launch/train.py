@@ -12,10 +12,15 @@ Examples:
     # compressed gossip: int8 / fp8 exchanges with error-feedback mirrors
     python -m repro_torch.launch.train --model mlp --compress int8
     python -m repro_torch.launch.train --model mlp --compress qtopk --topk-frac 0.3 --gamma 0.5
+    # uncoordinated init (§4.4): per-node gains from gossip over the training
+    # links (and their --link-p / --node-p failures), then init and training
+    python -m repro_torch.launch.train --model mlp --topology kregular --uncoordinated-init --estimate-rounds 24
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
 beyond; an int8 / fp8 round is one pass of the quantised-mix kernel).
+With ``--uncoordinated-init`` every estimation round is one launch of the
+same mixing kernels over Mᵀ (``repro_torch.gossip``, ``run_warmup_trajectory``).
 Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
 The token models and the JAX launcher's other modes (async, elastic,
 schedules, checkpointing, telemetry) are not ported yet.
@@ -29,6 +34,7 @@ import os
 import numpy as np
 
 from repro_torch.core import topology as T
+from repro_torch.core.commplan import FailureModel, compile_plan
 from repro_torch.core.compress import Compression
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
 from repro_torch.data import (
@@ -41,7 +47,8 @@ from repro_torch.data import (
     so2sat_like,
 )
 from repro_torch.device import resolve_device
-from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_trajectory
+from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_trajectory, run_warmup_trajectory
+from repro_torch.gossip import make_gain_estimator
 from repro_torch.models.paper_models import (
     classifier_loss,
     cnn_forward,
@@ -98,6 +105,18 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     p.add_argument("--link-p", type=float, default=1.0)
     p.add_argument("--node-p", type=float, default=1.0)
     p.add_argument("--no-gain-correction", action="store_true")
+    p.add_argument(
+        "--uncoordinated-init", action="store_true",
+        help="per-node gains from gossip estimation (repro_torch.gossip) instead of the "
+        "perfect-knowledge gain_from_graph; estimation rides the training links and failures",
+    )
+    p.add_argument("--estimate-rounds", type=int, default=32,
+                   help="gossip budget: power-iteration and push-sum rounds each")
+    p.add_argument("--estimate-mode", choices=["vnorm", "alpha", "degree"], default="vnorm",
+                   help="§4.4 knowledge regime: gossip ‖v̂‖ / size-only n̂^α / degree polling")
+    p.add_argument("--leaderless", action="store_true",
+                   help="size estimation by exponential-random-minimum sketches instead of the "
+                   "leader one-hot: no distinguished node")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--history-out", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -106,6 +125,9 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         p.error(f"{' '.join(rest)} {NOT_PORTED}")
     if args.model not in PAPER_MODELS:
         p.error(f"--model {args.model} {NOT_PORTED}")
+    if args.uncoordinated_init and args.no_gain_correction:
+        p.error("--uncoordinated-init estimates (and applies) per-node gains; "
+                "it contradicts --no-gain-correction — pick one")
     dev = resolve_device(args.device)
     compress_cfg = None
     if args.compress != "none":
@@ -152,18 +174,39 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         loss_fn, opt, graph, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
     )
     print(f"mixing: {round_fn.plan.backend} backend on {dev}")
-    state = init_fl_state(
-        args.seed, n, lambda g, gains: init_model(InitConfig("he_normal", gains), g), opt,
-        gains=gain, device=dev,
-    )
+
+    def init_one(g, gains):
+        return init_model(InitConfig("he_normal", gains), g)
+
     sched = batch_index_schedule(
         ys.shape[1], n, args.batch_size, args.rounds * args.local_batches, seed=args.seed
     )
-    state, hist = run_trajectory(
-        state, round_fn, xs, ys, sched, n_rounds=args.rounds,
-        eval_every=max(1, args.rounds // 20), eval_fn=make_eval_fn(loss_fn),
+    common = dict(
+        n_rounds=args.rounds, eval_every=max(1, args.rounds // 20), eval_fn=make_eval_fn(loss_fn),
         eval_batch=eval_batch, track_sigmas=True, b_local=args.local_batches, device=dev,
     )
+    if args.uncoordinated_init:
+        # estimation rides the training links and failure model, on a
+        # unit-weight plan (the Eq. 3 send operator)
+        est_plan = compile_plan(graph, failures=FailureModel(link_p=args.link_p, node_p=args.node_p), device=dev)
+        estimate_fn = make_gain_estimator(
+            est_plan, pi_rounds=args.estimate_rounds, ps_rounds=args.estimate_rounds,
+            mode=args.estimate_mode, leaderless=args.leaderless,
+        )
+        state, hist, gains = run_warmup_trajectory(
+            args.seed, round_fn, xs, ys, sched, n_nodes=n, init_one=init_one, optimizer=opt,
+            estimate_gains=estimate_fn, **common,
+        )
+        line = f"gossip gains: mean={gains.mean():.2f} min={gains.min():.2f} max={gains.max():.2f}"
+        if estimate_fn.reached is not None:
+            reached = int(estimate_fn.reached.sum())
+            line += f"; the leader's mass reached {reached} of {n} nodes"
+            if reached < n:
+                line += f", the other {n - reached} fall back to gain 1.00"
+        print(line)
+    else:
+        state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=dev)
+        state, hist = run_trajectory(state, round_fn, xs, ys, sched, **common)
     for i, r in enumerate(hist["round"]):
         print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f}", flush=True)
     if args.history_out:

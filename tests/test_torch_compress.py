@@ -290,6 +290,61 @@ def test_compressed_round_matches_jax(codec, backend, masked, ef, gamma, stream)
         _assert_close_x(xj, layout.views(xr), x)
 
 
+SPREAD_CASES = [
+    (codec, backend, masked, ef)
+    for codec in ("int8", "fp8", "topk", "qtopk")
+    for backend in ("dense", "sparse")
+    for masked, ef in ((False, True), (True, True), (True, False))
+]
+
+
+@pytest.mark.parametrize("codec,backend,masked,ef", SPREAD_CASES)
+def test_compressed_spread_matches_jax(codec, backend, masked, ef):
+    """The send form (``CommPlan.spread(compression=)``) over Mᵀ against the
+    JAX package's jitted ``compressed_spread``: h' bitwise, v' to 1e-5 ·
+    max|v|, and the payload's total conserved (γ (Mᵀ h' − h') sums to 0)."""
+    n, k = 14, 3
+    gj, gp = JT.barabasi_albert(n, 2, seed=3), PT.barabasi_albert(n, 2, seed=3)
+    pj, pp = JC.compile_plan(gj, backend), PC.compile_plan(gp, backend, device="cpu")
+    rng = np.random.default_rng(len(codec) + 3 * masked + ef)
+    v = (rng.standard_normal((n, k)) * rng.uniform(0.1, 4.0, (n, 1))).astype(np.float32)
+    h = (0.5 * rng.standard_normal((n, k))).astype(np.float32)
+    kw = dict(codec=codec, chunk=2, topk_frac=0.5, gamma=0.5, error_feedback=ef)
+    active = rng.random(n) < 0.75 if masked else None
+    edge_live = rng.random(pj.n_edges) < 0.6 if masked else None
+
+    @jax.jit
+    def jspread(v, h, active, edge_live):
+        return JCm.compressed_spread(pj, v, h, compression=JCm.Compression(**kw), active=active, edge_live=edge_live)
+
+    vj, hj = jspread(jnp.asarray(v), jnp.asarray(h), None if active is None else jnp.asarray(active),
+                     None if edge_live is None else jnp.asarray(edge_live))
+    vp, hp = pp.spread(torch.as_tensor(v), compression=PCm.Compression(**kw), residual=torch.as_tensor(h),
+                       active=None if active is None else torch.as_tensor(active),
+                       edge_live=None if edge_live is None else torch.as_tensor(edge_live))
+    np.testing.assert_array_equal(hp.numpy(), np.asarray(hj))
+    np.testing.assert_allclose(vp.numpy(), np.asarray(vj), rtol=0, atol=1e-5 * float(np.abs(v).max()))
+    np.testing.assert_allclose(vp.numpy().sum(0), v.sum(0), rtol=1e-5, atol=1e-5)
+    # a 1-D payload keeps its shape; no residual means zero mirrors
+    v1, h1 = PCm.compressed_spread(pp, torch.as_tensor(v[:, 0]), None, compression=PCm.Compression(**kw))
+    assert v1.shape == h1.shape == (n,)
+    np.testing.assert_allclose(float(v1.sum()), float(v[:, 0].sum()), rtol=1e-5, atol=1e-5)
+
+
+def test_compressed_spread_conserves_mass_under_failure_draws():
+    plan = PC.compile_plan(PT.configuration_heavy_tail(40, 2.2, seed=0), "sparse",
+                           failures=PC.FailureModel(link_p=0.5, node_p=0.7), device="cpu")
+    v = torch.as_tensor(np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32))
+    h = torch.zeros_like(v)
+    for r in range(6):
+        v, h = plan.spread(v, torch.Generator().manual_seed(r), compression=PCm.Compression("int8", chunk=3),
+                           residual=h)
+    np.testing.assert_allclose(v.sum(0).numpy(), np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+                               .sum(0), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="Generator"):
+        plan.spread(v, compression=PCm.Compression("int8"), residual=h)
+
+
 @pytest.mark.parametrize("codec", ["int8", "topk"])
 def test_update_mask_freezes_mirrors_as_jax(codec):
     n = 10

@@ -314,13 +314,29 @@ def test_flash_fp32_at_full_width_shapes(dev, arch, b, s, swa):
 
 
 def test_flash_rejects_unaligned_rows(dev):
+    """Rows off a 16-byte boundary and head dims the kernel is not
+    instantiated for go through zero-padded copies (one launch at the next
+    instantiated hd, the true hd's scale); above hd 256 the call is refused."""
     q, k, v = _attn_inputs(dev, 1, 2, 2, 16, 32, torch.float32)
     buf = torch.randn(q.numel() + 1, device=dev)
     q_off = buf[1:].view(q.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        flash_mha(q_off, k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_mha(q[..., :16].contiguous(), k[..., :16].contiguous(), v[..., :16].contiguous())
+    _close(_launch_once(q_off, k, v), attention_ref(q_off, k, v), v)
+    q16, k16, v16 = (t[..., :16].contiguous() for t in (q, k, v))
+    _close(_launch_once(q16, k16, v16), attention_ref(q16, k16, v16), v16)
+    q_big, k_big, v_big = _attn_inputs(dev, 1, 2, 2, 16, 288, torch.float32)
+    with pytest.raises(ValueError, match="head_dim 288 exceeds 256"):
+        flash_mha(q_big, k_big, v_big)
+
+
+@pytest.mark.parametrize("hd,dtype", [(30, torch.float32), (40, torch.bfloat16), (160, torch.bfloat16)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 17), (False, 0)])
+def test_flash_pads_head_dims_it_has_no_instance_for(dev, hd, dtype, causal, window):
+    """hd 30 (reduced qwen1.5-4b), 40 (reduced stablelm-12b) and 160
+    (stablelm-12b) in the decoder's (B, S, H, hd) view layout: one launch."""
+    q, k, v = _attn_inputs(dev, 2, 4, 2, 70, hd, dtype, layout="bshd")
+    got = _launch_once(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape
+    _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b"])

@@ -8,7 +8,11 @@ CUDA kernel itself is held against ``attention_ref`` on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); here its
 arithmetic on fp32 inputs (``attention_split_ref``: 3×TF32 products, P
 split) is held against the JAX package at the same 1e-5, and the rule that
-picks its route (``route``) is checked.
+picks its route (``route``) is checked.  Head dims the kernel has no
+instance for (hd 30 of reduced qwen1.5-4b, 40 and 160 of stablelm-12b) run
+on the card zero-padded to the next instantiated size with the true hd's
+scale (``with_padded_head_dim``); that rendering, driven through
+``attention_ref``, is held against the JAX package's any-hd attention.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from repro.kernels.flash.flash import flash_mha as jax_flash_mha  # noqa: E402
 from repro.kernels.flash.ops import flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro_torch.kernels.flash import ROUTES, attention_ref, flash_attention, flash_mha, route  # noqa: E402
+from repro_torch.kernels.flash.flash import padded_head_dim, with_padded_head_dim  # noqa: E402
 from repro_torch.kernels.flash.ref import attention_split_ref  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -144,3 +149,29 @@ def test_cpu_calls_count_on_no_route():
     before = dict(flash_mha.launches_by_route)
     flash_mha(q, k, v)
     assert flash_mha.launches_by_route == before
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+@pytest.mark.parametrize("hd", [30, 40, 160])
+def test_padded_head_dims_match_jax(hd, causal, window):
+    """Zero-padding q, k and v on the head axis, scaling by 1/√hd and
+    slicing the output back gives the unpadded attention: fp32 to 1e-5
+    against the JAX package, bf16 to one bf16 rounding of the same."""
+    q, k, v = _qkv(37, hd, 2)
+    want = np.asarray(jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal, window=window))
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    got = with_padded_head_dim(attention_ref, qt, kt, vt, causal=causal, window=window)
+    assert got.shape == (2, 4, 37, hd)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(flash_mha(qt, kt, vt, causal=causal, window=window).numpy(), want, **TOL)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+    got_b = with_padded_head_dim(attention_ref, qb, kb, vb, causal=causal, window=window)
+    assert got_b.dtype == torch.bfloat16
+    torch.testing.assert_close(got_b, attention_ref(qb, kb, vb, causal=causal, window=window), rtol=2.0**-7, atol=1e-5)
+
+
+def test_padded_head_dim_is_the_next_instance():
+    assert [padded_head_dim(hd) for hd in (8, 30, 32, 40, 64, 100, 128, 160, 256)] == [
+        32, 32, 32, 64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head_dim 288 exceeds 256"):
+        padded_head_dim(288)
