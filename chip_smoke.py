@@ -103,6 +103,25 @@ run with a non-zero exit:
    nodes the CPU's, the others at gain 1.0; leaderless: finite losses).
    Every gossip launch's (kernel, n, d) must be among phase 3's, and the
    counts one launch a round;
+4f. time-varying topologies and the edge-coloured backend — a K = 1
+   ``PlanSchedule`` bitwise its static plan at complete-16 (dense) and
+   kreg8-256 (sparse), full width: a mix, a spread, an int8 round and the
+   wire count, clean and at link_p 0.8; the CLI with ``--topology-schedule
+   churn`` (kreg4-256, 8 snapshots at churn 0.2, the leaderless warmup, 6
+   rounds): finite losses, one mix_bsr launch a training and a gossip round
+   (38), each plan's Mᵀ built once, each plan's mix_bsr at full width and
+   over its Mᵀ at d = 1–2 and its int8 round (scales pass and walk)
+   against the plain version, mix_bsr timed against the static graph's, one
+   int8 round a plan through the schedule (8 + 8 launches); each plan of
+   the BA-16 schedule's dense mix and int8 round against the plain
+   version (the kernels line's schedule rows: those errors, plan 3's
+   times); card vs CPU for a K = 4 churned BA-16 schedule at link_p
+   0.8, 3 rounds, uncompressed and int8 (phase 5's bounds, code flips
+   counted); the ppermute backend at complete-16 and heavytail-64, full
+   width, against the dense kernel (clean and masked) and timed against it;
+   ``run_dfl_mlp(timing=True)``'s split and a chunked run bitwise the
+   unchunked one; fig8 quick and the rounds bench quick at 40 rounds a
+   trajectory (their JSON under ``build/``);
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -139,6 +158,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import re
@@ -330,7 +350,7 @@ def main() -> int:
     from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
     from repro_torch import gossip as G
     from repro_torch.benchmarks import common as fig_common
-    from repro_torch.benchmarks import estimates_bench, fig1_scaling, fig4_estimates
+    from repro_torch.benchmarks import estimates_bench, fig1_scaling, fig4_estimates, fig8_churn, rounds_bench
     from repro_torch.core.diffusion import run_diffusion
     from repro_torch.examples import quickstart, uncoordinated_init
     from repro_torch.launch import train as cli
@@ -1798,6 +1818,301 @@ def main() -> int:
           f"estimation, the CLI ring-1024's estimator)")
     torch.cuda.empty_cache()
 
+    # ---------------------------------- 4f. schedules and the colour backend
+    phase("4f. time-varying topologies (PlanSchedule, churn, fig 8), the edge-coloured backend, the chunk hook")
+    t_4f = time.perf_counter()
+    from repro_torch.core import commplan as commplan_mod
+    from repro_torch.core.commplan import compile_schedule, cyclic_map
+
+    def gens(active):
+        """Two CPU generators in one state (None when nothing draws)."""
+        return (torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)) if active else (None, None)
+
+    # (a) a K = 1 schedule is its static plan, bitwise, on the card: a mix and
+    # an int8 round at full width, a spread at d = 3, the wire count; clean
+    # and at link_p 0.8 (the draws of one generator state on both sides)
+    comp_f = Compression("int8")
+    for glabel, g, backend in (("complete-16", T.complete(16), "dense"),
+                               ("kreg8-256", T.random_k_regular(256, 8, seed=0), "sparse")):
+        w = torch.randn(g.n, D_MAIN, generator=gen, device=dev)
+        hres = 0.3 * torch.randn(g.n, D_MAIN, generator=gen, device=dev)
+        v = torch.rand(g.n, 3, generator=gen, device=dev)
+        for fm in (FailureModel(), FailureModel(link_p=0.8)):
+            plan_a = compile_plan(g, backend, failures=fm, device=dev)
+            sched_a = compile_schedule([g], backend, failures=fm, device=dev)
+            same = {}
+            g1, g2 = gens(fm.active)
+            same["mix"] = torch.equal(plan_a.mix(w, g1), sched_a.mix(w, 3, g2))
+            g1, g2 = gens(fm.active)
+            same["spread"] = torch.equal(plan_a.spread(v, g1), sched_a.spread(v, 3, g2))
+            g1, g2 = gens(fm.active)
+            a_q = plan_a.mix(w, g1, compression=comp_f, residual=hres, layout=mlp_layout)
+            b_q = sched_a.mix(w, 3, g2, compression=comp_f, residual=hres, layout=mlp_layout)
+            same["int8"] = torch.equal(a_q[0], b_q[0]) and torch.equal(a_q[1], b_q[1])
+            g1, g2 = gens(fm.active)
+            same["wire"] = int(plan_a.wire_messages(g1)) == int(sched_a.wire_messages(3, g2))
+            print(f"  K = 1 schedule vs its plan, {glabel} {backend} link_p {fm.link_p:g}: bitwise {same}")
+            check(all(same.values()), f"K = 1 schedule at {glabel} link_p {fm.link_p}: {same}")
+            del a_q, b_q
+        del w, hres
+    torch.cuda.empty_cache()
+
+    # (b) the CLI at full width on a churned kreg4-256 (8 snapshots at churn
+    # rate 0.2, one a round), the leaderless warmup of 16 + 16 rounds riding
+    # the same schedule, 6 training rounds: finite losses, exactly one
+    # mix_bsr launch a training and a gossip round (spread_min, the sketches'
+    # transport, is plain torch), each plan's Mᵀ built once; then each
+    # plan's mix_bsr at full width and over its Mᵀ at the gossip payloads
+    # against the plain version, and timed against the static graph's
+    send_builds = []
+    real_send = commplan_mod.CommPlan._send.func
+
+    def set_send(fn):
+        cp = functools.cached_property(fn)
+        cp.__set_name__(commplan_mod.CommPlan, "_send")
+        commplan_mod.CommPlan._send = cp
+
+    def counting_send(self):
+        send_builds.append(id(self))
+        return real_send(self)
+
+    set_send(counting_send)
+    cli_argv = ["--model", "mlp", "--topology", "kregular", "--nodes", "256", "--topology-schedule", "churn",
+                "--plans", "8", "--churn-rate", "0.2", "--uncoordinated-init", "--leaderless", "--estimate-rounds",
+                "16", "--rounds", "6"]
+    try:
+        hist_f, wall_f, launches_f = counted(lambda: cli.main(cli_argv))
+    finally:
+        set_send(real_send)
+    sched_launches = {"mix_bsr": launches_f["mix_bsr"]}
+    print(f"  CLI {' '.join(cli_argv)}: {wall_f:.1f} s incl. data generation; launches "
+          f"{ {k: n for k, n in launches_f.items() if n} }; Mᵀ built {len(send_builds)} times for "
+          f"{len(set(send_builds))} plans; losses {hist_f['train_loss']} / {hist_f['test_loss']}")
+    check(all(math.isfinite(x) for k in ("train_loss", "test_loss") for x in hist_f[k]), "churn CLI: non-finite loss")
+    check(launches_f == {**none_launched, "mix_bsr": 32 + 6}, f"churn CLI launches {launches_f}, want 38 mix_bsr")
+    check(len(send_builds) == len(set(send_builds)) == 8, f"churn CLI built Mᵀ {len(send_builds)} times")
+    base_256 = cli.build_graph("kregular", 256, 0)
+    churned = compile_schedule(T.churn_sequence(base_256, 8, 0.2, seed=1), "sparse", device=dev)
+    errs["mix_bsr_schedule"] = 0.0
+    w = torch.randn(256, D_MAIN, generator=gen, device=dev)
+    churn_rows = []
+    for i, p_c in enumerate(churned.plans):
+        e = compare(f"mix_bsr churned kreg4-256 plan {i} d={D_MAIN}", lambda: mix_bsr(*p_c.bsr, w),
+                    mix_bsr_ref(*p_c.bsr, w), w)
+        rows_bitwise(f"mix_bsr churned kreg4-256 plan {i}", p_c.bsr, w)
+        errs["mix_bsr_schedule"] = max(errs["mix_bsr_schedule"], e)
+        mt = p_c.send_operator()
+        for d_g in (1, 2):
+            wg = torch.rand(256, d_g, generator=gen, device=dev)
+            compare(f"mix_bsr churned kreg4-256 plan {i} Mᵀ d={d_g}", lambda: mix_bsr(*mt, wg), mix_bsr_ref(*mt, wg), wg)
+        nnz_c = p_c.src.numel() + 256
+        bn_c = p_c.bsr.tiles.shape[-1]
+        stored = int(p_c.bsr.counts.sum()) * bn_c * bn_c * 4  # the real tiles, not the row blocks' padding
+        b_c, op_c = bound(8 * 256 * D_MAIN + 8 * nnz_c, 2 * nnz_c * D_MAIN)
+        churn_rows.append(dict(plan=i, ms=time_ms(lambda: mix_bsr(*p_c.bsr, w), flush=flush), bound_ms=b_c,
+                               bound_by=op_c, stored_tile_bytes=stored, nonzeros=nnz_c, n_edges=p_c.n_edges))
+    # the quantised kernels on every plan: the scales pass and the int8 BSR
+    # walk against the plain version (scales and H' bitwise), then one int8
+    # round a plan through the schedule (round r runs plan r), counted
+    x_q, h_q = quant_inputs(256)
+    for i, p_c in enumerate(churned.plans):
+        errs["quant_mix_bsr"] = max(errs["quant_mix_bsr"], compare_quant(
+            f"quant_mix_bsr int8 round churned kreg4-256 plan {i}", bsr_kernel(p_c.bsr),
+            lambda hq, op=p_c.bsr: mix_bsr_ref(*op, hq), x_q, h_q, mlp_bounds, codec="int8", gamma=1.0))
+    _, _, launches_q = counted(lambda: [churned.mix(x_q, r, compression=comp_f, residual=h_q, layout=mlp_layout)
+                                        for r in range(8)])
+    sched_launches.update(quant_scales=launches_q["quant_scales"], quant_mix_bsr=launches_q["quant_mix_bsr"])
+    print(f"  8 int8 rounds through the churned schedule (plan r at round r): launches "
+          f"{ {k: n for k, n in launches_q.items() if n} }")
+    check(launches_q == {**none_launched, "quant_scales": 8, "quant_mix_bsr": 8},
+          f"churned schedule int8 launches {launches_q}")
+    del x_q, h_q
+    last = churned.plans[-1]
+    csr_last = torch.as_tensor(receive_matrix(last.graph), dtype=torch.float32, device=dev).to_sparse_csr()
+    timing["mix_bsr_schedule"] = dict(
+        churn_rows[-1], plain_ms=time_ms(lambda: mix_bsr_ref(*last.bsr, w), reps=3, flush=flush),
+        library_ms=time_ms(lambda: torch.sparse.mm(csr_last, w), flush=flush),
+        shape=f"churned kreg4-256 plan 7 (churn 0.2 a snapshot), bn 32, d={D_MAIN} fp32")
+    for row in churn_rows:
+        print(f"  mix_bsr kreg4-256 {'static' if row['plan'] == 0 else 'churned'} plan {row['plan']}: "
+              f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{row['bound_ms'] / row['ms']:.1%} of it), {row['n_edges']} edges, stored tiles "
+              f"{row['stored_tile_bytes']:,} B")
+    del w, csr_last
+    torch.cuda.empty_cache()
+
+    # (c) card vs CPU: a K = 4 churned BA-16 schedule (cyclic, period 1) at
+    # link_p 0.8, 3 rounds from one numpy init (the same CPU-generator draws
+    # on both devices), uncompressed and int8, at phase 5's bounds (int8:
+    # quantisation-code flips counted, each within one code step)
+    ba16 = T.churn_sequence(T.barabasi_albert(16, 3, seed=0), 4, 0.3, seed=1)
+    init_rng_f = np.random.default_rng(7)
+    dims_f = [784, 512, 256, 128, 10]
+    params_f = {f"fc{i}": {"w": (init_rng_f.standard_normal((16, dims_f[i], dims_f[i + 1]))
+                                 * math.sqrt(2.0 / dims_f[i])).astype(np.float32),
+                           "b": np.zeros((16, dims_f[i + 1]), np.float32)} for i in range(4)}
+    ds_f = mnist_like(16 * 64 + 256, seed=2)
+    xs_f, ys_f = node_datasets(ds_f, [np.arange(i * 64, (i + 1) * 64) for i in range(16)])
+    sched_f = batch_index_schedule(64, 16, 16, 3 * 2, seed=2)
+    sched_launches.update(mix_matmul=0, quant_mix_dense=0)
+    # each plan's dense mix and int8 round (3 rounds visit plans 0–2 only):
+    # the kernels line's schedule rows take their errors from these and
+    # their times from plan 3 (its n = 16 gives phase 3's bounds)
+    w = torch.randn(16, D_MAIN, generator=gen, device=dev)
+    x_q, h_q = quant_inputs(16)
+    errs.update(mix_matmul_schedule=0.0, quant_mix_dense_schedule=0.0)
+    for i, p_b in enumerate(compile_schedule(ba16, "dense", device=dev).plans):
+        errs["mix_matmul_schedule"] = max(errs["mix_matmul_schedule"], compare(
+            f"mix_matmul BA-16 schedule plan {i} d={D_MAIN}", lambda: mix_matmul(p_b.receive, w),
+            decavg_mix_ref(p_b.receive, w), w))
+        errs["quant_mix_dense_schedule"] = max(errs["quant_mix_dense_schedule"], compare_quant(
+            f"quant_mix_dense int8 round BA-16 schedule plan {i}", dense_kernel(p_b.receive),
+            lambda hq, m=p_b.receive: decavg_mix_ref(m, hq), x_q, h_q, mlp_bounds, codec="int8",
+            gamma=1.0, route="staged"))
+    m_b = p_b.receive
+    b_mb, op_mb = bound(4 * 16 * 16 + 2 * 4 * 16 * D_MAIN, 2 * 16 * 16 * D_MAIN)
+    timing["mix_matmul_schedule"] = dict(
+        ms=time_ms(lambda: mix_matmul(m_b, w), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(m_b, w), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(m_b, w), flush=flush),
+        bound_ms=b_mb, bound_by=op_mb, shape=f"churned BA-16 schedule plan 3, n=16 d={D_MAIN} fp32")
+    b_qb16, op_qb16 = bound(16 * 16 * D_MAIN + 4 * 16 * 16 + 4 * 16 * n_chunks + table_bytes,
+                            2 * 16 * 16 * D_MAIN + 12 * 16 * D_MAIN)
+    timing["quant_mix_dense_schedule"] = dict(
+        ms=time_ms(lambda: quant_mix_dense(m_b, x_q, h_q, mlp_edges, codec="int8", gamma=1.0), flush=flush,
+                   hold=True),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m_b, hq), x_q, h_q, mlp_bounds,
+                                               quant_scales_ref(x_q, h_q, mlp_bounds, codec="int8"),
+                                               codec="int8", gamma=1.0), flush=flush),
+        library_ms=None,  # no one PyTorch call quantises and mixes
+        bound_ms=b_qb16, bound_by=op_qb16,
+        shape=f"churned BA-16 schedule plan 3 int8 round, d={D_MAIN}, fp32, scales included")
+    for name in ("mix_matmul_schedule", "quant_mix_dense_schedule"):
+        t = timing[name]
+        print(f"  {name} at {t['shape']}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"plain {t['plain_ms']:.4f} ms" + ("" if t["library_ms"] is None
+                                                 else f", torch.matmul {t['library_ms']:.4f} ms"))
+    del w, x_q, h_q, m_b
+    for comp_c in (None, Compression("int8")):
+        results, recorded = {}, {"cuda": [], "cpu": []}
+        for d_name in ("cuda", "cpu"):
+            def recording_round(*args, _d=d_name, **kw):
+                out, scales = quant_mix_dense(*args, **kw)
+                recorded[_d].append(scales)
+                return out, scales
+
+            mix_ops.quant_mix_dense = recording_round
+            plan_f = compile_schedule(ba16, "dense", failures=FailureModel(link_p=0.8), device=d_name)
+            st = state_from_numpy(params_f, optimizer=opt, device=d_name)
+            rf = make_round_fn(loss_fn, opt, plan_f, compression=comp_c)
+            run = lambda: run_trajectory(  # noqa: E731
+                st, rf, xs_f, ys_f, sched_f, n_rounds=3, eval_every=1, eval_fn=eval_fn,
+                eval_batch=(ds_f.x[-256:], ds_f.y[-256:]), track_sigmas=True, b_local=2, device=d_name)
+            if d_name == "cuda":
+                (st_out, h), _, launches_c = counted(run)
+                kname = "mix_matmul" if comp_c is None else "quant_mix_dense"
+                sched_launches[kname] += launches_c[kname]
+                check(launches_c == {**none_launched, kname: 3}, f"K = 4 BA-16 schedule launches {launches_c}")
+            else:
+                st_out, h = run()
+            mix_ops.quant_mix_dense = quant_mix_dense
+            results[d_name] = (h, st_out)
+        (h_gpu, st_gpu), (h_cpu, st_cpu) = results["cuda"], results["cpu"]
+        tag = "int8" if comp_c else "uncompressed"
+        for key in ("train_loss", "test_loss", "sigma_ap", "sigma_an"):
+            a, b = np.asarray(h_gpu[key]), np.asarray(h_cpu[key])
+            print(f"  K = 4 BA-16 schedule {tag} {key:10s} max abs diff {float(np.max(np.abs(a - b))):.2e}")
+            check(np.allclose(a, b, rtol=1e-4, atol=1e-5), f"card vs CPU, schedule {tag}, {key}")
+        check(h_gpu["wire_messages"] == h_cpu["wire_messages"], f"card vs CPU, schedule {tag}: wire counts")
+        if comp_c is None:
+            perr = float((st_gpu.params.cpu() - st_cpu.params).abs().max())
+            print(f"  K = 4 BA-16 schedule final params max abs diff {perr:.2e}; wire {h_gpu['wire_messages']}")
+            check(perr < 1e-4, "card vs CPU, schedule final params")
+        else:
+            widths = chunk_bounds(st_cpu.layout.sizes, comp_c.chunk)
+            scales_cpu = torch.stack(recorded["cpu"]).cpu()
+            step = scales_cpu.amax(dim=(0, 1))[torch.repeat_interleave(
+                torch.arange(widths.numel() - 1), widths[1:] - widths[:-1])].numpy()
+            for what in ("params", "residual"):
+                got, want = getattr(st_gpu, what).cpu().numpy(), getattr(st_cpu, what).numpy()
+                off = np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)
+                within = np.abs(got - want) <= 1.01 * np.broadcast_to(step, want.shape) + 1e-5
+                print(f"  K = 4 BA-16 schedule int8 final {what}: {int(off.sum())} of {want.size} elements beyond "
+                      f"rtol 1e-4 / atol 1e-5 (code flips), {int((off & ~within).sum())} beyond one code step")
+                check(bool(np.all(within[off])) and off.sum() <= 1e-3 * want.size,
+                      f"card vs CPU, schedule int8 {what}: code flips")
+
+    # (d) the ppermute (edge-coloured) backend at full width: node-axis
+    # gathers, one a colour, plain torch on every device (the JAX package
+    # has no kernel for it), against the dense kernel, clean and masked,
+    # and timed against it
+    pp_rows = {}
+    for glabel, g in (("complete-16", T.complete(16)), ("heavytail-64", T.configuration_heavy_tail(64, 2.2, seed=0))):
+        pc, pd = compile_plan(g, "ppermute", device=dev), compile_plan(g, "dense", device=dev)
+        w = torch.randn(g.n, D_MAIN, generator=gen, device=dev)
+        masks = dict(active=torch.as_tensor(rng.random(g.n) < 0.8, device=dev),
+                     edge_live=torch.as_tensor(rng.random(pc.n_edges) < 0.7, device=dev))
+        for mlabel, kw in (("clean", {}), ("masked", masks)):
+            got, again, want = pc.mix(w, **kw), pc.mix(w, **kw), pd.mix(w, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            atol = FP32_TOL * max(float(w.abs().max()), 1.0)
+            print(f"  ppermute {glabel} {mlabel} ({pc.n_colors} colours) vs the dense kernel: max_abs_err "
+                  f"{err:.3e} tol {atol:.1e}; deterministic {torch.equal(got, again)}")
+            check(err <= atol and torch.equal(got, again), f"ppermute {glabel} {mlabel}: {err}")
+        pp_rows[glabel] = dict(colours=pc.n_colors, ms=time_ms(lambda: pc.mix(w), flush=flush),
+                               mix_matmul_ms=time_ms(lambda: pd.mix(w), flush=flush))
+        print(f"  ppermute {glabel} d={D_MAIN}: {pp_rows[glabel]['ms']:.4f} ms against mix_matmul's "
+              f"{pp_rows[glabel]['mix_matmul_ms']:.4f} ms ({pp_rows[glabel]['ms'] / pp_rows[glabel]['mix_matmul_ms']:.1f}x)")
+        del w, got, again, want
+    torch.cuda.empty_cache()
+
+    # (e) the chunk hook: run_dfl_mlp(timing=True) splits its time with
+    # ChunkTimer; a chunked run of the BA-16 schedule (link_p 0.8, 6 rounds,
+    # chunks of 4) is bitwise the unchunked one
+    fig_common.ROWS.clear()
+    _, split = fig_common.run_dfl_mlp(n_nodes=16, rounds=40, timing=True, device=dev)
+    print(f"  run_dfl_mlp(n_nodes=16, rounds=40, timing=True): {split}")
+    check(set(split) == {"sec_per_round", "compile_seconds", "us_per_round_steady"}
+          and split["us_per_round_steady"] > 0, f"timing split {split}")
+    plan_f = compile_schedule(ba16, "dense", failures=FailureModel(link_p=0.8), device=dev)
+    rf = make_round_fn(loss_fn, opt, plan_f)
+    sched6 = batch_index_schedule(64, 16, 16, 6 * 2, seed=2)
+    kw6 = dict(n_rounds=6, eval_every=1, eval_fn=eval_fn, eval_batch=(ds_f.x[-256:], ds_f.y[-256:]), b_local=2,
+               device=dev)
+    chunks_seen = []
+    st_c, h_c = run_trajectory(state_from_numpy(params_f, optimizer=opt, device=dev), rf, xs_f, ys_f, sched6,
+                               chunk_size=4, on_chunk=lambda r0, r1, h: chunks_seen.append((r0, r1, h["round"])), **kw6)
+    st_u, h_u = run_trajectory(state_from_numpy(params_f, optimizer=opt, device=dev), rf, xs_f, ys_f, sched6, **kw6)
+    print(f"  chunked (4) vs unchunked, 6 rounds: params bitwise {torch.equal(st_c.params, st_u.params)}, history "
+          f"equal {h_c == h_u}; the hook's chunks {chunks_seen}")
+    check(torch.equal(st_c.params, st_u.params) and h_c == h_u, "a chunked run differs from the unchunked one")
+    check([c[:2] for c in chunks_seen] == [(0, 4), (4, 6)], f"on_chunk calls {chunks_seen}")
+
+    # (f) fig 8 quick and the rounds bench quick through the port's drivers
+    fig_common.ROWS.clear()
+    t0 = time.perf_counter()
+    f8 = fig8_churn.run(quick=True, device=dev)
+    wall_f8 = time.perf_counter() - t0
+    print(f"  fig8 quick: {len(f8['records'])} records in {wall_f8:.1f} s, written to build/fig8_churn.json")
+    for rec in f8["records"]:
+        print(f"    {json.dumps(rec)}")
+    check(len(f8["records"]) == 5 and all(math.isfinite(x) for rec in f8["records"] for x in rec.values()
+                                          if isinstance(x, float)), "fig8 quick: a record is missing or not finite")
+    t0 = time.perf_counter()
+    rb = rounds_bench.run(quick=True, device=dev, rounds=40)
+    wall_rb = time.perf_counter() - t0
+    print(f"  rounds_bench quick: {len(rb['records'])} records in {wall_rb:.1f} s, written to build/rounds_bench.json "
+          f"(40 rounds a trajectory, kreg8 20)")
+    for rec in rb["records"]:
+        print(f"    {json.dumps(rec)}")
+    check(len(rb["records"]) == 4 and all(math.isfinite(x) for rec in rb["records"] for x in rec.values()
+                                          if isinstance(x, float)), "rounds_bench quick: a record is missing or not finite")
+    print(f"  the kernels line's schedule launches: {sched_launches} (the churn CLI; the BA-16 schedule's card "
+          f"runs, uncompressed and int8; the churned schedule's 8 int8 rounds)")
+    print(f"  phase 4f: {time.perf_counter() - t_4f:.1f} s")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
     n8, per8, r8, b8 = 8, 64, 3, 2
@@ -2333,6 +2648,13 @@ def main() -> int:
         # under "shapes"
         ("mix_matmul_gossip", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", gossip_launches["mix_matmul"]),
         ("mix_bsr_gossip", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", gossip_launches["mix_bsr"]),
+        # the schedule rounds of phase 4f: the churn CLI's mix_bsr launches
+        # (its training and gossip rounds), the K = 4 BA-16 schedule's dense
+        # mixes and int8 rounds in its card runs
+        ("mix_bsr_schedule", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", sched_launches["mix_bsr"]),
+        ("mix_matmul_schedule", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", sched_launches["mix_matmul"]),
+        ("quant_mix_dense_schedule", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         sched_launches["quant_mix_dense"]),
         # head dims the kernel runs zero-padded; no path of this script
         # launches them (no ported config has them)
         ("flash_mha_hd160", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
@@ -2354,7 +2676,7 @@ def main() -> int:
             row["shape"] = t["shape"]
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
-        elif name.startswith("flash_mha_hd"):
+        elif name.startswith("flash_mha_hd") or name.endswith("_schedule"):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")

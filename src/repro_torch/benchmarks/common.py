@@ -7,9 +7,11 @@ unless the caller passes ``device="cpu"``.
 
 ``run_dfl_mlp_uncoordinated(_sweep)`` run the §4.4 warmup (gossip
 estimate → per-node init → train) through ``run_warmup_trajectory`` /
-``run_warmup_sweep``.  ``run_dfl_mlp(timing=True)`` (the JAX executor's per-chunk compile /
-steady split) is not ported: the port's executor has no chunk hook yet
-(ROADMAP.md Queue 1 item 18).
+``run_warmup_sweep``.  ``plan`` may be a compiled ``CommPlan`` or a
+time-varying ``PlanSchedule`` (fig8's churned runs).
+``run_dfl_mlp(timing=True)`` splits a run's time with ``ChunkTimer`` on the
+executor's chunk hook: the first chunk's warm-up against the steady
+per-round cost.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.optim import adamw, sgd
 
 __all__ = [
     "ROWS",
+    "ChunkTimer",
     "driver_main",
     "emit",
     "rounds_to_loss",
@@ -59,6 +62,43 @@ def emit(name: str, us_per_call: float, derived: str) -> None:
     row = f"{name},{us_per_call:.1f},{derived}"
     ROWS.append(row)
     print(row, flush=True)
+
+
+class ChunkTimer:
+    """Wall clock per executor chunk, through ``run_trajectory``'s
+    ``on_chunk`` hook, which fires after the device has finished the chunk.
+
+    It separates the first chunk's warm-up from the steady per-round cost:
+    on the card that warm-up is the first use of everything the run
+    touches, a first-use kernel build (nvcc, when the libraries are not
+    built yet) and the caching allocator's first allocations included,
+    where the JAX package's is its jit compile.  ``split()`` returns
+    ``(compile_seconds, steady_sec_per_item)``: compile is the first
+    chunk's wall minus its steady prediction, clamped at 0; a one-chunk run
+    cannot separate them and reports compile 0.
+    """
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.walls: list[float] = []
+        self.sizes: list[int] = []
+
+    def __call__(self, r0: int, r1: int, chunk_hist: dict):
+        now = time.perf_counter()
+        self.walls.append(now - self.t0)
+        self.sizes.append(int(r1) - int(r0))
+        self.t0 = now
+
+    def split(self) -> tuple[float, float]:
+        if not self.walls:
+            return 0.0, 0.0
+        full = self.sizes[0]
+        # a trailing short chunk is left out (the JAX executor recompiles it)
+        steady_samples = [w / s for w, s in zip(self.walls[1:], self.sizes[1:]) if s == full]
+        if not steady_samples:
+            return 0.0, self.walls[0] / max(full, 1)
+        steady = float(np.median(steady_samples))
+        return max(self.walls[0] - steady * full, 0.0), steady
 
 
 def _mlp_setup(n_nodes, graph, per_node, hidden, optimizer, seed, test_size):
@@ -134,15 +174,16 @@ def run_dfl_mlp(
 
     Runs through ``run_trajectory`` by default; ``executor=False`` takes the
     host-fed ``train_loop``.  ``plan`` overrides the mixing operator (a
-    compiled ``CommPlan``) while ``graph`` keeps describing the gain anchor.
-    ``aggregate=False`` (an isolated node, Fig. 7's centralised reference)
-    is accepted at ``n_nodes == 1`` only.
+    compiled ``CommPlan`` or a ``PlanSchedule``; ``link_p`` / ``node_p``
+    override its failure model when given) while ``graph`` keeps describing
+    the gain anchor.  ``aggregate=False`` (an isolated node, Fig. 7's
+    centralised reference) is accepted at ``n_nodes == 1`` only.  With
+    ``timing=True`` (the executor only) the run goes in 8 chunks and the
+    second element is a dict: ``sec_per_round`` and ``ChunkTimer``'s
+    ``compile_seconds`` and ``us_per_round_steady``.
     """
-    if timing:
-        raise NotImplementedError(
-            "run_dfl_mlp(timing=True) needs the executor's chunk hook, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 18)"
-        )
+    if timing and not executor:
+        raise ValueError("the timing split needs the executor's chunk hook (executor=True)")
     if not aggregate and n_nodes != 1:
         raise ValueError(f"aggregate=False runs an isolated node: n_nodes must be 1, got {n_nodes}")
     dev = resolve_device(device)
@@ -160,13 +201,20 @@ def run_dfl_mlp(
 
     common = dict(eval_every=eval_every, eval_fn=eval_fn, eval_batch=test, track_sigmas=track_sigmas, device=dev)
     t0 = time.perf_counter()
+    timer = ChunkTimer() if timing else None
     if executor:
         sched = batch_index_schedule(per_node, n_nodes, batch_size, rounds * b_local, seed=seed)
-        state, hist = run_trajectory(state, rf, xs, ys, sched, n_rounds=rounds, b_local=b_local, **common)
+        state, hist = run_trajectory(state, rf, xs, ys, sched, n_rounds=rounds, b_local=b_local,
+                                     chunk_size=max(rounds // 8, 1) if timing else 0, on_chunk=timer, **common)
     else:
         state, hist = train_loop(state, rf, _host_batches(xs, ys, batch_size, b_local, seed), n_rounds=rounds, **common)
     # the history is read back from the device at the end: the clock stops after the run
-    return hist, (time.perf_counter() - t0) / rounds
+    sec_per_round = (time.perf_counter() - t0) / rounds
+    if timing:
+        compile_s, steady = timer.split()
+        return hist, {"sec_per_round": sec_per_round, "compile_seconds": compile_s,
+                      "us_per_round_steady": steady * 1e6}
+    return hist, sec_per_round
 
 
 def run_dfl_mlp_sweep(
@@ -230,7 +278,8 @@ def run_dfl_mlp_uncoordinated(
     """One uncoordinated DFL run: per-node gains from the gossip engine,
     ``est_rounds`` rounds each for the power-iteration and push-sum phases,
     then init and training through ``run_warmup_trajectory``.  ``plan`` (a
-    compiled ``CommPlan``) overrides the operator both phases ride.
+    compiled ``CommPlan`` or a ``PlanSchedule``, fig8's churned path)
+    overrides the operator both phases ride.
 
     Returns (history, seconds_per_round, gains), ``gains`` the realised
     (n,) per-node vector.

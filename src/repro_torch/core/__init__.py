@@ -1,6 +1,16 @@
-"""Graphs, mixing operators, initialisation, the compiled DecAvg plan and the §4.2 diffusion model."""
+"""Graphs, mixing operators, initialisation, the compiled DecAvg plan, time-varying schedules and the §4.2 diffusion model."""
 from . import topology
-from .commplan import BACKENDS, CommPlan, FailureModel, compile_plan
+from .commplan import (
+    BACKENDS,
+    CommPlan,
+    FailureModel,
+    PlanSchedule,
+    RoundMap,
+    compile_plan,
+    compile_schedule,
+    cyclic_map,
+    sequence_map,
+)
 from .compress import (
     Compression,
     compressed_mix,
@@ -10,8 +20,10 @@ from .compress import (
     init_residuals,
     seed_residual,
 )
+from .decavg import link_failure_mask, mix_pytree_circulant, mix_pytree_colored, node_failure_mask
 from .initialisation import InitConfig, gain_from_estimates, gain_from_graph, scaled_init
 from .diffusion import DiffusionResult, run_diffusion, sigma_ap_prediction
+from .topology import churn_sequence
 from .mixing import (
     mixing_time_estimate,
     receive_matrix,
@@ -28,20 +40,30 @@ __all__ = [
     "DiffusionResult",
     "FailureModel",
     "InitConfig",
+    "PlanSchedule",
+    "RoundMap",
+    "churn_sequence",
     "compile_plan",
+    "compile_schedule",
     "compressed_mix",
     "compressed_mix_with",
     "compressed_spread",
+    "cyclic_map",
     "encode_decode",
     "gain_from_estimates",
     "gain_from_graph",
     "init_residuals",
+    "link_failure_mask",
+    "mix_pytree_circulant",
+    "mix_pytree_colored",
     "mixing_time_estimate",
+    "node_failure_mask",
     "receive_matrix",
     "rewire_to_assortativity",
     "run_diffusion",
     "scaled_init",
     "seed_residual",
+    "sequence_map",
     "sigma_ap_prediction",
     "spectral_gap",
     "topology",

@@ -30,9 +30,24 @@ node's row becomes the identity.  Draws come from a CPU ``torch.Generator``
 and are copied to the plan's device, so the same generator state gives the
 same effective operator on every device.  With an active ``compression``
 codec a round is the error-feedback delta form of ``core/compress.py``
-over the same operator (int8 / fp8 through the quantised-mix kernel).  The
-``ppermute`` backend and ``PlanSchedule`` are not ported yet (see
-ROADMAP.md).
+over the same operator (int8 / fp8 through the quantised-mix kernel).
+
+``ppermute``  the greedy edge colouring (``Graph.edge_coloring``): each
+            colour class is a matching, one ``ppermute`` round in the JAX
+            package's ``shard_map``.  On one device both packages render it
+            as node-axis gathers, one a colour (``decavg.mix_pytree_colored``,
+            plain torch on every device: the JAX package has no kernel for
+            it either); its compressed rounds take the plain codec.  The
+            NCCL rendering (one exchange a colour) is ROADMAP.md Queue 1
+            item 17.
+
+``PlanSchedule`` (``compile_schedule``) is a time-varying operator: K
+compiled plans and a round → plan map (``cyclic_map``, ``sequence_map``).
+The port's executors loop on the host, so ``select(r)`` is the active
+``CommPlan`` itself and each round runs that plan's kernels.  Every plan of
+a schedule draws its failures at the schedule's edge envelope
+(``n_edges_env``, the largest plan's edge count), so the generator moves
+the same amount whichever plan is active.
 """
 from __future__ import annotations
 
@@ -48,13 +63,24 @@ from repro_torch.flat import FlatLayout
 from repro_torch.kernels.mix import BSR, bsr_from_dense, bsr_slots, decavg_mix, mix_flat
 
 from .compress import Compression, compressed_mix, compressed_spread, init_residuals
-from .decavg import failure_receive_matrix
+from .decavg import failure_receive_matrix, mix_pytree_colored
 from .mixing import receive_matrix
 from .topology import Graph
 
-__all__ = ["BACKENDS", "CommPlan", "FailureModel", "block_size", "compile_plan"]
+__all__ = [
+    "BACKENDS",
+    "CommPlan",
+    "FailureModel",
+    "PlanSchedule",
+    "RoundMap",
+    "block_size",
+    "compile_plan",
+    "compile_schedule",
+    "cyclic_map",
+    "sequence_map",
+]
 
-BACKENDS = ("dense", "sparse")
+BACKENDS = ("dense", "sparse", "ppermute")
 
 
 def block_size(n: int) -> int:
@@ -117,10 +143,42 @@ class CommPlan:
     bsr: BSR | None = None  # the static operator
     edge_slot: torch.Tensor | None = None  # (nnz,) int64 flat slot in bsr.tiles
     self_slot: torch.Tensor | None = None  # (n,) int64 flat slot of each diagonal entry
+    # ---- ppermute (edge-coloured) ----
+    partners: np.ndarray | None = None  # (n_colors, n) int32 per-colour matchings
+    color_edge_uid: torch.Tensor | None = None  # (n_colors, n) int64, -1 unmatched
+    color_w: torch.Tensor | None = None  # (n_colors, n) statically normalised
+    color_raw_w: torch.Tensor | None = None  # (n_colors, n) unnormalised A[i, p]·s[p]
+    self_w: torch.Tensor | None = None  # (n,) statically normalised self weight
+    # failure-draw width: a schedule's edge envelope (compile_schedule); 0 is n_edges
+    n_edges_draw: int = 0
 
     @property
     def n(self) -> int:
         return self.graph.n
+
+    @property
+    def n_colors(self) -> int:
+        return 0 if self.partners is None else self.partners.shape[0]
+
+    @property
+    def draw_width(self) -> int:
+        """Edges a failure draw covers: ``n_edges``, or the envelope of the
+        schedule the plan belongs to."""
+        return max(self.n_edges_draw, self.n_edges)
+
+    @functools.cached_property
+    def _partners_dev(self) -> torch.Tensor:
+        """The colour table on the plan's device, int64, copied once."""
+        return torch.as_tensor(self.partners, dtype=torch.int64, device=self.device)
+
+    @functools.cached_property
+    def _clean(self) -> "CommPlan":
+        """This plan without its failure model, its tensors shared, made once:
+        the gossip rounds take their draws as masks and run on it, so its Mᵀ
+        (``_send``) is built once however many phases run."""
+        if not self.failures.active:
+            return self
+        return dataclasses.replace(self, failures=FailureModel())
 
     def _masked(self, active, edge_live) -> bool:
         """Does this round need the renormalising masked operator?"""
@@ -160,6 +218,9 @@ class CommPlan:
                 self, params, init_residuals(params) if residual is None else residual, generator,
                 compression=compression, active=active, edge_live=edge_live, layout=layout,
             )
+        if self.backend == "ppermute":
+            color_w, self_w = self.color_round_weights(generator, active=active, edge_live=edge_live)
+            return mix_pytree_colored(params, self._partners_dev, color_w, self_w)
         op = self.round_operator(generator, active=active, edge_live=edge_live)
         if isinstance(params, torch.Tensor):
             return mix_flat(op, params)
@@ -194,6 +255,15 @@ class CommPlan:
                 self, values, residual, generator, compression=compression, active=active, edge_live=edge_live,
             )
         x = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        if self.backend == "ppermute":
+            # node j receives what its colour-c partner sent: each colour is
+            # an involution, so gathering the sends at partners[c] lands an
+            # edge's mass on its other endpoint
+            color_w, self_w = self.color_round_weights(generator, active=active, edge_live=edge_live)
+            x2 = x.reshape(self.n, -1)
+            sends = color_w[:, :, None] * x2[None, :, :]
+            recv = sends[torch.arange(self.n_colors, device=self.device)[:, None], self._partners_dev]
+            return (self_w[:, None] * x2 + recv.sum(dim=0)).reshape(x.shape)
         op = self.send_operator(generator, active=active, edge_live=edge_live)
         out = mix_flat(op, x.reshape(self.n, -1).contiguous())
         return out.reshape(x.shape)
@@ -227,6 +297,14 @@ class CommPlan:
             if masked:
                 keep = keep & edge_keep[self.edge_uid_matrix] & node_act[:, None] & node_act[None, :]
             nbr = torch.where(keep[:, :, None], x2[None, :, :], inf).amin(dim=1)
+        elif self.backend == "ppermute":
+            partners = self._partners_dev
+            keep = self.color_edge_uid >= 0
+            if masked:
+                keep = keep & edge_keep[self.color_edge_uid.clamp_min(0)]
+                keep = keep & node_act[None, :] & node_act[partners]
+            cand = torch.where(keep[:, :, None], x2[partners], inf)
+            nbr = cand.amin(dim=0) if self.n_colors else torch.full_like(x2, float("inf"))
         else:
             gathered = x2[self.src]
             if masked:
@@ -276,6 +354,8 @@ class CommPlan:
         """This round's Mᵀ: the (n, n) matrix or the BSR tiles.  A masked
         sparse round renormalises M's tiles (``round_operator``), then
         copies them into Mᵀ's slots (``_transpose_tiles``)."""
+        if self.backend == "ppermute":
+            raise ValueError("a ppermute plan holds no operator matrix: use color_round_weights")
         if not self._masked(active, edge_live):
             return self._send[0]
         m = self.round_operator(generator, active=active, edge_live=edge_live)
@@ -287,13 +367,36 @@ class CommPlan:
         self, generator: torch.Generator | None = None, *, active=None, edge_live=None
     ) -> torch.Tensor | BSR:
         """This round's operator: the (n, n) matrix or the BSR tiles."""
+        if self.backend == "ppermute":
+            raise ValueError("a ppermute plan holds no operator matrix: use color_round_weights")
         if self.backend == "dense":
             return self._dense_round_matrix(generator, active, edge_live)
         return self._sparse_round_bsr(generator, active, edge_live)
 
     def round_masks(self, generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
-        """The per-round failure draws (edge_keep, node_active), on the generator's device."""
-        return _draw_failure_masks(self.failures, self.n_edges, self.n, generator)
+        """The per-round failure draws (edge_keep (draw_width,), node_active
+        (n,)), on the generator's device."""
+        return _draw_failure_masks(self.failures, self.draw_width, self.n, generator)
+
+    def color_round_weights(
+        self, generator: torch.Generator | None = None, *, active=None, edge_live=None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """((n_colors, n), (n,)) normalised weights of this round's colour
+        schedule: the static ones, or the surviving raw weights over each
+        node's own sum when the round is masked."""
+        if not self._masked(active, edge_live):
+            return self.color_w, self.self_w
+        edge_keep, node_act = self._round_masks_ext(generator, active, edge_live)
+        keep = self.color_edge_uid >= 0
+        keep = keep & edge_keep[self.color_edge_uid.clamp_min(0)]
+        keep = keep & node_act[None, :] & node_act[self._partners_dev]
+        num = self.color_raw_w * keep
+        den = self.raw_self_w + num.sum(dim=0)
+        return num / den[None, :], self.raw_self_w / den
+
+    def color_perms(self) -> list[list[tuple[int, int]]]:
+        """The (src, dst) pairs of each colour class: one ppermute each."""
+        return [[(i, int(p[i])) for i in range(self.n) if p[i] != i] for p in self.partners]
 
     def wire_messages(self, generator: torch.Generator | None = None) -> torch.Tensor | int:
         """Messages one round delivers: two per live undirected edge (both
@@ -307,6 +410,10 @@ class CommPlan:
         if self.backend == "dense":
             keep = edge_keep[self.edge_uid_matrix] & (self.adjacency > 0)
             return (keep & node_act[:, None] & node_act[None, :]).sum()
+        if self.backend == "ppermute":
+            # each edge stands at both its endpoints' colour slots: two messages
+            keep = (self.color_edge_uid >= 0) & edge_keep[self.color_edge_uid.clamp_min(0)]
+            return (keep & node_act[None, :] & node_act[self._partners_dev]).sum()
         return (edge_keep[self.edge_uid] & node_act[self.src] & node_act[self.dst]).sum()
 
     def _round_masks_ext(self, generator, active, edge_live) -> tuple[torch.Tensor, torch.Tensor]:
@@ -315,7 +422,7 @@ class CommPlan:
         if self.failures.active:
             edge_keep, node_act = self.round_masks(generator)
         else:
-            edge_keep = torch.ones(max(self.n_edges, 1), dtype=torch.bool)
+            edge_keep = torch.ones(max(self.draw_width, 1), dtype=torch.bool)
             node_act = torch.ones(self.n, dtype=torch.bool)
         edge_keep, node_act = edge_keep.to(self.device), node_act.to(self.device)
         if edge_live is not None:
@@ -381,15 +488,12 @@ def compile_plan(
 
     backend="auto" picks dense for n ≤ 64 and sparse beyond, as the JAX
     package does.  The sparse backend's tile size is ``block_size(n)``.
+    ``ppermute`` compiles the greedy edge colouring (undirected graphs only).
     """
     dev = resolve_device(device)
     failures = failures or FailureModel()
     if backend == "auto":
         backend = "dense" if graph.n <= 64 else "sparse"
-    if backend == "ppermute":
-        raise NotImplementedError(
-            "the ppermute (edge-coloured) backend is not ported yet; see ROADMAP.md Queue 1"
-        )
     if backend not in BACKENDS:
         raise ValueError(f"unknown mixing backend {backend!r}; expected one of {BACKENDS}")
 
@@ -422,6 +526,23 @@ def compile_plan(
         )
 
     s = np.ones(n, dtype=np.float64) if sizes is None else sizes
+    if backend == "ppermute":
+        coloring = graph.edge_coloring()
+        partners = coloring.partners
+        idx = np.arange(n)
+        matched = partners != idx[None, :]
+        # receive weight of edge (i, partner) at node i: A[i, partner]·s[partner]
+        raw = np.where(matched, graph.adjacency[idx[None, :], partners] * s[partners], 0.0)
+        den = s + raw.sum(axis=0)
+        return CommPlan(
+            **common,
+            partners=partners,
+            color_edge_uid=i64(coloring.edge_index),
+            color_w=f32(raw / den[None, :]),
+            color_raw_w=f32(raw),
+            self_w=f32(s / den),
+            raw_self_w=f32(s),
+        )
     block_n = block_size(n)
     indptr, src, uid = graph.csr()
     dst = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
@@ -452,3 +573,215 @@ def compile_plan(
         edge_slot=i64(edge_slot),
         self_slot=i64(self_slot),
     )
+
+
+# ---------------------------------------------------------------- schedules
+@dataclasses.dataclass(frozen=True)
+class RoundMap:
+    """Round index → plan index of a ``PlanSchedule``.
+
+    ``cyclic``:   plan ``(r // period) % K``, the plans taking turns,
+                  ``period`` rounds each.
+    ``sequence``: plan ``sequence[r % len(sequence)]``, an explicit
+                  assignment tiled past its horizon.
+    """
+
+    kind: str  # "cyclic" | "sequence"
+    period: int = 1
+    sequence: np.ndarray | None = None
+
+    def __post_init__(self):
+        if self.kind not in ("cyclic", "sequence"):
+            raise ValueError(f"unknown round-map kind {self.kind!r}")
+        if self.kind == "cyclic" and self.period < 1:
+            raise ValueError("cyclic round map needs period >= 1")
+        if self.kind == "sequence" and (self.sequence is None or len(self.sequence) == 0):
+            raise ValueError("sequence round map needs a non-empty index sequence")
+
+
+def cyclic_map(period: int = 1) -> RoundMap:
+    """Plans take turns, ``period`` consecutive rounds each."""
+    return RoundMap("cyclic", period=int(period))
+
+
+def sequence_map(sequence) -> RoundMap:
+    """Explicit per-round plan indices, tiled past the horizon."""
+    return RoundMap("sequence", sequence=np.asarray(sequence, np.int32))
+
+
+_EVENTS_UNPORTED = "the event-driven schedule rendering is not ported yet; see ROADMAP.md Queue 1 item 11"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanSchedule:
+    """A time-varying mixing operator: K compiled ``CommPlan``s and a round map.
+
+    The plans share one backend, one failure model, the data sizes and the
+    node count.  ``select(r)`` is the plan active at round r, the compiled
+    object itself, so its kernels, operators and its lazily built Mᵀ serve
+    every round it is active.  Every plan draws its failures at the edge
+    envelope ``n_edges_env``, so a generator advances the same amount
+    whichever plan is active and ``round_masks`` replays any round's draw;
+    ``edge_live`` masks are read at that width too, indexed by the active
+    plan's own edge ids.  K = 1 is the static plan, bit for bit.  The JAX
+    package folds the plan index into a round's failure key (threefry's
+    ``fold_in``, which torch cannot replay); here each round simply draws
+    from the generator it is given.
+    """
+
+    plans: tuple[CommPlan, ...]
+    round_map: RoundMap
+    n_edges_env: int = 0
+
+    @property
+    def k(self) -> int:
+        return len(self.plans)
+
+    @property
+    def n(self) -> int:
+        return self.plans[0].n
+
+    @property
+    def backend(self) -> str:
+        return self.plans[0].backend
+
+    @property
+    def failures(self) -> FailureModel:
+        return self.plans[0].failures
+
+    @property
+    def data_sizes(self) -> np.ndarray | None:
+        return self.plans[0].data_sizes
+
+    @property
+    def device(self) -> torch.device:
+        return self.plans[0].device
+
+    @property
+    def graph(self) -> Graph:
+        """The round-0 plan's graph: the size and degrees a node sees at the
+        start (estimation payloads, the walker's start checks)."""
+        return self.plans[0].graph
+
+    def plan_index(self, round_index) -> int:
+        """The index of the plan active at ``round_index`` (a host int)."""
+        if self.k == 1:
+            return 0
+        r, m = int(round_index), self.round_map
+        if m.kind == "cyclic":
+            return (r // m.period) % self.k
+        return int(m.sequence[r % len(m.sequence)])
+
+    def select(self, round_index) -> CommPlan:
+        """The ``CommPlan`` active at ``round_index``: K = 1, the plan itself."""
+        return self.plans[self.plan_index(round_index)]
+
+    def mix(self, params, round_index, generator: torch.Generator | None = None, **kwargs):
+        """``CommPlan.mix`` of the plan active at ``round_index`` (the same
+        keywords: ``active``, ``edge_live``, ``compression``, ``residual``,
+        ``layout``)."""
+        return self.select(round_index).mix(params, generator, **kwargs)
+
+    def spread(self, values, round_index, generator: torch.Generator | None = None, **kwargs):
+        """One send-form (push) round under the active plan."""
+        return self.select(round_index).spread(values, generator, **kwargs)
+
+    def spread_min(self, values, round_index, generator: torch.Generator | None = None, **kwargs):
+        """One min-exchange round under the active plan."""
+        return self.select(round_index).spread_min(values, generator, **kwargs)
+
+    def round_masks(self, generator: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+        """Envelope-width failure draws, what every plan of the schedule
+        consumes: index the edge mask by the active plan's own edge ids."""
+        return _draw_failure_masks(self.failures, self.n_edges_env, self.n, generator)
+
+    def wire_messages(self, round_index, generator: torch.Generator | None = None):
+        """``CommPlan.wire_messages`` of the plan active at ``round_index``:
+        two messages a live edge of that plan."""
+        return self.select(round_index).wire_messages(generator)
+
+    def stacked_csr(self) -> dict[str, torch.Tensor]:
+        """Every plan's CSR view padded to one envelope, on the device:
+        ``indptr`` (K, n + 1), ``indices`` / ``uid`` (K, nnz_env), ``deg``
+        (K, n) int64 and ``degrees`` (K, n) float32."""
+        graphs = [p.graph for p in self.plans]
+        csrs = [g.csr() for g in graphs]
+        nnz = max(len(c[1]) for c in csrs)
+        i64 = lambda a: torch.as_tensor(np.stack(a), dtype=torch.int64, device=self.device)  # noqa: E731
+        return dict(
+            indptr=i64([c[0] for c in csrs]),
+            indices=i64([np.pad(c[1], (0, nnz - len(c[1]))) for c in csrs]),
+            uid=i64([np.pad(c[2], (0, nnz - len(c[2]))) for c in csrs]),
+            deg=i64([np.diff(c[0]) for c in csrs]),
+            degrees=torch.as_tensor(np.stack([g.degrees for g in graphs]), dtype=torch.float32, device=self.device),
+        )
+
+    def with_options(
+        self,
+        *,
+        backend: str | None = None,
+        data_sizes: np.ndarray | None = None,
+        failures: FailureModel | None = None,
+    ) -> "PlanSchedule":
+        """Recompile the whole schedule with some knobs replaced."""
+        return compile_schedule(
+            [p.graph for p in self.plans],
+            backend=backend or self.backend,
+            data_sizes=self.data_sizes if data_sizes is None else data_sizes,
+            failures=failures or self.failures,
+            round_map=self.round_map,
+            device=self.device,
+        )
+
+    def event_key(self, *args, **kwargs):
+        raise NotImplementedError(_EVENTS_UNPORTED)
+
+    def event_mix(self, *args, **kwargs):
+        raise NotImplementedError(_EVENTS_UNPORTED)
+
+    def event_spread(self, *args, **kwargs):
+        raise NotImplementedError(_EVENTS_UNPORTED)
+
+    def event_spread_min(self, *args, **kwargs):
+        raise NotImplementedError(_EVENTS_UNPORTED)
+
+    def event_stream(self, *args, **kwargs):
+        raise NotImplementedError(_EVENTS_UNPORTED)
+
+
+def compile_schedule(
+    graphs: Sequence[Graph],
+    backend: str = "auto",
+    data_sizes: np.ndarray | Sequence[float] | None = None,
+    failures: FailureModel | None = None,
+    round_map: RoundMap | None = None,
+    device: str | torch.device | None = None,
+) -> PlanSchedule:
+    """Lower K graphs and a round → plan map into a ``PlanSchedule`` on
+    ``device`` (default cuda).
+
+    Every graph compiles through ``compile_plan`` with the same backend,
+    data sizes and failure model; ``round_map`` defaults to ``cyclic_map(1)``.
+    Each plan's failure-draw width is set here, once, to the envelope (the
+    largest edge count), so no round copies a plan and each keeps its
+    lazily built Mᵀ.  ``topology.churn_sequence`` builds churned graph
+    sequences to feed here.
+    """
+    graphs = list(graphs)
+    if not graphs:
+        raise ValueError("compile_schedule needs at least one graph")
+    if len({g.n for g in graphs}) != 1:
+        raise ValueError(f"all plans in a schedule must share the node count, got {[g.n for g in graphs]}")
+    if backend == "auto":
+        backend = "dense" if graphs[0].n <= 64 else "sparse"
+    plans = [compile_plan(g, backend=backend, data_sizes=data_sizes, failures=failures, device=device)
+             for g in graphs]
+    round_map = round_map or cyclic_map(1)
+    if round_map.kind == "sequence" and int(np.max(round_map.sequence)) >= len(plans):
+        raise ValueError(
+            f"round map references plan {int(np.max(round_map.sequence))} but the "
+            f"schedule holds only {len(plans)} plans"
+        )
+    env = max(p.n_edges for p in plans)
+    plans = tuple(p if p.n_edges == env else dataclasses.replace(p, n_edges_draw=env) for p in plans)
+    return PlanSchedule(plans=plans, round_map=round_map, n_edges_env=env)

@@ -35,6 +35,11 @@ qtopk       Σ_chunks k_c · (1 + 2) + C · 4 (int8 value + uint16 index)
 ``compressed_spread`` is the send form, ``CommPlan.spread(compression=)``:
 the same round over Mᵀ, which conserves the payload's total mass exactly
 for any codec (the invariant push-sum estimation needs).
+
+A ``ppermute`` (edge-coloured) plan holds no operator matrix: its rounds
+take the plain codec for h' and then the colour mix of h', as the JAX
+package's do.  Over a ``PlanSchedule`` (``round_index=``) a round is the
+active plan's, through the same kernels as a static plan's.
 """
 from __future__ import annotations
 
@@ -284,16 +289,22 @@ def compressed_mix(
     edge_live: torch.Tensor | None = None,
     update_mask: torch.Tensor | None = None,
     layout: FlatLayout | None = None,
+    round_index: int | None = None,
 ):
     """One compressed DecAvg round over a ``CommPlan``: returns ``(x', h')``.
 
     The round's operator is drawn once (``plan.round_operator``, one
     failure draw, as an uncompressed round).  int8 / fp8 rounds are one
     quantised mix (``kernels/mix/ops.py::quant_mix_flat``); topk and
-    qtopk compute h' in plain torch and mix it with ``mix_flat``.
+    qtopk compute h' in plain torch and mix it with ``mix_flat``.  A
+    ``ppermute`` plan computes h' in plain torch and mixes it by its colour
+    schedule (one draw, in ``plan.mix``).  ``plan`` may be a
+    ``PlanSchedule``: ``round_index`` then picks the plan.
     ``compression.stream`` gives the same result: nothing here holds an
     ``(n, d)`` temporary that streaming would avoid.
     """
+    if round_index is not None:
+        plan = plan.select(round_index)
     comp = compression
     if not comp.active:
         return plan.mix(params, generator, active=active, edge_live=edge_live), residual
@@ -310,6 +321,10 @@ def compressed_mix(
         raise ValueError(f"residual must be fp32 {tuple(params.shape)}, got {residual.dtype} {tuple(residual.shape)}")
     sizes = _sizes(params, layout)
     keep = _keep(update_mask, params.device)
+    if plan.backend == "ppermute":
+        h_new = _new_mirror(params, residual, sizes, comp, keep)
+        mixed = plan.mix(h_new, generator, active=active, edge_live=edge_live)
+        return _delta_step(params, mixed, h_new, comp.gamma), h_new
     op = plan.round_operator(generator, active=active, edge_live=edge_live)
     if comp.codec in ("int8", "fp8"):
         return quant_mix_flat(
@@ -329,6 +344,7 @@ def compressed_spread(
     compression: Compression,
     active: torch.Tensor | None = None,
     edge_live: torch.Tensor | None = None,
+    round_index: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One compressed send-form (push) round over a ``CommPlan``:
     ``v' = v + γ (Mᵀ h' − h')`` with ``h' = h + C(v − h)``; returns
@@ -338,8 +354,12 @@ def compressed_spread(
     Because the masked Mᵀ is column-stochastic, ``sum(Mᵀ h') = sum(h')``
     and the round conserves the total of ``values`` for any codec.  As
     ``compressed_mix``: int8 / fp8 are one quantised mix over Mᵀ
-    (``ops.quant_mix_flat``), topk / qtopk the plain codec, then ``mix_flat``.
+    (``ops.quant_mix_flat``), topk / qtopk the plain codec, then ``mix_flat``;
+    a ``ppermute`` plan the plain codec, then its colour spread.  Over a
+    ``PlanSchedule`` ``round_index`` picks the plan.
     """
+    if round_index is not None:
+        plan = plan.select(round_index)
     comp = compression
     if not comp.active:
         return plan.spread(values, generator, active=active, edge_live=edge_live), residual
@@ -348,8 +368,12 @@ def compressed_spread(
     v = torch.as_tensor(values, dtype=torch.float32, device=plan.device)
     x = v.reshape(plan.n, -1).contiguous()
     h = torch.zeros_like(x) if residual is None else torch.as_tensor(residual, dtype=torch.float32).reshape(x.shape)
-    op = plan.send_operator(generator, active=active, edge_live=edge_live)
     sizes = (x.shape[1],)
+    if plan.backend == "ppermute":
+        h_new = _new_mirror(x, h, sizes, comp, None)
+        x_new = _delta_step(x, plan.spread(h_new, generator, active=active, edge_live=edge_live), h_new, comp.gamma)
+        return x_new.reshape(v.shape), h_new.reshape(v.shape)
+    op = plan.send_operator(generator, active=active, edge_live=edge_live)
     if comp.codec in ("int8", "fp8"):
         x_new, h_new = quant_mix_flat(
             op, x, h.contiguous(), _edges(sizes, comp.chunk), codec=comp.codec, gamma=comp.gamma,

@@ -2,25 +2,46 @@
 
 These are the plain renderings the tests hold ``CommPlan.mix`` and the
 JAX package against; on the card ``CommPlan.mix`` runs the hand-written
-kernels of ``repro_torch.kernels.mix`` instead.  All accumulate in fp32
-regardless of the parameter dtype (the mixing weights are O(1/k) and the
-post-diffusion scale is the signal bf16 accumulation would lose).
+kernels of ``repro_torch.kernels.mix`` instead.  The edge-coloured
+(``ppermute``) and circulant schedules have no kernel in the JAX package
+either: their single-device renderings here are node-axis gathers and rolls,
+and ``CommPlan.mix`` runs the colour schedule through ``mix_pytree_colored``
+on every device.  All accumulate in fp32 regardless of the parameter dtype
+(the mixing weights are O(1/k) and the post-diffusion scale is the signal
+bf16 accumulation would lose).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.mix.ref import decavg_mix_ref
 
-__all__ = ["mix_array", "mix_pytree", "mix_pytree_sparse", "failure_receive_matrix"]
+from .topology import Graph
+
+__all__ = [
+    "failure_receive_matrix",
+    "link_failure_mask",
+    "mix_array",
+    "mix_pytree",
+    "mix_pytree_circulant",
+    "mix_pytree_colored",
+    "mix_pytree_sparse",
+    "node_failure_mask",
+]
 
 Tree = dict[str, Any]
 
 
 def _map(fn, tree: Tree) -> Tree:
     return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _map_params(fn, params):
+    """``fn`` over a flat (n, d) buffer or over every leaf of a node-stacked dict."""
+    return fn(params) if isinstance(params, torch.Tensor) else _map(fn, params)
 
 
 def _bcast(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -65,6 +86,96 @@ def mix_pytree_sparse(
         return out.to(x.dtype)
 
     return _map(mix_leaf, params)
+
+
+def mix_pytree_colored(
+    params: torch.Tensor | Tree,
+    partners: np.ndarray | torch.Tensor,
+    color_w: torch.Tensor,
+    self_w: torch.Tensor,
+    *,
+    process_group=None,
+) -> torch.Tensor | Tree:
+    """DecAvg over an edge-coloured schedule (any undirected graph):
+    ``out[i] = self_w[i]·x[i] + Σ_c color_w[c, i]·x[partners[c, i]]``.
+
+    ``partners`` is the (n_colors, n) table of per-colour matchings, each an
+    involution (``partners[c, i] == i`` where i is unmatched); ``color_w``
+    (n_colors, n) the normalised receive weight of edge (i, partners[c, i])
+    at node i (0 when unmatched); ``self_w`` (n,).  One gather of the
+    ensemble a colour, accumulated in fp32 in the JAX package's order (the
+    self term, then colour 0, 1, …), so no atomics and reruns are bitwise.
+    ``params`` is a flat (n, d) buffer or a node-stacked dict; leaf dtypes
+    are kept.  The collective rendering (one NCCL exchange a colour) waits
+    for ROADMAP.md Queue 1 item 17: a ``process_group`` raises."""
+    if process_group is not None:
+        raise NotImplementedError(
+            "the collective edge-coloured mix (one exchange a colour) is not ported yet; "
+            "see ROADMAP.md Queue 1 item 17"
+        )
+
+    def mix_leaf(x: torch.Tensor) -> torch.Tensor:
+        idx = torch.as_tensor(partners, dtype=torch.int64, device=x.device)
+        acc = _bcast(self_w, x.ndim) * x.to(torch.float32)
+        for c in range(idx.shape[0]):
+            acc = acc + _bcast(color_w[c], x.ndim) * x.index_select(0, idx[c]).to(torch.float32)
+        return acc.to(x.dtype)
+
+    return _map_params(mix_leaf, params)
+
+
+def mix_pytree_circulant(
+    params: torch.Tensor | Tree,
+    offsets: Sequence[int],
+    weights: torch.Tensor | None = None,
+    *,
+    process_group=None,
+) -> torch.Tensor | Tree:
+    """Circulant DecAvg on one device: node i mixes itself and i ∓ s for
+    every offset s.  The JAX package renders it inside ``shard_map`` with
+    one ``ppermute`` a term, pairs (i, i + s): node j receives node j − s,
+    which is ``torch.roll(x, s)`` along the node axis here.  ``weights``
+    ((2|S| + 1,), default uniform 1/(2|S| + 1)) in the JAX term order
+    [self, +s1, −s1, +s2, …], accumulated in fp32 in that order.  The NCCL
+    rendering waits for ROADMAP.md Queue 1 item 17: a ``process_group``
+    raises."""
+    if process_group is not None:
+        raise NotImplementedError(
+            "the collective circulant mix is not ported yet; see ROADMAP.md Queue 1 item 17"
+        )
+    n_terms = 2 * len(offsets) + 1
+
+    def mix_leaf(x: torch.Tensor) -> torch.Tensor:
+        w = (torch.full((n_terms,), 1.0 / n_terms, dtype=torch.float32) if weights is None
+             else torch.as_tensor(weights, dtype=torch.float32)).to(x.device)
+        acc = w[0] * x.to(torch.float32)
+        t = 1
+        for s in offsets:
+            for sign in (1, -1):
+                acc = acc + w[t] * torch.roll(x, sign * int(s), dims=0).to(torch.float32)
+                t += 1
+        return acc.to(x.dtype)
+
+    return _map_params(mix_leaf, params)
+
+
+def link_failure_mask(generator: torch.Generator, graph: Graph, p: float) -> torch.Tensor:
+    """Symmetric Bernoulli(p) mask over the graph's edges (Fig. 2a): one
+    uniform an upper-triangle pair, drawn as an (n, n) block on the
+    generator's device; the adjacency's dtype."""
+    a = torch.as_tensor(graph.adjacency, device=generator.device)
+    u = torch.rand(a.shape, generator=generator, device=generator.device)
+    keep = (torch.triu(u, diagonal=1) < p) & (torch.triu(a, diagonal=1) > 0)
+    return (keep | keep.T).to(a.dtype)
+
+
+def node_failure_mask(generator: torch.Generator, graph: Graph, p: float) -> torch.Tensor:
+    """The adjacency with every edge of an inactive node removed (Fig. 2b),
+    each node active with probability p.  An inactive node neither sends nor
+    receives this round but keeps training locally."""
+    a = torch.as_tensor(graph.adjacency, device=generator.device)
+    active = torch.rand(graph.n, generator=generator, device=generator.device) < p
+    return (a * (active[:, None] & active[None, :])).to(a.dtype)
 
 
 def failure_receive_matrix(

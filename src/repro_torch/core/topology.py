@@ -3,7 +3,10 @@
 A numpy copy of the JAX package's graph constructors: for the same arguments and
 seed every constructor returns a bit-identical adjacency matrix, edge list and CSR
 view.  The copy exists because the JAX package's ``core`` imports jax.
-Event streams, churn sequences and edge colouring are not ported yet.
+``Graph.edge_coloring`` (the ``ppermute`` backend's schedule) colours
+greedily in the same order, and ``churn_sequence`` draws the same
+``default_rng(seed)`` stream, so both give bit-identical arrays too.  Event
+streams are not ported yet (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 
 __all__ = [
     "Graph",
+    "EdgeColoring",
     "complete",
     "ring",
     "circulant",
@@ -25,7 +29,27 @@ __all__ = [
     "torus_lattice",
     "star",
     "from_adjacency",
+    "churn_sequence",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeColoring:
+    """A proper edge colouring as per-colour partial matchings.
+
+    ``partners[c, i]`` is i's partner under colour c (i itself when i is
+    unmatched in that colour): each colour class is an involution on the
+    nodes.  ``edge_index[c, i]`` is the index of edge (i, partners[c, i]) in
+    ``Graph.edge_list()`` (-1 when unmatched), so both endpoints key one
+    failure draw on it.
+    """
+
+    partners: np.ndarray  # (n_colors, n) int32
+    edge_index: np.ndarray  # (n_colors, n) int32, -1 where unmatched
+
+    @property
+    def n_colors(self) -> int:
+        return self.partners.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +121,15 @@ class Graph:
         """
         return self._cached("csr", self._build_csr)
 
+    def edge_coloring(self) -> EdgeColoring:
+        """Greedy proper edge colouring (≤ 2Δ − 1 colours, Δ or Δ + 1
+        typical): edges in descending order of endpoint-degree sum (a
+        stable sort), each given the lowest colour free at both ends.
+        Undirected graphs only: a colour class must be a matching."""
+        if self.directed:
+            raise ValueError("edge colouring (ppermute scheduling) requires an undirected graph")
+        return self._cached("edge_coloring", self._build_edge_coloring)
+
     def _cached(self, key: str, build):
         cache = self._export_cache
         if key not in cache:
@@ -129,6 +162,31 @@ class Graph:
         np.add.at(indptr, dst + 1, 1)
         indptr = np.cumsum(indptr).astype(np.int32)
         return indptr, src.astype(np.int32), uid.astype(np.int32)
+
+    def _build_edge_coloring(self) -> EdgeColoring:
+        edges = self.edge_list()
+        k = self.adjacency.astype(bool).sum(axis=1)
+        order = np.argsort(-(k[edges[:, 0]] + k[edges[:, 1]]), kind="stable")
+        node_colors: list[set[int]] = [set() for _ in range(self.n)]
+        colors: list[list[tuple[int, int, int]]] = []
+        for e in order:
+            u, v = int(edges[e, 0]), int(edges[e, 1])
+            c = 0
+            used = node_colors[u] | node_colors[v]
+            while c in used:
+                c += 1
+            if c == len(colors):
+                colors.append([])
+            colors[c].append((u, v, int(e)))
+            node_colors[u].add(c)
+            node_colors[v].add(c)
+        partners = np.tile(np.arange(self.n, dtype=np.int32), (len(colors), 1))
+        edge_index = np.full((len(colors), self.n), -1, dtype=np.int32)
+        for c, cls in enumerate(colors):
+            for u, v, e in cls:
+                partners[c, u], partners[c, v] = v, u
+                edge_index[c, u] = edge_index[c, v] = e
+        return EdgeColoring(partners=partners, edge_index=edge_index)
 
 
 def from_adjacency(a: np.ndarray, name: str = "custom", directed: bool = False) -> Graph:
@@ -286,3 +344,55 @@ def star(n: int) -> Graph:
     a[0, 1:] = 1.0
     a[1:, 0] = 1.0
     return Graph(a, name=f"star-{n}")
+
+
+def churn_sequence(
+    graph: Graph,
+    k_plans: int,
+    churn_rate: float,
+    seed: int = 0,
+    require_connected: bool = True,
+) -> list[Graph]:
+    """A seeded Markov chain of churned snapshots (edge up/down).
+
+    Snapshot t + 1 perturbs snapshot t: every live edge drops independently
+    with probability ``churn_rate`` and as many fresh edges appear uniformly
+    among the absent pairs, so the edge count is kept while the wiring
+    drifts.  Snapshot 0 is ``graph`` itself; ``churn_rate = 0`` or
+    ``k_plans = 1`` is the static topology.  A disconnected draw is redrawn
+    (up to 100 times) unless ``require_connected`` is False.  Unweighted
+    undirected graphs only; the snapshots feed ``commplan.compile_schedule``.
+    """
+    if k_plans < 1:
+        raise ValueError("churn_sequence needs k_plans >= 1")
+    if not 0.0 <= churn_rate < 1.0:
+        raise ValueError(f"churn_rate must be in [0, 1), got {churn_rate}")
+    if graph.directed:
+        raise ValueError("churn_sequence supports undirected graphs only")
+    rng = np.random.default_rng(seed)
+    a = graph.adjacency.copy()
+    out = [graph]
+    for t in range(1, k_plans):
+        for _attempt in range(100):
+            b = a.copy()
+            iu, ju = np.nonzero(np.triu(b, k=1))
+            drop = rng.random(len(iu)) < churn_rate
+            b[iu[drop], ju[drop]] = 0.0
+            b[ju[drop], iu[drop]] = 0.0
+            cu, cv = np.nonzero(np.triu(b == 0, k=1))
+            n_add = min(int(drop.sum()), len(cu))
+            if n_add:
+                pick = rng.choice(len(cu), size=n_add, replace=False)
+                b[cu[pick], cv[pick]] = 1.0
+                b[cv[pick], cu[pick]] = 1.0
+            g = Graph(b.astype(np.float32), name=f"{graph.name}-churn{t}")
+            if not require_connected or g.is_connected():
+                break
+        else:
+            raise RuntimeError(
+                f"churn_sequence: no connected churned snapshot found after 100 attempts "
+                f"(n={graph.n}, churn_rate={churn_rate}); lower the rate or pass require_connected=False"
+            )
+        out.append(g)
+        a = b
+    return out

@@ -18,8 +18,16 @@ into the state before the first round.
 estimate of every node's gain (``repro_torch.gossip.make_gain_estimator``),
 ``init_fl_state`` with those gains and the trajectory, the gains staying on
 the device between the phases; ``run_warmup_sweep`` runs a (budget × seed)
-grid of them one after another over one upload.  Checkpointing, the chunk
-hook and the sharded / event / elastic executors are not ported yet.
+grid of them one after another over one upload.
+
+A ``round_fn`` over a ``PlanSchedule`` mixes with each round's active plan,
+and its wire channels count that plan's edges.  The rounds run in chunks
+of ``chunk_size`` (``TrajectoryConfig.chunks``); ``run_trajectory``'s
+``on_chunk(r0, r1, chunk_hist)`` hook gets each chunk's history (absolute
+round numbers, the wire channels included) after the device has finished
+the chunk, the one synchronisation it adds.  A chunked run computes exactly
+what an unchunked one does.  Checkpointing and the sharded / event /
+elastic executors are not ported yet (ROADMAP.md Queue 1 items 12, 17, 11).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.commplan import PlanSchedule
 from repro_torch.core.compress import seed_residual
 from repro_torch.device import resolve_device
 
@@ -59,10 +68,13 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class TrajectoryConfig:
     """``eval_every`` as ``train_loop``: metrics at rounds
-    ``r % eval_every == 0`` plus the final round; 0 disables recording."""
+    ``r % eval_every == 0`` plus the final round; 0 disables recording.
+    ``chunk_size`` is the rounds a chunk (0: the JAX executor's automatic
+    size, all of them up to 1024 rounds, else 256)."""
 
     n_rounds: int
     eval_every: int = 0
+    chunk_size: int = 0
 
     def eval_mask(self) -> np.ndarray:
         mask = np.zeros(self.n_rounds, dtype=bool)
@@ -70,6 +82,12 @@ class TrajectoryConfig:
             mask[:: self.eval_every] = True
             mask[-1] = True
         return mask
+
+    def chunks(self) -> list[tuple[int, int]]:
+        size = self.chunk_size
+        if size <= 0:
+            size = self.n_rounds if self.n_rounds <= 1024 else 256
+        return [(r0, min(r0 + size, self.n_rounds)) for r0 in range(0, self.n_rounds, size)]
 
 
 def stack_states(states: Sequence[DFLState]) -> DFLState:
@@ -134,20 +152,26 @@ def run_trajectory(
     eval_fn=None,
     eval_batch=None,
     track_sigmas: bool = False,
+    chunk_size: int = 0,
     b_local: int | None = None,
+    on_chunk: Callable[[int, int, dict], None] | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, dict[str, list]]:
     """Run ``n_rounds`` rounds of ``round_fn`` on the state's device (which
     must be ``device``, default cuda).  ``schedule`` is
     ``batch_index_schedule(...)`` output covering ``n_rounds × b_local``
     minibatches, or already round-shaped (n_rounds, n, b, bs).  The caller's
-    state is left untouched."""
+    state is left untouched.  ``on_chunk(r0, r1, chunk_hist)`` is called
+    after each chunk of ``chunk_size`` rounds, once the device has finished
+    it: ``chunk_hist`` holds that chunk's recorded rounds, as the history
+    does."""
     return _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
-                eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=True)
+                eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=True,
+                chunk_size=chunk_size, on_chunk=on_chunk)
 
 
 def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, eval_batch, track_sigmas, b_local,
-         device, wire: bool):
+         device, wire: bool, chunk_size: int = 0, on_chunk=None):
     """``run_trajectory``; ``wire`` adds the wire channels (the JAX
     package's sweep records none)."""
     dev = state_device(state, device)
@@ -168,23 +192,37 @@ def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, ev
     state = seed_residual(copy_state(state), comp)
     plan = getattr(round_fn, "plan", None)
     wire = wire and plan is not None and not plan.graph.directed
-    mask = TrajectoryConfig(n_rounds, eval_every).eval_mask()
+    row_bytes = _row_bytes(state, comp) if wire else 0
+    cfg = TrajectoryConfig(n_rounds, eval_every, chunk_size)
+    mask = cfg.eval_mask()
     hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
     messages = []
-    for r in range(n_rounds):
-        # the failure draws this round's mix makes, replayed by the wire count
-        before = _copy_generator(state.generator) if wire and mask[r] and plan.failures.active else None
-        state, metrics = round_fn(state, gather_batch(sched[r]))
-        if mask[r]:
-            record_round(hist, r, state, metrics, eval_fn, eval_d, track_sigmas)
-            if wire:
-                messages.append(plan.wire_messages(before))
-    out = finish_history(hist)
+    for r0, r1 in cfg.chunks():
+        at = len(hist["round"])
+        for r in range(r0, r1):
+            # the failure draws this round's mix makes, replayed by the wire count
+            before = _copy_generator(state.generator) if wire and mask[r] and plan.failures.active else None
+            rnd = state.round  # the round the mix picks its plan by (a resumed state starts past 0)
+            state, metrics = round_fn(state, gather_batch(sched[r]))
+            if mask[r]:
+                record_round(hist, r, state, metrics, eval_fn, eval_d, track_sigmas)
+                if wire:
+                    messages.append(plan.wire_messages(rnd, before) if isinstance(plan, PlanSchedule)
+                                    else plan.wire_messages(before))
+        if on_chunk is not None:
+            # the hook's clock reads the chunk's end: the one synchronisation it adds
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            chunk = _with_wire(finish_history({k: v[at:] for k, v in hist.items()}), messages[at:], wire, row_bytes)
+            on_chunk(r0, r1, chunk)
+    return state, _with_wire(finish_history(hist), messages, wire, row_bytes)
+
+
+def _with_wire(out: dict, messages: list, wire: bool, row_bytes: int) -> dict:
     if wire:
-        row_bytes = _row_bytes(state, comp)
         out["wire_messages"] = [int(m) for m in messages]
         out["wire_bytes"] = [m * row_bytes for m in out["wire_messages"]]
-    return state, out
+    return out
 
 
 def _row_bytes(state: DFLState, comp) -> int:
@@ -256,8 +294,7 @@ def run_warmup_trajectory(
     gossip rounds and returns the (n,) gains on the device, which
     ``init_fl_state(init seed, ..., gains=)`` draws every node's parameters
     with, and the trajectory runs as ``run_trajectory``'s, without wire
-    channels (as the JAX package's warmup).  Running those three by hand
-    with the same split gives the same result.  Returns ``(final_state,
+    channels (as the JAX package's warmup).  Running those three by hand with the same split gives the same result.  Returns ``(final_state,
     history, gains)``, the realised gains as numpy.
     """
     est_seed, init_seed = split_seed(seed, 2)

@@ -13,6 +13,7 @@ gradient is exactly that node's own gradient.
 
 With ``make_round_fn(compression=...)`` step 2 is a compressed gossip round
 (``core/compress.py``) whose per-node fp32 mirrors ride ``DFLState.residual``.
+Over a ``PlanSchedule`` step 2 mixes with the plan active at ``state.round``.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.core.commplan import CommPlan, FailureModel, compile_plan
-from repro_torch.core.compress import Compression
+from repro_torch.core.commplan import CommPlan, FailureModel, PlanSchedule, compile_plan
+from repro_torch.core.compress import Compression, compressed_mix, init_residuals
 from repro_torch.core.topology import Graph
 from repro_torch.device import resolve_device
 from repro_torch.flat import FlatLayout
@@ -144,7 +145,7 @@ def _local_steps(
 def make_round_fn(
     loss_fn: LossFn,
     optimizer: Optimizer,
-    plan: CommPlan | Graph,
+    plan: CommPlan | PlanSchedule | Graph,
     data_sizes: np.ndarray | None = None,
     link_p: float = 1.0,
     node_p: float = 1.0,
@@ -153,27 +154,34 @@ def make_round_fn(
 ):
     """Build ``round_fn(state, node_batches) -> (state, metrics)``.
 
-    ``plan`` is a compiled ``CommPlan``, which carries its own data sizes
-    and failure model, or a ``Graph``, compiled here with the "auto"
-    backend from ``data_sizes``/``link_p``/``node_p`` on ``device``.
-    ``node_batches`` is (x (n, b, bs, ...), y (n, b, bs)) on the state's
-    device.  The round consumes ``state``: its params buffer is updated in
-    place by the local steps.
+    ``plan`` is a compiled ``CommPlan``, a time-varying ``PlanSchedule``
+    (each round then mixes with the plan active at ``state.round``), or a
+    ``Graph``, compiled here with the "auto" backend from
+    ``data_sizes``/``link_p``/``node_p`` on ``device``.  On a compiled plan
+    or schedule, ``data_sizes`` / ``link_p`` / ``node_p`` override the
+    plan's own when given: it is recompiled (``with_options``) with only
+    those knobs replaced, so data sizes alone keep its failure model.  A
+    ``device`` other than the plan's raises.  ``node_batches`` is (x (n, b,
+    bs, ...), y (n, b, bs)) on the state's device.  The round consumes
+    ``state``: its params buffer is updated in place by the local steps.
 
     An active ``compression`` codec makes the aggregation the error-feedback
     delta form over the same operator; the mirrors ride ``state.residual``
     (zeros when the state has none: ``run_trajectory`` seeds them first).
     ``compression=None`` or codec ``"none"`` leaves the round unchanged.
-    ``round_fn.compression`` is the active codec or None.
+    ``round_fn.plan`` is the effective plan (overrides applied) and
+    ``round_fn.compression`` the active codec or None.
     """
+    failures = FailureModel(link_p=link_p, node_p=node_p)
     if isinstance(plan, Graph):
-        failures = FailureModel(link_p=link_p, node_p=node_p)
         plan = compile_plan(plan, backend="auto", data_sizes=data_sizes, failures=failures, device=device)
-    elif data_sizes is not None or link_p != 1.0 or node_p != 1.0 or device is not None:
-        raise ValueError(
-            "a compiled CommPlan carries its own data sizes, failure model and device; "
-            "pass them to compile_plan"
-        )
+    else:
+        want = None if device is None else resolve_device(device)
+        if want is not None and (want.type != plan.device.type or want.index not in (None, plan.device.index)):
+            raise ValueError(f"the plan lies on {plan.device}, the round was asked for {want}")
+        if failures.active or data_sizes is not None:
+            plan = plan.with_options(data_sizes=data_sizes, failures=failures if failures.active else None)
+    scheduled = isinstance(plan, PlanSchedule)
     comp = compression if compression is not None and compression.active else None
 
     def round_fn(state: DFLState, node_batches) -> tuple[DFLState, dict]:
@@ -186,9 +194,14 @@ def make_round_fn(
         generator = state.generator if plan.failures.active else None
         residual = state.residual
         if comp is not None:
-            params, residual = plan.mix(
-                params, generator, compression=comp, residual=residual, layout=state.layout
+            if residual is None:
+                residual = init_residuals(params)
+            params, residual = compressed_mix(
+                plan, params, residual, generator, compression=comp, layout=state.layout,
+                round_index=state.round if scheduled else None,
             )
+        elif scheduled:
+            params = plan.mix(params, state.round, generator)
         else:
             params = plan.mix(params, generator)
         new_state = dataclasses.replace(

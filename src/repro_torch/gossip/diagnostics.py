@@ -6,14 +6,15 @@ second-largest-magnitude eigenvalue of the send operator A': the rate is
 keyed to the spectral gap ``1 − |λ₂|`` (``core.mixing.spectral_gap``).
 These helpers turn an engine trace into per-node relative-error curves and
 a fitted per-round contraction rate, so an estimation budget (rounds) can
-be chosen per topology.
+be chosen per topology.  Over a ``PlanSchedule`` the trace follows the
+dynamic graph and the predicted rate is the round-0 graph's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.commplan import CommPlan
+from repro_torch.core.commplan import CommPlan, PlanSchedule
 from repro_torch.core.mixing import spectral_gap
 from repro_torch.core.topology import Graph
 
@@ -35,7 +36,9 @@ def relative_error_trace(trace, truth) -> np.ndarray:
     return np.abs(tr - t) / np.maximum(np.abs(t), 1e-300)
 
 
-def size_error_trace(plan: CommPlan | Graph, rounds: int, seed: int | None = None, *, leader: int = 0) -> np.ndarray:
+def size_error_trace(
+    plan: CommPlan | PlanSchedule | Graph, rounds: int, seed: int | None = None, *, leader: int = 0
+) -> np.ndarray:
     """(rounds, n) relative error of every node's size estimate against the
     round: the one-hot is the slowest-mixing payload, so its curve bounds
     the degree / moment payloads of the same rounds."""
@@ -64,7 +67,9 @@ def predicted_contraction_rate(graph: Graph) -> float:
     return 1.0 - spectral_gap(graph)
 
 
-def convergence_report(plan: CommPlan | Graph, rounds: int, seed: int | None = None, *, leader: int = 0) -> dict:
+def convergence_report(
+    plan: CommPlan | PlanSchedule | Graph, rounds: int, seed: int | None = None, *, leader: int = 0
+) -> dict:
     """Measured against predicted convergence of the size estimator:
     ``{rel_err: (rounds, n), max_rel_err: (rounds,), fitted_rate,
     predicted_rate, rounds_to_1pct}``, the last the first round every node

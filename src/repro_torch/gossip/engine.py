@@ -34,7 +34,10 @@ an integer ``seed`` and round r draws its failure masks
 round's draws depend on (seed, r) alone: phase 2 starts its counter at the
 phase-1 budget actually run, and a budget-b estimate replays the rounds of
 any run that shares its first rounds.  Being CPU draws copied to the
-plan's device, they are the same on every device.  ``_round_masks`` is the
+plan's device, they are the same on every device.  Over a ``PlanSchedule``
+round r also runs on the plan active at round r (``plan_index(round_offset
++ r)``), its masks drawn at the schedule's edge envelope: estimation runs
+on the dynamic graph the nodes see.  ``_round_masks`` is the
 one place the rounds take their masks from (the tests inject the JAX
 package's draws there).  The other draws split a seed with
 ``split_seed``: a gain estimator's seed into (gossip, walk, sketch) seeds,
@@ -50,7 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.commplan import CommPlan, FailureModel, compile_plan
+from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan, compile_schedule
 from repro_torch.core.topology import Graph
 
 from .walker import poll_degrees_device
@@ -77,7 +80,8 @@ _EPS = 1e-30  # guards 1/z before mass from the leader one-hot arrives
 # fp32 underflow: the budget never carried the leader's mass there
 _UNREACHED = 1e-20
 # the plans whose port is still to come (ROADMAP.md Queue 1)
-_UNPORTED_PLANS = {"PlanSchedule": "item 10", "ShardedCommPlan": "item 17"}
+_UNPORTED_PLANS = {"ShardedCommPlan": "item 17"}
+Plan = CommPlan | PlanSchedule
 
 
 def split_seed(seed: int, n: int) -> list[int]:
@@ -91,19 +95,26 @@ def round_generator(seed: int, r: int) -> torch.Generator:
 
 
 def as_plan(
-    graph_or_plan: Graph | CommPlan, backend: str = "auto", device: str | torch.device | None = None
-) -> CommPlan:
+    graph_or_plan: Graph | Plan, backend: str = "auto", device: str | torch.device | None = None
+) -> Plan:
     """Estimation plans are unit-data-size: Eq. 3 weights, not |D_j|-weighted.
 
-    A ``CommPlan`` without data sizes is used as it is; one with data sizes
-    is recompiled without them (not ``with_options(data_sizes=None)``: there
-    None means "keep").  A ``Graph`` is compiled on ``device`` (default cuda).
+    A ``CommPlan`` or ``PlanSchedule`` without data sizes is used as it is;
+    one with data sizes is recompiled without them (not
+    ``with_options(data_sizes=None)``: there None means "keep").  A
+    ``Graph`` is compiled on ``device`` (default cuda).
     """
     name = type(graph_or_plan).__name__
     if name in _UNPORTED_PLANS:
         raise NotImplementedError(
             f"gossip over a {name} is not ported yet; see ROADMAP.md Queue 1 {_UNPORTED_PLANS[name]}"
         )
+    if isinstance(graph_or_plan, PlanSchedule):
+        sched = graph_or_plan
+        if sched.data_sizes is None:
+            return sched
+        return compile_schedule([p.graph for p in sched.plans], backend=sched.backend, failures=sched.failures,
+                                round_map=sched.round_map, device=sched.device)
     if isinstance(graph_or_plan, CommPlan):
         if graph_or_plan.data_sizes is None:
             return graph_or_plan
@@ -114,9 +125,9 @@ def as_plan(
     return compile_plan(graph_or_plan, backend=backend, device=device)
 
 
-def _round_masks(plan: CommPlan, seed: int | None, r: int):
+def _round_masks(plan: Plan, seed: int | None, r: int):
     """Round r's (node_active, edge_keep) failure draws, or (None, None)
-    when the plan draws none."""
+    when the plan draws none (a schedule's at its edge envelope)."""
     if not plan.failures.active:
         return None, None
     if seed is None:
@@ -125,16 +136,17 @@ def _round_masks(plan: CommPlan, seed: int | None, r: int):
     return node_act, edge_keep
 
 
-def _rounds(plan: CommPlan, op: str, x: torch.Tensor, rounds: int, seed, round_offset: int, trace: bool):
+def _rounds(plan: Plan, op: str, x: torch.Tensor, rounds: int, seed, round_offset: int, trace: bool):
     """``rounds`` × ``plan.<op>`` (spread or spread_min), round r of the
-    global counter at ``round_offset + r`` taking ``_round_masks``'s draws."""
-    # the draws come in as masks, so the rounds run on the failure-free
-    # rendering of the same plan (its tensors shared, nothing recompiled)
-    clean = dataclasses.replace(plan, failures=FailureModel())
-    fn = getattr(clean, op)
+    global counter at ``round_offset + r`` taking ``_round_masks``'s draws
+    (over a schedule, on the plan active at that round)."""
+    scheduled = isinstance(plan, PlanSchedule)
     states = []
     for r in range(round_offset, round_offset + rounds):
         active, edge_live = _round_masks(plan, seed, r)
+        # the draws come in as masks, so the round runs on the failure-free
+        # twin of the plan (its tensors shared, made once, its Mᵀ kept)
+        fn = getattr((plan.select(r) if scheduled else plan)._clean, op)
         x = fn(x, active=active, edge_live=edge_live)
         if trace:
             states.append(x)
@@ -143,12 +155,12 @@ def _rounds(plan: CommPlan, op: str, x: torch.Tensor, rounds: int, seed, round_o
     return x, (torch.stack(states) if states else x.new_zeros((0, *x.shape)))
 
 
-def _payload(plan: CommPlan, values) -> torch.Tensor:
+def _payload(plan: Plan, values) -> torch.Tensor:
     return torch.as_tensor(values, dtype=torch.float32, device=plan.device)
 
 
 def spread_rounds(
-    plan: CommPlan | Graph, values, rounds: int, seed: int | None = None, *, round_offset: int = 0,
+    plan: Plan | Graph, values, rounds: int, seed: int | None = None, *, round_offset: int = 0,
     trace: bool = False,
 ):
     """``rounds`` applications of the send operator to an (n,) / (n, k)
@@ -158,7 +170,7 @@ def spread_rounds(
 
 
 def push_sum(
-    plan: CommPlan | Graph, values, rounds: int, seed: int | None = None, *, round_offset: int = 0,
+    plan: Plan | Graph, values, rounds: int, seed: int | None = None, *, round_offset: int = 0,
     trace: bool = False,
 ):
     """Kempe push-sum: (s, w) spread together as one (n, k + 1) payload,
@@ -180,14 +192,14 @@ def push_sum(
     return ratio, (tr_ratio[..., 0] if squeeze else tr_ratio)
 
 
-def _one_hot(plan: CommPlan, leader: int) -> torch.Tensor:
+def _one_hot(plan: Plan, leader: int) -> torch.Tensor:
     x = torch.zeros(plan.n, dtype=torch.float32, device=plan.device)
     x[leader] = 1.0
     return x
 
 
 def estimate_size(
-    plan: CommPlan | Graph, rounds: int, seed: int | None = None, *, leader: int = 0, round_offset: int = 0
+    plan: Plan | Graph, rounds: int, seed: int | None = None, *, leader: int = 0, round_offset: int = 0
 ) -> torch.Tensor:
     """Every node's n̂ after ``rounds`` of push-sum of a leader one-hot."""
     plan = as_plan(plan)
@@ -201,7 +213,7 @@ def _draw_sketches(seed: int, n: int, m: int, device) -> torch.Tensor:
     return torch.empty(n, m, dtype=torch.float32).exponential_(generator=g).to(device)
 
 
-def _sketch_n_hat(plan: CommPlan, sketches: torch.Tensor, rounds: int, seed, round_offset: int = 0):
+def _sketch_n_hat(plan: Plan, sketches: torch.Tensor, rounds: int, seed, round_offset: int = 0):
     """Propagate the (n, m) sketches by min-exchange and invert the summed
     minima: (n̂, mins)."""
     mins = _rounds(plan, "spread_min", sketches, rounds, seed, round_offset, False)
@@ -210,7 +222,7 @@ def _sketch_n_hat(plan: CommPlan, sketches: torch.Tensor, rounds: int, seed, rou
 
 
 def estimate_size_leaderless(
-    plan: CommPlan | Graph,
+    plan: Plan | Graph,
     rounds: int,
     seed: int,
     *,
@@ -234,7 +246,7 @@ def estimate_size_leaderless(
 
 
 def estimate_mean_degree(
-    plan: CommPlan | Graph, rounds: int, seed: int | None = None, *, round_offset: int = 0
+    plan: Plan | Graph, rounds: int, seed: int | None = None, *, round_offset: int = 0
 ) -> torch.Tensor:
     plan = as_plan(plan)
     return push_sum(plan, plan.graph.degrees.astype(np.float32), rounds, seed, round_offset=round_offset)
@@ -252,7 +264,7 @@ class GossipEstimates:
     reached: torch.Tensor
 
 
-def _centrality_moments(plan: CommPlan, pi_rounds: int, ps_rounds: int, seed, leader: int, extra=None):
+def _centrality_moments(plan: Plan, pi_rounds: int, ps_rounds: int, seed, leader: int, extra=None):
     """The two phases of the ‖v_steady‖ estimators.  Phase 1: x ← A'x from
     x₀ = 1 (A' column-stochastic: Σx = n stays, x → n·v).  Phase 2, its
     round counter starting at ``pi_rounds``: push-sum of [x², 1_leader,
@@ -266,7 +278,7 @@ def _centrality_moments(plan: CommPlan, pi_rounds: int, ps_rounds: int, seed, le
 
 
 def power_iteration_norm(
-    plan: CommPlan | Graph, pi_rounds: int, ps_rounds: int, seed: int | None = None, *, leader: int = 0
+    plan: Plan | Graph, pi_rounds: int, ps_rounds: int, seed: int | None = None, *, leader: int = 0
 ) -> dict[str, torch.Tensor]:
     """Gossip estimate of ``‖v_steady‖₂`` at every node: ``‖v̂‖ = √(m2·z)``,
     ``n̂ = 1/z``; ``reached`` is False where the budget never delivered the
@@ -283,7 +295,7 @@ def power_iteration_norm(
 
 
 def estimate_all(
-    plan: CommPlan | Graph, *, pi_rounds: int, ps_rounds: int, seed: int | None = None, leader: int = 0
+    plan: Plan | Graph, *, pi_rounds: int, ps_rounds: int, seed: int | None = None, leader: int = 0
 ) -> GossipEstimates:
     """The full §4.4 estimate set: the centrality moment, the leader one-hot
     and the local degrees share one push-sum phase and its draws."""
@@ -325,7 +337,7 @@ def gain_from_degree_sample(n_hat, degree_sample) -> torch.Tensor:
 
 
 def make_gain_estimator(
-    plan: CommPlan | Graph,
+    plan: Plan | Graph,
     *,
     pi_rounds: int,
     ps_rounds: int,

@@ -16,6 +16,13 @@ a training round's per-edge / per-node Bernoullis (``CommPlan.round_masks``);
 a transition over a failed link, or to or from an inactive node, keeps the
 walker in place for that step.
 
+``plan`` may be a ``PlanSchedule`` (K > 1): step r then moves over the CSR
+of the plan active at round r (a row of ``PlanSchedule.stacked_csr``), its
+failure masks drawn at the schedule's edge envelope, and the polled degree
+is the final node's degree in the plan active at the last step, the degree
+a node observes when the poll ends.  The start nodes are checked on the
+schedule's graph (as the JAX package's), on ``graph`` otherwise.
+
 Draws: one CPU generator seeded ``seed``, consumed in order: per step the
 (s, n_walks) uniforms (``torch.rand``), then that step's failure masks; then
 the resample.  They are copied to the plan's device, so every device walks
@@ -27,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.commplan import CommPlan
+from repro_torch.core.commplan import CommPlan, PlanSchedule
 from repro_torch.core.topology import Graph
 from repro_torch.device import resolve_device
 
@@ -38,7 +45,7 @@ def _uniforms(generator: torch.Generator, shape) -> torch.Tensor:
     return torch.rand(shape, generator=generator)
 
 
-def _step_masks(plan: CommPlan, generator: torch.Generator):
+def _step_masks(plan: CommPlan | PlanSchedule, generator: torch.Generator):
     return plan.round_masks(generator)
 
 
@@ -61,7 +68,7 @@ def poll_degrees_device(
     n_walks: int,
     seed: int,
     correct_bias: bool = True,
-    plan: CommPlan | None = None,
+    plan: CommPlan | PlanSchedule | None = None,
     device: str | torch.device | None = None,
 ) -> torch.Tensor:
     """``n_walks`` walks of ``walk_length`` steps from each start node.
@@ -71,7 +78,8 @@ def poll_degrees_device(
     plan's device (``device`` without a plan, default cuda).
     """
     dev = plan.device if plan is not None else resolve_device(device)
-    indptr_np, indices_np, uid_np = graph.csr()
+    scheduled = isinstance(plan, PlanSchedule) and plan.k > 1
+    indptr_np, indices_np, uid_np = (plan.graph if scheduled else graph).csr()
     if len(indices_np) == 0:
         raise ValueError("poll_degrees_device: graph has no edges — nothing to poll")
     deg_np = np.diff(indptr_np)
@@ -84,13 +92,21 @@ def poll_degrees_device(
             "correction would divide by zero"
         )
     i64 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)  # noqa: E731
-    indptr, indices, uid, deg = i64(indptr_np[:-1]), i64(indices_np), i64(uid_np), i64(deg_np)
-    degrees = torch.as_tensor(graph.degrees, dtype=torch.float32, device=dev)
+    names = ("indptr", "indices", "uid", "deg", "degrees")
+    if scheduled:
+        # step r walks the CSR of the plan active at round r
+        csr = plan.stacked_csr()
+        tables = lambda r: tuple(csr[k][plan.plan_index(r)] for k in names)  # noqa: E731
+    else:
+        static = (i64(indptr_np), i64(indices_np), i64(uid_np), i64(np.diff(indptr_np)),
+                  torch.as_tensor(graph.degrees, dtype=torch.float32, device=dev))
+        tables = lambda r: static  # noqa: E731
     with_failures = plan is not None and plan.failures.active
     gen = torch.Generator().manual_seed(seed)
 
     v = i64(starts_np)[:, None].expand(len(starts_np), n_walks).contiguous()
-    for _ in range(walk_length):
+    for r in range(walk_length):
+        indptr, indices, uid, deg, _ = tables(r)
         u = _uniforms(gen, v.shape).to(dev)
         d = deg[v]
         idx = torch.where(d > 0, indptr[v] + (u * d).to(torch.int64), 0)
@@ -100,7 +116,7 @@ def poll_degrees_device(
             edge_keep, active = (t.to(dev) for t in _step_masks(plan, gen))
             ok = ok & edge_keep[uid[idx]] & active[v] & active[nxt]
         v = torch.where(ok, nxt, v)
-    ks = degrees[v]
+    ks = tables(walk_length - 1)[4][v]
     if correct_bias:
         ks = torch.gather(ks, 1, _resample(gen, ks).to(dev))
     return ks[0] if np.ndim(start) == 0 else ks

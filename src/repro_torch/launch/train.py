@@ -15,15 +15,29 @@ Examples:
     # uncoordinated init (§4.4): per-node gains from gossip over the training
     # links (and their --link-p / --node-p failures), then init and training
     python -m repro_torch.launch.train --model mlp --topology kregular --uncoordinated-init --estimate-rounds 24
+    # time-varying topology: 8 churned snapshots of a kreg4-256, one a round;
+    # estimation and training both follow the schedule
+    python -m repro_torch.launch.train --model mlp --topology kregular --nodes 256 \
+        --topology-schedule churn --plans 8 --churn-rate 0.2 --uncoordinated-init --leaderless
+    # stream the recorded rounds every 10 rounds instead of after the run
+    python -m repro_torch.launch.train --model mlp --rounds 100 --log-every 10
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
 beyond; an int8 / fp8 round is one pass of the quantised-mix kernel).
 With ``--uncoordinated-init`` every estimation round is one launch of the
 same mixing kernels over Mᵀ (``repro_torch.gossip``, ``run_warmup_trajectory``).
+``--topology-schedule cyclic|churn`` compiles a ``PlanSchedule`` of
+``--plans`` graphs (independently drawn ones of the family, or a Markov
+chain of ``--churn-rate`` rewirings of the base graph), each active
+``--plan-period`` rounds; every round runs the active plan's kernels, and
+``--link-p`` / ``--node-p`` ride in through ``make_round_fn``'s override.
+``--chunk-rounds`` sets ``run_trajectory``'s chunk and ``--log-every`` prints the
+recorded rounds at chunk boundaries (the warmup path runs unchunked and
+prints after the run).
 Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
 The token models and the JAX launcher's other modes (async, elastic,
-schedules, checkpointing, telemetry) are not ported yet.
+checkpointing, telemetry) are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +48,7 @@ import os
 import numpy as np
 
 from repro_torch.core import topology as T
-from repro_torch.core.commplan import FailureModel, compile_plan
+from repro_torch.core.commplan import FailureModel, compile_plan, compile_schedule, cyclic_map
 from repro_torch.core.compress import Compression
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
 from repro_torch.data import (
@@ -104,6 +118,17 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
                    "topk/qtopk, which need the damping on sparse graphs)")
     p.add_argument("--link-p", type=float, default=1.0)
     p.add_argument("--node-p", type=float, default=1.0)
+    p.add_argument(
+        "--topology-schedule", choices=["static", "cyclic", "churn"], default="static",
+        help="time-varying topology (PlanSchedule): 'cyclic' cycles --plans independently drawn graphs "
+        "of the family, 'churn' walks a seeded Markov chain of edge up/down rewirings of the base "
+        "graph (--churn-rate); each round mixes with the plan active at its index",
+    )
+    p.add_argument("--plans", type=int, default=4, help="K: plans in the schedule")
+    p.add_argument("--plan-period", type=int, default=1,
+                   help="rounds each plan stays active before the schedule advances")
+    p.add_argument("--churn-rate", type=float, default=0.1,
+                   help="per-snapshot edge resampling probability (churn schedule)")
     p.add_argument("--no-gain-correction", action="store_true")
     p.add_argument(
         "--uncoordinated-init", action="store_true",
@@ -117,6 +142,10 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     p.add_argument("--leaderless", action="store_true",
                    help="size estimation by exponential-random-minimum sketches instead of the "
                    "leader one-hot: no distinguished node")
+    p.add_argument("--chunk-rounds", type=int, default=0, help="executor chunk size in rounds (0 = auto)")
+    p.add_argument("--log-every", type=int, default=0,
+                   help="print the recorded metrics every N rounds at chunk boundaries instead of after the "
+                   "run (sets the chunk size unless --chunk-rounds is given)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--history-out", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -145,6 +174,19 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
 
     n = args.nodes
     graph = build_graph(args.topology, n, args.seed)
+    sched_graphs = None
+    mix_plan = graph
+    if args.topology_schedule != "static":
+        if args.topology_schedule == "churn":
+            sched_graphs = T.churn_sequence(graph, args.plans, args.churn_rate, seed=args.seed + 1)
+        else:  # cyclic: independently drawn graphs of the same family
+            sched_graphs = [graph] + [build_graph(args.topology, n, args.seed + 101 * t) for t in range(1, args.plans)]
+        # failures ride in through make_round_fn's link_p / node_p override
+        mix_plan = compile_schedule(sched_graphs, round_map=cyclic_map(args.plan_period), device=dev)
+        print(
+            f"schedule: {args.topology_schedule} K={mix_plan.k} period={args.plan_period}"
+            + (f" churn_rate={args.churn_rate}" if args.topology_schedule == "churn" else "")
+        )
     gain = 1.0 if args.no_gain_correction else gain_from_graph(graph)
     print(f"graph={graph.name} ‖v_steady‖⁻¹ gain={gain:.2f}" + (" (DISABLED)" if args.no_gain_correction else ""))
     opt = sgd(1e-3, 0.5) if args.optimizer == "sgd" else adamw(1e-3)
@@ -171,9 +213,21 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         return classifier_loss(forward(params, batch[0]), batch[1])
 
     round_fn = make_round_fn(
-        loss_fn, opt, graph, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
+        loss_fn, opt, mix_plan, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
     )
     print(f"mixing: {round_fn.plan.backend} backend on {dev}")
+    if args.log_every > 0 and not args.chunk_rounds:
+        args.chunk_rounds = args.log_every
+
+    def stream_rows(r0, r1, h):
+        # at a chunk boundary, with the chunk's recorded rounds
+        for i, r in enumerate(h["round"]):
+            line = f"round {r:4d} train {h['train_loss'][i]:.4f} test {h['test_loss'][i]:.4f}"
+            if h.get("wire_bytes"):
+                line += f" wire {h['wire_bytes'][i]}B"
+            print(line, flush=True)
+
+    stream_hook = stream_rows if args.log_every > 0 else None
 
     def init_one(g, gains):
         return init_model(InitConfig("he_normal", gains), g)
@@ -187,8 +241,13 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     )
     if args.uncoordinated_init:
         # estimation rides the training links and failure model, on a
-        # unit-weight plan (the Eq. 3 send operator)
-        est_plan = compile_plan(graph, failures=FailureModel(link_p=args.link_p, node_p=args.node_p), device=dev)
+        # unit-weight plan (the Eq. 3 send operator); over a topology
+        # schedule the gossip itself follows the dynamic graph
+        fm = FailureModel(link_p=args.link_p, node_p=args.node_p)
+        if sched_graphs is not None:
+            est_plan = compile_schedule(sched_graphs, failures=fm, round_map=cyclic_map(args.plan_period), device=dev)
+        else:
+            est_plan = compile_plan(graph, failures=fm, device=dev)
         estimate_fn = make_gain_estimator(
             est_plan, pi_rounds=args.estimate_rounds, ps_rounds=args.estimate_rounds,
             mode=args.estimate_mode, leaderless=args.leaderless,
@@ -206,9 +265,12 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         print(line)
     else:
         state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=dev)
-        state, hist = run_trajectory(state, round_fn, xs, ys, sched, **common)
-    for i, r in enumerate(hist["round"]):
-        print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f}", flush=True)
+        state, hist = run_trajectory(state, round_fn, xs, ys, sched, chunk_size=args.chunk_rounds,
+                                     on_chunk=stream_hook, **common)
+    if stream_hook is None or args.uncoordinated_init:
+        # the warmup path has no chunk hook: it prints after the run
+        for i, r in enumerate(hist["round"]):
+            print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f}", flush=True)
     if args.history_out:
         os.makedirs(os.path.dirname(args.history_out) or ".", exist_ok=True)
         with open(args.history_out, "w") as f:

@@ -43,7 +43,10 @@ from repro_torch.benchmarks import fig7_constant_data as pfig7  # noqa: E402
 from repro_torch.convert import state_from_numpy  # noqa: E402
 from repro_torch.core import diffusion as PDiff  # noqa: E402
 from repro_torch.core import topology as PT  # noqa: E402
+from repro_torch.core import commplan as commplan_mod  # noqa: E402
 from repro_torch.core.commplan import FailureModel, compile_plan  # noqa: E402
+from repro.core.commplan import FailureModel as jax_failure_model  # noqa: E402
+from repro.core.commplan import compile_plan as jax_compile_plan  # noqa: E402
 from repro_torch.examples import quickstart, topology_study  # noqa: E402
 
 HIDDEN = (128, 64)
@@ -114,7 +117,22 @@ def test_run_dfl_mlp_matches_jax(injected, executor):
     assert h_t["round"] == [0, 1, 2] and spr > 0
 
 
-def test_run_dfl_mlp_on_a_graph_and_a_plan(injected):
+def _inject_draws(monkeypatch, masks):
+    """The port's failure draws become ``masks[i]`` (edge_keep, node_active),
+    i the order in which the generator states are first seen: a round's
+    draw and its wire count's replay (a copy of the generator taken before
+    the round) get the same masks."""
+    seen = {}
+
+    def fake(failures, width, n, generator):
+        i = seen.setdefault(bytes(generator.get_state().numpy()), len(seen))
+        torch.rand(1, generator=generator)  # advance the stream: the next round is another draw
+        return masks[i]
+
+    monkeypatch.setattr(commplan_mod, "_draw_failure_masks", fake)
+
+
+def test_run_dfl_mlp_on_a_graph_and_a_plan(monkeypatch, injected):
     g = PT.ring(4)
     injected.append(1.0)
     h_j, _ = jcommon.run_dfl_mlp(graph=JT.ring(4), gain=1.0, **SMALL)
@@ -124,8 +142,23 @@ def test_run_dfl_mlp_on_a_graph_and_a_plan(injected):
     h_p, _ = pcommon.run_dfl_mlp(graph=g, plan=compile_plan(g, "sparse", device="cpu"), gain=1.0, device="cpu",
                                  **SMALL)
     _same_history(h_p, h_j)
-    with pytest.raises(ValueError, match="compile_plan"):
-        pcommon.run_dfl_mlp(plan=compile_plan(g, device="cpu"), link_p=0.5, device="cpu", **SMALL)
+    # link_p on a compiled plan overrides its failure model (make_round_fn
+    # recompiles it, as the JAX package's does): held on the JAX run's own
+    # draws, replayed from its key stream and injected into the port's rounds
+    gj = JT.ring(4)
+    fm = jax_failure_model(0.5)
+    masks, rng = [], jax.random.PRNGKey(0)
+    for _ in range(SMALL["rounds"]):
+        rng, k_mix = jax.random.split(rng)
+        ek, na = jax_compile_plan(gj, failures=fm).round_masks(k_mix)
+        masks.append((torch.as_tensor(np.array(ek)), torch.as_tensor(np.array(na))))
+    injected.append(1.0)
+    h_j, _ = jcommon.run_dfl_mlp(graph=gj, plan=jax_compile_plan(gj), link_p=0.5, gain=1.0, **SMALL)
+    _inject_draws(monkeypatch, masks)
+    h_f, _ = pcommon.run_dfl_mlp(graph=g, plan=compile_plan(g, device="cpu"), link_p=0.5, gain=1.0, device="cpu",
+                                 **SMALL)
+    _same_history(h_f, h_j)
+    assert h_f["wire_messages"] == h_j["wire_messages"] and min(h_f["wire_messages"]) < 8
 
 
 def test_run_dfl_mlp_sweep_matches_jax(injected):
@@ -152,8 +185,17 @@ def test_isolated_node_and_refusals(injected):
     assert "wire_messages" not in h_t
     with pytest.raises(ValueError, match="n_nodes must be 1"):
         pcommon.run_dfl_mlp(n_nodes=2, aggregate=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcommon.run_dfl_mlp(n_nodes=2, timing=True, device="cpu")
+    # timing=True (ported): the chunked run's history is the JAX package's,
+    # and the split has the JAX driver's three keys
+    kw = {**SMALL, "rounds": 8}
+    injected.append(1.0)
+    h_j, t_j = jcommon.run_dfl_mlp(gain=1.0, timing=True, **kw)
+    h_t, t_t = pcommon.run_dfl_mlp(gain=1.0, timing=True, device="cpu", **kw)
+    _same_history(h_t, h_j)
+    assert sorted(t_t) == sorted(t_j) == ["compile_seconds", "sec_per_round", "us_per_round_steady"]
+    assert t_t["us_per_round_steady"] > 0 and t_t["compile_seconds"] >= 0
+    with pytest.raises(ValueError, match="executor"):
+        pcommon.run_dfl_mlp(n_nodes=2, timing=True, executor=False, device="cpu")
 
 
 def test_wire_messages_replay_the_failure_draws(injected):

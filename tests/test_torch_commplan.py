@@ -1,8 +1,13 @@
 """The port's CommPlan against the JAX package's: dense and sparse backends,
 clean and masked rounds, on the same numpy inputs (fp32 leaves to 1e-5,
-bf16 leaves to one bf16 rounding, 1e-2).  The port's own Bernoulli draws
-are held statistically: keep rates within a binomial bound of link_p /
-node_p, both directions of an edge agree, rows stay stochastic."""
+bf16 leaves to one bf16 rounding, 1e-2).  The ppermute (edge-coloured)
+backend against the JAX package's and the port's dense backend at the same
+bounds: mix, masked and weighted mix, spread, spread_min and int8 / fp8 /
+topk rounds (the JAX rounds jitted, as the port's codec follows the jitted
+arithmetic; the new mirrors bitwise).  The port's own Bernoulli draws are
+held statistically: keep rates within a binomial bound of link_p / node_p,
+both directions of an edge agree, rows stay stochastic."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,8 +168,13 @@ def test_auto_backend_tile_size_and_unported_backends():
     assert PC.compile_plan(PT.ring(65), device="cpu").backend == "sparse"
     assert [PC.block_size(n) for n in (2, 16, 40, 100, 255, 256, 1024, 5000)] == [4, 4, 8, 16, 32, 32, 32, 32]
     assert PC.compile_plan(PT.ring(1024), device="cpu").bsr.block_n == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PC.compile_plan(PT.ring(8), "ppermute", device="cpu")
+    # the ppermute backend (ported): a ring's colour schedule mixes as the
+    # JAX package's and as the dense plan; "hyb" stays unported
+    gj, pj, pp = _plans("ring", "ppermute", n=8)
+    p = _params_np(8, 3)
+    _assert_tree_close(pp.mix(_to_torch(p)), pj.mix(_to_jax(p)))
+    _assert_tree_close(pp.mix(_to_torch(p)), JC.compile_plan(gj, "dense").mix(_to_jax(p)))
+    assert pp.n_colors == pj.n_colors and np.array_equal(pp.partners, pj.partners)
     with pytest.raises(ValueError):
         PC.compile_plan(PT.ring(8), "hyb", device="cpu")
 
@@ -197,3 +207,98 @@ def test_decavg_plain_renderings_match_jax():
         np.asarray(JD.failure_receive_matrix(jnp.asarray(a), jnp.asarray(sizes))),
         atol=1e-6,
     )
+
+
+# ------------------------------------------------ the ppermute backend
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_ppermute_matches_jax_and_dense(family):
+    """Clean, masked and weighted mixes, spread and spread_min, against the
+    JAX package's colour plan and the port's dense plan."""
+    sizes = np.linspace(1.0, 3.0, 16)
+    for data_sizes in (None, sizes):
+        g, pj, pp = _plans(family, "ppermute", data_sizes=data_sizes)
+        dense = PC.compile_plan(FAMILIES[family](PT, 16), "dense", data_sizes=data_sizes, device="cpu")
+        assert np.array_equal(pp.partners, pj.partners) and pp.color_perms() == pj.color_perms()
+        np.testing.assert_array_equal(pp.color_edge_uid.numpy(), np.asarray(pj.color_edge_uid))
+        rng = np.random.default_rng(hash(family) % 1000)
+        active = rng.random(16) < 0.75
+        edge_live = rng.random(pj.n_edges) < 0.6
+        p = _params_np(16, 2)
+        x = rng.random((16, 3)).astype(np.float32)
+        for kw_j, kw_t in (({}, {}), (dict(active=jnp.asarray(active), edge_live=jnp.asarray(edge_live)),
+                                      dict(active=torch.as_tensor(active), edge_live=torch.as_tensor(edge_live)))):
+            got = pp.mix(_to_torch(p), **kw_t)
+            _assert_tree_close(got, pj.mix(_to_jax(p), **kw_j))
+            via_dense = dense.mix(_to_torch(p), **kw_t)
+            _assert_tree_close(got, {"w": via_dense["w"].numpy(), "b": {"v": via_dense["b"]["v"].numpy()},
+                                     "h": via_dense["h"].float().numpy()})
+            np.testing.assert_allclose(pp.spread(torch.as_tensor(x), **kw_t).numpy(),
+                                       np.asarray(pj.spread(jnp.asarray(x), **kw_j)), atol=1e-6, rtol=1e-5)
+            np.testing.assert_allclose(pp.spread(torch.as_tensor(x), **kw_t).numpy(),
+                                       dense.spread(torch.as_tensor(x), **kw_t).numpy(), atol=1e-6, rtol=1e-5)
+            np.testing.assert_array_equal(pp.spread_min(torch.as_tensor(x), **kw_t).numpy(),
+                                          np.asarray(pj.spread_min(jnp.asarray(x), **kw_j)))
+            np.testing.assert_array_equal(pp.spread_min(torch.as_tensor(x), **kw_t).numpy(),
+                                          dense.spread_min(torch.as_tensor(x), **kw_t).numpy())
+    with pytest.raises(ValueError):
+        pp.round_operator()
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8", "topk"])
+def test_ppermute_compressed_rounds_match_jax(codec):
+    """A compressed round over a colour plan, masked, mix and send form,
+    against the JAX package's jitted round and the port's dense plan's."""
+    from repro.core import compress as JCC
+    from repro_torch.core.compress import Compression
+
+    g, pj, pp = _plans("heavy_tail", "ppermute")
+    dense = PC.compile_plan(FAMILIES["heavy_tail"](PT, 16), "dense", device="cpu")
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((16, 200)).astype(np.float32)
+    h = 0.3 * rng.standard_normal((16, 200)).astype(np.float32)
+    active = rng.random(16) < 0.8
+    edge_live = rng.random(pj.n_edges) < 0.7
+    comp_j, comp_t = JCC.Compression(codec, chunk=64), Compression(codec, chunk=64)
+    kw_t = dict(active=torch.as_tensor(active), edge_live=torch.as_tensor(edge_live))
+    want = jax.jit(lambda a, b: JCC.compressed_mix(pj, a, b, compression=comp_j, active=jnp.asarray(active),
+                                                   edge_live=jnp.asarray(edge_live)))(jnp.asarray(x), jnp.asarray(h))
+    got = pp.mix(torch.as_tensor(x), compression=comp_t, residual=torch.as_tensor(h), **kw_t)
+    via_dense = dense.mix(torch.as_tensor(x), compression=comp_t, residual=torch.as_tensor(h), **kw_t)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[1].numpy(), via_dense[1].numpy())
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), via_dense[0].numpy(), atol=1e-5, rtol=1e-5)
+    v, hv = x[:, :3], h[:, :3]
+    want = jax.jit(lambda a, b: JCC.compressed_spread(pj, a, b, compression=comp_j, active=jnp.asarray(active),
+                                                      edge_live=jnp.asarray(edge_live)))(jnp.asarray(v), jnp.asarray(hv))
+    got = pp.spread(torch.as_tensor(v), compression=comp_t, residual=torch.as_tensor(hv), **kw_t)
+    via_dense = dense.spread(torch.as_tensor(v), compression=comp_t, residual=torch.as_tensor(hv), **kw_t)
+    np.testing.assert_array_equal(got[1].numpy(), via_dense[1].numpy())
+    # the JAX program's own h' moves by a rounding of q·scale with the masks
+    # it is given (XLA contracts h + q·scale into an FMA in one program and
+    # not in another; the port's dense plan differs from it the same way)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0,
+                               atol=2.0**-22 * float(np.abs(np.asarray(want[1])).max()))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), via_dense[0].numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[0].numpy().sum(0), v.sum(0), rtol=1e-5)  # Mᵀ keeps the mass
+
+
+def test_ppermute_draws_and_wire_counts_are_the_dense_plans():
+    """The same generator state gives the colour plan and the dense plan the
+    same draw: the same mixed ensemble and the same wire count."""
+    g = PT.barabasi_albert(24, 3, seed=0)
+    fm = PC.FailureModel(0.6, 0.8)
+    colour = PC.compile_plan(g, "ppermute", failures=fm, device="cpu")
+    dense = PC.compile_plan(g, "dense", failures=fm, device="cpu")
+    x = torch.randn(24, 30)
+    for seed in range(4):
+        torch.testing.assert_close(colour.mix(x, torch.Generator().manual_seed(seed)),
+                                   dense.mix(x, torch.Generator().manual_seed(seed)), atol=1e-6, rtol=1e-6)
+        assert int(colour.wire_messages(torch.Generator().manual_seed(seed))) == \
+            int(dense.wire_messages(torch.Generator().manual_seed(seed)))
+    assert 0 < int(colour.wire_messages(torch.Generator().manual_seed(0))) < 2 * g.n_edges
+    assert PC.compile_plan(g, "ppermute", device="cpu").wire_messages() == 2 * g.n_edges
+    with pytest.raises(ValueError, match="undirected"):
+        PC.compile_plan(PT.from_adjacency(np.roll(np.eye(5, dtype=np.float32), 1, 1), directed=True), "ppermute",
+                        device="cpu")

@@ -526,8 +526,24 @@ def test_as_plan_recompiles_without_data_sizes():
     assert PG.as_plan(plan) is plan
     assert PG.as_plan(g, device="cpu").backend == "dense"
 
-    class PlanSchedule:  # what a time-varying plan of item 10 will be called
+    # a PlanSchedule (ported): recompiled without data sizes, as the JAX
+    # package's as_plan does, its failures and round map kept
+    graphs = PT.churn_sequence(g, 3, 0.3, seed=1)
+    sched = PC.compile_schedule(graphs, "sparse", data_sizes=np.linspace(1, 3, 12), failures=PC.FailureModel(0.7),
+                                round_map=PC.cyclic_map(2), device="cpu")
+    est = PG.as_plan(sched)
+    want = JG.as_plan(JC.compile_schedule(JT.churn_sequence(JT.random_k_regular(12, 4, seed=0), 3, 0.3, seed=1),
+                                          "sparse", data_sizes=np.linspace(1, 3, 12), failures=JC.FailureModel(0.7),
+                                          round_map=JC.cyclic_map(2)))
+    assert est.data_sizes is None is want.data_sizes and est.failures == sched.failures
+    assert est.round_map == sched.round_map and est.k == want.k == 3 and est.n_edges_env == want.n_edges_env
+    for p_est, p_plain in zip(est.plans, graphs):
+        torch.testing.assert_close(p_est.bsr.tiles, PC.compile_plan(p_plain, "sparse", device="cpu").bsr.tiles,
+                                   rtol=0, atol=0)
+    assert PG.as_plan(est) is est
+
+    class ShardedCommPlan:  # the sharded plan of item 17
         pass
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PG.as_plan(PlanSchedule())
+    with pytest.raises(NotImplementedError, match="item 17"):
+        PG.as_plan(ShardedCommPlan())

@@ -189,8 +189,10 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     [dict(link_p=0.7), dict(node_p=0.9), dict(data_sizes=np.linspace(1.0, 2.0, 8)), dict(device="cpu")],
 )
 def test_round_fn_settings_go_with_a_graph_only(settings):
-    """A Graph is compiled from the settings; a compiled plan keeps its own
-    and refuses them."""
+    """A Graph is compiled from the settings; on a compiled plan they
+    override its own (recompiled through ``with_options``, as the JAX
+    package's ``make_round_fn`` does), and a device other than the plan's
+    is refused."""
     g = PT.complete(8)
     rf = PF.make_round_fn(torch_loss, PO.sgd(1e-3), g, **{"device": "cpu", **settings})
     want = PC.compile_plan(
@@ -202,11 +204,14 @@ def test_round_fn_settings_go_with_a_graph_only(settings):
     again = PC.compile_plan(g, device="cpu").with_options(data_sizes=want.data_sizes, failures=want.failures)
     assert again.failures == want.failures
     torch.testing.assert_close(again.receive, want.receive, atol=0, rtol=0)
-    with pytest.raises(ValueError, match="compile_plan"):
-        PF.make_round_fn(torch_loss, PO.sgd(1e-3), want, **settings)
+    over = PF.make_round_fn(torch_loss, PO.sgd(1e-3), PC.compile_plan(g, device="cpu"), **settings)
+    assert over.plan.failures == want.failures
+    torch.testing.assert_close(over.plan.receive, want.receive, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="lies on"):
+        PF.make_round_fn(torch_loss, PO.sgd(1e-3), want, **{**settings, "device": "meta"})
 
 
-@pytest.mark.parametrize("argv", [["--model", "transformer"], ["--async"], ["--topology-schedule", "churn"]])
+@pytest.mark.parametrize("argv", [["--model", "transformer"], ["--async"], ["--checkpoint-every", "2"]])
 def test_cli_refuses_unported_paths(argv, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu", *argv])
