@@ -66,7 +66,11 @@ run with a non-zero exit:
    ``CommPlan.spread``: mix_matmul over the dense Mᵀ of complete-16,
    kreg4-16 and kreg4-64, mix_bsr over the BSR Mᵀ of ring-1024, kreg4-1024
    and heavytail-1024, at d ∈ {1, 2, 3, 4}, each timed against its bound and
-   torch.matmul / torch.sparse.mm;
+   torch.matmul / torch.sparse.mm; the compressed exchange of an
+   asynchronous event (``quant_mix_pair``: the dense round over the pair's
+   two rows with its 2 × 2 operator) at full width, int8 and fp8, γ 1 and
+   0.5, against the plain version in the JAX pairwise form (scales and H'
+   bitwise, X' within fp32 rounding), timed against its bound;
 4. quickstart — the ported example, ``repro_torch/examples/quickstart.py``
    (``run_sweep``): He init plateaus at ln 10, the gain-corrected init
    descends, 80 dense kernel launches;
@@ -122,6 +126,22 @@ run with a non-zero exit:
    ``run_dfl_mlp(timing=True)``'s split and a chunked run bitwise the
    unchunked one; fig8 quick and the rounds bench quick at 40 rounds a
    trajectory (their JSON under ``build/``);
+4g. event-driven gossip — the CLI with ``--async`` at full width on
+   kreg4-16 (20 units of virtual time): plain (no listed kernel launches,
+   messages twice the events), ``--compress int8`` (one ``quant_mix_dense``
+   launch an event, all staged, the final test loss within 2% of the
+   plain run's) and ``--uncoordinated-init --estimate-rounds 32 --link-p
+   0.8 --local-batches 2``, each timed as a caller pays (µs an event);
+   one event step eager
+   against the same step replayed as a CUDA graph (the host / device
+   split), its device operations and its host self time by kind of
+   operator (profiler); ``push_sum_events`` and
+   ``estimate_size_leaderless_events`` at kreg4-1024, card vs CPU; a BA-16
+   event trajectory at link_p 0.8 with int8 exchanges, card vs CPU on the
+   same draws (rtol 1e-4, code flips counted, each within one step);
+   ``event_mix_batch`` bitwise the sequential ``event_mix`` on the card;
+   fig9 quick (``build/fig9_async.json``; the executor's wire bytes held
+   to the stream's messages);
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -344,6 +364,7 @@ def main() -> int:
     )
     from repro_torch.kernels.mix import ops as mix_ops
     from repro_torch.kernels.mix import quant as mix_quant
+    from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
     from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref
     from repro_torch.kernels.rwkv import ops as rwkv_ops
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
@@ -1066,6 +1087,47 @@ def main() -> int:
             library_ms=None,  # no one PyTorch call quantises and mixes
             bound_ms=b_qd, bound_by=op_qd, shape=f"complete-{n_d} int8 round, d={D_MAIN}, fp32, scales included",
         )
+    # the compressed exchange of an asynchronous event (phase 4g's int8
+    # exchanges): the dense round over the pair's two rows with its 2 × 2
+    # operator [[1 − w_uv, w_uv], [w_vu, 1 − w_vu]] (BA-16 with data sizes,
+    # its first and last edge), against the plain version, which mixes in
+    # the JAX package's pairwise form h'_u + w_uv (h'_v − h'_u): scales and
+    # H' bitwise, X' within fp32 rounding of the two forms; compare_quant
+    # holds the host's shared-memory count at n = 2 to the kernel's
+    pair_plan = compile_plan(T.barabasi_albert(16, 3, seed=0), "dense", data_sizes=np.linspace(1.0, 2.0, 16),
+                             device=dev)
+    x2, h2 = quant_inputs(2)
+    errs["quant_mix_dense_event"] = 0.0
+    for e_p in (0, pair_plan.n_edges - 1):
+        m2_p, w2_p = pair_plan.event_m2[e_p], pair_plan.event_w[e_p]
+        for codec in ("int8", "fp8"):
+            for gamma in (1.0, 0.5):
+                errs["quant_mix_dense_event"] = max(errs["quant_mix_dense_event"], compare_quant(
+                    f"quant_mix_pair {codec} BA-16 edge {e_p} γ={gamma}",
+                    lambda x, h, edges, floor="codec", m2=m2_p, **kw: quant_mix_pair(m2, x, h, edges, **kw),
+                    lambda hq, w=w2_p: pair_mix_ref(hq, w), x2, h2, mlp_bounds, codec=codec, gamma=gamma,
+                    route="staged"))
+    m2_p, w2_p = pair_plan.event_m2[0], pair_plan.event_w[0]
+    pair_tiles = mix_quant.tile_plan(mlp_edges, 2, torch.float32, dev)[0]
+    # bytes: X and H of the two rows read once, X' and H' written once, M,
+    # the scales and the chunk table; flops: the mix's 2 n² d and ~12 per
+    # element, as the dense round's row above
+    b_qp, op_qp = bound(16 * 2 * D_MAIN + 4 * 4 + 4 * 2 * n_chunks + table_bytes, 2 * 4 * D_MAIN + 12 * 2 * D_MAIN)
+    timing["quant_mix_dense_event"] = dict(
+        ms=time_ms(lambda: quant_mix_pair(m2_p, x2, h2, mlp_edges, codec="int8", gamma=1.0), flush=flush, hold=True),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: pair_mix_ref(hq, w2_p), x2, h2, mlp_bounds,
+                                               quant_scales_ref(x2, h2, mlp_bounds, codec="int8"), codec="int8",
+                                               gamma=1.0), flush=flush),
+        library_ms=None,  # no one PyTorch call quantises and mixes
+        bound_ms=b_qp, bound_by=op_qp,
+        shape=f"an event's pair (n = 2) int8 round, d={D_MAIN}, fp32, scales included, {len(pair_tiles.tiles)} "
+              f"tiles of {pair_tiles.cluster} CTAs",
+    )
+    t_p = timing["quant_mix_dense_event"]
+    print(f"  quant_mix_pair int8 at n = 2: {t_p['ms']:.4f} ms held, bound {t_p['bound_ms']:.4f} ms "
+          f"({t_p['bound_by']}; {t_p['bound_ms'] / t_p['ms']:.1%} of it), plain {t_p['plain_ms']:.4f} ms; "
+          f"{len(pair_tiles.tiles)} tiles of {pair_tiles.cluster} CTAs ({pair_tiles.cols} columns staged a CTA)")
+    del x2, h2
     b_qb, op_qb = bound(16 * 1024 * D_MAIN + tile_bytes + 4 * 1024 * n_chunks + table_bytes,
                         2 * nnz * D_MAIN + 9 * 1024 * D_MAIN)
     timing["quant_mix_bsr"] = dict(
@@ -2113,6 +2175,265 @@ def main() -> int:
     print(f"  phase 4f: {time.perf_counter() - t_4f:.1f} s")
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ 4g. event-driven gossip
+    phase("4g. event-driven gossip: Poisson edge clocks, pairwise DecAvg, the CLI's --async, fig 9")
+    t_4g = time.perf_counter()
+    from repro_torch.benchmarks import fig9_async
+    from repro_torch.core.commplan import draw_event_flags
+    from repro_torch.fed import executor as executor_mod
+    from repro_torch.fed import run_event_trajectory
+
+    # (a)–(c) the CLI at full width on kreg4-16 over 20 units of virtual time
+    # (8 local batches an endpoint and event, the CLI's default; (c) 2): the
+    # executor's call timed by a wrapper that waits for the card (what a
+    # caller pays), the stream the CLI samples (seed + 2) drawn here too
+    kreg16 = cli.build_graph("kregular", 16, 0)
+    stream_cli = T.poisson_event_stream(kreg16, 20.0, 1.0, seed=2)
+    n_ev = stream_cli.n_events
+    run_walls = []
+    real_run_event = cli.run_event_trajectory
+
+    def timed_run_event(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_run_event(*a, **kw)
+        torch.cuda.synchronize()
+        run_walls.append(time.perf_counter() - t0)
+        return out
+
+    runs_4g = {}
+    base_4g = ["--model", "mlp", "--topology", "kregular", "--nodes", "16", "--async", "--rounds", "20"]
+    cli.run_event_trajectory = timed_run_event
+    try:
+        for label, extra in (("plain", []), ("int8", ["--compress", "int8"]),
+                             ("uncoordinated", ["--uncoordinated-init", "--estimate-rounds", "32", "--link-p", "0.8",
+                                                "--local-batches", "2"])):
+            hist_g, wall_g, launches_g = counted(lambda: cli.main(base_4g + extra))
+            runs_4g[label] = dict(hist=hist_g, wall=wall_g, launches=launches_g, run_s=run_walls[-1],
+                                  routes=dict(quant_mix_dense.launches_by_route))
+    finally:
+        cli.run_event_trajectory = real_run_event
+    for label, r in runs_4g.items():
+        h = r["hist"]
+        live_bins = [i for i, c in enumerate(h["events"]) if c]
+        print(f"  CLI {label}: {n_ev} events in {r['run_s']:.2f} s ({r['run_s'] / n_ev * 1e6:.0f} µs an event as the "
+              f"caller pays, the card finished; {r['wall']:.1f} s with data and init); messages {sum(h['messages'])}; "
+              f"launches { {k: n for k, n in r['launches'].items() if n} }; final train {h['train_loss'][-1]:.4f} "
+              f"test {h['test_loss'][-1]:.4f}")
+        check(sum(h["events"]) == n_ev and h["bin"] == list(range(20)), f"CLI {label}: {sum(h['events'])} events")
+        check(all(math.isfinite(h[k][i]) for k in ("train_loss", "test_loss", "staleness") for i in live_bins),
+              f"CLI {label}: a non-finite loss")
+    check(sum(runs_4g["plain"]["hist"]["messages"]) == 2 * n_ev and runs_4g["plain"]["launches"] == none_launched,
+          f"CLI plain: messages / launches {runs_4g['plain']['launches']}")
+    check(runs_4g["int8"]["launches"] == {**none_launched, "quant_mix_dense": n_ev}
+          and runs_4g["int8"]["routes"] == {"staged": n_ev, "wide": 0},
+          f"CLI int8: launches {runs_4g['int8']['launches']} routes {runs_4g['int8']['routes']}, want {n_ev} staged")
+    t_plain, t_int8 = runs_4g["plain"]["hist"]["test_loss"][-1], runs_4g["int8"]["hist"]["test_loss"][-1]
+    check(abs(t_int8 - t_plain) <= 0.02 * abs(t_plain), f"CLI int8 final test loss {t_int8} vs {t_plain}")
+    msgs_u = sum(runs_4g["uncoordinated"]["hist"]["messages"])
+    check(0 < msgs_u < 2 * n_ev and runs_4g["uncoordinated"]["launches"] == none_launched,
+          f"CLI uncoordinated (link_p 0.8): {msgs_u} messages, launches {runs_4g['uncoordinated']['launches']}")
+    event_launches = runs_4g["int8"]["launches"]["quant_mix_dense"]
+
+    # one event step of the CLI's run (kreg4-16, full width, 8 local
+    # batches an endpoint), eager against one step captured as a CUDA graph
+    # and replayed: the device's time for the step with no host dispatch;
+    # the device operations of one eager step from torch.profiler
+    st_s = state_from_numpy(params_f, optimizer=opt, device=dev)
+    plan_s = compile_plan(kreg16, "dense", device=dev)
+    sched_s = torch.as_tensor(executor_mod._as_round_schedule(batch_index_schedule(64, 16, 16, 32, seed=0), 4, 8),
+                              dtype=torch.int64, device=dev)
+    xs_s, ys_s = torch.as_tensor(xs_f, device=dev), torch.as_tensor(ys_f, device=dev)
+    split_rows = {}
+    for label, comp_s in (("uncompressed", None), ("int8", Compression("int8"))):
+        mirror_s = torch.zeros_like(st_s.params) if comp_s is not None else None
+        step_s = executor_mod._make_event_step(loss_fn, opt, plan_s, sched_s, 4, xs_s, ys_s, layout=st_s.layout,
+                                               reinit_opt=True, comp=comp_s)
+        counts_s, clocks_s = np.zeros(16, np.int32), np.zeros(16, np.float32)
+
+        def one_step():
+            return step_s(st_s.params, st_s.opt_state, mirror_s, counts_s, clocks_s, 5, np.float32(1.0), True)
+
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            one_step()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / 20 * 1e3
+        _, prof_s, _ = traced(one_step)
+        dev_ops = [e for e in prof_s.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in dev_ops) / 1e3 if dev_ops else None
+        # the host side of the same trace: self CPU time by kind of operator
+        # (tools/event_step_profile.py breaks it down further)
+        host_by = {"launch calls": 0.0, "cuBLAS calls (aten::bmm)": 0.0, "autograd engine": 0.0,
+                   "views and slices": 0.0, "other operators": 0.0}
+        for e in prof_s.key_averages():
+            kind = ("launch calls" if e.key.startswith(("cudaLaunch", "cuLaunch")) else
+                    "cuBLAS calls (aten::bmm)" if e.key == "aten::bmm" else
+                    "autograd engine" if e.key.startswith("autograd::") or e.key.endswith("Backward0") else
+                    "views and slices" if e.key in ("aten::view", "aten::slice", "aten::slice_backward",
+                                                     "aten::reshape", "aten::as_strided", "aten::expand",
+                                                     "aten::unsqueeze", "aten::_unsafe_view", "aten::select",
+                                                     "aten::squeeze", "aten::t", "aten::transpose") else
+                    "other operators")
+            host_by[kind] += e.self_cpu_time_total / 1e3
+        print(f"  {label} event step, host self time under the profiler: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in host_by.items()))
+        graph_ms = None
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    one_step()
+            torch.cuda.current_stream().wait_stream(side)
+            g_step = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g_step):
+                one_step()
+            graph_ms = time_ms(g_step.replay)
+            del g_step
+        except RuntimeError as exc:  # a measurement, not a check: reported as not measured
+            print(f"  {label} event step: CUDA graph capture failed ({str(exc)[:200]}): device time not measured")
+        split_rows[label] = dict(eager_ms=eager_ms, graph_ms=graph_ms, device_ops=len(dev_ops), busy_ms=busy_ms)
+        print(f"  one {label} event step (kreg4-16, full width, 8 local batches an endpoint): {eager_ms:.3f} ms "
+              f"eager; " + ("graph replay not measured" if graph_ms is None else
+                           f"{graph_ms:.3f} ms replayed as a CUDA graph (the device busy {graph_ms / eager_ms:.1%} "
+                           f"of an eager step, the host {1 - graph_ms / eager_ms:.1%})")
+              + f"; {len(dev_ops)} device operations in one eager step (profiler)"
+              + ("" if busy_ms is None else f", {busy_ms:.3f} ms of device time summed"))
+        check(all(math.isfinite(float(x)) for x in (eager_ms,)), f"{label} event step timing")
+    del st_s, xs_s, ys_s, mirror_s
+    torch.cuda.empty_cache()
+
+    # (d) the barrier-free engine at kreg4-1024 (sparse, link_p 0.9, 8 units
+    # of virtual time): push-sum and the leaderless sketches, card against
+    # CPU on the same host-drawn flags
+    k1024 = T.random_k_regular(1024, 4, seed=0)
+    stream_1k = T.poisson_event_stream(k1024, 8.0, 1.0, seed=5)
+    vals_1k = np.random.default_rng(3).normal(size=(1024, 2)).astype(np.float32)
+    eng = {}
+    for d_name in ("cuda", "cpu"):
+        plan_k = compile_plan(k1024, "sparse", failures=FailureModel(link_p=0.9), device=d_name)
+        (ps, (n_hat, mins)), wall_k, launches_k = counted(lambda: (
+            G.push_sum_events(plan_k, vals_1k, stream_1k, seed=11),
+            G.estimate_size_leaderless_events(plan_k, stream_1k, 11, return_sketches=True)))
+        eng[d_name] = (ps.cpu(), n_hat.cpu(), mins.cpu(), wall_k)
+        if d_name == "cuda":
+            check(launches_k == none_launched, f"engine events launched {launches_k}")
+    (ps_g, nh_g, mn_g, wall_g), (ps_c, nh_c, mn_c, wall_c) = eng["cuda"], eng["cpu"]
+    ps_err = float((ps_g - ps_c).abs().max())
+    print(f"  kreg4-1024, {stream_1k.n_events} events, link_p 0.9: push_sum_events + estimate_size_leaderless_events "
+          f"{wall_g:.2f} s on the card ({wall_g / (2 * stream_1k.n_events) * 1e6:.0f} µs an event), {wall_c:.2f} s on "
+          f"the CPU; push-sum card vs CPU max abs diff {ps_err:.2e} (bitwise {torch.equal(ps_g, ps_c)}), the "
+          f"average's spread {float(ps_g.std(0).max()):.3e}; sketch minima bitwise {torch.equal(mn_g, mn_c)}; n̂ "
+          f"median {float(nh_g.median()):.1f} (n = 1024), card vs CPU max rel diff "
+          f"{float(((nh_g - nh_c).abs() / nh_c).max()):.2e}")
+    check(torch.equal(mn_g, mn_c) and torch.allclose(nh_g, nh_c, rtol=1e-5, atol=0)
+          and torch.allclose(ps_g, ps_c, rtol=1e-5, atol=1e-6), "engine events: card vs CPU")
+    check(bool(torch.isfinite(ps_g).all()) and bool(torch.isfinite(nh_g).all()), "engine events: non-finite")
+
+    # (e) card vs CPU: a BA-16 event trajectory at link_p 0.8 with int8
+    # exchanges (phase 4f's full-width init and data, 2 units of virtual
+    # time, 2 local batches), the same host-drawn flags on both devices:
+    # integer channels, clocks and staleness equal, losses to rtol 1e-4,
+    # quantisation-code flips counted and each held to one code step
+    t_e = time.perf_counter()
+    ba16_e = T.barabasi_albert(16, 3, seed=0)
+    stream_e = T.poisson_event_stream(ba16_e, 2.0, 1.0, seed=4)
+    sched_e = batch_index_schedule(64, 16, 16, 2 * 2, seed=2)
+    res_e, scales_e = {}, {"cuda": [], "cpu": []}
+    for d_name in ("cuda", "cpu"):
+        def recording_pair(*a, _d=d_name, **kw):
+            out, sc = quant_mix_pair(*a, **kw)
+            scales_e[_d].append(sc)
+            return out, sc
+
+        executor_mod.quant_mix_pair = recording_pair
+        try:
+            st_e = state_from_numpy(params_f, optimizer=opt, device=d_name)
+            plan_e = compile_plan(ba16_e, "dense", failures=FailureModel(link_p=0.8), device=d_name)
+
+            def run_e():
+                return run_event_trajectory(st_e, loss_fn, opt, plan_e, stream_e, xs_f, ys_f, sched_e, b_local=2,
+                                            n_bins=4, eval_fn=eval_fn, eval_batch=(ds_f.x[-256:], ds_f.y[-256:]),
+                                            compression=Compression("int8"), device=d_name)
+
+            if d_name == "cuda":
+                res_e[d_name], wall_e, launches_e = counted(run_e)
+            else:
+                res_e[d_name] = run_e()
+        finally:
+            executor_mod.quant_mix_pair = quant_mix_pair
+    (fin_g, h_g, aux_g), (fin_c, h_c, aux_c) = res_e["cuda"], res_e["cpu"]
+    delivered_e = sum(h_g["messages"]) // 2
+    check(launches_e == {**none_launched, "quant_mix_dense": delivered_e} and len(scales_e["cpu"]) == delivered_e,
+          f"BA-16 int8 events: launches {launches_e}, {delivered_e} delivered")
+    for key in ("events", "messages", "wire_bytes", "staleness"):
+        check(h_g[key] == h_c[key], f"BA-16 events card vs CPU: {key} {h_g[key]} vs {h_c[key]}")
+    check(np.array_equal(aux_g["node_clock"], aux_c["node_clock"]) and np.array_equal(aux_g["node_events"],
+                                                                                      aux_c["node_events"]),
+          "BA-16 events card vs CPU: clocks")
+    for key in ("train_loss", "test_loss"):
+        a, b = np.asarray(h_g[key]), np.asarray(h_c[key])
+        print(f"  BA-16 int8 events {key:10s} card vs CPU max abs diff {float(np.max(np.abs(a - b))):.2e}")
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-5), f"BA-16 events card vs CPU, {key}")
+    widths_e = chunk_bounds(fin_c.layout.sizes, 2048)
+    step_e = torch.stack(scales_e["cpu"]).amax(dim=(0, 1))[torch.repeat_interleave(
+        torch.arange(widths_e.numel() - 1), widths_e[1:] - widths_e[:-1])].numpy()
+    for what in ("params", "residual"):
+        got, want = getattr(fin_g, what).cpu().numpy(), getattr(fin_c, what).numpy()
+        off = np.abs(got - want) > 1e-5 + 1e-4 * np.abs(want)
+        within = np.abs(got - want) <= 1.01 * np.broadcast_to(step_e, want.shape) + 1e-5
+        print(f"  BA-16 int8 events ({stream_e.n_events} events, {delivered_e} delivered; card {wall_e:.1f} s, "
+              f"both {time.perf_counter() - t_e:.1f} s) final {what}: "
+              f"{int(off.sum())} of {want.size} elements beyond rtol 1e-4 / atol 1e-5 (code flips), "
+              f"{int((off & ~within).sum())} beyond one code step")
+        check(bool(np.all(within[off])) and off.sum() <= 2e-2 * want.size, f"BA-16 events card vs CPU: {what} flips")
+    del fin_g, fin_c, res_e
+
+    # (f) a colour step on the card: event_mix_batch over the batches of a
+    # kreg4-16 stream (link_p 0.8) bitwise the sequential event_mix calls,
+    # and the sequential calls bitwise the CPU's
+    plan_b = compile_plan(kreg16, "dense", failures=FailureModel(link_p=0.8), device=dev)
+    plan_bc = compile_plan(kreg16, "dense", failures=FailureModel(link_p=0.8), device="cpu")
+    stream_b = T.poisson_event_stream(kreg16, 2.0, 1.0, seed=6)
+    flags_b = draw_event_flags(plan_b.failures, 3, stream_b.envelope)
+    batches_b = T.batch_events_by_color(stream_b, kreg16)
+    w_b = torch.randn(16, D_MAIN, generator=gen, device=dev)
+    seq_b, seq_c, bat_b = w_b, w_b.cpu(), w_b
+    for i in range(stream_b.n_events):
+        seq_b = plan_b.event_mix(seq_b, int(stream_b.edges[i]), bool(flags_b[i]))
+        seq_c = plan_bc.event_mix(seq_c, int(stream_b.edges[i]), bool(flags_b[i]))
+    for b in range(batches_b.n_batches):
+        idx = batches_b.event_index[b]
+        bat_b = plan_b.event_mix_batch(bat_b, batches_b.edges[b], flags_b[np.maximum(idx, 0)] & (idx >= 0))
+    same_b, same_c = torch.equal(seq_b, bat_b), torch.equal(seq_b.cpu(), seq_c)
+    print(f"  event_mix_batch over {batches_b.n_batches} colour steps ({stream_b.n_events} events, width "
+          f"{batches_b.width}) bitwise the sequential event_mix {same_b}; the card's sequence bitwise the CPU's {same_c}")
+    check(same_b and same_c, "event_mix_batch on the card")
+    del w_b, seq_b, seq_c, bat_b
+
+    # (g) fig 9 quick through the port's fig9_async (build/fig9_async.json):
+    # on clean links every event delivers, so the executor's wire bytes
+    # (its delivered messages, summed over the bins) are the stream's
+    # 2 · n_events messages at the synchronous run's bytes a message
+    fig_common.ROWS.clear()
+    t0 = time.perf_counter()
+    f9 = fig9_async.run(quick=True, device=dev)
+    wall_f9 = time.perf_counter() - t0
+    print(f"  fig9 quick: {len(f9['records'])} records in {wall_f9:.1f} s, written to build/fig9_async.json")
+    for rec in f9["records"]:
+        print(f"    {json.dumps(rec)}")
+    check(len(f9["records"]) == 6 and all(
+        rec["wire_bytes_event_total"] * 2 * rec["n_edges"] == rec["messages_event"] * rec["wire_bytes_per_round_sync"]
+        for rec in f9["records"])
+          and all(math.isfinite(x) for rec in f9["records"] for x in rec.values() if isinstance(x, float)),
+          "fig9 quick: a record is missing, miscounted or not finite")
+    print(f"  phase 4g: {time.perf_counter() - t_4g:.1f} s")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
     n8, per8, r8, b8 = 8, 64, 3, 2
@@ -2655,6 +2976,12 @@ def main() -> int:
         ("mix_matmul_schedule", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", sched_launches["mix_matmul"]),
         ("quant_mix_dense_schedule", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
          sched_launches["quant_mix_dense"]),
+        # the event exchanges of phase 4g: the CLI's --async --compress int8
+        # run, one dense round over the pair's two rows a delivered event.
+        # The JAX event executor compresses the exchange with the plain
+        # codec (compressed_mix_with, no pallas_call); the port runs it
+        # through kernel 3's dense round, whose design it reuses
+        ("quant_mix_dense_event", "src/repro/core/compress.py:251", f"{src}/quant_mix.cu", event_launches),
         # head dims the kernel runs zero-padded; no path of this script
         # launches them (no ported config has them)
         ("flash_mha_hd160", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
@@ -2676,7 +3003,7 @@ def main() -> int:
             row["shape"] = t["shape"]
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
-        elif name.startswith("flash_mha_hd") or name.endswith("_schedule"):
+        elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event")):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,4 @@
-"""Graphs, mixing operators, initialisation, the compiled DecAvg plan, time-varying schedules and the §4.2 diffusion model."""
+"""Graphs and event streams, mixing operators, initialisation, the compiled DecAvg plan, time-varying schedules and the §4.2 diffusion model."""
 from . import topology
 from .commplan import (
     BACKENDS,
@@ -23,7 +23,7 @@ from .compress import (
 from .decavg import link_failure_mask, mix_pytree_circulant, mix_pytree_colored, node_failure_mask
 from .initialisation import InitConfig, gain_from_estimates, gain_from_graph, scaled_init
 from .diffusion import DiffusionResult, run_diffusion, sigma_ap_prediction
-from .topology import churn_sequence
+from .topology import EventBatches, EventStream, batch_events_by_color, churn_sequence, poisson_event_stream
 from .mixing import (
     mixing_time_estimate,
     receive_matrix,
@@ -38,10 +38,13 @@ __all__ = [
     "CommPlan",
     "Compression",
     "DiffusionResult",
+    "EventBatches",
+    "EventStream",
     "FailureModel",
     "InitConfig",
     "PlanSchedule",
     "RoundMap",
+    "batch_events_by_color",
     "churn_sequence",
     "compile_plan",
     "compile_schedule",
@@ -58,6 +61,7 @@ __all__ = [
     "mix_pytree_colored",
     "mixing_time_estimate",
     "node_failure_mask",
+    "poisson_event_stream",
     "receive_matrix",
     "rewire_to_assortativity",
     "run_diffusion",

@@ -41,13 +41,30 @@ over the same operator (int8 / fp8 through the quantised-mix kernel).
             NCCL rendering (one exchange a colour) is ROADMAP.md Queue 1
             item 17.
 
+Event-driven (asynchronous) rendering, undirected plans on every backend:
+``event_uv`` / ``event_w`` hold each edge's endpoints and its weights
+``(M[u, v], M[v, u])`` in ``Graph.edge_list()`` order (data sizes
+included).  ``event_mix`` / ``event_spread`` / ``event_spread_min`` move an
+edge's two endpoints (``decavg``'s pairwise forms); edge -1, the stream's
+padding, and a failed draw are the exact identity.  ``event_mix_batch``
+applies a matching of events at once.  An event's failure draw is one
+Bernoulli(link_p) for its edge and one Bernoulli(node_p) per endpoint
+(``draw_event_flags``): where the JAX package keys event i by threefry's
+``fold_in(key, i)``, the port reads row i of a float32 uniform table drawn
+from ``numpy.random.default_rng(seed)``, so an event's flag depends on
+(seed, i) alone, whatever the envelope or the order of calls.
+``event_flags`` is the one place the executors and the gossip engine take
+a stream's flags from.
+
 ``PlanSchedule`` (``compile_schedule``) is a time-varying operator: K
 compiled plans and a round → plan map (``cyclic_map``, ``sequence_map``).
 The port's executors loop on the host, so ``select(r)`` is the active
 ``CommPlan`` itself and each round runs that plan's kernels.  Every plan of
 a schedule draws its failures at the schedule's edge envelope
 (``n_edges_env``, the largest plan's edge count), so the generator moves
-the same amount whichever plan is active.
+the same amount whichever plan is active.  Its event operators run an event
+under the plan active in the event's unit-time window, and
+``event_stream`` draws each window's events from that window's plan.
 """
 from __future__ import annotations
 
@@ -59,13 +76,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.flat import FlatLayout
+from repro_torch.flat import FlatLayout, tree_map
 from repro_torch.kernels.mix import BSR, bsr_from_dense, bsr_slots, decavg_mix, mix_flat
 
 from .compress import Compression, compressed_mix, compressed_spread, init_residuals
-from .decavg import failure_receive_matrix, mix_pytree_colored
+from .decavg import (
+    failure_receive_matrix,
+    mix_pytree_colored,
+    mix_pytree_pairwise,
+    mix_pytree_pairwise_batch,
+    spread_min_pairwise,
+    spread_pairwise,
+)
 from .mixing import receive_matrix
-from .topology import Graph
+from .topology import EventStream, Graph, poisson_event_stream
 
 __all__ = [
     "BACKENDS",
@@ -77,6 +101,8 @@ __all__ = [
     "compile_plan",
     "compile_schedule",
     "cyclic_map",
+    "draw_event_flags",
+    "event_flags",
     "sequence_map",
 ]
 
@@ -118,6 +144,46 @@ def _draw_failure_masks(
     return edge_keep, active
 
 
+def draw_event_flags(failures: FailureModel, seed: int, count: int) -> np.ndarray | None:
+    """(count,) bool: did event i's exchange survive the failure model?
+    None when the model draws nothing.  Event i reads row i of a (count, 3)
+    float32 uniform table from ``numpy.random.default_rng(seed)``: its
+    edge's link uniform and its two endpoints' node uniforms.  The table is
+    drawn in row order, so a longer ``count`` leaves the first rows as
+    they were."""
+    if not failures.active:
+        return None
+    if seed is None:
+        raise ValueError("failure model active: event draws need a seed")
+    uni = np.random.default_rng(int(seed)).random((int(count), 3), dtype=np.float32)
+    keep = np.ones(int(count), dtype=bool)
+    if failures.link_p < 1.0:
+        keep &= uni[:, 0] < failures.link_p
+    if failures.node_p < 1.0:
+        keep &= (uni[:, 1] < failures.node_p) & (uni[:, 2] < failures.node_p)
+    return keep
+
+
+def event_flags(plan, seed: int | None, stream: EventStream) -> np.ndarray | None:
+    """The failure draws of a stream's events, (envelope,) bool, or None
+    when ``plan`` (a ``CommPlan`` or ``PlanSchedule``) draws none.  Event i
+    keys on (``seed``, i); over a K > 1 schedule on (``event_key(seed,
+    times[i])``, i), the seed of the plan active in its window."""
+    if not plan.failures.active:
+        return None
+    env = stream.envelope
+    if isinstance(plan, CommPlan) or plan.k == 1:
+        return draw_event_flags(plan.failures, seed, env)
+    if seed is None:
+        raise ValueError("failure model active: event draws need a seed")
+    seeds = np.array([plan.event_key(seed, t) for t in stream.times], dtype=np.uint64)
+    out = np.zeros(env, dtype=bool)
+    for s in np.unique(seeds):
+        at = seeds == s
+        out[at] = draw_event_flags(plan.failures, int(s), env)[at]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class CommPlan:
     """A compiled plan for one DecAvg round on one device.  ``mix`` is the
@@ -149,6 +215,9 @@ class CommPlan:
     color_w: torch.Tensor | None = None  # (n_colors, n) statically normalised
     color_raw_w: torch.Tensor | None = None  # (n_colors, n) unnormalised A[i, p]·s[p]
     self_w: torch.Tensor | None = None  # (n,) statically normalised self weight
+    # ---- event-driven (asynchronous) rendering, undirected plans only ----
+    event_uv: torch.Tensor | None = None  # (max(n_edges, 1), 2) int64 endpoints
+    event_w: torch.Tensor | None = None  # (max(n_edges, 1), 2) fp32 [M[u, v], M[v, u]]
     # failure-draw width: a schedule's edge envelope (compile_schedule); 0 is n_edges
     n_edges_draw: int = 0
 
@@ -460,6 +529,92 @@ class CommPlan:
         den = flat.sum(dim=(1, 3), keepdim=True)
         return self.bsr._replace(tiles=flat / torch.where(den > 0, den, torch.ones_like(den)))
 
+    # ------------------------------------------------- event-driven execution
+    @functools.cached_property
+    def _event_uv_host(self) -> np.ndarray:
+        """The endpoint table on the host, copied once: events are resolved
+        there, so no event reads the device."""
+        return self.event_uv.cpu().numpy()
+
+    @functools.cached_property
+    def event_m2(self) -> torch.Tensor:
+        """(max(n_edges, 1), 2, 2) fp32: each edge's exchange as a 2 × 2
+        operator ``[[1 − w_uv, w_uv], [w_vu, 1 − w_vu]]`` on the device, the
+        quantised pair round's M, made once."""
+        w = self.event_w
+        one = torch.ones_like(w[:, 0])
+        return torch.stack([torch.stack([one - w[:, 0], w[:, 0]], 1), torch.stack([w[:, 1], one - w[:, 1]], 1)], 1)
+
+    def _event_edge(self, edge, keep):
+        """(u, v, w) of one event, ``w`` the (2,) device weights; None for
+        the identity: padding (edge −1) or a failed draw."""
+        if self.event_uv is None:
+            raise ValueError("event rendering needs an undirected CommPlan (directed plans have no event tables)")
+        if self.failures.active and keep is None:
+            raise ValueError("failure model active: event ops need the event's keep flag (event_flags)")
+        e = int(edge)
+        if e < 0 or (self.failures.active and not keep):
+            return None
+        if e >= self.n_edges:
+            raise IndexError(f"edge {e} outside the plan's {self.n_edges} edges")
+        u, v = self._event_uv_host[e]
+        return int(u), int(v), self.event_w[e]
+
+    def event_mix(self, params, edge, keep: bool | None = None):
+        """One asynchronous DecAvg event: edge ``edge``'s endpoints blend
+        with the plan's receive weights (``w_u ← w_u + M[u,v]·(w_v − w_u)``
+        and symmetrically), everyone else untouched.  ``edge`` indexes
+        ``Graph.edge_list()``; ``keep`` is the event's failure draw, needed
+        iff the failure model is active.  A flat (n, d) buffer or a dict
+        tree; returns a new one.  Composing one event per edge reproduces
+        ``mix`` to first order in the weights."""
+        ev = self._event_edge(edge, keep)
+        if ev is None:
+            return tree_map(torch.clone, params)
+        u, v, w = ev
+        return mix_pytree_pairwise(params, u, v, w[0], w[1])
+
+    def event_mix_batch(self, params, edges, keeps=None):
+        """One colour step: a batch of events on endpoint-disjoint edges
+        (``topology.batch_events_by_color``), each endpoint row gathered and
+        written once.  ``edges`` (W,) host ints, -1 padding; ``keeps`` (W,)
+        the events' failure draws, needed iff the model is active.  Padding
+        and failed draws are dropped on the host; bitwise the sequential
+        ``event_mix`` calls."""
+        if self.event_uv is None:
+            raise ValueError("event rendering needs an undirected CommPlan (directed plans have no event tables)")
+        if self.failures.active and keeps is None:
+            raise ValueError("failure model active: event_mix_batch needs the events' keep flags")
+        e = np.asarray(edges, dtype=np.int64).reshape(-1)
+        live = e >= 0
+        if self.failures.active:
+            live &= np.asarray(keeps, dtype=bool).reshape(-1)
+        e = e[live]
+        uv = self._event_uv_host[e]
+        idx = torch.as_tensor(e, device=self.device)
+        w = self.event_w[idx]
+        return mix_pytree_pairwise_batch(params, uv[:, 0], uv[:, 1], w[:, 0], w[:, 1])
+
+    def event_spread(self, values, edge, keep: bool | None = None) -> torch.Tensor:
+        """One asynchronous push event (``s_u ← s_u − M[u,v]·s_u +
+        M[v,u]·s_v`` and symmetrically): ``values.sum(0)`` is kept event by
+        event, which barrier-free push-sum rides.  (n,) or (n, k); fp32."""
+        x = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        ev = self._event_edge(edge, keep)
+        if ev is None:
+            return x.clone()
+        u, v, w = ev
+        return spread_pairwise(x, u, v, w[0], w[1])
+
+    def event_spread_min(self, values, edge, keep: bool | None = None) -> torch.Tensor:
+        """One asynchronous min event: both endpoints take the coordinate-wise
+        minimum over the live exchange (the leaderless sketches' transport)."""
+        x = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        ev = self._event_edge(edge, keep)
+        if ev is None:
+            return x.clone()
+        return spread_min_pairwise(x, ev[0], ev[1])
+
     def with_options(
         self,
         *,
@@ -508,6 +663,7 @@ def compile_plan(
         data_sizes=None if sizes is None else sizes.copy(),
         device=dev,
         n_edges=len(graph.edge_list()),
+        **_event_tables(graph, sizes, dev),
     )
 
     if backend == "dense":
@@ -575,6 +731,26 @@ def compile_plan(
     )
 
 
+def _event_tables(graph: Graph, sizes: np.ndarray | None, dev: torch.device) -> dict:
+    """``event_uv[e] = (u, v)`` in ``Graph.edge_list()`` order and
+    ``event_w[e] = (M[u, v], M[v, u])``, the receive operator's entries, so
+    one event an edge composes to one synchronous round to first order.
+    At least one row (zeros on an edgeless graph); none for a directed
+    graph, whose exchanges have no pairwise form."""
+    if graph.directed:
+        return {}
+    edges = graph.edge_list()
+    if len(edges) == 0:
+        return dict(event_uv=torch.zeros((1, 2), dtype=torch.int64, device=dev),
+                    event_w=torch.zeros((1, 2), dtype=torch.float32, device=dev))
+    m = receive_matrix(graph, sizes)
+    u, v = edges[:, 0], edges[:, 1]
+    return dict(
+        event_uv=torch.as_tensor(edges.astype(np.int64), device=dev),
+        event_w=torch.as_tensor(np.stack([m[u, v], m[v, u]], axis=1), dtype=torch.float32, device=dev),
+    )
+
+
 # ---------------------------------------------------------------- schedules
 @dataclasses.dataclass(frozen=True)
 class RoundMap:
@@ -609,9 +785,6 @@ def sequence_map(sequence) -> RoundMap:
     return RoundMap("sequence", sequence=np.asarray(sequence, np.int32))
 
 
-_EVENTS_UNPORTED = "the event-driven schedule rendering is not ported yet; see ROADMAP.md Queue 1 item 11"
-
-
 @dataclasses.dataclass(frozen=True)
 class PlanSchedule:
     """A time-varying mixing operator: K compiled ``CommPlan``s and a round map.
@@ -626,7 +799,9 @@ class PlanSchedule:
     plan's own edge ids.  K = 1 is the static plan, bit for bit.  The JAX
     package folds the plan index into a round's failure key (threefry's
     ``fold_in``, which torch cannot replay); here each round simply draws
-    from the generator it is given.
+    from the generator it is given.  An event runs under the plan active in
+    its unit-time window (``floor(time)``, one window a round of the round
+    map), its failure draw keyed on ``event_key(seed, time)``.
     """
 
     plans: tuple[CommPlan, ...]
@@ -733,20 +908,63 @@ class PlanSchedule:
             device=self.device,
         )
 
-    def event_key(self, *args, **kwargs):
-        raise NotImplementedError(_EVENTS_UNPORTED)
+    # ------------------------------------------------- event-driven execution
+    @staticmethod
+    def _window(time) -> int:
+        """Unit-time window of an event timestamp (one window a round)."""
+        return int(np.floor(np.float32(time)))
 
-    def event_mix(self, *args, **kwargs):
-        raise NotImplementedError(_EVENTS_UNPORTED)
+    def event_key(self, seed: int | None, time) -> int | None:
+        """The seed an event at ``time`` draws its failure flag from: K = 1
+        keeps ``seed`` (the static plan's draws, bit for bit); K > 1 mixes
+        in the plan active in the event's window, so resampled plans draw
+        independent outages (the JAX package folds the plan id into the
+        event's key)."""
+        if seed is None or self.k == 1:
+            return seed
+        p = self.plan_index(self._window(time))
+        return int(np.random.SeedSequence([int(seed), p]).generate_state(1, np.uint64)[0])
 
-    def event_spread(self, *args, **kwargs):
-        raise NotImplementedError(_EVENTS_UNPORTED)
+    def event_mix(self, params, edge, time, keep: bool | None = None):
+        """One asynchronous DecAvg event under the plan active at ``time``;
+        ``edge`` indexes that plan's own ``Graph.edge_list()`` (``event_stream``
+        samples streams with per-window edge ids)."""
+        return self.select(self._window(time)).event_mix(params, edge, keep)
 
-    def event_spread_min(self, *args, **kwargs):
-        raise NotImplementedError(_EVENTS_UNPORTED)
+    def event_spread(self, values, edge, time, keep: bool | None = None) -> torch.Tensor:
+        """One asynchronous push event under the plan active at ``time``."""
+        return self.select(self._window(time)).event_spread(values, edge, keep)
 
-    def event_stream(self, *args, **kwargs):
-        raise NotImplementedError(_EVENTS_UNPORTED)
+    def event_spread_min(self, values, edge, time, keep: bool | None = None) -> torch.Tensor:
+        """One asynchronous min event under the plan active at ``time``."""
+        return self.select(self._window(time)).event_spread_min(values, edge, keep)
+
+    def event_stream(self, horizon: float, rate: float = 1.0, seed: int = 0) -> EventStream:
+        """Sample a Poisson edge-clock stream over the schedule: window w
+        draws its events from the plan active in it (``plan_index(w)``, on
+        the host), seed ``seed + w``, edge ids in that plan's edge order;
+        the windows concatenate into one sorted stream.  K = 1 is the
+        static sampler, bit for bit."""
+        if self.k == 1:
+            return poisson_event_stream(self.plans[0].graph, horizon, rate=rate, seed=seed)
+        n_windows = int(np.ceil(horizon))
+        times, edges = [], []
+        for w in range(n_windows):
+            g = self.plans[self.plan_index(w)].graph
+            span = min(1.0, horizon - w)
+            win = poisson_event_stream(g, span, rate=rate, seed=seed + w)
+            k = win.n_events
+            times.append(np.asarray(win.times[:k]) + w)
+            edges.append(np.asarray(win.edges[:k]))
+        t = np.concatenate(times) if times else np.zeros(0, np.float64)
+        e = np.concatenate(edges) if edges else np.zeros(0, np.int32)
+        return EventStream(
+            times=np.asarray(t, np.float32),
+            edges=np.asarray(e, np.int32),
+            n_events=len(t),
+            horizon=float(horizon),
+            rates=np.full(len(self.plans[0].graph.edge_list()), float(rate)),
+        )
 
 
 def compile_schedule(

@@ -9,6 +9,15 @@ and ``CommPlan.mix`` runs the colour schedule through ``mix_pytree_colored``
 on every device.  All accumulate in fp32 regardless of the parameter dtype
 (the mixing weights are O(1/k) and the post-diffusion scale is the signal
 bf16 accumulation would lose).
+
+The event-driven (asynchronous) exchanges move only an edge's two
+endpoints: ``mix_pytree_pairwise`` blends them in the JAX form
+``x_u + w_uv·(x_v − x_u)``, as separate fp32 sub, mul and add, so the CPU
+and the card round alike; ``mix_pytree_pairwise_batch`` applies a matching
+of such exchanges at once, each row written once by index assignment (no
+``index_add_``, which CUDA accumulates with atomics); ``spread_pairwise``
+and ``spread_min_pairwise`` are the push and min forms.  Endpoints are host
+ints, weights fp32 tensors (scalars or ``(W,)``) on the data's device.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.mix.ref import decavg_mix_ref
+from repro_torch.kernels.mix.ref import decavg_mix_ref, pair_mix_ref
 
 from .topology import Graph
 
@@ -28,8 +37,12 @@ __all__ = [
     "mix_pytree",
     "mix_pytree_circulant",
     "mix_pytree_colored",
+    "mix_pytree_pairwise",
+    "mix_pytree_pairwise_batch",
     "mix_pytree_sparse",
     "node_failure_mask",
+    "spread_min_pairwise",
+    "spread_pairwise",
 ]
 
 Tree = dict[str, Any]
@@ -188,3 +201,78 @@ def failure_receive_matrix(
     if data_sizes is not None:
         b = b * data_sizes[None, :].to(torch.float32)
     return b / b.sum(dim=1, keepdim=True)
+
+
+# ------------------------------------------------ event-driven exchanges
+def _weight(w, device) -> torch.Tensor:
+    return torch.as_tensor(w, dtype=torch.float32, device=device)
+
+
+def mix_pytree_pairwise(params: torch.Tensor | Tree, u: int, v: int, w_uv, w_vu) -> torch.Tensor | Tree:
+    """One event-driven DecAvg exchange on edge (u, v) (paper Eq. 2 for a
+    pair): ``w_u ← w_u + w_uv·(w_v − w_u)`` and symmetrically, everyone else
+    untouched.  ``w_uv`` / ``w_vu`` are normally the plan's receive entries
+    M[u, v] / M[v, u]; weights 0 are the identity.  Returns a new buffer or
+    tree; the input is not written."""
+
+    def mix_leaf(x: torch.Tensor) -> torch.Tensor:
+        w = torch.stack([_weight(w_uv, x.device), _weight(w_vu, x.device)])
+        new = pair_mix_ref(torch.stack([x[u], x[v]]), w)
+        out = x.clone()
+        out[u], out[v] = new[0], new[1]
+        return out
+
+    return _map_params(mix_leaf, params)
+
+
+def _matching(u: np.ndarray, v: np.ndarray) -> None:
+    ends = np.concatenate([u, v])
+    if len(np.unique(ends)) != len(ends):
+        raise ValueError("a batch of exchanges must be endpoint-disjoint (a matching)")
+
+
+def mix_pytree_pairwise_batch(params: torch.Tensor | Tree, u, v, w_uv, w_vu) -> torch.Tensor | Tree:
+    """One colour step: W simultaneous exchanges on endpoint-disjoint edges.
+
+    ``u`` / ``v`` are (W,) host int arrays, ``w_uv`` / ``w_vu`` (W,) fp32
+    weights.  The edges must form a matching (padding dropped by the
+    caller), so the W sequential exchanges commute: each endpoint row is
+    gathered, blended in the form of ``mix_pytree_pairwise`` and written
+    back once, by index assignment.  Bitwise the sequential exchanges."""
+    u, v = np.asarray(u, np.int64), np.asarray(v, np.int64)
+    _matching(u, v)
+
+    def mix_leaf(x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        if len(u) == 0:
+            return out
+        iu, iv = torch.as_tensor(u, device=x.device), torch.as_tensor(v, device=x.device)
+        xu, xv = x[iu].to(torch.float32), x[iv].to(torch.float32)
+        out[iu] = (xu + _bcast(_weight(w_uv, x.device), xu.ndim) * (xv - xu)).to(x.dtype)
+        out[iv] = (xv + _bcast(_weight(w_vu, x.device), xv.ndim) * (xu - xv)).to(x.dtype)
+        return out
+
+    return _map_params(mix_leaf, params)
+
+
+def spread_pairwise(values: torch.Tensor, u: int, v: int, w_uv, w_vu) -> torch.Tensor:
+    """One event-driven push exchange on edge (u, v), mass-conserving: u
+    hands ``w_uv·s_u`` to v and receives ``w_vu·s_v`` —
+    ``s_u ← s_u − w_uv·s_u + w_vu·s_v`` and symmetrically, so ``s_u + s_v``
+    is kept for any weights.  (n,) or (n, k) fp32; a new tensor."""
+    x = values.to(torch.float32)
+    xu, xv = x[u], x[v]
+    give_u, give_v = _weight(w_uv, x.device) * xu, _weight(w_vu, x.device) * xv
+    out = x.clone()
+    out[u], out[v] = xu - give_u + give_v, xv - give_v + give_u
+    return out
+
+
+def spread_min_pairwise(values: torch.Tensor, u: int, v: int) -> torch.Tensor:
+    """One event-driven min exchange on edge (u, v): both endpoints take the
+    elementwise minimum, the event transport of the leaderless size
+    sketches.  A new tensor."""
+    out = values.to(torch.float32).clone()
+    lo = torch.minimum(out[u], out[v])
+    out[u], out[v] = lo, lo
+    return out

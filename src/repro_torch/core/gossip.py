@@ -18,8 +18,8 @@ that runs them over the ``CommPlan`` mixing kernels is
 ``effective_send_matrix`` / ``push_sum_failures`` /
 ``power_iteration_norm_reference`` extend the reference to the failure and
 power-iteration semantics the engine implements.  The ``event_*``
-references pin down the barrier-free (asynchronous) exchanges, whose
-``CommPlan.event_*`` renderings come with ROADMAP.md Queue 1 item 11.
+references pin down the barrier-free (asynchronous) exchanges that
+``CommPlan.event_*`` and the engine's event protocols run.
 """
 from __future__ import annotations
 

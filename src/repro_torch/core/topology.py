@@ -5,8 +5,9 @@ seed every constructor returns a bit-identical adjacency matrix, edge list and C
 view.  The copy exists because the JAX package's ``core`` imports jax.
 ``Graph.edge_coloring`` (the ``ppermute`` backend's schedule) colours
 greedily in the same order, and ``churn_sequence`` draws the same
-``default_rng(seed)`` stream, so both give bit-identical arrays too.  Event
-streams are not ported yet (ROADMAP.md Queue 1 item 11).
+``default_rng(seed)`` stream, so both give bit-identical arrays too.  So do
+the asynchronous event streams (``poisson_event_stream``, one Poisson clock
+an edge) and their endpoint-disjoint batches (``batch_events_by_color``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ __all__ = [
     "star",
     "from_adjacency",
     "churn_sequence",
+    "EventStream",
+    "EventBatches",
+    "poisson_event_stream",
+    "batch_events_by_color",
 ]
 
 
@@ -396,3 +401,173 @@ def churn_sequence(
         out.append(g)
         a = b
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EventStream:
+    """A realised asynchronous gossip schedule: sorted (time, edge) events.
+
+    Every edge carries its own Poisson clock and the pair it joins exchanges
+    whenever the clock fires; there is no global round barrier.  The process
+    is realised on the host (seeded, deterministic):
+
+    ``times``  (E,) float32, non-decreasing; padding entries hold ``horizon``.
+    ``edges``  (E,) int32 indices into ``Graph.edge_list()``; padding is -1,
+               which every event operator treats as the identity, so streams
+               of different realised lengths share one envelope.
+    ``n_events``  live events (≤ E).
+    ``rates``  (m,) per-edge clock rates the stream was drawn from.
+    """
+
+    times: np.ndarray  # (E,) float32 sorted, padded with `horizon`
+    edges: np.ndarray  # (E,) int32 edge ids, padded with -1
+    n_events: int
+    horizon: float
+    rates: np.ndarray  # (m,) float64
+
+    def __post_init__(self):
+        if self.times.shape != self.edges.shape or self.times.ndim != 1:
+            raise ValueError(
+                f"times/edges must be matching 1-D arrays, got {self.times.shape} vs {self.edges.shape}"
+            )
+        if self.n_events > len(self.times):
+            raise ValueError("n_events exceeds the padded envelope")
+
+    @property
+    def envelope(self) -> int:
+        return len(self.times)
+
+    @property
+    def messages_per_event(self) -> int:
+        """A pairwise exchange moves one model in each direction."""
+        return 2
+
+
+def poisson_event_stream(
+    graph: Graph,
+    horizon: float,
+    rate: float | np.ndarray = 1.0,
+    seed: int = 0,
+    envelope: int | None = None,
+) -> EventStream:
+    """Sample per-edge Poisson clocks into a sorted, padded event stream.
+
+    ``rate`` is a scalar (every edge), an (m,) per-edge vector in
+    ``Graph.edge_list()`` order, or an (n, n) symmetric rate matrix read at
+    the edge positions.  Each edge fires ``Poisson(rate_e · horizon)`` times
+    at iid Uniform(0, horizon) instants; the merged stream is sorted by
+    time, ties broken by edge id, so it is a function of ``seed`` alone.
+    Rate 1 over ``horizon = R`` matches R synchronous rounds in expected
+    per-edge traffic (fig9's budget match).  ``envelope`` pads to a fixed
+    length, and raises when the realised count does not fit.
+    """
+    if graph.directed:
+        raise ValueError("poisson_event_stream needs an undirected graph (pairwise exchanges)")
+    if horizon <= 0:
+        raise ValueError(f"horizon must be positive, got {horizon}")
+    edges = graph.edge_list()
+    m = len(edges)
+    r = np.asarray(rate, dtype=np.float64)
+    if r.ndim == 0:
+        rates = np.full(m, float(r))
+    elif r.ndim == 1:
+        if r.shape[0] != m:
+            raise ValueError(f"per-edge rates need shape ({m},), got {r.shape}")
+        rates = r.copy()
+    elif r.shape == (graph.n, graph.n):
+        if not np.allclose(r, r.T):
+            raise ValueError("rate matrix must be symmetric (one clock per undirected edge)")
+        rates = r[edges[:, 0], edges[:, 1]].astype(np.float64)
+    else:
+        raise ValueError(f"rate must be scalar, ({m},) or ({graph.n}, {graph.n}), got {r.shape}")
+    if np.any(rates < 0):
+        raise ValueError("edge clock rates must be non-negative")
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(rates * horizon)
+    edge_ids = np.repeat(np.arange(m, dtype=np.int32), counts)
+    times = rng.uniform(0.0, horizon, size=int(counts.sum()))
+    order = np.lexsort((edge_ids, times))
+    times, edge_ids = times[order], edge_ids[order]
+    n_events = len(times)
+    width = n_events if envelope is None else int(envelope)
+    if width < n_events:
+        raise ValueError(
+            f"envelope {width} too small for the realised stream ({n_events} events) — "
+            f"size it like a Poisson tail, e.g. ceil(Σrate·T + 4·sqrt(Σrate·T))"
+        )
+    pad = width - n_events
+    return EventStream(
+        times=np.concatenate([times, np.full(pad, horizon)]).astype(np.float32),
+        edges=np.concatenate([edge_ids, np.full(pad, -1, np.int32)]).astype(np.int32),
+        n_events=n_events,
+        horizon=float(horizon),
+        rates=rates,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EventBatches:
+    """An ``EventStream`` regrouped into endpoint-disjoint batches.
+
+    Consecutive events on disjoint edges commute exactly (each exchange
+    touches only its two endpoints), so a run of them whose edges form a
+    matching is one parallel colour step (``CommPlan.event_mix_batch``).
+
+    ``edges``        (B, W) int32 edge ids, padded -1 (the identity);
+    ``event_index``  (B, W) int32 position of each event in the original
+                     stream, padded -1: an event's failure draw stays keyed
+                     on it, so a batched replay draws what the sequential
+                     one does.
+    """
+
+    edges: np.ndarray  # (B, W) int32, padded -1
+    event_index: np.ndarray  # (B, W) int32, padded -1
+    n_events: int
+
+    @property
+    def n_batches(self) -> int:
+        return self.edges.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.edges.shape[1]
+
+
+def batch_events_by_color(stream: EventStream, graph: Graph, max_width: int | None = None) -> EventBatches:
+    """Greedily batch a time-ordered ``EventStream`` into colour steps.
+
+    Walks the live events in time order and grows the current batch until
+    the next event's edge shares an endpoint with one in it (or
+    ``max_width`` is reached), then starts a new one: batches keep the event
+    order.  Padding events are dropped; an empty stream gives one
+    all-padding batch.
+    """
+    edge_list = graph.edge_list()
+    ids = stream.edges[: stream.n_events]
+    batches: list[list[int]] = []
+    indices: list[list[int]] = []
+    used: set[int] = set()
+    cur_e: list[int] = []
+    cur_i: list[int] = []
+    for pos, e in enumerate(ids):
+        if e < 0:
+            continue
+        u, v = int(edge_list[e, 0]), int(edge_list[e, 1])
+        full = max_width is not None and len(cur_e) >= max_width
+        if full or u in used or v in used:
+            batches.append(cur_e)
+            indices.append(cur_i)
+            cur_e, cur_i, used = [], [], set()
+        cur_e.append(int(e))
+        cur_i.append(pos)
+        used.update((u, v))
+    if cur_e or not batches:
+        batches.append(cur_e)
+        indices.append(cur_i)
+    width = max(max(len(b) for b in batches), 1)
+    out_e = np.full((len(batches), width), -1, np.int32)
+    out_i = np.full((len(batches), width), -1, np.int32)
+    for b, (es, ix) in enumerate(zip(batches, indices)):
+        out_e[b, : len(es)] = es
+        out_i[b, : len(ix)] = ix
+    return EventBatches(edges=out_e, event_index=out_i, n_events=int((ids >= 0).sum()))

@@ -1,6 +1,7 @@
-"""Federated training (Algorithm 1's round, the trajectory and warmup executors) and offline serving."""
+"""Federated training (Algorithm 1's round, the trajectory, warmup and event executors) and offline serving."""
 from .executor import (
     TrajectoryConfig,
+    run_event_trajectory,
     run_sweep,
     run_trajectory,
     run_warmup_sweep,
@@ -30,6 +31,7 @@ __all__ = [
     "make_eval_fn",
     "make_round_fn",
     "prefill",
+    "run_event_trajectory",
     "run_sweep",
     "run_trajectory",
     "run_warmup_sweep",

@@ -26,8 +26,19 @@ of ``chunk_size`` (``TrajectoryConfig.chunks``); ``run_trajectory``'s
 ``on_chunk(r0, r1, chunk_hist)`` hook gets each chunk's history (absolute
 round numbers, the wire channels included) after the device has finished
 the chunk, the one synchronisation it adds.  A chunked run computes exactly
-what an unchunked one does.  Checkpointing and the sharded / event /
-elastic executors are not ported yet (ROADMAP.md Queue 1 items 12, 17, 11).
+what an unchunked one does.
+
+``run_event_trajectory`` is the event-driven (asynchronous) executor: no
+round barrier, one pairwise exchange each time an edge's Poisson clock
+fires (``topology.EventStream``).  The host walks the numpy stream and
+runs each live event eagerly through ``_make_event_step``: the pair's local
+steps, its exchange (one launch of the quantised pair round when int8 /
+fp8 compressed), its optimizer re-init, its virtual clocks.  Everything the
+stream and the host-drawn failure flags decide (counts, clocks,
+staleness, delivered messages, bins, eval points) is kept on the host in
+the JAX executor's fp32 arithmetic; the losses stay on the device, read
+once a chunk.  Checkpointing and the sharded / elastic executors are not
+ported yet (ROADMAP.md Queue 1 items 12, 17).
 """
 from __future__ import annotations
 
@@ -37,9 +48,12 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.commplan import PlanSchedule
-from repro_torch.core.compress import seed_residual
+from repro_torch.core import commplan as _commplan
+from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan
+from repro_torch.core.compress import Compression, _edges, compressed_mix_with, seed_residual
+from repro_torch.core.topology import EventStream, Graph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
 
 from repro_torch.gossip.engine import split_seed
 
@@ -47,6 +61,7 @@ from .trainer import (
     HISTORY_KEYS,
     DFLState,
     _copy_generator,
+    _local_steps,
     copy_state,
     finish_history,
     init_fl_state,
@@ -56,13 +71,18 @@ from .trainer import (
 
 __all__ = [
     "TrajectoryConfig",
+    "run_event_trajectory",
     "run_sweep",
     "run_trajectory",
     "run_warmup_sweep",
     "run_warmup_trajectory",
     "stack_states",
+    "staleness_histogram",
     "unstack_states",
 ]
+
+# staleness-histogram buckets of the event executor (linear over [0, horizon])
+_STALE_BUCKETS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,3 +367,247 @@ def run_warmup_sweep(
         hists.append(hist)
         gains.append(g)
     return stack_states(finals), hists, np.stack(gains)
+
+
+# ------------------------------------------------------- event-driven executor
+def staleness_histogram(counts, horizon: float) -> dict:
+    """The event executor's staleness buckets as ``{counts, edges}`` lists:
+    linear buckets over [0, horizon], the last one catching everything
+    beyond; ``edges`` the bucket boundaries in units of virtual time."""
+    c = np.asarray(counts, dtype=np.float64)
+    edges = np.linspace(0.0, float(horizon), len(c) + 1)
+    return {"counts": [float(v) for v in c], "edges": [float(e) for e in edges]}
+
+
+def _make_event_step(
+    loss_fn,
+    optimizer,
+    plan: CommPlan,
+    sched_d: torch.Tensor,
+    n_sched_rounds: int,
+    xs_d: torch.Tensor,
+    ys_d: torch.Tensor,
+    *,
+    layout,
+    reinit_opt: bool,
+    comp: Compression | None,
+):
+    """One gossip event as a reusable step (local phase → pairwise exchange
+    → optimizer re-init → clocks), shared by ``run_event_trajectory`` and
+    the serving executor to come, so that interleaved queries cannot change
+    the training math.
+
+    Returns ``step(params, opt_state, mirror, counts, clocks, e, t,
+    delivered) -> (loss, staleness)`` for a live event on edge ``e`` at time
+    ``t``: it updates the endpoints' rows of the flat ``params``, of every
+    ``opt_state`` field and of the compression mirror (None uncompressed) in
+    place, and the host arrays ``counts`` (each node's events so far, its
+    cursor into the schedule) and ``clocks`` (its last event's time).  The
+    endpoints always train; ``delivered`` False (the failure draw killed the
+    exchange) skips the exchange and leaves their rows and mirrors as the
+    local phase left them.  ``loss`` is the pair's mean loss, a device
+    scalar; ``staleness`` the mean of ``t − clock`` at the two endpoints
+    before the clocks move, a host float32.
+    """
+    uv_host = plan._event_uv_host
+    quantised = comp is not None and comp.codec in ("int8", "fp8")
+    table = _edges(layout.sizes, comp.chunk) if comp is not None else None
+
+    def step(params, opt_state, mirror, counts, clocks, e, t, delivered):
+        u, v = int(uv_host[e, 0]), int(uv_host[e, 1])
+        # 1. local phase: each endpoint takes b_local steps from its own cursor
+        iu, iv = sched_d[counts[u] % n_sched_rounds, u], sched_d[counts[v] % n_sched_rounds, v]
+        batch = (torch.stack([xs_d[u][iu], xs_d[v][iv]]), torch.stack([ys_d[u][iu], ys_d[v][iv]]))
+        pair = torch.stack([params[u], params[v]])
+        pair_o = type(opt_state)(*(torch.stack([f[u], f[v]]) for f in opt_state))
+        pair, pair_o, losses = _local_steps(loss_fn, optimizer, layout, pair, pair_o, batch)
+        with torch.no_grad():
+            # 2. the pairwise exchange
+            if delivered:
+                if comp is None:
+                    pair = pair_mix_ref(pair, plan.event_w[e])
+                else:
+                    h_pair = torch.stack([mirror[u], mirror[v]])
+                    if quantised:
+                        (pair, h_pair), _ = quant_mix_pair(
+                            plan.event_m2[e], pair, h_pair if comp.error_feedback else None, table,
+                            codec=comp.codec, gamma=comp.gamma, error_feedback=comp.error_feedback,
+                        )
+                    else:
+                        w = plan.event_w[e]
+                        pair, h_pair = compressed_mix_with(lambda q: pair_mix_ref(q, w), pair, h_pair, comp,
+                                                           layout=layout)
+                    mirror[u].copy_(h_pair[0])
+                    mirror[v].copy_(h_pair[1])
+            # 3. the pair's optimizer re-init (Algorithm 1 line 15)
+            if reinit_opt:
+                pair_o = optimizer.init(pair)
+            params[u].copy_(pair[0])
+            params[v].copy_(pair[1])
+            for f, nf in zip(opt_state, pair_o):
+                f[u].copy_(nf[0])
+                f[v].copy_(nf[1])
+        # 4. virtual clocks: staleness before they move
+        stale = ((t - clocks[u]) + (t - clocks[v])) / np.float32(2.0)
+        clocks[u] = clocks[v] = t
+        counts[u] += 1
+        counts[v] += 1
+        return losses.mean(), np.float32(stale)
+
+    return step
+
+
+def run_event_trajectory(
+    state: DFLState,
+    loss_fn,
+    optimizer,
+    plan: CommPlan | Graph,
+    stream: EventStream,
+    xs: np.ndarray | torch.Tensor,
+    ys: np.ndarray | torch.Tensor,
+    schedule: np.ndarray,
+    *,
+    b_local: int,
+    n_bins: int = 20,
+    eval_fn=None,
+    eval_batch=None,
+    reinit_opt: bool = True,
+    chunk_events: int = 0,
+    checkpoint=None,
+    resume_from: str | None = None,
+    on_chunk: Callable | None = None,
+    compression: Compression | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[DFLState, dict[str, list], dict]:
+    """Event-driven (asynchronous) DFL trajectory: no global round barrier.
+
+    For every live event of ``stream`` (its per-edge Poisson clocks replace
+    the synchronous barrier), in time order:
+
+      1. a **local phase**: each endpoint takes ``b_local`` minibatch steps
+         from its own cursor into ``schedule`` (its events so far, modulo
+         the schedule's rounds), through ``trainer._local_steps`` on the
+         gathered (2, d) rows;
+      2. the **pairwise DecAvg exchange** with the plan's weights
+         ``M[u, v]`` / ``M[v, u]``; a failed draw moves no model and
+         spends no messages, but the endpoints did train;
+      3. the pair's optimizer states re-initialise (``reinit_opt``);
+      4. the endpoints' **virtual clocks** move to the event's time; the
+         event's staleness is ``t − clock`` averaged over the pair, taken
+         before.
+
+    Padding events (edge −1) are skipped: the identity.  Failure draws: a
+    seed is drawn from ``state.generator`` (which advances, as the JAX
+    state's key does) and event i's flag is row i of
+    ``commplan.event_flags(plan, seed, stream)``, so chunking or a longer
+    envelope cannot change it.
+
+    Metrics go into ``n_bins`` equal bins of virtual time over
+    ``stream.horizon``: per-bin mean train loss and staleness, event and
+    delivered-message counts, and the mean test loss (``eval_fn``) after
+    each bin's last live event.  Returns ``(final_state, history, aux)``:
+    the history keys ``bin``, ``time``, ``train_loss``, ``test_loss``,
+    ``staleness``, ``events``, ``messages``, ``wire_bytes``; ``aux`` the
+    per-node ``node_clock`` and ``node_events`` and the 16-bucket
+    ``staleness_hist``.  The state's ``round`` advances by the live events.
+
+    ``chunk_events`` cuts the stream into chunks (0: one); ``on_chunk(ci,
+    i0, i1, acc)`` is called after chunk ci (events i0 … i1 − 1) once the
+    device has finished it, with the per-bin accumulators so far as numpy
+    (``loss_sum``, ``cnt``, ``stale_sum``, ``msg_cnt``, ``test_bin``,
+    ``stale_hist``): the one synchronisation a chunk adds.  A chunked run
+    computes exactly what an unchunked one does.
+
+    ``compression`` compresses the pairwise exchange: the endpoints
+    transmit ``C(x − h)``, update their mirrors and blend the mirrors; an
+    int8 / fp8 exchange is one launch of the quantised pair round
+    (``kernels.mix.quant_mix_pair``), topk / qtopk the plain codec on the
+    two rows.  Rows of other nodes, and an exchange the draw killed, keep
+    their mirrors.  ``checkpoint`` / ``resume_from`` are not ported yet.
+    """
+    if checkpoint is not None or resume_from is not None:
+        raise NotImplementedError(
+            "checkpointing the event executor is not ported yet; see ROADMAP.md Queue 1 item 12"
+        )
+    dev = state_device(state, device)
+    plan = compile_plan(plan, device=dev) if isinstance(plan, Graph) else plan
+    if not isinstance(plan, CommPlan) or plan.event_uv is None:
+        raise ValueError("run_event_trajectory needs an undirected, statically compiled plan")
+    n_nodes = xs.shape[0]
+    if plan.n != n_nodes:
+        raise ValueError(f"plan has {plan.n} nodes but xs carries {n_nodes}")
+    s = np.asarray(schedule)
+    n_sched_rounds = (s.shape[0] // b_local) if s.ndim == 3 else s.shape[0]
+    sched_d = torch.as_tensor(_as_round_schedule(s, n_sched_rounds, b_local), dtype=torch.int64, device=dev)
+    xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
+    eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
+
+    # the stream's metric structure, known on the host
+    env = stream.envelope
+    live = stream.edges >= 0
+    bins = np.clip((stream.times / stream.horizon * n_bins).astype(np.int64), 0, n_bins - 1)
+    do_eval = np.zeros(env, dtype=bool)
+    if eval_fn is not None:
+        for b in range(n_bins):
+            hits = np.nonzero(live & (bins == b))[0]
+            if len(hits):
+                do_eval[hits[-1]] = True
+
+    comp = compression if (compression is not None and compression.active) else None
+    state = seed_residual(copy_state(state), comp)
+    gen = state.generator
+    if gen is None and plan.failures.active:
+        raise ValueError("failure model active: the state needs a generator")
+    seed = None if gen is None else int(torch.randint(0, 2**62, (1,), generator=gen))
+    flags = _commplan.event_flags(plan, seed, stream)
+    delivered = live if flags is None else live & np.asarray(flags, dtype=bool)
+    step = _make_event_step(loss_fn, optimizer, plan, sched_d, n_sched_rounds, xs_d, ys_d,
+                            layout=state.layout, reinit_opt=reinit_opt, comp=comp)
+
+    params, opt_state, mirror = state.params, state.opt_state, state.residual
+    counts = np.zeros(n_nodes, dtype=np.int32)
+    clocks = np.zeros(n_nodes, dtype=np.float32)
+    loss_sum = torch.zeros(n_bins, dtype=torch.float32, device=dev)
+    test_bin = torch.full((n_bins,), float("nan"), dtype=torch.float32, device=dev)
+    cnt, stale_sum, msg_cnt = (np.zeros(n_bins, dtype=np.float32) for _ in range(3))
+    stale_hist = np.zeros(_STALE_BUCKETS, dtype=np.float32)
+    horizon = np.float32(stream.horizon)
+    n_buckets = np.float32(_STALE_BUCKETS)
+    size = env if chunk_events <= 0 else int(chunk_events)
+    for ci, i0 in enumerate(range(0, env, size)):
+        i1 = min(i0 + size, env)
+        for i in np.nonzero(live[i0:i1])[0] + i0:
+            b = int(bins[i])
+            loss, stale = step(params, opt_state, mirror, counts, clocks, int(stream.edges[i]),
+                               np.float32(stream.times[i]), bool(delivered[i]))
+            loss_sum[b : b + 1].add_(loss)
+            cnt[b] += np.float32(1.0)
+            stale_sum[b] += stale
+            msg_cnt[b] += np.float32(2.0 * delivered[i])
+            stale_hist[min(max(int(stale / horizon * n_buckets), 0), _STALE_BUCKETS - 1)] += np.float32(1.0)
+            if do_eval[i]:
+                test_bin[b : b + 1].copy_(eval_fn(state.layout.views(params), eval_d).mean())
+        if on_chunk is not None:
+            # one synchronisation a chunk: the hook reads the chunk's end
+            on_chunk(ci, i0, i1, dict(loss_sum=loss_sum.cpu().numpy(), cnt=cnt.copy(), stale_sum=stale_sum.copy(),
+                                      msg_cnt=msg_cnt.copy(), test_bin=test_bin.cpu().numpy(),
+                                      stale_hist=stale_hist.copy()))
+    safe = np.maximum(cnt, np.float32(1.0))
+    width = stream.horizon / n_bins
+    row_bytes = _row_bytes(state, comp)
+    messages = [int(v) for v in msg_cnt]
+    hist = {
+        "bin": list(range(n_bins)),
+        "time": [float((b + 1) * width) for b in range(n_bins)],
+        "train_loss": [float(v) for v in loss_sum.cpu().numpy() / safe],
+        "test_loss": [float(v) for v in test_bin.cpu().numpy()],
+        "staleness": [float(v) for v in stale_sum / safe],
+        "events": [int(v) for v in cnt],
+        # delivered messages only: an exchange the draw killed moved no model
+        "messages": messages,
+        "wire_bytes": [m * row_bytes for m in messages],
+    }
+    final = dataclasses.replace(state, params=params, opt_state=opt_state, round=state.round + stream.n_events,
+                                residual=mirror)
+    aux = {"node_clock": clocks, "node_events": counts, "staleness_hist": staleness_histogram(stale_hist, stream.horizon)}
+    return final, hist, aux

@@ -7,7 +7,8 @@ its own gain ``‖v̂_steady‖⁻¹`` from traffic on its own links.  Host nump
 reference: ``repro_torch.core.gossip``; estimate → init → train:
 ``repro_torch.fed.run_warmup_trajectory``.  The event-driven estimators
 (``spread_events``, ``push_sum_events``,
-``estimate_size_leaderless_events``) come with ROADMAP.md Queue 1 item 11.
+``estimate_size_leaderless_events``) run the same protocols barrier-free,
+one pairwise exchange each time an edge's Poisson clock fires.
 """
 from .diagnostics import (
     convergence_report,
@@ -23,13 +24,16 @@ from .engine import (
     estimate_mean_degree,
     estimate_size,
     estimate_size_leaderless,
+    estimate_size_leaderless_events,
     gain_from_degree_sample,
     gains_from_estimates,
     make_gain_estimator,
     power_iteration_norm,
     push_sum,
+    push_sum_events,
     round_generator,
     split_seed,
+    spread_events,
     spread_rounds,
 )
 from .walker import poll_degrees_device
@@ -42,6 +46,7 @@ __all__ = [
     "estimate_mean_degree",
     "estimate_size",
     "estimate_size_leaderless",
+    "estimate_size_leaderless_events",
     "fit_contraction_rate",
     "gain_from_degree_sample",
     "gains_from_estimates",
@@ -50,9 +55,11 @@ __all__ = [
     "power_iteration_norm",
     "predicted_contraction_rate",
     "push_sum",
+    "push_sum_events",
     "relative_error_trace",
     "round_generator",
     "size_error_trace",
     "split_seed",
+    "spread_events",
     "spread_rounds",
 ]

@@ -23,6 +23,11 @@ Protocols
 ``estimate_all``           (n̂, ‖v̂‖, ⟨k̂⟩) with one shared push-sum phase.
 ``make_gain_estimator``    seed → (n,) per-node init gains, on the plan's
                            device, for ``fed.executor.run_warmup_trajectory``.
+``spread_events`` / ``push_sum_events`` / ``estimate_size_leaderless_events``
+                           the barrier-free renderings: pairwise exchanges
+                           as an ``EventStream``'s edge clocks fire
+                           (``CommPlan.event_spread`` / ``event_spread_min``),
+                           no round counter at all.
 
 Randomness
 ----------
@@ -43,7 +48,10 @@ package's draws there).  The other draws split a seed with
 ``split_seed``: a gain estimator's seed into (gossip, walk, sketch) seeds,
 a warmup run's into (estimation, init) seeds.  A sweep budget b runs b
 rounds a phase, where the JAX package masks the tail rounds of its largest
-budget: the same numbers, fewer launches.
+budget: the same numbers, fewer launches.  An event protocol takes a seed
+too: event i's failure flag is row i of ``commplan.event_flags(plan, seed,
+stream)`` (the JAX package keys it ``fold_in(key, i)``), the one hook the
+tests inject the JAX draws through.
 """
 from __future__ import annotations
 
@@ -53,8 +61,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import commplan as _commplan
 from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan, compile_schedule
-from repro_torch.core.topology import Graph
+from repro_torch.core.topology import EventStream, Graph
 
 from .walker import poll_degrees_device
 
@@ -65,13 +74,16 @@ __all__ = [
     "estimate_mean_degree",
     "estimate_size",
     "estimate_size_leaderless",
+    "estimate_size_leaderless_events",
     "gain_from_degree_sample",
     "gains_from_estimates",
     "make_gain_estimator",
     "power_iteration_norm",
     "push_sum",
+    "push_sum_events",
     "round_generator",
     "split_seed",
+    "spread_events",
     "spread_rounds",
 ]
 
@@ -242,6 +254,75 @@ def estimate_size_leaderless(
     sketch_seed, round_seed = split_seed(seed, 2)
     sketches = _draw_sketches(sketch_seed, plan.n, n_sketches, plan.device)
     n_hat, mins = _sketch_n_hat(plan, sketches, rounds, round_seed, round_offset)
+    return (n_hat, mins) if return_sketches else n_hat
+
+
+# ------------------------------------------------- event-driven (barrier-free)
+def _scan_events(plan: Plan | Graph, op: str, x0, stream: EventStream, seed: int | None) -> torch.Tensor:
+    """``plan.event_<op>`` over the stream's live events in order (padding is
+    the identity and is skipped); event i takes row i of
+    ``commplan.event_flags(plan, seed, stream)`` as its failure draw.  Over
+    a K > 1 ``PlanSchedule`` each event runs under the plan active in its
+    unit-time window and draws from that plan's seed (``event_key``); a
+    K = 1 schedule is its static plan."""
+    plan = as_plan(plan)
+    if isinstance(plan, PlanSchedule) and plan.k == 1:
+        plan = plan.plans[0]
+    if plan.failures.active and seed is None:
+        raise ValueError("failure model active: event gossip needs a seed")
+    flags = _commplan.event_flags(plan, seed, stream)
+    fn = getattr(plan, f"event_{op}")
+    x = _payload(plan, x0)
+    scheduled = isinstance(plan, PlanSchedule)
+    for i in np.nonzero(stream.edges >= 0)[0]:
+        keep = None if flags is None else bool(flags[i])
+        e = int(stream.edges[i])
+        x = fn(x, e, stream.times[i], keep) if scheduled else fn(x, e, keep)
+    return x
+
+
+def spread_events(plan: Plan | Graph, values, stream: EventStream, seed: int | None = None) -> torch.Tensor:
+    """An ``EventStream`` of pairwise push exchanges on an (n,) / (n, k)
+    payload, the barrier-free ``spread_rounds``: mass is kept event by
+    event and no round counter exists."""
+    return _scan_events(plan, "spread", values, stream, seed)
+
+
+def push_sum_events(plan: Plan | Graph, values, stream: EventStream, seed: int | None = None) -> torch.Tensor:
+    """Event-driven push-sum: (s, w) ride the same pairwise exchanges and
+    s/w is every node's running estimate of the average, with no barrier
+    (numpy reference: ``core.gossip.push_sum_events_reference``)."""
+    plan = as_plan(plan)
+    x = _payload(plan, values)
+    squeeze = x.ndim == 1
+    x2 = x[:, None] if squeeze else x
+    payload = torch.cat([x2, torch.ones_like(x2[:, :1])], dim=1)
+    out = _scan_events(plan, "spread", payload, stream, seed)
+    ratio = out[:, :-1] / torch.clamp_min(out[:, -1:], _EPS)
+    return ratio[:, 0] if squeeze else ratio
+
+
+def estimate_size_leaderless_events(
+    plan: Plan | Graph,
+    stream: EventStream,
+    seed: int,
+    *,
+    n_sketches: int = 32,
+    return_sketches: bool = False,
+):
+    """Leaderless n̂ over an event stream: no distinguished node and no
+    round barrier.  Each node's Exp(1) sketches flood by pairwise min
+    exchanges as the edge clocks fire; the estimator is
+    ``estimate_size_leaderless``'s (an unreached node degrades to n̂ ≈ 1).
+    ``seed`` splits into (sketch seed, event seed); the sketches are drawn
+    as ``estimate_size_leaderless`` draws them."""
+    plan = as_plan(plan)
+    if seed is None:
+        raise ValueError("estimate_size_leaderless_events draws sketches: a seed is required")
+    sketch_seed, event_seed = split_seed(seed, 2)
+    sketches = _draw_sketches(sketch_seed, plan.n, n_sketches, plan.device)
+    mins = _scan_events(plan, "spread_min", sketches, stream, event_seed if plan.failures.active else None)
+    n_hat = (n_sketches - 1) / torch.clamp_min(mins.sum(dim=1), _EPS)
     return (n_hat, mins) if return_sketches else n_hat
 
 

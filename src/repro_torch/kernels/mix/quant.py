@@ -15,6 +15,10 @@ plain version.  ``<wrapper>.launches`` counts kernel launches.
 * ``quant_scales`` — one fp32 absmax scale per (row, chunk) of ``X − H``.
 * ``quant_mix_bsr`` — ``M · (H + Q(X − H))`` with M in BSR form and the
   scales ``quant_scales`` gave.
+* ``quant_mix_pair`` — one compressed exchange of an asynchronous event
+  over its two endpoint rows: on the card one launch of the dense round
+  with the pair's 2 × 2 operator; its plain version mixes in the JAX
+  package's pairwise form (``ref.pair_mix_ref``).
 
 Raw mode (``gamma=None``) gives Y = M·Q(X) in X's dtype; round mode one
 compressed gossip round, (X' = X + γ (M·H' − H'), H').
@@ -43,13 +47,14 @@ from . import _launch as L
 from .ref import (
     check_codec,
     decavg_mix_ref,
+    pair_mix_ref,
     pallas_bounds,
     quant_mix_ref,
     quant_scales_ref,
 )
 from .sparse import MAX_BLOCK_N, mix_bsr_ref
 
-__all__ = ["ROUTES", "TilePlan", "plan_tiles", "quant_mix_bsr", "quant_mix_dense", "quant_scales",
+__all__ = ["ROUTES", "TilePlan", "plan_tiles", "quant_mix_bsr", "quant_mix_dense", "quant_mix_pair", "quant_scales",
            "quantised_mix_bsr", "round_smem_bytes", "table_bounds", "tile_plan"]
 
 CODEC_CODES = {"int8": 0, "fp8": 1}
@@ -301,6 +306,45 @@ def quant_mix_dense(
     quant_mix_dense.launches += 1
     quant_mix_dense.launches_by_route[plan.route] += 1
     return _result(y, x_out, h_out), scales
+
+
+def quant_mix_pair(
+    m2: torch.Tensor,
+    x: torch.Tensor,
+    h: torch.Tensor | None,
+    edges: tuple[int, ...],
+    *,
+    codec: str,
+    gamma: float,
+    error_feedback: bool = True,
+):
+    """One compressed exchange of an asynchronous event: ``x`` / ``h`` are
+    the (2, d) rows and fp32 mirrors of its endpoints u and v, ``m2`` the
+    (2, 2) operator ``[[1 − w_uv, w_uv], [w_vu, 1 − w_vu]]``
+    (``CommPlan.event_m2``), ``edges`` the chunk table as host ints.
+    Returns ``((X', H'), scales)`` as ``quant_mix_dense``.
+
+    On CUDA tensors it is one launch of the dense round (counted by
+    ``quant_mix_dense``).  On CPU tensors it runs the plain version, the
+    JAX package's compressed event: the same scales and H', and the mix in
+    its pairwise form ``h'_u + w_uv·(h'_v − h'_u)``, where the kernel sums
+    ``(1 − w_uv)·h'_u + w_uv·h'_v``: X' differs by fp32 rounding only."""
+    if x.ndim != 2 or x.shape[0] != 2:
+        raise ValueError(f"a pair exchange takes (2, d) rows, got {tuple(x.shape)}")
+    L.check_operand(m2, "M", torch.float32, (2, 2), x.device)
+    if x.device.type != "cpu":
+        return quant_mix_dense(m2, x, h, edges, codec=codec, gamma=gamma, error_feedback=error_feedback)
+    check_codec(codec)
+    bounds = table_bounds(tuple(edges), x.device)
+    _check_inputs(x, h, bounds)
+    if edges[-1] != x.shape[1]:
+        raise ValueError(f"the chunk table ends at column {edges[-1]}, X has {x.shape[1]}")
+    ef = error_feedback and h is not None
+    scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef)
+    w = torch.stack([m2[0, 1], m2[1, 0]])
+    out = quant_mix_ref(lambda hq: pair_mix_ref(hq, w), x, h, bounds, scales, codec=codec, gamma=gamma,
+                        error_feedback=ef)
+    return out, scales
 
 
 def quant_mix_bsr(

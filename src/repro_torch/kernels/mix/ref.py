@@ -25,6 +25,7 @@ __all__ = [
     "decavg_mix_ref",
     "dequantise_ref",
     "fma_f32",
+    "pair_mix_ref",
     "pallas_bounds",
     "quant_mix_ref",
     "quant_scales_ref",
@@ -39,6 +40,16 @@ _TINY = 1e-30
 def decavg_mix_ref(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Y = M @ W with fp32 accumulation, cast back to w.dtype."""
     return torch.matmul(m.to(torch.float32), w.to(torch.float32)).to(w.dtype)
+
+
+def pair_mix_ref(pair: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exchange of one asynchronous event on its gathered endpoints, in
+    the JAX package's form: ``pair`` (2, ...) holds node u in row 0 and v in
+    row 1, ``w`` the (2,) weights ``[w_uv, w_vu]``; row 0 becomes
+    ``x_u + w_uv·(x_v − x_u)``, row 1 ``x_v + w_vu·(x_u − x_v)``, as
+    separate fp32 sub, mul and add, cast back to ``pair``'s dtype."""
+    p = pair.to(torch.float32)
+    return (p + w.to(torch.float32).reshape(2, *([1] * (p.ndim - 1))) * (p.flip(0) - p)).to(pair.dtype)
 
 
 def chunk_bounds(sizes, chunk: int, device=None) -> torch.Tensor:

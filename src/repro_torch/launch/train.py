@@ -21,6 +21,9 @@ Examples:
         --topology-schedule churn --plans 8 --churn-rate 0.2 --uncoordinated-init --leaderless
     # stream the recorded rounds every 10 rounds instead of after the run
     python -m repro_torch.launch.train --model mlp --rounds 100 --log-every 10
+    # event-driven, no round barrier: per-edge Poisson clocks, pairwise
+    # exchanges as they fire (int8: one quantised pair round an exchange)
+    python -m repro_torch.launch.train --model mlp --topology ba --async --event-rate 1.0 --event-horizon 100
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
@@ -35,8 +38,14 @@ chain of ``--churn-rate`` rewirings of the base graph), each active
 ``--chunk-rounds`` sets ``run_trajectory``'s chunk and ``--log-every`` prints the
 recorded rounds at chunk boundaries (the warmup path runs unchunked and
 prints after the run).
+``--async`` runs the event-driven executor (``run_event_trajectory``)
+over a Poisson stream of ``--event-rate`` clocks an edge and horizon
+``--event-horizon`` (default ``--rounds``), printing one line a bin of
+virtual time; with ``--uncoordinated-init`` the gains are n̂^0.5 from
+barrier-free leaderless sketches over a stream of their own
+(``--estimate-rounds`` units of virtual time, seed + 3).
 Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
-The token models and the JAX launcher's other modes (async, elastic,
+The token models and the JAX launcher's other modes (elastic,
 checkpointing, telemetry) are not ported yet.
 """
 from __future__ import annotations
@@ -61,8 +70,15 @@ from repro_torch.data import (
     so2sat_like,
 )
 from repro_torch.device import resolve_device
-from repro_torch.fed import init_fl_state, make_eval_fn, make_round_fn, run_trajectory, run_warmup_trajectory
-from repro_torch.gossip import make_gain_estimator
+from repro_torch.fed import (
+    init_fl_state,
+    make_eval_fn,
+    make_round_fn,
+    run_event_trajectory,
+    run_trajectory,
+    run_warmup_trajectory,
+)
+from repro_torch.gossip import estimate_size_leaderless_events, gains_from_estimates, make_gain_estimator, split_seed
 from repro_torch.models.paper_models import (
     classifier_loss,
     cnn_forward,
@@ -142,6 +158,15 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     p.add_argument("--leaderless", action="store_true",
                    help="size estimation by exponential-random-minimum sketches instead of the "
                    "leader one-hot: no distinguished node")
+    p.add_argument(
+        "--async", action="store_true", dest="async_gossip",
+        help="event-driven gossip: no global round barrier; per-edge Poisson clocks realise an event stream and "
+        "training and mixing happen pairwise as edges fire (fed.run_event_trajectory)",
+    )
+    p.add_argument("--event-rate", type=float, default=1.0,
+                   help="per-edge Poisson clock rate; 1.0 matches one synchronous round per unit time in messages")
+    p.add_argument("--event-horizon", type=float, default=None,
+                   help="virtual-time horizon of the event stream (default: --rounds)")
     p.add_argument("--chunk-rounds", type=int, default=0, help="executor chunk size in rounds (0 = auto)")
     p.add_argument("--log-every", type=int, default=0,
                    help="print the recorded metrics every N rounds at chunk boundaries instead of after the "
@@ -157,6 +182,14 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     if args.uncoordinated_init and args.no_gain_correction:
         p.error("--uncoordinated-init estimates (and applies) per-node gains; "
                 "it contradicts --no-gain-correction — pick one")
+    if args.async_gossip:
+        if args.topology_schedule != "static":
+            p.error("--async needs a static topology: realise dynamics as per-edge "
+                    "clock rates (poisson_event_stream) rather than a PlanSchedule")
+        if args.uncoordinated_init and args.estimate_mode == "degree":
+            p.error("--async estimation is barrier-free leaderless sketching; "
+                    "degree polling needs the round-based walker — drop "
+                    "--estimate-mode degree or drop --async")
     dev = resolve_device(args.device)
     compress_cfg = None
     if args.compress != "none":
@@ -212,6 +245,13 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     def loss_fn(params, batch):
         return classifier_loss(forward(params, batch[0]), batch[1])
 
+    def init_one(g, gains):
+        return init_model(InitConfig("he_normal", gains), g)
+
+    eval_fn = make_eval_fn(loss_fn)
+    if args.async_gossip:
+        hist = _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, eval_batch, compress_cfg, dev)
+        return _finish(args, hist)
     round_fn = make_round_fn(
         loss_fn, opt, mix_plan, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
     )
@@ -229,14 +269,11 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
 
     stream_hook = stream_rows if args.log_every > 0 else None
 
-    def init_one(g, gains):
-        return init_model(InitConfig("he_normal", gains), g)
-
     sched = batch_index_schedule(
         ys.shape[1], n, args.batch_size, args.rounds * args.local_batches, seed=args.seed
     )
     common = dict(
-        n_rounds=args.rounds, eval_every=max(1, args.rounds // 20), eval_fn=make_eval_fn(loss_fn),
+        n_rounds=args.rounds, eval_every=max(1, args.rounds // 20), eval_fn=eval_fn,
         eval_batch=eval_batch, track_sigmas=True, b_local=args.local_batches, device=dev,
     )
     if args.uncoordinated_init:
@@ -271,6 +308,44 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         # the warmup path has no chunk hook: it prints after the run
         for i, r in enumerate(hist["round"]):
             print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f}", flush=True)
+    return _finish(args, hist)
+
+
+def _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, eval_batch, compress_cfg, dev):
+    """The event-driven path: no round barrier, and with
+    ``--uncoordinated-init`` no estimation barrier either."""
+    horizon = args.event_horizon if args.event_horizon is not None else float(args.rounds)
+    plan = compile_plan(graph, failures=FailureModel(link_p=args.link_p, node_p=args.node_p), device=dev)
+    print(f"mixing: pairwise events on the {plan.backend} plan on {dev}")
+    stream = T.poisson_event_stream(graph, horizon=horizon, rate=args.event_rate, seed=args.seed + 2)
+    print(f"event stream: {stream.n_events} events over horizon {horizon:g} "
+          f"(rate {args.event_rate:g}, {2 * stream.n_events} messages)")
+    sched = batch_index_schedule(ys.shape[1], n, args.batch_size, max(int(horizon), 1) * args.local_batches,
+                                 seed=args.seed)
+    if args.uncoordinated_init:
+        # leaderless sketches over their own Poisson stream (--estimate-rounds
+        # units of virtual time); --estimate-mode and --leaderless do not
+        # apply: the event path always sketches, and the gains are n̂^0.5
+        est_stream = T.poisson_event_stream(graph, horizon=float(args.estimate_rounds), rate=args.event_rate,
+                                            seed=args.seed + 3)
+        est_seed, init_seed = split_seed(args.seed, 2)
+        gains = gains_from_estimates(estimate_size_leaderless_events(plan, est_stream, est_seed))
+        g_np = gains.cpu().numpy()
+        print(f"barrier-free leaderless gains (n̂^0.5): mean={g_np.mean():.2f} min={g_np.min():.2f} max={g_np.max():.2f}")
+        state = init_fl_state(init_seed, n, init_one, opt, gains=gains, device=dev)
+    else:
+        state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=dev)
+    _, hist, _ = run_event_trajectory(
+        state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=args.local_batches, n_bins=20, eval_fn=eval_fn,
+        eval_batch=eval_batch, compression=compress_cfg, device=dev,
+    )
+    for i, t in enumerate(hist["time"]):
+        print(f"t={t:8.1f} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f} "
+              f"stale {hist['staleness'][i]:.2f} msgs {hist['messages'][i]}", flush=True)
+    return hist
+
+
+def _finish(args, hist: dict) -> dict:
     if args.history_out:
         os.makedirs(os.path.dirname(args.history_out) or ".", exist_ok=True)
         with open(args.history_out, "w") as f:

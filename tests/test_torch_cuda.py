@@ -51,6 +51,7 @@ from repro_torch.kernels.mix import (  # noqa: E402
     pallas_bounds,
     quant_mix_bsr,
     quant_mix_dense,
+    quant_mix_pair,
     quant_scales,
     quantised_decavg_mix_ref,
     quantised_mix_bsr,
@@ -765,3 +766,89 @@ def test_compressed_plan_round_on_the_card_matches_the_cpu(dev, codec, backend):
     xc, hc = cpu.mix(x.cpu(), torch.Generator().manual_seed(1), compression=comp, residual=h.cpu())
     assert torch.equal(hg.cpu(), hc)
     torch.testing.assert_close(xg.cpu(), xc, atol=1e-5 * float(x.abs().max()), rtol=0)
+
+
+PAIR_SHAPES = {"ragged": ((777, 1, 301), 128), "mlp": (MLP_SIZES, 2048)}
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+@pytest.mark.parametrize("gamma", [1.0, 0.5])
+@pytest.mark.parametrize("shape", sorted(PAIR_SHAPES))
+def test_quant_pair_exchange_matches_plain(dev, codec, gamma, shape):
+    """An event's compressed exchange on the card: one launch of the dense
+    round on the staged route with the pair's 2 × 2 operator, against the
+    plain version on the CPU (the JAX form h'_u + w_uv·(h'_v − h'_u)):
+    scales and H' bitwise, X' within 1e-5 · max|X| (the kernel sums
+    (1 − w)·h'_u + w·h'_v), two launches bitwise equal."""
+    from repro_torch.core.commplan import compile_plan
+
+    sizes, chunk = PAIR_SHAPES[shape]
+    d = sum(sizes)
+    plan = compile_plan(T.barabasi_albert(16, 3, seed=0), "dense", data_sizes=np.linspace(1, 2, 16), device=dev)
+    x, h = _quant_inputs(dev, 2, d, torch.float32, seed=d)
+    edges = tuple(chunk_bounds(sizes, chunk).tolist())
+    for e in (0, plan.n_edges - 1):
+        m2 = plan.event_m2[e]
+        before, routes = quant_mix_dense.launches, dict(quant_mix_dense.launches_by_route)
+        (xo, ho), sc = quant_mix_pair(m2, x, h, edges, codec=codec, gamma=gamma)
+        assert quant_mix_dense.launches == before + 1
+        assert quant_mix_dense.launches_by_route == {**routes, "staged": routes["staged"] + 1}
+        (xc, hc), sc_c = quant_mix_pair(m2.cpu(), x.cpu(), h.cpu(), edges, codec=codec, gamma=gamma)
+        assert torch.equal(sc.cpu(), sc_c) and torch.equal(ho.cpu(), hc)
+        torch.testing.assert_close(xo.cpu(), xc, atol=1e-5 * max(float(x.abs().max()), 1.0), rtol=0)
+        (xa, ha), _ = quant_mix_pair(m2, x, h, edges, codec=codec, gamma=gamma)
+        assert torch.equal(xa, xo) and torch.equal(ha, ho)
+
+
+@pytest.mark.parametrize("delivered", [True, False])
+def test_event_step_quantised_exchange_on_the_card(dev, delivered):
+    """The event executor's step with int8 on the card: a delivered draw is
+    one dense-round launch, a failed one launches nothing and leaves the
+    pair's rows as the local phase left them (the uncompressed step's,
+    bitwise) and their mirrors as they were; the card's rows match the
+    CPU's (H' bitwise, X' to fp32 rounding).  The loss is scaled by 0, so
+    the local phase leaves the rows bitwise equal on both devices and the
+    exchange alone is compared."""
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.core.compress import Compression
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.fed import executor as PX
+    from repro_torch.fed import init_fl_state
+    from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+    from repro_torch.optim import sgd
+
+    def loss(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1]) * 0.0
+
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((8, 16, 784)).astype(np.float32)
+    ys = rng.integers(0, 10, (8, 16)).astype(np.int32)
+    sched = torch.as_tensor(rng.integers(0, 16, (2, 8, 2, 4)), dtype=torch.int64)
+    opt = sgd(1e-3, 0.5)
+    outs = {}
+    for where in ("cpu", "cuda"):
+        state = init_fl_state(0, 8, lambda g, gn: init_mlp(InitConfig("he_normal", gn), g.manual_seed(3), hidden=(16,)),
+                              opt, device="cpu")
+        plan = compile_plan(T.ring(8), "dense", device=where)
+        for comp in (None, Compression("int8", chunk=512)):
+            p = state.params.to(where, copy=True)
+            o = type(state.opt_state)(*(f.to(where, copy=True) for f in state.opt_state))
+            mirror = 0.01 * torch.ones_like(p)
+            step = PX._make_event_step(loss, opt, plan, sched.to(where), 2, torch.as_tensor(xs, device=where),
+                                       torch.as_tensor(ys, device=where), layout=state.layout, reinit_opt=True,
+                                       comp=comp)
+            before = quant_mix_dense.launches
+            step(p, o, mirror, np.zeros(8, np.int32), np.zeros(8, np.float32), 3, np.float32(0.5), delivered)
+            if where == "cuda":
+                assert quant_mix_dense.launches - before == int(delivered and comp is not None)
+            outs[where, comp is None] = (p.cpu(), mirror.cpu())
+    u, v = plan.event_uv[3].tolist()
+    if not delivered:
+        for where in ("cpu", "cuda"):
+            assert torch.equal(outs[where, False][0], outs[where, True][0])
+            assert float((outs[where, False][1] - 0.01).abs().max()) == 0.0
+    x_c, h_c = outs["cpu", False]
+    x_g, h_g = outs["cuda", False]
+    assert torch.equal(h_g, h_c)
+    torch.testing.assert_close(x_g, x_c, atol=1e-5 * max(float(x_c.abs().max()), 1.0), rtol=1e-5)
+    assert torch.equal(x_g[[i for i in range(8) if i not in (u, v)]], x_c[[i for i in range(8) if i not in (u, v)]])

@@ -99,3 +99,23 @@ def test_entry_points_default_to_cuda():
         fed.run_sweep([state], rf, xs, ys, sched, n_rounds=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         fed.train_loop(state, rf, iter([]), n_rounds=1)
+    # the event-driven path: the executor, the engine's event protocols, the
+    # fig9 runner and its run(), the CLI's --async
+    from repro_torch import gossip
+    from repro_torch.benchmarks import common, fig9_async
+
+    stream = T.poisson_event_stream(T.ring(4), 2.0, seed=0)
+    plan = compile_plan(T.ring(4), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_event_trajectory(state, lambda p, b: None, opt, plan, stream, xs, ys, sched, b_local=1)
+    for fn in (gossip.spread_events, gossip.push_sum_events):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(T.ring(4), np.ones(4, np.float32), stream)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gossip.estimate_size_leaderless_events(T.ring(4), stream, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.run_dfl_mlp_async(n_nodes=4, horizon=1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fig9_async.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--nodes", "4", "--rounds", "1", "--async"])

@@ -207,9 +207,11 @@ def test_round_map_kinds():
         PC.compile_schedule([PT.ring(4), PT.ring(6)], "dense", device="cpu")
     with pytest.raises(ValueError):
         PC.RoundMap("cyclic", period=0)
-    for name in ("event_key", "event_mix", "event_spread", "event_spread_min", "event_stream"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            getattr(cyc, name)()
+    # the event rendering picks a window's plan on the host as the JAX package's host replica does
+    cj = JC.compile_schedule(_churn(JT), "dense", round_map=JC.cyclic_map(2))
+    for r in range(9):
+        assert cyc.plan_index(r) == cj._host_plan_index(r) and seq.plan_index(r) == sj._host_plan_index(r)
+        assert cyc._window(r + 0.5) == r and cyc.select(cyc._window(r + 0.5)) is cyc.plans[cyc.plan_index(r)]
 
 
 def test_core_exports_the_reference_names():

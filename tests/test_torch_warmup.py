@@ -271,8 +271,8 @@ def test_cli_uncoordinated_init_refusals(capsys):
         cli.main(["--device", "cpu", "--uncoordinated-init", "--no-gain-correction"])
     assert "contradicts --no-gain-correction" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu", "--uncoordinated-init", "--async"])
-    assert "not yet ported" in capsys.readouterr().err
+        cli.main(["--device", "cpu", "--uncoordinated-init", "--estimate-mode", "degree", "--async"])
+    assert "degree polling needs the round-based walker" in capsys.readouterr().err
 
 
 # ------------------------------------------------------- examples, bench
