@@ -142,6 +142,19 @@ run with a non-zero exit:
    ``event_mix_batch`` bitwise the sequential ``event_mix`` on the card;
    fig9 quick (``build/fig9_async.json``; the executor's wire bytes held
    to the stream's messages);
+4h. live serving under gossip — the serve CLI at its defaults (ring-16,
+   full-width MLP, 30 units of virtual time, qps 4) and at qps 0: no listed
+   kernel launches, µs an event and a query as a caller pays; on the card
+   ring-16 at link_p 0.8: qps 0 bitwise ``run_event_trajectory``, qps 5
+   bitwise qps 0's training; ring-6 card vs CPU (routing arrays and
+   answers equal, losses to rtol 1e-4); fig13 quick with its acceptance
+   assertion (``build/fig13_serve.json``); the consensus example (30 AdamW
+   DecAvg rounds of the reduced qwen2.5-3b on kreg4-8, then consensus and
+   routed serving: one ``mix_matmul`` launch a round at n = 8, one fp32
+   flash launch a prefill layer, every key among phase 3's), and 3 rounds
+   of it card vs CPU (greedy tokens equal); one decoder training step's
+   gradient card vs CPU with no flash launch under grad, and a
+   grad-recording ``flash_mha`` / ``rwkv6_chunked`` call raising;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -588,6 +601,10 @@ def main() -> int:
         for i, s_len in enumerate((1, 40, 63, 65, 300, 2047))
     ] + [
         serve_case("phase 8", get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32),
+        # phase 4h's consensus example: its consensus prefill (4 prompts of
+        # 8) and each routed query's (1 × 8)
+        serve_case("example consensus", get_reduced_config("qwen2.5-3b"), 4, 8, 0, torch.float32),
+        serve_case("example serve", get_reduced_config("qwen2.5-3b"), 1, 8, 0, torch.float32),
         serve_case("qwen prefill", qcfg, 4, 2048, 0, torch.float32),
         serve_case("gemma3 global", gcfg, 2, 2048, 0, torch.float32),
         serve_case("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
@@ -620,6 +637,8 @@ def main() -> int:
         check(flash_mha.launches_by_route == {**before, want: before[want] + 2},
               f"{label}: not launched on {want}")
         row = row_of[want] if label != "padded" else f"flash_mha_hd{hd}{'_fp32' if dtype == torch.float32 else ''}"
+        if label.startswith("example"):
+            row = "flash_mha_fp32_example"
         errs[row] = max(errs.get(row, 0.0), e)
         flash_checked.add(flash_key(q, k, causal, window))
         del q, k, v
@@ -740,6 +759,22 @@ def main() -> int:
                                             library_ms=time_ms(lambda: torch.sparse.mm(kreg_csr, w1k), flush=flush),
                                             bound_ms=b_w, bound_by=op_w)
     del w1k, m_csr, kreg_csr, plan_d, m16
+    # the consensus example's DecAvg rounds (phase 4h): n = 8 over the
+    # reduced qwen2.5-3b's flat row, its d from the layout of a CPU init
+    D_LM = FlatLayout.of(TF.init_params(0, get_reduced_config("qwen2.5-3b"),
+                                        InitConfig("trunc_normal", torch.ones(8)), device="cpu")).size
+    m8 = row_stochastic(8)
+    w8 = torch.randn(8, D_LM, generator=gen, device=dev)
+    errs["mix_matmul_decoder"] = compare(f"mix_matmul fp32 n=8 d={D_LM} (reduced qwen2.5-3b)",
+                                         lambda: mix_matmul(m8, w8), decavg_mix_ref(m8, w8), w8)
+    b_lm, op_lm = bound(4 * 8 * 8 + 2 * 4 * 8 * D_LM, 2 * 8 * 8 * D_LM)
+    timing["mix_matmul_decoder"] = dict(
+        ms=time_ms(lambda: mix_matmul(m8, w8), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(m8, w8), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(m8, w8), flush=flush),
+        bound_ms=b_lm, bound_by=op_lm, shape=f"n=8 d={D_LM} fp32 (reduced qwen2.5-3b)",
+    )
+    del m8, w8
     # flash at every shape phase 7 launches, on the decoder's (B, S, H, hd)
     # views (the qwen2.5-3b prefill's row goes into the kernels line, its
     # contiguous layout timed beside it), and at phase 8's and the
@@ -787,6 +822,7 @@ def main() -> int:
         ("gemma3 global", gcfg, 2, 2048, 0, torch.bfloat16),
         ("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window, torch.bfloat16),
         ("phase 8 fp32", get_reduced_config("qwen2.5-3b"), 2, 40, 0, torch.float32),
+        ("example consensus fp32", get_reduced_config("qwen2.5-3b"), 4, 8, 0, torch.float32),
         ("qwen prefill fp32", qcfg, 4, 2048, 0, torch.float32), ("gemma3 global fp32", gcfg, 2, 2048, 0, torch.float32),
         ("gemma3 local fp32", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
         # the padded head dims: stablelm-12b's prefill (4 × 2048), the
@@ -807,6 +843,8 @@ def main() -> int:
     timing["flash_mha"] = flash_shapes["qwen prefill"]
     # the fp32 route's row: phase 8's launches (the reduced qwen2.5-3b, 2 prompts of 40)
     timing["flash_mha_fp32"] = flash_shapes["phase 8 fp32"]
+    # phase 4h's consensus example: its consensus prefill (4 prompts of 8)
+    timing["flash_mha_fp32_example"] = flash_shapes["example consensus fp32"]
     # the padded head dims' rows: no path of this script launches them
     timing["flash_mha_hd160"] = flash_shapes["stablelm-12b hd160"]
     timing["flash_mha_hd40"] = flash_shapes["reduced stablelm-12b hd40"]
@@ -2434,6 +2472,257 @@ def main() -> int:
     print(f"  phase 4g: {time.perf_counter() - t_4g:.1f} s")
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------- 4h. live serving
+    phase("4h. live serving under gossip: the serve CLI, bitwise training under load, fig 13, the consensus example")
+    t_4h = time.perf_counter()
+    from repro_torch.benchmarks import fig13_serve
+    from repro_torch.examples import serve_consensus
+    from repro_torch.fed import make_router, poisson_query_stream, run_serve_trajectory, serve_summary
+    from repro_torch.launch import serve as serve_cli
+
+    # (a) the serve CLI at its defaults (ring-16, the full-width MLP, 30
+    # units of virtual time, qps 4, consensus router), after a warm-up run
+    # at qps 0; then three pairs of runs at qps 0 and qps 64 (~1,900
+    # queries), in turns.  Each executor call is timed by a wrapper that
+    # waits for the card before and after it (what a caller pays), and the
+    # host time inside its gossip events (``_EventRun.gossip``, no sync
+    # inside) is summed within the same call.  µs an event: a qps-0 call
+    # over its events.  µs a query, inside each call: the call's time
+    # outside its gossip events at qps 64 less that at qps 0 (set-up, the
+    # merge, the last sync), over the queries; beside it the difference of
+    # the two calls' walls, which carries the gossip steps' spread
+    from repro_torch.fed import executor as fed_executor
+
+    stream_h = T.poisson_event_stream(serve_cli.build_graph("ring", 16, 0), 30.0, 1.0, seed=1)
+    calls_h = []  # (wall, host seconds inside gossip events) a call
+    real_serve, real_gossip = serve_cli.run_serve_trajectory, fed_executor._EventRun.gossip
+    gossip_s = [0.0]
+
+    def timed_gossip(self, i):
+        t0 = time.perf_counter()
+        real_gossip(self, i)
+        gossip_s[0] += time.perf_counter() - t0
+
+    def timed_serve(*a, **kw):
+        torch.cuda.synchronize()
+        gossip_s[0] = 0.0
+        t0 = time.perf_counter()
+        out = real_serve(*a, **kw)
+        torch.cuda.synchronize()
+        calls_h.append((time.perf_counter() - t0, gossip_s[0]))
+        return out
+
+    serve_cli.run_serve_trajectory, fed_executor._EventRun.gossip = timed_serve, timed_gossip
+    try:
+        _, _, launches_w = counted(lambda: serve_cli.main(["--qps", "0"]))
+        (hist_h, summ_h), wall_cli, launches_h = counted(lambda: serve_cli.main([]))
+        pairs_h, launches_pairs = [], []
+        for _ in range(3):
+            (hist_0, _), _, launches_0 = counted(lambda: serve_cli.main(["--qps", "0"]))
+            (_, summ_64), _, launches_64 = counted(lambda: serve_cli.main(["--qps", "64"]))
+            pairs_h.append((calls_h[-2], calls_h[-1], summ_64["served"]))
+            launches_pairs += [launches_0, launches_64]
+    finally:
+        serve_cli.run_serve_trajectory, fed_executor._EventRun.gossip = real_serve, real_gossip
+    us_event = [w0 / stream_h.n_events * 1e6 for (w0, _), _, _ in pairs_h]
+    us_gossip = [g0 / stream_h.n_events * 1e6 for (_, g0), _, _ in pairs_h]
+    us_query = [((w64 - g64) - (w0 - g0)) / max(nq, 1) * 1e6 for (w0, g0), (w64, g64), nq in pairs_h]
+    us_query_walls = [(w64 - w0) / max(nq, 1) * 1e6 for (w0, _), (w64, _), nq in pairs_h]
+    print(f"  serve CLI (defaults): {stream_h.n_events} events, {summ_h['served']} queries served in "
+          f"{calls_h[1][0]:.2f} s ({wall_cli:.1f} s with data and init); p50 latency {summ_h['p50_latency']:.4f}, p95 "
+          f"{summ_h['p95_latency']:.4f}, mean staleness {summ_h['mean_staleness']:.4f}, mean hops "
+          f"{summ_h['mean_hops']:.3f}; final train {summ_h['train_loss_final']:.4f} test "
+          f"{summ_h['test_loss_final']:.4f}")
+    print(f"  as a caller pays (host clock after a sync), three qps-0 / qps-64 pairs in turns: µs an event "
+          f"{[round(v) for v in us_event]} (of it inside the gossip step {[round(v) for v in us_gossip]}); "
+          f"µs a query inside each qps-64 call {[round(v) for v in us_query]} over "
+          f"{[nq for _, _, nq in pairs_h]} queries (median {sorted(us_query)[1]:.0f}); from the two calls' walls "
+          f"{[round(v) for v in us_query_walls]}; walls (qps 0, qps 64) "
+          f"{[(round(w0, 3), round(w64, 3)) for (w0, _), (w64, _), _ in pairs_h]} s")
+    check(all(n == none_launched for n in [launches_w, launches_h, *launches_pairs]),
+          f"serve CLI launched {[launches_w, launches_h, *launches_pairs]}: the live path runs no kernel")
+    check(summ_h["served"] == sum(hist_h["queries"]) > 0 and sum(hist_h["events"]) == stream_h.n_events,
+          f"serve CLI: {summ_h['served']} served, {sum(hist_h['events'])} events")
+    check(all(math.isfinite(summ_h[k]) for k in ("p50_latency", "p95_latency", "mean_staleness", "train_loss_final",
+                                                  "test_loss_final")), "serve CLI: a non-finite summary")
+    check(hist_0["train_loss"] == hist_h["train_loss"] and hist_0["test_loss"] == hist_h["test_loss"],
+          "serve CLI: training differs between qps 0 and qps 4")
+
+    # (b) on the card, ring-16 at full width, link_p 0.8, 6 units of virtual
+    # time: qps 0 is run_event_trajectory bit for bit, and qps 5 (consensus
+    # router with a budget, answers) changes no bit of training
+    from repro_torch.fed import run_event_trajectory
+
+    ring16 = T.ring(16)
+    gain16 = gain_from_graph(ring16)
+    init_h = init_fl_state(7, 16, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), sgd(1e-3, 0.5),
+                           gains=gain16, device=dev)
+    ds_h = mnist_like(16 * 64 + 256, seed=0)
+    xs_h, ys_h = node_datasets(ds_h, [np.arange(i * 64, (i + 1) * 64) for i in range(16)])
+    test_h = (ds_h.x[-256:], ds_h.y[-256:])
+
+    def loss_h(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+    def answer_h(p, x):
+        return torch.argmax(mlp_forward(p, x[None]), dim=-1)[0]
+
+    plan_h = compile_plan(ring16, failures=FailureModel(link_p=0.8), device=dev)
+    stream_b = T.poisson_event_stream(ring16, 6.0, 1.0, seed=1)
+    sched_h = batch_index_schedule(64, 16, 16, 12, seed=0)
+    common_h = dict(b_local=2, n_bins=6, eval_fn=make_eval_fn(loss_h), eval_batch=test_h, device=dev)
+    router_h = make_router(ring16, "consensus", staleness_budget=1.0)
+    ev_h = run_event_trajectory(init_h, loss_h, sgd(1e-3, 0.5), plan_h, stream_b, xs_h, ys_h, sched_h, **common_h)
+    srv_h = {}
+    for qps in (0.0, 5.0):
+        srv_h[qps] = run_serve_trajectory(init_h, loss_h, sgd(1e-3, 0.5), plan_h, stream_b,
+                                          poisson_query_stream(16, 6.0, qps, seed=3, pool=256), router_h, xs_h,
+                                          ys_h, sched_h, serve_fn=answer_h, query_xs=test_h[0], **common_h)
+
+    def same_training(a, b):
+        return (torch.equal(a[0].params, b[0].params) and all(torch.equal(x, y) for x, y in
+                                                              zip(a[0].opt_state, b[0].opt_state))
+                and all(json.dumps(a[1][k]) == json.dumps(b[1][k]) for k in ev_h[1])
+                and np.array_equal(a[-1]["node_clock"], b[-1]["node_clock"]))
+
+    same0, same5 = same_training(ev_h, srv_h[0.0]), same_training(srv_h[0.0], srv_h[5.0])
+    served5 = serve_summary(srv_h[5.0][2])["served"]
+    print(f"  ring-16 full width, link_p 0.8, {stream_b.n_events} events: qps 0 bitwise run_event_trajectory "
+          f"{same0}; qps 5 ({served5} queries answered) bitwise qps 0's training {same5}")
+    check(same0 and same5 and served5 > 0, "serving changed training on the card")
+    del ev_h, srv_h, init_h
+
+    # (c) card vs CPU at a small size: ring-6, the full-width MLP from one
+    # CPU init, link_p 0.8, 8 units of virtual time, qps 5, consensus router
+    # with a budget: routing arrays and answers equal, the integer channels,
+    # clocks and busy times equal, losses to rtol 1e-4 (the trainer's bound)
+    ring6 = T.ring(6)
+    init_c = init_fl_state(5, 6, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), sgd(1e-3, 0.5),
+                           gains=gain_from_graph(ring6), device="cpu")
+    np_params = to_numpy(init_c)[0]
+    stream_c = T.poisson_event_stream(ring6, 8.0, 1.0, seed=1)
+    queries_c = poisson_query_stream(6, 8.0, 5.0, seed=3, pool=256)
+    runs_c = {}
+    for d_name in ("cuda", "cpu"):
+        opt_c = sgd(1e-3, 0.5)
+        runs_c[d_name] = run_serve_trajectory(
+            state_from_numpy(np_params, optimizer=opt_c, device=d_name), loss_h, opt_c,
+            compile_plan(ring6, "dense", failures=FailureModel(link_p=0.8), device=d_name), stream_c, queries_c,
+            make_router(ring6, "consensus", staleness_budget=0.5), xs_h[:6], ys_h[:6],
+            batch_index_schedule(64, 6, 16, 16, seed=0), b_local=2, n_bins=4, eval_fn=make_eval_fn(loss_h),
+            eval_batch=test_h, serve_fn=answer_h, query_xs=test_h[0], device=d_name)
+    (_, hc_g, sc_g, ac_g), (_, hc_c, sc_c, ac_c) = runs_c["cuda"], runs_c["cpu"]
+    routing_same = all(np.array_equal(sc_g[k], sc_c[k]) for k in ("node", "latency", "staleness", "hops"))
+    answers_same = np.array_equal(sc_g["answer"], sc_c["answer"])
+    ints_same = all(hc_g[k] == hc_c[k] for k in ("events", "messages", "staleness", "queries", "serve_latency",
+                                                   "serve_staleness"))
+    clocks_same = all(np.array_equal(ac_g[k], ac_c[k]) for k in ("node_clock", "node_events", "node_busy"))
+    loss_diff = {k: float(np.max(np.abs(np.asarray(hc_g[k]) - np.asarray(hc_c[k])))) for k in ("train_loss",
+                                                                                                 "test_loss")}
+    print(f"  ring-6 card vs CPU ({stream_c.n_events} events, {sc_g['node'].size} queries): routing arrays equal "
+          f"{routing_same}, answers equal {answers_same}, channels / clocks equal {ints_same} / {clocks_same}; "
+          f"loss max abs diff {loss_diff}")
+    check(routing_same and answers_same and ints_same and clocks_same, "serving card vs CPU: routing differs")
+    check(all(np.allclose(hc_g[k], hc_c[k], rtol=1e-4, atol=1e-5) for k in ("train_loss", "test_loss")),
+          "serving card vs CPU: losses")
+
+    # (d) fig 13 quick through the port's fig13_serve (build/fig13_serve.json),
+    # its acceptance assertion (consensus beats uniform on served staleness
+    # at ≤ 1.05× p50 latency on some family) inside run()
+    fig_common.ROWS.clear()
+    (f13, wall_f13, launches_f13) = counted(lambda: fig13_serve.run(quick=True, device=dev))
+    print(f"  fig13 quick: {len(f13['records'])} records in {wall_f13:.1f} s, consensus wins on "
+          f"{f13['consensus_wins']}, written to build/fig13_serve.json")
+    for rec in f13["records"]:
+        print(f"    {json.dumps(rec)}")
+    check(len(f13["records"]) == 12 and launches_f13 == none_launched
+          and all(math.isfinite(x) for rec in f13["records"] for x in rec.values() if isinstance(x, float)),
+          f"fig13 quick: records missing or not finite, or launches {launches_f13}")
+
+    # (e) the consensus example as a user runs it (30 AdamW DecAvg rounds of
+    # the reduced qwen2.5-3b on kreg4-8, consensus and routed serving): one
+    # mix_matmul launch a round at (8, d), one flash launch a prefill layer
+    # (fp32: the wgmma_tf32x3 route); every flash key among phase 3's.  Then
+    # 3 rounds card vs CPU from the same CPU init: greedy tokens equal
+    lm_keys = set()
+
+    def recording_flash_h(q, k, v, *, causal=True, window=0):
+        lm_keys.add(flash_key(q, k, causal, window))
+        return flash_mha(q, k, v, causal=causal, window=window)
+
+    red_q = get_reduced_config("qwen2.5-3b")
+    flash_ops.flash_mha = recording_flash_h
+    try:
+        ex_h, wall_ex, lm_launches = counted(lambda: serve_consensus.run(device=dev))
+        lm_routes = dict(flash_mha.launches_by_route)
+    finally:
+        flash_ops.flash_mha = flash_mha
+    n_prefill = 1 + len(ex_h["assignments"])
+    want_lm = {**none_launched, "mix_matmul": serve_consensus.ROUNDS, "flash_mha": n_prefill * red_q.n_layers}
+    losses_ex = ex_h["hist"]["train_loss"]
+    print(f"  consensus example: {serve_consensus.ROUNDS} rounds (d = {ex_h['state'].layout.size:,} a node) and "
+          f"serving in {wall_ex:.1f} s; train loss {losses_ex[0]:.4f} → {losses_ex[-1]:.4f}; launches "
+          f"{ {k: n for k, n in lm_launches.items() if n} } (flash by route {lm_routes}); flash keys "
+          f"{sorted(lm_keys, key=str)}")
+    check(lm_launches == want_lm and lm_routes == {"wgmma": 0, "wgmma_tf32x3": want_lm["flash_mha"]},
+          f"consensus example: launches {lm_launches} routes {lm_routes}, want {want_lm}")
+    check(lm_keys <= flash_checked, f"consensus example launched flash at {sorted(lm_keys - flash_checked, key=str)}, "
+          "not checked in phase 3")
+    check(ex_h["state"].layout.size == D_LM and all(math.isfinite(v) for v in losses_ex)
+          and losses_ex[-1] < losses_ex[0], f"consensus example: d {ex_h['state'].layout.size}, losses {losses_ex}")
+    toks_ex = {}
+    for d_name in ("cuda", "cpu"):
+        q_ex = serve_consensus.setup(d_name)
+        st_ex, hist_ex = serve_consensus.train(q_ex, 3)
+        toks_ex[d_name] = (serve_consensus.serve(q_ex, st_ex), hist_ex, st_ex.params.cpu())
+    (got_g, hist_g, p_g), (got_c, hist_c, p_c) = toks_ex["cuda"], toks_ex["cpu"]
+    same_toks = (np.array_equal(got_g["consensus"], got_c["consensus"])
+                 and np.array_equal(got_g["nodes"], got_c["nodes"]))
+    p_diff = float((p_g - p_c).abs().max())
+    print(f"  consensus example, 3 rounds card vs CPU: greedy tokens equal {same_toks} (consensus and the 4 routed "
+          f"queries, {serve_consensus.N_NEW} new each); train losses {hist_g['train_loss']} vs {hist_c['train_loss']}; "
+          f"params max abs diff {p_diff:.2e}")
+    check(same_toks, "consensus example: greedy tokens differ between the card and the CPU after 3 rounds")
+    check(np.allclose(hist_g["train_loss"], hist_c["train_loss"], rtol=1e-4), "consensus example: losses differ")
+
+    # (f) one decoder training step on the card: the loss and its gradient
+    # (reduced qwen2.5-3b, fp32, 2 × 48 tokens) against the CPU, no flash
+    # launch under grad; a grad-recording kernel call raises
+    base_f = TF.init_params(0, red_q, InitConfig("trunc_normal"), device="cpu")
+    rng_f = np.random.default_rng(0)
+    x_f = torch.as_tensor(rng_f.integers(0, red_q.vocab_size, (2, 48)).astype(np.int32))
+    y_f = torch.as_tensor(rng_f.integers(0, red_q.vocab_size, (2, 48)).astype(np.int32))
+    grads_f = {}
+    for d_name in ("cuda", "cpu"):
+        p_f = tree_map(lambda t: t.detach().to(d_name, copy=True).requires_grad_(True), base_f)
+        reset_counts()
+        hidden_f, _ = TF.forward(p_f, red_q, x_f.to(d_name))
+        loss_f = TF.lm_loss(p_f, red_q, hidden_f, y_f.to(d_name))
+        loss_f.backward()
+        leaves_f = []
+        tree_map(leaves_f.append, p_f)
+        grads_f[d_name] = (float(loss_f.detach()), [t.grad.cpu() for t in leaves_f], flash_mha.launches)
+    (l_g, g_g, fl_g), (l_c, g_c, _) = grads_f["cuda"], grads_f["cpu"]
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(g_g, g_c))
+    q_r = torch.randn(1, 4, 40, 32, device=dev, requires_grad=True)
+    kv_r = torch.randn(1, 2, 40, 32, device=dev)
+    raised = []
+    for name_r, call in (("flash_mha", lambda: flash_mha(q_r, kv_r, kv_r)),
+                         ("rwkv6_chunked", lambda: rwkv6_chunked(*(torch.randn(1, 40, 2, 32, device=dev),) * 3,
+                                                                  torch.full((1, 40, 2, 32), 0.9, device=dev),
+                                                                  torch.randn(2, 32, device=dev, requires_grad=True)))):
+        try:
+            call()
+        except RuntimeError as exc:
+            raised.append(name_r if "no backward" in str(exc) else f"{name_r}: {exc}")
+    print(f"  one decoder training step (reduced qwen2.5-3b, 2 × 48): loss card {l_g:.6f} CPU {l_c:.6f}, gradient "
+          f"max diff {g_rel:.2e} of the largest element, flash launches under grad {fl_g}; grad-recording kernel "
+          f"calls raised: {raised}")
+    check(fl_g == 0 and abs(l_g - l_c) <= 1e-5 * abs(l_c) and g_rel <= 1e-4, "decoder training step card vs CPU")
+    check(raised == ["flash_mha", "rwkv6_chunked"], f"grad-recording kernel calls: {raised}")
+    print(f"  phase 4h: {time.perf_counter() - t_4h:.1f} s")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
     n8, per8, r8, b8 = 8, 64, 3, 2
@@ -2982,6 +3271,11 @@ def main() -> int:
         # codec (compressed_mix_with, no pallas_call); the port runs it
         # through kernel 3's dense round, whose design it reuses
         ("quant_mix_dense_event", "src/repro/core/compress.py:251", f"{src}/quant_mix.cu", event_launches),
+        # the consensus example of phase 4h: its DecAvg rounds (n = 8 over
+        # the reduced qwen2.5-3b's row) and its fp32 flash prefills
+        ("mix_matmul_decoder", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", lm_launches["mix_matmul"]),
+        ("flash_mha_fp32_example", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", lm_launches["flash_mha"]),
         # head dims the kernel runs zero-padded; no path of this script
         # launches them (no ported config has them)
         ("flash_mha_hd160", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
@@ -3003,7 +3297,7 @@ def main() -> int:
             row["shape"] = t["shape"]
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
-        elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event")):
+        elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example")):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")

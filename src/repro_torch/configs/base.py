@@ -77,8 +77,9 @@ class ArchConfig:
     notes: str = ""
     # knobs of the JAX package's XLA lowering (roofline unrolling, chunked /
     # banded attention); kept so configurations read alike, unused here:
-    # every full-sequence attention of the port goes through the flash
-    # kernel, every full-sequence RWKV time-mix through the rwkv kernel
+    # a full-sequence attention goes through the flash kernel, or through
+    # the plain masked softmax when autograd records it (training), and a
+    # full-sequence RWKV time-mix through the rwkv kernel
     unroll_scans: bool = False
     attn_impl: str = "full"
     swa_impl: str = "full"

@@ -9,9 +9,11 @@ recognised by their fields: ``momentum`` (SGD) or ``step``/``mu``/``nu``
 A compressed-gossip mirror (the JAX ``DFLState.residual``, a params-shaped
 fp32 tree) crosses over the same way, into ``DFLState.residual``.
 
-Decoder parameter trees (nested dicts with ``stack`` / ``tail`` lists, one
-parameter set or node-stacked) convert leaf for leaf with
-``params_from_numpy`` / ``params_to_numpy``: the layouts are the same.
+A decoder's node-stacked state (nested dicts with ``stack`` / ``tail``
+lists) converts the same way: the flat layout walks lists in the JAX
+pytree order, so a row is ``ravel_pytree`` of the JAX node's tree.
+Decoder parameter trees (one parameter set or node-stacked) also convert
+leaf for leaf with ``params_from_numpy`` / ``params_to_numpy``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fed.trainer import DFLState
-from repro_torch.flat import FlatLayout, tree_from_leaves, tree_leaves, tree_map
+from repro_torch.flat import FlatLayout, tree_map
 from repro_torch.optim import AdamWState, Optimizer, SgdState
 
 __all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy", "to_numpy"]
@@ -31,13 +33,11 @@ Tree = dict[str, Any]
 
 
 def _tensor_tree(tree: Tree, dev: torch.device) -> Tree:
-    paths, leaves = zip(*tree_leaves(tree))
-    return tree_from_leaves(paths, [torch.tensor(np.asarray(a), device=dev) for a in leaves])
+    return tree_map(lambda a: _leaf_tensor(a, dev), tree)
 
 
 def _numpy_tree(tree: Tree) -> Tree:
-    paths, leaves = zip(*tree_leaves(tree))
-    return tree_from_leaves(paths, [t.detach().cpu().numpy() for t in leaves])
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def state_from_numpy(

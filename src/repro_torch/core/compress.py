@@ -52,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.flat import FlatLayout, tree_from_leaves, tree_leaves, tree_map
+from repro_torch.flat import FlatLayout, tree_leaves, tree_map
 from repro_torch.kernels.mix import mix_flat, quant_mix_flat
 from repro_torch.kernels.mix.quant import table_bounds
 from repro_torch.kernels.mix.ref import chunk_bounds, dequantise_ref, quant_scales_ref
@@ -166,7 +166,7 @@ def _unflat(flat: torch.Tensor, layout: FlatLayout, like: Tree | None = None) ->
     if like is None:
         return views
     dtypes = [v.dtype for _, v in tree_leaves(like)]
-    return tree_from_leaves(layout.paths, [v.to(dt) for (_, v), dt in zip(tree_leaves(views), dtypes)])
+    return layout.unflatten([v.to(dt) for (_, v), dt in zip(tree_leaves(views), dtypes)])
 
 
 def _topk_leaf(t2: torch.Tensor, comp: Compression) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Datasets, token streams, partitions and batch schedules (numpy copies of ``repro.data``)."""
 from .partition import node_datasets, partition_iid, partition_zipf
-from .pipeline import NodeBatches, batch_index_schedule, node_batch_iterator
+from .pipeline import NodeBatches, batch_index_schedule, node_batch_iterator, token_batch_iterator
 from .synthetic import (
     ImageDataset,
     cifar10_like,
@@ -23,4 +23,5 @@ __all__ = [
     "partition_iid",
     "partition_zipf",
     "so2sat_like",
+    "token_batch_iterator",
 ]

@@ -6,7 +6,9 @@ schedule, uploaded once; the executor gathers each round's minibatches on
 the device) and ``node_batch_iterator`` (the host iterator, whose k-th batch
 selects exactly ``batch_index_schedule(...)[k]``).  Every epoch draws one
 fresh permutation per node, drops the ``per_node mod batch_size`` remainder,
-and all nodes cross epoch boundaries together.
+and all nodes cross epoch boundaries together.  ``token_batch_iterator``
+draws language-model windows (x the tokens, y the next tokens) from the
+same ``default_rng`` calls as the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["NodeBatches", "batch_index_schedule", "node_batch_iterator"]
+__all__ = ["NodeBatches", "batch_index_schedule", "node_batch_iterator", "token_batch_iterator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +66,22 @@ def node_batch_iterator(
         for b in range(bpe):
             take = orders[:, b * batch_size : (b + 1) * batch_size]
             yield NodeBatches(x=xs[node_idx, take], y=ys[node_idx, take])
+
+
+def token_batch_iterator(
+    tokens_per_node: np.ndarray, batch_size: int, seq_len: int, seed: int = 0
+) -> Iterator[NodeBatches]:
+    """LM batches: x = tokens[t:t+L], y = tokens[t+1:t+L+1], per node;
+    ``(n_nodes, batch_size, seq_len)`` int32 each, the window starts drawn
+    uniformly from ``[0, stream_len − L − 1)`` in one call a batch."""
+    n_nodes, stream_len = tokens_per_node.shape
+    rng = np.random.default_rng(seed)
+    max_start = stream_len - seq_len - 1
+    node_idx = np.arange(n_nodes)[:, None, None]
+    offsets = np.arange(seq_len)
+    while True:
+        starts = rng.integers(0, max_start, size=(n_nodes, batch_size))
+        win = starts[:, :, None] + offsets  # (n_nodes, batch, seq_len)
+        x = tokens_per_node[node_idx, win].astype(np.int32)
+        y = tokens_per_node[node_idx, win + 1].astype(np.int32)
+        yield NodeBatches(x=x, y=y)

@@ -393,9 +393,9 @@ def _make_event_step(
     comp: Compression | None,
 ):
     """One gossip event as a reusable step (local phase → pairwise exchange
-    → optimizer re-init → clocks), shared by ``run_event_trajectory`` and
-    the serving executor to come, so that interleaved queries cannot change
-    the training math.
+    → optimizer re-init → clocks), shared through ``_EventRun`` by
+    ``run_event_trajectory`` and the serving executor, so that interleaved
+    queries cannot change the training math.
 
     Returns ``step(params, opt_state, mirror, counts, clocks, e, t,
     delivered) -> (loss, staleness)`` for a live event on edge ``e`` at time
@@ -529,85 +529,120 @@ def run_event_trajectory(
         raise NotImplementedError(
             "checkpointing the event executor is not ported yet; see ROADMAP.md Queue 1 item 12"
         )
-    dev = state_device(state, device)
-    plan = compile_plan(plan, device=dev) if isinstance(plan, Graph) else plan
-    if not isinstance(plan, CommPlan) or plan.event_uv is None:
-        raise ValueError("run_event_trajectory needs an undirected, statically compiled plan")
-    n_nodes = xs.shape[0]
-    if plan.n != n_nodes:
-        raise ValueError(f"plan has {plan.n} nodes but xs carries {n_nodes}")
-    s = np.asarray(schedule)
-    n_sched_rounds = (s.shape[0] // b_local) if s.ndim == 3 else s.shape[0]
-    sched_d = torch.as_tensor(_as_round_schedule(s, n_sched_rounds, b_local), dtype=torch.int64, device=dev)
-    xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
-    eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
-
-    # the stream's metric structure, known on the host
-    env = stream.envelope
-    live = stream.edges >= 0
-    bins = np.clip((stream.times / stream.horizon * n_bins).astype(np.int64), 0, n_bins - 1)
-    do_eval = np.zeros(env, dtype=bool)
-    if eval_fn is not None:
-        for b in range(n_bins):
-            hits = np.nonzero(live & (bins == b))[0]
-            if len(hits):
-                do_eval[hits[-1]] = True
-
     comp = compression if (compression is not None and compression.active) else None
-    state = seed_residual(copy_state(state), comp)
-    gen = state.generator
-    if gen is None and plan.failures.active:
-        raise ValueError("failure model active: the state needs a generator")
-    seed = None if gen is None else int(torch.randint(0, 2**62, (1,), generator=gen))
-    flags = _commplan.event_flags(plan, seed, stream)
-    delivered = live if flags is None else live & np.asarray(flags, dtype=bool)
-    step = _make_event_step(loss_fn, optimizer, plan, sched_d, n_sched_rounds, xs_d, ys_d,
-                            layout=state.layout, reinit_opt=reinit_opt, comp=comp)
-
-    params, opt_state, mirror = state.params, state.opt_state, state.residual
-    counts = np.zeros(n_nodes, dtype=np.int32)
-    clocks = np.zeros(n_nodes, dtype=np.float32)
-    loss_sum = torch.zeros(n_bins, dtype=torch.float32, device=dev)
-    test_bin = torch.full((n_bins,), float("nan"), dtype=torch.float32, device=dev)
-    cnt, stale_sum, msg_cnt = (np.zeros(n_bins, dtype=np.float32) for _ in range(3))
-    stale_hist = np.zeros(_STALE_BUCKETS, dtype=np.float32)
-    horizon = np.float32(stream.horizon)
-    n_buckets = np.float32(_STALE_BUCKETS)
+    run = _EventRun(state, loss_fn, optimizer, plan, stream, xs, ys, schedule, b_local=b_local, n_bins=n_bins,
+                    eval_fn=eval_fn, eval_batch=eval_batch, reinit_opt=reinit_opt, comp=comp, device=device,
+                    name="run_event_trajectory")
+    env = stream.envelope
     size = env if chunk_events <= 0 else int(chunk_events)
     for ci, i0 in enumerate(range(0, env, size)):
         i1 = min(i0 + size, env)
-        for i in np.nonzero(live[i0:i1])[0] + i0:
-            b = int(bins[i])
-            loss, stale = step(params, opt_state, mirror, counts, clocks, int(stream.edges[i]),
-                               np.float32(stream.times[i]), bool(delivered[i]))
-            loss_sum[b : b + 1].add_(loss)
-            cnt[b] += np.float32(1.0)
-            stale_sum[b] += stale
-            msg_cnt[b] += np.float32(2.0 * delivered[i])
-            stale_hist[min(max(int(stale / horizon * n_buckets), 0), _STALE_BUCKETS - 1)] += np.float32(1.0)
-            if do_eval[i]:
-                test_bin[b : b + 1].copy_(eval_fn(state.layout.views(params), eval_d).mean())
+        for i in np.nonzero(run.live[i0:i1])[0] + i0:
+            run.gossip(int(i))
         if on_chunk is not None:
             # one synchronisation a chunk: the hook reads the chunk's end
-            on_chunk(ci, i0, i1, dict(loss_sum=loss_sum.cpu().numpy(), cnt=cnt.copy(), stale_sum=stale_sum.copy(),
-                                      msg_cnt=msg_cnt.copy(), test_bin=test_bin.cpu().numpy(),
-                                      stale_hist=stale_hist.copy()))
-    safe = np.maximum(cnt, np.float32(1.0))
-    width = stream.horizon / n_bins
-    row_bytes = _row_bytes(state, comp)
-    messages = [int(v) for v in msg_cnt]
-    hist = {
-        "bin": list(range(n_bins)),
-        "time": [float((b + 1) * width) for b in range(n_bins)],
-        "train_loss": [float(v) for v in loss_sum.cpu().numpy() / safe],
-        "test_loss": [float(v) for v in test_bin.cpu().numpy()],
-        "staleness": [float(v) for v in stale_sum / safe],
-        "events": [int(v) for v in cnt],
-        # delivered messages only: an exchange the draw killed moved no model
-        "messages": messages,
-        "wire_bytes": [m * row_bytes for m in messages],
-    }
-    final = dataclasses.replace(state, params=params, opt_state=opt_state, round=state.round + stream.n_events,
-                                residual=mirror)
-    aux = {"node_clock": clocks, "node_events": counts, "staleness_hist": staleness_histogram(stale_hist, stream.horizon)}
-    return final, hist, aux
+            on_chunk(ci, i0, i1, run.acc())
+    return run.final(), run.history(), run.aux()
+
+
+class _EventRun:
+    """One event-driven run's carry and bookkeeping, shared by
+    ``run_event_trajectory`` and the serving executor
+    (``fed.serve.run_serve_trajectory``), so that interleaved queries cannot
+    change the training math: the copied state, the one seed drawn from its
+    generator, the stream's failure flags, the event step, the host counts
+    and clocks, and the per-bin accumulators (the losses on the device, the
+    rest host float32, the JAX executor's arithmetic)."""
+
+    def __init__(self, state, loss_fn, optimizer, plan, stream, xs, ys, schedule, *, b_local, n_bins, eval_fn,
+                 eval_batch, reinit_opt, comp, device, name):
+        dev = state_device(state, device)
+        plan = compile_plan(plan, device=dev) if isinstance(plan, Graph) else plan
+        if not isinstance(plan, CommPlan) or plan.event_uv is None:
+            raise ValueError(f"{name} needs an undirected, statically compiled plan")
+        n_nodes = xs.shape[0]
+        if plan.n != n_nodes:
+            raise ValueError(f"plan has {plan.n} nodes but xs carries {n_nodes}")
+        s = np.asarray(schedule)
+        n_sched_rounds = (s.shape[0] // b_local) if s.ndim == 3 else s.shape[0]
+        sched_d = torch.as_tensor(_as_round_schedule(s, n_sched_rounds, b_local), dtype=torch.int64, device=dev)
+        xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
+        self.eval_fn = eval_fn
+        self.eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
+        self.dev, self.plan, self.stream, self.comp, self.n_bins = dev, plan, stream, comp, n_bins
+
+        # the stream's metric structure, known on the host
+        self.live = stream.edges >= 0
+        self.bins = np.clip((stream.times / stream.horizon * n_bins).astype(np.int64), 0, n_bins - 1)
+        self.do_eval = np.zeros(stream.envelope, dtype=bool)
+        if eval_fn is not None:
+            for b in range(n_bins):
+                hits = np.nonzero(self.live & (self.bins == b))[0]
+                if len(hits):
+                    self.do_eval[hits[-1]] = True
+
+        self.state = seed_residual(copy_state(state), comp)
+        gen = self.state.generator
+        if gen is None and plan.failures.active:
+            raise ValueError("failure model active: the state needs a generator")
+        # the run's one draw from the state's generator
+        self.seed = None if gen is None else int(torch.randint(0, 2**62, (1,), generator=gen))
+        flags = _commplan.event_flags(plan, self.seed, stream)
+        self.delivered = self.live if flags is None else self.live & np.asarray(flags, dtype=bool)
+        self.step = _make_event_step(loss_fn, optimizer, plan, sched_d, n_sched_rounds, xs_d, ys_d,
+                                     layout=self.state.layout, reinit_opt=reinit_opt, comp=comp)
+
+        self.counts = np.zeros(n_nodes, dtype=np.int32)
+        self.clocks = np.zeros(n_nodes, dtype=np.float32)
+        self.loss_sum = torch.zeros(n_bins, dtype=torch.float32, device=dev)
+        self.test_bin = torch.full((n_bins,), float("nan"), dtype=torch.float32, device=dev)
+        self.cnt, self.stale_sum, self.msg_cnt = (np.zeros(n_bins, dtype=np.float32) for _ in range(3))
+        self.stale_hist = np.zeros(_STALE_BUCKETS, dtype=np.float32)
+        self.horizon = np.float32(stream.horizon)
+
+    def gossip(self, i: int) -> None:
+        """Live event i of the stream: the step, then its bins."""
+        st = self.state
+        b = int(self.bins[i])
+        delivered = bool(self.delivered[i])
+        loss, stale = self.step(st.params, st.opt_state, st.residual, self.counts, self.clocks,
+                                int(self.stream.edges[i]), np.float32(self.stream.times[i]), delivered)
+        self.loss_sum[b : b + 1].add_(loss)
+        self.cnt[b] += np.float32(1.0)
+        self.stale_sum[b] += stale
+        self.msg_cnt[b] += np.float32(2.0 * delivered)
+        bucket = int(stale / self.horizon * np.float32(_STALE_BUCKETS))
+        self.stale_hist[min(max(bucket, 0), _STALE_BUCKETS - 1)] += np.float32(1.0)
+        if self.do_eval[i]:
+            self.test_bin[b : b + 1].copy_(self.eval_fn(st.layout.views(st.params), self.eval_d).mean())
+
+    def acc(self) -> dict:
+        """The per-bin accumulators so far, as numpy (reading them waits for the card)."""
+        return dict(loss_sum=self.loss_sum.cpu().numpy(), cnt=self.cnt.copy(), stale_sum=self.stale_sum.copy(),
+                    msg_cnt=self.msg_cnt.copy(), test_bin=self.test_bin.cpu().numpy(),
+                    stale_hist=self.stale_hist.copy())
+
+    def history(self) -> dict[str, list]:
+        safe = np.maximum(self.cnt, np.float32(1.0))
+        width = self.stream.horizon / self.n_bins
+        row_bytes = _row_bytes(self.state, self.comp)
+        messages = [int(v) for v in self.msg_cnt]
+        return {
+            "bin": list(range(self.n_bins)),
+            "time": [float((b + 1) * width) for b in range(self.n_bins)],
+            "train_loss": [float(v) for v in self.loss_sum.cpu().numpy() / safe],
+            "test_loss": [float(v) for v in self.test_bin.cpu().numpy()],
+            "staleness": [float(v) for v in self.stale_sum / safe],
+            "events": [int(v) for v in self.cnt],
+            # delivered messages only: an exchange the draw killed moved no model
+            "messages": messages,
+            "wire_bytes": [m * row_bytes for m in messages],
+        }
+
+    def final(self) -> DFLState:
+        """The state after the run; its ``round`` advanced by the live events."""
+        return dataclasses.replace(self.state, round=self.state.round + self.stream.n_events)
+
+    def aux(self) -> dict:
+        return {"node_clock": self.clocks, "node_events": self.counts,
+                "staleness_hist": staleness_histogram(self.stale_hist, self.stream.horizon)}

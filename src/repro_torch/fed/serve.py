@@ -18,21 +18,36 @@ layers, an O(1) token-shift and wkv state for RWKV layers, which ignore
 package's tokens on the same parameters.
 Temperature sampling draws Gumbel noise from a ``torch.Generator`` (one
 (B, V) draw per sampled token), so a run is reproducible for a given
-generator but does not reproduce JAX's threefry draws.  Live serving
-(``run_serve_trajectory``, the router) needs the event executor and is not
-ported yet.
+generator but does not reproduce JAX's threefry draws.
+
+Live serving: ``run_serve_trajectory`` merges an open-loop Poisson
+``QueryStream`` into the gossip ``EventStream``'s envelope and walks both
+on the host.  Gossip events run the event executor's own step and
+bookkeeping (``executor._EventRun``: the same seed, the failure flag of the
+gossip ordinal), so training is bitwise that of ``run_event_trajectory``
+whatever the query load; query events route to a node (``fed.router``),
+read its current parameters and settle a queueing latency model on the
+same virtual clocks.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.commplan import CommPlan
+from repro_torch.core.topology import EventStream, Graph
 from repro_torch.device import resolve_device
 from repro_torch.flat import tree_map
+from repro_torch.gossip.engine import split_seed
 from repro_torch.models import transformer as tf
+
+from . import router as _router
+from .executor import _EventRun
+from .router import QueryStream, Router
+from .trainer import DFLState
 
 Tree = dict[str, Any]
 
@@ -43,6 +58,8 @@ __all__ = [
     "generate",
     "generate_tokenwise",
     "prefill",
+    "run_serve_trajectory",
+    "serve_summary",
 ]
 
 _CHUNK = 1 << 26  # elements averaged at a time: bounds the fp32 transient to 256 MB
@@ -198,3 +215,159 @@ class ServeEngine:
             params = tree_map(lambda leaf: leaf[node], node_params)
             out.append(self.generate(params, prompts[i : i + 1], n_new, generator)[0])
         return torch.stack(out)
+
+
+# ------------------------------------------------------- interleaved serving
+def run_serve_trajectory(
+    state: DFLState,
+    loss_fn,
+    optimizer,
+    plan: CommPlan | Graph,
+    stream: EventStream,
+    queries: QueryStream,
+    router: Router,
+    xs: np.ndarray | torch.Tensor,
+    ys: np.ndarray | torch.Tensor,
+    schedule: np.ndarray,
+    *,
+    b_local: int,
+    n_bins: int = 20,
+    eval_fn=None,
+    eval_batch=None,
+    reinit_opt: bool = True,
+    service_time: float = 0.05,
+    hop_latency: float = 0.02,
+    serve_fn: Callable[[Tree, torch.Tensor], torch.Tensor] | None = None,
+    query_xs: np.ndarray | torch.Tensor | None = None,
+    chunk_events: int = 0,
+    on_chunk=None,
+    device: str | torch.device | None = None,
+) -> tuple[DFLState, dict[str, list], dict[str, np.ndarray], dict]:
+    """Interleaved train + serve over the merged gossip + query envelope.
+
+    The host merges the two sorted envelopes with a stable argsort (gossip
+    before queries at equal times; at qps = 0 the identity) and walks it.
+    A live gossip event is ``run_event_trajectory``'s event: the same step,
+    its failure flag row g (the gossip ordinal) of the flags drawn from the
+    run's one seed, the same bins.  A live query event at time t from home
+    node ``home``:
+
+    1. routes to ``v = router.route(home, t − clocks, max(busy − t, 0),
+       draw)``, the staleness read off the training's virtual clocks, the
+       queue wait off the per-node busy-until times, ``draw`` the query's
+       row of ``router.uniform_draws`` (from a child of the run's seed);
+    2. settles ``latency = (start − t) + service_time + hop_latency ·
+       hops(home, v)`` with ``start = max(t, busy[v])`` and moves
+       ``busy[v]`` to ``start + service_time`` (one serving slot a node),
+       all in float32 on the host;
+    3. with ``serve_fn``, answers it: ``serve_fn(node v's parameters as
+       views, query_xs[qidx])`` on the device, the answer kept in a device
+       tensor read once at the end.  Queries never write parameters.
+
+    Returns ``(final_state, hist, serve, aux)``: ``hist`` the event
+    executor's per-bin history plus ``queries`` / ``serve_latency`` /
+    ``serve_staleness``; ``serve`` the per-query arrays (time, home, node,
+    latency, staleness, hops, answer) in arrival order; ``aux`` the per-node
+    clocks, event counts and busy times and the staleness histogram.
+    ``on_chunk(ci, i0, i1, acc)`` fires after each chunk of
+    ``chunk_events`` merged events, with the accumulators so far as numpy.
+    """
+    if abs(queries.horizon - stream.horizon) > 1e-6:
+        raise ValueError("query stream and event stream must share one horizon")
+    run = _EventRun(state, loss_fn, optimizer, plan, stream, xs, ys, schedule, b_local=b_local, n_bins=n_bins,
+                    eval_fn=eval_fn, eval_batch=eval_batch, reinit_opt=reinit_opt, comp=None, device=device,
+                    name="run_serve_trajectory")
+    dev = run.dev
+    qx_d = None if query_xs is None else torch.as_tensor(query_xs, device=dev)
+    draws = None
+    if router.policy == "uniform":
+        if run.seed is None:
+            raise ValueError("a uniform router draws from the run's seed: the state needs a generator")
+        draws = _router.uniform_draws(router.n, split_seed(run.seed, 1)[0], queries.envelope)
+
+    # host-side merge of the two sorted envelopes
+    env_g, env_q = stream.envelope, queries.envelope
+    times = np.concatenate([np.asarray(stream.times), np.asarray(queries.times)])
+    is_query = np.concatenate([np.zeros(env_g, bool), np.ones(env_q, bool)])
+    ordinal = np.concatenate([np.arange(env_g), np.arange(env_q)])
+    order = np.argsort(times, kind="stable")
+    times, is_query, ordinal = times[order], is_query[order], ordinal[order]
+    q_bins = np.clip((np.asarray(queries.times) / stream.horizon * n_bins).astype(np.int64), 0, n_bins - 1)
+
+    f32 = np.float32
+    service, per_hop = f32(service_time), f32(hop_latency)
+    busy = np.zeros(router.n, dtype=f32)
+    lat_sum, stale_sum, q_cnt = (np.zeros(n_bins, dtype=f32) for _ in range(3))
+    node = np.full(env_q, -1, dtype=np.int64)
+    latency, staleness, hops = (np.zeros(env_q, dtype=f32) for _ in range(3))
+    answers = torch.full((env_q,), float("nan"), dtype=torch.float32, device=dev)
+
+    def serve_one(qn: int) -> None:
+        home = int(queries.homes[qn])
+        t = f32(queries.times[qn])
+        clocks = run.clocks
+        v = router.route(home, t - clocks, np.maximum(busy - t, f32(0.0)), None if draws is None else draws[qn])
+        start = max(t, busy[v])
+        h = router.hops[home, v]
+        lat = (start - t) + service + per_hop * h
+        stale_v = t - clocks[v]
+        busy[v] = start + service
+        if serve_fn is not None and qx_d is not None:
+            st = run.state
+            with torch.no_grad():
+                ans = serve_fn(st.layout.views(st.params[v]), qx_d[int(queries.qidx[qn])])
+                answers[qn : qn + 1].copy_(torch.as_tensor(ans, device=dev).to(torch.float32).reshape(1))
+        b = int(q_bins[qn])
+        lat_sum[b] += lat
+        stale_sum[b] += stale_v
+        q_cnt[b] += f32(1.0)
+        node[qn], latency[qn], staleness[qn], hops[qn] = v, lat, stale_v, h
+
+    env = env_g + env_q
+    size = env if chunk_events <= 0 else int(chunk_events)
+    for ci, i0 in enumerate(range(0, env, size)):
+        i1 = min(i0 + size, env)
+        for j in range(i0, i1):
+            k = int(ordinal[j])
+            if not is_query[j]:
+                if run.live[k]:
+                    run.gossip(k)
+            elif queries.homes[k] >= 0:
+                serve_one(k)
+        if on_chunk is not None:
+            on_chunk(ci, i0, i1, dict(run.acc(), serve_lat_sum=lat_sum.copy(), serve_stale_sum=stale_sum.copy(),
+                                      serve_cnt=q_cnt.copy()))
+
+    hist = run.history()
+    q_safe = np.maximum(q_cnt, f32(1.0))
+    hist["queries"] = [int(v) for v in q_cnt]
+    hist["serve_latency"] = [float(v) for v in lat_sum / q_safe]
+    hist["serve_staleness"] = [float(v) for v in stale_sum / q_safe]
+    q = np.nonzero(np.asarray(queries.homes) >= 0)[0]
+    serve = {
+        "time": np.asarray(queries.times)[q].astype(np.float64),
+        "home": np.asarray(queries.homes)[q].astype(np.int64),
+        "node": node[q],
+        "latency": latency[q].astype(np.float64),
+        "staleness": staleness[q].astype(np.float64),
+        "hops": hops[q].astype(np.float64),
+        "answer": answers.cpu().numpy()[q].astype(np.float64),
+    }
+    aux = dict(run.aux(), node_busy=busy)
+    return run.final(), hist, serve, aux
+
+
+def serve_summary(serve: dict[str, np.ndarray]) -> dict[str, float]:
+    """Headline latency / staleness stats of one ``run_serve_trajectory`` run."""
+    lat = np.asarray(serve["latency"], np.float64)
+    if lat.size == 0:
+        return {"served": 0, "p50_latency": 0.0, "p95_latency": 0.0, "mean_latency": 0.0, "mean_staleness": 0.0,
+                "mean_hops": 0.0}
+    return {
+        "served": int(lat.size),
+        "p50_latency": float(np.percentile(lat, 50)),
+        "p95_latency": float(np.percentile(lat, 95)),
+        "mean_latency": float(lat.mean()),
+        "mean_staleness": float(np.asarray(serve["staleness"]).mean()),
+        "mean_hops": float(np.asarray(serve["hops"]).mean()),
+    }

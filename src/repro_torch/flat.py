@@ -1,9 +1,11 @@
 """One flat buffer per node-stacked ensemble.
 
 The port keeps every node-stacked parameter set (and each optimizer moment)
-in ONE contiguous ``(n, d)`` fp32 tensor: row i is node i's parameters,
-flattened leaf by leaf in the JAX package's leaf order (sorted keys, so
-``fc0/b`` before ``fc0/w``).  The model reads its leaves as *views* into that
+in ONE contiguous ``(n, d)`` tensor: row i is node i's parameters,
+flattened leaf by leaf in the JAX package's pytree order (dict keys sorted,
+so ``fc0/b`` before ``fc0/w``; list and tuple items by index, as a
+decoder's ``stack`` and ``tail``), so a row is ``ravel_pytree`` of the JAX
+node's tree.  The model reads its leaves as *views* into that
 buffer, so one DecAvg round is one kernel launch over the whole buffer with
 no concatenation and no split, and ``backward()`` writes every leaf's
 gradient straight into one flat ``(n, d)`` gradient.
@@ -17,7 +19,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["FlatLayout", "tree_leaves", "tree_from_leaves", "tree_map"]
+__all__ = ["FlatLayout", "tree_leaves", "tree_map", "tree_structure", "tree_unflatten"]
 
 Tree = dict[str, Any]
 
@@ -32,44 +34,73 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def tree_leaves(tree: Tree, prefix: tuple[str, ...] = ()) -> list[tuple[tuple[str, ...], Any]]:
-    """(path, leaf) pairs of a nested dict in the JAX package's leaf order."""
+def _children(tree) -> list | None:
+    """(key, child) pairs in the JAX pytree order, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def tree_leaves(tree: Tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(path, leaf) pairs of nested dicts, lists and tuples in the JAX
+    package's leaf order; a path holds dict keys and list indices."""
+    children = _children(tree)
+    if children is None:
+        return [(prefix, tree)]
     out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out += tree_leaves(v, prefix + (k,))
-        else:
-            out.append((prefix + (k,), v))
+    for k, v in children:
+        out += tree_leaves(v, prefix + (k,))
     return out
 
 
-def tree_from_leaves(paths, leaves) -> Tree:
-    """The nested dict with ``leaves[i]`` at ``paths[i]``."""
-    out: Tree = {}
-    for path, leaf in zip(paths, leaves):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
+def tree_structure(tree: Tree) -> tuple | None:
+    """The tree's shape without its leaves, hashable: ``(kind, ((key, sub),
+    ...))`` with kind ``"dict"``, ``"list"`` or ``"tuple"`` and the keys of
+    ``_children`` (dict keys, list indices); None for a leaf."""
+    children = _children(tree)
+    if children is None:
+        return None
+    kind = "dict" if isinstance(tree, dict) else type(tree).__name__
+    return (kind, tuple((k, tree_structure(v)) for k, v in children))
+
+
+def tree_unflatten(structure: tuple | None, leaves) -> Any:
+    """The tree of ``structure`` with ``leaves`` in ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return next(it)
+        kind, items = node
+        if kind == "dict":
+            return {k: build(sub) for k, sub in items}
+        built = [build(sub) for _, sub in items]
+        return built if kind == "list" else tuple(built)
+
+    return build(structure)
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatLayout:
     """Where each leaf of a per-node parameter tree sits in a flat row."""
 
-    paths: tuple[tuple[str, ...], ...]
     shapes: tuple[tuple[int, ...], ...]  # per-node leaf shapes
+    structure: tuple | None  # ``tree_structure`` of the tree
 
     @classmethod
     def of(cls, tree: Tree) -> "FlatLayout":
         """Layout of a node-stacked tree (every leaf ``(n, ...)``)."""
-        items = tree_leaves(tree)
         return cls(
-            paths=tuple(p for p, _ in items),
-            shapes=tuple(tuple(v.shape[1:]) for _, v in items),
+            shapes=tuple(tuple(v.shape[1:]) for _, v in tree_leaves(tree)),
+            structure=tree_structure(tree),
         )
+
+    @property
+    def paths(self) -> tuple[tuple, ...]:
+        """Each leaf's path (dict keys and list indices), in row order."""
+        return tuple(p for p, _ in tree_leaves(self.unflatten(range(len(self.shapes)))))
 
     @property
     def sizes(self) -> tuple[int, ...]:
@@ -93,4 +124,8 @@ class FlatLayout:
             flat[..., end - size : end].view(*lead, *shape)
             for shape, size, end in zip(self.shapes, self.sizes, ends)
         ]
-        return tree_from_leaves(self.paths, views)
+        return self.unflatten(views)
+
+    def unflatten(self, leaves) -> Tree:
+        """The tree with ``leaves`` (one per leaf, in row order) in place."""
+        return tree_unflatten(self.structure, leaves)

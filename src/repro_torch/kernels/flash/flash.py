@@ -8,7 +8,9 @@ bf16 products (``"wgmma"``), fp32 three TF32 products of hi + lo parts
 (``"wgmma_tf32x3"``).  There is no fallback to another kernel or to the
 plain version: a build or launch error is raised.  ``flash_mha.launches``
 counts kernel launches and ``flash_mha.launches_by_route`` splits them by
-route.
+route.  The kernel has no backward: a CUDA call that autograd would record
+(grad enabled and q, k or v requiring grad) raises, rather than return an
+output that no gradient flows through.
 
 The kernels read q, k and v through their strides (the last axis
 contiguous), so a ``(B, S, H, hd)`` activation transposed to ``(B, H, S, hd)``
@@ -110,6 +112,7 @@ def flash_mha(
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}; flash_mha takes cuda or cpu tensors")
+    K.no_backward("flash_mha", q, k, v)
     if q.shape[-1] not in HEAD_DIMS or not all(K.aligned16(t) for t in (q, k, v)):
         return with_padded_head_dim(_launch, q, k, v, causal=causal, window=window)
     return _launch(q, k, v, scale=1.0 / (q.shape[-1] ** 0.5), causal=causal, window=window)

@@ -20,7 +20,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.flat import tree_from_leaves, tree_leaves
+from repro_torch.flat import tree_leaves, tree_structure, tree_unflatten
 
 from .mix import mix_matmul
 from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, table_bounds
@@ -89,7 +89,7 @@ def decavg_mix(
             m = _bsr_of(m, block_n)
         elif backend != "dense":
             raise ValueError(f"unknown kernel backend {backend!r}")
-    paths, leaves = zip(*tree_leaves(tree))
+    leaves = [v for _, v in tree_leaves(tree)]
     n = leaves[0].shape[0]
     out_leaves: list[torch.Tensor | None] = [None] * len(leaves)
     by_dtype: dict[torch.dtype, list[int]] = {}
@@ -103,4 +103,4 @@ def decavg_mix(
             size = math.prod(leaves[i].shape[1:])
             out_leaves[i] = mixed[:, off : off + size].reshape(leaves[i].shape)
             off += size
-    return tree_from_leaves(paths, out_leaves)
+    return tree_unflatten(tree_structure(tree), out_leaves)

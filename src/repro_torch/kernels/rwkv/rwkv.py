@@ -13,7 +13,9 @@ scratch; a longer L in three (span deltas, the state scan, span outputs).  There
 to the plain version: a build or launch error is raised.
 ``rwkv6_chunked.launches`` counts kernel launches,
 ``rwkv6_chunked.launches_by_route`` splits them by route and
-``rwkv6_chunked.one_launch`` counts those that ran in one launch.
+``rwkv6_chunked.one_launch`` counts those that ran in one launch.  The
+kernel has no backward: a CUDA call that autograd would record raises
+(``kernels._launch.no_backward``).
 
 It differs from the JAX package's Pallas kernel in what it carries out: it
 takes an initial state and returns the final one (the decode cache a
@@ -125,6 +127,7 @@ def rwkv6_chunked(
         return rwkv6_chunked_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"r lies on {r.device}; rwkv6_chunked takes cuda or cpu tensors")
+    K.no_backward("rwkv6_chunked", r, k, v, w, u, state)
     b, l, h, m = r.shape
     name = route(r.dtype, m)
     got = _launch(r, k, v, w, u, state, scratch_floats(b, l, h, m))

@@ -1,13 +1,19 @@
 """Grouped-query attention with RoPE, sliding-window option and KV cache
 (counterpart of ``repro/models/attention.py``).
 
-Every full-sequence attention (``attention_forward``, ``attention_prefill``)
+Every full-sequence attention that autograd does not record
+(``attention_prefill``, ``attention_forward`` under ``torch.no_grad()``)
 goes through ``repro_torch.kernels.flash.flash_attention``: the hand-written
-CUDA kernel on the card, its plain version on the CPU.  One-token decode
-against the cache stays plain torch that mirrors the JAX package's ``_sdpa``
-(fp32 scores and softmax, probabilities cast to v's dtype before PV).  The
-kernel keeps the probabilities in fp32: at fp32 the two agree to summation
-order, at bf16 they differ by one rounding of p.
+CUDA kernel on the card, its plain version on the CPU.  The kernel has no
+backward, so when autograd records (grad mode on and q, k or v requiring
+grad: a training step) ``attention_forward`` computes the JAX package's
+training function instead, the plain masked softmax ``_sdpa`` over the
+causal / window mask of the JAX ``_causal_mask``, on every device.  The
+choice depends on nothing else.  One-token decode against the cache is
+``_sdpa`` too (fp32 scores and softmax, probabilities cast to v's dtype
+before PV, as the JAX ``_sdpa``).  The kernel keeps the probabilities in
+fp32: at fp32 the two agree to summation order, at bf16 they differ by one
+rounding of p.
 
 Shapes (node / batch axes lead and broadcast):
     x          (..., S, D)
@@ -84,12 +90,27 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     return out.reshape(*out.shape[:-3], h, hd).to(q.dtype)
 
 
+def _causal_mask(s: int, window: int, device) -> torch.Tensor:
+    """(S, S) boolean, True = attend: key j ≤ query i, and j > i − window
+    when ``window`` > 0 (the JAX ``_causal_mask``)."""
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m = m & (j > i - window)
+    return m
+
+
 def attention_forward(
     p: Tree, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, window: int = 0
 ) -> torch.Tensor:
-    """Full-sequence (prefill) attention: causal, optionally sliding-window,
-    through the flash kernel."""
+    """Full-sequence attention: causal, optionally sliding-window.  Through
+    the flash kernel unless autograd records the call; then through the
+    plain ``_sdpa`` (the JAX package's training function)."""
     q, k, v = _qkv(p, cfg, x, positions)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        mask = _causal_mask(q.shape[-3], window, q.device)
+        return _out(p, _sdpa(q, k, v, mask, 1.0 / (cfg.resolved_head_dim**0.5)))
     return _out(p, flash_attention(q, k, v, causal=True, window=window))
 
 

@@ -14,12 +14,19 @@ layout, leaf for leaf:
 An attention block is ``norm1, attn, norm2, ffn``; an RWKV block is
 ``norm1, rwkv {tmix, cmix}, norm2`` (no ``ffn``).  The JAX package scans
 over the periods; here a Python loop walks them in the same order, reading
-each period's block as views.  Mamba blocks, MoE FFNs, modality frontends
-and ``lm_loss`` are not ported yet and raise.  With an ``(n,)`` per-node
-gain, ``init_params`` draws a node-stacked ensemble (every leaf with a
-leading node axis); the forward functions take one parameter set (index an
+each period's block as views.  Mamba blocks, MoE FFNs and modality
+frontends are not ported yet and raise.  With an ``(n,)`` per-node gain,
+``init_params`` draws a node-stacked ensemble (every leaf with a leading
+node axis); the forward functions take one parameter set (index an
 ensemble's leaves at a node, or average it with
 ``repro_torch.fed.serve.consensus_params``).
+
+Training: ``lm_loss`` is the JAX package's chunked softmax cross-entropy
+(``examples/serve_consensus.py::node_loss`` runs it a node at a time for
+the DFL trainer).  Under autograd the attention
+layers run the plain masked softmax (the kernels have no backward:
+``models/attention.py``); RWKV training is not ported yet, and a recorded
+RWKV forward on the card raises in the kernel's wrapper.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ __all__ = [
     "hidden_to_logits",
     "init_cache",
     "init_params",
+    "lm_loss",
     "prefill_cache",
     "unit_size",
 ]
@@ -218,6 +226,29 @@ def hidden_to_logits(params: Tree, cfg: ArchConfig, hidden: torch.Tensor) -> tor
     if cfg.tie_embeddings:
         return torch.matmul(hidden, params["embed"]["tok"]["w"].transpose(-1, -2))
     return torch.matmul(hidden, params["lm_head"]["w"])
+
+
+def lm_loss(params: Tree, cfg: ArchConfig, hidden: torch.Tensor, targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Chunked softmax cross-entropy: the logits materialise one sequence
+    chunk at a time ((..., chunk, V), never (..., S, V)), each chunk's summed
+    fp32 CE added in the JAX package's order (the whole chunks, then the
+    remainder), the total divided by the token count."""
+    s = hidden.shape[-2]
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    rem = s - n_chunks * chunk
+
+    def ce(h, t):
+        logits = hidden_to_logits(params, cfg, h).to(torch.float32)
+        picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        total = total + ce(hidden[..., i * chunk : (i + 1) * chunk, :], targets[..., i * chunk : (i + 1) * chunk])
+    if rem:
+        total = total + ce(hidden[..., s - rem :, :], targets[..., s - rem :])
+    return total / math.prod(targets.shape)
 
 
 # ----------------------------------------------------------------- decode

@@ -852,3 +852,104 @@ def test_event_step_quantised_exchange_on_the_card(dev, delivered):
     assert torch.equal(h_g, h_c)
     torch.testing.assert_close(x_g, x_c, atol=1e-5 * max(float(x_c.abs().max()), 1.0), rtol=1e-5)
     assert torch.equal(x_g[[i for i in range(8) if i not in (u, v)]], x_c[[i for i in range(8) if i not in (u, v)]])
+
+
+def test_a_grad_recording_kernel_call_raises(dev):
+    """No kernel has a backward: a CUDA call autograd would record raises in
+    both wrappers (nothing is launched), and the same call under
+    ``torch.no_grad()`` launches."""
+    q = torch.randn(1, 4, 40, 32, device=dev, requires_grad=True)
+    k, v = torch.randn(1, 2, 40, 32, device=dev), torch.randn(1, 2, 40, 32, device=dev)
+    before = flash_mha.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_mha(q, k, v)
+    assert flash_mha.launches == before
+    with torch.no_grad():
+        flash_mha(q, k, v)
+    assert flash_mha.launches == before + 1
+    r = torch.randn(1, 40, 2, 32, device=dev)
+    w = torch.rand(1, 40, 2, 32, device=dev) * 0.5 + 0.5
+    u = torch.randn(2, 32, device=dev, requires_grad=True)
+    before = rwkv6_chunked.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        rwkv6_chunked(r, r, r, w, u)
+    assert rwkv6_chunked.launches == before
+    with torch.no_grad():
+        rwkv6_chunked(r, r, r, w, u)
+    assert rwkv6_chunked.launches == before + 1
+
+
+def test_decoder_training_step_on_the_card_matches_the_cpu(dev):
+    """One decoder loss and gradient (the reduced qwen2.5-3b, fp32) on the
+    card against the CPU: no flash launch under grad, the loss to 1e-5 and
+    the gradient to 1e-4 of its largest element (the card's fp32 products
+    in another order)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.flat import tree_leaves, tree_map
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config("qwen2.5-3b")
+    base = TF.init_params(0, cfg, InitConfig("trunc_normal"), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32))
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().to(where, copy=True).requires_grad_(True), base)
+        before = flash_mha.launches
+        hidden, _ = TF.forward(p, cfg, x.to(where))
+        loss = TF.lm_loss(p, cfg, hidden, y.to(where))
+        loss.backward()
+        assert flash_mha.launches == before
+        out[where] = (float(loss.detach()), [t.grad.cpu() for _, t in tree_leaves(p)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1e-30)
+
+
+def test_serve_trajectory_on_the_card_matches_the_cpu(dev):
+    """A ring-6 serving run (link_p 0.8, consensus router with a budget,
+    answers) on the card and on the CPU from one numpy init and the same
+    host draws: routing arrays and answers equal, clocks and integer
+    channels equal, losses to rtol 1e-4 (the trainer's bound)."""
+    from repro_torch import fed
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.commplan import FailureModel, compile_plan
+    from repro_torch.data import batch_index_schedule, mnist_like, node_datasets
+    from repro_torch.models.paper_models import classifier_loss, mlp_forward
+    from repro_torch.optim import sgd
+
+    n, per = 6, 32
+    ds = mnist_like(n * per + 64, seed=0)
+    xs, ys = node_datasets(ds, [np.arange(i * per, (i + 1) * per) for i in range(n)])
+    rng = np.random.default_rng(0)
+    params = {f"fc{i}": {"w": (rng.standard_normal((n, a, b)) * np.sqrt(2.0 / a)).astype(np.float32),
+                         "b": np.zeros((n, b), np.float32)} for i, (a, b) in enumerate(((784, 16), (16, 10)))}
+
+    def loss(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+    g = T.ring(6)
+    stream = T.poisson_event_stream(g, 8.0, 1.0, seed=1)
+    queries = fed.poisson_query_stream(6, 8.0, 5.0, seed=3, pool=64)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        opt = sgd(1e-3, 0.5)
+        runs[where] = fed.run_serve_trajectory(
+            state_from_numpy(params, optimizer=opt, device=where), loss, opt,
+            compile_plan(g, "dense", failures=FailureModel(link_p=0.8), device=where), stream, queries,
+            fed.make_router(g, "consensus", staleness_budget=0.5), xs, ys, batch_index_schedule(per, n, 8, 16, seed=0),
+            b_local=2, n_bins=4, eval_fn=fed.make_eval_fn(loss), eval_batch=(ds.x[-64:], ds.y[-64:]),
+            serve_fn=lambda p, x: torch.argmax(mlp_forward(p, x[None]), dim=-1)[0], query_xs=ds.x[-64:],
+            device=where,
+        )
+    (_, h_c, s_c, a_c), (f_g, h_g, s_g, a_g) = runs["cpu"], runs["cuda"]
+    for k in ("node", "latency", "staleness", "hops", "answer"):
+        assert np.array_equal(s_g[k], s_c[k]), k
+    for k in ("events", "messages", "staleness", "queries", "serve_latency", "serve_staleness"):
+        assert h_g[k] == h_c[k], k
+    assert np.array_equal(a_g["node_clock"], a_c["node_clock"]) and np.array_equal(a_g["node_busy"], a_c["node_busy"])
+    for k in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(h_g[k], h_c[k], rtol=1e-4, atol=1e-5)
+    assert f_g.params.is_cuda

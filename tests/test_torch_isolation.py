@@ -119,3 +119,20 @@ def test_entry_points_default_to_cuda():
         fig9_async.run()
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--nodes", "4", "--rounds", "1", "--async"])
+    # the live serving path: the serving executor, the serve CLI, fig13 and
+    # the consensus example
+    from repro_torch.benchmarks import fig13_serve
+    from repro_torch.examples import serve_consensus
+    from repro_torch.launch import serve as serve_cli
+
+    queries = fed.poisson_query_stream(4, 2.0, 2.0, seed=0)
+    router = fed.make_router(T.ring(4), "consensus")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_serve_trajectory(state, lambda p, b: None, opt, plan, stream, queries, router, xs, ys, sched,
+                                 b_local=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_cli.main(["--nodes", "4", "--horizon", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fig13_serve.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_consensus.setup()
