@@ -18,7 +18,8 @@ run with a non-zero exit:
    nothing;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
-   one bf16 shape; block-sparse: ring-1024 at bn 32 (fp32 and bf16),
+   one bf16 shape and fig11's widths (32, 52,650), (64, 109,386) and (16,
+   25,450); block-sparse: ring-1024 at bn 32 (fp32 and bf16),
    random-4-regular-1024 at bn 32 and 64, heavy-tail-40 at bn 8, one masked
    round with all-zero tiles, each also bitwise ``mix_bsr_rows_ref`` on 4096
    columns; flash attention:
@@ -155,6 +156,25 @@ run with a non-zero exit:
    of it card vs CPU (greedy tokens equal); one decoder training step's
    gradient card vs CPU with no flash launch under grad, and a
    grad-recording ``flash_mha`` / ``rwkv6_chunked`` call raising;
+4i. elastic membership and checkpoints — the CLI's ``--elastic --join-nodes
+   4 --fault-scenario crash`` at its defaults (complete-16, full width, 100
+   rounds: 4 slots arrive at round 50 and initialise at 58 from their own
+   sketches, 2 nodes down over rounds 33–42), plain and ``--compress int8``:
+   ms a round as a caller pays, n_active the masks' own, the online n̂,
+   exactly 100 ``mix_matmul`` / ``quant_mix_dense`` (staged) launches, int8
+   within 5% of plain; a crash-window round's masked operator through
+   ``mix_matmul`` and the int8 round with the members' keep mask against
+   the plain versions; ``run_trajectory``, ``run_event_trajectory`` and
+   ``run_elastic_trajectory`` at full width (kreg4-16, link_p 0.8) each
+   killed by ``SIGKILL`` after chunk 0 in a child process, then resumed
+   from the directory in another: state and history bitwise the
+   uninterrupted run's; a checkpoint's bytes, restore ms and save ms (the
+   chunked run with and without a checkpoint a chunk, in turns); the CLI's
+   elastic run on kreg4-256 (crash+partition, 16 joiners, 20 rounds, one
+   ``mix_bsr`` launch a round) and a partition round's masked BSR operator
+   against the plain walk; kreg4-8 card vs CPU on the same draws; fig11
+   quick (``build/fig11_elastic.json``, resume parity bit-exact, 388 dense
+   launches);
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -775,6 +795,17 @@ def main() -> int:
         bound_ms=b_lm, bound_by=op_lm, shape=f"n=8 d={D_LM} fp32 (reduced qwen2.5-3b)",
     )
     del m8, w8
+    # the widths of phase 4i's fig11 quick: the paper MLP at hidden (64, 32)
+    # on kreg8-32, (128, 64) on kreg8-64 (its checkpoint-overhead record) and
+    # (32,) on kreg8-16 (its resume-parity record); the masked operators of
+    # the elastic rounds join this row's error in phase 4i
+    errs["mix_matmul_elastic"] = 0.0
+    for n_e, d_e in ((32, 52_650), (64, 109_386), (16, 25_450)):
+        m_e = row_stochastic(n_e)
+        w_e = torch.randn(n_e, d_e, generator=gen, device=dev)
+        errs["mix_matmul_elastic"] = max(errs["mix_matmul_elastic"], compare(
+            f"mix_matmul fp32 n={n_e} d={d_e} (fig11)", lambda: mix_matmul(m_e, w_e), decavg_mix_ref(m_e, w_e), w_e))
+    del m_e, w_e
     # flash at every shape phase 7 launches, on the decoder's (B, S, H, hd)
     # views (the qwen2.5-3b prefill's row goes into the kernels line, its
     # contiguous layout timed beside it), and at phase 8's and the
@@ -970,13 +1001,15 @@ def main() -> int:
         h[1, 512:2560] = 0.0
         return x, h
 
-    def compare_quant(label, kernel, plain_mix, x, h, bounds, *, codec, gamma, floor="codec", ef=True, route=None):
+    def compare_quant(label, kernel, plain_mix, x, h, bounds, *, codec, gamma, floor="codec", ef=True, route=None,
+                      keep=None):
         """With ``route`` the kernel is the dense round: it takes the table as
         host ints and returns its scales, both its launches take that route,
         and the host's count of its shared memory is the kernel's; else a BSR
-        walk given the scales pass's."""
+        walk given the scales pass's.  ``keep`` freezes the mirrors of the
+        rows it marks False (the elastic round's non-members)."""
         ref_scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None, floor=floor)
-        kw = dict(codec=codec, gamma=gamma, error_feedback=ef)
+        kw = dict(codec=codec, gamma=gamma, error_feedback=ef, **({} if keep is None else {"keep": keep}))
         if route is None:
             scales = quant_scales(x, h, bounds, codec=codec, error_feedback=ef, floor=floor)
 
@@ -1000,7 +1033,7 @@ def main() -> int:
             check(quant_mix_dense.launches_by_route == {**by_route, route: by_route[route] + 2},
                   f"{label}: routes {quant_mix_dense.launches_by_route}, want two launches on {route}")
         ref = quant_mix_ref(plain_mix, x, h, bounds, ref_scales, codec=codec, gamma=gamma,
-                            error_feedback=ef and h is not None)
+                            error_feedback=ef and h is not None, keep=keep)
         outs = [("Y", got, again, ref)] if gamma is None else [
             ("X'", got[0], again[0], ref[0]), ("H'", got[1], again[1], ref[1])]
         for what, g_t, a_t, r_t in outs:
@@ -2723,6 +2756,384 @@ def main() -> int:
     print(f"  phase 4h: {time.perf_counter() - t_4h:.1f} s")
     torch.cuda.empty_cache()
 
+    # ------------------------------ 4i. elastic membership and checkpoints
+    phase("4i. elastic membership, fault injection and preemption-safe checkpoints: --elastic, SIGKILL and "
+          "resume, fig 11")
+    t_4i = time.perf_counter()
+    import signal
+    import shutil
+
+    from repro_torch.benchmarks import fig11_elastic
+    from repro_torch.checkpoint import restore_train_state
+    from repro_torch.core.faults import crash_burst, scenario
+    from repro_torch.core.membership import membership_schedule
+    from repro_torch.fed import CheckpointPolicy, run_elastic_trajectory
+    from repro_torch.fed import executor as elastic_executor
+
+    # (a), (b) the CLI at its defaults (complete-16, the full-width MLP, 100
+    # rounds of 8 local batches): 4 of the 16 slots arrive at round 50 and
+    # initialise at 58 from their own sketches, a crash burst takes 2 nodes
+    # down over rounds 33-42; then the same with int8 exchanges.  The
+    # executor's call is timed by a wrapper that waits for the card before
+    # and after it (what a caller pays)
+    real_elastic = cli.run_elastic_trajectory
+    elastic_walls, elastic_aux = [], []
+
+    def timed_elastic(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_elastic(*a, **kw)
+        torch.cuda.synchronize()
+        elastic_walls.append(time.perf_counter() - t0)
+        elastic_aux.append(out[2])
+        return out
+
+    runs_4i = {}
+    base_4i = ["--model", "mlp", "--elastic", "--join-nodes", "4", "--fault-scenario", "crash"]
+    cli.run_elastic_trajectory = timed_elastic
+    try:
+        for label, extra in (("plain", []), ("int8", ["--compress", "int8"])):
+            hist_i, wall_i, launches_i = counted(lambda: cli.main(base_4i + extra))
+            runs_4i[label] = dict(hist=hist_i, wall=wall_i, launches=launches_i, run_s=elastic_walls[-1],
+                                  n_hat=elastic_aux[-1]["n_hat"], routes=dict(quant_mix_dense.launches_by_route))
+    finally:
+        cli.run_elastic_trajectory = real_elastic
+    # the masks the CLI lowers at its defaults (100 rounds, seed 0)
+    mem_cli = membership_schedule(16, 100, initial=12, arrivals={50: list(range(12, 16))}, join_warmup=8)
+    graph_cli = cli.build_graph("full", 16, 0)
+    faults_cli = scenario("crash", graph_cli, 100, seed=0)
+    live_cli = mem_cli.active & faults_cli.node_up
+    for label, r in runs_4i.items():
+        h, nh = r["hist"], r["n_hat"]
+        print(f"  CLI {label}: 100 rounds in {r['run_s']:.2f} s ({r['run_s'] / 100 * 1e3:.2f} ms a round as the "
+              f"caller pays, the card finished; {r['wall']:.1f} s with data and init); launches "
+              f"{ {k: n for k, n in r['launches'].items() if n} }; final train {h['train_loss'][-1]:.4f} test "
+              f"{h['test_loss'][-1]:.4f}; n_active {h['n_active']}; online n̂ mean {nh.mean():.3f} range "
+              f"[{nh.min():.3f}, {nh.max():.3f}] (true 16)")
+        check(h["n_active"] == [int(live_cli[x].sum()) for x in h["round"]], f"CLI {label}: n_active {h['n_active']}")
+        check(all(math.isfinite(v) for k in ("train_loss", "test_loss") for v in h[k]), f"CLI {label}: non-finite loss")
+        check(abs(float(nh.mean()) - 16) / 16 < 0.5, f"CLI {label}: online n̂ {nh.mean()} far from 16")
+    check(runs_4i["plain"]["launches"] == {**none_launched, "mix_matmul": 100},
+          f"elastic CLI plain: launches {runs_4i['plain']['launches']}, want 100 mix_matmul")
+    check(runs_4i["int8"]["launches"] == {**none_launched, "quant_mix_dense": 100}
+          and runs_4i["int8"]["routes"] == {"staged": 100, "wide": 0},
+          f"elastic CLI int8: launches {runs_4i['int8']['launches']} routes {runs_4i['int8']['routes']}")
+    t_plain, t_int8 = runs_4i["plain"]["hist"]["test_loss"][-1], runs_4i["int8"]["hist"]["test_loss"][-1]
+    print(f"  int8 final test loss {t_int8:.4f} against {t_plain:.4f} uncompressed ({t_int8 / t_plain - 1:+.2%})")
+    check(abs(t_int8 - t_plain) <= 0.05 * abs(t_plain), f"elastic CLI int8 final test loss {t_int8} vs {t_plain}")
+    elastic_launches = {"mix_matmul": runs_4i["plain"]["launches"]["mix_matmul"],
+                        "quant_mix_dense": runs_4i["int8"]["launches"]["quant_mix_dense"]}
+
+    # the kernels line's dense elastic rows: a crash-window round's masked,
+    # renormalised operator (round 35: the 12 members less the victims,
+    # identity rows for the rest), the plain mix and the int8 round with the
+    # members' keep mask, against the plain versions and timed
+    plan_cli = compile_plan(graph_cli, "dense", device=dev)
+    act_35 = torch.as_tensor(live_cli[35], device=dev)
+    m_el = plan_cli.round_operator(active=act_35, edge_live=torch.as_tensor(faults_cli.edge_up[35], device=dev))
+    check(torch.equal(m_el[~act_35], torch.eye(16, device=dev)[~act_35]), "elastic operator: a non-member's row is "
+          "not the identity")
+    w = torch.randn(16, D_MAIN, generator=gen, device=dev)
+    errs["mix_matmul_elastic"] = max(errs["mix_matmul_elastic"], compare(
+        f"mix_matmul elastic round 35 ({int(act_35.sum())} of 16 live) d={D_MAIN}", lambda: mix_matmul(m_el, w),
+        decavg_mix_ref(m_el, w), w))
+    b_el, op_el = bound(4 * 16 * 16 + 2 * 4 * 16 * D_MAIN, 2 * 16 * 16 * D_MAIN)
+    timing["mix_matmul_elastic"] = dict(
+        ms=time_ms(lambda: mix_matmul(m_el, w), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(m_el, w), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(m_el, w), flush=flush),
+        bound_ms=b_el, bound_by=op_el, shape=f"complete-16 round 35 of the elastic CLI (masked), n=16 d={D_MAIN} fp32")
+    del w
+    x_q, h_q = quant_inputs(16)
+    errs["quant_mix_dense_elastic"] = compare_quant(
+        "quant_mix_dense int8 elastic round 35, members' keep", dense_kernel(m_el),
+        lambda hq: decavg_mix_ref(m_el, hq), x_q, h_q, mlp_bounds, codec="int8", gamma=1.0, route="staged",
+        keep=act_35)
+    b_qe, op_qe = bound(16 * 16 * D_MAIN + 4 * 16 * 16 + 4 * 16 * n_chunks + table_bytes,
+                        2 * 16 * 16 * D_MAIN + 12 * 16 * D_MAIN)
+    timing["quant_mix_dense_elastic"] = dict(
+        ms=time_ms(lambda: quant_mix_dense(m_el, x_q, h_q, mlp_edges, codec="int8", gamma=1.0, keep=act_35),
+                   flush=flush, hold=True),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m_el, hq), x_q, h_q, mlp_bounds,
+                                               quant_scales_ref(x_q, h_q, mlp_bounds, codec="int8"),
+                                               codec="int8", gamma=1.0, keep=act_35), flush=flush),
+        library_ms=None,  # no one PyTorch call quantises and mixes
+        bound_ms=b_qe, bound_by=op_qe,
+        shape=f"complete-16 round 35 of the elastic CLI, int8 round with the members' keep mask, d={D_MAIN}, "
+              "fp32, scales included")
+    del x_q, h_q
+    torch.cuda.empty_cache()
+
+    # (c) preemption: run_trajectory, run_event_trajectory and
+    # run_elastic_trajectory at full width on kreg4-16 (link_p 0.8; 12
+    # rounds in chunks of 4 / 64 events in chunks of 16 / a join and a crash
+    # burst in chunks of 4), each killed by SIGKILL right after chunk 0's
+    # checkpoint in a child process of its own (the three at once), then one
+    # child resumes each from its directory and runs it uninterrupted:
+    # params, optimizer state, generator and history bitwise
+    child_4i = r'''
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, @SRC@)
+from repro_torch import fed
+from repro_torch.core import topology as T
+from repro_torch.core.commplan import FailureModel, compile_plan
+from repro_torch.core.faults import crash_burst
+from repro_torch.core.initialisation import InitConfig, gain_from_graph
+from repro_torch.core.membership import membership_schedule
+from repro_torch.data import batch_index_schedule, mnist_like, node_datasets
+from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+from repro_torch.optim import sgd
+
+N, PER, BL, R = 16, 64, 2, 12
+graph = T.random_k_regular(N, 4, seed=0)
+ds = mnist_like(N * PER + 256, seed=0)
+xs, ys = node_datasets(ds, [np.arange(i * PER, (i + 1) * PER) for i in range(N)])
+test = (ds.x[-256:], ds.y[-256:])
+
+
+def loss_fn(p, b):
+    return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+
+def init_one(g, gains):
+    return init_mlp(InitConfig("he_normal", gains), g)
+
+
+def run(kind, checkpoint=None, resume_from=None):
+    opt = sgd(1e-3, 0.5)
+    state = fed.init_fl_state(0, N, init_one, opt, gains=gain_from_graph(graph), device="cuda")
+    plan = compile_plan(graph, "dense", failures=FailureModel(link_p=0.8), device="cuda")
+    kw = dict(checkpoint=checkpoint, resume_from=resume_from, device="cuda")
+    eval_fn = fed.make_eval_fn(loss_fn)
+    if kind == "trajectory":
+        sched = batch_index_schedule(PER, N, 16, R * BL, seed=0)
+        return fed.run_trajectory(state, fed.make_round_fn(loss_fn, opt, plan), xs, ys, sched, n_rounds=R,
+                                  eval_every=3, eval_fn=eval_fn, eval_batch=test, track_sigmas=True, chunk_size=4,
+                                  **kw)
+    if kind == "event":
+        stream = T.poisson_event_stream(graph, 2.0, 1.0, seed=2)
+        sched = batch_index_schedule(PER, N, 16, 2 * BL, seed=0)
+        state, hist, _ = fed.run_event_trajectory(state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=BL,
+                                                  n_bins=4, eval_fn=eval_fn, eval_batch=test, chunk_events=16, **kw)
+        return state, hist
+    sched = batch_index_schedule(PER, N, 16, R * BL, seed=0)
+    mem = membership_schedule(N, R, initial=N - 2, arrivals={1: [N - 2, N - 1]}, join_warmup=3)
+    state, hist, aux = fed.run_elastic_trajectory(
+        state, loss_fn, opt, plan, mem, xs, ys, sched, n_rounds=R, eval_every=3, eval_fn=eval_fn, eval_batch=test,
+        chunk_size=4, init_one=init_one, faults=crash_burst(graph, R, at=5, size=2, duration=3, seed=1), **kw)
+    hist["n_hat"] = [float(v) for v in aux["n_hat"]]
+    return state, hist
+
+
+def same(a, b):
+    (sa, ha), (sb, hb) = a, b
+    return (torch.equal(sa.params, sb.params) and all(torch.equal(x, y) for x, y in zip(sa.opt_state, sb.opt_state))
+            and torch.equal(sa.generator.get_state(), sb.generator.get_state()) and sa.round == sb.round
+            and json.dumps(ha) == json.dumps(hb))
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+if __name__ == "__main__":
+    mode, root = sys.argv[1], sys.argv[2]
+    if mode == "kill":
+        run(sys.argv[3], checkpoint=fed.CheckpointPolicy(f"{root}/{sys.argv[3]}", every=1, kill_after=0))
+        raise SystemExit("still alive after the kill")
+    out = {}
+    for kind in ("trajectory", "event", "elastic"):
+        ref = run(kind)
+        sync()
+        t0 = time.perf_counter()
+        res = run(kind, resume_from=f"{root}/{kind}")
+        sync()
+        out[kind] = {"bitwise": same(ref, res), "resumed_s": time.perf_counter() - t0,
+                     "final_train_loss": ref[1]["train_loss"][-1]}
+    print(json.dumps(out))
+'''.replace("@SRC@", repr(str(ROOT / "src")))
+    d_4i = ROOT / "build" / "phase4i"
+    shutil.rmtree(d_4i, ignore_errors=True)
+    d_4i.mkdir(parents=True)
+    script_4i = d_4i / "preempt.py"
+    script_4i.write_text(child_4i)
+    kinds_4i = ("trajectory", "event", "elastic")
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, str(script_4i), "kill", str(d_4i), k], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k in kinds_4i}
+    killed = {}
+    try:
+        for k, pr in procs.items():
+            _, err = pr.communicate(timeout=300)
+            killed[k] = (pr.returncode, err[-2000:])
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    kill_s = time.perf_counter() - t0
+    for k, (rc, err) in killed.items():
+        check(rc == -signal.SIGKILL, f"preempted {k} child: exit {rc}, want SIGKILL; {err}")
+        check(restore_train_state(str(d_4i / k))[1]["chunk"] == 0, f"preempted {k}: LATEST is not chunk 0")
+    t0 = time.perf_counter()
+    res_4i = subprocess.run([sys.executable, str(script_4i), "resume", str(d_4i)], capture_output=True, text=True,
+                            timeout=600)
+    resume_s = time.perf_counter() - t0
+    check(res_4i.returncode == 0, f"resume child failed: {res_4i.stderr[-3000:]}")
+    resumed_4i = json.loads(res_4i.stdout.strip().splitlines()[-1])
+    print(f"  three children killed by SIGKILL after chunk 0 ({kill_s:.1f} s together), one child resumed each "
+          f"and ran it whole ({resume_s:.1f} s): {resumed_4i}")
+    check(all(v["bitwise"] for v in resumed_4i.values()), f"a resumed run differs from the uninterrupted one: "
+          f"{resumed_4i}")
+    # what a checkpoint costs at this width: restore of each kind's file,
+    # and a save as the run pays it (the carry read back from the card,
+    # written, fsynced): the chunked trajectory with a checkpoint every
+    # chunk against the same run without, in turns
+    ns_4i = {"__name__": "phase4i"}
+    exec(child_4i, ns_4i)
+    for k in kinds_4i:
+        path = d_4i / k / "step_00000000.ckpt"
+        t0 = time.perf_counter()
+        for _ in range(3):
+            restore_train_state(str(d_4i / k))
+        print(f"  {k} checkpoint: {path.stat().st_size:,} B, restore {(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+    walls_ck = {"none": [], "every chunk": []}
+    for _ in range(2):
+        for label in walls_ck:
+            ck_dir = d_4i / "timed"
+            shutil.rmtree(ck_dir, ignore_errors=True)
+            policy = None if label == "none" else CheckpointPolicy(str(ck_dir), every=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ns_4i["run"]("trajectory", checkpoint=policy)
+            torch.cuda.synchronize()
+            walls_ck[label].append(time.perf_counter() - t0)
+    ckpt_bytes = (d_4i / "trajectory" / "step_00000000.ckpt").stat().st_size
+    save_ms = (min(walls_ck["every chunk"]) - min(walls_ck["none"])) / 3 * 1e3
+    chunk_ms = min(walls_ck["none"]) / 3 * 1e3
+    print(f"  full-width run_trajectory (kreg4-16, 12 rounds in 3 chunks of 4): walls without / with a checkpoint "
+          f"every chunk {[round(v, 3) for v in walls_ck['none']]} / {[round(v, 3) for v in walls_ck['every chunk']]} "
+          f"s in turns: {save_ms:.1f} ms a save of {ckpt_bytes:,} B against {chunk_ms:.1f} ms a chunk "
+          f"({save_ms / chunk_ms:.0%}; a chunk of 25 rounds: {save_ms / (chunk_ms * 25 / 4):.0%})")
+    shutil.rmtree(d_4i, ignore_errors=True)
+
+    # (d) the sparse backend: the CLI's elastic run on kreg4-256 (full
+    # width, 20 rounds of 2 local batches, 16 slots arriving at round 4 with
+    # a warmup of 4, crash+partition), one mix_bsr launch a round; then a
+    # partition-window round's masked BSR operator against the plain walk
+    argv_d = ["--model", "mlp", "--topology", "kregular", "--nodes", "256", "--rounds", "20", "--items-per-node",
+              "64", "--local-batches", "2", "--join-nodes", "16", "--join-round", "4", "--join-warmup", "4",
+              "--fault-scenario", "crash+partition"]
+    hist_d, wall_d, launches_d = counted(lambda: cli.main(argv_d))
+    g_d = cli.build_graph("kregular", 256, 0)
+    mem_d = membership_schedule(256, 20, initial=240, arrivals={4: list(range(240, 256))}, join_warmup=4)
+    faults_d = scenario("crash+partition", g_d, 20, seed=0)
+    live_d = mem_d.active & faults_d.node_up
+    print(f"  CLI {' '.join(argv_d)}: {wall_d:.1f} s with data and init; launches "
+          f"{ {k: n for k, n in launches_d.items() if n} }; n_active {hist_d['n_active']}; final train "
+          f"{hist_d['train_loss'][-1]:.4f} test {hist_d['test_loss'][-1]:.4f}")
+    check(launches_d == {**none_launched, "mix_bsr": 20}, f"sparse elastic CLI launches {launches_d}, want 20 mix_bsr")
+    check(hist_d["n_active"] == [int(live_d[x].sum()) for x in hist_d["round"]], "sparse elastic CLI: n_active")
+    check(all(math.isfinite(v) for k in ("train_loss", "test_loss") for v in hist_d[k]),
+          "sparse elastic CLI: non-finite loss")
+    elastic_launches["mix_bsr"] = launches_d["mix_bsr"]
+    r_cut = int(np.nonzero(~faults_d.edge_up.all(axis=1))[0][0])  # the partition's first round
+    plan_d = compile_plan(g_d, "sparse", device=dev)
+    act_d = torch.as_tensor(live_d[r_cut], device=dev)
+    eup_d = torch.as_tensor(faults_d.edge_up[r_cut], device=dev)
+    op_d = plan_d.round_operator(active=act_d, edge_live=eup_d)
+    w = torch.randn(256, D_MAIN, generator=gen, device=dev)
+    errs["mix_bsr_elastic"] = compare(
+        f"mix_bsr elastic kreg4-256 round {r_cut} ({int(act_d.sum())} live, {int((~eup_d).sum())} edges cut)",
+        lambda: mix_bsr(*op_d, w), mix_bsr_ref(*op_d, w), w)
+    rows_bitwise("mix_bsr elastic kreg4-256", op_d, w)
+    m_dense_d = compile_plan(g_d, "dense", device=dev).round_operator(active=act_d, edge_live=eup_d)
+    nnz_d = int((m_dense_d != 0).sum())
+    csr_d = m_dense_d.to_sparse_csr()
+    b_bd, op_bd = bound(sum(t.numel() * 4 for t in op_d) + 2 * 4 * 256 * D_MAIN, 2 * nnz_d * D_MAIN)
+    timing["mix_bsr_elastic"] = dict(
+        ms=time_ms(lambda: mix_bsr(*op_d, w), flush=flush),
+        plain_ms=time_ms(lambda: mix_bsr_ref(*op_d, w), reps=3, flush=flush),
+        library_ms=time_ms(lambda: torch.sparse.mm(csr_d, w), flush=flush),
+        bound_ms=b_bd, bound_by=op_bd,
+        shape=f"kreg4-256 round {r_cut} of the elastic CLI (crash+partition, masked), bn 32, d={D_MAIN} fp32")
+    del w, csr_d, m_dense_d
+    torch.cuda.empty_cache()
+
+    # (e) card vs CPU at a small size: kreg4-8, the MLP at hidden (64, 32),
+    # link_p 0.8, a join and a crash burst, 12 rounds in chunks of 4; one
+    # numpy init, the same host failure draws, the forked draws (sketches,
+    # the joiners' trees) made on the CPU and moved to the run's device
+    real_draws = elastic_executor.elastic_draws
+
+    def cpu_draws(kind, seed, r, *, n, device, **kw):
+        kw = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        out = real_draws(kind, seed, r, n=n, device="cpu", **kw)
+        return out.to(device) if kind == "sketches" else tree_map(lambda t: t.to(device), out)
+
+    def loss_4i(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+    g8e = T.random_k_regular(8, 4, seed=0)
+    init_rng_e = np.random.default_rng(11)
+    dims_e = [784, 64, 32, 10]
+    params_e = {f"fc{i}": {"w": (init_rng_e.standard_normal((8, dims_e[i], dims_e[i + 1]))
+                                 * math.sqrt(2.0 / dims_e[i])).astype(np.float32),
+                           "b": np.zeros((8, dims_e[i + 1]), np.float32)} for i in range(3)}
+    ds_e = mnist_like(8 * 64 + 256, seed=3)
+    xs_e, ys_e = node_datasets(ds_e, [np.arange(i * 64, (i + 1) * 64) for i in range(8)])
+    runs_e = {}
+    elastic_executor.elastic_draws = cpu_draws
+    try:
+        for where in ("cpu", "cuda"):
+            opt_e = sgd(1e-3, 0.5)
+            runs_e[where] = run_elastic_trajectory(
+                state_from_numpy(params_e, optimizer=opt_e, device=where), loss_4i, opt_e,
+                compile_plan(g8e, "dense", failures=FailureModel(link_p=0.8), device=where),
+                membership_schedule(8, 12, initial=6, arrivals={1: [6, 7]}, join_warmup=3), xs_e, ys_e,
+                batch_index_schedule(64, 8, 16, 24, seed=3), n_rounds=12, eval_every=3,
+                eval_fn=make_eval_fn(loss_4i), eval_batch=(ds_e.x[-256:], ds_e.y[-256:]), chunk_size=4,
+                init_one=lambda g, gains: init_mlp(InitConfig("he_normal", gains), g, hidden=(64, 32)),
+                faults=crash_burst(g8e, 12, at=5, size=2, duration=3, seed=1), device=where)
+    finally:
+        elastic_executor.elastic_draws = real_draws
+    (f_ec, h_ec, a_ec), (f_eg, h_eg, a_eg) = runs_e["cpu"], runs_e["cuda"]
+    rel_e = rel_err(f_eg.params, f_ec.params)
+    loss_rel_e = max(abs(a - b) / abs(b) for k in ("train_loss", "test_loss") for a, b in zip(h_eg[k], h_ec[k]))
+    print(f"  card vs CPU (kreg4-8, hidden (64, 32), link_p 0.8, a join and a crash, 12 rounds): n_active "
+          f"{h_eg['n_active']} equal {h_eg['n_active'] == h_ec['n_active']}, wire equal "
+          f"{h_eg['wire_messages'] == h_ec['wire_messages']}, n̂ equal {np.array_equal(a_eg['n_hat'], a_ec['n_hat'])}; "
+          f"largest relative loss difference {loss_rel_e:.2e}, params {rel_e:.2e}")
+    check(h_eg["n_active"] == h_ec["n_active"] and h_eg["wire_messages"] == h_ec["wire_messages"]
+          and np.array_equal(a_eg["n_hat"], a_ec["n_hat"]), "elastic card vs CPU: integer channels or n̂ differ")
+    check(loss_rel_e <= 1e-4 and bool(torch.allclose(f_eg.params.cpu(), f_ec.params, rtol=1e-4, atol=1e-5)),
+          f"elastic card vs CPU: losses {loss_rel_e:.2e}, params {rel_e:.2e}")
+
+    # (f) fig11 quick through the port's driver (build/fig11_elastic.json):
+    # every launch one dense mix (n 32 / 64 / 16), 4 × 40 + 2 × 96 + 3 × 12
+    out_11 = ROOT / "build" / "fig11_elastic.json"
+    res_11, wall_11, launches_11 = counted(lambda: fig11_elastic.run(quick=True, device=dev, out_path=out_11))
+    for rec in res_11["records"]:
+        print("  fig11 " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v) for k, v in rec.items()
+                                       if not k.startswith("curve_")}))
+    print(f"  fig11 quick: {wall_11:.1f} s; launches { {k: n for k, n in launches_11.items() if n} }")
+    recs_11 = {r["scenario"]: r for r in res_11["records"]}
+    check(sorted(recs_11) == ["ckpt-overhead", "crash", "hub", "join", "none", "resume-parity"],
+          f"fig11 records {sorted(recs_11)}")
+    check(all(math.isfinite(recs_11[s]["final_test_loss"]) for s in ("none", "crash", "hub", "join")),
+          "fig11: a non-finite final test loss")
+    check(recs_11["resume-parity"]["parity_bitexact"] is True, "fig11: the resume-parity record is not bit-exact")
+    check(launches_11 == {**none_launched, "mix_matmul": 4 * 40 + 2 * 96 + 3 * 12}, f"fig11 launches {launches_11}")
+    print(f"  phase 4i: {time.perf_counter() - t_4i:.1f} s")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
     n8, per8, r8, b8 = 8, 64, 3, 2
@@ -3276,6 +3687,13 @@ def main() -> int:
         ("mix_matmul_decoder", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", lm_launches["mix_matmul"]),
         ("flash_mha_fp32_example", "src/repro/kernels/flash/flash.py:130",
          "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", lm_launches["flash_mha"]),
+        # the elastic rounds of phase 4i: the elastic CLI's masked dense
+        # mixes (complete-16, a join and a crash burst), its int8 rounds with
+        # the members' keep mask, and the sparse kreg4-256 run's masked walks
+        ("mix_matmul_elastic", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", elastic_launches["mix_matmul"]),
+        ("mix_bsr_elastic", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", elastic_launches["mix_bsr"]),
+        ("quant_mix_dense_elastic", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         elastic_launches["quant_mix_dense"]),
         # head dims the kernel runs zero-padded; no path of this script
         # launches them (no ported config has them)
         ("flash_mha_hd160", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
@@ -3297,7 +3715,8 @@ def main() -> int:
             row["shape"] = t["shape"]
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
-        elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example")):
+        elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example",
+                                                               "_elastic")):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -467,15 +467,19 @@ class CommPlan:
         """The (src, dst) pairs of each colour class: one ppermute each."""
         return [[(i, int(p[i])) for i in range(self.n) if p[i] != i] for p in self.partners]
 
-    def wire_messages(self, generator: torch.Generator | None = None) -> torch.Tensor | int:
+    def wire_messages(
+        self, generator: torch.Generator | None = None, *, active=None, edge_live=None
+    ) -> torch.Tensor | int:
         """Messages one round delivers: two per live undirected edge (both
         endpoints active), as the JAX package's wire accountant counts them.
         Under an active failure model ``generator`` must be in the state the
         round's mix drew its masks from (a copy taken before the round): the
-        count replays those draws.  A device scalar then, else an int."""
-        if not self.failures.active:
+        count replays those draws.  ``active`` / ``edge_live`` are ``mix``'s
+        deterministic masks, AND-composed with the draws the same way.  A
+        device scalar when anything is masked, else an int."""
+        if not self._masked(active, edge_live):
             return 2 * self.n_edges
-        edge_keep, node_act = self._round_masks_ext(generator, None, None)
+        edge_keep, node_act = self._round_masks_ext(generator, active, edge_live)
         if self.backend == "dense":
             keep = edge_keep[self.edge_uid_matrix] & (self.adjacency > 0)
             return (keep & node_act[:, None] & node_act[None, :]).sum()
@@ -870,10 +874,11 @@ class PlanSchedule:
         consumes: index the edge mask by the active plan's own edge ids."""
         return _draw_failure_masks(self.failures, self.n_edges_env, self.n, generator)
 
-    def wire_messages(self, round_index, generator: torch.Generator | None = None):
-        """``CommPlan.wire_messages`` of the plan active at ``round_index``:
-        two messages a live edge of that plan."""
-        return self.select(round_index).wire_messages(generator)
+    def wire_messages(self, round_index, generator: torch.Generator | None = None, **kwargs):
+        """``CommPlan.wire_messages`` of the plan active at ``round_index``
+        (the same keywords: ``active``, ``edge_live``): two messages a live
+        edge of that plan."""
+        return self.select(round_index).wire_messages(generator, **kwargs)
 
     def stacked_csr(self) -> dict[str, torch.Tensor]:
         """Every plan's CSR view padded to one envelope, on the device:

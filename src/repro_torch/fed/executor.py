@@ -37,25 +37,28 @@ fp8 compressed), its optimizer re-init, its virtual clocks.  Everything the
 stream and the host-drawn failure flags decide (counts, clocks,
 staleness, delivered messages, bins, eval points) is kept on the host in
 the JAX executor's fp32 arithmetic; the losses stay on the device, read
-once a chunk.  Checkpointing and the sharded / elastic executors are not
-ported yet (ROADMAP.md Queue 1 items 12, 17).
+once a chunk.  The sharded executor is not ported yet (ROADMAP.md Queue 1
+item 17).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import restore_train_state, save_train_state
 from repro_torch.core import commplan as _commplan
 from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan
-from repro_torch.core.compress import Compression, _edges, compressed_mix_with, seed_residual
+from repro_torch.core.compress import Compression, _edges, compressed_mix, compressed_mix_with, seed_residual
 from repro_torch.core.topology import EventStream, Graph
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
 
-from repro_torch.gossip.engine import split_seed
+from repro_torch.gossip.engine import round_generator, split_seed
 
 from .trainer import (
     HISTORY_KEYS,
@@ -65,12 +68,16 @@ from .trainer import (
     copy_state,
     finish_history,
     init_fl_state,
+    make_round_fn,
     record_round,
     state_device,
 )
 
 __all__ = [
+    "CheckpointPolicy",
     "TrajectoryConfig",
+    "elastic_draws",
+    "run_elastic_trajectory",
     "run_event_trajectory",
     "run_sweep",
     "run_trajectory",
@@ -108,6 +115,121 @@ class TrajectoryConfig:
         if size <= 0:
             size = self.n_rounds if self.n_rounds <= 1024 else 256
         return [(r0, min(r0 + size, self.n_rounds)) for r0 in range(0, self.n_rounds, size)]
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """Chunk-boundary checkpointing of a trajectory.
+
+    After every ``every``-th chunk (and after the last) the executor saves
+    its whole carry (params, optimizer state, the failure generator's
+    state, the executor's own accumulators) and the history so far into
+    ``dir`` through ``checkpoint.save_train_state`` (one
+    ``step_{chunk:08d}.ckpt`` a saving chunk, LATEST repointed, the newest
+    ``keep_last`` kept).  A later call with ``resume_from=dir`` and the same
+    initial state and arguments skips the saved chunks and runs the rest:
+    its result is bit-identical to the uninterrupted run's.
+
+    ``kill_after`` is the fault-injection hook (``core.faults.preemption``):
+    the chunk after whose checkpoint the process sends itself ``SIGKILL``,
+    which no handler can catch.  -1 disables it.
+    """
+
+    dir: str
+    every: int = 1
+    keep_last: int = 3
+    kill_after: int = -1
+
+
+def _save_chunk_ckpt(policy: CheckpointPolicy, chunk_idx: int, is_last: bool, payload: Callable[[], dict],
+                     meta: dict) -> None:
+    """Save ``payload()`` if chunk ``chunk_idx`` is a saving chunk (every
+    ``every``-th, the last, or ``kill_after``), then die if it is
+    ``kill_after``.  ``payload`` is called only on a saving chunk: reading
+    the carry back from the device is the checkpoint's cost."""
+    due = policy.every <= 1 or (chunk_idx + 1) % policy.every == 0
+    if due or is_last or policy.kill_after == chunk_idx:
+        save_train_state(policy.dir, chunk_idx, payload(), meta={**meta, "chunk": chunk_idx},
+                         keep_last=policy.keep_last)
+    if policy.kill_after == chunk_idx:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _load_resume(resume_from: str, meta_id: dict):
+    """``(payload, start_chunk)`` from a checkpoint directory, or None to
+    start fresh (no LATEST there).  Every identity field recorded at save
+    time must match the caller's: resuming under other knobs would not be a
+    replay."""
+    restored = restore_train_state(resume_from)
+    if restored is None:
+        return None
+    payload, meta = restored
+    for k, v in meta_id.items():
+        if meta.get(k) != v:
+            raise ValueError(
+                f"checkpoint at {resume_from!r} was written with {k}={meta.get(k)!r}, "
+                f"but this run has {k}={v!r} — resume must replay the same trajectory"
+            )
+    return payload, int(meta["chunk"]) + 1
+
+
+def _state_carry(state: DFLState, **extra) -> dict:
+    """The state's part of a checkpoint's carry: params, every optimizer
+    field, the mirror, the round and the failure generator's state, and
+    ``extra`` tensors or arrays of the executor's own."""
+    carry = {"params": state.params, "round": torch.tensor(int(state.round), dtype=torch.int64), **extra}
+    carry.update({f"opt_state.{name}": f for name, f in zip(state.opt_state._fields, state.opt_state)})
+    if state.residual is not None:
+        carry["residual"] = state.residual
+    if state.generator is not None:
+        carry["generator"] = state.generator.get_state()
+    return carry
+
+
+def _restore_state(state: DFLState, carry: dict, **extra) -> DFLState:
+    """``state`` (the executor's own copy) with the checkpoint's carry
+    written into it, leaf by leaf; ``extra`` are the executor's own live
+    buffers, named as they were saved.  A leaf comes back as the kind it was
+    saved as (a tensor or a numpy array), so shapes and dtypes compare
+    directly."""
+    live = _state_carry(state, **extra)
+    if set(live) != set(carry):
+        raise ValueError(f"checkpoint carries {sorted(carry)}, the live run holds {sorted(live)}")
+    for k, t in live.items():
+        if k in ("round", "generator"):
+            continue
+        got = carry[k]
+        if tuple(got.shape) != tuple(t.shape) or got.dtype != t.dtype:
+            raise ValueError(f"checkpoint's {k} is {got.dtype} {tuple(got.shape)}, the live run's {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if isinstance(t, torch.Tensor):
+            t.copy_(got)
+        else:
+            t[...] = got
+    if state.generator is not None:
+        state.generator.set_state(carry["generator"])
+    return dataclasses.replace(state, round=int(carry["round"]))
+
+
+def _hist_outs(hist: dict, messages: list) -> dict:
+    """The history so far as arrays: rounds and wire counts int64, each
+    metric channel its device scalars stacked (read back here, the sync a
+    saving chunk pays)."""
+    outs = {"round": torch.tensor(hist["round"], dtype=torch.int64),
+            "messages": torch.tensor([int(m) for m in messages], dtype=torch.int64)}
+    for k, v in hist.items():
+        if k != "round":
+            outs[k] = torch.stack(v).cpu() if v and isinstance(v[0], torch.Tensor) else torch.tensor(v)
+    return outs
+
+
+def _restore_hist(outs: dict, dev: torch.device) -> tuple[dict, list]:
+    """``_hist_outs`` back: ints as ints, each metric a device scalar of its dtype."""
+    hist = {"round": [int(r) for r in outs["round"]]}
+    for k, v in outs.items():
+        if k not in ("round", "messages"):
+            hist[k] = [int(x) for x in v] if not v.is_floating_point() else list(v.to(dev).unbind(0))
+    return hist, [int(m) for m in outs["messages"]]
 
 
 def stack_states(states: Sequence[DFLState]) -> DFLState:
@@ -174,6 +296,8 @@ def run_trajectory(
     track_sigmas: bool = False,
     chunk_size: int = 0,
     b_local: int | None = None,
+    checkpoint: CheckpointPolicy | None = None,
+    resume_from: str | None = None,
     on_chunk: Callable[[int, int, dict], None] | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, dict[str, list]]:
@@ -184,29 +308,30 @@ def run_trajectory(
     state is left untouched.  ``on_chunk(r0, r1, chunk_hist)`` is called
     after each chunk of ``chunk_size`` rounds, once the device has finished
     it: ``chunk_hist`` holds that chunk's recorded rounds, as the history
-    does."""
+    does.
+
+    ``checkpoint`` saves the carry (params, every optimizer field, the
+    mirror, the round, the failure generator's state) and the history so
+    far at chunk boundaries (``CheckpointPolicy``); ``resume_from``, a
+    checkpoint directory, restores the newest snapshot there and runs the
+    remaining chunks.  Given the same initial ``state`` and arguments, the
+    resumed run's final state and history are bit-identical to the
+    uninterrupted run's; with no LATEST in the directory the run starts
+    fresh."""
     return _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
                 eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=True,
-                chunk_size=chunk_size, on_chunk=on_chunk)
+                chunk_size=chunk_size, on_chunk=on_chunk, checkpoint=checkpoint, resume_from=resume_from)
 
 
 def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, eval_batch, track_sigmas, b_local,
-         device, wire: bool, chunk_size: int = 0, on_chunk=None):
+         device, wire: bool, chunk_size: int = 0, on_chunk=None, checkpoint=None, resume_from=None):
     """``run_trajectory``; ``wire`` adds the wire channels (the JAX
     package's sweep records none)."""
     dev = state_device(state, device)
     sched = torch.as_tensor(_as_round_schedule(schedule, n_rounds, b_local), device=dev)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
     eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
-    n_nodes = xs_d.shape[0]
-    node_idx = torch.arange(n_nodes, device=dev)[:, None]
-
-    def gather_batch(idx: torch.Tensor):
-        # idx (n, b, bs) → ((n, b, bs, *feat), (n, b, bs))
-        flat = idx.reshape(n_nodes, -1).long()
-        bx = xs_d[node_idx, flat].reshape(*idx.shape, *xs_d.shape[2:])
-        by = ys_d[node_idx, flat].reshape(*idx.shape, *ys_d.shape[2:])
-        return bx, by
+    gather_batch = _batch_gather(xs_d, ys_d)
 
     comp = getattr(round_fn, "compression", None)
     state = seed_residual(copy_state(state), comp)
@@ -215,9 +340,18 @@ def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, ev
     row_bytes = _row_bytes(state, comp) if wire else 0
     cfg = TrajectoryConfig(n_rounds, eval_every, chunk_size)
     mask = cfg.eval_mask()
+    chunks = cfg.chunks()
     hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
     messages = []
-    for r0, r1 in cfg.chunks():
+    meta_id = {"kind": "trajectory", "n_rounds": n_rounds, "eval_every": eval_every, "track_sigmas": track_sigmas,
+               "chunk_size": chunk_size, "compressed": comp is not None}
+    skip = 0
+    if resume_from is not None and (resumed := _load_resume(resume_from, meta_id)) is not None:
+        payload, skip = resumed
+        state = _restore_state(state, payload["carry"])
+        hist, messages = _restore_hist(payload["outs"], dev)
+    for ci in range(skip, len(chunks)):
+        r0, r1 = chunks[ci]
         at = len(hist["round"])
         for r in range(r0, r1):
             # the failure draws this round's mix makes, replayed by the wire count
@@ -235,7 +369,25 @@ def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, ev
                 torch.cuda.synchronize(dev)
             chunk = _with_wire(finish_history({k: v[at:] for k, v in hist.items()}), messages[at:], wire, row_bytes)
             on_chunk(r0, r1, chunk)
+        if checkpoint is not None:
+            _save_chunk_ckpt(checkpoint, ci, ci == len(chunks) - 1,
+                             lambda: {"carry": _state_carry(state), "outs": _hist_outs(hist, messages)}, meta_id)
     return state, _with_wire(finish_history(hist), messages, wire, row_bytes)
+
+
+def _batch_gather(xs_d: torch.Tensor, ys_d: torch.Tensor):
+    """``gather(idx)``: a round's (n, b, bs) schedule indices → ((n, b, bs,
+    *feat), (n, b, bs)), each node's rows of its own dataset."""
+    n_nodes = xs_d.shape[0]
+    node_idx = torch.arange(n_nodes, device=xs_d.device)[:, None]
+
+    def gather(idx: torch.Tensor):
+        flat = idx.reshape(n_nodes, -1).long()
+        bx = xs_d[node_idx, flat].reshape(*idx.shape, *xs_d.shape[2:])
+        by = ys_d[node_idx, flat].reshape(*idx.shape, *ys_d.shape[2:])
+        return bx, by
+
+    return gather
 
 
 def _with_wire(out: dict, messages: list, wire: bool, row_bytes: int) -> dict:
@@ -523,25 +675,37 @@ def run_event_trajectory(
     int8 / fp8 exchange is one launch of the quantised pair round
     (``kernels.mix.quant_mix_pair``), topk / qtopk the plain codec on the
     two rows.  Rows of other nodes, and an exchange the draw killed, keep
-    their mirrors.  ``checkpoint`` / ``resume_from`` are not ported yet.
+    their mirrors.
+
+    ``checkpoint`` (a ``CheckpointPolicy``) saves the whole carry at chunk
+    ends: params, optimizer state and mirror, the host counts and clocks,
+    the per-bin accumulators.  ``resume_from`` restores the newest one and
+    runs the remaining chunks; the run's one seed is drawn again from the
+    same initial state, so each event keeps its flag and the result is
+    bit-identical to the uninterrupted run's.
     """
-    if checkpoint is not None or resume_from is not None:
-        raise NotImplementedError(
-            "checkpointing the event executor is not ported yet; see ROADMAP.md Queue 1 item 12"
-        )
     comp = compression if (compression is not None and compression.active) else None
     run = _EventRun(state, loss_fn, optimizer, plan, stream, xs, ys, schedule, b_local=b_local, n_bins=n_bins,
                     eval_fn=eval_fn, eval_batch=eval_batch, reinit_opt=reinit_opt, comp=comp, device=device,
                     name="run_event_trajectory")
     env = stream.envelope
     size = env if chunk_events <= 0 else int(chunk_events)
-    for ci, i0 in enumerate(range(0, env, size)):
-        i1 = min(i0 + size, env)
+    bounds = [(i0, min(i0 + size, env)) for i0 in range(0, env, size)]
+    meta_id = {"kind": "event", "env": env, "n_bins": n_bins, "chunk_events": size,
+               "reinit_opt": bool(reinit_opt), "compressed": comp is not None}
+    skip = 0
+    if resume_from is not None and (resumed := _load_resume(resume_from, meta_id)) is not None:
+        payload, skip = resumed
+        run.restore(payload["carry"])
+    for ci in range(skip, len(bounds)):
+        i0, i1 = bounds[ci]
         for i in np.nonzero(run.live[i0:i1])[0] + i0:
             run.gossip(int(i))
         if on_chunk is not None:
             # one synchronisation a chunk: the hook reads the chunk's end
             on_chunk(ci, i0, i1, run.acc())
+        if checkpoint is not None:
+            _save_chunk_ckpt(checkpoint, ci, ci == len(bounds) - 1, lambda: {"carry": run.carry()}, meta_id)
     return run.final(), run.history(), run.aux()
 
 
@@ -622,6 +786,20 @@ class _EventRun:
                     msg_cnt=self.msg_cnt.copy(), test_bin=self.test_bin.cpu().numpy(),
                     stale_hist=self.stale_hist.copy())
 
+    def _buffers(self) -> dict:
+        return dict(counts=self.counts, clocks=self.clocks, loss_sum=self.loss_sum, test_bin=self.test_bin,
+                    cnt=self.cnt, stale_sum=self.stale_sum, msg_cnt=self.msg_cnt, stale_hist=self.stale_hist)
+
+    def carry(self) -> dict:
+        """The whole carry for a checkpoint: the state's buffers and the
+        run's counts, clocks and per-bin accumulators (the generator's state
+        too, as the one seed left it)."""
+        return _state_carry(self.state, **self._buffers())
+
+    def restore(self, carry: dict) -> None:
+        """Write a checkpoint's carry into this run, in place."""
+        self.state = _restore_state(self.state, carry, **self._buffers())
+
     def history(self) -> dict[str, list]:
         safe = np.maximum(self.cnt, np.float32(1.0))
         width = self.stream.horizon / self.n_bins
@@ -646,3 +824,266 @@ class _EventRun:
     def aux(self) -> dict:
         return {"node_clock": self.clocks, "node_events": self.counts,
                 "staleness_hist": staleness_histogram(self.stale_hist, self.stream.horizon)}
+
+
+# ------------------------------------------------------- elastic membership
+def elastic_draws(kind: str, seed: int, r: int, *, n: int, device, n_sketches: int = 0, init_one=None,
+                  gains=None):
+    """Round ``r``'s forked draws of the elastic executor, the one place it
+    takes them from (the tests inject the JAX package's here).
+
+    ``seed`` is the child seed ``run_elastic_trajectory`` derives from a
+    copy of the state's generator; it splits into (sketch, init) seeds
+    (``split_seed``).  ``kind="sketches"``: round r's fresh (n,
+    ``n_sketches``) Exp(1) sketches (r = n_rounds: the initial ones), from
+    ``round_generator(sketch seed, r)``.  ``kind="init"``: ``init_one(g,
+    gains)``, the node-stacked tree drawn on a generator on ``device``
+    seeded from (init seed, r); the executor takes the rows of the nodes
+    that initialise at round r.  The JAX package draws
+    ``exponential(fold_in(k_fresh, r))`` and ``vmap(init_one)(fold_in(
+    fold_in(k_init, r), i), gains)``.
+    """
+    sketch_seed, init_seed = split_seed(seed, 2)
+    if kind == "sketches":
+        g = round_generator(sketch_seed, r)
+        return torch.empty(n, n_sketches, dtype=torch.float32).exponential_(generator=g).to(device)
+    if kind == "init":
+        s = int(np.random.SeedSequence([init_seed, r]).generate_state(1, np.uint64)[0])
+        return init_one(torch.Generator(device=device).manual_seed(s), gains)
+    raise ValueError(f"unknown elastic draw {kind!r}")
+
+
+def _rows_where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Row i from ``new`` where ``mask[i]``, else from ``old`` (exact)."""
+    return torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new, old)
+
+
+def run_elastic_trajectory(
+    state: DFLState,
+    loss_fn,
+    optimizer,
+    plan: CommPlan | PlanSchedule | Graph,
+    membership,
+    xs: np.ndarray | torch.Tensor,
+    ys: np.ndarray | torch.Tensor,
+    schedule: np.ndarray,
+    *,
+    n_rounds: int,
+    eval_every: int = 0,
+    eval_fn=None,
+    eval_batch=None,
+    reinit_opt: bool = True,
+    b_local: int | None = None,
+    chunk_size: int = 0,
+    init_one: Callable | None = None,
+    n_sketches: int = 32,
+    faults=None,
+    checkpoint: CheckpointPolicy | None = None,
+    resume_from: str | None = None,
+    on_chunk: Callable[[int, int, dict], None] | None = None,
+    compression: Compression | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[DFLState, dict[str, list], dict[str, np.ndarray]]:
+    """Elastic-membership trajectory: nodes join, leave and crash inside the
+    static n-node envelope (counterpart of the JAX ``run_elastic_trajectory``).
+
+    Every round runs the whole envelope.  A ``core.membership``
+    ``MembershipSchedule`` and a ``core.faults.FaultPlan`` give round r's
+    masks on the host: the training members ``active & node_up``, the
+    gossip population ``gossip & node_up``, the arrivals ``joins`` and the
+    nodes that initialise ``inits``, and the live edges ``edge_up``.  A
+    round, in the JAX executor's order:
+
+      1. the nodes flagged in ``inits[r]`` draw fresh parameters
+         uncoordinated, ``init_one(generator, gains)`` at the size-only gain
+         ``sqrt(max((m − 1) / Σ sketches, 1))`` of their own carried
+         sketches, and their optimizer rows re-initialise;
+      2. the local phase of every node, the rows of non-members (params and
+         optimizer state) put back exactly as they were;
+      3. arrivals redraw their sketches, then one min-exchange
+         (``spread_min``) over the gossip population;
+      4. the masked, renormalised mix over the training members (a member's
+         row over its live neighbourhood, a non-member's the identity), or
+         the compressed one with only the members' mirrors advancing;
+      5. the members' optimizer rows re-initialise (``reinit_opt``);
+      6. at the eval mask's rounds the members' mean train loss, their mean
+         test loss (``eval_fn``), ``n_active`` and the wire count.
+
+    **One failure draw a round.**  Under an active failure model the round
+    draws its masks once (``round_masks`` of the plan active at r, the draw
+    ``make_round_fn``'s round makes), ANDs them into the membership and
+    fault masks, and runs the mix, the min-exchange and the wire count on
+    the plan's failure-free twin (``CommPlan._clean``) with those masks:
+    estimation rides training's links and the generator moves as in
+    ``run_trajectory``.
+
+    **Forked draws.**  The sketches and the joiners' parameters come from a
+    child seed drawn from a *copy* of the state's generator, so the training
+    stream is left as the static executor's; round r's draws are
+    ``elastic_draws(kind, seed, r)``.  The state needs a generator, and a
+    membership with joiners needs ``init_one``.
+
+    A membership with no dynamics (``membership.trivial``) and no faults is
+    ``make_round_fn`` + ``run_trajectory``, bit for bit, with ``n_active``
+    added to the history and ``aux["n_hat"]`` the true n.  ``checkpoint`` /
+    ``resume_from`` save and restore the carry (params, optimizer state, the
+    failure generator's state, the sketches and the mirror) and the history
+    so far at chunk boundaries, as ``run_trajectory``'s.  Returns
+    ``(final_state, history, aux)``: the history keys of ``run_trajectory``
+    plus ``n_active`` (the wire channels on an undirected plan), ``aux``
+    ``{"n_hat": the final per-node estimate from the carried sketches}``.
+    """
+    dev = state_device(state, device)
+    plan = compile_plan(plan, device=dev) if isinstance(plan, Graph) else plan
+    n_nodes = xs.shape[0]
+    if plan.n != n_nodes:
+        raise ValueError(f"plan has {plan.n} nodes but xs carries {n_nodes}")
+    if membership.n != n_nodes or membership.n_rounds != n_rounds:
+        raise ValueError(f"membership is ({membership.n_rounds}, {membership.n}) but the run wants "
+                         f"({n_rounds}, {n_nodes})")
+    trivial_faults = faults is None or faults.trivial
+    if faults is not None and (faults.n != n_nodes or faults.n_rounds != n_rounds):
+        raise ValueError(f"fault plan is ({faults.n_rounds}, {faults.n}) but the run wants ({n_rounds}, {n_nodes})")
+    if membership.trivial and trivial_faults:
+        round_fn = make_round_fn(loss_fn, optimizer, plan, reinit_opt=reinit_opt, compression=compression)
+        state, hist = run_trajectory(
+            state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
+            eval_batch=eval_batch, chunk_size=chunk_size, b_local=b_local, checkpoint=checkpoint,
+            resume_from=resume_from, on_chunk=on_chunk, device=dev,
+        )
+        hist["n_active"] = [n_nodes] * len(hist["round"])
+        return state, hist, {"n_hat": np.full(n_nodes, float(n_nodes))}
+    if membership.inits.any() and init_one is None:
+        raise ValueError("membership has joining nodes: init_one(generator, gains) is required")
+    if state.generator is None:
+        raise ValueError("the elastic executor forks its sketch and init draws off the state's generator: "
+                         "the state needs one")
+
+    scheduled = isinstance(plan, PlanSchedule)
+    comp = compression if (compression is not None and compression.active) else None
+    cfg = TrajectoryConfig(n_rounds, eval_every, chunk_size)
+    mask = cfg.eval_mask()
+    chunks = cfg.chunks()
+    sched = torch.as_tensor(_as_round_schedule(schedule, n_rounds, b_local), device=dev)
+    gather_batch = _batch_gather(torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev))
+    eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
+    n_edges = plan.n_edges_env if scheduled else plan.n_edges
+    if trivial_faults:
+        node_up = np.ones((n_rounds, n_nodes), bool)
+        edge_up = np.ones((n_rounds, max(n_edges, 1)), bool)
+    else:
+        node_up, edge_up = faults.node_up, faults.edge_up
+    wire = not plan.graph.directed
+
+    state = seed_residual(copy_state(state), comp)
+    layout = state.layout
+    row_bytes = _row_bytes(state, comp) if wire else 0
+    # the forked streams: a child seed drawn from a copy of the generator,
+    # so the training stream (one draw a round) is the static executor's
+    seed = int(torch.randint(0, 2**62, (1,), generator=_copy_generator(state.generator)))
+    sketches = elastic_draws("sketches", seed, n_rounds, n=n_nodes, n_sketches=n_sketches, device=dev)
+    hist: dict[str, list] = {k: [] for k in (*HISTORY_KEYS, "n_active")}
+    messages = []
+    meta_id = {"kind": "elastic", "n_rounds": n_rounds, "eval_every": eval_every, "chunk_size": chunk_size,
+               "n_sketches": n_sketches, "compressed": comp is not None}
+    skip = 0
+    if resume_from is not None and (resumed := _load_resume(resume_from, meta_id)) is not None:
+        payload, skip = resumed
+        state = _restore_state(state, payload["carry"], sketches=sketches)
+        hist, messages = _restore_hist(payload["outs"], dev)
+
+    def as_dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.bool, device=dev)
+
+    for ci in range(skip, len(chunks)):
+        r0, r1 = chunks[ci]
+        at = len(hist["round"])
+        for r in range(r0, r1):
+            view = plan.select(r) if scheduled else plan
+            tr_np = membership.active[r] & node_up[r]
+            gs_np = membership.gossip[r] & node_up[r]
+            tr, gs = as_dev(tr_np), as_dev(gs_np)
+            # the round's one failure draw, ANDed into the deterministic masks
+            live = as_dev(np.concatenate([edge_up[r], np.ones(max(view.draw_width - len(edge_up[r]), 0), bool)])
+                          [: max(view.draw_width, 1)])
+            tr_mix, gs_mix = tr, gs
+            if view.failures.active:
+                edge_keep, node_act = (m.to(dev) for m in view.round_masks(state.generator))
+                live, tr_mix, gs_mix = live & edge_keep, tr & node_act, gs & node_act
+            clean = view._clean
+            params, opt_state = state.params, state.opt_state
+
+            # 1. joiners whose warmup just ended initialise from their own sketches
+            if membership.inits[r].any():
+                ini = as_dev(membership.inits[r])
+                gains = torch.sqrt(torch.clamp_min((n_sketches - 1) / torch.clamp_min(sketches.sum(dim=1), 1e-30),
+                                                   1.0))
+                drawn = layout.flatten(elastic_draws("init", seed, r, n=n_nodes, device=dev, init_one=init_one,
+                                                     gains=gains))
+                params = _rows_where(ini, drawn.to(params.dtype), params)
+                fresh_o = optimizer.init(params)
+                opt_state = type(opt_state)(*(_rows_where(ini, f, o) for f, o in zip(fresh_o, opt_state)))
+
+            # 2. the local phase at the full envelope; non-members' rows are put back
+            frozen = np.nonzero(~tr_np)[0]
+            idx = torch.as_tensor(frozen, device=dev)
+            kept = params[idx].clone() if len(frozen) else None
+            params, new_o, losses = _local_steps(loss_fn, optimizer, layout, params, opt_state, gather_batch(sched[r]))
+            with torch.no_grad():
+                if kept is not None:
+                    params[idx] = kept
+                opt_state = type(opt_state)(*(_rows_where(tr, f, o) for f, o in zip(new_o, opt_state)))
+
+                # 3. arrivals redraw their sketches; one min-exchange over the gossip population
+                if membership.joins[r].any():
+                    fresh = elastic_draws("sketches", seed, r, n=n_nodes, n_sketches=n_sketches, device=dev)
+                    sketches = torch.where(as_dev(membership.joins[r])[:, None], fresh, sketches)
+                sketches = clean.spread_min(sketches, active=gs_mix, edge_live=live)
+
+                # 4. the masked mix over the training members
+                residual = state.residual
+                if comp is not None:
+                    params, residual = compressed_mix(clean, params, residual, compression=comp, layout=layout,
+                                                      active=tr_mix, edge_live=live, update_mask=tr)
+                else:
+                    params = clean.mix(params, active=tr_mix, edge_live=live)
+                # 5. Algorithm 1 line 15, members only
+                if reinit_opt:
+                    opt_state = type(opt_state)(*(_rows_where(tr, f, o)
+                                                  for f, o in zip(optimizer.init(params), opt_state)))
+            state = dataclasses.replace(state, params=params, opt_state=opt_state, residual=residual,
+                                        round=state.round + 1)
+
+            # 6. metrics over the live training population
+            if mask[r]:
+                n_act = int(tr_np.sum())
+                safe = float(max(n_act, 1))
+                trf = tr.to(torch.float32)
+                hist["round"].append(r)
+                hist["train_loss"].append(((losses * trf).sum() / safe).to(torch.float32))
+                hist["n_active"].append(n_act)
+                if eval_fn is not None:
+                    per_node = eval_fn(layout.views(params), eval_d)
+                    hist["test_loss"].append(((per_node * trf).sum() / safe).to(torch.float32))
+                if wire:
+                    messages.append(clean.wire_messages(active=tr_mix, edge_live=live))
+        if on_chunk is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            chunk = _with_wire(_finish_elastic({k: v[at:] for k, v in hist.items()}), messages[at:], wire,
+                               row_bytes)
+            on_chunk(r0, r1, chunk)
+        if checkpoint is not None:
+            _save_chunk_ckpt(checkpoint, ci, ci == len(chunks) - 1,
+                             lambda: {"carry": _state_carry(state, sketches=sketches),
+                                      "outs": _hist_outs(hist, messages)}, meta_id)
+    hist = _with_wire(_finish_elastic(hist), messages, wire, row_bytes)
+    s_np = sketches.cpu().numpy()
+    n_hat = (n_sketches - 1) / np.maximum(s_np.sum(axis=1), np.float32(1e-30))
+    return state, hist, {"n_hat": n_hat}
+
+
+def _finish_elastic(hist: dict) -> dict[str, list]:
+    out = finish_history({k: hist[k] for k in HISTORY_KEYS})
+    out["n_active"] = [int(v) for v in hist["n_active"]]
+    return out

@@ -151,6 +151,7 @@ def make_round_fn(
     node_p: float = 1.0,
     device: str | torch.device | None = None,
     compression: Compression | None = None,
+    reinit_opt: bool = True,
 ):
     """Build ``round_fn(state, node_batches) -> (state, metrics)``.
 
@@ -170,7 +171,9 @@ def make_round_fn(
     (zeros when the state has none: ``run_trajectory`` seeds them first).
     ``compression=None`` or codec ``"none"`` leaves the round unchanged.
     ``round_fn.plan`` is the effective plan (overrides applied) and
-    ``round_fn.compression`` the active codec or None.
+    ``round_fn.compression`` the active codec or None.  ``reinit_opt=False``
+    keeps the optimizer state across the aggregation (Algorithm 1 line 15
+    skipped), as the JAX ``make_round_fn``'s knob.
     """
     failures = FailureModel(link_p=link_p, node_p=node_p)
     if isinstance(plan, Graph):
@@ -207,7 +210,7 @@ def make_round_fn(
         new_state = dataclasses.replace(
             state,
             params=params,
-            opt_state=optimizer.init(params),  # Algorithm 1 line 15
+            opt_state=optimizer.init(params) if reinit_opt else opt_state,  # Algorithm 1 line 15
             round=state.round + 1,
             residual=residual,
         )

@@ -24,6 +24,13 @@ Examples:
     # event-driven, no round barrier: per-edge Poisson clocks, pairwise
     # exchanges as they fire (int8: one quantised pair round an exchange)
     python -m repro_torch.launch.train --model mlp --topology ba --async --event-rate 1.0 --event-horizon 100
+    # elastic membership: 4 nodes arrive at round 50, estimate n online, and
+    # initialise uncoordinated mid-run; correlated crash burst injected
+    python -m repro_torch.launch.train --model mlp --topology kregular --elastic \
+        --join-nodes 4 --join-round 50 --fault-scenario crash
+    # preemption-safe: checkpoint every chunk, then resume bit-identically
+    python -m repro_torch.launch.train --model mlp --rounds 100 --chunk-rounds 25 --ckpt-dir /tmp/ck --checkpoint-every 1
+    python -m repro_torch.launch.train --model mlp --rounds 100 --chunk-rounds 25 --resume /tmp/ck
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
 through the hand-written kernels there (dense for n ≤ 64, block-sparse
@@ -44,9 +51,20 @@ over a Poisson stream of ``--event-rate`` clocks an edge and horizon
 virtual time; with ``--uncoordinated-init`` the gains are n̂^0.5 from
 barrier-free leaderless sketches over a stream of their own
 (``--estimate-rounds`` units of virtual time, seed + 3).
+``--elastic`` (implied by ``--join-nodes`` / ``--fault-scenario``) runs the
+elastic executor (``run_elastic_trajectory``): ``--join-nodes`` envelope
+slots arrive at ``--join-round``, estimate n̂ with leaderless sketches for
+``--join-warmup`` rounds and initialise uncoordinated; ``--fault-scenario``
+injects a seeded ``core.faults`` scenario; every recorded round prints its
+live population (``active``).  Its plan carries ``--link-p`` / ``--node-p``
+as the synchronous path's does.  ``--ckpt-dir`` with ``--checkpoint-every N``
+checkpoints the synchronous or elastic trajectory every N chunks
+(``CheckpointPolicy``) and ``--resume DIR`` continues it bit-identically from
+the directory's LATEST; ``--ckpt-dir`` alone saves the final params after
+the run.
 Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
-The token models and the JAX launcher's other modes (elastic,
-checkpointing, telemetry) are not ported yet.
+The token models and telemetry (``--telemetry``, ``--profile-trace``) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -56,10 +74,13 @@ import os
 
 import numpy as np
 
+from repro_torch.checkpoint import save_train_state
 from repro_torch.core import topology as T
 from repro_torch.core.commplan import FailureModel, compile_plan, compile_schedule, cyclic_map
 from repro_torch.core.compress import Compression
+from repro_torch.core.faults import SCENARIOS, scenario
 from repro_torch.core.initialisation import InitConfig, gain_from_graph
+from repro_torch.core.membership import membership_schedule
 from repro_torch.data import (
     batch_index_schedule,
     cifar10_like,
@@ -71,9 +92,11 @@ from repro_torch.data import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.fed import (
+    CheckpointPolicy,
     init_fl_state,
     make_eval_fn,
     make_round_fn,
+    run_elastic_trajectory,
     run_event_trajectory,
     run_trajectory,
     run_warmup_trajectory,
@@ -167,11 +190,33 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
                    help="per-edge Poisson clock rate; 1.0 matches one synchronous round per unit time in messages")
     p.add_argument("--event-horizon", type=float, default=None,
                    help="virtual-time horizon of the event stream (default: --rounds)")
+    p.add_argument(
+        "--elastic", action="store_true",
+        help="elastic membership executor (fed.run_elastic_trajectory): nodes join/leave inside the static "
+        "envelope; implied by --join-nodes / --fault-scenario",
+    )
+    p.add_argument("--join-nodes", type=int, default=0,
+                   help="hold this many envelope slots out of the initial membership; they arrive at --join-round, "
+                   "re-derive n̂ via leaderless sketches, and initialise uncoordinated mid-run")
+    p.add_argument("--join-round", type=int, default=None,
+                   help="arrival round of the joining nodes (default: rounds // 2)")
+    p.add_argument("--join-warmup", type=int, default=8,
+                   help="estimation rounds between a node's arrival and its init")
+    p.add_argument("--fault-scenario", choices=sorted(SCENARIOS), default="none",
+                   help="deterministic fault injection (core.faults): correlated crash bursts, partitions, hub "
+                   "outages — seeded and replayable")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="with --ckpt-dir: snapshot the whole trajectory state every N chunks (preemption-safe; "
+                   "resume is bit-identical)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint dir to resume the trajectory from (replays bit-identical params/metrics; a "
+                   "path without a LATEST starts fresh)")
     p.add_argument("--chunk-rounds", type=int, default=0, help="executor chunk size in rounds (0 = auto)")
     p.add_argument("--log-every", type=int, default=0,
                    help="print the recorded metrics every N rounds at chunk boundaries instead of after the "
                    "run (sets the chunk size unless --chunk-rounds is given)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", type=str, default=None)
     p.add_argument("--history-out", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args, rest = p.parse_known_args(argv)
@@ -179,6 +224,8 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         p.error(f"{' '.join(rest)} {NOT_PORTED}")
     if args.model not in PAPER_MODELS:
         p.error(f"--model {args.model} {NOT_PORTED}")
+    if args.join_nodes > 0 or args.fault_scenario != "none":
+        args.elastic = True
     if args.uncoordinated_init and args.no_gain_correction:
         p.error("--uncoordinated-init estimates (and applies) per-node gains; "
                 "it contradicts --no-gain-correction — pick one")
@@ -190,6 +237,19 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
             p.error("--async estimation is barrier-free leaderless sketching; "
                     "degree polling needs the round-based walker — drop "
                     "--estimate-mode degree or drop --async")
+    if args.elastic:
+        if args.async_gossip:
+            p.error("--elastic runs through the elastic executor — it excludes --async")
+        if args.uncoordinated_init:
+            p.error("--elastic joiners already initialise uncoordinated from online n̂ sketches; initial members "
+                    "use the graph gain — drop --uncoordinated-init")
+        if not 0 <= args.join_nodes < args.nodes:
+            p.error(f"--join-nodes must leave at least one initial member (got {args.join_nodes} of {args.nodes})")
+        if args.topology_schedule != "static" and "partition" in args.fault_scenario:
+            p.error("edge-cut fault scenarios index the base graph's edge list — they need --topology-schedule static")
+    if args.resume and args.uncoordinated_init and not args.async_gossip:
+        p.error("--resume is not supported through the warmup phase; drop --uncoordinated-init (or resume an "
+                "--elastic run)")
     dev = resolve_device(args.device)
     compress_cfg = None
     if args.compress != "none":
@@ -249,9 +309,13 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         return init_model(InitConfig("he_normal", gains), g)
 
     eval_fn = make_eval_fn(loss_fn)
+    ckpt_policy = None
+    if args.ckpt_dir and args.checkpoint_every > 0:
+        ckpt_policy = CheckpointPolicy(args.ckpt_dir, every=args.checkpoint_every)
     if args.async_gossip:
-        hist = _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, eval_batch, compress_cfg, dev)
-        return _finish(args, hist)
+        state, hist = _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, eval_batch,
+                                 compress_cfg, dev)
+        return _finish(args, state, hist, graph, ckpt_policy)
     round_fn = make_round_fn(
         loss_fn, opt, mix_plan, link_p=args.link_p, node_p=args.node_p, device=dev, compression=compress_cfg
     )
@@ -263,6 +327,8 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         # at a chunk boundary, with the chunk's recorded rounds
         for i, r in enumerate(h["round"]):
             line = f"round {r:4d} train {h['train_loss'][i]:.4f} test {h['test_loss'][i]:.4f}"
+            if h.get("n_active"):
+                line += f" active {h['n_active'][i]:3d}"
             if h.get("wire_bytes"):
                 line += f" wire {h['wire_bytes'][i]}B"
             print(line, flush=True)
@@ -276,6 +342,10 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
         n_rounds=args.rounds, eval_every=max(1, args.rounds // 20), eval_fn=eval_fn,
         eval_batch=eval_batch, track_sigmas=True, b_local=args.local_batches, device=dev,
     )
+    if args.elastic:
+        state, hist = _run_elastic(args, graph, n, gain, opt, loss_fn, init_one, round_fn.plan, xs, ys, sched,
+                                   common, compress_cfg, ckpt_policy, stream_hook)
+        return _finish(args, state, hist, graph, ckpt_policy)
     if args.uncoordinated_init:
         # estimation rides the training links and failure model, on a
         # unit-weight plan (the Eq. 3 send operator); over a topology
@@ -303,12 +373,47 @@ def main(argv: list[str] | None = None) -> dict[str, list]:
     else:
         state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=dev)
         state, hist = run_trajectory(state, round_fn, xs, ys, sched, chunk_size=args.chunk_rounds,
-                                     on_chunk=stream_hook, **common)
+                                     checkpoint=ckpt_policy, resume_from=args.resume, on_chunk=stream_hook, **common)
     if stream_hook is None or args.uncoordinated_init:
         # the warmup path has no chunk hook: it prints after the run
         for i, r in enumerate(hist["round"]):
             print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f}", flush=True)
-    return _finish(args, hist)
+    return _finish(args, state, hist, graph, ckpt_policy)
+
+
+def _run_elastic(args, graph, n, gain, opt, loss_fn, init_one, plan, xs, ys, sched, common, compress_cfg,
+                 ckpt_policy, stream_hook):
+    """The elastic path: the membership (the joining cohort) and the fault
+    plan lowered to masks, then ``run_elastic_trajectory``."""
+    join_round = args.join_round if args.join_round is not None else args.rounds // 2
+    if args.join_nodes:
+        mem = membership_schedule(
+            n, args.rounds, initial=n - args.join_nodes,
+            arrivals={join_round: list(range(n - args.join_nodes, n))}, join_warmup=args.join_warmup,
+        )
+        print(f"membership: {n - args.join_nodes} initial, {args.join_nodes} arrive at round {join_round} "
+              f"(warmup {args.join_warmup})")
+    else:
+        mem = membership_schedule(n, args.rounds)
+    faults = None if args.fault_scenario == "none" else scenario(args.fault_scenario, graph, args.rounds,
+                                                                  seed=args.seed)
+    if faults is not None:
+        print(f"fault plan: {faults.name} ({(~faults.node_up).sum()} node-round outages, "
+              f"{(~faults.edge_up).sum()} edge-round cuts)")
+    state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=common["device"])
+    kw = {k: v for k, v in common.items() if k != "track_sigmas"}
+    state, hist, aux = run_elastic_trajectory(
+        state, loss_fn, opt, plan, mem, xs, ys, sched, chunk_size=args.chunk_rounds, init_one=init_one,
+        faults=faults, checkpoint=ckpt_policy, resume_from=args.resume, on_chunk=stream_hook,
+        compression=compress_cfg, **kw,
+    )
+    if stream_hook is None:
+        for i, r in enumerate(hist["round"]):
+            print(f"round {r:4d} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f} "
+                  f"active {hist['n_active'][i]:3d}", flush=True)
+    n_hat = aux["n_hat"]
+    print(f"online n̂ (true n = {n}): mean {n_hat.mean():.2f}, range [{n_hat.min():.2f}, {n_hat.max():.2f}]")
+    return state, hist
 
 
 def _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, eval_batch, compress_cfg, dev):
@@ -335,17 +440,22 @@ def _run_async(args, graph, n, gain, opt, loss_fn, eval_fn, init_one, xs, ys, ev
         state = init_fl_state(init_seed, n, init_one, opt, gains=gains, device=dev)
     else:
         state = init_fl_state(args.seed, n, init_one, opt, gains=gain, device=dev)
-    _, hist, _ = run_event_trajectory(
+    state, hist, _ = run_event_trajectory(
         state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=args.local_batches, n_bins=20, eval_fn=eval_fn,
         eval_batch=eval_batch, compression=compress_cfg, device=dev,
     )
     for i, t in enumerate(hist["time"]):
         print(f"t={t:8.1f} train {hist['train_loss'][i]:.4f} test {hist['test_loss'][i]:.4f} "
               f"stale {hist['staleness'][i]:.2f} msgs {hist['messages'][i]}", flush=True)
-    return hist
+    return state, hist
 
 
-def _finish(args, hist: dict) -> dict:
+def _finish(args, state, hist: dict, graph, ckpt_policy) -> dict:
+    if args.ckpt_dir and ckpt_policy is None:
+        # the params-only snapshot; with --checkpoint-every the trajectory's
+        # checkpoints own the directory (its LATEST must stay resumable)
+        path = save_train_state(args.ckpt_dir, int(state.round), state.tree, meta={"graph": graph.name})
+        print(f"checkpoint: {path}")
     if args.history_out:
         os.makedirs(os.path.dirname(args.history_out) or ".", exist_ok=True)
         with open(args.history_out, "w") as f:

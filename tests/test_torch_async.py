@@ -657,9 +657,10 @@ def test_event_trajectory_own_draws_statistics(setup):
     assert shares[0] == 0.0 and abs(shares[1] - p) < 5 * np.sqrt(p * (1 - p) / stream.n_events)
 
 
-def test_event_trajectory_hand_built_stream_and_errors(setup):
-    """The JAX test's ring-4 stream: clocks, counts, staleness by hand; the
-    unported checkpointing and a schedule raise."""
+def test_event_trajectory_hand_built_stream_and_errors(setup, tmp_path):
+    """The JAX test's ring-4 stream: clocks, counts, staleness by hand; a
+    checkpoint directory without LATEST starts fresh, a resume under other
+    knobs and a schedule raise."""
     n = 4
     g = PT.ring(n)
     rng = np.random.default_rng(0)
@@ -684,9 +685,15 @@ def test_event_trajectory_hand_built_stream_and_errors(setup):
     assert hist["time"] == [2.0, 4.0] and np.allclose(hist["staleness"], [0.625, 1.75])
     assert all(np.isfinite(hist["train_loss"])) and all(np.isnan(hist["test_loss"]))
     assert aux["staleness_hist"]["edges"] == list(np.linspace(0.0, 4.0, 17))
-    for kw in (dict(checkpoint=object()), dict(resume_from="x")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            PF.run_event_trajectory(state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=2, device="cpu", **kw)
+    fresh, hist_f, _ = PF.run_event_trajectory(state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=2, n_bins=2,
+                                               resume_from=str(tmp_path / "none"), device="cpu")
+    assert torch.equal(fresh.params, final.params) and _nan_equal(hist_f, hist)
+    ck = PF.CheckpointPolicy(str(tmp_path / "ck"))
+    PF.run_event_trajectory(state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=2, n_bins=2, checkpoint=ck,
+                            device="cpu")
+    with pytest.raises(ValueError, match="n_bins=2, but this run has n_bins=3"):
+        PF.run_event_trajectory(state, loss_fn, opt, plan, stream, xs, ys, sched, b_local=2, n_bins=3,
+                                resume_from=ck.dir, device="cpu")
     sched_plan = PC.compile_schedule([g, g], "dense", device="cpu")
     with pytest.raises(ValueError, match="statically compiled"):
         PF.run_event_trajectory(state, loss_fn, opt, sched_plan, stream, xs, ys, sched, b_local=2, device="cpu")
@@ -806,7 +813,7 @@ def test_cli_async_on_cpu(capsys, extra):
 def test_cli_async_errors(capsys):
     for extra, match in ((["--topology-schedule", "churn"], "static topology"),
                          (["--uncoordinated-init", "--estimate-mode", "degree"], "degree polling"),
-                         (["--elastic"], "not yet ported"), (["--checkpoint-every", "2"], "not yet ported")):
+                         (["--elastic"], "excludes --async"), (["--telemetry", "t.jsonl"], "not yet ported")):
         with pytest.raises(SystemExit):
             cli.main([*ASYNC_BASE, *extra])
         assert match in capsys.readouterr().err

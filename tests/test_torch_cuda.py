@@ -953,3 +953,93 @@ def test_serve_trajectory_on_the_card_matches_the_cpu(dev):
     for k in ("train_loss", "test_loss"):
         np.testing.assert_allclose(h_g[k], h_c[k], rtol=1e-4, atol=1e-5)
     assert f_g.params.is_cuda
+
+
+def _elastic_setup():
+    from repro_torch.data import batch_index_schedule, mnist_like, node_datasets
+
+    n, per = 6, 32
+    ds = mnist_like(n * per + 64, seed=0)
+    xs, ys = node_datasets(ds, [np.arange(i * per, (i + 1) * per) for i in range(n)])
+    rng = np.random.default_rng(0)
+    params = {f"fc{i}": {"w": (rng.standard_normal((n, a, b)) * np.sqrt(2.0 / a)).astype(np.float32),
+                         "b": np.zeros((n, b), np.float32)} for i, (a, b) in enumerate(((784, 16), (16, 10)))}
+    return xs, ys, params, (ds.x[-64:], ds.y[-64:]), batch_index_schedule(per, n, 8, 24, seed=0)
+
+
+def _elastic_run(where, checkpoint=None, resume_from=None, codec=None):
+    """Ring-6 at link_p 0.8: a joiner at round 1 (warmup 3), a crash burst
+    of 2 nodes over rounds 5–7, 12 rounds in chunks of 4."""
+    from repro_torch import fed
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core.commplan import FailureModel, compile_plan
+    from repro_torch.core.compress import Compression
+    from repro_torch.core.faults import crash_burst
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.core.membership import membership_schedule
+    from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+    from repro_torch.optim import sgd
+
+    xs, ys, params, test, sched = _elastic_setup()
+
+    def loss(p, b):
+        return classifier_loss(mlp_forward(p, b[0]), b[1])
+
+    opt = sgd(1e-3, 0.5)
+    g = T.ring(6)
+    return fed.run_elastic_trajectory(
+        state_from_numpy(params, optimizer=opt, device=where), loss, opt,
+        compile_plan(g, "dense", failures=FailureModel(link_p=0.8), device=where),
+        membership_schedule(6, 12, initial=5, arrivals={1: [5]}, join_warmup=3), xs, ys, sched, n_rounds=12,
+        eval_every=3, eval_fn=fed.make_eval_fn(loss), eval_batch=test, chunk_size=4,
+        init_one=lambda gen, gains: init_mlp(InitConfig("he_normal", gains), gen, hidden=(16,)),
+        faults=crash_burst(g, 12, at=5, size=2, duration=3, seed=1), checkpoint=checkpoint, resume_from=resume_from,
+        compression=None if codec is None else Compression(codec, chunk=256), device=where,
+    )
+
+
+def test_elastic_trajectory_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The elastic executor on the card and on the CPU from one numpy init
+    and the same host draws (the forked draws made on the CPU and moved):
+    n_active and the wire counts equal, n̂ equal, losses and params to the
+    trainer's bounds."""
+    from repro_torch.fed import executor
+
+    real = executor.elastic_draws
+
+    def on_cpu(kind, seed, r, *, n, device, **kw):
+        out = real(kind, seed, r, n=n, device="cpu", **{k: (v.cpu() if k == "gains" else v) for k, v in kw.items()})
+        return out.to(device) if kind == "sketches" else {k: {j: t.to(device) for j, t in v.items()}
+                                                          for k, v in out.items()}
+
+    monkeypatch.setattr(executor, "elastic_draws", on_cpu)
+    (f_c, h_c, a_c), (f_g, h_g, a_g) = _elastic_run("cpu"), _elastic_run("cuda")
+    for k in ("round", "n_active", "wire_messages", "wire_bytes"):
+        assert h_g[k] == h_c[k], k
+    assert np.array_equal(a_g["n_hat"], a_c["n_hat"])
+    for k in ("train_loss", "test_loss"):
+        np.testing.assert_allclose(h_g[k], h_c[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(f_g.params.cpu(), f_c.params, rtol=1e-4, atol=1e-5)
+    assert f_g.params.is_cuda and torch.equal(f_g.generator.get_state(), f_c.generator.get_state())
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_elastic_resume_on_the_card_is_bitwise(dev, tmp_path, codec):
+    """On the card: checkpoint every chunk, LATEST cut back to chunk 0, then
+    a resume: params, optimizer state, mirror and history bitwise the
+    uninterrupted run's."""
+    import json
+
+    from repro_torch.fed import CheckpointPolicy
+
+    f_ref, h_ref, a_ref = _elastic_run("cuda", codec=codec)
+    d = str(tmp_path / "ck")
+    _elastic_run("cuda", checkpoint=CheckpointPolicy(d, every=1, keep_last=5), codec=codec)
+    (tmp_path / "ck" / "LATEST").write_text(json.dumps({"step": 0, "path": f"{d}/step_00000000.ckpt"}))
+    f_res, h_res, a_res = _elastic_run("cuda", resume_from=d, codec=codec)
+    assert h_res == h_ref and np.array_equal(a_res["n_hat"], a_ref["n_hat"])
+    assert torch.equal(f_res.params, f_ref.params) and f_res.params.is_cuda
+    assert all(torch.equal(a, b) for a, b in zip(f_res.opt_state, f_ref.opt_state))
+    assert (f_ref.residual is None) == (codec is None)
+    if codec is not None:
+        assert torch.equal(f_res.residual, f_ref.residual)

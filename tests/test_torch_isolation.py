@@ -136,3 +136,22 @@ def test_entry_points_default_to_cuda():
         fig13_serve.run()
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_consensus.setup()
+    # the elastic path and the checkpointed runs: the executor, fig11, the
+    # example, the CLI's --elastic and its checkpoint flags
+    from repro_torch.benchmarks import fig11_elastic
+    from repro_torch.core.membership import membership_schedule
+    from repro_torch.examples import elastic_membership
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_elastic_trajectory(state, lambda p, b: None, opt, plan, membership_schedule(4, 1), xs, ys, sched,
+                                   n_rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed.run_trajectory(state, rf, xs, ys, sched, n_rounds=1, checkpoint=fed.CheckpointPolicy("unused"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fig11_elastic.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic_membership.setup()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--nodes", "4", "--rounds", "1", "--elastic", "--join-nodes", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--nodes", "4", "--rounds", "1", "--ckpt-dir", "unused", "--checkpoint-every", "1"])

@@ -818,5 +818,5 @@ def test_cli_schedule_flags_on_cpu(capsys):
     assert len(lines) == 3 and all("wire" in ln for ln in lines)
     assert [int(ln.split()[1]) for ln in lines] == hist["round"] == [0, 1, 2]
     with pytest.raises(SystemExit):
-        cli.main([*base, "--checkpoint-every", "2"])
-    assert "not yet ported" in capsys.readouterr().err
+        cli.main([*base, "--topology-schedule", "churn", "--fault-scenario", "partition"])
+    assert "they need --topology-schedule static" in capsys.readouterr().err
