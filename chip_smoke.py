@@ -60,12 +60,14 @@ run with a non-zero exit:
    mix at n = 16 and 64 (n·d > 2^31), n = 16 timed against its byte bound,
    and the int8 dense round at VGG16's 16,437-chunk table, scales and H'
    bitwise, its route checked and timed, and at complete-64 (n·d > 2^31)
-   its columns past a 32-bit offset against the plain version; flash at the
+   its columns past a 32-bit offset against the plain version; the int8
+   dense round at complete-8 on the reduced qwen2.5-3b's row and chunk
+   table (phase 4j's ``--model transformer``); flash at the
    head dims it runs zero-padded (hd 30 fp32, 40 and 160 bf16; causal,
    windowed and not causal) and timed at stablelm-12b's prefill and the
    reduced configs' shapes; the gossip shapes, a round of
-   ``CommPlan.spread``: mix_matmul over the dense Mᵀ of complete-16,
-   kreg4-16 and kreg4-64, mix_bsr over the BSR Mᵀ of ring-1024, kreg4-1024
+   ``CommPlan.spread``: mix_matmul over the dense Mᵀ of complete-8,
+   kreg4-8 (phase 4j's health reports), complete-16, kreg4-16 and kreg4-64, mix_bsr over the BSR Mᵀ of ring-1024, kreg4-1024
    and heavytail-1024, at d ∈ {1, 2, 3, 4}, each timed against its bound and
    torch.matmul / torch.sparse.mm; the compressed exchange of an
    asynchronous event (``quant_mix_pair``: the dense round over the pair's
@@ -175,6 +177,22 @@ run with a non-zero exit:
    against the plain walk; kreg4-8 card vs CPU on the same draws; fig11
    quick (``build/fig11_elastic.json``, resume parity bit-exact, 388 dense
    launches);
+4j. telemetry and the rest of the training CLI — ``--telemetry`` at
+   complete-16 on the full-width MLP, 20 rounds plain then 20 int8: the
+   port's ``validate_run_log`` passes, 1 manifest + 20 rounds + 1 summary +
+   1 ``gossip_health``, 240 messages a round, bytes = messages × the row
+   (priced by the codec for int8), exactly 20 ``mix_matmul`` / 20
+   ``quant_mix_dense`` launches besides the health report's spreads;
+   ring-1024 (sparse, link_p 0.9): every round's count the masked
+   operator's off-diagonal entries, the mass drift below the CPU test's
+   fp32 level; ``--async`` and ``--elastic`` on kreg4-16 (bin rows with
+   messages; the masks' own live edges); the serve CLI's log with 16 query
+   records; ``--profile-trace`` of the complete-16 run in a child process:
+   every ``mix_dense_kernel`` launch inside a ``dfl_mix`` range, the device
+   and host ms a round of ``dfl_local`` / ``dfl_mix`` / ``dfl_eval`` (and of
+   3 ring-1024 rounds); ``--model transformer --compress int8`` and ``--arch
+   qwen2.5-3b --reduced --legacy-loop``; a kreg4-8 log card vs CPU from one
+   CPU init (kinds, keys, counts and wire channels equal, losses to 1e-4);
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -210,10 +228,12 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -625,6 +645,9 @@ def main() -> int:
         # 8) and each routed query's (1 × 8)
         serve_case("example consensus", get_reduced_config("qwen2.5-3b"), 4, 8, 0, torch.float32),
         serve_case("example serve", get_reduced_config("qwen2.5-3b"), 1, 8, 0, torch.float32),
+        # phase 4j's --model transformer: each recorded round's eval, the
+        # held-out batch of 64 windows of 64 tokens
+        serve_case("transformer CLI eval", get_reduced_config("qwen2.5-3b"), 64, 64, 0, torch.float32),
         serve_case("qwen prefill", qcfg, 4, 2048, 0, torch.float32),
         serve_case("gemma3 global", gcfg, 2, 2048, 0, torch.float32),
         serve_case("gemma3 local", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
@@ -1092,6 +1115,18 @@ def main() -> int:
                       lambda hq: decavg_mix_ref(m64, hq), x64, h64, mlp_bounds, codec="int8", gamma=1.0,
                       route="staged")
     errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    # phase 4j's --model transformer --compress int8: the reduced
+    # qwen2.5-3b's rows at complete-8, its own chunk table
+    lm_layout = FlatLayout.of(TF.init_params(0, get_reduced_config("qwen2.5-3b"), InitConfig("trunc_normal", torch.ones(1)),
+                                             device="cpu"))
+    m8q = compile_plan(T.complete(8), "dense", device=dev).receive
+    x8q = torch.randn(8, lm_layout.size, generator=gen, device=dev) * (0.01 + torch.rand(8, 1, generator=gen, device=dev))
+    h8q = 0.3 * torch.randn(8, lm_layout.size, generator=gen, device=dev)
+    e = compare_quant(f"quant_mix_dense int8 round complete-8 d={lm_layout.size} (reduced qwen2.5-3b)",
+                      dense_kernel(m8q), lambda hq: decavg_mix_ref(m8q, hq), x8q, h8q,
+                      chunk_bounds(lm_layout.sizes, 2048, dev), codec="int8", gamma=1.0, route="staged")
+    errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
+    del x8q, h8q
     x1k, h1k = quant_inputs(1024)
     ring_bsr = plan_s.bsr
     for codec in ("int8", "fp8"):
@@ -1362,7 +1397,8 @@ def main() -> int:
     # mix_matmul / mix_bsr over Mᵀ with a payload of d = 1–4 fp32 columns (the
     # power iteration's x, push-sum's [moments, weight]): the dense Mᵀ of
     # complete-16, kreg4-16 (phase 4e's warmup), kreg4-64 and kreg4-256 (the
-    # estimates bench), the BSR Mᵀ of ring-1024, kreg4-1024 and
+    # estimates bench), complete-8 and kreg4-8 (phase 4j's gossip-health
+    # reports at n = 8), the BSR Mᵀ of ring-1024, kreg4-1024 and
     # heavytail-1024 (bn 32) and of heavytail-16 / 64 / 256 (the estimates
     # bench's sparse plans, bn 4 / 8 / 32).  Each against its plain version
     # and, for BSR, bitwise its rendering mix_bsr_rows_ref; timed as a
@@ -1372,9 +1408,11 @@ def main() -> int:
     # (dense 4·n²; BSR its nonzeros, an fp32 value and an int32 column each,
     # the stored tiles' zero padding not counted: printed beside as the
     # layout's cost); 2·d flops a nonzero of Mᵀ (dense: n² of them).  Phase
-    # 4e records the (kernel, n, d, bn) of every gossip launch and fails on
-    # one not held here.
+    # 4e and 4j record the (kernel, n, d, bn) of every gossip launch and
+    # fail on one not held here.
     gossip_ops = {
+        "complete-8": compile_plan(T.complete(8), "dense", device=dev),
+        "kreg4-8": compile_plan(T.random_k_regular(8, 4, seed=0), "dense", device=dev),
         "complete-16": compile_plan(T.complete(16), "dense", device=dev),
         "kreg4-16": compile_plan(T.random_k_regular(16, 4, seed=0), "dense", device=dev),
         "kreg4-64": compile_plan(T.random_k_regular(64, 4, seed=0), "dense", device=dev),
@@ -3132,6 +3170,260 @@ if __name__ == "__main__":
     check(recs_11["resume-parity"]["parity_bitexact"] is True, "fig11: the resume-parity record is not bit-exact")
     check(launches_11 == {**none_launched, "mix_matmul": 4 * 40 + 2 * 96 + 3 * 12}, f"fig11 launches {launches_11}")
     print(f"  phase 4i: {time.perf_counter() - t_4i:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 4j. telemetry and the training CLI
+    phase("4j. telemetry, profiler traces and the rest of the training CLI: --telemetry, --profile-trace, "
+          "--model transformer, --arch --legacy-loop")
+    t_4j = time.perf_counter()
+    from repro_torch.fed.trainer import DFLState
+    from repro_torch.launch import serve as serve_cli_4j
+    from repro_torch.obs import read_run_log, validate_run_log
+
+    out_4j = ROOT / "build" / "phase4j"
+    shutil.rmtree(out_4j, ignore_errors=True)
+    out_4j.mkdir(parents=True)
+    # the CLI's gossip-health report spreads over the plan's Mᵀ (kernels 1g /
+    # 2g): a wrapper counts its launches apart from the training rounds'
+    real_health = cli.gossip_health
+    health_launches = []
+
+    def counted_health(*a, **kw):
+        before = {kern.__name__: kern.launches for kern in kernels}
+        out = real_health(*a, **kw)
+        health_launches.append({k: kern.launches - before[k] for k, kern in
+                                ((kern.__name__, kern) for kern in kernels)})
+        return out
+
+    def cli_log(label, argv):
+        """One CLI run with --telemetry into build/phase4j: (history, records,
+        launches of the training rounds, launches of the health report, s)."""
+        path = out_4j / f"{label}.jsonl"
+        health_launches.clear()
+        hist_j, wall_j, launches_j = counted(lambda: cli.main([*argv, "--telemetry", str(path)]))
+        recs_j = read_run_log(path)
+        problems = validate_run_log(recs_j)
+        check(not problems, f"4j {label}: the run log fails validate_run_log: {problems}")
+        health_j = health_launches[0] if health_launches else dict(none_launched)
+        train_j = {k: launches_j[k] - health_j[k] for k in launches_j}
+        kinds = [r["kind"] for r in recs_j]
+        print(f"  {label}: {wall_j:.1f} s; {len(recs_j)} records {dict(collections.Counter(kinds))}; training "
+              f"launches { {k: v for k, v in train_j.items() if v} }, the health report's "
+              f"{ {k: v for k, v in health_j.items() if v} }")
+        return hist_j, recs_j, train_j, health_j
+
+    def mlp_row_bytes(comp=None):
+        sizes = FlatLayout.of(init_mlp(InitConfig("he_normal", torch.ones(1)), torch.Generator().manual_seed(0))).sizes
+        if comp is None:
+            return 4 * sum(sizes)
+        return int(round(sum(float(comp.leaf_row_bytes(sz, torch.float32)) for sz in sizes)))
+
+    # every launch at a gossip payload (d ≤ 4: the health reports' spreads)
+    # and every flash launch (the transformer's eval) is recorded and held
+    # to phase 3's shapes
+    launched_4j, flash_4j = set(), set()
+    real_mm_4j, real_bsr_4j = mix_ops.mix_matmul, mix_ops.mix_bsr
+
+    def recording_mm_4j(m, w):
+        if w.is_cuda:
+            launched_4j.add(("mix_matmul", w.shape[0], w.shape[1] if w.ndim > 1 else 1, 0))
+        return real_mm_4j(m, w)
+
+    def recording_bsr_4j(block_cols, tiles, counts, w):
+        if w.is_cuda:
+            launched_4j.add(("mix_bsr", w.shape[0], w.shape[1] if w.ndim > 1 else 1, tiles.shape[-1]))
+        return real_bsr_4j(block_cols, tiles, counts, w)
+
+    def recording_flash_4j(q, k, v, *, causal=True, window=0):
+        if q.is_cuda:
+            flash_4j.add(flash_key(q, k, causal, window))
+        return flash_mha(q, k, v, causal=causal, window=window)
+
+    cli.gossip_health = counted_health
+    mix_ops.mix_matmul, mix_ops.mix_bsr, flash_ops.flash_mha = recording_mm_4j, recording_bsr_4j, recording_flash_4j
+    try:
+        # (a) complete-16, the full-width MLP: 20 rounds, then 20 int8 rounds
+        base_a = ["--model", "mlp", "--rounds", "20"]
+        logs_a = {}
+        for label, extra, kname in (("plain", [], "mix_matmul"), ("int8", ["--compress", "int8"], "quant_mix_dense")):
+            hist_a, recs_a, train_a, health_a = cli_log(f"complete16-{label}", base_a + extra)
+            comp_a = None if label == "plain" else Compression(codec="int8", chunk=2048)
+            row_a = mlp_row_bytes(comp_a)
+            rows_a = recs_a[1:-2]
+            check([r["kind"] for r in recs_a] == ["manifest", *["round"] * 20, "summary", "gossip_health"],
+                  f"4j complete-16 {label}: record kinds {[r['kind'] for r in recs_a]}")
+            check(recs_a[0]["jax_version"] is None and recs_a[0]["backend"] == "cuda"
+                  and recs_a[0]["device_name"] == torch.cuda.get_device_name(0), f"4j {label}: manifest {recs_a[0]}")
+            check(all(r["wire_messages"] == 240 for r in rows_a), f"4j {label}: wire {[r['wire_messages'] for r in rows_a]}")
+            check(all(r["wire_bytes"] == r["wire_messages"] * row_a for r in rows_a),
+                  f"4j {label}: wire bytes {rows_a[0]['wire_bytes']} vs 240 × {row_a}")
+            check(train_a == {**none_launched, kname: 20}, f"4j complete-16 {label}: training launches {train_a}")
+            check(health_a == {**none_launched, "mix_matmul": 64}, f"4j complete-16 {label}: health launches {health_a}")
+            check(all(math.isfinite(v) for v in hist_a["train_loss"] + hist_a["test_loss"]),
+                  f"4j complete-16 {label}: non-finite loss")
+            logs_a[label] = recs_a
+            print(f"    {label}: {row_a} bytes a row, final test {hist_a['test_loss'][-1]:.4f}, gossip health "
+                  f"fitted {recs_a[-1]['fitted_rate']} predicted {recs_a[-1]['predicted_rate']}")
+
+        # (b) ring-1024, sparse, link_p 0.9: each round's count is the number
+        # of off-diagonal entries of the masked operator the round mixed
+        # with, replayed from the CLI's generator (seeded --seed 0) on a
+        # dense plan of the same graph and failure model (the same draws)
+        hist_b, recs_b, train_b, health_b = cli_log("ring1024", [
+            "--model", "mlp", "--topology", "ring", "--nodes", "1024", "--rounds", "3", "--local-batches", "2",
+            "--link-p", "0.9"])
+        dense_b = compile_plan(T.ring(1024), "dense", failures=FailureModel(link_p=0.9), device=dev)
+        gen_b = torch.Generator().manual_seed(0)
+        eye_b = torch.eye(1024, dtype=torch.bool, device=dev)
+        kept_b = [int(((dense_b.round_operator(gen_b) != 0) & ~eye_b).sum()) for _ in range(3)]
+        wire_b = [r["wire_messages"] for r in recs_b if r["kind"] == "round"]
+        drift_b = recs_b[-1]["mass_drift_max"]
+        print(f"    ring-1024: wire {wire_b}, the masked operators' off-diagonal entries {kept_b} (of 2048); gossip "
+              f"health mass_drift_max {drift_b:.3e} (fp32 level 1e-05), fitted {recs_b[-1]['fitted_rate']}")
+        check(wire_b == kept_b and all(k < 2048 for k in kept_b), f"4j ring-1024: wire {wire_b} vs operators {kept_b}")
+        check(train_b == {**none_launched, "mix_bsr": 3}, f"4j ring-1024: training launches {train_b}")
+        check(health_b == {**none_launched, "mix_bsr": 128}, f"4j ring-1024: health launches {health_b}")
+        check(0.0 <= drift_b < 1e-5, f"4j ring-1024: mass drift {drift_b}")
+        del dense_b, eye_b
+
+        # (c) --async and --elastic on kreg4-16
+        kreg_c = ["--model", "mlp", "--topology", "kregular", "--nodes", "16", "--local-batches", "2"]
+        hist_c, recs_c, train_c, _ = cli_log("kreg16-async", [*kreg_c, "--rounds", "4", "--async", "--link-p", "0.8"])
+        bins_c = [r for r in recs_c if r["kind"] == "bin"]
+        row_c = mlp_row_bytes()
+        check(len(bins_c) == 20 and all("messages" in r and r["wire_bytes"] == r["messages"] * row_c for r in bins_c),
+              "4j async: bin rows without messages or with other bytes")
+        check(recs_c[-2]["recorded_wire_messages"] == sum(hist_c["messages"]) < 2 * sum(hist_c["events"]),
+              f"4j async: delivered {sum(hist_c['messages'])} of {2 * sum(hist_c['events'])} (link_p 0.8)")
+        hist_e, recs_e, train_e, _ = cli_log("kreg16-elastic", [*kreg_c, "--rounds", "12", "--join-nodes", "2",
+                                                                 "--join-round", "4", "--join-warmup", "2",
+                                                                 "--fault-scenario", "crash"])
+        g_e = cli.build_graph("kregular", 16, 0)
+        mem_e = membership_schedule(16, 12, initial=14, arrivals={4: [14, 15]}, join_warmup=2)
+        faults_e = scenario("crash", g_e, 12, seed=0)
+        live_e = mem_e.active & faults_e.node_up
+        uv_e = g_e.edge_list()
+        want_e = [2 * int(sum(bool(faults_e.edge_up[r, i] and live_e[r, u] and live_e[r, v])
+                              for i, (u, v) in enumerate(uv_e))) for r in hist_e["round"]]
+        print(f"    elastic: wire {hist_e['wire_messages']}, the masks' live edges × 2 {want_e}, n_active "
+              f"{hist_e['n_active']}")
+        check(hist_e["wire_messages"] == want_e and min(want_e) < 2 * len(uv_e), f"4j elastic: wire {hist_e['wire_messages']}")
+        check(train_e == {**none_launched, "mix_matmul": 12}, f"4j elastic: training launches {train_e}")
+
+        # (f) the token models: --model transformer (reduced qwen2.5-3b on
+        # token windows through the executor, int8 rounds; each recorded
+        # round's eval runs fp32 flash, 2 layers × 8 nodes) and --arch
+        # --reduced --legacy-loop (host-fed train_loop, no eval)
+        hist_f, recs_f, train_f, _ = cli_log("transformer-int8", [
+            "--model", "transformer", "--nodes", "8", "--rounds", "3", "--items-per-node", "64", "--local-batches", "1",
+            "--compress", "int8"])
+        check(train_f == {**none_launched, "quant_mix_dense": 3, "flash_mha": 3 * 8 * 2},
+              f"4j transformer: training launches {train_f}")
+        check(all(math.isfinite(v) for v in hist_f["train_loss"] + hist_f["test_loss"]), "4j transformer: loss")
+        hist_l, recs_l, train_l, _ = cli_log("arch-legacy", [
+            "--arch", "qwen2.5-3b", "--reduced", "--legacy-loop", "--nodes", "8", "--rounds", "3", "--local-batches",
+            "1"])
+        check(train_l == {**none_launched, "mix_matmul": 3}, f"4j --arch --legacy-loop: training launches {train_l}")
+        check(all(math.isfinite(v) for v in hist_l["train_loss"]) and "wire_messages" not in recs_l[1],
+              "4j --arch --legacy-loop: loss or channels")
+        print(f"    transformer int8 final train {hist_f['train_loss'][-1]:.4f} test {hist_f['test_loss'][-1]:.4f}; "
+              f"--arch legacy final train {hist_l['train_loss'][-1]:.4f}")
+
+        # (g) card vs CPU: one kreg4-8 log each way (full width, link_p 0.8),
+        # both from one init drawn on the CPU and moved (the CLI draws on
+        # the run's device); the failure draws are the CPU generator's in both
+        real_init = cli.init_fl_state
+
+        def cpu_init(seed, n, init_one, opt, gains=None, device=None):
+            s_cpu = real_init(seed, n, init_one, opt, gains=gains, device="cpu")
+            return DFLState(params=s_cpu.params.to(device), opt_state=type(s_cpu.opt_state)(
+                *(f.to(device) for f in s_cpu.opt_state)), layout=s_cpu.layout, round=0, generator=s_cpu.generator)
+
+        cli.init_fl_state = cpu_init
+        try:
+            logs_g = {}
+            for where in ("cpu", "cuda"):
+                path = out_4j / f"kreg8-{where}.jsonl"
+                hist_g = cli.main(["--model", "mlp", "--topology", "kregular", "--nodes", "8", "--rounds", "3",
+                                   "--items-per-node", "64", "--local-batches", "2", "--link-p", "0.8",
+                                   "--device", where, "--telemetry", str(path)])
+                logs_g[where] = (hist_g, read_run_log(path))
+        finally:
+            cli.init_fl_state = real_init
+        (h_gc, r_gc), (h_gg, r_gg) = logs_g["cpu"], logs_g["cuda"]
+        same_shape = ([r["kind"] for r in r_gc] == [r["kind"] for r in r_gg]
+                      and all(sorted(a) == sorted(b) for a, b in zip(r_gc, r_gg)))
+        loss_rel_g = max(abs(a - b) / abs(b) for k in ("train_loss", "test_loss") for a, b in zip(h_gg[k], h_gc[k]))
+        print(f"    card vs CPU (kreg4-8, link_p 0.8, 3 rounds): kinds and keys equal {same_shape}, wire "
+              f"{h_gg['wire_messages']} / {h_gc['wire_messages']}, largest relative loss difference {loss_rel_g:.2e}")
+        check(same_shape and validate_run_log(r_gc) == [] and r_gc[0]["backend"] == "cpu", "4j card vs CPU: records")
+        check(h_gg["wire_messages"] == h_gc["wire_messages"] and h_gg["wire_bytes"] == h_gc["wire_bytes"],
+              "4j card vs CPU: wire channels differ")
+        check(all(np.allclose(h_gg[k], h_gc[k], rtol=1e-4, atol=1e-5) for k in ("train_loss", "test_loss")),
+              f"4j card vs CPU: losses {loss_rel_g:.2e}")
+    finally:
+        cli.gossip_health = real_health
+        mix_ops.mix_matmul, mix_ops.mix_bsr, flash_ops.flash_mha = real_mm_4j, real_bsr_4j, flash_mha
+    gossip_4j = {key for key in launched_4j if key[2] <= 4}
+    print(f"  the phase's gossip launches ran at {sorted(gossip_4j)}, its flash launches at {sorted(flash_4j, key=str)}")
+    check(gossip_4j <= gossip_checked, f"phase 4j launched gossip shapes {sorted(gossip_4j - gossip_checked)} not "
+          "checked in phase 3")
+    check(bool(flash_4j) and flash_4j <= flash_checked, f"phase 4j launched flash at "
+          f"{sorted(flash_4j - flash_checked, key=str)}, not checked in phase 3")
+
+    # (d) the serve CLI at its defaults with a run log of 16 query records
+    path_d = out_4j / "serve.jsonl"
+    (hist_d, summ_d), wall_d, launches_d = counted(lambda: serve_cli_4j.main(["--telemetry", str(path_d),
+                                                                               "--log-queries", "16"]))
+    recs_d = read_run_log(path_d)
+    kinds_d = [r["kind"] for r in recs_d]
+    print(f"  serve CLI: {wall_d:.1f} s, {len(recs_d)} records {dict(collections.Counter(kinds_d))}")
+    check(validate_run_log(recs_d) == [] and kinds_d == ["manifest", *["bin"] * 10, *["query"] * min(16, summ_d["served"]),
+                                                         "summary"], f"4j serve log kinds {kinds_d}")
+    check(summ_d["served"] >= 16, f"4j serve: {summ_d['served']} queries served")
+
+    # (e) --profile-trace of (a)'s plain run, and of 3 ring-1024 rounds, each
+    # in a child process (after a profiler session in-process later launches
+    # took more host time: PR 19).  Every mix kernel launch must lie inside a
+    # dfl_mix range; each phase's device time is its launches' kernels' time
+    split_4j = {}
+    for label, argv in (("complete-16", base_a), ("ring-1024", ["--model", "mlp", "--topology", "ring", "--nodes",
+                                                               "1024", "--rounds", "3", "--local-batches", "2"])):
+        tdir = out_4j / f"trace-{label}"
+        t0 = time.perf_counter()
+        run_e = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv, "--profile-trace", str(tdir)],
+                               cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True,
+                               text=True, timeout=600)
+        check(run_e.returncode == 0, f"4j --profile-trace {label}: exit {run_e.returncode}: {run_e.stderr[-2000:]}")
+        events = json.loads((tdir / "trace.json").read_text())["traceEvents"]
+        n_rounds_e = int(argv[argv.index("--rounds") + 1])
+        scopes = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                         if e.get("cat") == "user_annotation" and e.get("name") == name]
+                  for name in ("dfl_local", "dfl_mix", "dfl_eval")}
+        launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                     if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+        kern_ev = [e for e in events if e.get("cat") == "kernel"]
+
+        def inside(ts, spans):
+            return any(a <= ts <= b for a, b in spans)
+
+        mix_name = "mix_dense_kernel" if label == "complete-16" else "mix_bsr_kernel"
+        mix_k = [e for e in kern_ev if mix_name in e["name"]]
+        mix_in = [inside(launch_ts.get(e["args"].get("correlation"), -1.0), scopes["dfl_mix"]) for e in mix_k]
+        split = {}
+        for name, spans in scopes.items():
+            dev_us = sum(e["dur"] for e in kern_ev if inside(launch_ts.get(e["args"].get("correlation"), -1.0), spans))
+            host_us = sum(b - a for a, b in spans)
+            split[name] = dict(n=len(spans), device_ms=dev_us / n_rounds_e / 1e3, host_ms=host_us / n_rounds_e / 1e3)
+        split_4j[label] = split
+        print(f"  --profile-trace {label} ({n_rounds_e} rounds, child process {time.perf_counter() - t0:.1f} s): "
+              f"{len(mix_k)} {mix_name} launches, {sum(mix_in)} inside a dfl_mix range; a round's split, traced: "
+              + "; ".join(f"{k} device {v['device_ms']:.4f} ms host {v['host_ms']:.4f} ms ({v['n']} ranges)"
+                          for k, v in split.items()))
+        check(len(mix_k) == n_rounds_e and all(mix_in), f"4j trace {label}: {len(mix_k)} {mix_name}, "
+              f"{sum(mix_in)} inside dfl_mix")
+        check(all(v["n"] == n_rounds_e for v in split.values()), f"4j trace {label}: ranges {split}")
+    print(f"  phase 4j: {time.perf_counter() - t_4j:.1f} s")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 5. card vs CPU

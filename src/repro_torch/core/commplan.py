@@ -471,23 +471,21 @@ class CommPlan:
         self, generator: torch.Generator | None = None, *, active=None, edge_live=None
     ) -> torch.Tensor | int:
         """Messages one round delivers: two per live undirected edge (both
-        endpoints active), as the JAX package's wire accountant counts them.
-        Under an active failure model ``generator`` must be in the state the
-        round's mix drew its masks from (a copy taken before the round): the
-        count replays those draws.  ``active`` / ``edge_live`` are ``mix``'s
-        deterministic masks, AND-composed with the draws the same way.  A
-        device scalar when anything is masked, else an int."""
-        if not self._masked(active, edge_live):
-            return 2 * self.n_edges
-        edge_keep, node_act = self._round_masks_ext(generator, active, edge_live)
-        if self.backend == "dense":
-            keep = edge_keep[self.edge_uid_matrix] & (self.adjacency > 0)
-            return (keep & node_act[:, None] & node_act[None, :]).sum()
-        if self.backend == "ppermute":
-            # each edge stands at both its endpoints' colour slots: two messages
-            keep = (self.color_edge_uid >= 0) & edge_keep[self.color_edge_uid.clamp_min(0)]
-            return (keep & node_act[None, :] & node_act[self._partners_dev]).sum()
-        return (edge_keep[self.edge_uid] & node_act[self.src] & node_act[self.dst]).sum()
+        endpoints active), counted by the one accountant,
+        ``obs.wirecost.make_wire_fn``.  Under an active failure model
+        ``generator`` must be in the state the round's mix drew its masks
+        from (a copy taken before the round): the count replays those draws.
+        ``active`` / ``edge_live`` are ``mix``'s deterministic masks,
+        AND-composed with the draws the same way.  A device scalar when
+        anything is masked, else an int."""
+        from repro_torch.obs.wirecost import make_wire_fn
+
+        if self.failures.active and generator is None:
+            raise ValueError("failure model active: wire_messages() needs the round's torch.Generator")
+        wire = make_wire_fn(self)
+        if wire is None:
+            raise ValueError("a directed plan has no wire count (no event tables)")
+        return wire(generator, active=active, edge_live=edge_live)
 
     def _round_masks_ext(self, generator, active, edge_live) -> tuple[torch.Tensor, torch.Tensor]:
         """Failure draws AND-composed with the deterministic masks, on the

@@ -39,31 +39,11 @@ from repro_torch.device import resolve_device
 from repro_torch.fed import (
     DFLState, ServeEngine, consensus_params, init_fl_state, make_round_fn, make_router, train_loop,
 )
-from repro_torch.flat import tree_map
 from repro_torch.models import transformer as TF
 from repro_torch.optim import adamw
 
 N_NODES, ROUNDS, SEQ, BATCH, N_NEW = 8, 30, 48, 8, 16
-AUX_WEIGHT = 0.01  # the MoE load-balance term's weight, as the JAX example (0 aux here: no MoE layer)
-
-
-def node_loss(cfg):
-    """The DFL trainer's loss for the decoder: ``loss_fn(node_params, (x,
-    y))`` with node-stacked views (every leaf ``(n, ...)``) and tokens x,
-    targets y ``(n, B, S)`` → the ``(n,)`` per-node ``lm_loss + 0.01 ·
-    aux``, one forward a node on its own parameters (the JAX example vmaps
-    the same function over the nodes)."""
-
-    def loss_fn(node_params, batch) -> torch.Tensor:
-        x, y = batch
-        out = []
-        for i in range(x.shape[0]):
-            p = tree_map(lambda t: t[i], node_params)
-            hidden, aux = TF.forward(p, cfg, x[i])
-            out.append(TF.lm_loss(p, cfg, hidden, y[i]) + AUX_WEIGHT * aux)
-        return torch.stack(out)
-
-    return loss_fn
+node_loss = TF.node_loss  # the per-node decoder loss (one forward a node)
 
 
 def setup(device=None) -> SimpleNamespace:

@@ -57,19 +57,21 @@ from repro_torch.core.compress import Compression, _edges, compressed_mix, compr
 from repro_torch.core.topology import EventStream, Graph
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
+from repro_torch.obs import BinChannel, BinSpec, Channel, MetricsSpec, Recorder, make_wire_fn, param_row_bytes
+from repro_torch.obs.export import scope
+from repro_torch.obs.health import staleness_histogram
+from repro_torch.obs.spec import host_values
 
 from repro_torch.gossip.engine import round_generator, split_seed
 
 from .trainer import (
-    HISTORY_KEYS,
     DFLState,
     _copy_generator,
     _local_steps,
     copy_state,
-    finish_history,
+    eval_metrics,
     init_fl_state,
     make_round_fn,
-    record_round,
     state_device,
 )
 
@@ -211,25 +213,34 @@ def _restore_state(state: DFLState, carry: dict, **extra) -> DFLState:
     return dataclasses.replace(state, round=int(carry["round"]))
 
 
-def _hist_outs(hist: dict, messages: list) -> dict:
-    """The history so far as arrays: rounds and wire counts int64, each
-    metric channel its device scalars stacked (read back here, the sync a
-    saving chunk pays)."""
-    outs = {"round": torch.tensor(hist["round"], dtype=torch.int64),
-            "messages": torch.tensor([int(m) for m in messages], dtype=torch.int64)}
-    for k, v in hist.items():
-        if k != "round":
-            outs[k] = torch.stack(v).cpu() if v and isinstance(v[0], torch.Tensor) else torch.tensor(v)
-    return outs
+def _cols_outs(rec: Recorder, cols: list) -> dict:
+    """The recorder's per-round columns so far as float64 host tensors (read
+    back here, the sync a saving chunk pays); a column's float32 and int
+    values are exact in float64."""
+    return {c.name: torch.tensor(host_values(col), dtype=torch.float64) for c, col in zip(rec.spec.channels, cols)}
 
 
-def _restore_hist(outs: dict, dev: torch.device) -> tuple[dict, list]:
-    """``_hist_outs`` back: ints as ints, each metric a device scalar of its dtype."""
-    hist = {"round": [int(r) for r in outs["round"]]}
-    for k, v in outs.items():
-        if k not in ("round", "messages"):
-            hist[k] = [int(x) for x in v] if not v.is_floating_point() else list(v.to(dev).unbind(0))
-    return hist, [int(m) for m in outs["messages"]]
+def _cols_restore(rec: Recorder, outs: dict) -> list[list]:
+    """``_cols_outs`` back: per-round host numbers, which assemble as the live run's values do."""
+    if set(outs) != set(rec.spec.names):
+        raise ValueError(f"checkpoint records channels {sorted(outs)}, the live run {sorted(rec.spec.names)}")
+    return [outs[name].tolist() for name in rec.spec.names]
+
+
+def _assemble(rec: Recorder, mask: np.ndarray, cols: list, r0: int, r1: int, row_bytes: int) -> dict:
+    """Rounds r0 … r1 − 1 of the columns as a history, absolute round
+    numbers, ``wire_bytes`` priced from the message counts."""
+    hist = rec.assemble(mask[r0:r1], [col[r0:r1] for col in cols])
+    hist["round"] = [r + r0 for r in hist["round"]]
+    if "wire_messages" in hist:
+        hist["wire_bytes"] = [m * row_bytes for m in hist["wire_messages"]]
+    return hist
+
+
+def _row_bytes(state: DFLState, comp) -> int:
+    """One node's row on the wire (``obs.param_row_bytes`` of the state's
+    tree): each leaf at its itemsize, or at the codec's encoding."""
+    return param_row_bytes(state.tree, codec_bytes=None if comp is None else comp.leaf_row_bytes)
 
 
 def stack_states(states: Sequence[DFLState]) -> DFLState:
@@ -298,6 +309,7 @@ def run_trajectory(
     b_local: int | None = None,
     checkpoint: CheckpointPolicy | None = None,
     resume_from: str | None = None,
+    plan: CommPlan | PlanSchedule | None = None,
     on_chunk: Callable[[int, int, dict], None] | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, dict[str, list]]:
@@ -317,16 +329,28 @@ def run_trajectory(
     remaining chunks.  Given the same initial ``state`` and arguments, the
     resumed run's final state and history are bit-identical to the
     uninterrupted run's; with no LATEST in the directory the run starts
-    fresh."""
+    fresh.
+
+    Wire cost: the plan the round mixes over, ``plan`` or else
+    ``round_fn.plan`` (``make_round_fn`` attaches it), adds the
+    ``wire_messages`` / ``wire_bytes`` channels (an undirected plan only),
+    every count from ``obs.make_wire_fn``: a clean round's static count, or
+    under an active failure model the round's draw replayed from a copy of
+    the state's generator taken before the round (so a hand-rolled
+    ``round_fn`` given ``plan=`` must draw its masks from
+    ``state.generator`` first, as ``make_round_fn``'s round does).  A
+    ``round_fn`` without a plan records no wire channels."""
     return _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
                 eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=True,
-                chunk_size=chunk_size, on_chunk=on_chunk, checkpoint=checkpoint, resume_from=resume_from)
+                plan=plan, chunk_size=chunk_size, on_chunk=on_chunk, checkpoint=checkpoint, resume_from=resume_from)
 
 
 def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, eval_batch, track_sigmas, b_local,
-         device, wire: bool, chunk_size: int = 0, on_chunk=None, checkpoint=None, resume_from=None):
+         device, wire: bool, plan=None, chunk_size: int = 0, on_chunk=None, checkpoint=None, resume_from=None):
     """``run_trajectory``; ``wire`` adds the wire channels (the JAX
-    package's sweep records none)."""
+    package's sweep records none).  Every round's values go through the
+    ``obs.Recorder`` (the legacy channels, the gated ones at the recorded
+    rounds only) and the history is assembled once at the end."""
     dev = state_device(state, device)
     sched = torch.as_tensor(_as_round_schedule(schedule, n_rounds, b_local), device=dev)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
@@ -335,44 +359,45 @@ def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, ev
 
     comp = getattr(round_fn, "compression", None)
     state = seed_residual(copy_state(state), comp)
-    plan = getattr(round_fn, "plan", None)
-    wire = wire and plan is not None and not plan.graph.directed
-    row_bytes = _row_bytes(state, comp) if wire else 0
+    eff_plan = plan if plan is not None else getattr(round_fn, "plan", None)
+    wire_fn = make_wire_fn(eff_plan) if wire and eff_plan is not None else None
+    replay = wire_fn is not None and eff_plan.failures.active
+    row_bytes = _row_bytes(state, comp) if wire_fn is not None else 0
+    rec = Recorder(MetricsSpec.legacy(eval_fn is not None, track_sigmas, wire=wire_fn is not None))
+    gated = eval_metrics(eval_fn, eval_d, track_sigmas)
     cfg = TrajectoryConfig(n_rounds, eval_every, chunk_size)
     mask = cfg.eval_mask()
     chunks = cfg.chunks()
-    hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
-    messages = []
+    cols: list[list] = [[] for _ in rec.spec.channels]
     meta_id = {"kind": "trajectory", "n_rounds": n_rounds, "eval_every": eval_every, "track_sigmas": track_sigmas,
                "chunk_size": chunk_size, "compressed": comp is not None}
     skip = 0
     if resume_from is not None and (resumed := _load_resume(resume_from, meta_id)) is not None:
         payload, skip = resumed
         state = _restore_state(state, payload["carry"])
-        hist, messages = _restore_hist(payload["outs"], dev)
+        cols = _cols_restore(rec, payload["outs"])
     for ci in range(skip, len(chunks)):
         r0, r1 = chunks[ci]
-        at = len(hist["round"])
         for r in range(r0, r1):
-            # the failure draws this round's mix makes, replayed by the wire count
-            before = _copy_generator(state.generator) if wire and mask[r] and plan.failures.active else None
-            rnd = state.round  # the round the mix picks its plan by (a resumed state starts past 0)
+            values = {}
+            if wire_fn is not None:
+                # the failure draws this round's mix makes, replayed from a
+                # copy of the generator; the plan is picked by the state's
+                # round (a resumed state starts past 0)
+                values["wire_messages"] = wire_fn(_copy_generator(state.generator) if replay else None, state.round)
             state, metrics = round_fn(state, gather_batch(sched[r]))
-            if mask[r]:
-                record_round(hist, r, state, metrics, eval_fn, eval_d, track_sigmas)
-                if wire:
-                    messages.append(plan.wire_messages(rnd, before) if isinstance(plan, PlanSchedule)
-                                    else plan.wire_messages(before))
+            values["train_loss"] = metrics["train_loss"]
+            for col, v in zip(cols, rec.step(values, gate=bool(mask[r]), gated_fn=gated, operand=state)):
+                col.append(v)
         if on_chunk is not None:
             # the hook's clock reads the chunk's end: the one synchronisation it adds
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            chunk = _with_wire(finish_history({k: v[at:] for k, v in hist.items()}), messages[at:], wire, row_bytes)
-            on_chunk(r0, r1, chunk)
+            on_chunk(r0, r1, _assemble(rec, mask, cols, r0, r1, row_bytes))
         if checkpoint is not None:
             _save_chunk_ckpt(checkpoint, ci, ci == len(chunks) - 1,
-                             lambda: {"carry": _state_carry(state), "outs": _hist_outs(hist, messages)}, meta_id)
-    return state, _with_wire(finish_history(hist), messages, wire, row_bytes)
+                             lambda: {"carry": _state_carry(state), "outs": _cols_outs(rec, cols)}, meta_id)
+    return state, _assemble(rec, mask, cols, 0, n_rounds, row_bytes)
 
 
 def _batch_gather(xs_d: torch.Tensor, ys_d: torch.Tensor):
@@ -390,20 +415,15 @@ def _batch_gather(xs_d: torch.Tensor, ys_d: torch.Tensor):
     return gather
 
 
-def _with_wire(out: dict, messages: list, wire: bool, row_bytes: int) -> dict:
-    if wire:
-        out["wire_messages"] = [int(m) for m in messages]
-        out["wire_bytes"] = [m * row_bytes for m in out["wire_messages"]]
-    return out
-
-
-def _row_bytes(state: DFLState, comp) -> int:
-    """One node's row on the wire: each leaf at its itemsize, or at the
-    codec's encoding (``Compression.leaf_row_bytes``); the total rounded."""
-    dtype = state.params.dtype
-    if comp is None:
-        return int(round(sum(size * state.params.element_size() for size in state.layout.sizes)))
-    return int(round(sum(float(comp.leaf_row_bytes(size, dtype)) for size in state.layout.sizes)))
+def _run_schedules(schedule, n_runs: int, schedule_per_run: bool) -> list:
+    """Each run's schedule: the shared one, or with ``schedule_per_run``
+    run i's slice of the leading run axis."""
+    if not schedule_per_run:
+        return [schedule] * n_runs
+    s = np.asarray(schedule)
+    if s.shape[0] != n_runs:
+        raise ValueError(f"schedule_per_run: the schedule's leading axis holds {s.shape[0]} runs, not {n_runs}")
+    return list(s)
 
 
 def run_sweep(
@@ -418,22 +438,27 @@ def run_sweep(
     eval_fn=None,
     eval_batch=None,
     track_sigmas: bool = False,
+    chunk_size: int = 0,
+    schedule_per_run: bool = False,
     b_local: int | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, list[dict[str, list]]]:
     """Several trajectories (seeds × gains ...) sharing one dataset, one
     schedule and one upload, run one after another.  ``states`` is a list
-    of per-run states or a stacked one.  Returns the stacked final state
-    and one history per run, without wire channels (as the JAX package's)."""
+    of per-run states or a stacked one; ``schedule_per_run=True`` gives
+    each run its own batch order, the schedule then carrying a leading run
+    axis.  ``chunk_size`` is ``run_trajectory``'s (it changes nothing a run
+    computes).  Returns the stacked final state and one history per run,
+    without wire channels (as the JAX package's)."""
     runs = unstack_states(states) if isinstance(states, DFLState) else list(states)
     dev = state_device(runs[0], device)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
     finals, hists = [], []
-    for s in runs:
+    for s, sched in zip(runs, _run_schedules(schedule, len(runs), schedule_per_run)):
         final, hist = _run(
-            s, round_fn, xs_d, ys_d, schedule, n_rounds=n_rounds, eval_every=eval_every,
+            s, round_fn, xs_d, ys_d, sched, n_rounds=n_rounds, eval_every=eval_every,
             eval_fn=eval_fn, eval_batch=eval_batch, track_sigmas=track_sigmas,
-            b_local=b_local, device=dev, wire=False,
+            b_local=b_local, device=dev, wire=False, chunk_size=chunk_size,
         )
         finals.append(final)
         hists.append(hist)
@@ -456,6 +481,7 @@ def run_warmup_trajectory(
     eval_fn=None,
     eval_batch=None,
     track_sigmas: bool = False,
+    chunk_size: int = 0,
     b_local: int | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, dict[str, list], np.ndarray]:
@@ -465,15 +491,17 @@ def run_warmup_trajectory(
     ``estimate_gains(estimation seed)`` (a ``make_gain_estimator``) runs the
     gossip rounds and returns the (n,) gains on the device, which
     ``init_fl_state(init seed, ..., gains=)`` draws every node's parameters
-    with, and the trajectory runs as ``run_trajectory``'s, without wire
-    channels (as the JAX package's warmup).  Running those three by hand with the same split gives the same result.  Returns ``(final_state,
-    history, gains)``, the realised gains as numpy.
+    with, and the trajectory runs as ``run_trajectory``'s (``chunk_size``
+    its chunks), without wire channels (as the JAX package's warmup).
+    Running those three by hand with the same split gives the same result.
+    Returns ``(final_state, history, gains)``, the realised gains as numpy.
     """
     est_seed, init_seed = split_seed(seed, 2)
     gains = estimate_gains(est_seed)
     state = init_fl_state(init_seed, n_nodes, init_one, optimizer, gains=gains, device=device)
     state, hist = _run(state, round_fn, xs, ys, schedule, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
-                       eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=False)
+                       eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=device, wire=False,
+                       chunk_size=chunk_size)
     return state, hist, gains.cpu().numpy()
 
 
@@ -494,6 +522,8 @@ def run_warmup_sweep(
     eval_fn=None,
     eval_batch=None,
     track_sigmas: bool = False,
+    chunk_size: int = 0,
+    schedule_per_run: bool = False,
     b_local: int | None = None,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, list[dict[str, list]], np.ndarray]:
@@ -501,19 +531,20 @@ def run_warmup_sweep(
     one after another: run i is ``run_warmup_trajectory(seeds[i])`` with
     ``estimate_gains(estimation seed, budgets[i])`` (without ``budgets``:
     ``estimate_gains(estimation seed)``), so a budget-b cell equals a
-    standalone budget-b run.  Returns ``(stacked_states, histories,
-    gains)``, the gains an (n_runs, n_nodes) numpy array."""
+    standalone budget-b run.  ``schedule_per_run`` and ``chunk_size`` are
+    ``run_sweep``'s.  Returns ``(stacked_states, histories, gains)``, the
+    gains an (n_runs, n_nodes) numpy array."""
     if budgets is not None and len(budgets) != len(seeds):
         raise ValueError(f"budgets has {len(budgets)} entries for {len(seeds)} seeds")
     dev = resolve_device(device)
     xs_d, ys_d = torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev)
     finals, hists, gains = [], [], []
-    for i, seed in enumerate(seeds):
+    for i, (seed, sched) in enumerate(zip(seeds, _run_schedules(schedule, len(seeds), schedule_per_run))):
         estimate = estimate_gains if budgets is None else (lambda s, b=int(budgets[i]): estimate_gains(s, b))
         final, hist, g = run_warmup_trajectory(
-            int(seed), round_fn, xs_d, ys_d, schedule, n_nodes=n_nodes, init_one=init_one, optimizer=optimizer,
+            int(seed), round_fn, xs_d, ys_d, sched, n_nodes=n_nodes, init_one=init_one, optimizer=optimizer,
             estimate_gains=estimate, n_rounds=n_rounds, eval_every=eval_every, eval_fn=eval_fn,
-            eval_batch=eval_batch, track_sigmas=track_sigmas, b_local=b_local, device=dev,
+            eval_batch=eval_batch, track_sigmas=track_sigmas, chunk_size=chunk_size, b_local=b_local, device=dev,
         )
         finals.append(final)
         hists.append(hist)
@@ -522,15 +553,6 @@ def run_warmup_sweep(
 
 
 # ------------------------------------------------------- event-driven executor
-def staleness_histogram(counts, horizon: float) -> dict:
-    """The event executor's staleness buckets as ``{counts, edges}`` lists:
-    linear buckets over [0, horizon], the last one catching everything
-    beyond; ``edges`` the bucket boundaries in units of virtual time."""
-    c = np.asarray(counts, dtype=np.float64)
-    edges = np.linspace(0.0, float(horizon), len(c) + 1)
-    return {"counts": [float(v) for v in c], "edges": [float(e) for e in edges]}
-
-
 def _make_event_step(
     loss_fn,
     optimizer,
@@ -568,12 +590,13 @@ def _make_event_step(
     def step(params, opt_state, mirror, counts, clocks, e, t, delivered):
         u, v = int(uv_host[e, 0]), int(uv_host[e, 1])
         # 1. local phase: each endpoint takes b_local steps from its own cursor
-        iu, iv = sched_d[counts[u] % n_sched_rounds, u], sched_d[counts[v] % n_sched_rounds, v]
-        batch = (torch.stack([xs_d[u][iu], xs_d[v][iv]]), torch.stack([ys_d[u][iu], ys_d[v][iv]]))
-        pair = torch.stack([params[u], params[v]])
-        pair_o = type(opt_state)(*(torch.stack([f[u], f[v]]) for f in opt_state))
-        pair, pair_o, losses = _local_steps(loss_fn, optimizer, layout, pair, pair_o, batch)
-        with torch.no_grad():
+        with scope("dfl_local"):
+            iu, iv = sched_d[counts[u] % n_sched_rounds, u], sched_d[counts[v] % n_sched_rounds, v]
+            batch = (torch.stack([xs_d[u][iu], xs_d[v][iv]]), torch.stack([ys_d[u][iu], ys_d[v][iv]]))
+            pair = torch.stack([params[u], params[v]])
+            pair_o = type(opt_state)(*(torch.stack([f[u], f[v]]) for f in opt_state))
+            pair, pair_o, losses = _local_steps(loss_fn, optimizer, layout, pair, pair_o, batch)
+        with torch.no_grad(), scope("dfl_mix"):
             # 2. the pairwise exchange
             if delivered:
                 if comp is None:
@@ -591,6 +614,7 @@ def _make_event_step(
                                                            layout=layout)
                     mirror[u].copy_(h_pair[0])
                     mirror[v].copy_(h_pair[1])
+        with torch.no_grad():
             # 3. the pair's optimizer re-init (Algorithm 1 line 15)
             if reinit_opt:
                 pair_o = optimizer.init(pair)
@@ -758,10 +782,15 @@ class _EventRun:
 
         self.counts = np.zeros(n_nodes, dtype=np.int32)
         self.clocks = np.zeros(n_nodes, dtype=np.float32)
-        self.loss_sum = torch.zeros(n_bins, dtype=torch.float32, device=dev)
-        self.test_bin = torch.full((n_bins,), float("nan"), dtype=torch.float32, device=dev)
-        self.cnt, self.stale_sum, self.msg_cnt = (np.zeros(n_bins, dtype=np.float32) for _ in range(3))
-        self.stale_hist = np.zeros(_STALE_BUCKETS, dtype=np.float32)
+        # the per-bin accumulators (obs.BinSpec): the losses on the device,
+        # the counts, staleness sums and histogram on the host (numpy views
+        # of CPU tensors, the JAX executor's fp32 arithmetic)
+        dev_bins = BinSpec(n_bins, (BinChannel("loss_sum"), BinChannel("test_bin", fill=float("nan")))).init(dev)
+        host_bins = BinSpec(n_bins, (BinChannel("cnt"), BinChannel("stale_sum"), BinChannel("msg_cnt"),
+                                     BinChannel("stale_hist", width=_STALE_BUCKETS))).init("cpu")
+        self.loss_sum, self.test_bin = dev_bins["loss_sum"], dev_bins["test_bin"]
+        self.cnt, self.stale_sum, self.msg_cnt, self.stale_hist = (
+            host_bins[k].numpy() for k in ("cnt", "stale_sum", "msg_cnt", "stale_hist"))
         self.horizon = np.float32(stream.horizon)
 
     def gossip(self, i: int) -> None:
@@ -778,7 +807,8 @@ class _EventRun:
         bucket = int(stale / self.horizon * np.float32(_STALE_BUCKETS))
         self.stale_hist[min(max(bucket, 0), _STALE_BUCKETS - 1)] += np.float32(1.0)
         if self.do_eval[i]:
-            self.test_bin[b : b + 1].copy_(self.eval_fn(st.layout.views(st.params), self.eval_d).mean())
+            with scope("dfl_eval"):
+                self.test_bin[b : b + 1].copy_(self.eval_fn(st.layout.views(st.params), self.eval_d).mean())
 
     def acc(self) -> dict:
         """The per-bin accumulators so far, as numpy (reading them waits for the card)."""
@@ -973,31 +1003,38 @@ def run_elastic_trajectory(
         edge_up = np.ones((n_rounds, max(n_edges, 1)), bool)
     else:
         node_up, edge_up = faults.node_up, faults.edge_up
-    wire = not plan.graph.directed
+    # the wire accountant counts the masks the mix takes (the round's draw
+    # already ANDed in), so it is called without a generator
+    wire_fn = make_wire_fn(plan)
 
     state = seed_residual(copy_state(state), comp)
     layout = state.layout
-    row_bytes = _row_bytes(state, comp) if wire else 0
+    row_bytes = _row_bytes(state, comp) if wire_fn is not None else 0
+    channels = [Channel("train_loss")]
+    if eval_fn is not None:
+        channels.append(Channel("test_loss", gated=True))
+    channels.append(Channel("n_active", ints=True))
+    if wire_fn is not None:
+        channels.append(Channel("wire_messages", ints=True))
+    rec = Recorder(MetricsSpec(tuple(channels)))
+    cols: list[list] = [[] for _ in channels]
     # the forked streams: a child seed drawn from a copy of the generator,
     # so the training stream (one draw a round) is the static executor's
     seed = int(torch.randint(0, 2**62, (1,), generator=_copy_generator(state.generator)))
     sketches = elastic_draws("sketches", seed, n_rounds, n=n_nodes, n_sketches=n_sketches, device=dev)
-    hist: dict[str, list] = {k: [] for k in (*HISTORY_KEYS, "n_active")}
-    messages = []
     meta_id = {"kind": "elastic", "n_rounds": n_rounds, "eval_every": eval_every, "chunk_size": chunk_size,
                "n_sketches": n_sketches, "compressed": comp is not None}
     skip = 0
     if resume_from is not None and (resumed := _load_resume(resume_from, meta_id)) is not None:
         payload, skip = resumed
         state = _restore_state(state, payload["carry"], sketches=sketches)
-        hist, messages = _restore_hist(payload["outs"], dev)
+        cols = _cols_restore(rec, payload["outs"])
 
     def as_dev(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.bool, device=dev)
 
     for ci in range(skip, len(chunks)):
         r0, r1 = chunks[ci]
-        at = len(hist["round"])
         for r in range(r0, r1):
             view = plan.select(r) if scheduled else plan
             tr_np = membership.active[r] & node_up[r]
@@ -1028,7 +1065,9 @@ def run_elastic_trajectory(
             frozen = np.nonzero(~tr_np)[0]
             idx = torch.as_tensor(frozen, device=dev)
             kept = params[idx].clone() if len(frozen) else None
-            params, new_o, losses = _local_steps(loss_fn, optimizer, layout, params, opt_state, gather_batch(sched[r]))
+            with scope("dfl_local"):
+                params, new_o, losses = _local_steps(loss_fn, optimizer, layout, params, opt_state,
+                                                     gather_batch(sched[r]))
             with torch.no_grad():
                 if kept is not None:
                     params[idx] = kept
@@ -1042,11 +1081,12 @@ def run_elastic_trajectory(
 
                 # 4. the masked mix over the training members
                 residual = state.residual
-                if comp is not None:
-                    params, residual = compressed_mix(clean, params, residual, compression=comp, layout=layout,
-                                                      active=tr_mix, edge_live=live, update_mask=tr)
-                else:
-                    params = clean.mix(params, active=tr_mix, edge_live=live)
+                with scope("dfl_mix"):
+                    if comp is not None:
+                        params, residual = compressed_mix(clean, params, residual, compression=comp, layout=layout,
+                                                          active=tr_mix, edge_live=live, update_mask=tr)
+                    else:
+                        params = clean.mix(params, active=tr_mix, edge_live=live)
                 # 5. Algorithm 1 line 15, members only
                 if reinit_opt:
                     opt_state = type(opt_state)(*(_rows_where(tr, f, o)
@@ -1054,36 +1094,31 @@ def run_elastic_trajectory(
             state = dataclasses.replace(state, params=params, opt_state=opt_state, residual=residual,
                                         round=state.round + 1)
 
-            # 6. metrics over the live training population
-            if mask[r]:
-                n_act = int(tr_np.sum())
-                safe = float(max(n_act, 1))
-                trf = tr.to(torch.float32)
-                hist["round"].append(r)
-                hist["train_loss"].append(((losses * trf).sum() / safe).to(torch.float32))
-                hist["n_active"].append(n_act)
-                if eval_fn is not None:
-                    per_node = eval_fn(layout.views(params), eval_d)
-                    hist["test_loss"].append(((per_node * trf).sum() / safe).to(torch.float32))
-                if wire:
-                    messages.append(clean.wire_messages(active=tr_mix, edge_live=live))
+            # 6. metrics over the live training population (the test loss at
+            # the recorded rounds), the delivered messages of the masked mix
+            n_act = int(tr_np.sum())
+            safe = float(max(n_act, 1))
+            trf = tr.to(torch.float32)
+            values = {"train_loss": (losses * trf).sum() / safe, "n_active": n_act}
+            if wire_fn is not None:
+                values["wire_messages"] = wire_fn(None, r, active=tr_mix, edge_live=live)
+
+            def gated(p, trf=trf, safe=safe):
+                with scope("dfl_eval"):
+                    return {"test_loss": (eval_fn(layout.views(p), eval_d) * trf).sum() / safe}
+
+            for col, v in zip(cols, rec.step(values, gate=bool(mask[r]), gated_fn=gated, operand=params)):
+                col.append(v)
         if on_chunk is not None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            chunk = _with_wire(_finish_elastic({k: v[at:] for k, v in hist.items()}), messages[at:], wire,
-                               row_bytes)
-            on_chunk(r0, r1, chunk)
+            on_chunk(r0, r1, _assemble(rec, mask, cols, r0, r1, row_bytes))
         if checkpoint is not None:
             _save_chunk_ckpt(checkpoint, ci, ci == len(chunks) - 1,
                              lambda: {"carry": _state_carry(state, sketches=sketches),
-                                      "outs": _hist_outs(hist, messages)}, meta_id)
-    hist = _with_wire(_finish_elastic(hist), messages, wire, row_bytes)
+                                      "outs": _cols_outs(rec, cols)}, meta_id)
+    hist = _assemble(rec, mask, cols, 0, n_rounds, row_bytes)
     s_np = sketches.cpu().numpy()
     n_hat = (n_sketches - 1) / np.maximum(s_np.sum(axis=1), np.float32(1e-30))
     return state, hist, {"n_hat": n_hat}
 
-
-def _finish_elastic(hist: dict) -> dict[str, list]:
-    out = finish_history({k: hist[k] for k in HISTORY_KEYS})
-    out["n_active"] = [int(v) for v in hist["n_active"]]
-    return out

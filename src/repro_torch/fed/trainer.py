@@ -28,6 +28,8 @@ from repro_torch.core.compress import Compression, compressed_mix, init_residual
 from repro_torch.core.topology import Graph
 from repro_torch.device import resolve_device
 from repro_torch.flat import FlatLayout
+from repro_torch.obs.export import scope
+from repro_torch.obs.spec import MetricsSpec, Recorder
 from repro_torch.optim import Optimizer
 
 Tree = dict[str, Any]
@@ -173,7 +175,9 @@ def make_round_fn(
     ``round_fn.plan`` is the effective plan (overrides applied) and
     ``round_fn.compression`` the active codec or None.  ``reinit_opt=False``
     keeps the optimizer state across the aggregation (Algorithm 1 line 15
-    skipped), as the JAX ``make_round_fn``'s knob.
+    skipped), as the JAX ``make_round_fn``'s knob.  The local steps and the
+    aggregation run inside ``torch.profiler`` ranges named ``dfl_local`` and
+    ``dfl_mix`` (``obs.export.scope``), the JAX package's ``named_scope``s.
     """
     failures = FailureModel(link_p=link_p, node_p=node_p)
     if isinstance(plan, Graph):
@@ -188,25 +192,27 @@ def make_round_fn(
     comp = compression if compression is not None and compression.active else None
 
     def round_fn(state: DFLState, node_batches) -> tuple[DFLState, dict]:
-        params, opt_state, losses = _local_steps(
-            loss_fn, optimizer, state.layout, state.params, state.opt_state, node_batches
-        )
+        with scope("dfl_local"):
+            params, opt_state, losses = _local_steps(
+                loss_fn, optimizer, state.layout, state.params, state.opt_state, node_batches
+            )
         # double buffer: the kernel writes the mixed ensemble into a new
         # buffer that is swapped in; the old one goes back to the caching
         # allocator and becomes the next round's output
         generator = state.generator if plan.failures.active else None
         residual = state.residual
-        if comp is not None:
-            if residual is None:
-                residual = init_residuals(params)
-            params, residual = compressed_mix(
-                plan, params, residual, generator, compression=comp, layout=state.layout,
-                round_index=state.round if scheduled else None,
-            )
-        elif scheduled:
-            params = plan.mix(params, state.round, generator)
-        else:
-            params = plan.mix(params, generator)
+        with scope("dfl_mix"):
+            if comp is not None:
+                if residual is None:
+                    residual = init_residuals(params)
+                params, residual = compressed_mix(
+                    plan, params, residual, generator, compression=comp, layout=state.layout,
+                    round_index=state.round if scheduled else None,
+                )
+            elif scheduled:
+                params = plan.mix(params, state.round, generator)
+            else:
+                params = plan.mix(params, generator)
         new_state = dataclasses.replace(
             state,
             params=params,
@@ -221,8 +227,11 @@ def make_round_fn(
     return round_fn
 
 
-def make_eval_fn(loss_fn: LossFn):
-    """Every node's test loss on the shared test batch: ``(n,)``."""
+def make_eval_fn(loss_fn: LossFn, batch_eval: bool = True):
+    """Every node's test loss on the shared test batch: ``(n,)``.
+    ``batch_eval`` is accepted for the JAX signature; the JAX body ignores
+    it too (every node's loss is one batched call either way)."""
+    del batch_eval
 
     def eval_fn(params: Tree, test_batch) -> torch.Tensor:
         with torch.no_grad():
@@ -248,27 +257,21 @@ def sigma_metrics(params: torch.Tensor) -> dict[str, torch.Tensor]:
     }
 
 
-HISTORY_KEYS = ("round", "train_loss", "test_loss", "sigma_ap", "sigma_an")
+def eval_metrics(eval_fn, eval_batch, track_sigmas: bool):
+    """The gated channels of a recorded round, ``gated(state) -> dict``:
+    the mean test loss (``eval_fn`` in the range ``dfl_eval``) and σ_ap /
+    σ_an, as device scalars."""
 
+    def gated(st: DFLState) -> dict:
+        vals = {}
+        if eval_fn is not None:
+            with scope("dfl_eval"):
+                vals["test_loss"] = eval_fn(st.tree, eval_batch).mean()
+        if track_sigmas:
+            vals.update(sigma_metrics(st.params))
+        return vals
 
-def record_round(hist: dict, r: int, state: DFLState, metrics: dict, eval_fn, eval_batch, track_sigmas) -> None:
-    """Append round r's metrics as device scalars (read back once, at the end)."""
-    hist["round"].append(r)
-    hist["train_loss"].append(metrics["train_loss"])
-    if eval_fn is not None:
-        hist["test_loss"].append(eval_fn(state.tree, eval_batch).mean())
-    if track_sigmas:
-        s = sigma_metrics(state.params)
-        hist["sigma_ap"].append(s["sigma_ap"])
-        hist["sigma_an"].append(s["sigma_an"])
-
-
-def finish_history(hist: dict) -> dict[str, list]:
-    """One device→host transfer per channel."""
-    out = {"round": list(hist["round"])}
-    for k in HISTORY_KEYS[1:]:
-        out[k] = torch.stack(hist[k]).tolist() if hist[k] else []
-    return out
+    return gated
 
 
 def state_device(state: DFLState, device: str | torch.device | None) -> torch.device:
@@ -289,20 +292,34 @@ def train_loop(
     eval_fn=None,
     eval_batch=None,
     track_sigmas: bool = False,
+    progress: bool = False,
     device: str | torch.device | None = None,
 ) -> tuple[DFLState, dict[str, list]]:
     """Host-fed loop: ``batches`` yields each round's numpy (x, y) of
     shapes (n, b, bs, ...) and (n, b, bs).  ``run_trajectory`` is the
     schedule-gathering equivalent (same results for the same batches).
-    Metrics are recorded at rounds ``r % eval_every == 0`` and the last."""
+    Metrics are recorded at rounds ``r % eval_every == 0`` and the last,
+    through the ``obs.Recorder`` and read back once at the end, unless
+    ``progress`` prints each recorded round as it lands (a readback each)."""
     dev = state_device(state, device)
     state = copy_state(state)
     eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
-    hist: dict[str, list] = {k: [] for k in HISTORY_KEYS}
+    rec = Recorder(MetricsSpec.legacy(eval_fn is not None, track_sigmas))
+    gated = eval_metrics(eval_fn, eval_d, track_sigmas)
+    mask = np.array([bool(eval_every) and (r % eval_every == 0 or r == n_rounds - 1) for r in range(n_rounds)],
+                    dtype=bool)
+    cols: list[list] = [[] for _ in rec.spec.channels]
     for r in range(n_rounds):
         bx, by = next(batches)
         node_batches = (torch.as_tensor(bx, device=dev), torch.as_tensor(by, device=dev))
         state, metrics = round_fn(state, node_batches)
-        if eval_every and (r % eval_every == 0 or r == n_rounds - 1):
-            record_round(hist, r, state, metrics, eval_fn, eval_d, track_sigmas)
-    return state, finish_history(hist)
+        out = rec.step({"train_loss": metrics["train_loss"]}, gate=bool(mask[r]), gated_fn=gated, operand=state)
+        for col, v in zip(cols, out):
+            col.append(v)
+        if progress and mask[r]:
+            vals = dict(zip(rec.spec.names, out))
+            msg = f"round {r:4d} train {float(vals['train_loss']):.4f}"
+            if "test_loss" in vals:
+                msg += f" test {float(vals['test_loss']):.4f}"
+            print(msg, flush=True)
+    return state, rec.assemble(mask, cols)

@@ -15,13 +15,14 @@ Examples:
     python -m repro_torch.launch.serve --qps 4 --router uniform
     python -m repro_torch.launch.serve --device cpu --nodes 4 --horizon 3 --per-node 16
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--telemetry`` (the
-JSONL run log, with ``--log-queries`` per-query records) is not ported yet
-(ROADMAP.md Queue 1 item 14).
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--telemetry PATH``
+writes a JSONL run log (``repro_torch.obs``): the manifest, one record a
+bin, up to ``--log-queries`` per-query records and the summary.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -35,9 +36,8 @@ from repro_torch.device import resolve_device
 from repro_torch.fed import init_fl_state, make_eval_fn, make_router, run_serve_trajectory, serve_summary
 from repro_torch.fed.router import ROUTER_POLICIES, poisson_query_stream
 from repro_torch.models.paper_models import classifier_loss, init_mlp, mlp_forward
+from repro_torch.obs import history_rows, run_manifest, write_run_log
 from repro_torch.optim import sgd
-
-from .train import NOT_PORTED
 
 TOPOLOGIES = ("ring", "kreg", "ba", "complete")
 
@@ -76,13 +76,10 @@ def main(argv: list[str] | None = None) -> tuple[dict, dict]:
     p.add_argument("--link-p", type=float, default=1.0)
     p.add_argument("--test-size", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--telemetry", type=str, default=None, help="write a JSONL run log here (not ported yet)")
-    p.add_argument("--log-queries", type=int, default=200,
-                   help="max per-query records in the run log (0 = none; only with --telemetry)")
+    p.add_argument("--telemetry", type=str, default=None, help="write a JSONL run log here")
+    p.add_argument("--log-queries", type=int, default=200, help="max per-query records in the run log (0 = none)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.telemetry:
-        p.error(f"--telemetry {NOT_PORTED} item 14 (the run log of obs/export.py)")
     dev = resolve_device(args.device)
 
     n = args.nodes
@@ -130,6 +127,18 @@ def main(argv: list[str] | None = None) -> tuple[dict, dict]:
     summ["queries_per_sec_wall"] = summ["served"] / max(wall, 1e-9)
     for k, v in summ.items():
         print(f"  {k}: {v:.4g}" if isinstance(v, float) else f"  {k}: {v}")
+    if args.telemetry:
+        records = [run_manifest(vars(args), seed=args.seed, argv=sys.argv[1:] if argv is None else list(argv),
+                                device=dev)]
+        records += history_rows(hist, kind="bin")
+        for i in range(min(len(serve["time"]), max(args.log_queries, 0))):
+            records.append({"kind": "query", "time": float(serve["time"][i]), "home": int(serve["home"][i]),
+                            "node": int(serve["node"][i]), "latency": float(serve["latency"][i]),
+                            "staleness": float(serve["staleness"][i]), "hops": float(serve["hops"][i]),
+                            "answer": float(serve["answer"][i])})
+        records.append({"kind": "summary", "wall_seconds": wall, **summ})
+        n_rec = write_run_log(args.telemetry, records)
+        print(f"wrote {n_rec} records to {args.telemetry}")
     return hist, summ
 
 

@@ -114,9 +114,11 @@ def attention_forward(
     return _out(p, flash_attention(q, k, v, causal=True, window=window))
 
 
-def init_kv_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, device=None) -> Tree:
+def init_kv_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, dtype=None, device=None) -> Tree:
+    """Zeroed k / v caches (*batch_shape, cache_len, KVH, hd) in ``dtype``
+    (a torch dtype or its name, as ``"bfloat16"``; default the config's)."""
     shape = (*batch_shape, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    dt = cfg.param_dtype
+    dt = cfg.param_dtype if dtype is None else (getattr(torch, dtype) if isinstance(dtype, str) else dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device), "v": torch.zeros(shape, dtype=dt, device=device)}
 
 

@@ -22,8 +22,8 @@ ensemble's leaves at a node, or average it with
 ``repro_torch.fed.serve.consensus_params``).
 
 Training: ``lm_loss`` is the JAX package's chunked softmax cross-entropy
-(``examples/serve_consensus.py::node_loss`` runs it a node at a time for
-the DFL trainer).  Under autograd the attention
+(``node_loss`` runs it a node at a time for the DFL trainer: the
+consensus example and the CLI's token models).  Under autograd the attention
 layers run the plain masked softmax (the kernels have no backward:
 ``models/attention.py``); RWKV training is not ported yet, and a recorded
 RWKV forward on the card raises in the kernel's wrapper.
@@ -38,7 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ffn_kinds, layer_kinds
 from repro_torch.core.initialisation import InitConfig
 from repro_torch.device import resolve_device
-from repro_torch.flat import tree_map
+from repro_torch.flat import tree_leaves, tree_map
 
 from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
 from .common import dense_init, node_lead, norm_apply, norm_init
@@ -54,6 +54,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "lm_loss",
+    "node_loss",
     "prefill_cache",
     "unit_size",
 ]
@@ -249,6 +250,30 @@ def lm_loss(params: Tree, cfg: ArchConfig, hidden: torch.Tensor, targets: torch.
     if rem:
         total = total + ce(hidden[..., s - rem :, :], targets[..., s - rem :])
     return total / math.prod(targets.shape)
+
+
+AUX_WEIGHT = 0.01  # the MoE load-balance term's weight, as the JAX callers (0 aux here: no MoE layer)
+
+
+def node_loss(cfg: ArchConfig):
+    """The DFL trainer's loss for the decoder: ``loss_fn(node_params, (x,
+    y))`` with node-stacked views (every leaf ``(n, ...)``) → the ``(n,)``
+    per-node ``lm_loss + 0.01 · aux``, one forward a node on its own
+    parameters (the JAX callers vmap the same function over the nodes).
+    Tokens x and targets y are ``(n, B, S)``, each node its own, or ``(B,
+    S)``, shared by every node (an eval batch)."""
+
+    def loss_fn(node_params: Tree, batch) -> torch.Tensor:
+        x, y = batch
+        out = []
+        for i in range(tree_leaves(node_params)[0][1].shape[0]):
+            p = tree_map(lambda t: t[i], node_params)
+            xi, yi = (x[i], y[i]) if x.ndim == 3 else (x, y)
+            hidden, aux = forward(p, cfg, xi)
+            out.append(lm_loss(p, cfg, hidden, yi) + AUX_WEIGHT * aux)
+        return torch.stack(out)
+
+    return loss_fn
 
 
 # ----------------------------------------------------------------- decode

@@ -813,7 +813,7 @@ def test_cli_async_on_cpu(capsys, extra):
 def test_cli_async_errors(capsys):
     for extra, match in ((["--topology-schedule", "churn"], "static topology"),
                          (["--uncoordinated-init", "--estimate-mode", "degree"], "degree polling"),
-                         (["--elastic"], "excludes --async"), (["--telemetry", "t.jsonl"], "not yet ported")):
+                         (["--elastic"], "excludes --async"), (["--legacy-loop"], "excludes --arch and --legacy-loop")):
         with pytest.raises(SystemExit):
             cli.main([*ASYNC_BASE, *extra])
         assert match in capsys.readouterr().err

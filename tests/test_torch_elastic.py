@@ -645,7 +645,7 @@ def test_cli_elastic_errors(capsys):
         (["--join-nodes", "8"], "at least one initial member"),
         (["--fault-scenario", "partition", "--topology-schedule", "churn"], "--topology-schedule static"),
         (["--resume", "x", "--uncoordinated-init"], "not supported through the warmup phase"),
-        (["--telemetry", "t.jsonl"], "not yet ported"),
+        (["--elastic", "--legacy-loop"], "excludes --async, --arch and --legacy-loop"),
     ]
     for extra, match in cases:
         with pytest.raises(SystemExit):

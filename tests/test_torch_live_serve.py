@@ -21,7 +21,7 @@ against the JAX package.
   staleness and hops bitwise, answers equal, the history at the event
   executor's tolerances; qps 0 bitwise the port's event executor, and
   training bitwise the same at qps 0 and 5.
-- The serve CLI on the CPU and its ``--telemetry`` refusal, fig13 call for
+- The serve CLI on the CPU and its ``--log-queries 0`` run log, fig13 call for
   call, the consensus example's pieces.
 """
 import dataclasses
@@ -655,10 +655,15 @@ def test_serve_cli_on_cpu(capsys, extra):
         assert n_q == 0 and summ["p50_latency"] == 0.0
 
 
-def test_serve_cli_telemetry_is_refused(capsys):
-    with pytest.raises(SystemExit):
-        serve_cli.main([*SERVE_BASE, "--telemetry", "run.jsonl"])
-    assert "item 14" in capsys.readouterr().err
+def test_serve_cli_telemetry_is_refused(tmp_path, capsys):
+    """The serve CLI refused ``--telemetry`` until the run log was ported;
+    now it writes one, and ``--log-queries 0`` refuses every per-query
+    record (``tests/test_torch_cli_telemetry.py`` holds the log itself)."""
+    path = tmp_path / "run.jsonl"
+    serve_cli.main([*SERVE_BASE, "--telemetry", str(path), "--log-queries", "0"])
+    assert f"records to {path}" in capsys.readouterr().out
+    kinds = [json.loads(line)["kind"] for line in path.read_text().splitlines()]
+    assert kinds[0] == "manifest" and kinds[-1] == "summary" and "query" not in kinds
 
 
 def _norm(kwargs):

@@ -211,7 +211,7 @@ def test_round_fn_settings_go_with_a_graph_only(settings):
         PF.make_round_fn(torch_loss, PO.sgd(1e-3), want, **{**settings, "device": "meta"})
 
 
-@pytest.mark.parametrize("argv", [["--model", "transformer"], ["--telemetry", "t.jsonl"], ["--profile-trace", "tr"]])
+@pytest.mark.parametrize("argv", [["--model", "moe"], ["--model", "rwkv"], ["--arch", "rwkv6-3b", "--reduced"]])
 def test_cli_refuses_unported_paths(argv, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--device", "cpu", *argv])
