@@ -99,10 +99,14 @@ def consensus_params(node_params: Tree, weights: torch.Tensor | np.ndarray | Non
 
 
 @torch.no_grad()
-def prefill(params: Tree, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(
+    params: Tree, cfg: ArchConfig, tokens: torch.Tensor, frontend_embeds: torch.Tensor | None = None
+) -> torch.Tensor:
     """Full-sequence forward → next-token logits of the LAST position only
-    ((..., V)); the full logits never materialise (vocab can be 262k)."""
-    hidden, _ = tf.forward(params, cfg, tokens)
+    ((..., V)); the full logits never materialise (vocab can be 262k).
+    ``frontend_embeds`` is passed on to ``forward`` (ignored there: no
+    ported config has a frontend)."""
+    hidden, _ = tf.forward(params, cfg, tokens, frontend_embeds, remat=False)
     return tf.hidden_to_logits(params, cfg, hidden[..., -1:, :])[..., 0, :]
 
 

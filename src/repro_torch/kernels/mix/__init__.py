@@ -1,7 +1,7 @@
 """DecAvg mixing kernels: dense (``mix.py``), block-sparse (``sparse.py``) and
 quantised (``quant.py``), CUDA sources in ``csrc/``, plain versions beside
 each wrapper."""
-from .mix import mix_matmul
+from .mix import dense_route, mix_matmul
 from .ops import decavg_mix, mix_flat, quant_mix_flat
 from .quant import quant_mix_bsr, quant_mix_dense, quant_mix_pair, quant_scales, quantised_mix_bsr
 from .ref import chunk_bounds, decavg_mix_ref, pair_mix_ref, pallas_bounds, quantised_decavg_mix_ref
@@ -14,6 +14,7 @@ __all__ = [
     "chunk_bounds",
     "decavg_mix",
     "decavg_mix_ref",
+    "dense_route",
     "mix_bsr",
     "mix_bsr_ref",
     "mix_bsr_rows_ref",

@@ -1,16 +1,11 @@
-// Shared pieces of the DecAvg mixing kernels: the row loads and stores of
-// every walk (mix.cu, bsr_walk.cuh, quant_mix.cu) and the dense walk's
-// accumulation (mix.cu, and quant_mix.cu's with a dequantising load).
+// Shared pieces of the DecAvg mixing kernels: the fp32 / bf16 conversions
+// (mix.cu, quant_mix.cu) and the row loads and stores of the block-sparse
+// walk and the quantised rounds (bsr_walk.cuh, quant_mix.cu).
 //
-// The dense walk computes output rows  y[r, :] = sum_k M[r, k] * W[k, :]
-// for a small group of RG rows at a time, over a strip of W's columns.  A
-// thread owns VEC consecutive columns (one 4/8/16-byte load per W row) and
-// keeps RG x VEC fp32 accumulators in registers; the block's slice of M
-// sits in shared memory and is read four k at a time as one broadcast
-// float4, which feeds 4 * VEC fused multiply-adds.  Every output is a
-// sequential fp32 FMA chain over k in ascending order: no atomics, so a run
-// is bitwise reproducible.  fp32 stays on the CUDA cores: Hopper's tensor
-// cores take fp32 only as TF32 (10-bit mantissa), which would truncate the
+// A load or store moves VEC consecutive elements of one row as one 4/8/16-
+// byte access; the caller picked VEC so that every row stays aligned for it.
+// Every kernel accumulates in fp32 on the CUDA cores: Hopper's tensor cores
+// take fp32 only as TF32 (10-bit mantissa), which would truncate the
 // post-diffusion parameter scale that mixing must preserve.
 #pragma once
 
@@ -18,8 +13,6 @@
 #include <cuda_runtime.h>
 
 namespace mixk {
-
-constexpr int kThreads = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -74,59 +67,4 @@ __device__ __forceinline__ void store_row(T* __restrict__ y, long long row, long
   }
 }
 
-// acc[r][:] += sum_{k < kc} m_s[r * ldm + k] * W[row0 + k, c0 : c0 + VEC].
-// m_s is RG x ldm fp32 in shared memory, 16-byte aligned, ldm a multiple of
-// 4, zero-filled at k >= kc up to the next multiple of 4.
-template <typename T, int VEC, int RG>
-__device__ __forceinline__ void accumulate(float (&acc)[RG][VEC], const float* __restrict__ m_s,
-                                           int ldm, int kc, const T* __restrict__ w, long long row0,
-                                           long long row_end, long long d, long long c0) {
-  for (int k = 0; k < kc; k += 4) {
-    float wv[4][VEC];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) load_row<T, VEC>(w, row0 + k + j, row_end, d, c0, wv[j]);
-#pragma unroll
-    for (int r = 0; r < RG; ++r) {
-      const float4 mv = *reinterpret_cast<const float4*>(m_s + r * ldm + k);
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        float a = acc[r][v];
-        a = fmaf(mv.x, wv[0][v], a);
-        a = fmaf(mv.y, wv[1][v], a);
-        a = fmaf(mv.z, wv[2][v], a);
-        a = fmaf(mv.w, wv[3][v], a);
-        acc[r][v] = a;
-      }
-    }
-  }
-}
-
 }  // namespace mixk
-
-// Instantiate KERNEL_CALL(T, VEC, RG) for the (dtype, vector width, row
-// group) the host picked; evaluates to cudaErrorInvalidValue otherwise.
-#define MIXK_DISPATCH(dtype, vec, rg, KERNEL_CALL)                              \
-  [&]() -> cudaError_t {                                                        \
-    switch ((dtype) * 100 + (vec) * 10 + ((rg) == 8 ? 0 : (rg) == 16 ? 1 : 2)) { \
-      case 10: KERNEL_CALL(float, 1, 8); break;                                 \
-      case 11: KERNEL_CALL(float, 1, 16); break;                                \
-      case 12: KERNEL_CALL(float, 1, 32); break;                                \
-      case 20: KERNEL_CALL(float, 2, 8); break;                                 \
-      case 21: KERNEL_CALL(float, 2, 16); break;                                \
-      case 22: KERNEL_CALL(float, 2, 32); break;                                \
-      case 40: KERNEL_CALL(float, 4, 8); break;                                 \
-      case 41: KERNEL_CALL(float, 4, 16); break;                                \
-      case 42: KERNEL_CALL(float, 4, 32); break;                                \
-      case 110: KERNEL_CALL(__nv_bfloat16, 1, 8); break;                        \
-      case 111: KERNEL_CALL(__nv_bfloat16, 1, 16); break;                       \
-      case 112: KERNEL_CALL(__nv_bfloat16, 1, 32); break;                       \
-      case 120: KERNEL_CALL(__nv_bfloat16, 2, 8); break;                        \
-      case 121: KERNEL_CALL(__nv_bfloat16, 2, 16); break;                       \
-      case 122: KERNEL_CALL(__nv_bfloat16, 2, 32); break;                       \
-      case 140: KERNEL_CALL(__nv_bfloat16, 4, 8); break;                        \
-      case 141: KERNEL_CALL(__nv_bfloat16, 4, 16); break;                       \
-      case 142: KERNEL_CALL(__nv_bfloat16, 4, 32); break;                       \
-      default: return cudaErrorInvalidValue;                                    \
-    }                                                                           \
-    return cudaGetLastError();                                                  \
-  }()

@@ -34,6 +34,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, ffn_kinds, layer_kinds
 from repro_torch.core.initialisation import InitConfig
@@ -206,19 +207,48 @@ def _embed(params: Tree, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["tok"]["w"][tokens.long()]
 
 
-def forward(params: Tree, cfg: ArchConfig, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _block(p: Tree, cfg: ArchConfig, kind: str, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if kind == "rwkv":
+        return _rwkv_block(p, cfg, x)
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    return _ffn_residual(p, cfg, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
+
+
+def forward(
+    params: Tree,
+    cfg: ArchConfig,
+    tokens: torch.Tensor,
+    frontend_embeds: torch.Tensor | None = None,
+    remat: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass: tokens (..., S) → (final hidden states (..., S, D),
-    aux loss 0 — no MoE layer is ported)."""
+    aux loss 0 — no MoE layer is ported).
+
+    The JAX package's keywords: ``frontend_embeds`` is read only by a config
+    with a modality frontend, which ``_check_cfg`` refuses (not ported), so
+    it is ignored, as the JAX call ignores it for such configs.  ``remat``
+    recomputes each period's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records, as
+    the JAX call wraps each period in ``jax.checkpoint``; the tail layers
+    are not wrapped, and the values are the same either way."""
     _check_cfg(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
-    for per, j, kind in _layers(cfg):
-        p = _block_at(params["stack"], params["tail"], per, j)
-        if kind == "rwkv":
-            x = _rwkv_block(p, cfg, x)
-            continue
-        h = norm_apply(p["norm1"], x, cfg.norm)
-        x = _ffn_residual(p, cfg, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
+    kinds = layer_kinds(cfg)
+    u, n_full, tail = _split_layers(cfg)
+
+    def period(x: torch.Tensor, per: int) -> torch.Tensor:
+        for j in range(u):
+            x = _block(_block_at(params["stack"], params["tail"], per, j), cfg, kinds[j], x, positions)
+        return x
+
+    for per in range(n_full):
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(period, x, per, use_reentrant=False)
+        else:
+            x = period(x, per)
+    for j in range(tail):
+        x = _block(_block_at(params["stack"], params["tail"], None, j), cfg, kinds[n_full * u + j], x, positions)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

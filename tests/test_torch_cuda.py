@@ -1,7 +1,8 @@
 """The hand-written kernels against their plain versions on a CUDA device,
-at shapes and layouts the main path does not reach.  Mixing: row groups
-and M chunks past 64 nodes, every vector width, misaligned rows, bf16
-through the block-sparse kernel, tile sizes up to the limit, padding tiles
+at shapes and layouts the main path does not reach.  Mixing: the dense
+kernel's thin and wide routes on both sides of D_THIN (each launch on the
+route ``dense_route`` names), row groups past 64 nodes, misaligned rows
+(the same sums bit for bit), bf16 through the block-sparse kernel, tile sizes up to the limit, padding tiles
 the walk must skip.  Flash attention: every head dim, ragged S, causal and
 windowed masks, GQA groups, strided (B, S, H, hd) views, fp32 at the
 full-width prefill shapes, and the decoder's prefill through the kernel;
@@ -40,10 +41,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import topology as T  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
 from repro_torch.kernels.flash import attention_ref, flash_attention, flash_mha, route  # noqa: E402
+from repro_torch.kernels.mix import mix as mix_kernel  # noqa: E402
 from repro_torch.kernels.mix import (  # noqa: E402
     bsr_from_dense,
     chunk_bounds,
     decavg_mix_ref,
+    dense_route,
     mix_bsr,
     mix_bsr_ref,
     mix_bsr_rows_ref,
@@ -56,6 +59,7 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_decavg_mix_ref,
     quantised_mix_bsr,
 )
+from repro_torch.kernels.mix.mix import D_THIN, ROUTES  # noqa: E402
 from repro_torch.kernels.mix.quant import _lib as quant_lib  # noqa: E402
 from repro_torch.kernels.mix.quant import plan_tiles, round_smem_bytes  # noqa: E402
 from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref  # noqa: E402
@@ -88,25 +92,54 @@ def _stochastic(n, dev, seed=0):
 
 
 @pytest.mark.parametrize("n", [1, 8, 33, 100, 300])
-@pytest.mark.parametrize("d", [1, 6, 7, 1000, 4097])
+@pytest.mark.parametrize("d", [1, 4, 6, 7, D_THIN, D_THIN + 1, 1000, 4097, 52_650])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_kernel_matches_plain(dev, n, d, dtype):
+    """Both routes of the dense kernel (d on either side of D_THIN), each
+    launch counted on the route ``dense_route`` names, two launches bitwise."""
     m = _stochastic(n, dev, n + d)
     w = torch.randn(n, d, device=dev).to(dtype)
-    before = mix_matmul.launches
+    route = dense_route(n, d, dtype)
+    before, by_route = mix_matmul.launches, dict(mix_matmul.launches_by_route)
     got = mix_matmul(m, w)
     assert mix_matmul.launches == before + 1
+    assert mix_matmul.launches_by_route == {**by_route, route: by_route[route] + 1}
     _close(got, decavg_mix_ref(m, w), w)
     assert torch.equal(got, mix_matmul(m, w))
 
 
-def test_dense_kernel_misaligned_rows(dev):
-    """A W that starts one element into its allocation takes the scalar path."""
-    n, d = 16, 1000
-    buf = torch.randn(n * d + 1, device=dev)
+@pytest.mark.parametrize("d", [3, 1000, 1002, 567_434])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_misaligned_rows(dev, d, dtype):
+    """A W that starts one element into its allocation, at d = 0 and 2
+    (mod 4) (every other row off its 16-byte boundary at 2): the same route
+    and the same sums as the aligned copy, bit for bit."""
+    n = 16
+    buf = torch.randn(n * d + 1, device=dev).to(dtype)
     w = buf[1:].view(n, d)
     m = _stochastic(n, dev)
-    _close(mix_matmul(m, w), decavg_mix_ref(m, w), w)
+    by_route = dict(mix_matmul.launches_by_route)
+    got = mix_matmul(m, w)
+    route = dense_route(n, d, dtype)
+    assert mix_matmul.launches_by_route == {**by_route, route: by_route[route] + 1}
+    _close(got, decavg_mix_ref(m, w), w)
+    assert torch.equal(got, mix_matmul(m, w.clone()))
+
+
+@pytest.mark.parametrize("n,d", [(8, 1), (256, 4), (64, 128), (16, 52_650), (1100, 4097)])
+def test_dense_routes_agree_with_plain(dev, n, d):
+    """Each route at shapes the other one takes (``mix._launch`` counts
+    nothing): both within tolerance of the plain version, each bitwise
+    stable across launches.  At n = 1100 the wide route's slice of M needs
+    more than the default 48 KB of shared memory."""
+    m = _stochastic(n, dev)
+    w = torch.randn(n, d, device=dev)
+    before = mix_matmul.launches
+    for route in ROUTES:
+        got = mix_kernel._launch(m, w, route)
+        _close(got, decavg_mix_ref(m, w), w)
+        assert torch.equal(got, mix_kernel._launch(m, w, route))
+    assert mix_matmul.launches == before
 
 
 @pytest.mark.parametrize(

@@ -22,6 +22,7 @@ from repro.kernels.mix.mix import mix_matmul as jax_mix_matmul  # noqa: E402
 from repro.kernels.mix.ops import decavg_mix as jax_decavg_mix  # noqa: E402
 from repro.kernels.mix.sparse import bsr_from_dense as jax_bsr_from_dense  # noqa: E402
 from repro.kernels.mix.sparse import mix_bsr as jax_mix_bsr  # noqa: E402
+from repro_torch.kernels.mix import mix as mix_kernel  # noqa: E402
 from repro_torch.kernels.mix import (  # noqa: E402
     bsr_from_dense,
     bsr_slots,
@@ -42,7 +43,12 @@ def _row_stochastic(rng, n):
     return m / m.sum(1, keepdims=True)
 
 
-@pytest.mark.parametrize("n,d", [(8, 64), (16, 1000), (64, 4096), (100, 257), (256, 128)])
+# both sides of the CUDA kernel's crossover: the gossip payloads (thin
+# route) up to D_THIN columns, the training widths (wide route) past it
+CROSSOVER = [(16, 1), (256, 4), (64, mix_kernel.D_THIN), (64, mix_kernel.D_THIN + 1), (8, 3 * mix_kernel.D_THIN + 2)]
+
+
+@pytest.mark.parametrize("n,d", [(8, 64), (16, 1000), (64, 4096), (100, 257), (256, 128), *CROSSOVER])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_dense_plain_matches_jax_kernel(n, d, dtype):
     jdt, tdt, tol = DTYPES[dtype]
@@ -237,3 +243,24 @@ def test_bsr_plain_skips_padding_tiles():
     for i, c in enumerate(counts.tolist()):
         dirty[i, c:] = 7.0
     torch.testing.assert_close(mix_bsr_ref(bc, dirty, counts, w), clean, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,d", CROSSOVER + [(16, 567_434), (64, 33_638_218), (4096, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_route_is_a_function_of_shape_and_dtype(n, d, dtype):
+    """The CUDA kernel's route is picked from (n, d, dtype) alone, never from
+    a pointer: a W that starts one element into its allocation (every row
+    off its 16-byte boundary) takes the route of a fresh one, so a resumed
+    or chunked run sums in the same order."""
+    import inspect
+
+    assert list(inspect.signature(mix_kernel.dense_route).parameters) == ["n", "d", "dtype"]
+    route = mix_kernel.dense_route(n, d, dtype)
+    assert route in mix_kernel.ROUTES
+    assert route == ("thin" if d <= mix_kernel.D_THIN or n > mix_kernel.WIDE_MAX_N else "wide")
+    if n * d <= 2**20:
+        fresh = torch.zeros(n, d, dtype=dtype)
+        shifted = torch.zeros(n * d + 1, dtype=dtype)[1:].view(n, d)
+        assert shifted.data_ptr() % 16 != fresh.data_ptr() % 16
+        assert {mix_kernel.dense_route(*t.shape, t.dtype) for t in (fresh, shifted)} == {route}
+    assert mix_kernel.thin_tile(min(d, 10**6)) in (1, 2, 4, 8, 16, 32)

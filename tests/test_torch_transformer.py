@@ -28,7 +28,7 @@ from repro.models import transformer as JTF  # noqa: E402
 from repro_torch.configs import base as pbase  # noqa: E402
 from repro_torch.convert import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.core.initialisation import InitConfig  # noqa: E402
-from repro_torch.flat import tree_map  # noqa: E402
+from repro_torch.flat import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models import common as PC  # noqa: E402
 from repro_torch.models import mlp as PMLP  # noqa: E402
 from repro_torch.models import transformer as PTF  # noqa: E402
@@ -256,3 +256,63 @@ def test_init_statistics_follow_the_per_layer_fan_in():
     # a scalar gain gives one parameter set on the generator's device
     single = PTF.init_params(_g(1), cfg, InitConfig("trunc_normal", 2.0), device="cpu")
     assert single["embed"]["tok"]["w"].shape == (cfg.vocab_size, 256)
+
+
+# ------------------------------------------------- the JAX calls' keywords
+@pytest.fixture(scope="module")
+def keyword_case():
+    """The 7-layer gemma variant (3 periods and a tail layer), with a
+    frontend embedding the config ignores (it has no frontend), and the JAX
+    outputs of ``forward(..., frontend_embeds=, remat=)`` and
+    ``serve.prefill(..., frontend_embeds=)``."""
+    from repro.fed import serve as JS
+
+    arch, changes = CONFIGS["gemma_tail"]
+    jcfg, pcfg = config_pair(arch, **changes)
+    params = numpy_params(jcfg, seed=5)
+    prompt = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    emb = np.random.default_rng(6).standard_normal((2, 3, jcfg.d_model)).astype(np.float32)
+    pj = jax.tree_util.tree_map(jnp.asarray, params)
+    args = (pj, jnp.asarray(prompt), jnp.asarray(emb))
+    want = {
+        remat: np.asarray(jax.jit(lambda p, t, e, r=remat: JTF.forward(p, jcfg, t, frontend_embeds=e, remat=r)[0])(*args))
+        for remat in (True, False)
+    }
+    want["prefill"] = np.asarray(jax.jit(lambda p, t, e: JS.prefill(p, jcfg, t, frontend_embeds=e))(*args))
+    return pcfg, params, prompt, emb, want
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_forward_keywords_match_jax(keyword_case, remat):
+    """forward(frontend_embeds=, remat=) as the JAX call, recorded by
+    autograd (remat=True recomputes each period in the backward pass)."""
+    pcfg, params, prompt, emb, want = keyword_case
+    p = tree_map(lambda t: t.requires_grad_(), params_from_numpy(params, device="cpu"))
+    hidden, aux = PTF.forward(p, pcfg, torch.as_tensor(prompt), frontend_embeds=torch.as_tensor(emb), remat=remat)
+    assert hidden.requires_grad and float(aux) == 0.0
+    np.testing.assert_allclose(hidden.detach().numpy(), want[remat], **TOL)
+
+
+def test_prefill_frontend_embeds_matches_jax(keyword_case):
+    from repro_torch.fed import serve as PS
+
+    pcfg, params, prompt, emb, want = keyword_case
+    got = PS.prefill(params_from_numpy(params, device="cpu"), pcfg, torch.as_tensor(prompt),
+                     frontend_embeds=torch.as_tensor(emb))
+    np.testing.assert_allclose(got.numpy(), want["prefill"], **TOL)
+
+
+def test_remat_gradients_equal_the_plain_ones(keyword_case):
+    """The recomputed periods give the gradients of the stored ones, bit for
+    bit (the same operations in the same order, on the CPU)."""
+    pcfg, params, prompt, _, _ = keyword_case
+    toks = torch.as_tensor(prompt)
+    grads = {}
+    for remat in (True, False):
+        p = tree_map(lambda t: t.requires_grad_(), params_from_numpy(params, device="cpu"))
+        hidden, _ = PTF.forward(p, pcfg, toks[:, :-1], remat=remat)
+        loss = PTF.lm_loss(p, pcfg, hidden, toks[:, 1:])
+        grads[remat] = torch.autograd.grad(loss, [t for _, t in tree_leaves(p)])
+    assert len(grads[True]) == len(grads[False]) > 0
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b)

@@ -9,9 +9,14 @@ runs in a process of its own and calls its own wrappers (``tools/ab.py``
 says how): the block-sparse mix and the int8 block-sparse round (the scales
 pass, then the walk) at ring-1024 and kreg4-1024 (bn 32), and the dense
 int8 round (one launch) at complete-16 and complete-64, all at the paper
-MLP's width (d = 567,434, fp32, its 281-chunk table), timed with the stream
-held (device time).  Each side's Y and X' are held within 1e-5 · max|W or
-X| of the plain version; the two sides' scales and new mirrors H' must be
+MLP's width (d = 567,434, fp32, its 281-chunk table); the dense mix
+``mix_matmul`` at complete-16 and complete-64 over that width, at
+complete-16 over VGG16's (d = 33,638,218) and at complete-8 over the reduced
+qwen2.5-3b's (d = 361,600), and over the gossip rounds' Mᵀ of kreg4-256 /
+64 / 16 / 8 and complete-16 / 8 at d = 1–4 (also timed unheld: what a
+caller pays).  Timed with the stream held (device time).  Each side's Y and X' are
+held within 1e-5 · max|W or X| of the plain version; the two sides' scales
+and new mirrors H', and the dense mix's Y at the training widths, must be
 equal bit for bit.
 """
 from __future__ import annotations
@@ -21,6 +26,8 @@ import sys
 import ab
 
 D_MAIN = 567_434
+D_VGG = 33_638_218  # VGG16's parameters a node
+D_LM = 361_600  # the reduced qwen2.5-3b's (the consensus example's DecAvg rounds at n = 8)
 SIZES = (784 * 512, 512, 512 * 256, 256, 256 * 128, 128, 128 * 10, 10)  # the paper MLP's leaves
 
 
@@ -90,6 +97,30 @@ def _dense_round(n):
             {"worst": _within(xo, want_x, x), "same": {"scales": ab.digest(s), "H'": ab.digest(ho)}})
 
 
+def _dense_mix(graph, n, d, gossip=False):
+    import torch
+
+    from repro_torch.core import topology as T
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.kernels.mix import decavg_mix_ref, mix_matmul
+    from repro_torch.kernels.mix import mix as mix_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = T.complete(n) if graph == "complete" else T.random_k_regular(n, 4, seed=0)
+    plan = compile_plan(g, "dense", device="cuda")
+    if gossip:  # a gossip round: Mᵀ with a payload of d columns in [0, 1)
+        m, w = plan.send_operator(), torch.rand(n, d, generator=gen, device="cuda")
+    else:
+        m, w = plan.receive, torch.randn(n, d, generator=gen, device="cuda")
+    y = mix_matmul(m, w)
+    info = {"worst": _within(y, decavg_mix_ref(m, w), w)}
+    if hasattr(mix_kernel, "dense_route"):
+        info["note"] = f"route {mix_kernel.dense_route(n, d, w.dtype)}"
+    if not gossip:  # both sides sum each output over k in ascending order
+        info["same"] = {"Y": ab.digest(y)}
+    return lambda: mix_matmul(m, w), info
+
+
 def cases() -> dict:
     """name -> (timing modes, build), as tools/ab.py takes them."""
     held = ("held",)
@@ -98,6 +129,12 @@ def cases() -> dict:
         **{f"int8 round (scales + BSR walk) {g}": (held, lambda g=g: _bsr_round(g))
            for g in ("ring-1024", "kreg4-1024")},
         **{f"int8 dense round complete-{n}": (held, lambda n=n: _dense_round(n)) for n in (16, 64)},
+        **{f"mix_matmul complete-{n} d={d}": (held, lambda n=n, d=d: _dense_mix("complete", n, d))
+           for n, d in ((16, D_MAIN), (64, D_MAIN), (16, D_VGG), (8, D_LM))},
+        **{f"mix_matmul gossip {g}-{n} Mᵀ d={d}": (("unheld", "held"),
+                                                  lambda g=g, n=n, d=d: _dense_mix(g, n, d, gossip=True))
+           for g, n in (("kreg4", 256), ("kreg4", 64), ("kreg4", 16), ("complete", 16), ("kreg4", 8), ("complete", 8))
+           for d in (1, 2, 3, 4)},
     }
 
 
