@@ -80,7 +80,13 @@ run with a non-zero exit:
    asynchronous event (``quant_mix_pair``: the dense round over the pair's
    two rows with its 2 × 2 operator) at full width, int8 and fp8, γ 1 and
    0.5, against the plain version in the JAX pairwise form (scales and H'
-   bitwise, X' within fp32 rounding), timed against its bound;
+   bitwise, X' within fp32 rounding), timed against its bound; flash at
+   the new configs' serve shapes (granite-moe-1b-a400m 4 × 2048 and
+   1 × 512, qwen1.5-4b and stablelm-12b 4 × 2048, the swa variant's
+   1 × 16,384 at window 8192, its plain version one head at a time) and
+   their reduced fp32 prefills (2 × 40), timed at the new bf16 prefills;
+   the dense mix and the int8 dense round at ``--model moe``'s n = 8 over
+   the reduced granite-moe's row;
 4. quickstart — the ported example, ``repro_torch/examples/quickstart.py``
    (``run_sweep``): He init plateaus at ln 10, the gain-corrected init
    descends, 80 dense kernel launches;
@@ -150,8 +156,9 @@ run with a non-zero exit:
    event trajectory at link_p 0.8 with int8 exchanges, card vs CPU on the
    same draws (rtol 1e-4, code flips counted, each within one step);
    ``event_mix_batch`` bitwise the sequential ``event_mix`` on the card;
-   fig9 quick (``build/fig9_async.json``; the executor's wire bytes held
-   to the stream's messages);
+   fig9 quick on its ring family alone, n = 16 and 32
+   (``build/fig9_async.json``; the executor's wire bytes held to the
+   stream's messages);
 4h. live serving under gossip — the serve CLI at its defaults (ring-16,
    full-width MLP, 30 units of virtual time, qps 4) and at qps 0: no listed
    kernel launches, µs an event and a query as a caller pays; on the card
@@ -200,6 +207,16 @@ run with a non-zero exit:
    3 ring-1024 rounds); ``--model transformer --compress int8`` and ``--arch
    qwen2.5-3b --reduced --legacy-loop``; a kreg4-8 log card vs CPU from one
    CPU init (kinds, keys, counts and wire channels equal, losses to 1e-4);
+4k. ``--model moe`` and the measurement drivers — the CLI's ``--model moe``
+   (the reduced granite-moe through the executor, n = 8, 3 rounds) plain
+   and ``--compress int8``: exact launch counts, every mix and flash shape
+   among phase 3's, and a run log card vs CPU from one CPU init (losses
+   to rtol 1e-4); ``python -m repro_torch.benchmarks.run --quick fig12
+   kernels`` in a child process, exit 0: fig12's wire bytes and reductions
+   equal to the JAX package's ``BENCH_compress.json`` codec by codec, its
+   losses and acceptance row printed, every kernels_bench error within
+   phase 3's tolerance for its kernel; ``kernels_bench.run_mixing`` at its
+   defaults, its rows printed;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -219,15 +236,29 @@ run with a non-zero exit:
    one on the wgmma route) and every prefill RWKV layer one rwkv kernel
    launch (bf16: every one on the tc route): the counts are exact, and the
    key of each launch must be among those phase 3 checked;
-7b. traced prefills — one qwen2.5-3b 4 × 2048 prefill under
+7b. traced prefills, in a process of their own (``chip_smoke.py
+   --traced-prefills``) — one qwen2.5-3b 4 × 2048 prefill under
    ``torch.profiler``: the top device kernels and flash's share of device
    time; and, as a diagnostic, the last position's logits against the same
    prefill with attention through ``attention_ref``; then one rwkv6-3b
    4 × 2048 prefill: the top device kernels and the rwkv kernel's share;
-8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b and rwkv6-3b in fp32
-   from one init: equal greedy tokens, prefill logits to rtol 1e-4 (the
-   attention on the flash kernel's wgmma_tf32x3 route, the time-mix on the
-   rwkv kernel's tc_fp32 route, each prompt of 40 in one launch).
+7c. serve, full width: the new configs — one model at a time, each freed
+   before the next with its peak memory printed: granite-moe-1b-a400m (a
+   4-node ring ensemble: consensus generate 4 × 2048 → 32, two prefills
+   bitwise equal, 8 decode steps and one replayed as a CUDA graph,
+   per-node serve 4 × 512 → 8), qwen1.5-4b (a 4-node ensemble beside its
+   consensus: generate 4 × 2048 → 32, a prefill, 8 decode steps),
+   stablelm-12b (one parameter set: a prefill 4 × 2048, generate → 16, 8
+   decode steps) and the swa variant of qwen2.5-3b (one 1 × 16,384
+   prefill); exact flash launch counts, every key among phase 3's, all on
+   the wgmma route;
+8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b, rwkv6-3b,
+   granite-moe-1b-a400m, stablelm-12b and qwen1.5-4b in fp32 from one
+   init: equal greedy tokens, prefill logits to rtol 1e-4 (the attention
+   on the flash kernel's wgmma_tf32x3 route, the time-mix on the rwkv
+   kernel's tc_fp32 route, each prompt of 40 in one launch); granite's
+   routing choices that differ card vs CPU counted, each with its top-k
+   margin.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -267,6 +298,8 @@ TILE_WALK_MS = {("mix_bsr", "ring-1024"): 4.7063, ("mix_bsr", "kreg4-1024"): 42.
 BF16_RTOL = 2.0**-7
 # idle trace before and after a profiled call (see ``traced``)
 TRACE_MARGIN_S = 0.1
+# traces of one call before ``traced`` gives up on a complete one
+TRACE_ATTEMPTS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -318,26 +351,53 @@ def host_ms(fn, reps: int = 21) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def traced(call):
+def traced(call, want=None, before=None):
     """``call()`` under torch.profiler: (its result, the profile, its wall
     seconds until the card finished).  The trace window opens
     ``TRACE_MARGIN_S`` before the call and closes ``TRACE_MARGIN_S`` after
-    the card has finished, so that no launch lies near an edge: the profiler
-    keeps only device events that its clock places inside the window, and
-    one run of this script on an H100 lost all three kernels of one rwkv
-    layer from a traced prefill whose window closed right after the
-    synchronize (31 of 32 launches each; the wrapper's count was 32)."""
+    the card has finished, so that no launch lies near an edge.
+
+    The profiler can still lose device events: runs of this script on an
+    H100 lost all three kernels of one rwkv layer from a traced 4 × 2048
+    prefill (31 of 32 launches each, the wrapper's count 32), once with the
+    window closing right after the synchronize and once with the margins,
+    the lost layer then inside the window (the trace's first and last
+    kernels were the embedding's and the head's).  So ``want`` maps a
+    device kernel name's substring to the launches a complete trace of
+    ``call`` holds; a trace short of them is printed and ``call`` traced
+    again, ``before()`` first each time, up to ``TRACE_ATTEMPTS`` traces.
+    The last trace is returned either way: the caller's check of its counts
+    fails if none was complete."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_MARGIN_S)
-        t0 = time.perf_counter()
-        got = call()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        time.sleep(TRACE_MARGIN_S)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        if before is not None:
+            before()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            t0 = time.perf_counter()
+            got = call()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            time.sleep(TRACE_MARGIN_S)
+        if not want:
+            break
+        held = trace_counts(prof, want)
+        if held == want:
+            if attempt > 1:
+                print(f"  trace {attempt} of {TRACE_ATTEMPTS} complete: {held}")
+            break
+        print(f"  trace {attempt} of {TRACE_ATTEMPTS} lost device events: {held}, want {want}; {trace_edges(prof)}")
     return got, prof, wall_s
+
+
+def trace_counts(prof, names) -> dict[str, int]:
+    """Device launches in a trace whose kernel name holds each of ``names``."""
+    import torch
+
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {name: sum(e.count for e in dev if name in e.key) for name in names}
 
 
 def trace_edges(prof) -> str:
@@ -392,6 +452,29 @@ def phase(name: str) -> None:
     print(f"\n=== {name} ===", flush=True)
 
 
+def kernel_counters():
+    """The port's kernel wrappers (each counts the launches it makes) and a
+    function that sets every count, by route too, to 0."""
+    from repro_torch.kernels.flash import ROUTES, flash_mha
+    from repro_torch.kernels.mix import mix_bsr, mix_matmul, quant_mix_bsr, quant_mix_dense, quant_scales
+    from repro_torch.kernels.mix import mix as mix_kernel
+    from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
+    from repro_torch.kernels.rwkv import rwkv6_chunked
+
+    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
+
+    def reset_counts():
+        for kern in kernels:
+            kern.launches = 0
+        flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
+        rwkv6_chunked.launches_by_route.update(dict.fromkeys(rwkv_kernels.ROUTES, 0))
+        rwkv6_chunked.one_launch = 0
+        quant_mix_dense.launches_by_route.update(dict.fromkeys(quant_mix_dense.launches_by_route, 0))
+        mix_matmul.launches_by_route.update(dict.fromkeys(mix_kernel.ROUTES, 0))
+
+    return kernels, reset_counts
+
+
 def main() -> int:
     import torch
 
@@ -407,6 +490,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.configs.qwen2p5_3b import swa_variant
     from repro_torch.core import topology as T
     from repro_torch.core.commplan import FailureModel, compile_plan
     from repro_torch.core.compress import Compression
@@ -426,6 +510,7 @@ def main() -> int:
     from repro_torch.fed.trainer import copy_state
     from repro_torch.flat import FlatLayout, tree_map
     from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.flash import HEAD_DIMS as FLASH_HEAD_DIMS
     from repro_torch.kernels.flash import ROUTES, attention_ref, flash_mha
     from repro_torch.kernels.flash import route as flash_route
     from repro_torch.kernels.flash import ops as flash_ops
@@ -456,17 +541,8 @@ def main() -> int:
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
-    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
+    kernels, reset_counts = kernel_counters()
     none_launched = {kern.__name__: 0 for kern in kernels}
-
-    def reset_counts():
-        for kern in kernels:
-            kern.launches = 0
-        flash_mha.launches_by_route.update(dict.fromkeys(ROUTES, 0))
-        rwkv6_chunked.launches_by_route.update(dict.fromkeys(rwkv_kernels.ROUTES, 0))
-        rwkv6_chunked.one_launch = 0
-        quant_mix_dense.launches_by_route.update(dict.fromkeys(quant_mix_dense.launches_by_route, 0))
-        mix_matmul.launches_by_route.update(dict.fromkeys(mix_kernel.ROUTES, 0))
     t_start = time.perf_counter()
 
     # ------------------------------------------------------------ 1. header
@@ -642,6 +718,8 @@ def main() -> int:
     # the full-width prefill shapes in fp32 and ragged fp32 shapes at every
     # hd.  Each case checks which route it launched.
     qcfg, gcfg = get_config("qwen2.5-3b"), get_config("gemma3-4b")
+    mcfg, q15cfg, scfg = get_config("granite-moe-1b-a400m"), get_config("qwen1.5-4b"), get_config("stablelm-12b")
+    swacfg = swa_variant(8192)
 
     def attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bhsd"):
         if layout == "bshd":
@@ -695,25 +773,55 @@ def main() -> int:
         ("padded", (2, h, kvh, s_len, hd, dtype), causal, window, "bshd")
         for h, kvh, hd, dtype in ((4, 4, 30, torch.float32), (4, 2, 40, torch.bfloat16), (32, 8, 160, torch.bfloat16))
         for s_len, causal, window in ((40, True, 0), (300, True, 17), (300, False, 0), (2048, True, 0))
-    ]
-    # errors by route: the bf16 route's row is flash_mha, the fp32 route's flash_mha_fp32
+    ] + [
+        # phase 7's granite-moe-1b-a400m (prefill 4 × 2048, per-node serve 1 ×
+        # 512), qwen1.5-4b and stablelm-12b (hd 160, zero-padded) prefills,
+        # and the swa variant's 1 × 16,384 prompt (window 8192); phase 8's
+        # reduced fp32 prefills of the three (2 × 40; stablelm hd 40 and
+        # qwen1.5 hd 30 zero-padded)
+        serve_case("granite prefill", mcfg, 4, 2048, 0),
+        serve_case("granite serve", mcfg, 1, 512, 0),
+        serve_case("qwen1.5 prefill", q15cfg, 4, 2048, 0),
+        serve_case("stablelm prefill", scfg, 4, 2048, 0),
+        serve_case("swa prefill", swacfg, 1, 16384, swacfg.sliding_window),
+    ] + [serve_case("phase 8", get_reduced_config(a), 2, 40, 0, torch.float32)
+         for a in ("granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b")]
+    # errors by route: the bf16 route's row is flash_mha, the fp32 route's
+    # flash_mha_fp32; a head dim run zero-padded has a row of its own, and so
+    # have the new configs' serve shapes
     row_of = {"wgmma": "flash_mha", "wgmma_tf32x3": "flash_mha_fp32"}
+    row_of_label = {"granite prefill": "flash_mha_granite", "granite serve": "flash_mha_granite",
+                    "qwen1.5 prefill": "flash_mha_qwen15", "swa prefill": "flash_mha_swa"}
     errs.update(dict.fromkeys(row_of.values(), 0.0))
     flash_checked = set()
+
+    def attention_ref_by_head(q, k, v, causal, window):
+        """attention_ref one query head at a time, with its KV head: the
+        plain version at a length whose (S, S) fp32 scores for every head at
+        once would not fit beside this phase's tensors."""
+        g = q.shape[1] // k.shape[1]
+        return torch.cat([attention_ref(q[:, i:i + 1], k[:, i // g:i // g + 1], v[:, i // g:i // g + 1],
+                                        causal=causal, window=window) for i in range(q.shape[1])], dim=1)
+
     for label, shape, causal, window, layout in flash_cases:
         q, k, v = attn_inputs(*shape, layout=layout)
         b, h, kvh, s_len, hd, dtype = shape
         want = flash_route(dtype, hd)
         before = dict(flash_mha.launches_by_route)
+        plain_attention = attention_ref_by_head if s_len > 8192 else (
+            lambda q, k, v, causal, window: attention_ref(q, k, v, causal=causal, window=window))
         e = compare(
             f"flash_mha {label} B{b} H{h}/{kvh} S{s_len} hd{hd} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
             f"{' causal' if causal else ''}{f' w{window}' if window else ''} {layout} ({want})",
             lambda: flash_mha(q, k, v, causal=causal, window=window),
-            attention_ref(q, k, v, causal=causal, window=window), v, bf16=dtype == torch.bfloat16,
+            plain_attention(q, k, v, causal, window), v, bf16=dtype == torch.bfloat16,
         )
         check(flash_mha.launches_by_route == {**before, want: before[want] + 2},
               f"{label}: not launched on {want}")
-        row = row_of[want] if label != "padded" else f"flash_mha_hd{hd}{'_fp32' if dtype == torch.float32 else ''}"
+        if hd not in FLASH_HEAD_DIMS:
+            row = f"flash_mha_hd{hd}{'_fp32' if dtype == torch.float32 else ''}"
+        else:
+            row = row_of_label.get(label, row_of[want])
         if label.startswith("example"):
             row = "flash_mha_fp32_example"
         errs[row] = max(errs.get(row, 0.0), e)
@@ -857,6 +965,24 @@ def main() -> int:
         dense_route=dense_route(8, D_LM, torch.float32),
     )
     del m8, w8
+    # phase 4k's --model moe rounds: n = 8 over the reduced
+    # granite-moe-1b-a400m's flat row (the final norm included), its d from
+    # the layout of a CPU init
+    D_MOE = FlatLayout.of(TF.init_params(0, get_reduced_config("granite-moe-1b-a400m"),
+                                         InitConfig("trunc_normal", torch.ones(8)), device="cpu")).size
+    m8 = row_stochastic(8)
+    w8 = torch.randn(8, D_MOE, generator=gen, device=dev)
+    errs["mix_matmul_moe"] = compare(f"mix_matmul fp32 n=8 d={D_MOE} (reduced granite-moe)",
+                                     lambda: mix_matmul(m8, w8), decavg_mix_ref(m8, w8), w8)
+    b_moe, op_moe = bound(4 * 8 * 8 + 2 * 4 * 8 * D_MOE, 2 * 8 * 8 * D_MOE)
+    timing["mix_matmul_moe"] = dict(
+        ms=time_ms(lambda: mix_matmul(m8, w8), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(m8, w8), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(m8, w8), flush=flush),
+        bound_ms=b_moe, bound_by=op_moe, shape=f"n=8 d={D_MOE} fp32 (reduced granite-moe-1b-a400m)",
+        dense_route=dense_route(8, D_MOE, torch.float32),
+    )
+    del m8, w8
     # the widths of phase 4i's fig11 quick: the paper MLP at hidden (64, 32)
     # on kreg8-32, (128, 64) on kreg8-64 (its checkpoint-overhead record) and
     # (32,) on kreg8-16 (its resume-parity record); the masked operators of
@@ -901,7 +1027,8 @@ def main() -> int:
             ms=time_ms(lambda: flash_mha(q, k, v, window=window), reps=21, flush=flush),
             held_ms=time_ms(lambda: flash_mha(q, k, v, window=window), reps=21, flush=flush, hold=True),
             host_ms=host_ms(lambda: flash_mha(q, k, v, window=window)),
-            plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), reps=3, flush=flush),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v, window=window), reps=3, flush=flush) if s_len <= 8192
+            else time_ms(lambda: attention_ref_by_head(q, k, v, True, window), reps=3, flush=flush),
             library_ms=time_ms(lambda: sdpa(q, k, v, window), reps=21, flush=flush),
             bound_ms=b_f, bound_by=op_f, pairs=pairs,
             floor_ms=1.5 * flops / PEAK_BF16_FLOPS * 1e3 if bf16 else b_f,
@@ -926,6 +1053,12 @@ def main() -> int:
          torch.bfloat16),
         ("reduced qwen1.5-4b hd30 fp32", SimpleNamespace(n_heads=4, n_kv_heads=4, resolved_head_dim=30), 2, 40, 0,
          torch.float32),
+        # phase 7's new prefills (granite-moe, qwen1.5-4b; the swa variant's
+        # long prompt, its plain version one head at a time) and phase 8's
+        # reduced stablelm-12b in fp32 (hd 40 zero-padded)
+        ("granite prefill", mcfg, 4, 2048, 0, torch.bfloat16), ("qwen1.5 prefill", q15cfg, 4, 2048, 0, torch.bfloat16),
+        ("swa prefill", swacfg, 1, 16384, swacfg.sliding_window, torch.bfloat16),
+        ("reduced stablelm-12b hd40 fp32", get_reduced_config("stablelm-12b"), 2, 40, 0, torch.float32),
     ):
         flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, dtype)
         if label == "qwen prefill":
@@ -938,10 +1071,16 @@ def main() -> int:
     timing["flash_mha_fp32"] = flash_shapes["phase 8 fp32"]
     # phase 4h's consensus example: its consensus prefill (4 prompts of 8)
     timing["flash_mha_fp32_example"] = flash_shapes["example consensus fp32"]
-    # the padded head dims' rows: no path of this script launches them
+    # the padded head dims' rows: stablelm-12b's prefills (phase 7, hd 160),
+    # phase 8's reduced stablelm-12b (hd 40 fp32) and qwen1.5-4b (hd 30
+    # fp32); no path launches hd 40 in bf16
     timing["flash_mha_hd160"] = flash_shapes["stablelm-12b hd160"]
     timing["flash_mha_hd40"] = flash_shapes["reduced stablelm-12b hd40"]
     timing["flash_mha_hd30_fp32"] = flash_shapes["reduced qwen1.5-4b hd30 fp32"]
+    timing["flash_mha_hd40_fp32"] = flash_shapes["reduced stablelm-12b hd40 fp32"]
+    timing["flash_mha_granite"] = flash_shapes["granite prefill"]
+    timing["flash_mha_qwen15"] = flash_shapes["qwen1.5 prefill"]
+    timing["flash_mha_swa"] = flash_shapes["swa prefill"]
     # an empty kernel, queued behind the held stream like the held timings:
     # the least time any launch takes, the floor of the launch-bound rows
     empty_ms = time_ms(lambda: torch.cuda._sleep(0), reps=21, hold=True)
@@ -983,7 +1122,10 @@ def main() -> int:
         tc_flops = ((12 if size == 4 else 10) * c * m * m + (6 if size == 4 else 5) * c * c * m) * b * h * n_chunks
         ms = time_ms(lambda: rwkv6_chunked(*r_args), flush=flush, hold=True)
         r_host_ms = host_ms(lambda: rwkv6_chunked(*r_args))
-        _, prof, _ = traced(lambda: [(flush.zero_(), rwkv6_chunked(*r_args)) for _ in range(3)])
+        r_phases = (["rwkv_span_out"] if l_len <= rwkv_kernels.SPAN else
+                    ["rwkv_span_delta", "rwkv_span_scan", "rwkv_span_out"])
+        _, prof, _ = traced(lambda: [(flush.zero_(), rwkv6_chunked(*r_args)) for _ in range(3)],
+                            want=dict.fromkeys(r_phases, 3))
         phases_ms = {}
         for ph, kname in (("A", "rwkv_span_delta"), ("B", "rwkv_span_scan"), ("C", "rwkv_span_out")):
             hits = [e for e in prof.key_averages() if kname in e.key]
@@ -1009,10 +1151,10 @@ def main() -> int:
 
     # (after the flash and mix timings: after a torch.profiler session later
     # launches can take more host time, which an unheld timing would count)
-    def rwkv_kernels_run(call):
+    def rwkv_kernels_run(call, want):
         """The result of one call and the rwkv kernels it ran on the card,
-        one name a launch (torch.profiler)."""
-        got, prof, _ = traced(call)
+        one name a launch (torch.profiler; ``want`` as for ``traced``)."""
+        got, prof, _ = traced(call, want=want)
         return got, [re.sub(r".*(rwkv_span_[a-z]+).*", r"\1", e.key) for e in prof.key_averages()
                      for _ in range(e.count) if "rwkv_span" in e.key]
 
@@ -1025,9 +1167,10 @@ def main() -> int:
                   (2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32, True),
                   (2, 128, 3, 64, torch.bfloat16, True)):
         args = rwkv_inputs(*shape)
-        (out1, state1), names1 = rwkv_kernels_run(lambda: rwkv6_chunked(*args))
+        (out1, state1), names1 = rwkv_kernels_run(lambda: rwkv6_chunked(*args), {"rwkv_span_out": 1})
         (out3, state3), names3 = rwkv_kernels_run(lambda: rwkv_kernels._launch(
-            *args, rwkv_kernels.span_scratch_floats(*shape[:4])))
+            *args, rwkv_kernels.span_scratch_floats(*shape[:4])),
+            dict.fromkeys(("rwkv_span_delta", "rwkv_span_scan", "rwkv_span_out"), 1))
         ref_state = rwkv6_chunked_ref(*args)[1]
         worst = float((state1 - ref_state).abs().max()) / (5e-5 * float(ref_state.abs().max()))
         print(f"  rwkv6_chunked one launch B{shape[0]} L{shape[1]} H{shape[2]} M{shape[3]} {str(shape[4])[6:]}"
@@ -1166,6 +1309,17 @@ def main() -> int:
                       chunk_bounds(lm_layout.sizes, 2048, dev), codec="int8", gamma=1.0, route="staged")
     errs["quant_mix_dense"] = max(errs["quant_mix_dense"], e)
     del x8q, h8q
+    # phase 4k's --model moe --compress int8: the reduced granite-moe's rows
+    # at complete-8, its own chunk table (the router and expert stacks are
+    # leaves of their own); timed below
+    moe_layout = FlatLayout.of(TF.init_params(0, get_reduced_config("granite-moe-1b-a400m"),
+                                              InitConfig("trunc_normal", torch.ones(1)), device="cpu"))
+    moe_bounds = chunk_bounds(moe_layout.sizes, 2048, dev)
+    x8m = torch.randn(8, moe_layout.size, generator=gen, device=dev) * (0.01 + torch.rand(8, 1, generator=gen, device=dev))
+    h8m = 0.3 * torch.randn(8, moe_layout.size, generator=gen, device=dev)
+    errs["quant_mix_dense_moe"] = compare_quant(
+        f"quant_mix_dense int8 round complete-8 d={moe_layout.size} (reduced granite-moe)", dense_kernel(m8q),
+        lambda hq: decavg_mix_ref(m8q, hq), x8m, h8m, moe_bounds, codec="int8", gamma=1.0, route="staged")
     x1k, h1k = quant_inputs(1024)
     ring_bsr = plan_s.bsr
     for codec in ("int8", "fp8"):
@@ -1232,6 +1386,22 @@ def main() -> int:
             library_ms=None,  # no one PyTorch call quantises and mixes
             bound_ms=b_qd, bound_by=op_qd, shape=f"complete-{n_d} int8 round, d={D_MAIN}, fp32, scales included",
         )
+    # phase 4k's --model moe --compress int8 round, timed as the complete-16 one
+    n_moe_chunks = moe_bounds.numel() - 1
+    moe_edges = tuple(moe_bounds.tolist())
+    b_qm, op_qm = bound(16 * 8 * moe_layout.size + 4 * 8 * 8 + 4 * 8 * n_moe_chunks + 8 * (n_moe_chunks + 1),
+                        2 * 8 * 8 * moe_layout.size + 12 * 8 * moe_layout.size)
+    timing["quant_mix_dense_moe"] = dict(
+        ms=time_ms(lambda: quant_mix_dense(m8q, x8m, h8m, moe_edges, codec="int8", gamma=1.0), flush=flush, hold=True),
+        plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: decavg_mix_ref(m8q, hq), x8m, h8m, moe_bounds,
+                                               quant_scales_ref(x8m, h8m, moe_bounds, codec="int8"),
+                                               codec="int8", gamma=1.0), flush=flush),
+        library_ms=None,  # no one PyTorch call quantises and mixes
+        bound_ms=b_qm, bound_by=op_qm,
+        shape=f"complete-8 int8 round, d={moe_layout.size} (reduced granite-moe-1b-a400m), {n_moe_chunks} chunks, "
+              "fp32, scales included",
+    )
+    del x8m, h8m
     # the compressed exchange of an asynchronous event (phase 4g's int8
     # exchanges): the dense round over the pair's two rows with its 2 × 2
     # operator [[1 − w_uv, w_uv], [w_vu, 1 − w_vu]] (BA-16 with data sizes,
@@ -2619,15 +2789,21 @@ def main() -> int:
     # (g) fig 9 quick through the port's fig9_async (build/fig9_async.json):
     # on clean links every event delivers, so the executor's wire bytes
     # (its delivered messages, summed over the bins) are the stream's
-    # 2 · n_events messages at the synchronous run's bytes a message
+    # 2 · n_events messages at the synchronous run's bytes a message.  The
+    # ring family alone (2 of its 6 records): the script's time limit
     fig_common.ROWS.clear()
     t0 = time.perf_counter()
-    f9 = fig9_async.run(quick=True, device=dev)
+    families_f9 = fig9_async.FAMILIES
+    fig9_async.FAMILIES = {"ring": families_f9["ring"]}
+    try:
+        f9 = fig9_async.run(quick=True, device=dev)
+    finally:
+        fig9_async.FAMILIES = families_f9
     wall_f9 = time.perf_counter() - t0
-    print(f"  fig9 quick: {len(f9['records'])} records in {wall_f9:.1f} s, written to build/fig9_async.json")
+    print(f"  fig9 quick, ring family: {len(f9['records'])} records in {wall_f9:.1f} s, written to build/fig9_async.json")
     for rec in f9["records"]:
         print(f"    {json.dumps(rec)}")
-    check(len(f9["records"]) == 6 and all(
+    check(len(f9["records"]) == 2 and all(
         rec["wire_bytes_event_total"] * 2 * rec["n_edges"] == rec["messages_event"] * rec["wire_bytes_per_round_sync"]
         for rec in f9["records"])
           and all(math.isfinite(x) for rec in f9["records"] for x in rec.values() if isinstance(x, float)),
@@ -3517,6 +3693,130 @@ if __name__ == "__main__":
               f"{sum(mix_in)} inside dfl_mix")
         check(all(v["n"] == n_rounds_e for v in split.values()), f"4j trace {label}: ranges {split}")
     print(f"  phase 4j: {time.perf_counter() - t_4j:.1f} s")
+
+    # ------------------------------- 4k. --model moe and the measurement drivers
+    phase("4k. --model moe on the card, fig12 and kernels_bench through benchmarks.run, run_mixing")
+    t_4k = time.perf_counter()
+    from repro_torch.benchmarks import kernels_bench
+
+    out_4k = ROOT / "build" / "phase4k"
+    shutil.rmtree(out_4k, ignore_errors=True)
+    out_4k.mkdir(parents=True)
+    # (a) the CLI's --model moe: the reduced granite-moe-1b-a400m through the
+    # executor at n = 8, 3 rounds, plain and int8; each recorded round's
+    # eval runs fp32 flash (2 layers × 8 nodes); every mix and flash launch's
+    # shape is among phase 3's
+    flash_4k, mix_4k = set(), set()
+    real_mm_4k = mix_ops.mix_matmul
+
+    def recording_mm_4k(m, w):
+        mix_4k.add(tuple(w.shape))
+        return real_mm_4k(m, w)
+
+    def recording_flash_4k(q, k, v, *, causal=True, window=0):
+        flash_4k.add(flash_key(q, k, causal, window))
+        return flash_mha(q, k, v, causal=causal, window=window)
+
+    moe_argv = ["--model", "moe", "--nodes", "8", "--rounds", "3", "--items-per-node", "64", "--local-batches", "1"]
+    moe_launches = {}
+    mix_ops.mix_matmul, flash_ops.flash_mha = recording_mm_4k, recording_flash_4k
+    try:
+        for label, extra in (("plain", []), ("int8", ["--compress", "int8"])):
+            hist_k, wall_k, launches_k = counted(lambda: cli.main([*moe_argv, *extra]))
+            moe_launches[label] = launches_k
+            want_k = {**none_launched, ("quant_mix_dense" if extra else "mix_matmul"): 3, "flash_mha": 3 * 8 * 2}
+            print(f"  --model moe {label}: {wall_k:.1f} s; launches { {k: v for k, v in launches_k.items() if v} }; "
+                  f"train {[round(x, 4) for x in hist_k['train_loss']]} test {[round(x, 4) for x in hist_k['test_loss']]}")
+            check(launches_k == want_k, f"4k --model moe {label}: launches {launches_k}, want {want_k}")
+            check(all(math.isfinite(x) for x in hist_k["train_loss"] + hist_k["test_loss"]), f"4k moe {label}: loss")
+    finally:
+        mix_ops.mix_matmul, flash_ops.flash_mha = real_mm_4k, flash_mha
+    print(f"  mix shapes {sorted(mix_4k)}, flash shapes {sorted(flash_4k, key=str)}")
+    check(mix_4k == {(8, D_MOE)}, f"4k --model moe mixed at {sorted(mix_4k)}, phase 3 checked (8, {D_MOE})")
+    check(bool(flash_4k) and flash_4k <= flash_checked,
+          f"4k launched flash at {sorted(flash_4k - flash_checked, key=str)}, not checked in phase 3")
+    # a run log card vs CPU, both from one init drawn on the CPU and moved
+    # (the CLI draws on the run's device); the token windows and failure
+    # draws are the CPU's on both
+    real_init_4k = cli.init_fl_state
+
+    def cpu_init_4k(seed, n, init_one, opt, gains=None, device=None):
+        s_cpu = real_init_4k(seed, n, init_one, opt, gains=gains, device="cpu")
+        return DFLState(params=s_cpu.params.to(device), opt_state=type(s_cpu.opt_state)(
+            *(f.to(device) for f in s_cpu.opt_state)), layout=s_cpu.layout, round=0, generator=s_cpu.generator)
+
+    cli.init_fl_state = cpu_init_4k
+    try:
+        logs_k = {}
+        for where in ("cpu", "cuda"):
+            path = out_4k / f"moe-{where}.jsonl"
+            logs_k[where] = (cli.main([*moe_argv, "--device", where, "--telemetry", str(path)]), read_run_log(path))
+    finally:
+        cli.init_fl_state = real_init_4k
+    (h_kc, r_kc), (h_kg, r_kg) = logs_k["cpu"], logs_k["cuda"]
+    same_k = ([r["kind"] for r in r_kc] == [r["kind"] for r in r_kg]
+              and all(sorted(a) == sorted(b) for a, b in zip(r_kc, r_kg)))
+    loss_rel_k = max(abs(a - b) / abs(b) for key in ("train_loss", "test_loss") for a, b in zip(h_kg[key], h_kc[key]))
+    print(f"  --model moe card vs CPU (one CPU init, 3 rounds): kinds and keys equal {same_k}, wire "
+          f"{h_kg['wire_bytes']} / {h_kc['wire_bytes']}, largest relative loss difference {loss_rel_k:.2e}")
+    check(same_k and validate_run_log(r_kg) == [] and validate_run_log(r_kc) == [], "4k card vs CPU: records")
+    check(h_kg["wire_bytes"] == h_kc["wire_bytes"], "4k card vs CPU: wire bytes differ")
+    check(all(np.allclose(h_kg[key], h_kc[key], rtol=1e-4, atol=1e-5) for key in ("train_loss", "test_loss")),
+          f"4k card vs CPU: losses {loss_rel_k:.2e}")
+
+    # (b) fig12 and the kernel benchmarks through the harness, in a child
+    # process: exit 0; fig12's wire bytes and reductions the JAX package's
+    # records codec by codec (shapes only, no draws); each kernel's error
+    # within phase 3's tolerance for its kernel and route
+    t0 = time.perf_counter()
+    run_b = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run", "--quick", "fig12", "kernels"],
+                           cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True,
+                           text=True, timeout=900)
+    harness_s = time.perf_counter() - t0
+    (out_4k / "benchmarks_run.log").write_text(run_b.stdout + run_b.stderr)
+    print(f"  benchmarks.run --quick fig12 kernels: exit {run_b.returncode} in {harness_s:.1f} s")
+    check(run_b.returncode == 0, f"benchmarks.run exit {run_b.returncode}: {run_b.stderr[-3000:]}")
+    rows_b = {}
+    for line in run_b.stdout.splitlines():
+        if line.startswith(("fig12.", "kernels.")):
+            name, us, derived = line.split(",", 2)
+            rows_b[name] = (float(us), derived)
+            print(f"    {line}")
+    fig12_out = json.loads((ROOT / "build" / "fig12_compress.json").read_text())
+    jax_records = {(r["kind"], r["family"], r["codec"]): r
+                   for r in json.loads((ROOT / "BENCH_compress.json").read_text())["records"]}
+    check(len(fig12_out["records"]) == len(jax_records) == 12, f"fig12 wrote {len(fig12_out['records'])} records")
+    for r in fig12_out["records"]:
+        j = jax_records[(r["kind"], r["family"], r["codec"])]
+        check(r["wire_bytes_per_round"] == j["wire_bytes_per_round"]
+              and r["bytes_reduction_vs_fp32"] == j["bytes_reduction_vs_fp32"] and sorted(r) == sorted(j),
+              f"fig12 {r['kind']} {r['family']} {r['codec']}: wire {r['wire_bytes_per_round']} x"
+              f"{r['bytes_reduction_vs_fp32']}, the JAX records' {j['wire_bytes_per_round']} "
+              f"x{j['bytes_reduction_vs_fp32']}")
+    print(f"  fig12: {len(fig12_out['records'])} records, wire bytes and reductions the JAX records' codec by codec; "
+          f"{rows_b.get('fig12.acceptance', ('', 'no acceptance row'))[1]} (not gated: the torch draws differ)")
+    for r in fig12_out["records"]:
+        print(f"    {r['kind']:11s} {r['family']:8s} {r['codec']:5s} final test loss {r['final_test_loss']:.4f} "
+              f"(the JAX record's {jax_records[(r['kind'], r['family'], r['codec'])]['final_test_loss']:.4f}), "
+              f"delta {r['loss_delta_vs_fp32_pct']:+.2f}%, {r['us_per_round_steady']:.0f} µs a round")
+    for name in ("kernels.mix", "kernels.flash", "kernels.flash_swa", "kernels.rwkv6"):
+        fields = dict(item.split("=") for item in rows_b[name][1].split(";"))
+        err, scale = float(fields["max_abs_err"]), float(fields["ref_scale"])
+        tol = 5e-5 * scale if name == "kernels.rwkv6" else FP32_TOL * max(scale, 1.0)
+        print(f"  {name}: {rows_b[name][0]:.1f} µs, route {fields['route']}, max_abs_err {err:.3e} tol {tol:.3e}")
+        check(err <= tol, f"{name}: error {err} above phase 3's tolerance {tol}")
+
+    # (c) run_mixing at its defaults: the three backends over ring / kreg /
+    # ba / heavytail at n = 16 … 1024, d = 4096
+    t0 = time.perf_counter()
+    mixing = kernels_bench.run_mixing(out_path=ROOT / "build" / "kernels_mixing.json")
+    print(f"  run_mixing: {len(mixing['records'])} rows in {time.perf_counter() - t0:.1f} s")
+    for r in mixing["records"]:
+        print(f"    {r['family']:9s} n={r['n']:5d} dense {r['us_dense']:9.1f} µs sparse {r['us_sparse']:9.1f} µs "
+              f"ppermute {r['us_ppermute']:9.1f} µs")
+    check(len(mixing["records"]) == 16 and all(math.isfinite(r[f"us_{b}"]) for r in mixing["records"]
+                                               for b in ("dense", "sparse", "ppermute")), "run_mixing rows")
+    print(f"  phase 4k: {time.perf_counter() - t_4k:.1f} s")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 5. card vs CPU
@@ -3917,99 +4217,249 @@ if __name__ == "__main__":
     torch.cuda.empty_cache()
 
     # ----------------------------------------------- 7b. traced prefills
-    # one qwen2.5-3b prefill (4 × 2048, one parameter set) under the
-    # profiler, after a warm-up: device time by kernel, flash's share, and
-    # the device's busy share of the traced wall time
-    phase("7b. traced prefills: qwen2.5-3b and rwkv6-3b 4 × 2048 under torch.profiler")
-    tparams = TF.init_params(gen_p, qcfg, InitConfig("trunc_normal", 1.0), device=dev)
-    t_prompts = tokens(4, 2048, qcfg.vocab_size, seed=0)
-    prefill(tparams, qcfg, t_prompts)
-    torch.cuda.synchronize()
-    reset_counts()
-    t_logits, prof, traced_s = traced(lambda: prefill(tparams, qcfg, t_prompts))
-    traced_launches = {kern.__name__: kern.launches for kern in kernels}
-    check(traced_launches == {**none_launched, "flash_mha": qcfg.n_layers}
-          and flash_mha.launches_by_route == {"wgmma": qcfg.n_layers, "wgmma_tf32x3": 0},
-          f"traced prefill launches {traced_launches}, routes {flash_mha.launches_by_route}")
-    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
-    total_us = sum(dev_us.values())
-    check(total_us > 0, "the profiler recorded no device time")
-    flash_us = sum(t for name, t in dev_us.items() if "flash_sm90" in name)
-    print(f"  traced prefill {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
-          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); flash kernel {flash_us / 1e3:.2f} ms "
-          f"= {flash_us / total_us:.1%} of device time ({qcfg.n_layers} launches)")
-    counts = {e.key: e.count for e in dev_ops}
-    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
-    # the same prefill with attention through the plain version (fp32
-    # probabilities, einsum products): a diagnostic of the kernel's effect
-    # on the logits, not a gate
-    flash_ops.flash_mha = lambda q, k, v, *, causal=True, window=0: attention_ref(q, k, v, causal=causal,
-                                                                                   window=window)
-    ref_logits = prefill(tparams, qcfg, t_prompts)
-    flash_ops.flash_mha = flash_mha
-    print(f"  last-position logits, kernel vs attention_ref prefill: max abs diff "
-          f"{float((t_logits.float() - ref_logits.float()).abs().max()):.3e} "
-          f"(max abs {float(ref_logits.float().abs().max()):.2f}); argmax equal "
-          f"{bool(torch.equal(t_logits.argmax(-1), ref_logits.argmax(-1)))}")
-    del tparams, t_logits, ref_logits, prof
+    # in a process of its own: late in this long process the profiler lost
+    # a whole layer's device events (every kernel of it, ours and cuBLAS's)
+    # from every trace of these prefills, retried or not, while the early
+    # traces of phase 3 were complete; a fresh process traces from a clean
+    # profiler state
+    phase("7b. traced prefills: qwen2.5-3b and rwkv6-3b 4 × 2048 under torch.profiler, in a child process")
+    t0 = time.perf_counter()
+    run_7b = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--traced-prefills"], cwd=ROOT,
+                            capture_output=True, text=True, timeout=600)
+    print(run_7b.stdout.rstrip(), flush=True)
+    print(f"  phase 7b (child): exit {run_7b.returncode} in {time.perf_counter() - t0:.1f} s")
+    check(run_7b.returncode == 0, f"traced prefills exit {run_7b.returncode}: {run_7b.stderr[-3000:]}")
+
+    # ------------------------------------ 7c. serve, full width: the new configs
+    # granite-moe-1b-a400m, qwen1.5-4b, stablelm-12b and the swa variant of
+    # qwen2.5-3b (after 7b, whose traces keep the conditions they had), one
+    # model at a time, each freed before the next: one flash
+    # launch a prefill attention layer, every key among phase 3's, no other
+    # listed kernel (the MoE FFN's dispatch and combine are plain torch, as
+    # the JAX package's are XLA)
+    phase("7c. serve, full width: granite-moe-1b-a400m 4-node ring ensemble, qwen1.5-4b 4-node ensemble, "
+          "stablelm-12b, qwen2.5-3b-swa (bf16)")
+    flash_launched.clear()
+    flash_ops.flash_mha = recording_flash_mha
+    new_serve = {}
+
+    def serve_start(name):
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        new_serve[name] = {"t0": time.perf_counter()}
+
+    def serve_end(name, want_flash):
+        launches_s = {kern.__name__: kern.launches for kern in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        new_serve[name].update(flash=launches_s["flash_mha"], peak_gib=peak, s=time.perf_counter() - new_serve[name]["t0"])
+        print(f"  {name}: launches { {k: v for k, v in launches_s.items() if v} }, routes {flash_mha.launches_by_route}; "
+              f"peak device memory {peak:.2f} GiB; {new_serve[name]['s']:.1f} s")
+        check(launches_s == {**none_launched, "flash_mha": want_flash}
+              and flash_mha.launches_by_route == {"wgmma": want_flash, "wgmma_tf32x3": 0},
+              f"{name}: launches {launches_s}, routes {flash_mha.launches_by_route}, want {want_flash} flash on wgmma")
+
+    def decode_ms(params, cfg, first_tok, pos, steps=8):
+        cache = TF.init_cache(cfg, (first_tok.shape[0],), 4096, device=dev)
+        decode_one(params, cfg, cache, first_tok, pos)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            out, cache = decode_one(params, cfg, cache, first_tok, pos + 1 + i)
+        check(bool(torch.isfinite(out).all()), f"{cfg.name} decode logits not finite")
+        return since(t0) / steps * 1e3, cache
+
+    # granite-moe-1b-a400m: a 4-node ring ensemble (MoE FFN at every layer,
+    # 32 experts, top 8); consensus generate 4 × 2048 → 32, per-node serve
+    # 4 × 512 → 8, prefill twice (bitwise: the combine adds in a fixed
+    # order, no atomics), one decode step eager and replayed as a CUDA graph
+    serve_start("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    ens = TF.init_params(gen_p, mcfg, InitConfig("trunc_normal", torch.full((4,), gain_from_graph(ring4))), device=dev)
+    init_s = since(t0)
+    n_el = n_elements(ens)
+    check(n_el == 4 * (mcfg.n_params() + mcfg.d_model), f"granite ensemble holds {n_el} parameters")
+    cons = consensus_params(ens)
+    m_engine = ServeEngine(mcfg, cache_len=4096, device=dev)
+    prompts = tokens(4, 2048, mcfg.vocab_size, seed=6)
+    t0 = time.perf_counter()
+    toks = m_engine.generate(cons, prompts, 32)
+    gen_s = since(t0)
+    t0 = time.perf_counter()
+    logits = prefill(cons, mcfg, prompts)
+    pre_s = since(t0)
+    t0 = time.perf_counter()
+    logits_again = prefill(cons, mcfg, prompts)
+    pre2_s = since(t0)
+    check(toks.shape == (4, 32) and int(toks.min()) >= 0 and int(toks.max()) < mcfg.vocab_size, "granite tokens")
+    check(bool(torch.isfinite(logits).all()), "granite prefill logits not finite")
+    check(torch.equal(logits, logits_again), "two granite prefills differ: the MoE combine is not deterministic")
+    check(torch.equal(logits.argmax(-1).to(toks.dtype), toks[:, 0]), "granite prefill argmax differs from generate's")
+    m_dec_ms, cache = decode_ms(cons, mcfg, toks[:, :1], 2048)
+    step_tok = toks[:, :1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager_logits = decode_one(cons, mcfg, cache, step_tok, 2057)[0]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graph_logits = decode_one(cons, mcfg, cache, step_tok, 2057)[0]
+    m_graph_ms = time_ms(graph.replay)
+    graph_err = float((graph_logits.float() - eager_logits.float()).abs().max())
+    check(graph_err <= 1e-2 * float(eager_logits.float().abs().max()),
+          f"granite graph-replayed decode differs by {graph_err}")
+    m_graph_bitwise = bool(torch.equal(graph_logits, eager_logits))
+    del cache, graph, graph_logits, eager_logits
+    t0 = time.perf_counter()
+    served = m_engine.serve(ens, [0, 1, 2, 3], tokens(4, 512, mcfg.vocab_size, seed=7), 8)
+    serve_s = since(t0)
+    check(served.shape == (4, 8) and int(served.min()) >= 0 and int(served.max()) < mcfg.vocab_size,
+          "granite served tokens")
+    print(f"  granite-moe-1b-a400m: 4 nodes × {n_el // 4:,} bf16 parameters ({mcfg.n_active_params():,} active a "
+          f"token), drawn in {init_s:.1f} s; generate 4 × 2048 → 32 tokens in {gen_s:.2f} s; prefill 4 × 2048 "
+          f"{pre_s * 1e3:.1f} ms, again {pre2_s * 1e3:.1f} ms (bitwise equal); decode {m_dec_ms:.2f} ms per step "
+          f"(4 sequences), {m_graph_ms:.2f} ms as a replayed CUDA graph (device busy {m_graph_ms / m_dec_ms:.1%}; "
+          f"bitwise the eager step {m_graph_bitwise}); serve 4 nodes × 512 → 8 in {serve_s:.2f} s")
+    print(f"  first tokens {toks[:, :6].tolist()}; node answers {served[:, :4].tolist()}")
+    serve_end("granite-moe-1b-a400m", mcfg.n_layers * (1 + 2 + 4))
+    new_serve["granite-moe-1b-a400m"].update(prefill_ms=pre2_s * 1e3, decode_ms=m_dec_ms, graph_ms=m_graph_ms)
+    del ens, cons, logits, logits_again, toks, served
     torch.cuda.empty_cache()
 
-    # one rwkv6-3b 4 × 2048 prefill (one parameter set) under the profiler:
-    # the tc kernel's three launches a layer and their share of device time
-    rparams = TF.init_params(gen_p, rcfg, InitConfig("trunc_normal", 1.0), device=dev)
-    r_prompts = tokens(4, 2048, rcfg.vocab_size, seed=3)
-    prefill(rparams, rcfg, r_prompts)
-    torch.cuda.synchronize()
-    reset_counts()
-    r_logits, prof, traced_s = traced(lambda: prefill(rparams, rcfg, r_prompts))
-    check(bool(torch.isfinite(r_logits).all()), "traced rwkv prefill logits not finite")
-    check(rwkv6_chunked.launches_by_route == {"tc": rcfg.n_layers, "tc_fp32": 0},
-          f"traced rwkv prefill routes {rwkv6_chunked.launches_by_route}")
-    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
-    counts = {e.key: e.count for e in dev_ops}
-    total_us = sum(dev_us.values())
-    check(total_us > 0, "the profiler recorded no device time")
-    rwkv_us = {name: t for name, t in dev_us.items() if "rwkv_span" in name}
-    rwkv_total = sum(rwkv_us.values())
-    per_kernel = ", ".join(f"{re.sub(r'.*(rwkv_span_[a-z]+).*', r'\1', n)} {t / 1e3:.2f} ms"
-                           for n, t in rwkv_us.items())
-    print(f"  rwkv6-3b prefill 4 × 2048 traced: {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
-          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); rwkv kernel {rwkv_total / 1e3:.2f} ms = "
-          f"{rwkv_total / total_us:.1%} of device time ({rcfg.n_layers} launches of 3 kernels: {per_kernel})")
-    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
-    check(len(rwkv_us) == 3 and all(counts[n] == rcfg.n_layers for n in rwkv_us),
-          f"traced rwkv kernels {[(n, counts[n]) for n in rwkv_us]}; {trace_edges(prof)}")
-    del rparams, r_logits, prof
+    # qwen1.5-4b: a 4-node ensemble (MHA 20 / 20, qkv bias): consensus
+    # generate 4 × 2048 → 32, a prefill, 8 decode steps
+    serve_start("qwen1.5-4b")
+    ens = TF.init_params(gen_p, q15cfg, InitConfig("trunc_normal", torch.full((4,), gain_from_graph(ring4))),
+                         device=dev)
+    n_el = n_elements(ens)
+    check(n_el == 4 * (q15cfg.n_params() + q15cfg.d_model), f"qwen1.5 ensemble holds {n_el} parameters")
+    cons = consensus_params(ens)  # the ensemble stays beside the consensus and the caches
+    prompts = tokens(4, 2048, q15cfg.vocab_size, seed=8)
+    t0 = time.perf_counter()
+    toks = ServeEngine(q15cfg, cache_len=4096, device=dev).generate(cons, prompts, 32)
+    gen_s = since(t0)
+    t0 = time.perf_counter()
+    logits = prefill(cons, q15cfg, prompts)
+    pre_s = since(t0)
+    check(bool(torch.isfinite(logits).all()) and torch.equal(logits.argmax(-1).to(toks.dtype), toks[:, 0]),
+          "qwen1.5 prefill logits")
+    q_dec_ms, cache = decode_ms(cons, q15cfg, toks[:, :1], 2048)
+    del cache
+    print(f"  qwen1.5-4b: 4 nodes × {n_el // 4:,} bf16 parameters; generate 4 × 2048 → 32 tokens in {gen_s:.2f} s; "
+          f"prefill 4 × 2048 {pre_s * 1e3:.1f} ms; decode {q_dec_ms:.2f} ms per step; first tokens "
+          f"{toks[:, :6].tolist()}")
+    serve_end("qwen1.5-4b", 2 * q15cfg.n_layers)
+    new_serve["qwen1.5-4b"].update(prefill_ms=pre_s * 1e3, decode_ms=q_dec_ms)
+    del ens, cons, logits, toks
     torch.cuda.empty_cache()
+
+    # stablelm-12b: one parameter set (24.3 GB; four nodes would take ~97
+    # GB), layernorm, hd 160 run zero-padded to 256: a prefill 4 × 2048,
+    # generate 4 × 2048 → 16, 8 decode steps
+    serve_start("stablelm-12b")
+    sparams = TF.init_params(gen_p, scfg, InitConfig("trunc_normal", 1.0), device=dev)
+    check(n_elements(sparams) == scfg.n_params() + scfg.d_model * (2 + 2 * scfg.n_layers),
+          "stablelm parameter count (n_params counts no layernorm bias and no final norm)")
+    prompts = tokens(4, 2048, scfg.vocab_size, seed=9)
+    t0 = time.perf_counter()
+    logits = prefill(sparams, scfg, prompts)
+    pre_s = since(t0)
+    t0 = time.perf_counter()
+    toks = ServeEngine(scfg, cache_len=4096, device=dev).generate(sparams, prompts, 16)
+    gen_s = since(t0)
+    check(bool(torch.isfinite(logits).all()) and torch.equal(logits.argmax(-1).to(toks.dtype), toks[:, 0]),
+          "stablelm prefill logits")
+    s_dec_ms, cache = decode_ms(sparams, scfg, toks[:, :1], 2048)
+    del cache
+    print(f"  stablelm-12b: {n_elements(sparams):,} bf16 parameters; prefill 4 × 2048 {pre_s * 1e3:.1f} ms; generate "
+          f"4 × 2048 → 16 tokens in {gen_s:.2f} s; decode {s_dec_ms:.2f} ms per step; first tokens "
+          f"{toks[:, :6].tolist()}")
+    serve_end("stablelm-12b", 2 * scfg.n_layers)
+    new_serve["stablelm-12b"].update(prefill_ms=pre_s * 1e3, decode_ms=s_dec_ms)
+    del sparams, logits, toks
+    torch.cuda.empty_cache()
+
+    # the swa variant of qwen2.5-3b (every layer windowed at 8192): one
+    # prefill of a 16,384-token prompt
+    serve_start("qwen2.5-3b-swa")
+    wparams = TF.init_params(gen_p, swacfg, InitConfig("trunc_normal", 1.0), device=dev)
+    long_prompt = tokens(1, 16384, swacfg.vocab_size, seed=10)
+    t0 = time.perf_counter()
+    logits = prefill(wparams, swacfg, long_prompt)
+    swa_s = since(t0)
+    check(bool(torch.isfinite(logits).all()), "swa prefill logits not finite")
+    print(f"  qwen2.5-3b-swa (window {swacfg.sliding_window}): prefill 1 × 16384 {swa_s * 1e3:.1f} ms")
+    serve_end("qwen2.5-3b-swa", swacfg.n_layers)
+    new_serve["qwen2.5-3b-swa"].update(prefill_ms=swa_s * 1e3)
+    del wparams, logits, long_prompt
+    torch.cuda.empty_cache()
+    flash_ops.flash_mha = flash_mha
+    check(flash_launched <= flash_checked,
+          f"phase 7c launched flash at {sorted(flash_launched - flash_checked, key=str)}, not checked in phase 3")
+    print(f"  flash launch shapes: {len(flash_launched)} distinct in phase 7c, each held against the plain version "
+          "in phase 3")
 
     # ------------------------------------------------- 8. serve, card vs CPU
-    phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b and rwkv6-3b, fp32, one init)")
+    phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b, rwkv6-3b, granite-moe-1b-a400m, stablelm-12b and "
+          "qwen1.5-4b, fp32, one init)")
     reset_counts()
-    for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b"):
-        rcfg = get_reduced_config(arch)
-        init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
-        p_np = params_to_numpy(init)
-        prompt = make_token_stream(2 * 40, rcfg.vocab_size, seed=3).reshape(2, 40)  # past gemma's window 16
-        out = {}
-        for d_name in ("cuda", "cpu"):
-            p = params_from_numpy(p_np, device=d_name)
-            out[d_name] = (
-                ServeEngine(rcfg, cache_len=64, device=d_name).generate(p, prompt, 8).cpu().numpy(),
-                prefill(p, rcfg, torch.as_tensor(prompt, device=d_name)).cpu().numpy(),
-            )
-        (t_gpu, l_gpu), (t_cpu, l_cpu) = out["cuda"], out["cpu"]
-        print(f"  {arch}: tokens cuda {t_gpu.tolist()} cpu {t_cpu.tolist()}; prefill logits max abs diff "
-              f"{float(np.abs(l_gpu - l_cpu).max()):.2e} (max abs {float(np.abs(l_cpu).max()):.2f})")
-        check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU greedy tokens differ")
-        check(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5), f"{arch}: card vs CPU prefill logits")
+    from repro_torch.models import moe as moe_mod
+
+    # every MoE routing call's probabilities and top-k experts, by device:
+    # the choices that differ between the card and the CPU, each with its
+    # top-k margin (the k-th probability less the next one)
+    real_route = moe_mod.route
+    routing = collections.defaultdict(list)
+
+    def recording_route(probs, k, cap):
+        r = real_route(probs, k, cap)
+        routing[probs.device.type].append((probs.detach().cpu(), r.idx.cpu()))
+        return r
+
+    flash_by_arch = {}
+    moe_mod.route = recording_route
+    try:
+        for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b", "granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b"):
+            rcfg = get_reduced_config(arch)
+            init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
+            p_np = params_to_numpy(init)
+            prompt = make_token_stream(2 * 40, rcfg.vocab_size, seed=3).reshape(2, 40)  # past gemma's window 16
+            out = {}
+            before = flash_mha.launches
+            for d_name in ("cuda", "cpu"):
+                p = params_from_numpy(p_np, device=d_name)
+                out[d_name] = (
+                    ServeEngine(rcfg, cache_len=64, device=d_name).generate(p, prompt, 8).cpu().numpy(),
+                    prefill(p, rcfg, torch.as_tensor(prompt, device=d_name)).cpu().numpy(),
+                )
+            flash_by_arch[arch] = flash_mha.launches - before
+            (t_gpu, l_gpu), (t_cpu, l_cpu) = out["cuda"], out["cpu"]
+            print(f"  {arch}: tokens cuda {t_gpu.tolist()} cpu {t_cpu.tolist()}; prefill logits max abs diff "
+                  f"{float(np.abs(l_gpu - l_cpu).max()):.2e} (max abs {float(np.abs(l_cpu).max()):.2f})")
+            if rcfg.is_moe:
+                calls = list(zip(routing["cuda"], routing["cpu"]))
+                check(len(routing["cuda"]) == len(routing["cpu"]) > 0, f"{arch}: routing calls "
+                      f"{len(routing['cuda'])} on the card, {len(routing['cpu'])} on the CPU")
+                flips, margins, n_tokens = 0, [], 0
+                for (p_g, i_g), (p_c, i_c) in calls:
+                    n_tokens += i_c.shape[0]
+                    differ = (i_g.sort(-1).values != i_c.sort(-1).values).any(-1)
+                    flips += int(differ.sum())
+                    top = p_c.sort(-1, descending=True).values
+                    margins += (top[differ, rcfg.experts_per_token - 1] - top[differ, rcfg.experts_per_token]).tolist()
+                print(f"    routing: {flips} of {n_tokens} token choices (over {len(calls)} MoE calls) differ card vs "
+                      f"CPU; their top-{rcfg.experts_per_token} margins {[f'{m:.2e}' for m in margins]}")
+            check(np.array_equal(t_gpu, t_cpu), f"{arch}: card and CPU greedy tokens differ")
+            check(np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5), f"{arch}: card vs CPU prefill logits")
+    finally:
+        moe_mod.route = real_route
     # fp32: every attention layer of a generate's prefill and of a prefill
-    # went through the flash kernel's fp32 route
+    # went through the flash kernel's fp32 route (hd 40 and 30 zero-padded)
     fp32_launches = flash_mha.launches_by_route["wgmma_tf32x3"]
-    want_fp32 = 2 * sum(get_reduced_config(a).n_layers for a in ("qwen2.5-3b", "gemma3-4b"))
+    print(f"  flash launches by config {flash_by_arch}")
+    check(all(flash_by_arch[a] == 2 * get_reduced_config(a).n_layers for a in flash_by_arch if a != "rwkv6-3b"),
+          f"phase 8 flash launches {flash_by_arch}, want 2 prefills × the layers")
+    want_fp32 = 2 * sum(get_reduced_config(a).n_layers for a in flash_by_arch if a != "rwkv6-3b")
     check(flash_mha.launches_by_route == {"wgmma": 0, "wgmma_tf32x3": want_fp32},
           f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on wgmma_tf32x3")
     print(f"  flash routes {flash_mha.launches_by_route}")
@@ -4030,9 +4480,10 @@ if __name__ == "__main__":
         ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
         ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          serve_launches["flash_mha"]),
-        # the fp32 route: phase 8's card-vs-CPU serving
+        # the fp32 route: phase 8's card-vs-CPU serving (the head dims with an
+        # instance: reduced qwen2.5-3b, gemma3-4b and granite-moe)
         ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
-         fp32_launches),
+         sum(flash_by_arch[a] for a in ("qwen2.5-3b", "gemma3-4b", "granite-moe-1b-a400m"))),
         ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
          serve_launches["rwkv6_chunked"]),
         # the fp32 route: phase 8's card-vs-CPU serving
@@ -4079,14 +4530,30 @@ if __name__ == "__main__":
         ("mix_bsr_elastic", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", elastic_launches["mix_bsr"]),
         ("quant_mix_dense_elastic", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
          elastic_launches["quant_mix_dense"]),
-        # head dims the kernel runs zero-padded; no path of this script
-        # launches them (no ported config has them)
+        # head dims the kernel runs zero-padded: stablelm-12b's prefills in
+        # phase 7 (hd 160), phase 8's reduced stablelm-12b (hd 40 fp32) and
+        # qwen1.5-4b (hd 30 fp32); no path launches hd 40 in bf16
         ("flash_mha_hd160", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
-         0),
+         new_serve["stablelm-12b"]["flash"]),
         ("flash_mha_hd40", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          0),
+        ("flash_mha_hd40_fp32", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", flash_by_arch["stablelm-12b"]),
         ("flash_mha_hd30_fp32", "src/repro/kernels/flash/flash.py:130",
-         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", 0),
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", flash_by_arch["qwen1.5-4b"]),
+        # phase 7's new bf16 serving: granite-moe (hd 64), qwen1.5-4b (MHA
+        # 20 / 20, hd 128), the swa variant's 16,384-token prompt
+        ("flash_mha_granite", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", new_serve["granite-moe-1b-a400m"]["flash"]),
+        ("flash_mha_qwen15", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", new_serve["qwen1.5-4b"]["flash"]),
+        ("flash_mha_swa", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", new_serve["qwen2.5-3b-swa"]["flash"]),
+        # phase 4k's --model moe rounds: the dense mix (plain) and the dense
+        # int8 round, n = 8 over the reduced granite-moe's row
+        ("mix_matmul_moe", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", moe_launches["plain"]["mix_matmul"]),
+        ("quant_mix_dense_moe", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
+         moe_launches["int8"]["quant_mix_dense"]),
     ):
         t = timing[name]
         row = {
@@ -4103,7 +4570,7 @@ if __name__ == "__main__":
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
         elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example",
-                                                               "_elastic")):
+                                                               "_elastic", "_moe", "_granite", "_qwen15", "_swa")):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -4116,9 +4583,112 @@ if __name__ == "__main__":
     return 0
 
 
+def traced_prefills() -> int:
+    """Phase 7b, which ``main`` runs as ``chip_smoke.py --traced-prefills``
+    in a process of its own (the kernel libraries already built): one
+    qwen2.5-3b and one rwkv6-3b 4 × 2048 prefill, bf16, random weights,
+    each under torch.profiler after a warm-up.  Exits 0, or 1 with the
+    failed check on standard error."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.data import make_token_stream
+    from repro_torch.device import resolve_device
+    from repro_torch.fed import prefill
+    from repro_torch.kernels.flash import attention_ref, flash_mha
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.rwkv import rwkv6_chunked
+    from repro_torch.models import transformer as TF
+
+    dev = resolve_device("cuda")
+    kernels, reset_counts = kernel_counters()
+    none_launched = {kern.__name__: 0 for kern in kernels}
+    qcfg, rcfg = get_config("qwen2.5-3b"), get_config("rwkv6-3b")
+    gen_p = torch.Generator(device=dev).manual_seed(0)
+
+    def tokens(n_prompts, length, vocab, seed):
+        stream = make_token_stream(n_prompts * length, vocab, seed=seed)
+        return torch.as_tensor(stream.reshape(n_prompts, length), device=dev)
+
+    # one qwen2.5-3b prefill (4 × 2048, one parameter set) under the
+    # profiler, after a warm-up: device time by kernel, flash's share, and
+    # the device's busy share of the traced wall time
+    tparams = TF.init_params(gen_p, qcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    t_prompts = tokens(4, 2048, qcfg.vocab_size, seed=0)
+    prefill(tparams, qcfg, t_prompts)
+    torch.cuda.synchronize()
+    t_logits, prof, traced_s = traced(lambda: prefill(tparams, qcfg, t_prompts),
+                                      want={"flash_sm90": qcfg.n_layers}, before=reset_counts)
+    traced_launches = {kern.__name__: kern.launches for kern in kernels}
+    check(traced_launches == {**none_launched, "flash_mha": qcfg.n_layers}
+          and flash_mha.launches_by_route == {"wgmma": qcfg.n_layers, "wgmma_tf32x3": 0},
+          f"traced prefill launches {traced_launches}, routes {flash_mha.launches_by_route}")
+    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
+    total_us = sum(dev_us.values())
+    check(total_us > 0, "the profiler recorded no device time")
+    flash_us = sum(t for name, t in dev_us.items() if "flash_sm90" in name)
+    print(f"  traced prefill {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
+          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); flash kernel {flash_us / 1e3:.2f} ms "
+          f"= {flash_us / total_us:.1%} of device time ({qcfg.n_layers} launches)")
+    counts = {e.key: e.count for e in dev_ops}
+    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
+    # the same prefill with attention through the plain version (fp32
+    # probabilities, einsum products): a diagnostic of the kernel's effect
+    # on the logits, not a gate
+    flash_ops.flash_mha = lambda q, k, v, *, causal=True, window=0: attention_ref(q, k, v, causal=causal,
+                                                                                   window=window)
+    ref_logits = prefill(tparams, qcfg, t_prompts)
+    flash_ops.flash_mha = flash_mha
+    print(f"  last-position logits, kernel vs attention_ref prefill: max abs diff "
+          f"{float((t_logits.float() - ref_logits.float()).abs().max()):.3e} "
+          f"(max abs {float(ref_logits.float().abs().max()):.2f}); argmax equal "
+          f"{bool(torch.equal(t_logits.argmax(-1), ref_logits.argmax(-1)))}")
+    del tparams, t_logits, ref_logits, prof
+    torch.cuda.empty_cache()
+
+    # one rwkv6-3b 4 × 2048 prefill (one parameter set) under the profiler:
+    # the tc kernel's three launches a layer and their share of device time
+    rparams = TF.init_params(gen_p, rcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    r_prompts = tokens(4, 2048, rcfg.vocab_size, seed=3)
+    prefill(rparams, rcfg, r_prompts)
+    torch.cuda.synchronize()
+    r_logits, prof, traced_s = traced(lambda: prefill(rparams, rcfg, r_prompts),
+                                      want=dict.fromkeys(("rwkv_span_delta", "rwkv_span_scan", "rwkv_span_out"),
+                                                         rcfg.n_layers), before=reset_counts)
+    check(bool(torch.isfinite(r_logits).all()), "traced rwkv prefill logits not finite")
+    check(rwkv6_chunked.launches_by_route == {"tc": rcfg.n_layers, "tc_fp32": 0},
+          f"traced rwkv prefill routes {rwkv6_chunked.launches_by_route}")
+    dev_ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in dev_ops}
+    counts = {e.key: e.count for e in dev_ops}
+    total_us = sum(dev_us.values())
+    check(total_us > 0, "the profiler recorded no device time")
+    rwkv_us = {name: t for name, t in dev_us.items() if "rwkv_span" in name}
+    rwkv_total = sum(rwkv_us.values())
+    per_kernel = ", ".join(f"{re.sub(r'.*(rwkv_span_[a-z]+).*', r'\1', n)} {t / 1e3:.2f} ms"
+                           for n, t in rwkv_us.items())
+    print(f"  rwkv6-3b prefill 4 × 2048 traced: {traced_s * 1e3:.1f} ms wall, device busy {total_us / 1e3:.1f} ms "
+          f"({total_us / 1e3 / (traced_s * 1e3):.1%}); rwkv kernel {rwkv_total / 1e3:.2f} ms = "
+          f"{rwkv_total / total_us:.1%} of device time ({rcfg.n_layers} launches of 3 kernels: {per_kernel})")
+    for name, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {t / 1e3:9.3f} ms {t / total_us:6.1%} ×{counts[name]:<4d} {name[:110]}")
+    check(len(rwkv_us) == 3 and all(counts[n] == rcfg.n_layers for n in rwkv_us),
+          f"traced rwkv kernels {[(n, counts[n]) for n in rwkv_us]}; {trace_edges(prof)}")
+    del rparams, r_logits, prof
+    torch.cuda.empty_cache()
+    return 0
+
+
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(traced_prefills() if sys.argv[1:] == ["--traced-prefills"] else main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -128,6 +128,18 @@ class ArchConfig:
             total += 2 * d  # norms
         return total
 
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE counts top-k experts only)."""
+        if not self.is_moe:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        n_mats = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        inactive = 0
+        for fk in ffn_kinds(self):
+            if fk == "moe":
+                inactive += (self.n_experts - self.experts_per_token) * n_mats * d * f
+        return self.n_params() - inactive
+
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
     """Block kind per layer: the pattern is cycled (gemma3 5 swa : 1 attn)."""
@@ -150,17 +162,14 @@ def ffn_kinds(cfg: ArchConfig) -> list[str]:
 
 
 # ----------------------------------------------------------------------
-_PORTED = ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b"]
+_PORTED = ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b", "granite_moe_1b_a400m", "stablelm_12b", "qwen1p5_4b"]
 # architectures of the JAX package's zoo that the port does not run yet,
 # with the ROADMAP item that brings their blocks
 _NOT_PORTED = {
-    "granite_moe_1b_a400m": "ROADMAP Queue 1 item 15 (models/moe.py)",
-    "jamba_1p5_large_398b": "ROADMAP Queue 1 item 15 (models/mamba.py, models/moe.py)",
+    "jamba_1p5_large_398b": "ROADMAP Queue 1 item 15 (models/mamba.py)",
     "llava_next_mistral_7b": "ROADMAP Queue 1 item 15 (the other configs: vision frontend)",
-    "stablelm_12b": "ROADMAP Queue 1 item 15 (the other configs)",
     "musicgen_large": "ROADMAP Queue 1 item 15 (the other configs: audio frontend)",
-    "qwen1p5_4b": "ROADMAP Queue 1 item 15 (the other configs)",
-    "llama4_scout_17b_a16e": "ROADMAP Queue 1 item 15 (models/moe.py)",
+    "llama4_scout_17b_a16e": "ROADMAP Queue 1 item 15 (the other configs: vision frontend)",
 }
 _PAPER = ["paper_mlp", "paper_cnn", "paper_vgg16"]
 

@@ -29,6 +29,18 @@ CONFIG = ArchConfig(
 )
 
 
+def swa_variant(window: int = 8192) -> ArchConfig:
+    """Beyond-paper sliding-window override enabling long_500k decode."""
+    return dataclasses.replace(
+        CONFIG,
+        name="qwen2.5-3b-swa",
+        block_pattern=("swa",),
+        sliding_window=window,
+        max_seq_len=524288,
+        notes="demonstration variant: all layers sliding-window",
+    )
+
+
 def reduced() -> ArchConfig:
     return dataclasses.replace(
         CONFIG,

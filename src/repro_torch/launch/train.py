@@ -11,6 +11,7 @@ Examples:
     python -m repro_torch.launch.train --model vgg16 --topology kregular --rounds 20
     # a reduced zoo decoder: token windows through the executors (int8 gossip), or host-fed
     python -m repro_torch.launch.train --model transformer --nodes 8 --rounds 20 --compress int8
+    python -m repro_torch.launch.train --model moe --nodes 8 --rounds 20 --compress int8
     python -m repro_torch.launch.train --arch qwen2.5-3b --reduced --rounds 30
     # a run log and a profiler trace of the rounds
     python -m repro_torch.launch.train --model mlp --rounds 20 --telemetry build/run.jsonl --profile-trace build/trace
@@ -68,13 +69,14 @@ checkpoints the synchronous or elastic trajectory every N chunks
 the directory's LATEST; ``--ckpt-dir`` alone saves the final params after
 the run.
 Full-width VGG16 is reached through the API (``init_vgg16(width_mult=1.0)``).
-``--model transformer`` trains the reduced qwen2.5-3b on windowed synthetic
-token data (``--seq-len`` tokens a window) through the same executors and
-codecs; ``--arch ID --reduced`` trains a reduced zoo architecture on token
-streams through the host-fed ``train_loop`` (``--legacy-loop`` takes that
-loop for the paper models too).  ``--model moe|rwkv`` and the architectures
-whose blocks are not ported (MoE, mamba, frontends, RWKV training) stop
-with an error naming ROADMAP.md Queue 1 item 15.
+``--model transformer`` trains the reduced qwen2.5-3b and ``--model moe`` the
+reduced granite-moe-1b-a400m on windowed synthetic token data (``--seq-len``
+tokens a window) through the same executors and codecs; ``--arch ID
+--reduced`` trains a reduced zoo architecture on token streams through the
+host-fed ``train_loop`` (``--legacy-loop`` takes that loop for the paper
+models too).  ``--model rwkv`` and the architectures whose blocks are not
+ported (mamba, frontends, RWKV training) stop with an error naming
+ROADMAP.md Queue 1 item 15.
 ``--telemetry PATH`` writes a JSONL run log (``repro_torch.obs``): the
 manifest, one record a recorded round (or bin), the summary, and the
 gossip health of the operator the run mixed over; ``--profile-trace DIR``
@@ -144,7 +146,7 @@ TOKEN_MODELS = {"transformer": "qwen2.5-3b", "moe": "granite-moe-1b-a400m", "rwk
 MODELS = ["mlp", "cnn", "vgg16", *sorted(TOKEN_MODELS)]
 NOT_PORTED = "is not yet ported to the PyTorch launcher; see ROADMAP.md Queue 1"
 # the token models the port cannot train yet, and why
-UNPORTED_TOKEN_MODELS = {"moe": "models/moe.py", "rwkv": "RWKV training"}
+UNPORTED_TOKEN_MODELS = {"rwkv": "RWKV training"}
 
 
 def build_graph(kind: str, n: int, seed: int) -> T.Graph:

@@ -1,8 +1,9 @@
 """Decoder stack (counterpart of ``repro/models/transformer.py``): attention
-and RWKV-6 blocks.
+and RWKV-6 blocks, dense and MoE FFNs.
 
 The layer sequence is ``layer_kinds(cfg)`` (attn / swa / rwkv cycled from
-``cfg.block_pattern``); an attention block carries a dense FFN, an RWKV
+``cfg.block_pattern``); an attention block carries the FFN ``ffn_kinds(cfg)``
+names for its layer (dense, or the MoE FFN of ``models/moe.py``), an RWKV
 block its own channel-mix.  The parameter tree has the JAX package's
 layout, leaf for leaf:
 
@@ -14,8 +15,8 @@ layout, leaf for leaf:
 An attention block is ``norm1, attn, norm2, ffn``; an RWKV block is
 ``norm1, rwkv {tmix, cmix}, norm2`` (no ``ffn``).  The JAX package scans
 over the periods; here a Python loop walks them in the same order, reading
-each period's block as views.  Mamba blocks, MoE FFNs and modality
-frontends are not ported yet and raise.  With an ``(n,)`` per-node gain,
+each period's block as views.  Mamba blocks and modality frontends are
+not ported yet and raise.  With an ``(n,)`` per-node gain,
 ``init_params`` draws a node-stacked ensemble (every leaf with a leading
 node axis); the forward functions take one parameter set (index an
 ensemble's leaves at a node, or average it with
@@ -44,6 +45,7 @@ from repro_torch.flat import tree_leaves, tree_map
 from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
 from .common import dense_init, node_lead, norm_apply, norm_init
 from .mlp import ffn_forward, init_ffn
+from .moe import init_moe, moe_forward
 from .rwkv import init_rwkv, init_rwkv_cache, rwkv_channel_mix, rwkv_time_mix, rwkv_time_mix_step
 
 Tree = dict[str, Any]
@@ -62,18 +64,15 @@ __all__ = [
 
 _NOT_PORTED = {
     "mamba": "mamba blocks are not yet ported (ROADMAP Queue 1 item 15: models/mamba.py)",
-    "moe": "MoE FFNs are not yet ported (ROADMAP Queue 1 item 15: models/moe.py)",
 }
 
 
 def _check_cfg(cfg: ArchConfig) -> None:
-    for kind, fk in zip(layer_kinds(cfg), ffn_kinds(cfg)):
+    for kind in layer_kinds(cfg):
         if kind in _NOT_PORTED:
             raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
         if kind not in ("attn", "swa", "rwkv"):
             raise ValueError(f"unknown block kind {kind}")
-        if fk == "moe":
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['moe']}")
     if cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not yet ported (ROADMAP Queue 1 item 15: the other configs)"
@@ -97,14 +96,15 @@ def _split_layers(cfg: ArchConfig) -> tuple[int, int, int]:
 
 
 def _layers(cfg: ArchConfig):
-    """(period or None for the tail, position in unit or tail index, block kind) per layer, in order."""
-    kinds = layer_kinds(cfg)
+    """(period or None for the tail, position in unit or tail index, block
+    kind, FFN kind) per layer, in order."""
+    kinds, fkinds = layer_kinds(cfg), ffn_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
     for per in range(n_full):
         for j in range(u):
-            yield per, j, kinds[j]
+            yield per, j, kinds[j], fkinds[j]
     for j in range(tail):
-        yield None, j, kinds[n_full * u + j]
+        yield None, j, kinds[n_full * u + j], fkinds[n_full * u + j]
 
 
 def _window(cfg: ArchConfig, kind: str) -> int:
@@ -120,7 +120,7 @@ def _block_at(tree_stack: list, tree_tail: list, per, j):
 
 # ----------------------------------------------------------------- init
 def _init_block(
-    init_cfg: InitConfig, generator: torch.Generator, cfg: ArchConfig, kind: str, lead: tuple[int, ...]
+    init_cfg: InitConfig, generator: torch.Generator, cfg: ArchConfig, kind: str, fk: str, lead: tuple[int, ...]
 ) -> Tree:
     dt, dev = cfg.param_dtype, generator.device
     if kind == "rwkv":
@@ -133,7 +133,7 @@ def _init_block(
         "norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
         "attn": init_attention(init_cfg, generator, cfg, lead),
         "norm2": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
-        "ffn": init_ffn(init_cfg, generator, cfg, lead),
+        "ffn": (init_moe if fk == "moe" else init_ffn)(init_cfg, generator, cfg, lead),
     }
 
 
@@ -154,12 +154,15 @@ def init_params(
     elif generator.device.type != dev.type:
         raise ValueError(f"generator lies on {generator.device}, parameters go to {dev}")
     nodes = node_lead(init_cfg)
-    kinds = layer_kinds(cfg)
+    kinds, fkinds = layer_kinds(cfg), ffn_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
     dt = cfg.param_dtype
     params: Tree = {
-        "stack": [_init_block(init_cfg, generator, cfg, kinds[j], (*nodes, n_full)) for j in range(u)],
-        "tail": [_init_block(init_cfg, generator, cfg, kinds[n_full * u + j], nodes) for j in range(tail)],
+        "stack": [_init_block(init_cfg, generator, cfg, kinds[j], fkinds[j], (*nodes, n_full)) for j in range(u)],
+        "tail": [
+            _init_block(init_cfg, generator, cfg, kinds[n_full * u + j], fkinds[n_full * u + j], nodes)
+            for j in range(tail)
+        ],
         "embed": {"tok": dense_init(init_cfg, generator, (cfg.vocab_size, cfg.d_model), dt, lead=nodes)},
         "final_norm": norm_init(cfg.d_model, cfg.norm, dt, nodes, generator.device),
     }
@@ -169,8 +172,13 @@ def init_params(
 
 
 # ----------------------------------------------------------------- forward
-def _ffn_residual(p: Tree, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + ffn_forward(p["ffn"], cfg, norm_apply(p["norm2"], x, cfg.norm))
+def _ffn_residual(p: Tree, cfg: ArchConfig, fk: str, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x + ffn(ln2(x)), and the MoE aux loss (None for a dense FFN)."""
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    if fk == "moe":
+        y, aux = moe_forward(p["ffn"], cfg, h)
+        return x + y, aux
+    return x + ffn_forward(p["ffn"], cfg, h), None
 
 
 def _rwkv_block(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree | None = None) -> torch.Tensor:
@@ -207,11 +215,14 @@ def _embed(params: Tree, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["tok"]["w"][tokens.long()]
 
 
-def _block(p: Tree, cfg: ArchConfig, kind: str, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _block(
+    p: Tree, cfg: ArchConfig, kind: str, fk: str, x: torch.Tensor, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One residual block (training / prefill, no cache) → (x, the MoE aux or None)."""
     if kind == "rwkv":
-        return _rwkv_block(p, cfg, x)
+        return _rwkv_block(p, cfg, x), None
     h = norm_apply(p["norm1"], x, cfg.norm)
-    return _ffn_residual(p, cfg, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
+    return _ffn_residual(p, cfg, fk, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
 
 
 def forward(
@@ -222,7 +233,7 @@ def forward(
     remat: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass: tokens (..., S) → (final hidden states (..., S, D),
-    aux loss 0 — no MoE layer is ported).
+    the MoE aux loss summed over the layers, fp32; 0 without a MoE layer).
 
     The JAX package's keywords: ``frontend_embeds`` is read only by a config
     with a modality frontend, which ``_check_cfg`` refuses (not ported), so
@@ -234,23 +245,31 @@ def forward(
     _check_cfg(cfg)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
-    kinds = layer_kinds(cfg)
+    kinds, fkinds = layer_kinds(cfg), ffn_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def period(x: torch.Tensor, per: int) -> torch.Tensor:
+    def period(x: torch.Tensor, per: int) -> tuple[torch.Tensor, torch.Tensor]:
+        aux = zero
         for j in range(u):
-            x = _block(_block_at(params["stack"], params["tail"], per, j), cfg, kinds[j], x, positions)
-        return x
+            x, a = _block(_block_at(params["stack"], params["tail"], per, j), cfg, kinds[j], fkinds[j], x, positions)
+            aux = aux if a is None else aux + a
+        return x, aux
 
+    aux = zero
     for per in range(n_full):
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(period, x, per, use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(period, x, per, use_reentrant=False)
         else:
-            x = period(x, per)
+            x, a = period(x, per)
+        aux = aux + a
     for j in range(tail):
-        x = _block(_block_at(params["stack"], params["tail"], None, j), cfg, kinds[n_full * u + j], x, positions)
+        layer = n_full * u + j
+        x, a = _block(_block_at(params["stack"], params["tail"], None, j), cfg, kinds[layer], fkinds[layer], x,
+                      positions)
+        aux = aux if a is None else aux + a
     x = norm_apply(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def hidden_to_logits(params: Tree, cfg: ArchConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -282,7 +301,7 @@ def lm_loss(params: Tree, cfg: ArchConfig, hidden: torch.Tensor, targets: torch.
     return total / math.prod(targets.shape)
 
 
-AUX_WEIGHT = 0.01  # the MoE load-balance term's weight, as the JAX callers (0 aux here: no MoE layer)
+AUX_WEIGHT = 0.01  # the MoE load-balance term's weight, as the JAX callers
 
 
 def node_loss(cfg: ArchConfig):
@@ -339,7 +358,7 @@ def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len
     cache = init_cache(cfg, tuple(tokens.shape[:-1]), cache_len, device=tokens.device)
     x = _embed(params, tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
-    for per, j, kind in _layers(cfg):
+    for per, j, kind, fk in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
         if kind == "rwkv":
@@ -348,7 +367,7 @@ def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len
         y, _ = attention_prefill(
             p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, c, _window(cfg, kind)
         )
-        x = _ffn_residual(p, cfg, x + y)
+        x, _ = _ffn_residual(p, cfg, fk, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x[..., -1:, :])[..., 0, :], cache
 
@@ -361,7 +380,7 @@ def decode_step(
 
     Returns (logits (..., 1, V), the cache, updated in place)."""
     x = _embed(params, tokens)
-    for per, j, kind in _layers(cfg):
+    for per, j, kind, fk in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
         if kind == "rwkv":
@@ -370,6 +389,6 @@ def decode_step(
         y, _ = attention_decode(
             p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), c, int(pos), _window(cfg, kind)
         )
-        x = _ffn_residual(p, cfg, x + y)
+        x, _ = _ffn_residual(p, cfg, fk, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x), cache

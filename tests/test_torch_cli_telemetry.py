@@ -132,10 +132,10 @@ def test_transformer_and_arch_paths(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--model", "moe"], "item 15"),
+    (["--arch", "jamba-1.5-large-398b", "--reduced"], "item 15"),
     (["--model", "rwkv"], "item 15"),
     (["--arch", "rwkv6-3b", "--reduced"], "item 15"),
-    (["--arch", "granite-moe-1b-a400m", "--reduced"], "item 15"),
+    (["--arch", "llava-next-mistral-7b", "--reduced"], "item 15"),
     (["--model", "transformer", "--legacy-loop"], "--legacy-loop"),
     (["--async", "--legacy-loop"], "--async"),
 ])

@@ -1076,3 +1076,70 @@ def test_elastic_resume_on_the_card_is_bitwise(dev, tmp_path, codec):
     assert (f_ref.residual is None) == (codec is None)
     if codec is not None:
         assert torch.equal(f_res.residual, f_ref.residual)
+
+
+def test_moe_forward_on_the_card_matches_the_cpu(dev):
+    """The MoE FFN of the reduced granite-moe (fp32, capacity 0.5 so pairs
+    drop) on the card against the CPU: the same experts and dropped pairs,
+    y to 1e-5 of its largest element, the aux loss to 1e-6; two card runs
+    bitwise (no atomic add in the combine)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.flat import tree_map
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_reduced_config("granite-moe-1b-a400m"), capacity_factor=0.5)
+    p = M.init_moe(InitConfig("trunc_normal"), torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    y_cpu, aux_cpu = M.moe_forward(p, cfg, x)
+    p_dev = tree_map(lambda t: t.to(dev), p)
+    y_dev, aux_dev = M.moe_forward(p_dev, cfg, x.to(dev))
+    again, _ = M.moe_forward(p_dev, cfg, x.to(dev))
+    assert torch.equal(y_dev, again)
+    assert float((y_dev.cpu() - y_cpu).abs().max()) <= 1e-5 * float(y_cpu.abs().max())
+    assert abs(float(aux_dev) - float(aux_cpu)) <= 1e-6
+    xt = x.reshape(-1, cfg.d_model)
+    cap = M._capacity(cfg, xt.shape[0])
+    r_cpu = M.route(torch.softmax(xt @ p["router"]["w"], -1), cfg.experts_per_token, cap)
+    r_dev = M.route(torch.softmax(xt.to(dev) @ p_dev["router"]["w"], -1), cfg.experts_per_token, cap)
+    assert torch.equal(r_dev.idx.cpu(), r_cpu.idx) and torch.equal(r_dev.keep.cpu(), r_cpu.keep)
+    assert int((~r_cpu.keep).sum()) > 0
+
+
+def test_moe_decode_step_replays_as_a_cuda_graph(dev):
+    """One decode step of the reduced granite-moe in bf16, captured as a
+    CUDA graph (no host read in the routing) and replayed: the eager step's
+    logits bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(get_reduced_config("granite-moe-1b-a400m"), dtype="bfloat16")
+    params = TF.init_params(0, cfg, InitConfig("trunc_normal"), device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(2)).to(dev)
+    logits, cache = TF.prefill_cache(params, cfg, prompt, 32)
+    tok = logits.argmax(-1)[:, None].to(prompt.dtype)
+    snapshot = {k: [{n: t.clone() for n, t in c.items()} for c in v] for k, v in cache.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = TF.decode_step(params, cfg, cache, tok, 16)[0].clone()
+    torch.cuda.current_stream().wait_stream(side)
+    for k, v in snapshot.items():
+        for c, s in zip(cache[k], v):
+            for n in c:
+                c[n].copy_(s[n])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = TF.decode_step(params, cfg, cache, tok, 16)[0]
+    for k, v in snapshot.items():
+        for c, s in zip(cache[k], v):
+            for n in c:
+                c[n].copy_(s[n])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)

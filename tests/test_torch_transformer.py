@@ -34,7 +34,7 @@ from repro_torch.models import mlp as PMLP  # noqa: E402
 from repro_torch.models import transformer as PTF  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-ARCHS = ["qwen2p5_3b", "gemma3_4b"]
+ARCHS = ["qwen2p5_3b", "gemma3_4b", "granite_moe_1b_a400m", "stablelm_12b", "qwen1p5_4b"]
 
 
 def config_pair(arch: str, **changes):
@@ -44,12 +44,27 @@ def config_pair(arch: str, **changes):
     return j, p
 
 
+def swa_changes(window: int) -> dict:
+    """The fields ``qwen2p5_3b.swa_variant(window)`` changes, from the JAX package's."""
+    from repro.configs import qwen2p5_3b as JQ
+
+    full, swa = dataclasses.asdict(JQ.CONFIG), dataclasses.asdict(JQ.swa_variant(window))
+    return {f: v for f, v in swa.items() if v != full[f] and f != "max_seq_len"}
+
+
 # reduced qwen; reduced gemma at S > window; a gemma variant whose 7 layers
-# make 3 periods (the JAX package scans) and one tail layer
+# make 3 periods (the JAX package scans) and one tail layer; reduced
+# granite-moe (a MoE FFN at every layer: E 4, top 2), stablelm-12b
+# (layernorm, hd 40), qwen1.5-4b (qkv bias, MHA, hd 30); the swa variant of
+# qwen2.5-3b on the reduced width with a window of 16 < S
 CONFIGS = {
     "qwen": ("qwen2p5_3b", {}),
     "gemma": ("gemma3_4b", {}),
     "gemma_tail": ("gemma3_4b", {"n_layers": 7}),
+    "granite": ("granite_moe_1b_a400m", {}),
+    "stablelm": ("stablelm_12b", {}),
+    "qwen15": ("qwen1p5_4b", {}),
+    "qwen_swa": ("qwen2p5_3b", swa_changes(16)),
 }
 PROMPT_LEN, CACHE_LEN, N_DECODE = 40, 64, 4
 
@@ -70,7 +85,7 @@ def numpy_params(jcfg, seed: int = 0, n_nodes: int | None = None, gain: float = 
         name, shape = path[-1].key, lead + s.shape
         if name == "scale":
             return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-        if name == "b":
+        if name in ("b", "bias"):  # a dense bias, a layernorm's
             return (0.1 * rng.standard_normal(shape)).astype(np.float32)
         return (rng.standard_normal(shape) * gain / math.sqrt(s.shape[-2])).astype(np.float32)
 
@@ -91,6 +106,7 @@ def test_configs_match_jax(arch):
         j, p = getattr(jbase, getter)(arch), getattr(pbase, getter)(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(p)
         assert p.n_params() == j.n_params()
+        assert p.n_active_params() == j.n_active_params()
         assert pbase.layer_kinds(p) == jbase.layer_kinds(j)
         assert pbase.ffn_kinds(p) == jbase.ffn_kinds(j)
         assert PTF.unit_size(p) == JTF.unit_size(j)
@@ -103,23 +119,42 @@ def test_full_width_parameter_counts():
     assert pbase.get_config("qwen2.5-3b").n_params() == 3_085_936_640
     assert pbase.get_config("gemma3-4b").n_params() == 3_879_905_280
     assert PTF._split_layers(pbase.get_config("gemma3-4b")) == (6, 5, 4)
+    granite = pbase.get_config("granite-moe-1b-a400m")
+    assert (granite.n_params(), granite.n_active_params()) == (1_334_627_328, 428_657_664)
+    assert pbase.get_config("stablelm-12b").n_params() == 12_142_919_680
+    assert pbase.get_config("qwen1.5-4b").n_params() == 3_950_366_720
+
+
+def test_swa_variant_matches_jax():
+    from repro.configs import qwen2p5_3b as JQ
+    from repro_torch.configs import qwen2p5_3b as PQ
+
+    for window in (8192, 16):
+        j, p = JQ.swa_variant(window), PQ.swa_variant(window)
+        assert dataclasses.asdict(j) == dataclasses.asdict(p)
+        assert pbase.layer_kinds(p) == ["swa"] * p.n_layers and p.sliding_window == window
+        assert PTF._split_layers(p) == JTF._split_layers(j)
+    assert PQ.swa_variant().sliding_window == 8192
 
 
 def test_registry_names_what_is_not_ported():
-    assert pbase.list_archs() == ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b"]
+    assert pbase.list_archs() == [
+        "qwen2p5_3b", "gemma3_4b", "rwkv6_3b", "granite_moe_1b_a400m", "stablelm_12b", "qwen1p5_4b",
+    ]
     assert pbase.get_config("rwkv6-3b").block_pattern == ("rwkv",)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pbase.get_config("qwen1.5-4b")
+        pbase.get_config("jamba-1.5-large-398b")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        pbase.get_config("granite-moe-1b-a400m")
+        pbase.get_config("llava-next-mistral-7b")
     with pytest.raises(ValueError, match="unknown"):
         pbase.get_config("gpt-9")
     mamba = dataclasses.replace(pbase.get_reduced_config("qwen2.5-3b"), block_pattern=("mamba",))
     with pytest.raises(NotImplementedError, match="mamba"):
         PTF.init_params(0, mamba, InitConfig(), device="cpu")
-    moe = dataclasses.replace(pbase.get_reduced_config("qwen2.5-3b"), n_experts=4, experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        PTF.init_params(0, moe, InitConfig(), device="cpu")
+    vision = dataclasses.replace(pbase.get_reduced_config("qwen2.5-3b"), frontend="vision", n_frontend_tokens=8,
+                                 frontend_embed_dim=32)
+    with pytest.raises(NotImplementedError, match="frontend"):
+        PTF.init_params(0, vision, InitConfig(), device="cpu")
 
 
 # ------------------------------------------------------------------ blocks
@@ -165,9 +200,9 @@ def case(request):
     params = numpy_params(jcfg, seed=len(request.param))
     prompt = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, PROMPT_LEN)).astype(np.int32)
     pj = jax.tree_util.tree_map(jnp.asarray, params)
-    hidden, _ = jax.jit(JTF.forward, static_argnums=1)(pj, jcfg, jnp.asarray(prompt))
+    hidden, aux = jax.jit(JTF.forward, static_argnums=1)(pj, jcfg, jnp.asarray(prompt))
     logits0, cache = jax.jit(JTF.prefill_cache, static_argnums=(1, 3))(pj, jcfg, jnp.asarray(prompt), CACHE_LEN)
-    want = {"hidden": np.asarray(hidden), "prefill_logits": np.asarray(logits0),
+    want = {"hidden": np.asarray(hidden), "aux": float(aux), "prefill_logits": np.asarray(logits0),
             "prefill_cache": jax.tree_util.tree_map(np.asarray, cache), "steps": []}
     step = jax.jit(JTF.decode_step, static_argnums=1)
     tok = np.asarray(logits0).argmax(-1).astype(np.int32)[:, None]
@@ -185,7 +220,9 @@ def test_parameter_tree_layout_matches_jax(case):
     assert jax.tree_util.tree_structure(mine) == jax.tree_util.tree_structure(params)
     assert shapes(mine) == shapes(params)
     n = sum(a.size for a in jax.tree_util.tree_leaves(mine))
-    assert n == pcfg.n_params() + pcfg.d_model  # n_params leaves out the final norm
+    # n_params leaves out the final norm and counts a norm's scale only (no layernorm bias)
+    n_norms = 2 * pcfg.n_layers + 1
+    assert n == pcfg.n_params() + pcfg.d_model + (n_norms * pcfg.d_model if pcfg.norm == "layernorm" else 0)
 
 
 def test_forward_prefill_and_decode_match_jax(case):
@@ -194,7 +231,9 @@ def test_forward_prefill_and_decode_match_jax(case):
     toks = torch.as_tensor(prompt)
     hidden, aux = PTF.forward(p, pcfg, toks)
     np.testing.assert_allclose(hidden.numpy(), want["hidden"], **TOL)
-    assert float(aux) == 0.0
+    # the MoE aux summed over the layers (0 without a MoE FFN, in both packages)
+    np.testing.assert_allclose(float(aux), want["aux"], **TOL)
+    assert (want["aux"] > 0) == pcfg.is_moe
     logits0, cache = PTF.prefill_cache(p, pcfg, toks, CACHE_LEN)
     np.testing.assert_allclose(logits0.numpy(), want["prefill_logits"], **TOL)
     _assert_tree_close(params_to_numpy(cache), want["prefill_cache"], **TOL)
