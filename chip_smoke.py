@@ -86,7 +86,13 @@ run with a non-zero exit:
    1 × 16,384 at window 8192, its plain version one head at a time) and
    their reduced fp32 prefills (2 × 40), timed at the new bf16 prefills;
    the dense mix and the int8 dense round at ``--model moe``'s n = 8 over
-   the reduced granite-moe's row;
+   the reduced granite-moe's row; flash at phase 7d's prefills (jamba 2 ×
+   2048 GQA 64 / 8, llava 2 × 4096, musicgen 4 × 2048 MHA hd 64,
+   llama4-scout 2 × 2048 GQA 40 / 8, a group of 5), timed, and at their
+   reduced fp32 prefills (2 × 40, or 48 with the frontend embeddings);
+   phase 4l's shapes: the dense mix at n = 8 over the reduced rwkv6-3b's,
+   jamba's and llava's rows, rwkv at the ``--model rwkv`` eval (64 × 64,
+   fp32), each timed;
 4. quickstart — the ported example, ``repro_torch/examples/quickstart.py``
    (``run_sweep``): He init plateaus at ln 10, the gain-corrected init
    descends, 80 dense kernel launches;
@@ -164,7 +170,8 @@ run with a non-zero exit:
    kernel launches, µs an event and a query as a caller pays; on the card
    ring-16 at link_p 0.8: qps 0 bitwise ``run_event_trajectory``, qps 5
    bitwise qps 0's training; ring-6 card vs CPU (routing arrays and
-   answers equal, losses to rtol 1e-4); fig13 quick with its acceptance
+   answers equal, losses to rtol 1e-4); fig13 quick (its ring family
+   alone, 6 of 12 records, for the script's time) with its acceptance
    assertion (``build/fig13_serve.json``); the consensus example (30 AdamW
    DecAvg rounds of the reduced qwen2.5-3b on kreg4-8, then consensus and
    routed serving: one ``mix_matmul`` launch a round at n = 8, one fp32
@@ -217,6 +224,14 @@ run with a non-zero exit:
    losses and acceptance row printed, every kernels_bench error within
    phase 3's tolerance for its kernel; ``kernels_bench.run_mixing`` at its
    defaults, its rows printed;
+4l. RWKV training, mamba and frontend configs — ``--model rwkv`` (the
+   reduced rwkv6-3b through the executor, n = 8, 3 rounds: recorded
+   forwards through the plain chunked time-mix, each eval's time-mix through
+   the rwkv kernel) and ``--arch jamba-1.5-large-398b / rwkv6-3b /
+   llava-next-mistral-7b --reduced`` (host-fed): exact launch counts (no
+   kernel under grad, one DecAvg launch a round, 48 eval rwkv launches),
+   every mix and rwkv shape among phase 3's, losses card vs CPU from one CPU
+   init to rtol 1e-4;
 5. card vs CPU — complete-8 from one numpy init, 3 rounds on each device,
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
@@ -252,13 +267,29 @@ run with a non-zero exit:
    decode steps) and the swa variant of qwen2.5-3b (one 1 × 16,384
    prefill); exact flash launch counts, every key among phase 3's, all on
    the wgmma route;
+7d. serve, full width: mamba and the frontends — one model at a time in
+   bf16, each freed before the next with its peak memory printed:
+   jamba-1.5-large-398b cut to 5 layers (4 mamba blocks, 2 with the MoE
+   FFN, and the attention block; one parameter set: a cached prefill and a
+   forward prefill of 2 × 2048 that agree, 8 decode steps, one replayed as
+   a CUDA graph bitwise the eager step, the mamba scans timed in a third
+   prefill, peak ≤ 75 GiB), llava-next-mistral-7b (a 2-node ensemble's
+   consensus: 2 × (2880 seeded patch embeddings + 1216 tokens), both
+   prefills, 8 decode steps), musicgen-large (a 4-node ring ensemble's
+   consensus: 4 × (256 conditioning embeddings + 1792 tokens), both
+   prefills, 8 decode steps and one replayed as a CUDA graph) and
+   llama4-scout-17b-a16e cut to 8 layers (2 × 2048 text tokens, both
+   prefills, 8 decode steps); exact flash launch counts (1, 32, 48 and 8 a
+   prefill), every key among phase 3's, all on the wgmma route;
 8. serve, card vs CPU — reduced qwen2.5-3b, gemma3-4b, rwkv6-3b,
-   granite-moe-1b-a400m, stablelm-12b and qwen1.5-4b in fp32 from one
-   init: equal greedy tokens, prefill logits to rtol 1e-4 (the attention
-   on the flash kernel's wgmma_tf32x3 route, the time-mix on the rwkv
-   kernel's tc_fp32 route, each prompt of 40 in one launch); granite's
-   routing choices that differ card vs CPU counted, each with its top-k
-   margin.
+   granite-moe-1b-a400m, stablelm-12b, qwen1.5-4b, jamba-1.5-large-398b,
+   llava-next-mistral-7b and musicgen-large (8 frontend embeddings before
+   the prompt, in the prefill and a greedy decode from its cache) and
+   llama4-scout-17b-a16e in fp32 from one init: equal greedy tokens,
+   prefill logits to rtol 1e-4 (the attention on the flash kernel's
+   wgmma_tf32x3 route, the time-mix on the rwkv kernel's tc_fp32 route,
+   each prompt of 40 in one launch); the MoE configs' routing choices that
+   differ card vs CPU counted, each with its top-k margin.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -268,7 +299,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -296,6 +329,13 @@ TILE_WALK_MS = {("mix_bsr", "ring-1024"): 4.7063, ("mix_bsr", "kreg4-1024"): 42.
 # in different orders, may round to neighbouring bf16 values) plus the fp32
 # atol.  A kernel that accumulated in bf16 would be off by several ulps.
 BF16_RTOL = 2.0**-7
+# phase 7d: the depth cuts of the two configs too large for one card at
+# full width (jamba at 5 layers keeps every kind of layer: 4 mamba blocks,
+# the MoE FFN at layers 1 and 3, the attention block at 4), and its prompts
+JAMBA_LAYERS, LLAMA4_LAYERS = 5, 8
+LLAVA_PATCHES, LLAVA_TEXT = 2880, 1216  # anyres: 576 base + 4 × 576 tiles, then text
+MUSICGEN_COND, MUSICGEN_TEXT = 256, 1792  # T5 conditioning embeddings, then EnCodec tokens
+NEW_ARCHS = ("jamba-1.5-large-398b", "llava-next-mistral-7b", "musicgen-large", "llama4-scout-17b-a16e")
 # idle trace before and after a profiled call (see ``traced``)
 TRACE_MARGIN_S = 0.1
 # traces of one call before ``traced`` gives up on a complete one
@@ -720,6 +760,10 @@ def main() -> int:
     qcfg, gcfg = get_config("qwen2.5-3b"), get_config("gemma3-4b")
     mcfg, q15cfg, scfg = get_config("granite-moe-1b-a400m"), get_config("qwen1.5-4b"), get_config("stablelm-12b")
     swacfg = swa_variant(8192)
+    # phase 7d's configs at full width, jamba and llama4-scout cut in depth
+    jcfg = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_layers=JAMBA_LAYERS)
+    lcfg, mgcfg = get_config("llava-next-mistral-7b"), get_config("musicgen-large")
+    l4cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"), n_layers=LLAMA4_LAYERS)
 
     def attn_inputs(b, h, kvh, s_len, hd, dtype, layout="bhsd"):
         if layout == "bshd":
@@ -785,13 +829,27 @@ def main() -> int:
         serve_case("stablelm prefill", scfg, 4, 2048, 0),
         serve_case("swa prefill", swacfg, 1, 16384, swacfg.sliding_window),
     ] + [serve_case("phase 8", get_reduced_config(a), 2, 40, 0, torch.float32)
-         for a in ("granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b")]
+         for a in ("granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b")] + [
+        # phase 7d's prefills: jamba (5 layers; its attention layer, GQA
+        # 64 / 8), llava (2 × (2880 patch embeddings + 1216 tokens)),
+        # musicgen (MHA 32 / 32, hd 64; 4 × (256 conditioning embeddings +
+        # 1792 tokens)), llama4-scout (GQA 40 / 8: a group of 5); phase 8's
+        # reduced prefills of the four (2 × 40, with 8 frontend embeddings
+        # for llava and musicgen)
+        serve_case("jamba prefill", jcfg, 2, 2048, 0),
+        serve_case("llava prefill", lcfg, 2, LLAVA_PATCHES + LLAVA_TEXT, 0),
+        serve_case("musicgen prefill", mgcfg, 4, MUSICGEN_COND + MUSICGEN_TEXT, 0),
+        serve_case("llama4 prefill", l4cfg, 2, 2048, 0),
+    ] + [serve_case("phase 8", get_reduced_config(a), 2, 40 + get_reduced_config(a).n_frontend_tokens, 0,
+                    torch.float32) for a in NEW_ARCHS]
     # errors by route: the bf16 route's row is flash_mha, the fp32 route's
     # flash_mha_fp32; a head dim run zero-padded has a row of its own, and so
     # have the new configs' serve shapes
     row_of = {"wgmma": "flash_mha", "wgmma_tf32x3": "flash_mha_fp32"}
     row_of_label = {"granite prefill": "flash_mha_granite", "granite serve": "flash_mha_granite",
-                    "qwen1.5 prefill": "flash_mha_qwen15", "swa prefill": "flash_mha_swa"}
+                    "qwen1.5 prefill": "flash_mha_qwen15", "swa prefill": "flash_mha_swa",
+                    "jamba prefill": "flash_mha_jamba", "llava prefill": "flash_mha_llava",
+                    "musicgen prefill": "flash_mha_musicgen", "llama4 prefill": "flash_mha_llama4"}
     errs.update(dict.fromkeys(row_of.values(), 0.0))
     flash_checked = set()
 
@@ -874,7 +932,12 @@ def main() -> int:
         check(bitwise, f"{label}: two launches differ")
         return want, errs_r[0]
 
+    rwkv_red = get_reduced_config("rwkv6-3b")
     rwkv_cases = [
+        # phase 4l's --model rwkv: each recorded round's eval, the held-out
+        # batch of 64 windows of 64 tokens through the reduced rwkv6-3b (fp32)
+        ("rwkv CLI eval", (64, 64, rwkv_red.d_model // rwkv_red.rwkv_head_dim, rwkv_red.rwkv_head_dim,
+                           torch.float32, False)),
         ("rwkv prefill", (4, 2048, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv serve", (1, 512, r_heads, r_hd, torch.bfloat16, False)),
         ("rwkv long prompt", (1, 16384, r_heads, r_hd, torch.bfloat16, False)),
@@ -983,6 +1046,28 @@ def main() -> int:
         dense_route=dense_route(8, D_MOE, torch.float32),
     )
     del m8, w8
+    # phase 4l's rounds: n = 8 over the flat rows of the reduced rwkv6-3b
+    # (--model rwkv and --arch rwkv6-3b), jamba and llava (--arch), each d
+    # from the layout of a CPU init; the row's times at rwkv6-3b's
+    D_ZOO = {a: FlatLayout.of(TF.init_params(0, get_reduced_config(a), InitConfig("trunc_normal", torch.ones(8)),
+                                             device="cpu")).size
+             for a in ("rwkv6-3b", "jamba-1.5-large-398b", "llava-next-mistral-7b")}
+    errs["mix_matmul_zoo"] = 0.0
+    for a, d_a in D_ZOO.items():
+        m8 = row_stochastic(8)
+        w8 = torch.randn(8, d_a, generator=gen, device=dev)
+        errs["mix_matmul_zoo"] = max(errs["mix_matmul_zoo"], compare(
+            f"mix_matmul fp32 n=8 d={d_a} (reduced {a})", lambda: mix_matmul(m8, w8), decavg_mix_ref(m8, w8), w8))
+        if a == "rwkv6-3b":
+            b_z, op_z = bound(4 * 8 * 8 + 2 * 4 * 8 * d_a, 2 * 8 * 8 * d_a)
+            timing["mix_matmul_zoo"] = dict(
+                ms=time_ms(lambda: mix_matmul(m8, w8), flush=flush),
+                plain_ms=time_ms(lambda: decavg_mix_ref(m8, w8), flush=flush),
+                library_ms=time_ms(lambda: torch.matmul(m8, w8), flush=flush),
+                bound_ms=b_z, bound_by=op_z, shape=f"n=8 d={d_a} fp32 (reduced rwkv6-3b)",
+                dense_route=dense_route(8, d_a, torch.float32),
+            )
+    del m8, w8
     # the widths of phase 4i's fig11 quick: the paper MLP at hidden (64, 32)
     # on kreg8-32, (128, 64) on kreg8-64 (its checkpoint-overhead record) and
     # (32,) on kreg8-16 (its resume-parity record); the masked operators of
@@ -1059,6 +1144,11 @@ def main() -> int:
         ("granite prefill", mcfg, 4, 2048, 0, torch.bfloat16), ("qwen1.5 prefill", q15cfg, 4, 2048, 0, torch.bfloat16),
         ("swa prefill", swacfg, 1, 16384, swacfg.sliding_window, torch.bfloat16),
         ("reduced stablelm-12b hd40 fp32", get_reduced_config("stablelm-12b"), 2, 40, 0, torch.float32),
+        # phase 7d's prefills (frontend embeddings and text in one sequence)
+        ("jamba prefill", jcfg, 2, 2048, 0, torch.bfloat16),
+        ("llava prefill", lcfg, 2, LLAVA_PATCHES + LLAVA_TEXT, 0, torch.bfloat16),
+        ("musicgen prefill", mgcfg, 4, MUSICGEN_COND + MUSICGEN_TEXT, 0, torch.bfloat16),
+        ("llama4 prefill", l4cfg, 2, 2048, 0, torch.bfloat16),
     ):
         flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, dtype)
         if label == "qwen prefill":
@@ -1081,6 +1171,8 @@ def main() -> int:
     timing["flash_mha_granite"] = flash_shapes["granite prefill"]
     timing["flash_mha_qwen15"] = flash_shapes["qwen1.5 prefill"]
     timing["flash_mha_swa"] = flash_shapes["swa prefill"]
+    for name in ("jamba", "llava", "musicgen", "llama4"):
+        timing[f"flash_mha_{name}"] = flash_shapes[f"{name} prefill"]
     # an empty kernel, queued behind the held stream like the held timings:
     # the least time any launch takes, the floor of the launch-bound rows
     empty_ms = time_ms(lambda: torch.cuda._sleep(0), reps=21, hold=True)
@@ -1109,6 +1201,7 @@ def main() -> int:
         ("prefill", 4, 2048, r_heads, r_hd, torch.bfloat16), ("serve", 1, 512, r_heads, r_hd, torch.bfloat16),
         ("long prompt", 1, 16384, r_heads, r_hd, torch.bfloat16),
         ("phase 8 fp32", 2, 40, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32),
+        ("CLI eval fp32", 64, 64, red.d_model // red.rwkv_head_dim, red.rwkv_head_dim, torch.float32),
         ("prefill fp32", 4, 2048, r_heads, r_hd, torch.float32),
         ("M 128 bf16", 4, 2048, rcfg.d_model // 128, 128, torch.bfloat16),
         ("M 128 fp32", 4, 2048, rcfg.d_model // 128, 128, torch.float32),
@@ -1142,12 +1235,15 @@ def main() -> int:
             fp32_ops_ms=r_flops / PEAK_FP32_FLOPS * 1e3, library_ms=None,  # no one PyTorch call computes this recurrence
             shape=f"B{b} L{l_len} H{h} M{m} {'bf16' if size == 2 else 'fp32'} r/k/v, fp32 w, zero state",
         )
-        if label in ("prefill", "phase 8 fp32"):
+        if label in ("prefill", "phase 8 fp32", "CLI eval fp32"):
             rwkv_shapes[label]["plain_ms"] = time_ms(lambda: rwkv6_chunked_ref(*r_args), reps=3, flush=flush)
         del r_args
     timing["rwkv6_chunked"] = rwkv_shapes["prefill"]
     # the fp32 route's row: phase 8's launches
     timing["rwkv6_chunked_fma"] = rwkv_shapes["phase 8 fp32"]
+    # phase 4l's --model rwkv evals (fp32, the tc_fp32 route)
+    timing["rwkv6_chunked_eval"] = rwkv_shapes["CLI eval fp32"]
+    errs["rwkv6_chunked_eval"] = errs["rwkv6_chunked_fma"]
 
     # (after the flash and mix timings: after a torch.profiler session later
     # launches can take more host time, which an unheld timing would count)
@@ -2967,14 +3063,20 @@ def main() -> int:
 
     # (d) fig 13 quick through the port's fig13_serve (build/fig13_serve.json),
     # its acceptance assertion (consensus beats uniform on served staleness
-    # at ≤ 1.05× p50 latency on some family) inside run()
+    # at ≤ 1.05× p50 latency on some family) inside run(); its ring family
+    # alone (6 of its 12 records): the script's time limit
     fig_common.ROWS.clear()
-    (f13, wall_f13, launches_f13) = counted(lambda: fig13_serve.run(quick=True, device=dev))
-    print(f"  fig13 quick: {len(f13['records'])} records in {wall_f13:.1f} s, consensus wins on "
+    families_f13 = fig13_serve.FAMILIES
+    fig13_serve.FAMILIES = {"ring": families_f13["ring"]}
+    try:
+        (f13, wall_f13, launches_f13) = counted(lambda: fig13_serve.run(quick=True, device=dev))
+    finally:
+        fig13_serve.FAMILIES = families_f13
+    print(f"  fig13 quick, ring family: {len(f13['records'])} records in {wall_f13:.1f} s, consensus wins on "
           f"{f13['consensus_wins']}, written to build/fig13_serve.json")
     for rec in f13["records"]:
         print(f"    {json.dumps(rec)}")
-    check(len(f13["records"]) == 12 and launches_f13 == none_launched
+    check(len(f13["records"]) == 6 and launches_f13 == none_launched
           and all(math.isfinite(x) for rec in f13["records"] for x in rec.values() if isinstance(x, float)),
           f"fig13 quick: records missing or not finite, or launches {launches_f13}")
 
@@ -3819,6 +3921,81 @@ if __name__ == "__main__":
     print(f"  phase 4k: {time.perf_counter() - t_4k:.1f} s")
     torch.cuda.empty_cache()
 
+    # ------------------------------- 4l. RWKV training, mamba and frontend configs
+    phase("4l. --model rwkv and --arch jamba-1.5-large-398b / rwkv6-3b / llava-next-mistral-7b --reduced on the card")
+    t_4l = time.perf_counter()
+    # (a) each run on the card, counted: the recorded forwards reach no
+    # kernel (a recorded call would raise in the wrapper, and the counts
+    # show none), one DecAvg launch a round at a width phase 3 checked, and
+    # --model rwkv's evals through the rwkv kernel, a layer a node an eval,
+    # at a key phase 3 checked
+    rwkv_4l, mix_4l = set(), set()
+    real_rwkv_4l, real_mm_4l = rwkv_ops.rwkv6_chunked, mix_ops.mix_matmul
+
+    def recording_rwkv_4l(r, k, v, w, u, state=None):
+        rwkv_4l.add(rwkv_key(r, state))
+        return real_rwkv_4l(r, k, v, w, u, state)
+
+    def recording_mm_4l(m, w):
+        mix_4l.add(tuple(w.shape))
+        return real_mm_4l(m, w)
+
+    runs_4l = {
+        "--model rwkv": ["--model", "rwkv", "--items-per-node", "64"],
+        "--arch jamba": ["--arch", "jamba-1.5-large-398b", "--reduced"],
+        "--arch rwkv6-3b": ["--arch", "rwkv6-3b", "--reduced"],
+        "--arch llava": ["--arch", "llava-next-mistral-7b", "--reduced"],
+    }
+    common_4l = ["--nodes", "8", "--rounds", "3", "--local-batches", "1"]
+    zoo_launches = dict(none_launched)
+    rwkv_eval_launches = 0
+    rwkv_ops.rwkv6_chunked, mix_ops.mix_matmul = recording_rwkv_4l, recording_mm_4l
+    try:
+        for label, argv in runs_4l.items():
+            hist_l, wall_l, launches_l = counted(lambda: cli.main([*argv, *common_4l]))
+            n_eval = len(hist_l["test_loss"])
+            want_l = {**none_launched, "mix_matmul": 3,
+                      "rwkv6_chunked": n_eval * 8 * get_reduced_config("rwkv6-3b").n_layers if "--model" in argv else 0}
+            print(f"  {label}: {wall_l:.1f} s; launches { {k: v for k, v in launches_l.items() if v} }; train "
+                  f"{[round(x, 4) for x in hist_l['train_loss']]} test {[round(x, 4) for x in hist_l['test_loss']]}")
+            check(launches_l == want_l, f"4l {label}: launches {launches_l}, want {want_l}")
+            check(all(math.isfinite(x) for x in hist_l["train_loss"] + hist_l["test_loss"]), f"4l {label}: loss")
+            check(("--model" in argv) == (n_eval == 3), f"4l {label}: {n_eval} evals")
+            zoo_launches = {k: zoo_launches[k] + launches_l[k] for k in zoo_launches}
+            rwkv_eval_launches += launches_l["rwkv6_chunked"]
+    finally:
+        rwkv_ops.rwkv6_chunked, mix_ops.mix_matmul = real_rwkv_4l, real_mm_4l
+    print(f"  mix shapes {sorted(mix_4l)}, rwkv shapes {sorted(rwkv_4l, key=str)}")
+    check(mix_4l == {(8, d) for d in D_ZOO.values()}, f"4l mixed at {sorted(mix_4l)}, phase 3 checked "
+          f"{sorted((8, d) for d in D_ZOO.values())}")
+    check(bool(rwkv_4l) and rwkv_4l <= rwkv_checked,
+          f"4l launched rwkv at {sorted(rwkv_4l - rwkv_checked, key=str)}, not checked in phase 3")
+    # (b) card against CPU, both from one init drawn on the CPU and moved
+    # (the CLI draws on the run's device): the train and test losses to
+    # rtol 1e-4 (the card's fp32 sums in other orders, its fp32 rwkv evals
+    # on the TF32-split route)
+    real_init_4l = cli.init_fl_state
+
+    def cpu_init_4l(seed, n, init_one, opt, gains=None, device=None):
+        s_cpu = real_init_4l(seed, n, init_one, opt, gains=gains, device="cpu")
+        return DFLState(params=s_cpu.params.to(device), opt_state=type(s_cpu.opt_state)(
+            *(f.to(device) for f in s_cpu.opt_state)), layout=s_cpu.layout, round=0, generator=s_cpu.generator)
+
+    cli.init_fl_state = cpu_init_4l
+    try:
+        for label, argv in runs_4l.items():
+            h_c = cli.main([*argv, *common_4l, "--device", "cpu"])
+            h_g = cli.main([*argv, *common_4l, "--device", "cuda"])
+            rel = max((abs(a - b) / abs(b) for key in ("train_loss", "test_loss") for a, b in zip(h_g[key], h_c[key])),
+                      default=0.0)
+            print(f"  {label} card vs CPU (one CPU init, 3 rounds): largest relative loss difference {rel:.2e}")
+            check(all(np.allclose(h_g[key], h_c[key], rtol=1e-4, atol=1e-5) for key in ("train_loss", "test_loss"))
+                  and len(h_g["train_loss"]) == 3, f"4l {label} card vs CPU: losses {rel:.2e}")
+    finally:
+        cli.init_fl_state = real_init_4l
+    print(f"  phase 4l: {time.perf_counter() - t_4l:.1f} s")
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 5. card vs CPU
     phase("5. card vs CPU (complete-8, numpy init, 3 rounds)")
     n8, per8, r8, b8 = 8, 64, 3, 2
@@ -4244,7 +4421,12 @@ if __name__ == "__main__":
     new_serve = {}
 
     def serve_start(name):
+        # collect the earlier phases' reference cycles first (a CUDA graph
+        # and its outputs among them): when the collector last ran is not
+        # this model's peak (two runs of this script on an NVIDIA H100 80GB
+        # HBM3 at 700 W read 7c's peaks 8.7 GiB apart, phase 7 the same)
         reset_counts()
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         new_serve[name] = {"t0": time.perf_counter()}
@@ -4399,9 +4581,180 @@ if __name__ == "__main__":
     print(f"  flash launch shapes: {len(flash_launched)} distinct in phase 7c, each held against the plain version "
           "in phase 3")
 
+    # ------------------------- 7d. serve, full width: mamba and the frontends
+    # jamba-1.5-large-398b cut to 5 layers (every kind of layer it has),
+    # llava-next-mistral-7b (seeded random patch embeddings before the
+    # text), musicgen-large (conditioning embeddings before the tokens) and
+    # llama4-scout-17b-a16e cut to 8 layers, one model at a time in bf16,
+    # each freed before the next: a cached prefill and a forward prefill on
+    # the same inputs that agree, 8 greedy decode steps from the cache,
+    # peak memory; one flash launch a prefill attention layer, every key
+    # among phase 3's, all on wgmma, no other listed kernel (the mamba scan
+    # and the frontend projector are plain torch, as the JAX package's are
+    # XLA).  jamba and musicgen also replay a decode step as a CUDA graph
+    # (bitwise the eager step), and jamba's mamba scans are timed on their
+    # own in a third prefill (host clock after a sync around each scan).
+    phase(f"7d. serve, full width: jamba-1.5-large-398b ({JAMBA_LAYERS} layers), llava-next-mistral-7b 2-node "
+          f"ensemble, musicgen-large 4-node ring ensemble, llama4-scout-17b-a16e ({LLAMA4_LAYERS} layers) (bf16)")
+    t_7d = time.perf_counter()
+    from repro_torch.models import mamba as mamba_mod
+
+    flash_launched.clear()
+    flash_ops.flash_mha = recording_flash_mha
+
+    def graph_step(params, cfg, cache, tok, pos):
+        """One decode step eager, then captured as a CUDA graph and replayed
+        from the same cache (restored before each): (ms a replay, whether
+        the replay's logits and cache are the eager step's bit for bit).
+        The timing replays advance the cache, which is not read after."""
+        cache_leaves = leaves(cache)
+        snapshot = [t.clone() for t in cache_leaves]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = decode_one(params, cfg, cache, tok, pos)[0].clone()
+        torch.cuda.current_stream().wait_stream(side)
+        eager_cache = [t.clone() for t in cache_leaves]
+        for t, s0 in zip(cache_leaves, snapshot):
+            t.copy_(s0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = decode_one(params, cfg, cache, tok, pos)[0]
+        for t, s0 in zip(cache_leaves, snapshot):
+            t.copy_(s0)
+        graph.replay()
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(replayed, eager)) and all(torch.equal(t, e) for t, e in zip(cache_leaves,
+                                                                                             eager_cache))
+        ms = time_ms(graph.replay)
+        del graph, snapshot, eager_cache
+        return ms, bitwise
+
+    def serve_7d(name, cfg, params, prompts, embeds=None, graph=False, scan_ms=False):
+        """The two prefills (agreeing; the forward first, so the cached one is
+        timed warm), 8 decode steps, and the optional graph replay and scan
+        timing; returns the record's numbers."""
+        n_front = 0 if embeds is None else embeds.shape[-2]
+        s_len = n_front + prompts.shape[-1]
+        t0 = time.perf_counter()
+        logits_f = prefill(params, cfg, prompts, embeds)  # the model's first call: its allocations
+        fwd_ms = since(t0) * 1e3
+        t0 = time.perf_counter()
+        logits_c, cache = TF.prefill_cache(params, cfg, prompts, s_len + 16, frontend_embeds=embeds)
+        pre_ms = since(t0) * 1e3
+        diff = float((logits_c.float() - logits_f.float()).abs().max())
+        scale = float(logits_f.float().abs().max())
+        check(bool(torch.isfinite(logits_c).all()) and diff <= 1e-2 * scale,
+              f"{name}: the cached prefill's logits differ from the forward's by {diff} (max {scale})")
+        toks = [logits_c.argmax(-1)[:, None].to(prompts.dtype)]
+        step_logits, cache = decode_one(params, cfg, cache, toks[-1], s_len)  # untimed: the first step allocates
+        toks.append(step_logits[:, -1].argmax(-1)[:, None].to(prompts.dtype))
+        t0 = time.perf_counter()
+        for i in range(8):
+            step_logits, cache = decode_one(params, cfg, cache, toks[-1], s_len + 1 + i)
+            toks.append(step_logits[:, -1].argmax(-1)[:, None].to(prompts.dtype))
+        dec_ms = since(t0) / 8 * 1e3
+        check(bool(torch.isfinite(step_logits).all()), f"{name} decode logits not finite")
+        rec = dict(prefill_ms=pre_ms, forward_prefill_ms=fwd_ms, decode_ms=dec_ms, prefill_bitwise=bool(
+            torch.equal(logits_c, logits_f)), first_tokens=torch.cat(toks, 1)[:, :6].tolist(), tokens=s_len)
+        if graph:
+            rec["graph_ms"], rec["graph_bitwise"] = graph_step(params, cfg, cache, toks[-1], s_len + 10)
+            check(rec["graph_bitwise"], f"{name}: the graph-replayed decode step differs from the eager step")
+        del cache
+        if scan_ms:
+            real_scan, spans = mamba_mod._selective_scan, []
+
+            def timed_scan(p, c, xc):
+                torch.cuda.synchronize()
+                t_s = time.perf_counter()
+                out = real_scan(p, c, xc)
+                spans.append(since(t_s) * 1e3)
+                return out
+
+            mamba_mod._selective_scan = timed_scan
+            try:
+                t0 = time.perf_counter()
+                prefill(params, cfg, prompts, embeds)
+                rec["scan_prefill_ms"] = since(t0) * 1e3
+            finally:
+                mamba_mod._selective_scan = real_scan
+            rec["scan_ms"] = spans
+        print(f"  {name}: prefill {prompts.shape[0]} × {s_len}"
+              + (f" ({n_front} frontend embeddings + {prompts.shape[-1]} tokens)" if n_front else "")
+              + f" {pre_ms:.1f} ms cached, {fwd_ms:.1f} ms forward (the first call; logits max abs diff {diff:.3e} "
+              f"of {scale:.2f}, "
+              f"bitwise {rec['prefill_bitwise']}); decode {dec_ms:.2f} ms a step ({prompts.shape[0]} sequences)"
+              + (f", {rec['graph_ms']:.2f} ms replayed as a CUDA graph (bitwise the eager step)" if graph else "")
+              + (f"; the {len(rec['scan_ms'])} mamba scans {sum(rec['scan_ms']):.1f} ms of a synced prefill's "
+                 f"{rec['scan_prefill_ms']:.1f} ms ({[round(x, 1) for x in rec['scan_ms']]})" if scan_ms else "")
+              + f"; first tokens {rec['first_tokens']}")
+        return rec
+
+    # jamba (5 layers): one parameter set, 2 × 2048
+    serve_start("jamba-1.5-large-398b")
+    t0 = time.perf_counter()
+    jparams = TF.init_params(gen_p, jcfg, InitConfig("trunc_normal", 1.0), device=dev)
+    init_s = since(t0)
+    n_el = n_elements(jparams)
+    print(f"  jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 layers): {n_el:,} parameters "
+          f"({sum(t.numel() * t.element_size() for t in leaves(jparams)) / 2**30:.2f} GiB), drawn in {init_s:.1f} s")
+    check(n_el == 24_045_707_264, f"jamba ({JAMBA_LAYERS} layers) holds {n_el} parameters")
+    rec = serve_7d("jamba-1.5-large-398b", jcfg, jparams, tokens(2, 2048, jcfg.vocab_size, seed=11), graph=True,
+                   scan_ms=True)
+    serve_end("jamba-1.5-large-398b", 3)
+    new_serve["jamba-1.5-large-398b"].update(rec, init_s=init_s)
+    check(new_serve["jamba-1.5-large-398b"]["peak_gib"] <= 75.0, "jamba: peak memory above 75 GiB")
+    del jparams
+    torch.cuda.empty_cache()
+
+    # llava: the consensus of a 2-node ensemble, 2 × (2880 + 1216)
+    serve_start("llava-next-mistral-7b")
+    ring2 = T.complete(2)
+    ens = TF.init_params(gen_p, lcfg, InitConfig("trunc_normal", torch.full((2,), gain_from_graph(ring2))), device=dev)
+    cons = consensus_params(ens)
+    del ens
+    patches = torch.randn(2, LLAVA_PATCHES, lcfg.frontend_embed_dim, generator=gen_p, device=dev).to(torch.bfloat16)
+    rec = serve_7d("llava-next-mistral-7b", lcfg, cons, tokens(2, LLAVA_TEXT, lcfg.vocab_size, seed=12), patches)
+    serve_end("llava-next-mistral-7b", 2 * lcfg.n_layers)
+    new_serve["llava-next-mistral-7b"].update(rec)
+    del cons, patches
+    torch.cuda.empty_cache()
+
+    # musicgen: a 4-node ring ensemble's consensus, 4 × (256 + 1792)
+    serve_start("musicgen-large")
+    ens = TF.init_params(gen_p, mgcfg, InitConfig("trunc_normal", torch.full((4,), gain_from_graph(ring4))),
+                         device=dev)
+    cons = consensus_params(ens)
+    del ens
+    cond = torch.randn(4, MUSICGEN_COND, mgcfg.frontend_embed_dim, generator=gen_p, device=dev).to(torch.bfloat16)
+    rec = serve_7d("musicgen-large", mgcfg, cons, tokens(4, MUSICGEN_TEXT, mgcfg.vocab_size, seed=13), cond,
+                   graph=True)
+    serve_end("musicgen-large", 2 * mgcfg.n_layers)
+    new_serve["musicgen-large"].update(rec)
+    del cons, cond
+    torch.cuda.empty_cache()
+
+    # llama4-scout (8 layers): one parameter set, 2 × 2048 text tokens
+    serve_start("llama4-scout-17b-a16e")
+    l4params = TF.init_params(gen_p, l4cfg, InitConfig("trunc_normal", 1.0), device=dev)
+    check(n_elements(l4params) == 18_686_371_840, f"llama4-scout ({LLAMA4_LAYERS} layers) parameter count")
+    rec = serve_7d("llama4-scout-17b-a16e", l4cfg, l4params, tokens(2, 2048, l4cfg.vocab_size, seed=14))
+    serve_end("llama4-scout-17b-a16e", 2 * l4cfg.n_layers)
+    new_serve["llama4-scout-17b-a16e"].update(rec)
+    del l4params
+    torch.cuda.empty_cache()
+    flash_ops.flash_mha = flash_mha
+    check(flash_launched <= flash_checked,
+          f"phase 7d launched flash at {sorted(flash_launched - flash_checked, key=str)}, not checked in phase 3")
+    print(f"  flash launch shapes: {len(flash_launched)} distinct in phase 7d, each held against the plain version "
+          f"in phase 3; peak memory "
+          + ", ".join(f"{k} {new_serve[k]['peak_gib']:.2f} GiB" for k in NEW_ARCHS)
+          + f"; phase 7d: {time.perf_counter() - t_7d:.1f} s")
+
     # ------------------------------------------------- 8. serve, card vs CPU
-    phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b, rwkv6-3b, granite-moe-1b-a400m, stablelm-12b and "
-          "qwen1.5-4b, fp32, one init)")
+    phase("8. serve, card vs CPU (reduced qwen2.5-3b, gemma3-4b, rwkv6-3b, granite-moe-1b-a400m, stablelm-12b, "
+          "qwen1.5-4b, jamba-1.5-large-398b, llava-next-mistral-7b, musicgen-large and llama4-scout-17b-a16e, fp32, "
+          "one init)")
     reset_counts()
     from repro_torch.models import moe as moe_mod
 
@@ -4417,20 +4770,43 @@ if __name__ == "__main__":
         return r
 
     flash_by_arch = {}
+
+    def greedy_with_frontend(p, cfg, prompt_d, emb_d, n_new):
+        """Greedy tokens after the frontend embeddings and the prompt: the
+        cached prefill, then one decode step a token from position F + S."""
+        logits, cache = TF.prefill_cache(p, cfg, prompt_d, 64, frontend_embeds=emb_d)
+        toks = [logits.argmax(-1)[:, None]]
+        pos = emb_d.shape[-2] + prompt_d.shape[-1]
+        for i in range(n_new - 1):
+            step, cache = TF.decode_step(p, cfg, cache, toks[-1].to(prompt_d.dtype), pos + i)
+            toks.append(step[:, -1].argmax(-1)[:, None])
+        return torch.cat(toks, 1)
+
+    def n_attn(arch):
+        return sum(k in ("attn", "swa") for k in TF.layer_kinds(get_reduced_config(arch)))
+
     moe_mod.route = recording_route
     try:
-        for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b", "granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b"):
+        for arch in ("qwen2.5-3b", "gemma3-4b", "rwkv6-3b", "granite-moe-1b-a400m", "stablelm-12b", "qwen1.5-4b",
+                     *NEW_ARCHS):
             rcfg = get_reduced_config(arch)
             init = TF.init_params(torch.Generator().manual_seed(3), rcfg, InitConfig("trunc_normal", 1.0), device="cpu")
             p_np = params_to_numpy(init)
             prompt = make_token_stream(2 * 40, rcfg.vocab_size, seed=3).reshape(2, 40)  # past gemma's window 16
+            # llava and musicgen: 8 frontend embeddings before the prompt, in
+            # the prefill and in a greedy decode from its cache
+            emb = (np.random.default_rng(3).standard_normal((2, rcfg.n_frontend_tokens, rcfg.frontend_embed_dim))
+                   .astype(np.float32) if rcfg.n_frontend_tokens else None)
             out = {}
             before = flash_mha.launches
             for d_name in ("cuda", "cpu"):
                 p = params_from_numpy(p_np, device=d_name)
+                prompt_d = torch.as_tensor(prompt, device=d_name)
+                emb_d = None if emb is None else torch.as_tensor(emb, device=d_name)
                 out[d_name] = (
-                    ServeEngine(rcfg, cache_len=64, device=d_name).generate(p, prompt, 8).cpu().numpy(),
-                    prefill(p, rcfg, torch.as_tensor(prompt, device=d_name)).cpu().numpy(),
+                    ServeEngine(rcfg, cache_len=64, device=d_name).generate(p, prompt, 8).cpu().numpy()
+                    if emb is None else greedy_with_frontend(p, rcfg, prompt_d, emb_d, 8).cpu().numpy(),
+                    prefill(p, rcfg, prompt_d, emb_d).cpu().numpy(),
                 )
             flash_by_arch[arch] = flash_mha.launches - before
             (t_gpu, l_gpu), (t_cpu, l_cpu) = out["cuda"], out["cpu"]
@@ -4457,9 +4833,9 @@ if __name__ == "__main__":
     # went through the flash kernel's fp32 route (hd 40 and 30 zero-padded)
     fp32_launches = flash_mha.launches_by_route["wgmma_tf32x3"]
     print(f"  flash launches by config {flash_by_arch}")
-    check(all(flash_by_arch[a] == 2 * get_reduced_config(a).n_layers for a in flash_by_arch if a != "rwkv6-3b"),
-          f"phase 8 flash launches {flash_by_arch}, want 2 prefills × the layers")
-    want_fp32 = 2 * sum(get_reduced_config(a).n_layers for a in flash_by_arch if a != "rwkv6-3b")
+    check(all(flash_by_arch[a] == 2 * n_attn(a) for a in flash_by_arch),
+          f"phase 8 flash launches {flash_by_arch}, want 2 prefills × the attention layers")
+    want_fp32 = 2 * sum(n_attn(a) for a in flash_by_arch)
     check(flash_mha.launches_by_route == {"wgmma": 0, "wgmma_tf32x3": want_fp32},
           f"phase 8 flash routes {flash_mha.launches_by_route}, want {want_fp32} on wgmma_tf32x3")
     print(f"  flash routes {flash_mha.launches_by_route}")
@@ -4481,9 +4857,10 @@ if __name__ == "__main__":
         ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          serve_launches["flash_mha"]),
         # the fp32 route: phase 8's card-vs-CPU serving (the head dims with an
-        # instance: reduced qwen2.5-3b, gemma3-4b and granite-moe)
+        # instance: reduced qwen2.5-3b, gemma3-4b, granite-moe, jamba, llava,
+        # musicgen and llama4-scout)
         ("flash_mha_fp32", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
-         sum(flash_by_arch[a] for a in ("qwen2.5-3b", "gemma3-4b", "granite-moe-1b-a400m"))),
+         sum(flash_by_arch[a] for a in ("qwen2.5-3b", "gemma3-4b", "granite-moe-1b-a400m", *NEW_ARCHS))),
         ("rwkv6_chunked", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
          serve_launches["rwkv6_chunked"]),
         # the fp32 route: phase 8's card-vs-CPU serving
@@ -4554,6 +4931,17 @@ if __name__ == "__main__":
         ("mix_matmul_moe", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", moe_launches["plain"]["mix_matmul"]),
         ("quant_mix_dense_moe", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
          moe_launches["int8"]["quant_mix_dense"]),
+        # phase 4l's DecAvg rounds (n = 8 over the reduced rwkv6-3b's, jamba's
+        # and llava's rows) and --model rwkv's fp32 evals
+        ("mix_matmul_zoo", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", zoo_launches["mix_matmul"]),
+        ("rwkv6_chunked_eval", "src/repro/kernels/rwkv/rwkv.py:99", "src/repro_torch/kernels/rwkv/csrc/rwkv_sm90.cu",
+         rwkv_eval_launches),
+        # phase 7d's bf16 serving: jamba (5 layers; GQA 64 / 8), llava (2 ×
+        # 4096 with the patch embeddings), musicgen (MHA 32 / 32, hd 64),
+        # llama4-scout (8 layers; GQA 40 / 8, a group of 5)
+        *((f"flash_mha_{short}", "src/repro/kernels/flash/flash.py:130",
+           "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", new_serve[arch]["flash"])
+          for short, arch in zip(("jamba", "llava", "musicgen", "llama4"), NEW_ARCHS)),
     ):
         t = timing[name]
         row = {
@@ -4570,7 +4958,9 @@ if __name__ == "__main__":
             row["shapes"] = [{k: v for k, v in g_t.items() if k != "kernel"}
                              for g_t in gossip_shapes.values() if g_t["kernel"] == kname]
         elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example",
-                                                               "_elastic", "_moe", "_granite", "_qwen15", "_swa")):
+                                                               "_elastic", "_moe", "_granite", "_qwen15", "_swa",
+                                                               "_zoo", "_eval", "_jamba", "_llava", "_musicgen",
+                                                               "_llama4")):
             row["shape"] = t["shape"]
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -2,10 +2,10 @@
 
 ``ArchConfig`` is a copy of the JAX package's dataclass, field for field, so
 one configuration module reads the same in both packages; ``param_dtype``
-returns a torch dtype.  The registry resolves only the architectures whose
-blocks the port runs; any other raises and names the ROADMAP item that
-ports it.  The paper's three classifiers (``paper_mlp``, ``paper_cnn``,
-``paper_vgg16``) resolve too; ``list_archs(include_paper=True)`` names them.
+returns a torch dtype.  The registry resolves the JAX package's ten zoo
+architectures, and the paper's three classifiers (``paper_mlp``,
+``paper_cnn``, ``paper_vgg16``); ``list_archs(include_paper=True)`` names
+them too.
 """
 from __future__ import annotations
 
@@ -162,15 +162,10 @@ def ffn_kinds(cfg: ArchConfig) -> list[str]:
 
 
 # ----------------------------------------------------------------------
-_PORTED = ["qwen2p5_3b", "gemma3_4b", "rwkv6_3b", "granite_moe_1b_a400m", "stablelm_12b", "qwen1p5_4b"]
-# architectures of the JAX package's zoo that the port does not run yet,
-# with the ROADMAP item that brings their blocks
-_NOT_PORTED = {
-    "jamba_1p5_large_398b": "ROADMAP Queue 1 item 15 (models/mamba.py)",
-    "llava_next_mistral_7b": "ROADMAP Queue 1 item 15 (the other configs: vision frontend)",
-    "musicgen_large": "ROADMAP Queue 1 item 15 (the other configs: audio frontend)",
-    "llama4_scout_17b_a16e": "ROADMAP Queue 1 item 15 (the other configs: vision frontend)",
-}
+_ZOO = [  # the JAX package's order
+    "gemma3_4b", "granite_moe_1b_a400m", "jamba_1p5_large_398b", "qwen2p5_3b", "llava_next_mistral_7b",
+    "stablelm_12b", "musicgen_large", "qwen1p5_4b", "rwkv6_3b", "llama4_scout_17b_a16e",
+]
 _PAPER = ["paper_mlp", "paper_cnn", "paper_vgg16"]
 
 _ALIASES = {
@@ -189,9 +184,7 @@ _ALIASES = {
 
 def _module(arch: str):
     mod = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
-    if mod in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not yet ported: {_NOT_PORTED[mod]}")
-    if mod not in _PORTED and mod not in _PAPER:
+    if mod not in _ZOO and mod not in _PAPER:
         raise ValueError(f"unknown arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
@@ -205,5 +198,5 @@ def get_reduced_config(arch: str) -> ArchConfig:
 
 
 def list_archs(include_paper: bool = False) -> list[str]:
-    """The zoo architectures the port runs (and the paper's, if asked)."""
-    return list(_PORTED) + (list(_PAPER) if include_paper else [])
+    """The ten zoo architectures (and the paper's, if asked)."""
+    return list(_ZOO) + (list(_PAPER) if include_paper else [])

@@ -13,8 +13,9 @@ serves it two ways:
   reading that node's parameters as views of the ensemble.
 
 The cache is the decoder's: KV caches of ``cache_len`` slots for attention
-layers, an O(1) token-shift and wkv state for RWKV layers, which ignore
-``cache_len``, as in the JAX package.  Greedy decoding emits the JAX
+layers, an O(1) token-shift and wkv state for RWKV layers and an O(1) conv
+tail and SSM state for mamba layers, which ignore ``cache_len``, as in the
+JAX package.  Greedy decoding emits the JAX
 package's tokens on the same parameters.
 Temperature sampling draws Gumbel noise from a ``torch.Generator`` (one
 (B, V) draw per sampled token), so a run is reproducible for a given
@@ -104,8 +105,10 @@ def prefill(
 ) -> torch.Tensor:
     """Full-sequence forward → next-token logits of the LAST position only
     ((..., V)); the full logits never materialise (vocab can be 262k).
-    ``frontend_embeds`` is passed on to ``forward`` (ignored there: no
-    ported config has a frontend)."""
+    ``frontend_embeds`` (..., F, E) is passed on to ``forward``, which puts
+    their projection before the tokens for a config with a frontend (llava,
+    musicgen, llama4-scout) and ignores them otherwise.  ``generate`` and
+    ``ServeEngine`` stay text-only, as the JAX package's."""
     hidden, _ = tf.forward(params, cfg, tokens, frontend_embeds, remat=False)
     return tf.hidden_to_logits(params, cfg, hidden[..., -1:, :])[..., 0, :]
 

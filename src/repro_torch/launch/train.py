@@ -12,7 +12,9 @@ Examples:
     # a reduced zoo decoder: token windows through the executors (int8 gossip), or host-fed
     python -m repro_torch.launch.train --model transformer --nodes 8 --rounds 20 --compress int8
     python -m repro_torch.launch.train --model moe --nodes 8 --rounds 20 --compress int8
+    python -m repro_torch.launch.train --model rwkv --nodes 8 --rounds 20
     python -m repro_torch.launch.train --arch qwen2.5-3b --reduced --rounds 30
+    python -m repro_torch.launch.train --arch jamba-1.5-large-398b --reduced --rounds 30
     # a run log and a profiler trace of the rounds
     python -m repro_torch.launch.train --model mlp --rounds 20 --telemetry build/run.jsonl --profile-trace build/trace
     # compressed gossip: int8 / fp8 exchanges with error-feedback mirrors
@@ -74,9 +76,11 @@ reduced granite-moe-1b-a400m on windowed synthetic token data (``--seq-len``
 tokens a window) through the same executors and codecs; ``--arch ID
 --reduced`` trains a reduced zoo architecture on token streams through the
 host-fed ``train_loop`` (``--legacy-loop`` takes that loop for the paper
-models too).  ``--model rwkv`` and the architectures whose blocks are not
-ported (mamba, frontends, RWKV training) stop with an error naming
-ROADMAP.md Queue 1 item 15.
+models too); ``--model rwkv`` trains the reduced rwkv6-3b through the
+executors, its recorded forwards through the plain chunked time-mix and
+its evaluations through the rwkv kernel.  ``--arch`` takes any of the ten
+zoo architectures, and, as the JAX launcher, feeds a frontend config
+text tokens alone (no frontend embeddings).
 ``--telemetry PATH`` writes a JSONL run log (``repro_torch.obs``): the
 manifest, one record a recorded round (or bin), the summary, and the
 gossip health of the operator the run mixed over; ``--profile-trace DIR``
@@ -144,9 +148,6 @@ from repro_torch.optim import adamw, sgd
 # --model token archs: reduced zoo configs on windowed synthetic token data
 TOKEN_MODELS = {"transformer": "qwen2.5-3b", "moe": "granite-moe-1b-a400m", "rwkv": "rwkv6-3b"}
 MODELS = ["mlp", "cnn", "vgg16", *sorted(TOKEN_MODELS)]
-NOT_PORTED = "is not yet ported to the PyTorch launcher; see ROADMAP.md Queue 1"
-# the token models the port cannot train yet, and why
-UNPORTED_TOKEN_MODELS = {"rwkv": "RWKV training"}
 
 
 def build_graph(kind: str, n: int, seed: int) -> T.Graph:
@@ -267,9 +268,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_args(p: argparse.ArgumentParser, args) -> None:
-    """The JAX launcher's flag rules, and the port's refusals (item 15)."""
-    if args.model in UNPORTED_TOKEN_MODELS:
-        p.error(f"--model {args.model} {NOT_PORTED} item 15 ({UNPORTED_TOKEN_MODELS[args.model]})")
+    """The JAX launcher's flag rules."""
     if args.join_nodes > 0 or args.fault_scenario != "none":
         args.elastic = True
     if args.uncoordinated_init and args.no_gain_correction:
@@ -301,17 +300,6 @@ def _check_args(p: argparse.ArgumentParser, args) -> None:
     if args.model in TOKEN_MODELS and args.legacy_loop:
         p.error("token --model archs gather from the precomputed schedule — they run through the executors, not "
                 "--legacy-loop (use --arch for the host-driven token path)")
-    if args.arch:
-        try:
-            cfg = get_reduced_config(args.arch)
-        except NotImplementedError as exc:
-            p.error(f"--arch {args.arch} {NOT_PORTED} item 15 ({exc})")
-        if "rwkv" in cfg.block_pattern:
-            p.error(f"--arch {args.arch} {NOT_PORTED} item 15 (RWKV training)")
-        try:
-            TF._check_cfg(cfg)
-        except NotImplementedError as exc:
-            p.error(f"--arch {args.arch} {NOT_PORTED} item 15 ({exc})")
 
 
 def main(argv: list[str] | None = None) -> dict[str, list]:

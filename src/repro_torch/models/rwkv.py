@@ -9,9 +9,13 @@ Per head (head_dim = M), with data-dependent per-channel decay w_t ∈ (0, 1):
 Every full-sequence time-mix (``rwkv_time_mix``: forward and prefill) goes
 through ``repro_torch.kernels.rwkv.rwkv6_attention``: the hand-written CUDA
 kernel on the card, its plain chunked version on the CPU.  Both return the
-wkv output in fp32 and the final state, which is the decode cache.  The
-one-token step ``rwkv_time_mix_step`` stays plain torch, the direct
-recurrence, as in the JAX package.
+wkv output in fp32 and the final state, which is the decode cache.  When
+autograd records the call (training) it runs the plain chunked form
+``kernels/rwkv/ref.py::rwkv6_chunked_ref`` on either device, the JAX
+package's ``_wkv_chunked`` (the kernel has no backward, nor has the JAX
+package: its gradients are autodiff of that form), as ``attention_forward``
+runs the plain softmax.  The one-token step ``rwkv_time_mix_step`` stays
+plain torch, the direct recurrence, as in the JAX package.
 
 Structured parameters (decay base, bonus, token-shift mixes, the output
 layernorm) are deterministic formulas, bitwise the JAX package's and in its
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.initialisation import InitConfig
 from repro_torch.kernels.rwkv import rwkv6_attention
-from repro_torch.kernels.rwkv.ref import wkv_step
+from repro_torch.kernels.rwkv.ref import rwkv6_chunked_ref, wkv_step
 
 from .common import dense_init, norm_apply, norm_init
 
@@ -135,11 +139,16 @@ def _tmix_out(p: Tree, x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> t
 def rwkv_time_mix(
     p: Tree, cfg: ArchConfig, x: torch.Tensor, prev: torch.Tensor, state: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence time-mix through the kernel; ``state`` None is the zero
+    """Full-sequence time-mix through the kernel, or through its plain
+    chunked form when autograd records the call; ``state`` None is the zero
     state.  Returns (y, last token of x, state' (..., H, M, M) fp32)."""
     xs = _token_shift(x, prev)
     r, k, v, g, w = _tmix_projections(p, x, xs, cfg)
-    out, state = rwkv6_attention(r, k, v, w, p["bonus"], state)
+    inputs = (r, k, v, w, p["bonus"], state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        out, state = rwkv6_chunked_ref(*inputs)
+    else:
+        out, state = rwkv6_attention(*inputs)
     y = _tmix_out(p, x, out.reshape(*x.shape[:-1], -1), g)
     return y, x[..., -1:, :], state
 

@@ -1,33 +1,38 @@
-"""Decoder stack (counterpart of ``repro/models/transformer.py``): attention
-and RWKV-6 blocks, dense and MoE FFNs.
+"""Decoder stack (counterpart of ``repro/models/transformer.py``): attention,
+mamba and RWKV-6 blocks, dense and MoE FFNs, and the modality frontends'
+projector.
 
-The layer sequence is ``layer_kinds(cfg)`` (attn / swa / rwkv cycled from
-``cfg.block_pattern``); an attention block carries the FFN ``ffn_kinds(cfg)``
-names for its layer (dense, or the MoE FFN of ``models/moe.py``), an RWKV
-block its own channel-mix.  The parameter tree has the JAX package's
-layout, leaf for leaf:
+The layer sequence is ``layer_kinds(cfg)`` (attn / swa / mamba / rwkv
+cycled from ``cfg.block_pattern``); an attention or mamba block carries
+the FFN ``ffn_kinds(cfg)`` names for its layer (dense, or the MoE FFN of
+``models/moe.py``: jamba's layout), an RWKV block its own channel-mix.
+The parameter tree has the JAX package's layout, leaf for leaf:
 
     stack:  one tree per position in the repeating unit, every leaf with a
             leading period axis (n_full periods),
     tail:   the n_layers % unit leftover layers, one tree each
             (gemma3's 34 = 5×6 + 4).
 
-An attention block is ``norm1, attn, norm2, ffn``; an RWKV block is
-``norm1, rwkv {tmix, cmix}, norm2`` (no ``ffn``).  The JAX package scans
-over the periods; here a Python loop walks them in the same order, reading
-each period's block as views.  Mamba blocks and modality frontends are
-not ported yet and raise.  With an ``(n,)`` per-node gain,
-``init_params`` draws a node-stacked ensemble (every leaf with a leading
-node axis); the forward functions take one parameter set (index an
+An attention block is ``norm1, attn, norm2, ffn``, a mamba block ``norm1,
+mamba, norm2, ffn``; an RWKV block is ``norm1, rwkv {tmix, cmix}, norm2``
+(no ``ffn``).  The JAX package scans over the periods; here a Python loop
+walks them in the same order, reading each period's block as views.  A
+config with a ``frontend`` (vision, audio) has ``frontend_proj``, a
+(frontend_embed_dim, d_model) projection with a bias: ``forward`` and
+``prefill_cache`` take ``frontend_embeds`` (..., F, frontend_embed_dim),
+project them and put them before the text tokens, so positions run over
+both and decoding resumes at ``pos = F + S``.  With an ``(n,)`` per-node
+gain, ``init_params`` draws a node-stacked ensemble (every leaf with a
+leading node axis); the forward functions take one parameter set (index an
 ensemble's leaves at a node, or average it with
 ``repro_torch.fed.serve.consensus_params``).
 
 Training: ``lm_loss`` is the JAX package's chunked softmax cross-entropy
 (``node_loss`` runs it a node at a time for the DFL trainer: the
-consensus example and the CLI's token models).  Under autograd the attention
-layers run the plain masked softmax (the kernels have no backward:
-``models/attention.py``); RWKV training is not ported yet, and a recorded
-RWKV forward on the card raises in the kernel's wrapper.
+consensus example and the CLI's token models).  The kernels have no
+backward: under autograd the attention layers run the plain masked
+softmax (``models/attention.py``) and the RWKV time-mix its plain chunked
+form (``models/rwkv.py``); the mamba scan is plain torch either way.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.flat import tree_leaves, tree_map
 
 from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
 from .common import dense_init, node_lead, norm_apply, norm_init
+from .mamba import init_mamba, init_mamba_cache, mamba_decode, mamba_forward, mamba_prefill
 from .mlp import ffn_forward, init_ffn
 from .moe import init_moe, moe_forward
 from .rwkv import init_rwkv, init_rwkv_cache, rwkv_channel_mix, rwkv_time_mix, rwkv_time_mix_step
@@ -62,21 +68,13 @@ __all__ = [
     "unit_size",
 ]
 
-_NOT_PORTED = {
-    "mamba": "mamba blocks are not yet ported (ROADMAP Queue 1 item 15: models/mamba.py)",
-}
+_KINDS = ("attn", "swa", "mamba", "rwkv")
 
 
 def _check_cfg(cfg: ArchConfig) -> None:
     for kind in layer_kinds(cfg):
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if kind not in ("attn", "swa", "rwkv"):
+        if kind not in _KINDS:
             raise ValueError(f"unknown block kind {kind}")
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not yet ported (ROADMAP Queue 1 item 15: the other configs)"
-        )
 
 
 # ----------------------------------------------------------------- structure
@@ -129,12 +127,14 @@ def _init_block(
             "rwkv": init_rwkv(init_cfg, generator, cfg, lead),
             "norm2": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
         }
-    return {
-        "norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
-        "attn": init_attention(init_cfg, generator, cfg, lead),
-        "norm2": norm_init(cfg.d_model, cfg.norm, dt, lead, dev),
-        "ffn": (init_moe if fk == "moe" else init_ffn)(init_cfg, generator, cfg, lead),
-    }
+    block = {"norm1": norm_init(cfg.d_model, cfg.norm, dt, lead, dev)}
+    if kind == "mamba":
+        block["mamba"] = init_mamba(init_cfg, generator, cfg, lead)
+    else:
+        block["attn"] = init_attention(init_cfg, generator, cfg, lead)
+    block["norm2"] = norm_init(cfg.d_model, cfg.norm, dt, lead, dev)
+    block["ffn"] = (init_moe if fk == "moe" else init_ffn)(init_cfg, generator, cfg, lead)
+    return block
 
 
 def init_params(
@@ -145,7 +145,8 @@ def init_params(
 
     Weights are ``init_cfg``'s distribution with fans from the per-layer
     shape (the embedding's fan-in is the vocabulary, as ``dense_init`` on
-    (V, d) gives in the JAX package); norm scales are ones, biases zeros.
+    (V, d) gives in the JAX package); norm scales are ones, biases zeros;
+    a mamba block's structured leaves follow ``models/mamba.py``.
     """
     _check_cfg(cfg)
     dev = resolve_device(device)
@@ -168,6 +169,10 @@ def init_params(
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(init_cfg, generator, (cfg.d_model, cfg.vocab_size), dt, lead=nodes)
+    if cfg.frontend:
+        params["frontend_proj"] = dense_init(
+            init_cfg, generator, (cfg.frontend_embed_dim, cfg.d_model), dt, bias=True, lead=nodes
+        )
     return params
 
 
@@ -211,8 +216,19 @@ def _rwkv_decode(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree) -> torc
     return x + y_c
 
 
-def _embed(params: Tree, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tok"]["w"][tokens.long()]
+def _embed(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, frontend_embeds: torch.Tensor | None) -> torch.Tensor:
+    """The token embeddings, after the projected frontend embeddings when
+    the config has a frontend and the caller gives them: (..., F + S, D).
+    The projection takes the promoted dtype of the embeddings and the
+    weight (an fp32 input against bf16 weights is an fp32 product, as the
+    JAX einsum's promotion gives) and is cast to the model's dtype."""
+    x = params["embed"]["tok"]["w"][tokens.long()]
+    if cfg.frontend and frontend_embeds is not None:
+        w, b = params["frontend_proj"]["w"], params["frontend_proj"]["b"]
+        dt = torch.promote_types(frontend_embeds.dtype, w.dtype)
+        proj = torch.matmul(frontend_embeds.to(dt), w.to(dt)) + b.to(dt)
+        x = torch.cat([proj.to(x.dtype), x], dim=-2)
+    return x
 
 
 def _block(
@@ -222,6 +238,8 @@ def _block(
     if kind == "rwkv":
         return _rwkv_block(p, cfg, x), None
     h = norm_apply(p["norm1"], x, cfg.norm)
+    if kind == "mamba":
+        return _ffn_residual(p, cfg, fk, x + mamba_forward(p["mamba"], cfg, h))
     return _ffn_residual(p, cfg, fk, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
 
 
@@ -235,15 +253,15 @@ def forward(
     """Full-sequence pass: tokens (..., S) → (final hidden states (..., S, D),
     the MoE aux loss summed over the layers, fp32; 0 without a MoE layer).
 
-    The JAX package's keywords: ``frontend_embeds`` is read only by a config
-    with a modality frontend, which ``_check_cfg`` refuses (not ported), so
-    it is ignored, as the JAX call ignores it for such configs.  ``remat``
+    The JAX package's keywords: ``frontend_embeds`` (..., F, E) is read only
+    by a config with a modality frontend (then the hidden states are
+    (..., F + S, D)), and ignored otherwise, as the JAX call does.  ``remat``
     recomputes each period's activations in the backward pass
     (``torch.utils.checkpoint``, non-reentrant) when autograd records, as
     the JAX call wraps each period in ``jax.checkpoint``; the tail layers
     are not wrapped, and the values are the same either way."""
     _check_cfg(cfg)
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[-2], device=x.device)
     kinds, fkinds = layer_kinds(cfg), ffn_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
@@ -331,7 +349,8 @@ def init_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, *,
     position and (*batch, T, KVH, hd) per tail layer, T = cache_len for attn
     layers and min(window, cache_len) for swa layers (a ring buffer); for
     rwkv layers the token shifts (…, 1, D) and the fp32 wkv state
-    (…, H, M, M), whatever ``cache_len``."""
+    (…, H, M, M), for mamba layers the conv tail (…, dc−1, d_inner) and the
+    fp32 state (…, d_inner, N), whatever ``cache_len``."""
     _check_cfg(cfg)
     kinds = layer_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
@@ -339,6 +358,8 @@ def init_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, *,
     def one(kind, lead):
         if kind == "rwkv":
             return init_rwkv_cache(cfg, (*lead, *batch_shape), device=device)
+        if kind == "mamba":
+            return init_mamba_cache(cfg, (*lead, *batch_shape), device=device)
         t = min(cfg.sliding_window, cache_len) if kind == "swa" else cache_len
         return init_kv_cache(cfg, (*lead, *batch_shape), t, device=device)
 
@@ -349,14 +370,18 @@ def init_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, *,
 
 
 @torch.no_grad()
-def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len: int) -> tuple[torch.Tensor, Tree]:
+def prefill_cache(
+    params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len: int, frontend_embeds: torch.Tensor | None = None
+) -> tuple[torch.Tensor, Tree]:
     """Batched prefill: one full-sequence pass that fills the decode cache.
 
-    tokens (..., S).  Returns (last-position logits (..., V), the cache ready
-    for ``decode_step`` at ``pos = S``), leaf for leaf the JAX package's.
+    tokens (..., S); ``frontend_embeds`` (..., F, E) go before them for a
+    config with a frontend (``forward``'s keyword).  Returns
+    (last-position logits (..., V), the cache ready for ``decode_step`` at
+    ``pos = F + S``), leaf for leaf the JAX package's.
     """
     cache = init_cache(cfg, tuple(tokens.shape[:-1]), cache_len, device=tokens.device)
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[-2], device=x.device)
     for per, j, kind, fk in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
@@ -364,9 +389,13 @@ def prefill_cache(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, cache_len
         if kind == "rwkv":
             x = _rwkv_block(p, cfg, x, c)
             continue
-        y, _ = attention_prefill(
-            p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), positions, c, _window(cfg, kind)
-        )
+        h = norm_apply(p["norm1"], x, cfg.norm)
+        if kind == "mamba":
+            y, filled = mamba_prefill(p["mamba"], cfg, h)
+            for name, t in filled.items():
+                c[name].copy_(t)
+        else:
+            y, _ = attention_prefill(p["attn"], cfg, h, positions, c, _window(cfg, kind))
         x, _ = _ffn_residual(p, cfg, fk, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x[..., -1:, :])[..., 0, :], cache
@@ -379,16 +408,18 @@ def decode_step(
     """One decode step: tokens (..., 1) at absolute position ``pos``.
 
     Returns (logits (..., 1, V), the cache, updated in place)."""
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, None)
     for per, j, kind, fk in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
         if kind == "rwkv":
             x = _rwkv_decode(p, cfg, x, c)
             continue
-        y, _ = attention_decode(
-            p["attn"], cfg, norm_apply(p["norm1"], x, cfg.norm), c, int(pos), _window(cfg, kind)
-        )
+        h = norm_apply(p["norm1"], x, cfg.norm)
+        if kind == "mamba":
+            y, _ = mamba_decode(p["mamba"], cfg, h, c)
+        else:
+            y, _ = attention_decode(p["attn"], cfg, h, c, int(pos), _window(cfg, kind))
         x, _ = _ffn_residual(p, cfg, fk, x + y)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x), cache

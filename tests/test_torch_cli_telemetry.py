@@ -132,10 +132,6 @@ def test_transformer_and_arch_paths(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "jamba-1.5-large-398b", "--reduced"], "item 15"),
-    (["--model", "rwkv"], "item 15"),
-    (["--arch", "rwkv6-3b", "--reduced"], "item 15"),
-    (["--arch", "llava-next-mistral-7b", "--reduced"], "item 15"),
     (["--model", "transformer", "--legacy-loop"], "--legacy-loop"),
     (["--async", "--legacy-loop"], "--async"),
 ])
@@ -143,6 +139,31 @@ def test_cli_refusals(argv, what, capsys):
     with pytest.raises(SystemExit):
         p_cli.main([*argv, "--device", "cpu"])
     assert what in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "jamba-1.5-large-398b", "--reduced"],
+    ["--model", "rwkv"],
+    ["--arch", "rwkv6-3b", "--reduced"],
+    ["--arch", "llava-next-mistral-7b", "--reduced"],
+])
+def test_cli_mamba_frontend_and_rwkv_training_paths(argv, tmp_path, capsys):
+    """The paths the launcher once refused: jamba's mamba blocks, RWKV
+    training through the executor (``--model rwkv``: token windows, its
+    evals through the kernel's wrapper) and host-fed, and a frontend config
+    fed text alone (as the JAX launcher does); 2 rounds, finite losses, a
+    run log both validators pass."""
+    args = [*argv, "--nodes", "2", "--rounds", "2", "--local-batches", "1", "--batch-size", "2", "--device", "cpu"]
+    if argv[0] == "--model":
+        args += ["--items-per-node", "8", "--seq-len", "16"]
+    hist, recs = _port_log(tmp_path, "item15", args)
+    assert [r["kind"] for r in recs] == ["manifest", "round", "round", "summary", "gossip_health"]
+    assert hist["round"] == [0, 1] and np.isfinite(hist["train_loss"]).all()
+    out = capsys.readouterr().out
+    if argv[0] == "--model":
+        assert np.isfinite(hist["test_loss"]).all() and "token model rwkv6-3b" in out
+    else:
+        assert hist["test_loss"] == [] and "round    1 train" in out
 
 
 def test_serve_cli_telemetry(tmp_path):

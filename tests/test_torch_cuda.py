@@ -20,7 +20,10 @@ tables, and compressed plan rounds against the CPU (new mirrors bitwise:
 the kernel does the plain version's arithmetic element for element).  The
 block-sparse walks also at kreg4-1024 (bn 32), with rows walked in pieces
 (complete-300 at bn 64) and in a masked round with all-zero tiles;
-``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.
+``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.  The zoo's last
+configs: reduced jamba, llava and musicgen (with frontend embeddings) and
+llama4-scout card vs CPU in fp32, a jamba decode step in bf16 replayed as a
+CUDA graph, and an RWKV training step (no kernel launch under grad).
 Skipped without a CUDA device; on the
 card run
 
@@ -1143,3 +1146,110 @@ def test_moe_decode_step_replays_as_a_cuda_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, eager)
+
+
+# ------------------------------------------------ mamba, frontends, RWKV training
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "llava-next-mistral-7b", "musicgen-large",
+                                  "llama4-scout-17b-a16e"])
+def test_new_configs_on_the_card_match_the_cpu(dev, arch):
+    """The reduced configs in fp32 from one CPU init, with 8 frontend
+    embeddings for llava and musicgen: the prefill logits (frontend first)
+    to rtol 1e-4 and the greedy decode's tokens equal card vs CPU; one flash
+    launch a prefill attention layer, on wgmma_tf32x3."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config(arch)
+    p_np = params_to_numpy(TF.init_params(torch.Generator().manual_seed(3), cfg, InitConfig("trunc_normal"),
+                                          device="cpu"))
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    emb = (np.random.default_rng(4).standard_normal((2, cfg.n_frontend_tokens, cfg.frontend_embed_dim))
+           .astype(np.float32) if cfg.n_frontend_tokens else None)
+    n_attn = sum(k == "attn" for k in TF.layer_kinds(cfg))
+    out = {}
+    for where in ("cuda", "cpu"):
+        p = params_from_numpy(p_np, device=where)
+        e = None if emb is None else torch.as_tensor(emb, device=where)
+        before = dict(flash_mha.launches_by_route)
+        logits, cache = TF.prefill_cache(p, cfg, torch.as_tensor(prompt, device=where), 64, frontend_embeds=e)
+        if where == "cuda":
+            assert flash_mha.launches_by_route == {**before, "wgmma_tf32x3": before["wgmma_tf32x3"] + n_attn}
+        pos, toks = 40 + (0 if emb is None else emb.shape[1]), [logits.argmax(-1)]
+        for i in range(6):
+            step, cache = TF.decode_step(p, cfg, cache, toks[-1][:, None], pos + i)
+            toks.append(step[:, -1].argmax(-1))
+        out[where] = logits.cpu().numpy(), torch.stack(toks, 1).cpu().numpy()
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_mamba_decode_step_replays_as_a_cuda_graph(dev):
+    """A decode step of the reduced jamba in bf16 (mamba blocks, the MoE
+    FFN) captured as a CUDA graph and replayed from the same cache: the
+    eager step's logits and cache bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.flat import tree_leaves
+    from repro_torch.models import transformer as TF
+
+    cfg = dataclasses.replace(get_reduced_config("jamba-1.5-large-398b"), dtype="bfloat16")
+    params = TF.init_params(0, cfg, InitConfig("trunc_normal"), device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 300), generator=torch.Generator().manual_seed(2)).to(dev)
+    logits, cache = TF.prefill_cache(params, cfg, prompt, 320)
+    tok = logits.argmax(-1)[:, None].to(prompt.dtype)
+    leaves = [t for _, t in tree_leaves(cache)]
+    snapshot = [t.clone() for t in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = TF.decode_step(params, cfg, cache, tok, 300)[0].clone()
+    torch.cuda.current_stream().wait_stream(side)
+    eager_cache = [t.clone() for t in leaves]
+    for t, s in zip(leaves, snapshot):
+        t.copy_(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = TF.decode_step(params, cfg, cache, tok, 300)[0]
+    for t, s in zip(leaves, snapshot):
+        t.copy_(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert all(torch.equal(t, e) for t, e in zip(leaves, eager_cache))
+
+
+def test_rwkv_training_step_on_the_card_matches_the_cpu(dev):
+    """The reduced rwkv6-3b's loss and gradient on the card against the CPU:
+    no rwkv kernel launch while autograd records (the plain chunked
+    time-mix), the loss to 1e-5 and the gradient to 1e-4 of its largest
+    element; the same forward under no_grad launches the kernel a layer."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.initialisation import InitConfig
+    from repro_torch.flat import tree_leaves, tree_map
+    from repro_torch.models import transformer as TF
+
+    cfg = get_reduced_config("rwkv6-3b")
+    base = TF.init_params(0, cfg, InitConfig("trunc_normal"), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 45)).astype(np.int32))
+    y = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 45)).astype(np.int32))
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.detach().to(where, copy=True).requires_grad_(True), base)
+        before = rwkv6_chunked.launches
+        hidden, _ = TF.forward(p, cfg, x.to(where))
+        loss = TF.lm_loss(p, cfg, hidden, y.to(where))
+        loss.backward()
+        assert rwkv6_chunked.launches == before
+        out[where] = (float(loss.detach()), [t.grad.cpu() for _, t in tree_leaves(p)])
+        if where == "cuda":
+            with torch.no_grad():
+                TF.forward(p, cfg, x.to(where))
+            assert rwkv6_chunked.launches == before + cfg.n_layers
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1e-30)

@@ -213,7 +213,14 @@ def test_round_fn_settings_go_with_a_graph_only(settings):
 
 @pytest.mark.parametrize("argv", [["--arch", "jamba-1.5-large-398b", "--reduced"], ["--model", "rwkv"],
                                   ["--arch", "rwkv6-3b", "--reduced"]])
-def test_cli_refuses_unported_paths(argv, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(["--device", "cpu", *argv])
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_trains_mamba_and_rwkv(argv):
+    """jamba's mamba blocks and RWKV training through the CLI, host-fed and
+    through the executor at the topology and optimizer flags: 2 rounds of
+    AdamW on a ring of 3, finite losses that the second round changes."""
+    args = ["--device", "cpu", *argv, "--nodes", "3", "--topology", "ring", "--optimizer", "adamw", "--rounds", "2",
+            "--local-batches", "1", "--batch-size", "2"]
+    if argv[0] == "--model":
+        args += ["--items-per-node", "8", "--seq-len", "16"]
+    hist = cli.main(args)
+    assert hist["round"] == [0, 1] and np.isfinite(hist["train_loss"]).all()
+    assert hist["train_loss"][0] != hist["train_loss"][1]

@@ -138,23 +138,22 @@ def test_swa_variant_matches_jax():
 
 
 def test_registry_names_what_is_not_ported():
-    assert pbase.list_archs() == [
-        "qwen2p5_3b", "gemma3_4b", "rwkv6_3b", "granite_moe_1b_a400m", "stablelm_12b", "qwen1p5_4b",
-    ]
+    """Every zoo architecture resolves (the list the JAX package's), a
+    mamba stack and a vision frontend initialise, an unknown arch or block
+    kind raises."""
+    assert pbase.list_archs() == jbase.list_archs() and len(pbase.list_archs()) == 10
     assert pbase.get_config("rwkv6-3b").block_pattern == ("rwkv",)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pbase.get_config("jamba-1.5-large-398b")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pbase.get_config("llava-next-mistral-7b")
+    assert pbase.layer_kinds(pbase.get_config("jamba-1.5-large-398b"))[:8] == ["mamba"] * 4 + ["attn"] + ["mamba"] * 3
+    assert pbase.get_config("llava-next-mistral-7b").frontend == "vision"
     with pytest.raises(ValueError, match="unknown"):
         pbase.get_config("gpt-9")
     mamba = dataclasses.replace(pbase.get_reduced_config("qwen2.5-3b"), block_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        PTF.init_params(0, mamba, InitConfig(), device="cpu")
+    assert "mamba" in PTF.init_params(0, mamba, InitConfig(), device="cpu")["stack"][0]
     vision = dataclasses.replace(pbase.get_reduced_config("qwen2.5-3b"), frontend="vision", n_frontend_tokens=8,
                                  frontend_embed_dim=32)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        PTF.init_params(0, vision, InitConfig(), device="cpu")
+    assert PTF.init_params(0, vision, InitConfig(), device="cpu")["frontend_proj"]["w"].shape == (32, 128)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        PTF.init_params(0, dataclasses.replace(mamba, block_pattern=("conv",)), InitConfig(), device="cpu")
 
 
 # ------------------------------------------------------------------ blocks
