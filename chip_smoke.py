@@ -746,6 +746,92 @@ def main() -> int:
     kreg_np = receive_matrix(T.random_k_regular(1024, 4, seed=0)).astype(np.float32)
     kreg_bsr = BSR(*(torch.as_tensor(a, device=dev) for a in bsr_from_dense(kreg_np, 32)))
 
+    # the row-block forms of kernels 1 and 2, the node-sharded round's calls
+    # (core/shardplan.py) at the shapes S = 2 and S = 4 produce: every rank's
+    # rows of complete-16's operator at the MLP width (r = 8 and 4), against
+    # the plain version and bitwise the square call's rows; fig10 quick's
+    # ring and kreg4 shards (nps 64, d 256) over their [local | halo]
+    # buffers, the buffer widths read off the layouts, against the plain
+    # tile walk, bitwise the walk's rendering, and to the tolerance the
+    # unsharded product's rows
+    m16_full = compile_plan(T.complete(16), "dense", device=dev).receive
+    w16 = torch.randn(16, D_MAIN, generator=gen, device=dev)
+    full16 = mix_matmul(m16_full, w16)
+    errs["mix_matmul_rows"] = errs["mix_bsr_halo"] = 0.0
+    for r in (8, 4):
+        for rank in range(16 // r):
+            block = m16_full[rank * r : (rank + 1) * r].contiguous()
+            e = compare(f"mix_matmul_rows complete-16 r={r} rank {rank} d={D_MAIN}", lambda: mix_matmul(block, w16),
+                        decavg_mix_ref(block, w16), w16)
+            check(torch.equal(mix_matmul(block, w16), full16[rank * r : (rank + 1) * r]),
+                  f"mix_matmul_rows r={r} rank {rank}: not the square call's rows")
+            errs["mix_matmul_rows"] = max(errs["mix_matmul_rows"], e)
+    block4 = m16_full[:4].contiguous()
+    b_r, op_r = bound(4 * 4 * 16 + 4 * 16 * D_MAIN + 4 * 4 * D_MAIN, 2 * 4 * 16 * D_MAIN)
+    timing_rows = {}
+    timing_rows["mix_matmul_rows"] = dict(
+        ms=time_ms(lambda: mix_matmul(block4, w16), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(block4, w16), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(block4, w16), flush=flush),
+        bound_ms=b_r, bound_by=op_r, shape=f"complete-16 rows 0-3 (S = 4) d={D_MAIN} fp32",
+        dense_route=dense_route(16, D_MAIN, torch.float32),
+    )
+    del w16, full16
+    from repro_torch.core.shardplan import _layouts, _local_op
+
+    halo_cases = {}
+    for fam, build_g in (("ring", T.ring), ("kreg4", lambda n_g: T.random_k_regular(n_g, 4, seed=0))):
+        for n_sh in (2, 4):
+            n_g = 64 * n_sh
+            plan_h = compile_plan(build_g(n_g), "sparse", device=dev)
+            recv_h, _ = _layouts(plan_h, n_sh)
+            x_h = torch.randn(n_g, 256, generator=gen, device=dev)
+            full_h = mix_bsr(*plan_h.bsr, x_h)
+            for rank in range(n_sh):
+                op_h = _local_op(recv_h, rank, plan_h.bsr.block_n, dev)
+                halo = recv_h.send[:, rank, : recv_h.h_max] + np.arange(n_sh)[:, None] * recv_h.nps
+                buf = torch.cat([x_h[rank * 64 : (rank + 1) * 64],
+                                 x_h[torch.as_tensor(halo.reshape(-1), dtype=torch.int64, device=dev)]])
+                label = f"mix_bsr_halo {fam}-{n_g} S={n_sh} rank {rank} ({buf.shape[0]} buffer rows)"
+                e = compare(label, lambda: mix_bsr(*op_h.bsr, buf, 64), mix_bsr_ref(*op_h.bsr, buf, 64), buf)
+                got_h = mix_bsr(*op_h.bsr, buf, 64)
+                check(torch.equal(got_h, mix_bsr_rows_ref(*op_h.bsr, buf, 64)), f"{label}: not the walk's rendering")
+                off = float((got_h - full_h[rank * 64 : (rank + 1) * 64]).abs().max())
+                check(off <= FP32_TOL * float(x_h.abs().max()), f"{label}: {off} off the unsharded rows")
+                errs["mix_bsr_halo"] = max(errs["mix_bsr_halo"], e)
+                halo_cases[(fam, n_sh, rank)] = (op_h, buf, recv_h)
+    # the timed row: kreg4-256 at S = 4, rank 0
+    op_h, buf, recv_h = halo_cases[("kreg4", 4, 0)]
+    bn_h = op_h.bsr.block_n
+    local_dense = torch.zeros(-(-64 // bn_h) * bn_h, -(-buf.shape[0] // bn_h) * bn_h, device=dev)
+    for i, cnt in enumerate(op_h.bsr.counts.tolist()):
+        for t_i in range(cnt):
+            c_b = int(op_h.bsr.block_cols[i, t_i])
+            local_dense[i * bn_h : (i + 1) * bn_h, c_b * bn_h : (c_b + 1) * bn_h] = op_h.bsr.tiles[i, t_i]
+    local_dense = local_dense[:64, : buf.shape[0]].contiguous()
+    nnz_h = int((local_dense != 0).sum())
+    local_csr = local_dense.to_sparse_csr()
+    check(float((torch.sparse.mm(local_csr, buf) - mix_bsr(*op_h.bsr, buf, 64)).abs().max())
+          <= FP32_TOL * float(buf.abs().max()), "mix_bsr_halo: torch.sparse.mm computes another function")
+    # bytes the function needs: each nonzero's weight and column index (4 B
+    # each), the buffer rows some nonzero reads (the rank's padded slot of
+    # the halo is read by none), the output written once
+    rows_read_h = int((local_dense != 0).any(0).sum())
+    bytes_h = 8 * nnz_h + 4 * 256 * rows_read_h + 4 * 64 * 256
+    b_h, op_hb = bound(bytes_h, 2 * nnz_h * 256)
+    timing_rows["mix_bsr_halo"] = dict(
+        ms=time_ms(lambda: mix_bsr(*op_h.bsr, buf, 64), flush=flush),
+        plain_ms=time_ms(lambda: mix_bsr_ref(*op_h.bsr, buf, 64), flush=flush),
+        library_ms=time_ms(lambda: torch.sparse.mm(local_csr, buf), flush=flush),
+        bound_ms=b_h, bound_by=op_hb, bytes=bytes_h,
+        shape=f"kreg4-256 S=4 rank 0: 64 rows over a {buf.shape[0]}-row [local | halo] buffer ({rows_read_h} rows "
+              f"read, {nnz_h} nonzeros), d=256 fp32",
+    )
+    print("  row-block timings: " + "; ".join(
+        f"{k} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound {t['bound_ms']:.6f} "
+        f"by {t['bound_by']}) at {t['shape']}" for k, t in timing_rows.items()))
+    del halo_cases, op_h, buf, local_dense, local_csr, m16_full
+
     # flash attention.  First every launch phase 7 makes, from the two
     # configs, in the decoder's layout ((B, S, H, hd) activations passed as
     # transposed views, as attention_prefill passes them): qwen2.5-3b's
@@ -970,7 +1056,7 @@ def main() -> int:
 
     # timings at the main path's shapes: dense at the quickstart's complete-16,
     # block-sparse at the CLI's ring-1024 (bn 32); W fp32 of the full MLP width
-    timing = {}
+    timing = {**timing_rows}
     m16 = compile_plan(T.complete(16), "dense", device=dev).receive
     w16 = torch.randn(16, D_MAIN, generator=gen, device=dev)
     b_k, op_k = bound(4 * 16 * 16 + 2 * 4 * 16 * D_MAIN, 2 * 16 * 16 * D_MAIN)
@@ -2104,10 +2190,10 @@ def main() -> int:
             launched_4e.add(("mix_matmul", *w.shape, 0))
         return real_mm(m, w)
 
-    def recording_bsr(block_cols, tiles, counts, w):
+    def recording_bsr(block_cols, tiles, counts, w, n_rows=None):
         if w.is_cuda:
             launched_4e.add(("mix_bsr", *w.shape, tiles.shape[-1]))
-        return real_bsr(block_cols, tiles, counts, w)
+        return real_bsr(block_cols, tiles, counts, w, n_rows)
 
     def counted(fn):
         """fn() with every count set to 0 before; (result, seconds, launches
@@ -3600,10 +3686,10 @@ if __name__ == "__main__":
             launched_4j.add(("mix_matmul", w.shape[0], w.shape[1] if w.ndim > 1 else 1, 0))
         return real_mm_4j(m, w)
 
-    def recording_bsr_4j(block_cols, tiles, counts, w):
+    def recording_bsr_4j(block_cols, tiles, counts, w, n_rows=None):
         if w.is_cuda:
             launched_4j.add(("mix_bsr", w.shape[0], w.shape[1] if w.ndim > 1 else 1, tiles.shape[-1]))
-        return real_bsr_4j(block_cols, tiles, counts, w)
+        return real_bsr_4j(block_cols, tiles, counts, w, n_rows)
 
     def recording_flash_4j(q, k, v, *, causal=True, window=0):
         if q.is_cuda:
@@ -4160,6 +4246,117 @@ if __name__ == "__main__":
     check(cli_c_launches == {**none_launched, "quant_scales": 3, "quant_mix_bsr": 3},
           f"compressed CLI launch counts {cli_c_launches}")
     torch.cuda.empty_cache()
+
+    # --------------------- 6b. the node-sharded rendering at one NCCL rank
+    phase("6b. node-sharded rendering at one NCCL rank: run_sharded_trajectory, gossip, fig10 quick")
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import fig10_scaling
+    from repro_torch.fed import run_sharded_trajectory
+    from repro_torch.launch.mesh import node_group
+
+    t_6b = time.perf_counter()
+    node_group(1, device=dev)  # world size 1 through a real NCCL group
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "6b: not a world-size-1 NCCL group")
+    ring_n, ring_per, ring_rounds = 1024, 16, 3
+    ring_ds = mnist_like(ring_n * ring_per + 256, seed=0)
+    ring_xs, ring_ys = node_datasets(ring_ds, [np.arange(i * ring_per, (i + 1) * ring_per) for i in range(ring_n)])
+    ring_sched = batch_index_schedule(ring_per, ring_n, 8, ring_rounds * 2, seed=0)
+    mlp_loss = lambda p, b: classifier_loss(mlp_forward(p, b[0]), b[1])  # noqa: E731
+    ring_state = init_fl_state(0, ring_n, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), sgd(1e-3, 0.5),
+                               device=dev)
+    # (a) the quickstart's complete-16 (dense, kernel 1) and the CLI's
+    # ring-1024 (sparse, kernel 2), clean and with a failure model: the
+    # sharded trajectory at one rank against the unsharded one, the same
+    # inputs and generator seed: params and losses bit for bit
+    shard_launches, shard_rounds = {}, {}
+    for label, g_6b, backend, st, xs_6b, ys_6b, sched_6b, rounds, b_6b, loss_6b, opt_6b, ev_6b, test_6b in (
+        ("complete-16", graph, "dense", states[1], xs, ys, schedule[: 5 * B_LOCAL], 5, B_LOCAL, loss_fn, opt,
+         eval_fn, test),
+        ("ring-1024", T.ring(ring_n), "sparse", ring_state, ring_xs, ring_ys, ring_sched, ring_rounds, 2, mlp_loss,
+         sgd(1e-3, 0.5), make_eval_fn(mlp_loss), (ring_ds.x[-256:], ring_ds.y[-256:])),
+    ):
+        for fm in (FailureModel(), FailureModel(link_p=0.8)):
+            tag = f"{label} {'link_p 0.8' if fm.active else 'clean'}"
+            plan_6b = compile_plan(g_6b, backend, failures=fm, device=dev)
+            common_6b = dict(n_rounds=rounds, eval_every=rounds - 1, eval_fn=ev_6b, eval_batch=test_6b, b_local=b_6b)
+            fin_u, h_u = run_trajectory(st, make_round_fn(loss_6b, opt_6b, plan_6b), xs_6b, ys_6b, sched_6b,
+                                        device=dev, **common_6b)
+            sp_6b = plan_6b.shard(n_shards=1)
+            reset_counts()
+            fin_s, h_s = run_sharded_trajectory(st, loss_6b, opt_6b, sp_6b, xs_6b, ys_6b, sched_6b, **common_6b)
+            launched = {kern.__name__: kern.launches for kern in kernels}
+            kern_6b = "mix_matmul" if backend == "dense" else "mix_bsr"
+            shard_launches[kern_6b] = shard_launches.get(kern_6b, 0) + launched[kern_6b]
+            check(launched == {**none_launched, kern_6b: rounds}, f"6b {tag}: launches {launched}")
+            same = bool(torch.equal(fin_s.params, fin_u.params))
+            check(same and all(h_s[k] == h_u[k] for k in ("round", "train_loss", "test_loss")),
+                  f"6b {tag}: sharded at one rank not bitwise the unsharded run (params {same})")
+            check(h_s["wire_bytes"] == [0] * len(h_s["round"]) and h_s["wire_collectives"][0] == 0,
+                  f"6b {tag}: wire constants {h_s['wire_bytes']}")
+            # what the group and the layout cost at one rank: whole runs as
+            # the caller pays (host clock after a sync), both paths warm
+            # (each ran once above), in turns u s s u u s, the median of
+            # three each; then one mix alone
+            def run_6b(sharded: bool) -> float:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if sharded:
+                    run_sharded_trajectory(st, loss_6b, opt_6b, sp_6b, xs_6b, ys_6b, sched_6b, **common_6b)
+                else:
+                    run_trajectory(st, make_round_fn(loss_6b, opt_6b, plan_6b), xs_6b, ys_6b, sched_6b, device=dev,
+                                   **common_6b)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / rounds * 1e3
+
+            walls_6b = {False: [], True: []}
+            for sharded in (False, True, True, False, False, True):
+                walls_6b[sharded].append(run_6b(sharded))
+            round_u, round_s = (sorted(walls_6b[k])[1] for k in (False, True))
+            w_6b = fin_u.params
+            gen_6b = (lambda: torch.Generator().manual_seed(1)) if fm.active else (lambda: None)  # noqa: E731
+            mix_u = time_ms(lambda: plan_6b.mix(w_6b, gen_6b()), flush=flush)
+            mix_s = time_ms(lambda: sp_6b.local_mix(w_6b, gen_6b()), flush=flush)
+            shard_rounds[tag] = dict(round_ms_unsharded=round_u, round_ms_sharded=round_s, mix_ms_unsharded=mix_u,
+                                     mix_ms_sharded=mix_s, round_ms_turns=walls_6b)
+            print(f"  {tag}: {rounds} rounds, sharded at one NCCL rank bitwise the unsharded run (params, "
+                  f"train / test loss); a round {round_s:.2f} ms sharded vs {round_u:.2f} ms unsharded (eval rounds "
+                  f"included, both warm, median of 3 in turns; sharded {[f'{v:.2f}' for v in walls_6b[True]]}, "
+                  f"unsharded {[f'{v:.2f}' for v in walls_6b[False]]}); one mix {mix_s:.4f} ms vs {mix_u:.4f} ms; "
+                  f"launches {kern_6b} {launched[kern_6b]}")
+            del fin_u, fin_s, w_6b
+            torch.cuda.empty_cache()
+    del ring_state
+    # (c) gossip over the sharded plan: the estimator's gains bitwise the
+    # unsharded plan's, its spread rounds on kernel 2 over Mᵀ
+    plan_g = compile_plan(T.ring(ring_n), "sparse", failures=FailureModel(link_p=0.8), device=dev)
+    sp_g = plan_g.shard(n_shards=1)
+    check(G.as_plan(sp_g) is sp_g, "6b: as_plan re-made a sharded plan without data sizes")
+    reset_counts()
+    gains_u = G.make_gain_estimator(plan_g, pi_rounds=16, ps_rounds=16)(3)
+    gossip_u = mix_bsr.launches
+    reset_counts()
+    gains_s = G.make_gain_estimator(sp_g, pi_rounds=16, ps_rounds=16)(3)
+    gossip_s = {kern.__name__: kern.launches for kern in kernels}
+    check(bool(torch.equal(gains_s, gains_u)), "6b: sharded gossip gains not bitwise the unsharded")
+    check(gossip_s == {**none_launched, "mix_bsr": gossip_u} and gossip_u == 32, f"6b gossip launches {gossip_s}")
+    print(f"  gossip over the sharded ring-1024 (link_p 0.8, 16 + 16 rounds): gains bitwise the unsharded "
+          f"estimator's, mean {float(gains_s.mean()):.4f}; launches mix_bsr {gossip_s['mix_bsr']}")
+    # (d) fig10 quick at one shard on the card
+    doc10 = fig10_scaling.run(quick=True, device=dev, shards=(1,))
+    check(all(r["parity_bitexact"] and r["collective_backend"] == "nccl" for r in doc10["records"]),
+          f"6b fig10: {doc10['records']}")
+    print("  fig10 quick S=1 on the card: " + ", ".join(
+        f"{r['family']} {r['us_per_round_serialized']:.1f} µs a round" for r in doc10["records"]))
+    # a point with more ranks than cards raises: no gloo point in a cuda document
+    if torch.cuda.device_count() < 2:
+        try:
+            fig10_scaling.run(quick=True, device=dev, shards=(1, 2))
+            check(False, "6b fig10: S = 2 on one card did not raise")
+        except ValueError as exc:
+            print(f"  fig10 S = 2 on one card raises: {exc}")
+    print(f"  phase 6b in {time.perf_counter() - t_6b:.1f} s")
+    dist.destroy_process_group()
 
     # ------------------------------------------------- 7. serve, full width
     phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, gemma3-4b, rwkv6-3b 4-node ensemble (bf16)")
@@ -4942,6 +5139,14 @@ if __name__ == "__main__":
         *((f"flash_mha_{short}", "src/repro/kernels/flash/flash.py:130",
            "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", new_serve[arch]["flash"])
           for short, arch in zip(("jamba", "llava", "musicgen", "llama4"), NEW_ARCHS)),
+        # the node-sharded round's row-block forms.  Their launches are
+        # phase 6b's sharded runs at one NCCL rank, where the row block is
+        # all n rows (r = n, S = 1); the r < n form that their errors,
+        # times and shapes describe (phase 3, at the shapes S = 2 and 4
+        # give) runs on the main path only at S > 1, which one card cannot
+        # hold: each row says so under "launches_at"
+        ("mix_matmul_rows", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", shard_launches["mix_matmul"]),
+        ("mix_bsr_halo", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", shard_launches["mix_bsr"]),
     ):
         t = timing[name]
         row = {
@@ -4960,8 +5165,11 @@ if __name__ == "__main__":
         elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example",
                                                                "_elastic", "_moe", "_granite", "_qwen15", "_swa",
                                                                "_zoo", "_eval", "_jamba", "_llava", "_musicgen",
-                                                               "_llama4")):
+                                                               "_llama4", "_rows", "_halo")):
             row["shape"] = t["shape"]
+        if name.endswith(("_rows", "_halo")):
+            row["launches_at"] = ("r = n (S = 1, one NCCL rank, phase 6b); the r < n form of shape, ms and "
+                                  "max_abs_err is launched only in phase 3's holdings")
         rows.append(row)
     print(f"\nall phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")

@@ -9,9 +9,12 @@ Prints ``name,us_per_call,derived`` CSV rows (also collected in
 ``benchmarks.common.ROWS``); the drivers that write JSON write it under
 ``build/``.  Runs go on ``cuda`` unless ``--device cpu`` is given.  A
 module that raises prints ``<name>.FAILED`` and the harness goes on to the
-next, then exits 1.  ``fig10`` (sharded scaling) and ``roofline`` (the
-dry-run's roofline report) need the multi-GPU launch path, which is not
-ported: naming either is an error that cites ROADMAP.md Queue 1 item 17.
+next, then exits 1.  ``fig10`` is the sharded rendering's weak scaling
+(``fig10_scaling``: S = 1 in this process, larger S spawned as ranks of
+their own, all on ``--device``; on the card, the S the host's cards
+cover).  ``roofline`` (the dry-run's roofline report) needs the TPU-pod
+launch layer, which is not ported: naming it is an error that cites
+ROADMAP.md Queue 1 item 17 (b).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from . import (
     fig7_constant_data,
     fig8_churn,
     fig9_async,
+    fig10_scaling,
     fig11_elastic,
     fig12_compress,
     fig13_serve,
@@ -49,6 +53,7 @@ MODULES = {
     "fig7": fig7_constant_data,
     "fig8": fig8_churn,
     "fig9": fig9_async,
+    "fig10": fig10_scaling,
     "fig11": fig11_elastic,
     "fig12": fig12_compress,
     "fig13": fig13_serve,
@@ -56,9 +61,8 @@ MODULES = {
     "rounds": rounds_bench,
     "estimates": estimates_bench,
 }
-# the JAX harness's modules that need the sharded launch path
+# the JAX harness's modules that need the TPU-pod launch layer
 NOT_PORTED = {
-    "fig10": "benchmarks/fig10_scaling.py (core/shardplan.py, launch/dryrun.py)",
     "roofline": "benchmarks/roofline_report.py (launch/dryrun.py, launch/roofline.py)",
 }
 
@@ -81,7 +85,7 @@ def main(argv: list[str] | None = None) -> None:
     refused = [x for x in names if x in NOT_PORTED]
     if refused:
         p.error("; ".join(f"{x}: {NOT_PORTED[x]} is not yet ported; see ROADMAP.md Queue 1 "
-                          "item 17 (multi-GPU)" for x in refused))
+                          "item 17 (b), the launch layer" for x in refused))
     unknown = [x for x in names if x not in MODULES]
     if unknown:
         p.error(f"unknown modules {unknown}; available: {list(MODULES)}")

@@ -37,9 +37,12 @@ over the same operator (int8 / fp8 through the quantised-mix kernel).
             package's ``shard_map``.  On one device both packages render it
             as node-axis gathers, one a colour (``decavg.mix_pytree_colored``,
             plain torch on every device: the JAX package has no kernel for
-            it either); its compressed rounds take the plain codec.  The
-            NCCL rendering (one exchange a colour) is ROADMAP.md Queue 1
-            item 17.
+            it either); its compressed rounds take the plain codec.  Over a
+            process group, one node a rank (``CommPlan.shard``), each colour
+            is one exchange (``core/shardplan.py``).
+
+``CommPlan.shard`` renders a plan over a node-sharded process group
+(``core/shardplan.py``, DESIGN.md §15).
 
 Event-driven (asynchronous) rendering, undirected plans on every backend:
 ``event_uv`` / ``event_w`` hold each edge's endpoints and its weights
@@ -616,6 +619,13 @@ class CommPlan:
         if ev is None:
             return x.clone()
         return spread_min_pairwise(x, ev[0], ev[1])
+
+    def shard(self, *, group=None, n_shards: int | None = None):
+        """Render this plan over a node-sharded process group (DESIGN.md
+        §15): see ``core.shardplan.shard_plan`` for the partition contract."""
+        from .shardplan import shard_plan  # shardplan builds on CommPlan
+
+        return shard_plan(self, group=group, n_shards=n_shards)
 
     def with_options(
         self,

@@ -6,7 +6,10 @@ kernels of ``repro_torch.kernels.mix`` instead.  The edge-coloured
 (``ppermute``) and circulant schedules have no kernel in the JAX package
 either: their single-device renderings here are node-axis gathers and rolls,
 and ``CommPlan.mix`` runs the colour schedule through ``mix_pytree_colored``
-on every device.  All accumulate in fp32 regardless of the parameter dtype
+on every device.  Given a ``process_group`` (one node a rank, the node
+axis of ``launch.mesh.node_group``) both run as collectives instead, the
+JAX package's ``ppermute`` rounds: one ``batch_isend_irecv`` exchange a
+colour, or a send/receive pair a circulant term (``exchange``).  All accumulate in fp32 regardless of the parameter dtype
 (the mixing weights are O(1/k) and the post-diffusion scale is the signal
 bf16 accumulation would lose).
 
@@ -25,12 +28,14 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.mix.ref import decavg_mix_ref, pair_mix_ref
 
 from .topology import Graph
 
 __all__ = [
+    "exchange",
     "failure_receive_matrix",
     "link_failure_mask",
     "mix_array",
@@ -60,6 +65,37 @@ def _map_params(fn, params):
 def _bcast(w: torch.Tensor, ndim: int) -> torch.Tensor:
     """Reshape a 1-D weight vector to broadcast over ``ndim - 1`` trailing dims."""
     return w.reshape(w.shape + (1,) * (ndim - 1))
+
+
+def exchange(sends: Sequence[torch.Tensor], peers: Sequence[tuple[int, int]], process_group) -> list[torch.Tensor]:
+    """Point-to-point rounds over ``process_group``: round j sends
+    ``sends[j]`` to group rank ``peers[j][0]`` and receives a tensor of its
+    shape from ``peers[j][1]``, one ``batch_isend_irecv`` a round.  A round
+    whose peers are both this rank moves nothing and returns ``sends[j]``
+    itself.  Returns the received tensors in round order."""
+    me = dist.get_rank(process_group)
+    out = []
+    for x, (to, frm) in zip(sends, peers):
+        if to == me and frm == me:
+            out.append(x)
+            continue
+        x = x.contiguous()
+        buf = torch.empty_like(x)
+        ops = [
+            dist.P2POp(dist.isend, x, dist.get_global_rank(process_group, to), process_group),
+            dist.P2POp(dist.irecv, buf, dist.get_global_rank(process_group, frm), process_group),
+        ]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out.append(buf)
+    return out
+
+
+def _one_node_a_rank(process_group, n: int, what: str) -> int:
+    size = dist.get_world_size(process_group)
+    if size != n:
+        raise ValueError(f"the collective {what} runs one node a rank: group size {size} != n {n}")
+    return dist.get_rank(process_group)
 
 
 def mix_array(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -119,13 +155,27 @@ def mix_pytree_colored(
     ensemble a colour, accumulated in fp32 in the JAX package's order (the
     self term, then colour 0, 1, …), so no atomics and reruns are bitwise.
     ``params`` is a flat (n, d) buffer or a node-stacked dict; leaf dtypes
-    are kept.  The collective rendering (one NCCL exchange a colour) waits
-    for ROADMAP.md Queue 1 item 17: a ``process_group`` raises."""
+    are kept.
+
+    With a ``process_group`` of n ranks (one node a rank, the JAX
+    ``axis_name`` form) ``params`` is this rank's node, a (1, d) buffer or a
+    dict of (1, ...) leaves, ``color_w`` its (n_colors, 1) column and
+    ``self_w`` its (1,) entry; ``partners`` stays the full host table.  Each
+    colour is one ``batch_isend_irecv`` exchange with the rank's partner
+    (``exchange``); an unmatched rank takes its own row, as the gather does,
+    so the sums are the single-device rendering's."""
     if process_group is not None:
-        raise NotImplementedError(
-            "the collective edge-coloured mix (one exchange a colour) is not ported yet; "
-            "see ROADMAP.md Queue 1 item 17"
-        )
+        table = np.asarray(partners)
+        me = _one_node_a_rank(process_group, table.shape[1], "edge-coloured mix")
+        peers = [(int(p), int(p)) for p in table[:, me]]
+
+        def mix_leaf_collective(x: torch.Tensor) -> torch.Tensor:
+            acc = _bcast(self_w, x.ndim) * x.to(torch.float32)
+            for c, got in enumerate(exchange([x] * len(peers), peers, process_group)):
+                acc = acc + _bcast(color_w[c], x.ndim) * got.to(torch.float32)
+            return acc.to(x.dtype)
+
+        return _map_params(mix_leaf_collective, params)
 
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
         idx = torch.as_tensor(partners, dtype=torch.int64, device=x.device)
@@ -149,24 +199,38 @@ def mix_pytree_circulant(
     one ``ppermute`` a term, pairs (i, i + s): node j receives node j − s,
     which is ``torch.roll(x, s)`` along the node axis here.  ``weights``
     ((2|S| + 1,), default uniform 1/(2|S| + 1)) in the JAX term order
-    [self, +s1, −s1, +s2, …], accumulated in fp32 in that order.  The NCCL
-    rendering waits for ROADMAP.md Queue 1 item 17: a ``process_group``
-    raises."""
-    if process_group is not None:
-        raise NotImplementedError(
-            "the collective circulant mix is not ported yet; see ROADMAP.md Queue 1 item 17"
-        )
+    [self, +s1, −s1, +s2, …], accumulated in fp32 in that order.
+
+    With a ``process_group`` (one node a rank, the group's size the node
+    count) ``params`` is this rank's node, (1, ...), and each term is one
+    send/receive pair: node i sends to i + s and receives from i − s, the
+    JAX ``ppermute`` pairs, in the same term order."""
     n_terms = 2 * len(offsets) + 1
+    terms = [sign * int(s) for s in offsets for sign in (1, -1)]
+
+    def term_weights(device) -> torch.Tensor:
+        return (torch.full((n_terms,), 1.0 / n_terms, dtype=torch.float32) if weights is None
+                else torch.as_tensor(weights, dtype=torch.float32)).to(device)
+
+    if process_group is not None:
+        size = dist.get_world_size(process_group)
+        me = dist.get_rank(process_group)
+        peers = [((me + t) % size, (me - t) % size) for t in terms]
+
+        def mix_leaf_collective(x: torch.Tensor) -> torch.Tensor:
+            w = term_weights(x.device)
+            acc = w[0] * x.to(torch.float32)
+            for t, got in enumerate(exchange([x] * len(peers), peers, process_group), start=1):
+                acc = acc + w[t] * got.to(torch.float32)
+            return acc.to(x.dtype)
+
+        return _map_params(mix_leaf_collective, params)
 
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
-        w = (torch.full((n_terms,), 1.0 / n_terms, dtype=torch.float32) if weights is None
-             else torch.as_tensor(weights, dtype=torch.float32)).to(x.device)
+        w = term_weights(x.device)
         acc = w[0] * x.to(torch.float32)
-        t = 1
-        for s in offsets:
-            for sign in (1, -1):
-                acc = acc + w[t] * torch.roll(x, sign * int(s), dims=0).to(torch.float32)
-                t += 1
+        for t, shift in enumerate(terms, start=1):
+            acc = acc + w[t] * torch.roll(x, shift, dims=0).to(torch.float32)
         return acc.to(x.dtype)
 
     return _map_params(mix_leaf, params)

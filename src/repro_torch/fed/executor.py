@@ -37,8 +37,11 @@ fp8 compressed), its optimizer re-init, its virtual clocks.  Everything the
 stream and the host-drawn failure flags decide (counts, clocks,
 staleness, delivered messages, bins, eval points) is kept on the host in
 the JAX executor's fp32 arithmetic; the losses stay on the device, read
-once a chunk.  The sharded executor is not ported yet (ROADMAP.md Queue 1
-item 17).
+once a chunk.
+
+``run_sharded_trajectory`` is the node-sharded executor over a
+``ShardedCommPlan`` (DESIGN.md §15): SPMD, one rank a shard, each rank
+moving only its rows to its device, mixing through the plan's collectives.
 """
 from __future__ import annotations
 
@@ -53,11 +56,16 @@ import torch
 from repro_torch.checkpoint.io import restore_train_state, save_train_state
 from repro_torch.core import commplan as _commplan
 from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan
-from repro_torch.core.compress import Compression, _edges, compressed_mix, compressed_mix_with, seed_residual
+from repro_torch.core.compress import (
+    Compression, _edges, compressed_mix, compressed_mix_with, init_residuals, seed_residual,
+)
+from repro_torch.core.shardplan import ShardedCommPlan, all_gather_rows
 from repro_torch.core.topology import EventStream, Graph
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
-from repro_torch.obs import BinChannel, BinSpec, Channel, MetricsSpec, Recorder, make_wire_fn, param_row_bytes
+from repro_torch.obs import (
+    BinChannel, BinSpec, Channel, MetricsSpec, Recorder, make_wire_fn, param_row_bytes, sharded_wire_per_round,
+)
 from repro_torch.obs.export import scope
 from repro_torch.obs.health import staleness_histogram
 from repro_torch.obs.spec import host_values
@@ -81,6 +89,7 @@ __all__ = [
     "elastic_draws",
     "run_elastic_trajectory",
     "run_event_trajectory",
+    "run_sharded_trajectory",
     "run_sweep",
     "run_trajectory",
     "run_warmup_sweep",
@@ -398,6 +407,143 @@ def _run(state, round_fn, xs, ys, schedule, *, n_rounds, eval_every, eval_fn, ev
             _save_chunk_ckpt(checkpoint, ci, ci == len(chunks) - 1,
                              lambda: {"carry": _state_carry(state), "outs": _cols_outs(rec, cols)}, meta_id)
     return state, _assemble(rec, mask, cols, 0, n_rounds, row_bytes)
+
+
+def run_sharded_trajectory(
+    state: DFLState,
+    loss_fn,
+    optimizer,
+    plan: ShardedCommPlan,
+    xs: np.ndarray | torch.Tensor,
+    ys: np.ndarray | torch.Tensor,
+    schedule: np.ndarray,
+    *,
+    n_rounds: int,
+    eval_every: int = 0,
+    eval_fn=None,
+    eval_batch=None,
+    track_sigmas: bool = False,
+    reinit_opt: bool = True,
+    b_local: int | None = None,
+    compression: Compression | None = None,
+) -> tuple[DFLState, dict[str, list]]:
+    """Node-sharded trajectory over ``plan``'s process group (DESIGN.md §15).
+
+    SPMD: every rank of the group calls it with the same arguments, the
+    globally shaped ``state``, ``xs``, ``ys`` and ``schedule`` (as
+    ``run_trajectory`` takes them), and moves only its ``nps`` rows of them
+    to its device (``plan.device``).  A round follows ``make_round_fn``'s
+    discipline on those rows: the local steps, the mix through the plan's
+    collectives (``local_mix``; with an active ``compression`` codec the
+    error-feedback delta form around it, ``compressed_mix_with``: the mirror
+    is rank-local and the plain codec runs per row), the optimizer re-init
+    (unless ``reinit_opt`` is False).  The failure draws come from a copy of
+    ``state.generator``, in the same state on every rank, so the masks are
+    the unsharded plan's.
+
+    Metrics: each rank's per-node values (losses, the eval at eval rounds,
+    σ_ap's per-node stds) are all-gathered in rank order, i.e. node order,
+    and reduced as ``run_trajectory`` reduces them, so every rank holds the
+    same bits and reruns are bitwise; no all-reduce whose order the backend
+    picks.  σ_an takes the JAX executor's two-phase moments (per-parameter
+    sums, then centred sums, each gathered and added in rank order).  The
+    history is ``Recorder``'s, with ``obs.sharded_wire_per_round``'s
+    constants (``wire_bytes``, ``wire_rows``, ``wire_collectives``).  No
+    round holds the (n, d) stack on one device: the returned state is
+    globally shaped, gathered once after the last round, on every rank.
+
+    At one shard the final params and the losses are bitwise those of
+    ``run_trajectory`` over the unsharded plan with the same inputs; at
+    more, within fp32 rounding (``core/shardplan.py``).  A ``PlanSchedule``
+    is not sharded: it raises, as in the JAX package.
+    """
+    if not isinstance(plan, ShardedCommPlan):
+        raise TypeError(f"run_sharded_trajectory needs a ShardedCommPlan (CommPlan.shard()), got "
+                        f"{type(plan).__name__}; schedules are not sharded")
+    n = plan.n
+    if xs.shape[0] != n:
+        raise ValueError(f"plan has {n} nodes but xs carries {xs.shape[0]}")
+    dev, rows, group = plan.device, plan.rows, plan.group
+    comp = compression if compression is not None and compression.active else None
+    sched = torch.as_tensor(_as_round_schedule(schedule, n_rounds, b_local)[:, rows], device=dev)
+    gather_batch = _batch_gather(torch.as_tensor(xs[rows], device=dev), torch.as_tensor(ys[rows], device=dev))
+    eval_d = None if eval_batch is None else tuple(torch.as_tensor(a, device=dev) for a in eval_batch)
+    local = lambda t: t[rows].to(dev, copy=True)  # noqa: E731
+    params = local(state.params)
+    opt_state = type(state.opt_state)(*(local(f) for f in state.opt_state))
+    residual = None
+    if comp is not None:
+        residual = init_residuals(params) if state.residual is None else local(state.residual)
+    generator = _copy_generator(state.generator) if plan.failures.active else None
+    layout = state.layout
+    mask = TrajectoryConfig(n_rounds, eval_every).eval_mask()
+
+    def rank_sum(x: torch.Tensor) -> torch.Tensor:
+        """Σ over ranks of a per-rank tensor, added in rank order."""
+        every = all_gather_rows(x[None], group)
+        out = every[0].clone()
+        for q in range(1, every.shape[0]):
+            out += every[q]
+        return out
+
+    def sigmas(x: torch.Tensor):
+        """(per-node σ of this rank's rows, σ_an), σ_an from two phases."""
+        x = x.detach().to(torch.float32)
+        d = x.shape[-1]
+        mean_n = x.sum(dim=-1) / d
+        var_n = ((x - mean_n[:, None]) ** 2).sum(dim=-1) / d
+        mean_p = rank_sum(x.sum(dim=0)) / n
+        var_p = rank_sum(((x - mean_p[None, :]) ** 2).sum(dim=0)) / n
+        return torch.sqrt(var_n), torch.sqrt(var_p).sum() / d
+
+    losses_r, evals, sig = [], {}, {}
+    for r in range(n_rounds):
+        with scope("dfl_local"):
+            params, opt_state, losses = _local_steps(loss_fn, optimizer, layout, params, opt_state,
+                                                     gather_batch(sched[r]))
+        with scope("dfl_mix"):
+            if comp is not None:
+                params, residual = compressed_mix_with(lambda h: plan.local_mix(h, generator), params, residual,
+                                                       comp, layout=layout)
+            else:
+                params = plan.local_mix(params, generator)
+        if reinit_opt:  # Algorithm 1 line 15
+            opt_state = optimizer.init(params)
+        losses_r.append(losses)
+        if mask[r] and eval_fn is not None:
+            with scope("dfl_eval"):
+                evals[r] = eval_fn(layout.views(params), eval_d)
+        if mask[r] and track_sigmas:
+            sig[r] = sigmas(params)
+
+    # every rank's per-node values in node order: one gather a kind
+    per_node = lambda cols: all_gather_rows(torch.stack(cols, dim=1).contiguous(), group)  # noqa: E731
+    train = per_node(losses_r) if losses_r else None
+    rounds = sorted(evals) if eval_fn is not None else sorted(sig)
+    test = per_node([evals[r] for r in rounds]) if evals else None
+    ap = per_node([sig[r][0] for r in rounds]) if sig else None
+    nan = float("nan")
+    cols = [[train[:, r].contiguous().mean() for r in range(n_rounds)]]
+    if eval_fn is not None:
+        cols.append([nan] * n_rounds)
+        for j, r in enumerate(rounds):
+            cols[-1][r] = test[:, j].contiguous().mean()
+    if track_sigmas:
+        cols += [[nan] * n_rounds, [nan] * n_rounds]
+        for j, r in enumerate(rounds):
+            cols[-2][r], cols[-1][r] = ap[:, j].contiguous().mean(), sig[r][1]
+    rec = Recorder(MetricsSpec.legacy(eval_fn is not None, track_sigmas))
+    hist = rec.assemble(mask, cols, constants=sharded_wire_per_round(
+        plan, state.tree, codec_bytes=comp.leaf_row_bytes if comp is not None else None))
+    final = DFLState(
+        params=all_gather_rows(params, group),
+        opt_state=type(opt_state)(*(all_gather_rows(f, group) for f in opt_state)),
+        layout=layout,
+        round=state.round + n_rounds,
+        generator=generator if generator is not None else _copy_generator(state.generator),
+        residual=None if residual is None else all_gather_rows(residual, group),
+    )
+    return final, hist
 
 
 def _batch_gather(xs_d: torch.Tensor, ys_d: torch.Tensor):

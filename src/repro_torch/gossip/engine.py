@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.core import commplan as _commplan
 from repro_torch.core.commplan import CommPlan, PlanSchedule, compile_plan, compile_schedule
+from repro_torch.core.shardplan import ShardedCommPlan, shard_plan
 from repro_torch.core.topology import EventStream, Graph
 
 from .walker import poll_degrees_device
@@ -91,9 +92,7 @@ _EPS = 1e-30  # guards 1/z before mass from the leader one-hot arrives
 # below this a node's push-sum weight of the leader one-hot is zero up to
 # fp32 underflow: the budget never carried the leader's mass there
 _UNREACHED = 1e-20
-# the plans whose port is still to come (ROADMAP.md Queue 1)
-_UNPORTED_PLANS = {"ShardedCommPlan": "item 17"}
-Plan = CommPlan | PlanSchedule
+Plan = CommPlan | PlanSchedule | ShardedCommPlan
 
 
 def split_seed(seed: int, n: int) -> list[int]:
@@ -111,16 +110,20 @@ def as_plan(
 ) -> Plan:
     """Estimation plans are unit-data-size: Eq. 3 weights, not |D_j|-weighted.
 
-    A ``CommPlan`` or ``PlanSchedule`` without data sizes is used as it is;
-    one with data sizes is recompiled without them (not
-    ``with_options(data_sizes=None)``: there None means "keep").  A
+    A ``CommPlan``, ``PlanSchedule`` or ``ShardedCommPlan`` without data
+    sizes is used as it is; one with data sizes is recompiled without them
+    (not ``with_options(data_sizes=None)``: there None means "keep"), a
+    sharded plan re-sharded over its group.  Over a sharded plan the
+    estimation's ``spread`` / ``spread_min`` rounds run through its halo
+    collectives (every rank of the group makes the same calls).  A
     ``Graph`` is compiled on ``device`` (default cuda).
     """
-    name = type(graph_or_plan).__name__
-    if name in _UNPORTED_PLANS:
-        raise NotImplementedError(
-            f"gossip over a {name} is not ported yet; see ROADMAP.md Queue 1 {_UNPORTED_PLANS[name]}"
-        )
+    if isinstance(graph_or_plan, ShardedCommPlan):
+        sp = graph_or_plan
+        if sp.data_sizes is None:
+            return sp
+        base = compile_plan(sp.graph, backend=sp.backend, failures=sp.failures, device=sp.device)
+        return shard_plan(base, group=sp.group)
     if isinstance(graph_or_plan, PlanSchedule):
         sched = graph_or_plan
         if sched.data_sizes is None:

@@ -3,7 +3,9 @@
 //     y[r, :] = sum_k M[r, k] * src(k)[:]
 //
 // over the nonzeros of M only, M in the BSR form of sparse.py (block_cols,
-// tiles, counts).  src(k) is row k of W (mix_bsr, and the quantised round's
+// tiles, counts).  Output rows are r < n_rows; source rows k < n (a row
+// block of a larger operator, n_rows < n, reads a [local | halo] buffer of n
+// rows: the node-sharded round of core/shardplan.py).  src(k) is row k of W (mix_bsr, and the quantised round's
 // second pass over H') or the row every peer decodes from X (the quantised
 // raw mode); the caller supplies it, and the epilogue that stores a
 // finished output row.
@@ -67,12 +69,12 @@ struct Piece {
 // its column block block_cols[slot0 + t].
 __device__ __forceinline__ Piece compact(Lists& L, bool restart, const int* __restrict__ block_cols,
                                          const float* __restrict__ tiles, long long slot0, int nt, int bn,
-                                         int rr0, int row0, int n) {
+                                         int rr0, int row0, int n, int n_rows) {
   __syncthreads();  // every thread is done with the previous piece
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp < kRows) {
     const int r = warp;
-    const int total = (rr0 + r < bn && row0 + r < n) ? nt * bn : 0;
+    const int total = (rr0 + r < bn && row0 + r < n_rows) ? nt * bn : 0;
     int p = restart ? 0 : L.next[r];
     int cnt = 0;
     while (p < total && cnt < kCap) {
@@ -227,8 +229,9 @@ __device__ __forceinline__ void add_staged(const Lists& L, int lmax, const typen
 // copies of the block's lists and own rows fit there.
 template <int VEC, int BYTES, class Src, class Store>
 __device__ __forceinline__ void rows_walk(const int* __restrict__ block_cols, const float* __restrict__ tiles,
-                                          const int* __restrict__ counts, int n, long long d, int max_nnz,
-                                          int bn, int groups_per_rb, int slices, Src& src, const Store& store) {
+                                          const int* __restrict__ counts, int n, int n_rows, long long d,
+                                          int max_nnz, int bn, int groups_per_rb, int slices, Src& src,
+                                          const Store& store) {
   __shared__ __align__(16) Lists L;
   // block -> (row group g, strip range k of `slices`), the row groups fastest:
   // the blocks of all row groups walk the same strips at the same time
@@ -244,7 +247,7 @@ __device__ __forceinline__ void rows_walk(const int* __restrict__ block_cols, co
   const long long n_strips = (d + strip_cols - 1) / strip_cols;
   const long long per = (n_strips + slices - 1) / slices;
   const long long s_begin = k_range * per, s_end = min(n_strips, s_begin + per);
-  Piece pc = compact(L, true, block_cols, tiles, slot0, nt, bn, rr0, row0, n);
+  Piece pc = compact(L, true, block_cols, tiles, slot0, nt, bn, rr0, row0, n, n_rows);
   const bool whole = !pc.more;
   if constexpr (Src::kStaged) {
     using P = typename Src::Pack;
@@ -252,7 +255,7 @@ __device__ __forceinline__ void rows_walk(const int* __restrict__ block_cols, co
     if (whole && 2 * need * kThreads * (int)sizeof(P) <= BYTES) {
       extern __shared__ __align__(16) unsigned char stage_smem[];
       P* stage[2] = {reinterpret_cast<P*>(stage_smem), reinterpret_cast<P*>(stage_smem) + need * kThreads};
-      const int n_own = max(0, min(kRows, min(bn - rr0, n - row0)));
+      const int n_own = max(0, min(kRows, min(bn - rr0, n_rows - row0)));
       // strip s goes to stage (s - s_begin) & 1, its copies in flight while
       // the thread adds strip s - 1; each thread reads back only its own
       // copies, so no barrier is needed
@@ -291,7 +294,7 @@ __device__ __forceinline__ void rows_walk(const int* __restrict__ block_cols, co
     if (c0 < d) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        if (rr0 + r < bn && row0 + r < n) own[r] = store.own_load(row0 + r, c0);
+        if (rr0 + r < bn && row0 + r < n_rows) own[r] = store.own_load(row0 + r, c0);
     }
     float acc[kRows][VEC];
 #pragma unroll
@@ -307,13 +310,13 @@ __device__ __forceinline__ void rows_walk(const int* __restrict__ block_cols, co
       if (whole) break;
       // in pieces: the next one, or after the last the first again for the next strip
       const bool last = !pc.more;
-      pc = compact(L, last, block_cols, tiles, slot0, nt, bn, rr0, row0, n);
+      pc = compact(L, last, block_cols, tiles, slot0, nt, bn, rr0, row0, n, n_rows);
       if (last) break;
     }
     if (c0 < d) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        if (rr0 + r < bn && row0 + r < n) store(row0 + r, c0, acc[r], own[r]);
+        if (rr0 + r < bn && row0 + r < n_rows) store(row0 + r, c0, acc[r], own[r]);
     }
   }
 }

@@ -26,10 +26,10 @@
 // or more warps a block ran slower there.
 //
 // Wide route (mix_wide_kernel): one block of 128 threads per (strip of 128
-// x 8 bytes of columns, group of RG rows: 8 at n <= 8, else 16; the row
+// x 8 bytes of columns, group of RG output rows: 8 at <= 8 rows, else 16; the row
 // groups of a strip adjacent in launch order, so the second reads W from
-// L2).  A thread issues its loads of the first KB W rows (all 16 at n <=
-// 16, 8 at a time beyond) before the block stages its RG x n slice of M in
+// L2).  A thread issues its loads of the first KB W rows (all of them at
+// n <= 16, 8 at a time beyond) before the block stages its RG x n slice of M in
 // shared memory and syncs, so the staging hides behind them; then KB
 // broadcast float4 reads of M feed RG x 8 bytes of fused multiply-adds.
 // A thread reads 8 bytes of every W row at once and stores its Y values
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(32)
   float acc[CT];
 #pragma unroll
   for (int c = 0; c < CT; ++c) acc[c] = 0.f;
-  const float* mr = m + r * n;
+  const float* mr = m + r * n;  // M's leading dimension is n, also for a row block
   constexpr int kUnroll = CT <= 4 ? 8 : 32 / CT;  // up to 32 W values of loads in flight a lane
 #pragma unroll kUnroll
   for (int k = lane; k < n; k += 32) {
@@ -99,8 +99,8 @@ constexpr int kWideThreads = 128;
 
 template <typename T, int RG, int KB>
 __global__ void __launch_bounds__(kWideThreads)
-    mix_wide_kernel(const float* __restrict__ m, const T* __restrict__ w, T* __restrict__ y, int n, long long d,
-                    int n_rg) {
+    mix_wide_kernel(const float* __restrict__ m, const T* __restrict__ w, T* __restrict__ y, int rows, int n,
+                    long long d, int n_rg) {
   constexpr int V = 8 / sizeof(T);              // columns a thread: 8 bytes of each row
   extern __shared__ __align__(16) float m_s[];  // M[r0 + r, k] at k * RG + r
   const int t = threadIdx.x;
@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(kWideThreads)
     if (k0 == 0) {  // M's slice, while the first loads are in flight
       for (int i = t; i < RG * n; i += kWideThreads) {
         const int k = i / RG, r = i - k * RG;
-        m_s[i] = r0 + r < n ? m[static_cast<long long>(r0 + r) * n + k] : 0.f;
+        m_s[i] = r0 + r < rows ? m[static_cast<long long>(r0 + r) * n + k] : 0.f;
       }
       __syncthreads();
     }
@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(kWideThreads)
   if (valid <= 0) return;
 #pragma unroll
   for (int r = 0; r < RG; ++r) {
-    if (r0 + r >= n) break;
+    if (r0 + r >= rows) break;
     T* p = y + static_cast<long long>(r0 + r) * d + c;
     if (whole) {
       uint2 o;
@@ -188,9 +188,9 @@ __global__ void __launch_bounds__(kWideThreads)
 }
 
 template <typename T, int RG, int KB>
-cudaError_t launch_wide(const float* m, const T* w, T* y, int n, long long d, cudaStream_t s) {
+cudaError_t launch_wide(const float* m, const T* w, T* y, int rows, int n, long long d, cudaStream_t s) {
   constexpr int V = 8 / sizeof(T);
-  const int n_rg = (n + RG - 1) / RG;
+  const int n_rg = (rows + RG - 1) / RG;
   const long long blocks = ((d + V - 1) / V + kWideThreads - 1) / kWideThreads * n_rg;
   const long long smem = static_cast<long long>(n) * RG * sizeof(float);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
@@ -199,14 +199,15 @@ cudaError_t launch_wide(const float* m, const T* w, T* y, int n, long long d, cu
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<(unsigned)blocks, kWideThreads, (size_t)smem, s>>>(m, w, y, n, d, n_rg);
+  kernel<<<(unsigned)blocks, kWideThreads, (size_t)smem, s>>>(m, w, y, rows, n, d, n_rg);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_thin(const float* m, const T* w, T* y, int n, long long d, int tile, cudaStream_t s) {
+cudaError_t launch_thin(const float* m, const T* w, T* y, int rows, int n, long long d, int tile,
+                        cudaStream_t s) {
   const long long n_tiles = (d + tile - 1) / tile;
-  const long long blocks = n * n_tiles;
+  const long long blocks = rows * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
 #define MIX_THIN_CASE(CT)                                                             \
   case CT:                                                                            \
@@ -226,28 +227,37 @@ cudaError_t launch_thin(const float* m, const T* w, T* y, int n, long long d, in
 }
 
 template <typename T>
-cudaError_t launch(int route, int tile, const float* m, const void* w, void* y, int n, long long d,
+cudaError_t launch(int route, int tile, const float* m, const void* w, void* y, int rows, int n, long long d,
                    cudaStream_t s) {
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
-  if (route == 0) return launch_thin<T>(m, wt, yt, n, d, tile, s);
+  if (route == 0) return launch_thin<T>(m, wt, yt, rows, n, d, tile, s);
   if (route != 1) return cudaErrorInvalidValue;
-  if (n <= 8) return launch_wide<T, 8, 8>(m, wt, yt, n, d, s);
-  if (n <= 16) return launch_wide<T, 16, 16>(m, wt, yt, n, d, s);
-  return launch_wide<T, 16, 8>(m, wt, yt, n, d, s);
+  // RG from the rows, KB from n; a square M takes the instances it always
+  // took (8, 8), (16, 16), (16, 8).  Neither changes a sum: each output is
+  // one FMA chain over k in ascending order
+  if (rows <= 8) {
+    if (n > 8 && n <= 16) return launch_wide<T, 8, 16>(m, wt, yt, rows, n, d, s);
+    return launch_wide<T, 8, 8>(m, wt, yt, rows, n, d, s);
+  }
+  if (n <= 16) return launch_wide<T, 16, 16>(m, wt, yt, rows, n, d, s);
+  return launch_wide<T, 16, 8>(m, wt, yt, rows, n, d, s);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (W and Y).  route: 0 = thin (tile columns a
-// warp, tile in {1, 2, 4, 8, 16, 32}), 1 = wide (tile unused).  Any pointer
-// alignment.  Returns a cudaError_t: the launch's, or cudaErrorInvalidValue
-// for arguments no instance takes.
-extern "C" int mix_dense(int dtype, int route, int tile, const float* m, const void* w, void* y, int n,
+// warp, tile in {1, 2, 4, 8, 16, 32}), 1 = wide (tile unused).  M is
+// (rows, n) with rows <= n, row-major with leading dimension n: the square
+// operator, or a row block of it (a rank's rows in the node-sharded round of
+// core/shardplan.py); W (n, d), Y (rows, d).  Any pointer alignment.
+// Returns a cudaError_t: the launch's, or cudaErrorInvalidValue for
+// arguments no instance takes.
+extern "C" int mix_dense(int dtype, int route, int tile, const float* m, const void* w, void* y, int rows, int n,
                          long long d, void* stream) {
-  if (n <= 0 || d <= 0) return cudaErrorInvalidValue;
+  if (rows <= 0 || rows > n || d <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(route, tile, m, w, y, n, d, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(route, tile, m, w, y, n, d, s);
+  if (dtype == 0) return (int)launch<float>(route, tile, m, w, y, rows, n, d, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(route, tile, m, w, y, rows, n, d, s);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,11 @@
 // lowered to (bn x bn) fp32 tiles: block_cols (nrb, max_nnz) int32 names the
 // column block of each kept tile, tiles (nrb, max_nnz, bn, bn) holds them,
 // counts (nrb,) int32 says how many of a row block's tiles are real.  W is
-// (n, d) fp32 or bf16; Y has W's dtype, accumulated in fp32.
+// (n, d) fp32 or bf16; Y has W's dtype, accumulated in fp32.  M may be a
+// row block: n_rows <= n output rows (nrb covers n_rows), its column blocks
+// indexing all n rows of W.  The node-sharded round (core/shardplan.py) runs
+// a rank's rows of the operator so, over its [local | halo] buffer; the
+// square call (n_rows = n) is the unsharded plan's.
 //
 // What bounds it on an H100: the least traffic is reading W once and writing
 // Y once, 8 n d bytes; the flops are 2 d per nonzero of M, which for the
@@ -26,8 +30,8 @@
 // stages: a block whose lists fit two strips (a ring's 3 nonzeros a row)
 // keeps the next strip's W rows in flight by cp.async; one whose lists need
 // more (a 4-regular graph's 5) walks from registers, four blocks an SM
-// keeping the loads in flight.  Rows past n (the last row block's padding)
-// are neither read nor written.  No atomics: bitwise deterministic.
+// keeping the loads in flight.  Rows past n_rows (the last row block's
+// padding) are neither read nor written.  No atomics: bitwise deterministic.
 #include "bsr_walk.cuh"
 
 namespace {
@@ -38,21 +42,23 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(bsrw::kThreads, VEC == 4 ? 3 : 4)
     mix_bsr_kernel(const int* __restrict__ block_cols, const float* __restrict__ tiles,
                    const int* __restrict__ counts, const T* __restrict__ w, T* __restrict__ y, int n,
-                   long long d, int max_nnz, int bn, int groups_per_rb, int slices) {
+                   int n_rows, long long d, int max_nnz, int bn, int groups_per_rb, int slices) {
   bsrw::RowsOf<T, VEC> src{w, d};
-  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
-                                    bsrw::StoreRows<T, VEC>{y, d});
+  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, n_rows, d, max_nnz, bn, groups_per_rb, slices,
+                                    src, bsrw::StoreRows<T, VEC>{y, d});
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (W and Y).  vec in {1, 2, 4} divides d and the
-// host checked both pointers' alignment for it.  1 <= bn <= 256 and
-// nrb * bn >= n.  Returns a cudaError_t.
+// host checked both pointers' alignment for it.  1 <= bn <= 256,
+// 1 <= n_rows <= n and nrb * bn >= n_rows; W is (n, d), Y (n_rows, d).
+// Returns a cudaError_t.
 extern "C" int mix_bsr(int dtype, const int* block_cols, const float* tiles, const int* counts,
-                       const void* w, void* y, int n, long long d, int nrb, int max_nnz, int bn,
+                       const void* w, void* y, int n, int n_rows, long long d, int nrb, int max_nnz, int bn,
                        int vec, void* stream) {
-  if (n <= 0 || d <= 0 || bn <= 0 || bn > 256 || (long long)nrb * bn < n || max_nnz <= 0)
+  if (n <= 0 || n_rows <= 0 || n_rows > n || d <= 0 || bn <= 0 || bn > 256 || (long long)nrb * bn < n_rows ||
+      max_nnz <= 0)
     return cudaErrorInvalidValue;
   const int groups_per_rb = (bn + bsrw::kRows - 1) / bsrw::kRows;
   const long long slices = bsrw::slices_of(d, vec);
@@ -66,7 +72,8 @@ extern "C" int mix_bsr(int dtype, const int* block_cols, const float* tiles, con
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                  \
     kernel<<<(unsigned)blocks, bsrw::kThreads, smem, s>>>(block_cols, tiles, counts,                   \
                                                           static_cast<const T*>(w), static_cast<T*>(y), \
-                                                          n, d, max_nnz, bn, groups_per_rb, (int)slices); \
+                                                          n, n_rows, d, max_nnz, bn, groups_per_rb,   \
+                                                          (int)slices);                               \
   }
   return (int)BSRW_DISPATCH(dtype, vec, MIX_BSR_CALL);
 #undef MIX_BSR_CALL

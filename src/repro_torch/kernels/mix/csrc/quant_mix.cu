@@ -636,7 +636,7 @@ __global__ void __launch_bounds__(bsrw::kThreads, 2)
                          const int* __restrict__ counts, const T* __restrict__ x, QArgs qa, T* __restrict__ y,
                          int n, long long d, int max_nnz, int bn, int groups_per_rb, int slices) {
   DecodedRows<T, VEC> src{x, qa, d, {}};
-  bsrw::rows_walk<VEC, 0>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
+  bsrw::rows_walk<VEC, 0>(block_cols, tiles, counts, n, n, d, max_nnz, bn, groups_per_rb, slices, src,
                           bsrw::StoreRows<T, VEC>{y, d});
 }
 
@@ -725,7 +725,7 @@ __global__ void __launch_bounds__(bsrw::kThreads, 2)
                            T* __restrict__ x_out, int n, long long d, int max_nnz, int bn, int groups_per_rb,
                            int slices, float gamma) {
   bsrw::RowsOf<float, VEC> src{hq, d};
-  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, d, max_nnz, bn, groups_per_rb, slices, src,
+  bsrw::rows_walk<VEC, kStageBytes>(block_cols, tiles, counts, n, n, d, max_nnz, bn, groups_per_rb, slices, src,
                                     StoreRound<T, VEC>{x, hq, x_out, d, gamma});
 }
 

@@ -10,6 +10,11 @@ of rows, for the training widths).  No pointer enters the choice, so a
 chunked or resumed run sums in the same order as an uninterrupted one.
 ``mix_matmul.launches`` counts kernel launches and
 ``mix_matmul.launches_by_route`` splits them by route.
+
+M may be a row block, (r, n) with r ≤ n: a rank's rows of the round
+operator against the all-gathered payload in the node-sharded round
+(``core/shardplan.py``).  The route is still picked from (n, d, dtype), and
+the square call is the unsharded plan's, bit for bit.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib.mix_dense.restype = ctypes.c_int
     lib.mix_dense.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]
     return lib
 
@@ -55,15 +60,19 @@ def thin_tile(d: int) -> int:
 
 
 def mix_matmul(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Y = M @ W with M (n, n) fp32 mixing weights and W (n, d) fp32 or bf16
-    node-major params; fp32 accumulation, Y in W's dtype."""
+    """Y = M @ W with M (r, n) fp32 mixing weights, r ≤ n (the square
+    operator, or a row block of it), and W (n, d) fp32 or bf16 node-major
+    params; fp32 accumulation, Y (r, d) in W's dtype."""
     L.check_w(w)
     n, d = w.shape
-    L.check_operand(m, "M", torch.float32, (n, n), w.device)
+    r = m.shape[0] if m.ndim == 2 else -1
+    if not 0 <= r <= n:
+        raise ValueError(f"M must be (r, {n}) with r <= {n}, got shape {tuple(m.shape)}")
+    L.check_operand(m, "M", torch.float32, (r, n), w.device)
     if w.device.type == "cpu":
         return decavg_mix_ref(m, w)
-    if n == 0 or d == 0:
-        return torch.empty_like(w)
+    if r == 0 or d == 0:
+        return torch.empty((r, d), dtype=w.dtype, device=w.device)
     route = dense_route(n, d, w.dtype)
     y = _launch(m, w, route)
     mix_matmul.launches += 1
@@ -73,12 +82,13 @@ def mix_matmul(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _launch(m: torch.Tensor, w: torch.Tensor, route: str) -> torch.Tensor:
     """One launch of ``route`` on checked, non-empty CUDA tensors (either
-    route takes any (n, d)); counts nothing."""
+    route takes any (r, n) M and (n, d) W); counts nothing."""
     n, d = w.shape
-    y = torch.empty_like(w)
+    r = m.shape[0]
+    y = torch.empty((r, d), dtype=w.dtype, device=w.device)
     with torch.cuda.device(w.device):
         err = _lib().mix_dense(
-            K.DTYPE_CODES[w.dtype], ROUTES.index(route), thin_tile(d), K.ptr(m), K.ptr(w), K.ptr(y), n, d,
+            K.DTYPE_CODES[w.dtype], ROUTES.index(route), thin_tile(d), K.ptr(m), K.ptr(w), K.ptr(y), r, n, d,
             K.stream_of(w),
         )
     K.raise_on_error(err, f"mix_matmul ({route})")

@@ -26,7 +26,7 @@ from .mix import mix_matmul
 from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, table_bounds
 from .sparse import BSR, bsr_from_dense, mix_bsr
 
-__all__ = ["decavg_mix", "mix_flat", "quant_mix_flat"]
+__all__ = ["decavg_mix", "mix_flat", "per_dtype", "quant_mix_flat"]
 
 _BSR_CACHE: dict[tuple[bytes, int, str], BSR] = {}
 
@@ -42,10 +42,12 @@ def _bsr_of(m: torch.Tensor, block_n: int) -> BSR:
     return _BSR_CACHE[key]
 
 
-def mix_flat(op: torch.Tensor | BSR, w: torch.Tensor) -> torch.Tensor:
-    """``w_new[i] = Σ_j M[i, j] w[j]`` over one flat (n, d) buffer."""
+def mix_flat(op: torch.Tensor | BSR, w: torch.Tensor, n_rows: int | None = None) -> torch.Tensor:
+    """``w_new[i] = Σ_j M[i, j] w[j]`` over one flat (n, d) buffer.  A row
+    block of M gives ``n_rows`` rows: a dense (n_rows, n) operator, or a
+    ``BSR`` whose row blocks cover ``n_rows`` (omitted: n)."""
     if isinstance(op, BSR):
-        return mix_bsr(op.block_cols, op.tiles, op.counts, w)
+        return mix_bsr(op.block_cols, op.tiles, op.counts, w, n_rows)
     return mix_matmul(op, w)
 
 
@@ -75,6 +77,26 @@ def quant_mix_flat(
     return out
 
 
+def per_dtype(fn, tree: dict[str, Any]) -> dict[str, Any]:
+    """``fn`` over a node-stacked dict packed as ``decavg_mix`` packs it:
+    leaves flattened per node and concatenated per dtype, one ``(n, d)``
+    call of ``fn`` a dtype, split back to the leaves' shapes and dtypes."""
+    leaves = [v for _, v in tree_leaves(tree)]
+    n = leaves[0].shape[0]
+    out_leaves: list[torch.Tensor | None] = [None] * len(leaves)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for idx, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(idx)
+    for idxs in by_dtype.values():
+        mixed = fn(torch.cat([leaves[i].reshape(n, -1) for i in idxs], dim=1).contiguous())
+        off = 0
+        for i in idxs:
+            size = math.prod(leaves[i].shape[1:])
+            out_leaves[i] = mixed[:, off : off + size].reshape(leaves[i].shape)
+            off += size
+    return tree_unflatten(tree_structure(tree), out_leaves)
+
+
 def decavg_mix(
     m: torch.Tensor | BSR,
     tree: dict[str, Any],
@@ -89,18 +111,4 @@ def decavg_mix(
             m = _bsr_of(m, block_n)
         elif backend != "dense":
             raise ValueError(f"unknown kernel backend {backend!r}")
-    leaves = [v for _, v in tree_leaves(tree)]
-    n = leaves[0].shape[0]
-    out_leaves: list[torch.Tensor | None] = [None] * len(leaves)
-    by_dtype: dict[torch.dtype, list[int]] = {}
-    for idx, leaf in enumerate(leaves):
-        by_dtype.setdefault(leaf.dtype, []).append(idx)
-    for idxs in by_dtype.values():
-        flat = torch.cat([leaves[i].reshape(n, -1) for i in idxs], dim=1).contiguous()
-        mixed = mix_flat(m, flat)
-        off = 0
-        for i in idxs:
-            size = math.prod(leaves[i].shape[1:])
-            out_leaves[i] = mixed[:, off : off + size].reshape(leaves[i].shape)
-            off += size
-    return tree_unflatten(tree_structure(tree), out_leaves)
+    return per_dtype(lambda flat: mix_flat(m, flat), tree)

@@ -10,6 +10,11 @@ CUDA kernel (``csrc/mix_bsr.cu``) uses to skip the padding.
 ``mix_bsr_ref`` (a loop over tiles) on CPU tensors; anything else raises.
 ``mix_bsr.launches`` counts kernel launches.  ``mix_bsr_rows_ref`` renders
 the kernel's walk over the nonzeros of M bit for bit, for the tests.
+
+M may be a row block: ``n_rows`` ≤ n output rows (nrb covers them) over a
+W of n rows, its column blocks indexing all of W.  The node-sharded round
+(``core/shardplan.py``) runs a rank's rows so, over its ``[local | halo]``
+buffer; ``n_rows`` omitted is the square call, the unsharded plan's.
 """
 from __future__ import annotations
 
@@ -81,7 +86,10 @@ def bsr_slots(
     """
     nrb, max_nnz = block_cols.shape
     bn = block_n
-    pos = np.full((nrb, nrb), -1, dtype=np.int64)  # (row block, col block) → tile index
+    # (row block, col block) → tile index; a row block of a larger operator
+    # has more column blocks than row blocks
+    ncb = max(nrb, int(block_cols.max(initial=0)) + 1)
+    pos = np.full((nrb, ncb), -1, dtype=np.int64)
     for i in range(nrb):
         pos[i, block_cols[i, : counts[i]]] = np.arange(counts[i])
     rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
@@ -92,11 +100,12 @@ def bsr_slots(
 
 
 def mix_bsr_ref(
-    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor
+    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor, n_rows: int | None = None
 ) -> torch.Tensor:
     """Plain version: walk each row block's real tiles in order, fp32
-    accumulation, Y in W's dtype."""
+    accumulation, Y (n_rows, d) in W's dtype (n_rows omitted: W's n)."""
     n, d = w.shape
+    n_rows = n if n_rows is None else n_rows
     nrb, _, bn, _ = tiles.shape
     wf = w.to(torch.float32)
     tf = tiles.to(torch.float32)
@@ -109,11 +118,11 @@ def mix_bsr_ref(
             hi = min(lo + bn, n)
             if hi > lo:
                 acc += tf[i, t, :, : hi - lo] @ wf[lo:hi]
-    return out[:n].to(w.dtype)
+    return out[:n_rows].to(w.dtype)
 
 
 def mix_bsr_rows_ref(
-    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor
+    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor, n_rows: int | None = None
 ) -> torch.Tensor:
     """Plain rendering of the CUDA walk (``csrc/bsr_walk.cuh``), bit for bit.
 
@@ -121,10 +130,11 @@ def mix_bsr_rows_ref(
     tile order ``t < counts[i]``, then ascending column inside the tile;
     exact zeros, padding tiles and source rows outside ``[0, n)`` are
     skipped.  From zero, one fp32 FMA per nonzero in that order
-    (``ref.fma_f32``); Y in W's dtype.  For the tests: the wrapper's CPU
-    path is ``mix_bsr_ref``.
+    (``ref.fma_f32``); Y (n_rows, d) in W's dtype.  For the tests: the
+    wrapper's CPU path is ``mix_bsr_ref``.
     """
     n, d = w.shape
+    n_rows = n if n_rows is None else n_rows
     nrb, max_nnz, bn, _ = tiles.shape
     dev = w.device
     srcs, wts = [], []
@@ -141,10 +151,10 @@ def mix_bsr_rows_ref(
     def fit(t, fill):  # every row block's lists to one length
         return torch.nn.functional.pad(t[:, :length], (0, max(0, length - t.shape[1])), value=fill)
 
-    src = torch.cat([fit(s, -1) for s in srcs])[:n]
-    wt = torch.cat([fit(x, 0.0) for x in wts])[:n]
+    src = torch.cat([fit(s, -1) for s in srcs])[:n_rows]
+    wt = torch.cat([fit(x, 0.0) for x in wts])[:n_rows]
     wf = w.to(torch.float32)
-    acc = torch.zeros(n, d, dtype=torch.float32, device=dev)
+    acc = torch.zeros(n_rows, d, dtype=torch.float32, device=dev)
     for e in range(length):
         s_e = src[:, e]
         acc = torch.where((s_e >= 0)[:, None], fma_f32(wt[:, e : e + 1], wf[s_e.clamp_min(0)], acc), acc)
@@ -157,41 +167,45 @@ def _lib() -> ctypes.CDLL:
     lib.mix_bsr.restype = ctypes.c_int
     lib.mix_bsr.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return lib
 
 
 def mix_bsr(
-    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor
+    block_cols: torch.Tensor, tiles: torch.Tensor, counts: torch.Tensor, w: torch.Tensor, n_rows: int | None = None
 ) -> torch.Tensor:
-    """Y = M @ W from the BSR form of M; W is (n, d) node-major params.
+    """Y = M @ W from the BSR form of M; W is (n, d) node-major params, Y
+    (n_rows, d), ``n_rows`` ≤ n (omitted: n, the square operator).
 
     The kernel reads W rows only inside [0, n), whatever ``block_cols``
     holds, and walks at most ``max_nnz`` tiles per row block.
     """
     L.check_w(w)
     n, d = w.shape
+    n_rows = n if n_rows is None else int(n_rows)
+    if not 0 <= n_rows <= n:
+        raise ValueError(f"n_rows = {n_rows} outside [0, {n}]")
     if tiles.ndim != 4 or tiles.shape[2] != tiles.shape[3]:
         raise ValueError(f"tiles must be (nrb, max_nnz, bn, bn), got {tuple(tiles.shape)}")
     nrb, max_nnz, bn, _ = tiles.shape
     if not 1 <= bn <= MAX_BLOCK_N:
         raise ValueError(f"block size {bn} outside [1, {MAX_BLOCK_N}]")
-    if nrb != -(-n // bn) or max_nnz < 1:
-        raise ValueError(f"{nrb} row blocks of {bn} do not cover n = {n}")
+    if nrb != -(-n_rows // bn) or max_nnz < 1:
+        raise ValueError(f"{nrb} row blocks of {bn} do not cover {n_rows} rows")
     L.check_operand(tiles, "tiles", torch.float32, tiles.shape, w.device)
     L.check_operand(block_cols, "block_cols", torch.int32, (nrb, max_nnz), w.device)
     L.check_operand(counts, "counts", torch.int32, (nrb,), w.device)
     if w.device.type == "cpu":
-        return mix_bsr_ref(block_cols, tiles, counts, w)
-    y = torch.empty_like(w)
-    if n == 0 or d == 0:
+        return mix_bsr_ref(block_cols, tiles, counts, w, n_rows)
+    y = torch.empty((n_rows, d), dtype=w.dtype, device=w.device)
+    if n_rows == 0 or d == 0:
         return y
     with torch.cuda.device(w.device):
         err = _lib().mix_bsr(
             K.DTYPE_CODES[w.dtype], K.ptr(block_cols), K.ptr(tiles), K.ptr(counts),
-            K.ptr(w), K.ptr(y), n, d, nrb, max_nnz, bn, L.vec_width(w, y), K.stream_of(w),
+            K.ptr(w), K.ptr(y), n, n_rows, d, nrb, max_nnz, bn, L.vec_width(w, y), K.stream_of(w),
         )
     K.raise_on_error(err, "mix_bsr")
     mix_bsr.launches += 1

@@ -1,1 +1,1 @@
-"""Command-line entry points of the port."""
+"""Command-line entry points of the port, and the node axis of its sharded rendering (``mesh``)."""

@@ -6,8 +6,8 @@ event executor's bins through :class:`BinSpec`), take every wire count from
 the :mod:`~repro_torch.obs.wirecost` accountant, and mark their phases with
 ``torch.profiler`` ranges (``dfl_local``, ``dfl_mix``, ``dfl_eval``);
 :mod:`~repro_torch.obs.export` writes JSONL run logs in the JAX package's
-schema and :func:`profile_trace` captures a trace.  The sharded writer waits
-for ROADMAP.md item 17.
+schema and :func:`profile_trace` captures a trace.  The sharded executor
+prices its halo traffic with :func:`sharded_wire_per_round`.
 """
 
 from .export import (

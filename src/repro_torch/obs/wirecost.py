@@ -10,7 +10,8 @@ from :func:`make_wire_fn`:
   before the round), so the count is exactly that of the operator's masks;
 * **event-driven plans**: the executor counts delivered exchanges per
   wall-time bin; bytes follow as ``messages × row bytes``;
-* **sharded plans** wait for the multi-GPU port (ROADMAP.md item 17).
+* **sharded plans** (``core/shardplan.py``): the halo traffic between
+  ranks is a plan static, so :func:`sharded_wire_per_round` prices it once.
 
 Directed plans have no event tables (a pairwise exchange has no
 orientation), so they get no wire channels: the accountant is None and the
@@ -111,8 +112,20 @@ def make_wire_fn(plan: CommPlan | PlanSchedule) -> Callable[..., torch.Tensor | 
 
 
 def sharded_wire_per_round(plan, params: Any, codec_bytes: Callable[[int, Any], float] | None = None) -> dict:
-    """Static per-round wire stats of a sharded plan's mix: not ported."""
-    raise NotImplementedError(
-        "sharded_wire_per_round needs the sharded plan (core/shardplan.py), not yet ported: "
-        "ROADMAP.md Queue 1 item 17"
-    )
+    """Static per-round wire stats of a ``ShardedCommPlan``'s mix.
+
+    ``wire_bytes`` is the traffic between ranks for the whole parameter
+    payload (the plan's static row count × one node's row bytes, every leaf
+    included); ``wire_rows`` that row count; ``wire_collectives`` the
+    collective launches a round: the plan's count a payload buffer × the
+    buffers the mix packs the leaves into, one a dtype (the JAX package
+    mixes, and counts, leaf by leaf).  ``codec_bytes`` follows
+    :func:`param_row_bytes`: compressed rows price at the codec's
+    encoding."""
+    row_bytes = param_row_bytes(params, codec_bytes=codec_bytes)
+    n_buffers = len({leaf.dtype for _, leaf in tree_leaves(params)})
+    return {
+        "wire_bytes": int(plan.cross_shard_bytes_per_round(row_bytes, "mix")),
+        "wire_rows": int(plan.cross_shard_rows_per_round("mix")),
+        "wire_collectives": int(plan.collectives_per_round("mix") * n_buffers),
+    }

@@ -3,7 +3,9 @@ at shapes and layouts the main path does not reach.  Mixing: the dense
 kernel's thin and wide routes on both sides of D_THIN (each launch on the
 route ``dense_route`` names), row groups past 64 nodes, misaligned rows
 (the same sums bit for bit), bf16 through the block-sparse kernel, tile sizes up to the limit, padding tiles
-the walk must skip.  Flash attention: every head dim, ragged S, causal and
+the walk must skip; both in the row-block form of the node-sharded round
+(a rank's rows, the block-sparse walk over a [local | halo] buffer), and
+the sharded plan at one NCCL rank bitwise the unsharded one.  Flash attention: every head dim, ragged S, causal and
 windowed masks, GQA groups, strided (B, S, H, hd) views, fp32 at the
 full-width prefill shapes, and the decoder's prefill through the kernel;
 each case checks which route of the one kernel (``route``: wgmma for bf16,
@@ -166,6 +168,79 @@ def test_bsr_kernel_matches_plain(dev, graph, bn, dtype):
     _close(got, decavg_mix_ref(torch.as_tensor(m, device=dev), w), w)
     assert torch.equal(got, mix_bsr_rows_ref(bc, tiles, counts, w))
     assert torch.equal(got, mix_bsr(bc, tiles, counts, w))
+
+
+@pytest.mark.parametrize("n,rows", [(16, 4), (16, 8), (16, 12), (64, 32), (300, 75)])
+@pytest.mark.parametrize("d", [1, 4, D_THIN + 1, 1000, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_row_block(dev, n, rows, d, dtype):
+    """M as a row block (rows, n) of a larger operator, the sharded round's
+    call: on the route ``dense_route(n, d)`` names, the plain version's
+    rows, bitwise the square call's rows (each output one FMA chain over k
+    in order), two launches bitwise."""
+    m = _stochastic(n, dev, n + d + rows)
+    w = torch.randn(n, d, device=dev).to(dtype)
+    lo = (n - rows) // 2
+    block = m[lo : lo + rows].contiguous()
+    route = dense_route(n, d, dtype)
+    by_route = dict(mix_matmul.launches_by_route)
+    got = mix_matmul(block, w)
+    assert mix_matmul.launches_by_route == {**by_route, route: by_route[route] + 1}
+    assert got.shape == (rows, d)
+    _close(got, decavg_mix_ref(block, w), w)
+    assert torch.equal(got, mix_matmul(m, w)[lo : lo + rows])
+    assert torch.equal(got, mix_matmul(block, w))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("graph", [T.ring(256), T.random_k_regular(256, 4, seed=0), T.barabasi_albert(256, 3, seed=0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernel_halo_row_block(dev, graph, n_shards, dtype):
+    """Each shard's rows of the operator over its [local | halo] buffer (the
+    sharded round's call, tables from the layout): bitwise the walk's
+    rendering ``mix_bsr_rows_ref`` with the same row count, and the plain
+    version's rows of the unsharded product on the gathered buffer."""
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.core.shardplan import _layouts, _local_op
+
+    plan = compile_plan(graph, "sparse", device=dev)
+    recv, _ = _layouts(plan, n_shards)
+    x = torch.randn(graph.n, 513, device=dev).to(dtype)
+    want = mix_bsr(*plan.bsr, x)
+    for rank in range(n_shards):
+        op = _local_op(recv, rank, plan.bsr.block_n, dev)
+        lo = rank * recv.nps
+        halo = recv.send[:, rank, : recv.h_max] + np.arange(n_shards)[:, None] * recv.nps  # rows of each source
+        buf = torch.cat([x[lo : lo + recv.nps], x[torch.as_tensor(halo.reshape(-1), dtype=torch.int64)]])
+        before = mix_bsr.launches
+        got = mix_bsr(*op.bsr, buf, recv.nps)
+        assert mix_bsr.launches == before + 1 and got.shape == (recv.nps, 513)
+        assert torch.equal(got, mix_bsr_rows_ref(*op.bsr, buf, recv.nps))
+        _close(got, want[lo : lo + recv.nps], x)
+
+
+def test_sharded_round_at_one_nccl_rank(dev, tmp_path):
+    """One NCCL rank: the sharded plan's mix / spread / spread_min are the
+    unsharded plan's bit for bit, through kernels #1 and #2."""
+    import torch.distributed as dist
+
+    from repro_torch.core.commplan import FailureModel, compile_plan
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        for backend, graph in (("dense", T.complete(16)), ("sparse", T.ring(1024))):
+            plan = compile_plan(graph, backend, failures=FailureModel(link_p=0.8), device=dev)
+            sp = plan.shard(n_shards=1)
+            x = torch.randn(graph.n, 1000, device=dev)
+            gen = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+            before = (mix_matmul.launches, mix_bsr.launches)
+            assert torch.equal(sp.mix(x, gen()), plan.mix(x, gen()))
+            launched = (mix_matmul.launches - before[0], mix_bsr.launches - before[1])
+            assert launched == ((2, 0) if backend == "dense" else (0, 2))
+            for op in ("spread", "spread_min"):
+                assert torch.equal(getattr(sp, op)(x[:, :3], gen()), getattr(plan, op)(x[:, :3], gen()))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_bsr_kernel_skips_padding_tiles(dev):

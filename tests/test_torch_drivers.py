@@ -237,7 +237,7 @@ def test_run_modules_are_the_jax_harness_names():
     (["--full", "--quick"], "mutually exclusive"),
     (["fig1", "--only", "fig2"], "not both"),
     (["fig99"], "unknown modules"),
-    (["fig10"], "item 17"),
+    (["roofline"], "item 17 (b)"),
     (["--only", "fig1,roofline"], "item 17"),
 ])
 def test_run_flag_errors_and_refusals(argv, what, capsys):
@@ -245,6 +245,29 @@ def test_run_flag_errors_and_refusals(argv, what, capsys):
         prun.main([*argv, "--device", "cpu"])
     assert exc.value.code == 2
     assert what in capsys.readouterr().err
+
+
+def test_run_fig10_writes_under_build(monkeypatch, tmp_path, capsys):
+    """``fig10`` runs through the harness and writes build/fig10_scaling.json
+    (here at one shard, in this process's world-size-1 gloo group, which
+    the test destroys after)."""
+    import functools
+
+    import torch.distributed as dist
+
+    from repro_torch.benchmarks import fig10_scaling as pfig10
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(pfig10, "run", functools.partial(pfig10.run, shards=(1,)))
+    try:
+        prun.main(["fig10", "--device", "cpu"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    doc = json.loads((tmp_path / "build" / "fig10_scaling.json").read_text())
+    assert [r["family"] for r in doc["records"]] == list(pfig10.FAMILIES)
+    assert all(r["parity_bitexact"] and r["n_shards"] == 1 for r in doc["records"])
+    assert "fig10.ring.S1" in capsys.readouterr().out
 
 
 def test_run_failed_module_prints_failed_and_exits_1(monkeypatch, capsys):

@@ -5,7 +5,7 @@ executor of the port against the JAX package's.
   every JAX test case, each ``SCENARIOS`` entry and ``compose`` bitwise,
   the same errors.
 - ``checkpoint.io``: the JAX package's checkpoint cases on the port's
-  ``torch.save`` files (the sharded one is ROADMAP.md Queue 1 item 17).
+  ``torch.save`` files (neither package has a sharded checkpoint).
 - ``CommPlan.wire_messages(active=, edge_live=)`` against ``make_wire_fn``
   on injected draws, on every backend and a schedule.
 - ``run_elastic_trajectory`` (ring-6, the JAX tests' sizes): the zero-event

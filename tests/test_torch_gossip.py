@@ -29,6 +29,7 @@ from repro_torch import gossip as PG  # noqa: E402
 from repro_torch.core import commplan as PC  # noqa: E402
 from repro_torch.core import gossip as PGref  # noqa: E402
 from repro_torch.core import mixing as PM  # noqa: E402
+from repro_torch.core import shardplan as PS  # noqa: E402
 from repro_torch.core import topology as PT  # noqa: E402
 from repro_torch.gossip import engine as PE  # noqa: E402
 from repro_torch.gossip import walker as PW  # noqa: E402
@@ -542,8 +543,8 @@ def test_as_plan_recompiles_without_data_sizes():
                                    rtol=0, atol=0)
     assert PG.as_plan(est) is est
 
-    class ShardedCommPlan:  # the sharded plan of item 17
-        pass
-
-    with pytest.raises(NotImplementedError, match="item 17"):
-        PG.as_plan(ShardedCommPlan())
+    # a ShardedCommPlan (ported) without data sizes is used as it is; one
+    # with them is recompiled and re-sharded over its group
+    # (test_torch_shardplan's ranks run that)
+    sharded = PS.ShardedCommPlan(base=plan, group=None, n_shards=1, nps=plan.n, rank=0)
+    assert PG.as_plan(sharded) is sharded

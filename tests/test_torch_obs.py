@@ -251,10 +251,27 @@ def test_wire_fn_equals_jax_on_injected_draws(backend, monkeypatch):
             int(float(jwire(key, 0, active=jnp.asarray(act))))
 
 
-def test_sharded_wire_raises_naming_item_17():
+def test_sharded_wire_per_round_prices_the_halo():
+    """ring-8 over 2 shards: each shard pulls its 2 remote neighbours, so 4
+    rows cross a round, priced at the JAX package's row bytes (fp32 and the
+    int8 codec's encoding), one collective a dtype buffer of the payload."""
+    from repro_torch.core.shardplan import ShardedCommPlan, _layouts
+
     plan = PC.compile_plan(PT.ring(8), backend="sparse", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        PO.sharded_wire_per_round(plan, {"w": torch.zeros((8, 10))})
+    recv, send = _layouts(plan, 2)
+    sp = ShardedCommPlan(base=plan, group=None, n_shards=2, nps=4, rank=0, recv=recv, send=send)
+    tree = {"w": torch.zeros((8, 10)), "b": {"v": torch.zeros((8, 3))}}
+    jtree = {"w": jnp.zeros((8, 10)), "b": {"v": jnp.zeros((8, 3))}}
+    assert PO.sharded_wire_per_round(sp, tree) == {
+        "wire_bytes": 4 * JO.param_row_bytes(jtree), "wire_rows": 4, "wire_collectives": 1}
+    comp, jcomp = PCompression("int8"), JCompression("int8")
+    got = PO.sharded_wire_per_round(sp, tree, codec_bytes=comp.leaf_row_bytes)
+    assert got["wire_bytes"] == 4 * JO.param_row_bytes(jtree, codec_bytes=jcomp.leaf_row_bytes)
+    # a mixed-dtype payload packs into two buffers, two collectives
+    mixed = {**tree, "h": torch.zeros((8, 2), dtype=torch.bfloat16)}
+    assert PO.sharded_wire_per_round(sp, mixed)["wire_collectives"] == 2
+    unsharded = ShardedCommPlan(base=plan, group=None, n_shards=1, nps=8, rank=0, recv=_layouts(plan, 1)[0])
+    assert PO.sharded_wire_per_round(unsharded, tree) == {"wire_bytes": 0, "wire_rows": 0, "wire_collectives": 0}
 
 
 # ----------------------------------------------- executor wire integration

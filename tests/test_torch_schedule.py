@@ -443,11 +443,31 @@ def test_circulant_matches_jax_shard_map(tmp_path):
     m = PCore.receive_matrix(PT.circulant(8, (1, 3))).astype(np.float32)
     flat = torch.as_tensor(inp["b"])
     np.testing.assert_allclose(_np(PD.mix_pytree_circulant(flat, (1, 3))), m @ inp["b"], rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        PD.mix_pytree_circulant(flat, (1,), process_group=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        PD.mix_pytree_colored(flat, np.zeros((0, 8), np.int32), torch.zeros(0, 8), torch.ones(8),
-                              process_group=object())
+
+
+def test_circulant_and_colored_collective_forms_run(tmp_path):
+    """The process-group forms (one node a rank) run: here in a
+    world-size-1 gloo group, where every exchange is the rank's own row, so
+    they equal the single-device renderings bit for bit
+    (test_torch_shardplan holds them at 4 and 8 ranks)."""
+    import torch.distributed as dist
+
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((1, 5)).astype(np.float32))
+    weights = torch.tensor([0.5, 0.25, 0.25])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        pg = dist.group.WORLD
+        for w in (None, weights):
+            torch.testing.assert_close(PD.mix_pytree_circulant(x, (1,), w, process_group=pg),
+                                       PD.mix_pytree_circulant(x, (1,), w), rtol=0, atol=0)
+        partners = np.zeros((2, 1), np.int32)  # two colours, the one node unmatched in both
+        cw, sw = torch.zeros(2, 1), torch.ones(1)
+        torch.testing.assert_close(PD.mix_pytree_colored({"x": x}, partners, cw, sw, process_group=pg)["x"],
+                                   PD.mix_pytree_colored({"x": x}, partners, cw, sw)["x"], rtol=0, atol=0)
+        with pytest.raises(ValueError, match="one node a rank"):
+            PD.mix_pytree_colored(x, np.zeros((1, 2), np.int32), cw[:1], sw, process_group=pg)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------- gossip over schedules
