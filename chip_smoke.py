@@ -238,6 +238,18 @@ run with a non-zero exit:
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
    backend, 3 block-sparse launches; then ``--compress int8``, 3 quantised
    block-sparse launches);
+6c. the launch layer — a world-size-1 NCCL group and the (1, 1)
+   ``("data", "model")`` DeviceMesh over it (``launch/mesh.py``): the
+   prefill step (``launch/steps.py``) of qwen2.5-3b at full width in bf16
+   on 32 prompts of 2048 tokens (``prefill_32k``'s batch), its logits
+   against the unsharded ``forward`` + ``hidden_to_logits`` on the same
+   weights, exactly 36 flash launches, every key among phase 3's, timed in
+   turns with the unsharded prefill; the train step (dense, sparse and
+   ppermute, 16 nodes) and the decode step at a reduced config against
+   the unsharded round and ``decode_step``, with their #1 / #2 launches;
+   in a child process, the dry run of qwen2.5-3b ``prefill_32k`` on both
+   production meshes over a fake world (``launch/dryrun.py``) and
+   ``benchmarks.run roofline`` over its records;
 7. serve, full width — qwen2.5-3b in bf16: a 4-node ring ensemble, its
    consensus served by ``ServeEngine.generate`` (4 × 2048-token prompts, 32
    new tokens), ``ServeEngine.serve`` per node (4 × 512, 8 new) and
@@ -333,6 +345,18 @@ BF16_RTOL = 2.0**-7
 # full width (jamba at 5 layers keeps every kind of layer: 4 mamba blocks,
 # the MoE FFN at layers 1 and 3, the attention block at 4), and its prompts
 JAMBA_LAYERS, LLAMA4_LAYERS = 5, 8
+# phase 6c: the reduced config of the launch layer's train and decode
+# steps (the JAX package's tests/test_launch_steps.py shrinks qwen2.5-3b
+# so), its 16 nodes on the circulant (1, 2) graph, and the shrunk shapes
+LAUNCH_SMALL = dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32)
+LAUNCH_TRAIN = dict(seq_len=64, global_batch=32)
+LAUNCH_DECODE = dict(seq_len=64, global_batch=4)
+# the train steps' learning rate: one step from a zero momentum is p − lr·g,
+# and at the builders' default 1e-3 that step would be the size of the
+# comparison's tolerance, which then would see the mix alone
+LAUNCH_LR = 1.0
+# phase 6c's full-width prefill: prefill_32k's 32 prompts, cut to 2048 tokens
+LAUNCH_PREFILL_SEQ = 2048
 LLAVA_PATCHES, LLAVA_TEXT = 2880, 1216  # anyres: 576 base + 4 × 576 tiles, then text
 MUSICGEN_COND, MUSICGEN_TEXT = 256, 1792  # T5 conditioning embeddings, then EnCodec tokens
 NEW_ARCHS = ("jamba-1.5-large-398b", "llava-next-mistral-7b", "musicgen-large", "llama4-scout-17b-a16e")
@@ -926,6 +950,8 @@ def main() -> int:
         serve_case("llava prefill", lcfg, 2, LLAVA_PATCHES + LLAVA_TEXT, 0),
         serve_case("musicgen prefill", mgcfg, 4, MUSICGEN_COND + MUSICGEN_TEXT, 0),
         serve_case("llama4 prefill", l4cfg, 2, 2048, 0),
+        # phase 6c's prefill step: qwen2.5-3b on prefill_32k's 32 prompts
+        serve_case("launch prefill", qcfg, 32, LAUNCH_PREFILL_SEQ, 0),
     ] + [serve_case("phase 8", get_reduced_config(a), 2, 40 + get_reduced_config(a).n_frontend_tokens, 0,
                     torch.float32) for a in NEW_ARCHS]
     # errors by route: the bf16 route's row is flash_mha, the fp32 route's
@@ -935,7 +961,8 @@ def main() -> int:
     row_of_label = {"granite prefill": "flash_mha_granite", "granite serve": "flash_mha_granite",
                     "qwen1.5 prefill": "flash_mha_qwen15", "swa prefill": "flash_mha_swa",
                     "jamba prefill": "flash_mha_jamba", "llava prefill": "flash_mha_llava",
-                    "musicgen prefill": "flash_mha_musicgen", "llama4 prefill": "flash_mha_llama4"}
+                    "musicgen prefill": "flash_mha_musicgen", "llama4 prefill": "flash_mha_llama4",
+                    "launch prefill": "flash_mha_launch"}
     errs.update(dict.fromkeys(row_of.values(), 0.0))
     flash_checked = set()
 
@@ -1132,6 +1159,42 @@ def main() -> int:
         dense_route=dense_route(8, D_MOE, torch.float32),
     )
     del m8, w8
+    # phase 6c's train steps: the circulant (1, 2) graph at n = 16 over the
+    # flat row of the launch layer's reduced qwen2.5-3b (fp32), dense (#1)
+    # and block-sparse (#2), the operators compile_plan makes for them
+    launch_cfg = dataclasses.replace(get_reduced_config("qwen2.5-3b"), **LAUNCH_SMALL)
+    D_LAUNCH = FlatLayout.of(TF.init_params(0, launch_cfg, InitConfig("trunc_normal", torch.ones(16)),
+                                            device="cpu")).size
+    g_launch = T.circulant(16, (1, 2))
+    m_launch = compile_plan(g_launch, "dense", device=dev).receive
+    w_launch = torch.randn(16, D_LAUNCH, generator=gen, device=dev)
+    errs["mix_matmul_launch"] = compare(f"mix_matmul fp32 n=16 d={D_LAUNCH} (launch layer)",
+                                        lambda: mix_matmul(m_launch, w_launch), decavg_mix_ref(m_launch, w_launch),
+                                        w_launch)
+    b_la, op_la = bound(4 * 16 * 16 + 2 * 4 * 16 * D_LAUNCH, 2 * 16 * 16 * D_LAUNCH)
+    timing["mix_matmul_launch"] = dict(
+        ms=time_ms(lambda: mix_matmul(m_launch, w_launch), flush=flush),
+        plain_ms=time_ms(lambda: decavg_mix_ref(m_launch, w_launch), flush=flush),
+        library_ms=time_ms(lambda: torch.matmul(m_launch, w_launch), flush=flush),
+        bound_ms=b_la, bound_by=op_la, shape=f"n=16 d={D_LAUNCH} fp32 (circulant 1, 2; reduced qwen2.5-3b)",
+        dense_route=dense_route(16, D_LAUNCH, torch.float32),
+    )
+    bsr_launch = compile_plan(g_launch, "sparse", device=dev).bsr
+    errs["mix_bsr_launch"] = compare(f"mix_bsr circulant-16 (1, 2) d={D_LAUNCH} (launch layer)",
+                                     lambda: mix_bsr(*bsr_launch, w_launch), mix_bsr_ref(*bsr_launch, w_launch),
+                                     w_launch)
+    rows_bitwise("mix_bsr circulant-16 (launch layer)", tuple(bsr_launch), w_launch)
+    nnz_launch = int(np.count_nonzero(receive_matrix(g_launch)))
+    b_lb, op_lb = bound(sum(t.numel() * t.element_size() for t in bsr_launch) + 2 * 4 * 16 * D_LAUNCH,
+                        2 * nnz_launch * D_LAUNCH)
+    csr_launch = torch.as_tensor(receive_matrix(g_launch), dtype=torch.float32, device=dev).to_sparse_csr()
+    timing["mix_bsr_launch"] = dict(
+        ms=time_ms(lambda: mix_bsr(*bsr_launch, w_launch), flush=flush),
+        plain_ms=time_ms(lambda: mix_bsr_ref(*bsr_launch, w_launch), reps=3, flush=flush),
+        library_ms=time_ms(lambda: torch.sparse.mm(csr_launch, w_launch), flush=flush),
+        bound_ms=b_lb, bound_by=op_lb, shape=f"circulant-16 (1, 2) d={D_LAUNCH} fp32 (reduced qwen2.5-3b)",
+    )
+    del m_launch, w_launch, csr_launch
     # phase 4l's rounds: n = 8 over the flat rows of the reduced rwkv6-3b
     # (--model rwkv and --arch rwkv6-3b), jamba and llava (--arch), each d
     # from the layout of a CPU init; the row's times at rwkv6-3b's
@@ -1235,6 +1298,7 @@ def main() -> int:
         ("llava prefill", lcfg, 2, LLAVA_PATCHES + LLAVA_TEXT, 0, torch.bfloat16),
         ("musicgen prefill", mgcfg, 4, MUSICGEN_COND + MUSICGEN_TEXT, 0, torch.bfloat16),
         ("llama4 prefill", l4cfg, 2, 2048, 0, torch.bfloat16),
+        ("launch prefill", qcfg, 32, LAUNCH_PREFILL_SEQ, 0, torch.bfloat16),
     ):
         flash_shapes[label], qkv = time_flash(cfg, b, s_len, window, dtype)
         if label == "qwen prefill":
@@ -1257,7 +1321,7 @@ def main() -> int:
     timing["flash_mha_granite"] = flash_shapes["granite prefill"]
     timing["flash_mha_qwen15"] = flash_shapes["qwen1.5 prefill"]
     timing["flash_mha_swa"] = flash_shapes["swa prefill"]
-    for name in ("jamba", "llava", "musicgen", "llama4"):
+    for name in ("jamba", "llava", "musicgen", "llama4", "launch"):
         timing[f"flash_mha_{name}"] = flash_shapes[f"{name} prefill"]
     # an empty kernel, queued behind the held stream like the held timings:
     # the least time any launch takes, the floor of the launch-bound rows
@@ -4358,6 +4422,188 @@ if __name__ == "__main__":
     print(f"  phase 6b in {time.perf_counter() - t_6b:.1f} s")
     dist.destroy_process_group()
 
+    # ---------------------------------------------------- 6c. the launch layer
+    phase("6c. the launch layer: the steps on a (1, 1) DeviceMesh over one NCCL rank, the dry run")
+    import shutil
+    import tempfile
+
+    from repro_torch.flat import tree_leaves as tree_leaves_6c
+    from repro_torch.flat import tree_structure, tree_unflatten
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import steps as launch_steps
+
+    def tree_unflatten_6c(like, leaves):
+        return tree_unflatten(tree_structure(like), leaves)
+
+    t_6c = time.perf_counter()
+    # (c) first, overlapping (a) and (b): the dry run in a child process (a
+    # fake world cannot share a process with the NCCL group), then the
+    # roofline report over its records
+    dry_dir = tempfile.mkdtemp(prefix="repro_dryrun_")
+    dry_env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "DRYRUN_RESULTS": dry_dir}
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2.5-3b", "--shape",
+                            "prefill_32k", "--both-meshes", "--out", dry_dir],
+                           env=dry_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    node_group(1, device=dev)
+    mesh_6c = launch_mesh.make_production_mesh(n_devices=1)
+    check(tuple(mesh_6c.shape) == (1, 1) and mesh_6c.device_type == "cuda"
+          and tuple(mesh_6c.mesh_dim_names) == ("data", "model"), f"6c: mesh {mesh_6c}")
+    # (a) the prefill step at full width: qwen2.5-3b in bf16, random seeded
+    # weights, prefill_32k's 32 prompts of 2048 tokens, against the
+    # unsharded forward + hidden_to_logits on the same weights
+    cfg_6c = get_config("qwen2.5-3b")
+    params_6c = TF.init_params(6, cfg_6c, InitConfig("trunc_normal", 1.0), device=dev)
+    tokens_6c = torch.randint(0, cfg_6c.vocab_size, (32, LAUNCH_PREFILL_SEQ), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(6))
+    step_6c, args_6c, in_6c, out_6c = launch_steps.build_prefill_step(cfg_6c, mesh_6c, seq_len=LAUNCH_PREFILL_SEQ)
+    check(tuple(args_6c[1]["tokens"].shape) == tuple(tokens_6c.shape), f"6c: abstract tokens {args_6c[1]}")
+    sharded_6c = launch_steps.shard_args((params_6c, {"tokens": tokens_6c}), in_6c)
+    keys_6c = set()
+
+    def recording_flash_6c(q, k, v, *, causal=True, window=0):
+        keys_6c.add(flash_key(q, k, causal, window))
+        return flash_mha(q, k, v, causal=causal, window=window)
+
+    def unsharded_6c():
+        with torch.no_grad():
+            hidden, _ = TF.forward(params_6c, cfg_6c, tokens_6c, remat=False)
+            return TF.hidden_to_logits(params_6c, cfg_6c, hidden[..., -1:, :])[..., 0, :]
+
+    flash_ops.flash_mha = recording_flash_6c
+    try:
+        logits_6c, wall_6c, launched_6c = counted(lambda: step_6c(*sharded_6c))
+    finally:
+        flash_ops.flash_mha = flash_mha
+    launch_flash = launched_6c["flash_mha"]
+    check(launched_6c == {**none_launched, "flash_mha": cfg_6c.n_layers}
+          and flash_mha.launches_by_route == {"wgmma": cfg_6c.n_layers, "wgmma_tf32x3": 0},
+          f"6c prefill: launches {launched_6c} routes {flash_mha.launches_by_route}")
+    check(keys_6c <= flash_checked, f"6c prefill launched flash at {sorted(keys_6c - flash_checked, key=str)}, "
+          "not checked in phase 3")
+    got_6c, want_6c = logits_6c.full_tensor(), unsharded_6c()
+    err_6c = float((got_6c.float() - want_6c.float()).abs().max())
+    scale_6c = float(want_6c.float().abs().max())
+    check(tuple(got_6c.shape) == (32, cfg_6c.vocab_size) and bool(torch.isfinite(got_6c.float()).all()),
+          f"6c prefill: logits {tuple(got_6c.shape)}")
+    # bitwise, or within one bf16 rounding of the largest logit
+    check(bool(torch.equal(got_6c, want_6c)) or err_6c <= BF16_RTOL * scale_6c,
+          f"6c prefill: logits off the unsharded prefill by {err_6c} (max |logit| {scale_6c})")
+    walls_6c = {False: [], True: []}
+    for sharded in (False, True, True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_6c(*sharded_6c) if sharded else unsharded_6c()
+        torch.cuda.synchronize()
+        walls_6c[sharded].append((time.perf_counter() - t0) * 1e3)
+    prefill_u_6c, prefill_s_6c = (sorted(walls_6c[k])[1] for k in (False, True))
+    print(f"  (a) prefill step, qwen2.5-3b bf16, 32 × {LAUNCH_PREFILL_SEQ}, (1, 1) mesh: logits "
+          f"{'bitwise' if torch.equal(got_6c, want_6c) else f'max abs err {err_6c:.3e}'} against the unsharded "
+          f"prefill (max |logit| {scale_6c:.2f}); launches flash_mha {launch_flash} (wgmma); first call "
+          f"{wall_6c * 1e3:.1f} ms; in turns, host clock after a sync, median of 3: step {prefill_s_6c:.1f} ms "
+          f"{[f'{v:.1f}' for v in walls_6c[True]]}, unsharded {prefill_u_6c:.1f} ms "
+          f"{[f'{v:.1f}' for v in walls_6c[False]]}")
+    del params_6c, sharded_6c, logits_6c, got_6c, want_6c
+    torch.cuda.empty_cache()
+
+    # (b) the train steps (dense, sparse, ppermute; 16 nodes) and the decode
+    # step at the reduced config, each against the port's unsharded round /
+    # decode_step from the same inputs
+    saved_shapes = launch_steps.SHAPES
+    launch_steps.SHAPES = {**saved_shapes,
+                           "train_4k": dataclasses.replace(saved_shapes["train_4k"], **LAUNCH_TRAIN),
+                           "decode_32k": dataclasses.replace(saved_shapes["decode_32k"], **LAUNCH_DECODE)}
+    mix_launches_6c = {}
+    try:
+        n_6c = launch_mesh.n_fl_nodes()
+        gain_6c = gain_from_graph(g_launch)
+        tree_6c = TF.init_params(7, launch_cfg, InitConfig("trunc_normal", torch.full((n_6c,), gain_6c)), device=dev)
+        per_node_6c = LAUNCH_TRAIN["global_batch"] // n_6c
+        gen_6c = torch.Generator(device=dev).manual_seed(7)
+        batch_6c = {k: torch.randint(0, launch_cfg.vocab_size, (n_6c, 1, per_node_6c, LAUNCH_TRAIN["seq_len"]),
+                                     device=dev, generator=gen_6c) for k in ("tokens", "targets")}
+        for backend in ("dense", "sparse", "ppermute"):
+            step_t, args_t, in_t, _ = launch_steps.build_train_step(launch_cfg, mesh_6c, mixing=backend,
+                                                                    optimizer=sgd(LAUNCH_LR, 0.5))
+            zeros_t = type(args_t[1])(*(tree_map(torch.zeros_like, tree_6c) for _ in args_t[1]))
+            sh_t = launch_steps.shard_args((tree_6c, zeros_t, batch_6c), in_t)
+            (p_t, o_t, loss_t), wall_t, launched_t = counted(lambda: step_t(*sh_t))
+            kern_t = {"dense": "mix_matmul", "sparse": "mix_bsr"}.get(backend)
+            check(launched_t == {**none_launched, **({kern_t: 1} if kern_t else {})},
+                  f"6c train {backend}: launches {launched_t}")
+            if kern_t:
+                mix_launches_6c[kern_t] = launched_t[kern_t]
+            # the unsharded round: each node's gradient step, then the plan's mix
+            nodes = []
+            for j in range(n_6c):
+                p_j = tree_map(lambda t: t[j].detach().requires_grad_(True), tree_6c)
+                hidden, aux = TF.forward(p_j, launch_cfg, batch_6c["tokens"][j, 0])
+                loss_j = TF.lm_loss(p_j, launch_cfg, hidden, batch_6c["targets"][j, 0]) + TF.AUX_WEIGHT * aux
+                leaves_j = [t for _, t in tree_leaves_6c(p_j)]
+                grads_j = torch.autograd.grad(loss_j, leaves_j)
+                nodes.append(([(t - LAUNCH_LR * g).detach() for t, g in zip(leaves_j, grads_j)], float(loss_j)))
+                steps_j = [float((LAUNCH_LR * g).abs().max() / t.detach().abs().max().clamp_min(1e-30))
+                           for t, g in zip(leaves_j, grads_j)]
+                step_rel = min(steps_j) if j == 0 else min(step_rel, *steps_j)
+            stacked = [torch.stack([nd[0][i] for nd in nodes]) for i in range(len(nodes[0][0]))]
+            want_t = compile_plan(g_launch, backend, device=dev).mix(tree_unflatten_6c(tree_6c, stacked))
+            errs_t = [float((a.full_tensor() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                      for (_, a), (_, b) in zip(tree_leaves_6c(p_t), tree_leaves_6c(want_t))]
+            same_t = all(torch.equal(a.full_tensor(), b)
+                         for (_, a), (_, b) in zip(tree_leaves_6c(p_t), tree_leaves_6c(want_t)))
+            loss_want = sum(nd[1] for nd in nodes) / n_6c
+            loss_got = float(loss_t.full_tensor())
+            # the comparison resolves the gradient step: in every leaf of
+            # every node it is at least ten times the tolerance
+            check(step_rel >= 1e-4, f"6c train {backend}: a gradient step of {step_rel:.2e} (relative to its "
+                                    f"leaf's max) is below ten times the tolerance 1e-5")
+            check(max(errs_t) <= 1e-5 and abs(loss_got - loss_want) <= 1e-5 * abs(loss_want),
+                  f"6c train {backend}: params off the unsharded round by {max(errs_t):.3e} (relative to each "
+                  f"leaf's max), loss {loss_got} vs {loss_want}")
+            check(all(float(t.full_tensor().abs().max()) == 0.0 for _, t in tree_leaves_6c(o_t)),
+                  f"6c train {backend}: optimizer state not re-initialised")
+            print(f"  (b) train step {backend:8s} n={n_6c} (circulant 1, 2), reduced qwen2.5-3b d={D_LAUNCH}: params "
+                  f"{'bitwise' if same_t else f'within {max(errs_t):.2e} (relative)'} of the unsharded round "
+                  f"(lr {LAUNCH_LR}: the smallest leaf's step {step_rel:.2e} of its max), loss "
+                  f"{loss_got:.6f} vs {loss_want:.6f}; {wall_t * 1e3:.1f} ms; launches "
+                  f"{ {k: v for k, v in launched_t.items() if v} }")
+        dec_params = TF.init_params(8, launch_cfg, InitConfig("trunc_normal", 1.0), device=dev)
+        step_d, args_d, in_d, _ = launch_steps.build_decode_step(launch_cfg, mesh_6c)
+        b_d = args_d[2].shape[0]
+        prompt_d = torch.randint(0, launch_cfg.vocab_size, (b_d, 8), device=dev, generator=gen_6c)
+        _, cache_d = TF.prefill_cache(dec_params, launch_cfg, prompt_d, LAUNCH_DECODE["seq_len"])
+        cache_ref = tree_map(torch.clone, cache_d)
+        tok_d = torch.randint(0, launch_cfg.vocab_size, (b_d, 1), device=dev, generator=gen_6c)
+        pos_d = torch.tensor(8, dtype=torch.int32, device=dev)
+        (logits_d, cache_d2), wall_d, launched_d = counted(
+            lambda: step_d(*launch_steps.shard_args((dec_params, cache_d, tok_d, pos_d), in_d)))
+        want_d, cache_ref = TF.decode_step(dec_params, launch_cfg, cache_ref, tok_d, 8)
+        err_d = float((logits_d.full_tensor() - want_d).abs().max())
+        check(launched_d == none_launched and err_d <= FP32_TOL * max(1.0, float(want_d.abs().max())),
+              f"6c decode: launches {launched_d}, logits off decode_step by {err_d}")
+        print(f"  (b) decode step B{b_d} against a cache of {LAUNCH_DECODE['seq_len']}: logits within {err_d:.2e} "
+              f"of decode_step; {wall_d * 1e3:.1f} ms; no kernel launched (decode attention is plain)")
+    finally:
+        launch_steps.SHAPES = saved_shapes
+    dist.destroy_process_group()
+    # (c) the dry run's records and the report over them
+    dry_out, _ = dry.communicate(timeout=600)
+    print("  (c) " + "\n      ".join(line for line in dry_out.splitlines() if line.startswith(("OK", "ERROR"))))
+    check(dry.returncode == 0, f"6c dry run exited {dry.returncode}:\n{dry_out[-3000:]}")
+    records = [json.loads(Path(dry_dir, f).read_text()) for f in sorted(os.listdir(dry_dir))]
+    check([(r["mesh"], r["status"]) for r in records] == [("pod16x16", "ok"), ("pod2x16x16", "ok")],
+          f"6c dry run records: {[(r['mesh'], r['status'], r.get('error')) for r in records]}")
+    report = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.run", "roofline", "--device", "cpu"],
+                            env=dry_env, capture_output=True, text=True, timeout=300)
+    check(report.returncode == 0 and "roofline.summary,0.0,ok=2;errors=0" in report.stdout,
+          f"6c roofline report: exit {report.returncode}\n{report.stdout[-2000:]}{report.stderr[-2000:]}")
+    for line in report.stdout.splitlines():
+        if line.startswith("roofline."):
+            print(f"      {line}")
+    for r in records:
+        print(f"      {r['mesh']}: {r['wall_s']} s on this host; memory {r['memory_analysis']}")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    print(f"  phase 6c in {time.perf_counter() - t_6c:.1f} s")
+
     # ------------------------------------------------- 7. serve, full width
     phase("7. serve, full width: qwen2.5-3b 4-node ring ensemble, gemma3-4b, rwkv6-3b 4-node ensemble (bf16)")
 
@@ -5147,6 +5393,12 @@ if __name__ == "__main__":
         # hold: each row says so under "launches_at"
         ("mix_matmul_rows", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", shard_launches["mix_matmul"]),
         ("mix_bsr_halo", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", shard_launches["mix_bsr"]),
+        # phase 6c, the launch layer: the full-width prefill step's flash
+        # launches, and the reduced train steps' dense and sparse mixes
+        ("flash_mha_launch", "src/repro/kernels/flash/flash.py:130",
+         "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", launch_flash),
+        ("mix_matmul_launch", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", mix_launches_6c["mix_matmul"]),
+        ("mix_bsr_launch", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", mix_launches_6c["mix_bsr"]),
     ):
         t = timing[name]
         row = {
@@ -5165,7 +5417,7 @@ if __name__ == "__main__":
         elif name.startswith("flash_mha_hd") or name.endswith(("_schedule", "_event", "_decoder", "_example",
                                                                "_elastic", "_moe", "_granite", "_qwen15", "_swa",
                                                                "_zoo", "_eval", "_jamba", "_llava", "_musicgen",
-                                                               "_llama4", "_rows", "_halo")):
+                                                               "_llama4", "_rows", "_halo", "_launch")):
             row["shape"] = t["shape"]
         if name.endswith(("_rows", "_halo")):
             row["launches_at"] = ("r = n (S = 1, one NCCL rank, phase 6b); the r < n form of shape, ms and "

@@ -12,9 +12,8 @@ module that raises prints ``<name>.FAILED`` and the harness goes on to the
 next, then exits 1.  ``fig10`` is the sharded rendering's weak scaling
 (``fig10_scaling``: S = 1 in this process, larger S spawned as ranks of
 their own, all on ``--device``; on the card, the S the host's cards
-cover).  ``roofline`` (the dry-run's roofline report) needs the TPU-pod
-launch layer, which is not ported: naming it is an error that cites
-ROADMAP.md Queue 1 item 17 (b).
+cover).  ``roofline`` reports the dry run's records (``build/dryrun/``,
+written by ``python -m repro_torch.launch.dryrun``); it reads files only.
 """
 from __future__ import annotations
 
@@ -39,6 +38,7 @@ from . import (
     fig12_compress,
     fig13_serve,
     kernels_bench,
+    roofline_report,
     rounds_bench,
 )
 from .common import emit
@@ -60,10 +60,7 @@ MODULES = {
     "kernels": kernels_bench,
     "rounds": rounds_bench,
     "estimates": estimates_bench,
-}
-# the JAX harness's modules that need the TPU-pod launch layer
-NOT_PORTED = {
-    "roofline": "benchmarks/roofline_report.py (launch/dryrun.py, launch/roofline.py)",
+    "roofline": roofline_report,
 }
 
 
@@ -82,10 +79,6 @@ def main(argv: list[str] | None = None) -> None:
         p.error("give modules positionally or via --only, not both")
 
     names = args.modules or (list(MODULES) if not args.only else [s.strip() for s in args.only.split(",")])
-    refused = [x for x in names if x in NOT_PORTED]
-    if refused:
-        p.error("; ".join(f"{x}: {NOT_PORTED[x]} is not yet ported; see ROADMAP.md Queue 1 "
-                          "item 17 (b), the launch layer" for x in refused))
     unknown = [x for x in names if x not in MODULES]
     if unknown:
         p.error(f"unknown modules {unknown}; available: {list(MODULES)}")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.flat import tree_map
 from repro_torch.kernels.mix.ref import decavg_mix_ref, pair_mix_ref
 
 from .topology import Graph
@@ -53,13 +54,10 @@ __all__ = [
 Tree = dict[str, Any]
 
 
-def _map(fn, tree: Tree) -> Tree:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
 def _map_params(fn, params):
-    """``fn`` over a flat (n, d) buffer or over every leaf of a node-stacked dict."""
-    return fn(params) if isinstance(params, torch.Tensor) else _map(fn, params)
+    """``fn`` over a flat (n, d) buffer or over every leaf of a node-stacked
+    tree (dicts, and lists such as a decoder's ``stack``)."""
+    return fn(params) if isinstance(params, torch.Tensor) else tree_map(fn, params)
 
 
 def _bcast(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -106,7 +104,7 @@ def mix_array(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def mix_pytree(m: torch.Tensor, params: Tree) -> Tree:
     """Dense DecAvg over every leaf of a node-stacked dict."""
-    return _map(lambda w: mix_array(m, w), params)
+    return tree_map(lambda w: mix_array(m, w), params)
 
 
 def mix_pytree_sparse(
@@ -134,7 +132,7 @@ def mix_pytree_sparse(
         out = _bcast(self_w, x.ndim) * x.to(torch.float32) + agg
         return out.to(x.dtype)
 
-    return _map(mix_leaf, params)
+    return tree_map(mix_leaf, params)
 
 
 def mix_pytree_colored(

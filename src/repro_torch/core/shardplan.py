@@ -542,7 +542,11 @@ class ShardedCommPlan:
 
 def _check_agree(plan: CommPlan, group, device: torch.device) -> None:
     """Every rank must hold the same plan: one all-gather of its summary
-    (also the group's first collective, which every rank joins)."""
+    (also the group's first collective, which every rank joins).  A fake
+    group (the launch layer's dry run: one process plays every rank) moves
+    no data, so there is nothing to compare."""
+    if dist.get_backend(group) == "fake":
+        return
     mine = torch.tensor([plan.n, plan.n_edges, plan.draw_width, "dsp".index(plan.backend[0]),
                          int(plan.failures.link_p * 2**20), int(plan.failures.node_p * 2**20)],
                         dtype=torch.int64, device=device)
@@ -559,7 +563,8 @@ def shard_plan(plan: CommPlan, *, group=None, n_shards: int | None = None) -> Sh
     here at one shard).  Nodes are partitioned contiguously — rank r owns
     rows ``[r·nps, (r+1)·nps)`` — and ``n`` must divide evenly.  The
     ppermute backend runs one node a rank (``nps == 1``).  The plan's device
-    must be the rank's: a CUDA plan needs an NCCL group, a CPU plan gloo.
+    must be the rank's: a CUDA plan needs an NCCL group, a CPU plan gloo
+    (or, for the dry run's counts, the fake group that moves no data).
     """
     from repro_torch.launch.mesh import backend_for, node_group  # launch builds on core
 
@@ -573,7 +578,7 @@ def shard_plan(plan: CommPlan, *, group=None, n_shards: int | None = None) -> Sh
     if n_shards is not None and n_shards != shards:
         raise ValueError(f"n_shards={n_shards} but the process group has {shards} ranks")
     want = backend_for(plan.device)
-    if dist.get_backend(group) != want:
+    if dist.get_backend(group) not in (want, "fake"):
         raise ValueError(f"a plan on {plan.device} needs a {want} group, got {dist.get_backend(group)}")
     n = plan.n
     if n % shards:

@@ -1,7 +1,20 @@
-"""The node axis of the node-sharded DecAvg rendering (counterpart of
-``repro/launch/mesh.py::node_mesh``).
+"""Meshes (counterpart of ``repro/launch/mesh.py``): the production
+``("data", "model")`` / ``("pod", "data", "model")`` mesh of the launch
+layer, and the node axis of the node-sharded DecAvg rendering.
 
-The JAX package runs its sharded round from one controller inside
+The production mesh.  ``make_production_mesh`` renders the JAX package's
+pod shapes (256 ranks as (data=16, model=16), two pods as (pod=2, data=16,
+model=16)) as a ``torch.distributed.device_mesh.DeviceMesh`` with the JAX
+axis names, over whatever default process group exists: the fake group of
+the dry run (``launch/dryrun.py``: one process plays rank 0 of 256 or 512),
+NCCL ranks (one a card) or gloo ranks on the CPU.  FL nodes map to
+``data`` (one model-parallel slice a node), tensor parallelism to
+``model``.  The shape logic is one pure function, ``production_shape``,
+so ``n_fl_nodes`` and the tests need no world.  Importing this module
+never touches process-group state; only ``make_production_mesh`` reads the
+default group, when called.
+
+The node axis.  The JAX package runs its sharded round from one controller inside
 ``shard_map`` over a 1-D ``Mesh`` whose axis is ``NODE_AXIS``.  The port is
 SPMD over processes instead: one process a shard, and one
 ``torch.distributed`` process group stands where the mesh axis stood.  Rank
@@ -21,12 +34,10 @@ S processes with ``torch.multiprocessing`` over a ``file://`` store (no
 port) and gathers what each returns.  At one shard ``node_group`` makes the
 world-size-1 group itself, as ``shard_plan`` builds its own mesh from
 ``n_shards``.
-
-The production (pod, data, model) mesh of the JAX package
-(``make_production_mesh``, ``n_fl_nodes``) is ROADMAP.md Queue 1 item 17 (b).
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import queue
@@ -40,13 +51,75 @@ import torch.multiprocessing as mp
 
 from repro_torch.device import resolve_device
 
-__all__ = ["NODE_AXIS", "backend_for", "node_group", "rank_device", "spawn_ranks"]
+__all__ = [
+    "NODE_AXIS",
+    "N_CHIPS",
+    "backend_for",
+    "make_production_mesh",
+    "n_fl_nodes",
+    "node_axis",
+    "node_group",
+    "production_shape",
+    "rank_device",
+    "spawn_ranks",
+]
 
+N_CHIPS = {"single": 256, "multi": 512}
 NODE_AXIS = "node"
 # the stores of the world-size-1 groups ``node_group`` makes: one directory
 # a process, removed when the process exits, a fresh file a group
 _STORE_DIR: tempfile.TemporaryDirectory | None = None
 _N_STORES = 0
+
+
+def production_shape(*, multi_pod: bool = False, n_devices: int | None = None) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axis names) of the production mesh, the JAX
+    ``make_production_mesh``'s shape logic and errors: the pod shapes
+    (16, 16) / (2, 16, 16) by default; with ``n_devices`` the model axis
+    shrinks first (data keeps one slice a FL node, at most 16 a pod)."""
+    if n_devices is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    else:
+        pods = 2 if multi_pod else 1
+        per_pod = n_devices // pods
+        if per_pod < 1 or n_devices % pods:
+            raise ValueError(f"n_devices={n_devices} cannot fill {pods} pod(s)")
+        data = min(16, per_pod)
+        if per_pod % data:
+            raise ValueError(f"n_devices={n_devices}: per-pod {per_pod} not divisible by data={data}")
+        shape = (pods, data, per_pod // data) if multi_pod else (data, per_pod // data)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_production_mesh(*, multi_pod: bool = False, n_devices: int | None = None):
+    """The (pod,) data × model ``DeviceMesh`` over the default process
+    group, whose world size must equal the mesh's rank count (256 / 512 by
+    default, ``n_devices`` otherwise).  Its device type is the group's:
+    ``cuda`` for NCCL, ``cpu`` for gloo and the fake group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = production_shape(multi_pod=multi_pod, n_devices=n_devices)
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh needs the default process group of its {math.prod(shape)} ranks: "
+                           "none is initialised")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"the process group has {dist.get_world_size()} ranks, the mesh {shape} "
+                         f"needs {math.prod(shape)}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def node_axis(*, multi_pod: bool = False) -> tuple[str, ...]:
+    """The mesh axis (or axes) the FL node dimension shards over."""
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def n_fl_nodes(*, multi_pod: bool = False, n_devices: int | None = None) -> int:
+    """FL node slots on the production mesh (the size of the node axis)."""
+    shape, axes = production_shape(multi_pod=multi_pod, n_devices=n_devices)
+    size = dict(zip(axes, shape))
+    return math.prod(size[a] for a in node_axis(multi_pod=multi_pod))
 
 
 def backend_for(device: torch.device) -> str:

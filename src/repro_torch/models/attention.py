@@ -22,6 +22,12 @@ Shapes (node / batch axes lead and broadcast):
 
 The caches are written in place: ``attention_prefill`` and
 ``attention_decode`` return the cache dict they were given, updated.
+
+On DTensors (the launch layer's step functions) the head split and the
+attention core go through ``repro_torch.dtensor``: ``split_heads``
+gathers a projection whose heads cannot be split over the mesh, and
+``on_local_heads`` runs the kernel (or ``_sdpa``) on each rank's own
+heads (``_attend``, which flattens the heads there).  Plain tensors pass through both untouched.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.initialisation import InitConfig
+from repro_torch.dtensor import on_local_heads, split_heads
 from repro_torch.kernels.flash import flash_attention
 
 from .common import apply_rope, dense_init
@@ -61,7 +68,7 @@ def _project(p: Tree, x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
     y = torch.matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"].to(y.dtype)
-    return y.reshape(*y.shape[:-1], n_heads, hd)
+    return split_heads(y, n_heads, hd)
 
 
 def _qkv(p: Tree, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
@@ -73,7 +80,20 @@ def _qkv(p: Tree, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
 
 
 def _out(p: Tree, attn: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(attn.reshape(*attn.shape[:-2], -1), p["wo"]["w"])
+    """attn (..., S, H·hd), the heads already flattened → (..., S, D)."""
+    return torch.matmul(attn, p["wo"]["w"])
+
+
+def _attend(core, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``core(q, k, v, ...)`` on each rank's own heads, its (..., S, H, hd)
+    output flattened to (..., S, H·hd) there (on a DTensor's local shard,
+    so no gradient is ever unflattened across a mesh split)."""
+
+    def flat(*a, **k_):
+        out = core(*a, **k_)
+        return out.reshape(*out.shape[:-2], -1)
+
+    return on_local_heads(flat, q, k, v, *args, **kw)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, scale: float) -> torch.Tensor:
@@ -110,8 +130,8 @@ def attention_forward(
     q, k, v = _qkv(p, cfg, x, positions)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         mask = _causal_mask(q.shape[-3], window, q.device)
-        return _out(p, _sdpa(q, k, v, mask, 1.0 / (cfg.resolved_head_dim**0.5)))
-    return _out(p, flash_attention(q, k, v, causal=True, window=window))
+        return _out(p, _attend(_sdpa, q, k, v, mask, 1.0 / (cfg.resolved_head_dim**0.5)))
+    return _out(p, _attend(flash_attention, q, k, v, causal=True, window=window))
 
 
 def init_kv_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], cache_len: int, dtype=None, device=None) -> Tree:
@@ -135,7 +155,7 @@ def attention_prefill(
     s = x.shape[-2]
     t = cache["k"].shape[-3]
     q, k, v = _qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=window)
+    out = _attend(flash_attention, q, k, v, causal=True, window=window)
     w = min(s, t)
     slots = positions[s - w :] % t
     cache["k"][..., slots, :, :] = k[..., s - w :, :, :].to(cache["k"].dtype)
@@ -161,5 +181,5 @@ def attention_decode(
     valid = abs_idx >= 0
     if window > 0:
         valid = valid & (abs_idx > pos - window)
-    out = _sdpa(q, cache["k"], cache["v"], valid[None, :], 1.0 / (hd**0.5))
+    out = _attend(_sdpa, q, cache["k"], cache["v"], valid[None, :], 1.0 / (hd**0.5))
     return _out(p, out), cache

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.initialisation import InitConfig
+from repro_torch.dtensor import replicate, replicated
 
 from .common import dense_init
 
@@ -132,7 +133,7 @@ def combine(y: torch.Tensor, r: Routing) -> torch.Tensor:
     sorted_pos = inv.view(t, k).gather(1, by_expert)  # their positions among the sorted pairs
     pair_gate = torch.where(r.keep[sorted_pos], r.gate.gather(1, by_expert), 0.0).to(y.dtype)
     rows = r.dest[sorted_pos].clamp(max=y.shape[0] - 1)
-    out = torch.zeros(t, y.shape[1], dtype=y.dtype, device=y.device)
+    out = y.new_zeros((t, y.shape[1]))
     for j in range(k):
         out = out + y[rows[:, j]] * pair_gate[:, j, None]
     return out
@@ -146,9 +147,11 @@ def moe_forward(p: Tree, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor
     t = xt.shape[0]
     cap = _capacity(cfg, t)
     probs = torch.softmax(torch.matmul(xt, p["router"]["w"]).float(), dim=-1)  # (T, E)
-    r = route(probs, k, cap)
-    y = _experts(p, cfg, dispatch(xt, r, cap)).reshape(e * cap, d)
-    out = combine(y, r)
+    # on DTensors (the launch layer) the routing is global: computed on the
+    # gathered probabilities, tokens and slots indexed on gathered tensors
+    r = replicated(route, probs, k, cap)
+    y = _experts(p, cfg, dispatch(replicate(xt), r, cap)).reshape(e * cap, d)
+    out = combine(replicate(y), r)
     # Switch aux load-balance loss: E · Σ_e mean router probability × fraction of pairs routed
     aux = e * torch.sum(probs.mean(dim=0) * (r.counts.to(torch.float32) / (t * k)))
     return out.reshape(*lead, d), aux

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.initialisation import InitConfig
+from repro_torch.dtensor import on_local_batch, split_heads
 from repro_torch.kernels.rwkv import rwkv6_attention
 from repro_torch.kernels.rwkv.ref import rwkv6_chunked_ref, wkv_step
 
@@ -116,8 +117,7 @@ def _tmix_projections(p: Tree, x: torch.Tensor, xs: torch.Tensor, cfg: ArchConfi
     # chunked exponent spans stay inside fp32's range
     z = torch.clamp(p["decay_base"] + dw.float(), -8.0, 1.0)
     w = torch.exp(-torch.exp(z))  # (..., L, D) fp32 in (0, 1)
-    shp = x.shape[:-1]
-    return r.reshape(*shp, h, m), k.reshape(*shp, h, m), v.reshape(*shp, h, m), g, w.reshape(*shp, h, m)
+    return split_heads(r, h, m), split_heads(k, h, m), split_heads(v, h, m), g, split_heads(w, h, m)
 
 
 def init_rwkv_cache(cfg: ArchConfig, batch_shape: tuple[int, ...], dtype=None, device=None) -> Tree:
@@ -136,6 +136,18 @@ def _tmix_out(p: Tree, x: torch.Tensor, out: torch.Tensor, g: torch.Tensor) -> t
     return torch.matmul(out.to(x.dtype) * g, p["wo"]["w"])
 
 
+def _heads_flattened(wkv):
+    """``wkv`` with its output's (H, M) dims flattened to H·M where the
+    heads are computed (on a rank's local shard for DTensors, so the
+    gradient never unflattens a dim split over the mesh)."""
+
+    def run(*args):
+        out, state = wkv(*args)
+        return out.reshape(*out.shape[:-2], -1), state
+
+    return run
+
+
 def rwkv_time_mix(
     p: Tree, cfg: ArchConfig, x: torch.Tensor, prev: torch.Tensor, state: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -145,11 +157,10 @@ def rwkv_time_mix(
     xs = _token_shift(x, prev)
     r, k, v, g, w = _tmix_projections(p, x, xs, cfg)
     inputs = (r, k, v, w, p["bonus"], state)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
-        out, state = rwkv6_chunked_ref(*inputs)
-    else:
-        out, state = rwkv6_attention(*inputs)
-    y = _tmix_out(p, x, out.reshape(*x.shape[:-1], -1), g)
+    grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)
+    out, state = on_local_batch(_heads_flattened(rwkv6_chunked_ref if grad else rwkv6_attention), *inputs,
+                                shared=(4,))
+    y = _tmix_out(p, x, out, g)
     return y, x[..., -1:, :], state
 
 

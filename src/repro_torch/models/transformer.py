@@ -45,6 +45,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig, ffn_kinds, layer_kinds
 from repro_torch.core.initialisation import InitConfig
 from repro_torch.device import resolve_device
+from repro_torch.dtensor import batch_layout, embed, gather_last, residual
 from repro_torch.flat import tree_leaves, tree_map
 
 from .attention import attention_decode, attention_forward, attention_prefill, init_attention, init_kv_cache
@@ -182,8 +183,8 @@ def _ffn_residual(p: Tree, cfg: ArchConfig, fk: str, x: torch.Tensor) -> tuple[t
     h = norm_apply(p["norm2"], x, cfg.norm)
     if fk == "moe":
         y, aux = moe_forward(p["ffn"], cfg, h)
-        return x + y, aux
-    return x + ffn_forward(p["ffn"], cfg, h), None
+        return residual(x, y), aux
+    return residual(x, ffn_forward(p["ffn"], cfg, h)), None
 
 
 def _rwkv_block(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree | None = None) -> torch.Tensor:
@@ -193,27 +194,27 @@ def _rwkv_block(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree | None = 
     h = norm_apply(p["norm1"], x, cfg.norm)
     prev0 = torch.zeros(*x.shape[:-2], 1, x.shape[-1], dtype=x.dtype, device=x.device)
     y_t, tshift, state = rwkv_time_mix(p["rwkv"]["tmix"], cfg, h, prev0)
-    x = x + y_t
+    x = residual(x, y_t)
     h2 = norm_apply(p["norm2"], x, cfg.norm)
     y_c, cshift = rwkv_channel_mix(p["rwkv"]["cmix"], h2, prev0)
     if cache is not None:
         cache["tshift"].copy_(tshift)
         cache["cshift"].copy_(cshift)
         cache["state"].copy_(state)
-    return x + y_c
+    return residual(x, y_c)
 
 
 def _rwkv_decode(p: Tree, cfg: ArchConfig, x: torch.Tensor, cache: Tree) -> torch.Tensor:
     """One token through an RWKV block; the cache's shifts and state are updated in place."""
     h = norm_apply(p["norm1"], x, cfg.norm)
     y_t, tshift, state = rwkv_time_mix_step(p["rwkv"]["tmix"], cfg, h, cache["tshift"], cache["state"])
-    x = x + y_t
+    x = residual(x, y_t)
     h2 = norm_apply(p["norm2"], x, cfg.norm)
     y_c, cshift = rwkv_channel_mix(p["rwkv"]["cmix"], h2, cache["cshift"].to(h2.dtype))
     cache["tshift"].copy_(tshift)
     cache["cshift"].copy_(cshift)
     cache["state"].copy_(state)
-    return x + y_c
+    return residual(x, y_c)
 
 
 def _embed(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, frontend_embeds: torch.Tensor | None) -> torch.Tensor:
@@ -222,7 +223,7 @@ def _embed(params: Tree, cfg: ArchConfig, tokens: torch.Tensor, frontend_embeds:
     The projection takes the promoted dtype of the embeddings and the
     weight (an fp32 input against bf16 weights is an fp32 product, as the
     JAX einsum's promotion gives) and is cast to the model's dtype."""
-    x = params["embed"]["tok"]["w"][tokens.long()]
+    x = embed(params["embed"]["tok"]["w"], tokens.long())
     if cfg.frontend and frontend_embeds is not None:
         w, b = params["frontend_proj"]["w"], params["frontend_proj"]["b"]
         dt = torch.promote_types(frontend_embeds.dtype, w.dtype)
@@ -239,8 +240,8 @@ def _block(
         return _rwkv_block(p, cfg, x), None
     h = norm_apply(p["norm1"], x, cfg.norm)
     if kind == "mamba":
-        return _ffn_residual(p, cfg, fk, x + mamba_forward(p["mamba"], cfg, h))
-    return _ffn_residual(p, cfg, fk, x + attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind)))
+        return _ffn_residual(p, cfg, fk, residual(x, mamba_forward(p["mamba"], cfg, h)))
+    return _ffn_residual(p, cfg, fk, residual(x, attention_forward(p["attn"], cfg, h, positions, _window(cfg, kind))))
 
 
 def forward(
@@ -261,7 +262,7 @@ def forward(
     the JAX call wraps each period in ``jax.checkpoint``; the tail layers
     are not wrapped, and the values are the same either way."""
     _check_cfg(cfg)
-    x = _embed(params, cfg, tokens, frontend_embeds)
+    x = batch_layout(_embed(params, cfg, tokens, frontend_embeds), tokens)
     positions = torch.arange(x.shape[-2], device=x.device)
     kinds, fkinds = layer_kinds(cfg), ffn_kinds(cfg)
     u, n_full, tail = _split_layers(cfg)
@@ -271,6 +272,7 @@ def forward(
         aux = zero
         for j in range(u):
             x, a = _block(_block_at(params["stack"], params["tail"], per, j), cfg, kinds[j], fkinds[j], x, positions)
+            x = batch_layout(x, tokens)
             aux = aux if a is None else aux + a
         return x, aux
 
@@ -285,6 +287,7 @@ def forward(
         layer = n_full * u + j
         x, a = _block(_block_at(params["stack"], params["tail"], None, j), cfg, kinds[layer], fkinds[layer], x,
                       positions)
+        x = batch_layout(x, tokens)
         aux = aux if a is None else aux + a
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return x, aux
@@ -308,7 +311,7 @@ def lm_loss(params: Tree, cfg: ArchConfig, hidden: torch.Tensor, targets: torch.
 
     def ce(h, t):
         logits = hidden_to_logits(params, cfg, h).to(torch.float32)
-        picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        picked = gather_last(logits, t.long())
         return (torch.logsumexp(logits, dim=-1) - picked).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -396,7 +399,7 @@ def prefill_cache(
                 c[name].copy_(t)
         else:
             y, _ = attention_prefill(p["attn"], cfg, h, positions, c, _window(cfg, kind))
-        x, _ = _ffn_residual(p, cfg, fk, x + y)
+        x, _ = _ffn_residual(p, cfg, fk, residual(x, y))
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x[..., -1:, :])[..., 0, :], cache
 
@@ -408,18 +411,18 @@ def decode_step(
     """One decode step: tokens (..., 1) at absolute position ``pos``.
 
     Returns (logits (..., 1, V), the cache, updated in place)."""
-    x = _embed(params, cfg, tokens, None)
+    x = batch_layout(_embed(params, cfg, tokens, None), tokens)
     for per, j, kind, fk in _layers(cfg):
         p = _block_at(params["stack"], params["tail"], per, j)
         c = _block_at(cache["stack"], cache["tail"], per, j)
         if kind == "rwkv":
-            x = _rwkv_decode(p, cfg, x, c)
+            x = batch_layout(_rwkv_decode(p, cfg, x, c), tokens)
             continue
         h = norm_apply(p["norm1"], x, cfg.norm)
         if kind == "mamba":
             y, _ = mamba_decode(p["mamba"], cfg, h, c)
         else:
             y, _ = attention_decode(p["attn"], cfg, h, c, int(pos), _window(cfg, kind))
-        x, _ = _ffn_residual(p, cfg, fk, x + y)
+        x = batch_layout(_ffn_residual(p, cfg, fk, residual(x, y))[0], tokens)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     return hidden_to_logits(params, cfg, x), cache

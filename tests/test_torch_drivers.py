@@ -229,22 +229,48 @@ def test_kernels_run_rows_on_cpu():
 
 # ------------------------------------------------------------------ run.py
 def test_run_modules_are_the_jax_harness_names():
-    assert set(prun.MODULES) | set(prun.NOT_PORTED) == set(jrun.MODULES)
-    assert not set(prun.MODULES) & set(prun.NOT_PORTED)
+    """Every module of the JAX harness is ported, ``roofline`` included."""
+    assert set(prun.MODULES) == set(jrun.MODULES)
+    assert not hasattr(prun, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("argv,what", [
     (["--full", "--quick"], "mutually exclusive"),
     (["fig1", "--only", "fig2"], "not both"),
     (["fig99"], "unknown modules"),
-    (["roofline"], "item 17 (b)"),
-    (["--only", "fig1,roofline"], "item 17"),
 ])
 def test_run_flag_errors_and_refusals(argv, what, capsys):
     with pytest.raises(SystemExit) as exc:
         prun.main([*argv, "--device", "cpu"])
     assert exc.value.code == 2
     assert what in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,with_record", [(["roofline"], False), (["--only", "roofline"], True)])
+def test_run_roofline_reads_build_dryrun(argv, with_record, monkeypatch, tmp_path, capsys):
+    """``roofline`` runs (no refusal) and reads the dry run's records under
+    build/dryrun of the working directory: a note without records, else
+    one row a record and the summary; exit 0 either way."""
+    from repro_torch.benchmarks import roofline_report
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(roofline_report, "RESULTS_DIR", "build/dryrun")
+    if with_record:
+        (tmp_path / "build" / "dryrun").mkdir(parents=True)
+        terms = {"dominant": "memory", "compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.5}
+        rec = {"arch": "qwen2.5-3b", "shape": "prefill_32k", "mesh": "pod16x16", "mixing": None,
+               "status": "ok", "terms": terms, "useful_flops_ratio": 0.5, "wall_s": 1.0}
+        (tmp_path / "build" / "dryrun" / "a.json").write_text(json.dumps(rec))
+        (tmp_path / "build" / "dryrun" / "b.json").write_text(json.dumps(
+            {**rec, "mesh": "pod2x16x16", "status": "error", "error": "ValueError: x"}))
+    prun.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    if with_record:
+        assert "roofline.qwen2.5-3b.prefill_32k.pod16x16,1000000.0,dominant=memory;" in out
+        assert "roofline.qwen2.5-3b.prefill_32k.pod2x16x16,0.0,ERROR=ValueError: x" in out
+        assert "roofline.summary,0.0,ok=1;errors=1" in out
+    else:
+        assert "roofline.NOTE,0.0,no dry-run records in build/dryrun" in out
 
 
 def test_run_fig10_writes_under_build(monkeypatch, tmp_path, capsys):
