@@ -13,9 +13,10 @@ run with a non-zero exit:
    (every dtype and head dim) and the rwkv library (every head dim, dtype
    and launch path) print every entry and must spill nothing, the flash
    SASS must hold wgmma (``HGMMA``) and TMA loads (``UTMALDG``), the rwkv
-   SASS mma.sync (``HMMA``); the dense mix and the two block-sparse
-   libraries (``mix``, ``mix_bsr``, ``quant_mix``) print every entry's
-   registers and spills and must spill nothing, and the dense mix's wide
+   SASS mma.sync (``HMMA``); the dense mix, the two block-sparse
+   libraries and the row-list one (``mix``, ``mix_bsr``, ``quant_mix``,
+   ``mix_hyb``) print every entry's registers and spills and must spill
+   nothing, and the dense mix's wide
    route must hold its 8-byte W loads (``LDG.E.64``) in SASS;
 3. kernels — each hand-written kernel against its plain PyTorch version on
    the card (dense: n ∈ {8, 16, 32, 64} × d ∈ {567434, 1000, 1} fp32 plus
@@ -27,7 +28,14 @@ run with a non-zero exit:
    faster at every n; block-sparse: ring-1024 at bn 32 (fp32 and bf16),
    random-4-regular-1024 at bn 32 and 64, heavy-tail-40 at bn 8, one masked
    round with all-zero tiles, each also bitwise ``mix_bsr_rows_ref`` on 4096
-   columns; flash attention:
+   columns; the row-list (HYB) kernel ``mix_hyb`` (row 2y, every unmasked
+   sparse round) at ring-1024 (fp32 and bf16), kreg4-1024, BA-1024 (the
+   CLI's m 8 and m 3), heavytail-1024, kreg4-256 (d = 567,434),
+   circulant-16 (1, 2) at the launch layer's width and a shard's rows of
+   kreg4-256 and BA-256 at S = 4 (d = 256, hubs over the gathered rows),
+   each bitwise ``mix_hyb_ref``, within the fp32 tolerance of M·W, timed in
+   turns with ``mix_bsr`` on the same operator beside torch.sparse.mm;
+   flash attention:
    every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
    global and local layers 2 × 2048), contiguous bf16 shapes, ragged bf16
@@ -134,8 +142,8 @@ run with a non-zero exit:
    kreg8-256 (sparse), full width: a mix, a spread, an int8 round and the
    wire count, clean and at link_p 0.8; the CLI with ``--topology-schedule
    churn`` (kreg4-256, 8 snapshots at churn 0.2, the leaderless warmup, 6
-   rounds): finite losses, one mix_bsr launch a training and a gossip round
-   (38), each plan's Mᵀ built once, each plan's mix_bsr at full width and
+   rounds): finite losses, one mix_bsr launch a gossip round (32) and one
+   mix_hyb launch a training round (6), each plan's Mᵀ built once, each plan's mix_bsr at full width and
    over its Mᵀ at d = 1–2 and its int8 round (scales pass and walk)
    against the plain version, mix_bsr timed against the static graph's, one
    int8 round a plan through the schedule (8 + 8 launches); each plan of
@@ -236,8 +244,10 @@ run with a non-zero exit:
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
-   backend, 3 block-sparse launches; then ``--compress int8``, 3 quantised
-   block-sparse launches);
+   backend, 3 row-list launches; then ``--compress int8``, 3 quantised
+   block-sparse launches), and with ``--uncoordinated-init`` on the CLI's
+   BA-1024 (the warmup's 64 block-sparse gossip launches over Mᵀ, then 3
+   row-list launches with hub rows; finite losses);
 6c. the launch layer — a world-size-1 NCCL group and the (1, 1)
    ``("data", "model")`` DeviceMesh over it (``launch/mesh.py``): the
    prefill step (``launch/steps.py``) of qwen2.5-3b at full width in bf16
@@ -246,7 +256,7 @@ run with a non-zero exit:
    weights, exactly 36 flash launches, every key among phase 3's, timed in
    turns with the unsharded prefill; the train step (dense, sparse and
    ppermute, 16 nodes) and the decode step at a reduced config against
-   the unsharded round and ``decode_step``, with their #1 / #2 launches;
+   the unsharded round and ``decode_step``, with their #1 / #2y launches;
    in a child process, the dry run of qwen2.5-3b ``prefill_32k`` on both
    production meshes over a fake world (``launch/dryrun.py``) and
    ``benchmarks.run roofline`` over its records;
@@ -520,12 +530,12 @@ def kernel_counters():
     """The port's kernel wrappers (each counts the launches it makes) and a
     function that sets every count, by route too, to 0."""
     from repro_torch.kernels.flash import ROUTES, flash_mha
-    from repro_torch.kernels.mix import mix_bsr, mix_matmul, quant_mix_bsr, quant_mix_dense, quant_scales
+    from repro_torch.kernels.mix import mix_bsr, mix_hyb, mix_matmul, quant_mix_bsr, quant_mix_dense, quant_scales
     from repro_torch.kernels.mix import mix as mix_kernel
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
     from repro_torch.kernels.rwkv import rwkv6_chunked
 
-    kernels = [mix_matmul, mix_bsr, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
+    kernels = [mix_matmul, mix_bsr, mix_hyb, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
 
     def reset_counts():
         for kern in kernels:
@@ -579,8 +589,8 @@ def main() -> int:
     from repro_torch.kernels.flash import route as flash_route
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import (
-        BSR, bsr_from_dense, chunk_bounds, decavg_mix_ref, dense_route, mix_bsr, mix_bsr_ref, mix_bsr_rows_ref,
-        mix_matmul,
+        BSR, bsr_from_dense, chunk_bounds, decavg_mix_ref, dense_route, hyb_from_tables, mix_bsr, mix_bsr_ref,
+        mix_bsr_rows_ref, mix_hyb, mix_hyb_ref, mix_matmul,
         pallas_bounds, quant_mix_bsr,
         quant_mix_dense, quant_scales,
     )
@@ -632,9 +642,9 @@ def main() -> int:
     # registers and spills of every entry of the flash library (bf16 and
     # fp32 at hd 32 / 64 / 128 / 256), the rwkv library (its three kernels
     # and the one-launch output kernel at every head dim and dtype) and the
-    # block-sparse walks' libraries; each instantiation is on the main path
-    # or phase 3's, so none may spill
-    for name in ("mix", "flash_sm90", "rwkv_sm90", "mix_bsr", "quant_mix"):
+    # block-sparse walks' and the row-list kernel's libraries; each
+    # instantiation is on the main path or phase 3's, so none may spill
+    for name in ("mix", "flash_sm90", "rwkv_sm90", "mix_bsr", "mix_hyb", "quant_mix"):
         entries = ptxas_entries(kbuild.build_log(name))
         for entry, regs, spill in entries:
             print(f"    {name}: {regs:3d} registers, {spill} bytes spilled  {entry}")
@@ -801,7 +811,7 @@ def main() -> int:
         dense_route=dense_route(16, D_MAIN, torch.float32),
     )
     del w16, full16
-    from repro_torch.core.shardplan import _layouts, _local_op
+    from repro_torch.core.shardplan import _build_hyb_tables, _layouts, _local_op
 
     halo_cases = {}
     for fam, build_g in (("ring", T.ring), ("kreg4", lambda n_g: T.random_k_regular(n_g, 4, seed=0))):
@@ -1160,8 +1170,9 @@ def main() -> int:
     )
     del m8, w8
     # phase 6c's train steps: the circulant (1, 2) graph at n = 16 over the
-    # flat row of the launch layer's reduced qwen2.5-3b (fp32), dense (#1)
-    # and block-sparse (#2), the operators compile_plan makes for them
+    # flat row of the launch layer's reduced qwen2.5-3b (fp32), dense (#1),
+    # and block-sparse (#2, held here; the sparse step's unmasked round runs
+    # the row-list kernel, timed below), the operators compile_plan makes
     launch_cfg = dataclasses.replace(get_reduced_config("qwen2.5-3b"), **LAUNCH_SMALL)
     D_LAUNCH = FlatLayout.of(TF.init_params(0, launch_cfg, InitConfig("trunc_normal", torch.ones(16)),
                                             device="cpu")).size
@@ -1180,21 +1191,116 @@ def main() -> int:
         dense_route=dense_route(16, D_LAUNCH, torch.float32),
     )
     bsr_launch = compile_plan(g_launch, "sparse", device=dev).bsr
-    errs["mix_bsr_launch"] = compare(f"mix_bsr circulant-16 (1, 2) d={D_LAUNCH} (launch layer)",
-                                     lambda: mix_bsr(*bsr_launch, w_launch), mix_bsr_ref(*bsr_launch, w_launch),
-                                     w_launch)
+    compare(f"mix_bsr circulant-16 (1, 2) d={D_LAUNCH} (launch layer)", lambda: mix_bsr(*bsr_launch, w_launch),
+            mix_bsr_ref(*bsr_launch, w_launch), w_launch)
     rows_bitwise("mix_bsr circulant-16 (launch layer)", tuple(bsr_launch), w_launch)
-    nnz_launch = int(np.count_nonzero(receive_matrix(g_launch)))
-    b_lb, op_lb = bound(sum(t.numel() * t.element_size() for t in bsr_launch) + 2 * 4 * 16 * D_LAUNCH,
-                        2 * nnz_launch * D_LAUNCH)
-    csr_launch = torch.as_tensor(receive_matrix(g_launch), dtype=torch.float32, device=dev).to_sparse_csr()
-    timing["mix_bsr_launch"] = dict(
-        ms=time_ms(lambda: mix_bsr(*bsr_launch, w_launch), flush=flush),
-        plain_ms=time_ms(lambda: mix_bsr_ref(*bsr_launch, w_launch), reps=3, flush=flush),
-        library_ms=time_ms(lambda: torch.sparse.mm(csr_launch, w_launch), flush=flush),
-        bound_ms=b_lb, bound_by=op_lb, shape=f"circulant-16 (1, 2) d={D_LAUNCH} fp32 (reduced qwen2.5-3b)",
+
+    # the row-list kernel (2y): every unmasked sparse round (the JAX
+    # package's clean-path HYB rendering, mix_pytree_hyb, XLA there, no
+    # pallas_call).  At each shape: bitwise its plain version mix_hyb_ref
+    # (the same roundings in the same order), and within the fp32 tolerance
+    # of the dense M·W (rows of M for a shard's block); timed, L2 flushed,
+    # median of 7, in turns with mix_bsr on the same operator (the plan's
+    # tiles, or the rank's tiles over its [local | halo] buffer), beside
+    # torch.sparse.mm on M's CSR (fp32 only) and the plain version.  Byte
+    # bound as row 2h counts it: each nonzero's weight and index (8 B; an
+    # ELL row's self term, its nonzero slots, a hub row's nonzeros), each
+    # input row some nonzero reads (in W, and in the gathered payload for a
+    # shard's hub rows), the output written once; 2 d flops a nonzero
+    hyb_shapes = {}
+
+    def hyb_case(key, op_y, w_y, m_rows, x_full, run_bsr, w_hub=None, csr_y=None):
+        label = f"mix_hyb {key} d={w_y.shape[1]} {str(w_y.dtype).removeprefix('torch.')}"
+        e = compare(label, lambda: mix_hyb(op_y, w_y, w_hub), decavg_mix_ref(m_rows, x_full), w_y,
+                    bf16=w_y.dtype == torch.bfloat16)
+        same = bool(torch.equal(mix_hyb(op_y, w_y, w_hub), mix_hyb_ref(op_y, w_y, w_hub)))
+        print(f"    {label}: bitwise mix_hyb_ref {same}")
+        check(same, f"{label}: the kernel differs from mix_hyb_ref")
+        # the walk on the same operator sums in another order: the fp32
+        # tolerance, and in bf16 one bf16 rounding of either sum
+        y_b = run_bsr().float()
+        slack = FP32_TOL * max(float(w_y.float().abs().max()), 1.0) + (
+            BF16_RTOL * y_b.abs() if w_y.dtype == torch.bfloat16 else 0.0)
+        check(bool(((mix_hyb(op_y, w_y, w_hub).float() - y_b).abs() <= slack).all()),
+              f"{label}: off mix_bsr on the same operator")
+        ell = op_y.hub_of.cpu().numpy() < 0
+        idx, wt = op_y.slot_idx.cpu().numpy(), op_y.slot_w.cpu().numpy()
+        live = (wt != 0) & ell[None, :]
+        read = set(np.nonzero(ell)[0].tolist()) | set(idx[live].tolist())
+        read_hub = set(op_y.hub_col.cpu().numpy().tolist())
+        n_read = len(read) + (len(read_hub) if w_hub is not None else len(read_hub - read))
+        nnz_y = int(ell.sum()) + int(live.sum()) + int(op_y.hub_col.numel())
+        elem, d_y = w_y.element_size(), w_y.shape[1]
+        bytes_y = 8 * nnz_y + elem * d_y * (n_read + op_y.n_rows)
+        b_y, by_y = bound(bytes_y, 2 * nnz_y * d_y)
+        turns = {"mix_hyb": [], "mix_bsr": []}
+        for _ in range(2):
+            turns["mix_hyb"].append(time_ms(lambda: mix_hyb(op_y, w_y, w_hub), flush=flush))
+            turns["mix_bsr"].append(time_ms(run_bsr, flush=flush))
+        hyb_shapes[key] = dict(
+            shape=f"{key}: {op_y.n_rows} rows, {op_y.slot_idx.shape[0]} slots, {op_y.n_hubs} hub rows "
+                  f"({op_y.hub_col.numel()} nonzeros), {n_read} input rows read, d={d_y} "
+                  f"{str(w_y.dtype).removeprefix('torch.')}", max_abs_err=e,
+            ms=min(turns["mix_hyb"]), mix_bsr_ms=min(turns["mix_bsr"]), turns_ms=turns,
+            plain_ms=time_ms(lambda: mix_hyb_ref(op_y, w_y, w_hub), reps=3, flush=flush),
+            library_ms=None if csr_y is None else time_ms(lambda: torch.sparse.mm(csr_y, x_full), flush=flush),
+            bound_ms=b_y, bound_by=by_y, bytes=bytes_y,
+        )
+        t = hyb_shapes[key]
+        print(f"    {key}: mix_hyb {t['ms']:.4f} ms, mix_bsr {t['mix_bsr_ms']:.4f} (in turns {turns}), plain "
+              f"{t['plain_ms']:.4f}, torch.sparse.mm {t['library_ms']}, bound {b_y:.4f} ({by_y}; "
+              f"{100 * b_y / t['ms']:.1f}% of it)")
+        return e
+
+    def hyb_plan_case(key, graph_y, d_y, dtype=torch.float32, w_y=None):
+        plan_y = compile_plan(graph_y, "sparse", device=dev)
+        w_y = torch.randn(graph_y.n, d_y, generator=gen, device=dev).to(dtype) if w_y is None else w_y
+        m_y = torch.as_tensor(receive_matrix(graph_y), dtype=torch.float32, device=dev)
+        csr_y = m_y.to_sparse_csr() if dtype == torch.float32 else None
+        return hyb_case(key, plan_y.hyb, w_y, m_y, w_y, lambda: mix_bsr(*plan_y.bsr, w_y), csr_y=csr_y)
+
+    errs["mix_hyb"] = max(
+        hyb_plan_case("ring-1024", T.ring(1024), D_MAIN),
+        hyb_plan_case("ring-1024 bf16", T.ring(1024), D_MAIN, torch.bfloat16),
+        hyb_plan_case("kreg4-1024", T.random_k_regular(1024, 4, seed=0), D_MAIN),
+        hyb_plan_case("ba-1024 (m 3, seed 2)", T.barabasi_albert(1024, 3, seed=2), D_MAIN),
+        hyb_plan_case("heavytail-1024", T.configuration_heavy_tail(1024, 2.2, seed=0), D_MAIN),
     )
-    del m_launch, w_launch, csr_launch
+    torch.cuda.empty_cache()
+    errs["mix_hyb_ba"] = hyb_plan_case("ba-1024 (the CLI's: m 8, seed 0)", cli.build_graph("ba", 1024, 0), D_MAIN)
+    errs["mix_hyb_schedule"] = hyb_plan_case("kreg4-256 (the churn CLI's base graph)",
+                                             cli.build_graph("kregular", 256, 0), D_MAIN)
+    errs["mix_hyb_launch"] = hyb_plan_case("circulant-16 (1, 2) (launch layer)", g_launch, D_LAUNCH, w_y=w_launch)
+    # a shard's rows at S = 4, rank 0: the slots over its [local | halo]
+    # buffer, the hub rows over the gathered payload (BA-256's hubs are its
+    # first nodes: rank 0 owns them), d = 256 as row 2h
+    errs["mix_hyb_halo"] = 0.0
+    for key, g_y in (("kreg4-256 S=4 rank 0", T.random_k_regular(256, 4, seed=0)),
+                     ("ba-256 S=4 rank 0", T.barabasi_albert(256, 3, seed=2))):
+        plan_y = compile_plan(g_y, "sparse", device=dev)
+        recv_y, _ = _layouts(plan_y, 4)
+        tabs = _build_hyb_tables(plan_y, recv_y, 4)
+        real = tabs["hub_loc"][0] < recv_y.nps
+        op_y = hyb_from_tables(tabs["slot_pos"][0], tabs["slot_w"][0], tabs["hyb_self"][0], tabs["hub_loc"][0][real],
+                               tabs["hub_m"][0][real], dev)
+        x_y = torch.randn(256, 256, generator=gen, device=dev)
+        halo_y = recv_y.send[:, 0, : recv_y.h_max] + np.arange(4)[:, None] * recv_y.nps
+        buf_y = torch.cat([x_y[: recv_y.nps], x_y[torch.as_tensor(halo_y.reshape(-1), dtype=torch.int64, device=dev)]])
+        check(torch.equal(mix_hyb(op_y, buf_y, x_y), mix_hyb(plan_y.hyb, x_y)[: recv_y.nps]),
+              f"mix_hyb {key}: not the unsharded call's rows")
+        op_bsr = _local_op(recv_y, 0, plan_y.bsr.block_n, dev)
+        m_rows = torch.as_tensor(receive_matrix(g_y)[: recv_y.nps], dtype=torch.float32, device=dev)
+        errs["mix_hyb_halo"] = max(errs["mix_hyb_halo"], hyb_case(
+            key, op_y, buf_y, m_rows, x_y, lambda: mix_bsr(*op_bsr.bsr, buf_y, recv_y.nps), w_hub=x_y,
+            csr_y=m_rows.to_sparse_csr()))
+    print(f"  {len(hyb_shapes)} mix_hyb shapes held against mix_hyb_ref (bitwise) and M·W")
+    timing["mix_hyb"] = dict(hyb_shapes["ring-1024"], shapes=[dict(t, key=k) for k, t in hyb_shapes.items()])
+    timing["mix_hyb_ba"] = hyb_shapes["ba-1024 (the CLI's: m 8, seed 0)"]
+    timing["mix_hyb_schedule"] = hyb_shapes["kreg4-256 (the churn CLI's base graph)"]
+    timing["mix_hyb_launch"] = hyb_shapes["circulant-16 (1, 2) (launch layer)"]
+    timing["mix_hyb_halo"] = hyb_shapes["ba-256 S=4 rank 0"]
+    del m_launch, w_launch
+    torch.cuda.empty_cache()
     # phase 4l's rounds: n = 8 over the flat rows of the reduced rwkv6-3b
     # (--model rwkv and --arch rwkv6-3b), jamba and llava (--arch), each d
     # from the layout of a CPU init; the row's times at rwkv6-3b's
@@ -1865,8 +1971,9 @@ def main() -> int:
     # power iteration's x, push-sum's [moments, weight]): the dense Mᵀ of
     # complete-16, kreg4-16 (phase 4e's warmup), kreg4-64 and kreg4-256 (the
     # estimates bench), complete-8 and kreg4-8 (phase 4j's gossip-health
-    # reports at n = 8), the BSR Mᵀ of ring-1024, kreg4-1024 and
-    # heavytail-1024 (bn 32) and of heavytail-16 / 64 / 256 (the estimates
+    # reports at n = 8), the BSR Mᵀ of ring-1024, kreg4-1024,
+    # heavytail-1024 and the CLI's BA-1024 (phase 6's uncoordinated run; bn
+    # 32) and of heavytail-16 / 64 / 256 (the estimates
     # bench's sparse plans, bn 4 / 8 / 32).  Each against its plain version
     # and, for BSR, bitwise its rendering mix_bsr_rows_ref; timed as a
     # caller pays for it (L2 flushed, host time counted) and held (device
@@ -1887,6 +1994,7 @@ def main() -> int:
         "ring-1024": compile_plan(T.ring(1024), "sparse", device=dev),
         "kreg4-1024": compile_plan(T.random_k_regular(1024, 4, seed=0), "sparse", device=dev),
         "heavytail-1024": compile_plan(T.configuration_heavy_tail(1024, 2.2, seed=0), "sparse", device=dev),
+        "ba-1024": compile_plan(cli.build_graph("ba", 1024, 0), "sparse", device=dev),
         **{f"heavytail-{n_h}": compile_plan(T.configuration_heavy_tail(n_h, 2.2, seed=0), "sparse", device=dev)
            for n_h in (16, 64, 256)},
     }
@@ -2440,15 +2548,18 @@ def main() -> int:
 
     real_warmup, cli.run_warmup_trajectory = cli.run_warmup_trajectory, capture_warmup
     est_seed0 = split_seed(0, 2)[0]
+    # (label, argv, the gossip rounds' kernel and launches, the training
+    # rounds' kernel and launches: the masked dense mix at kreg-16, the
+    # unmasked sparse rounds' row-list kernel at ring-1024)
     cli_runs = (
         ("kreg-16", ["--topology", "kregular", "--nodes", "16", "--estimate-rounds", "24", "--link-p", "0.9",
-                     "--rounds", "20"], "mix_matmul", 48, 20),
+                     "--rounds", "20"], "mix_matmul", 48, "mix_matmul", 20),
         ("ring-1024", ["--topology", "ring", "--nodes", "1024", "--rounds", "3", "--local-batches", "2",
-                       "--estimate-rounds", "32"], "mix_bsr", 64, 3),
+                       "--estimate-rounds", "32"], "mix_bsr", 64, "mix_hyb", 3),
         ("ring-1024 leaderless", ["--topology", "ring", "--nodes", "1024", "--rounds", "3", "--local-batches", "2",
-                                  "--estimate-rounds", "32", "--leaderless"], "mix_bsr", 64, 3),
+                                  "--estimate-rounds", "32", "--leaderless"], "mix_bsr", 64, "mix_hyb", 3),
     )
-    for clabel, argv, kname, n_gossip, n_train in cli_runs:
+    for clabel, argv, kname, n_gossip, tname, n_train in cli_runs:
         hist_c, wall_c, launches_c = counted(lambda: cli.main(["--model", "mlp", "--uncoordinated-init", *argv]))
         args_c = dict(zip(argv[::2], argv[1::2]))
         graph_c = cli.build_graph(args_c["--topology"], int(args_c["--nodes"]), 0)
@@ -2466,7 +2577,10 @@ def main() -> int:
               f"gains {float(gains_card.min()):.3g}–{float(gains_card.max()):.3g}, card vs CPU max rel err {err_c:.1e}"
               + ("" if reached is None else f"; reached {int(reached.sum())} of {graph_c.n} (CPU: "
                  f"{int(est_c.reached.sum())})") + f"; losses {losses}")
-        check(launches_c == {**none_launched, kname: n_gossip + n_train}, f"CLI {clabel}: launches {launches_c}")
+        want_c = dict(none_launched)
+        want_c[kname] += n_gossip
+        want_c[tname] += n_train
+        check(launches_c == want_c, f"CLI {clabel}: launches {launches_c}")
         check(launches_alone == {**none_launched, kname: n_gossip}, f"CLI {clabel}: estimator launches {launches_alone}")
         check(torch.equal(gains_alone.cpu(), gains_card), f"CLI {clabel}: the estimator alone gives other gains")
         check(err_c <= 1e-4, f"CLI {clabel}: gains card vs CPU {err_c}")
@@ -2538,8 +2652,9 @@ def main() -> int:
     # (b) the CLI at full width on a churned kreg4-256 (8 snapshots at churn
     # rate 0.2, one a round), the leaderless warmup of 16 + 16 rounds riding
     # the same schedule, 6 training rounds: finite losses, exactly one
-    # mix_bsr launch a training and a gossip round (spread_min, the sketches'
-    # transport, is plain torch), each plan's Mᵀ built once; then each
+    # mix_bsr launch a gossip round (spread_min, the sketches' transport, is
+    # plain torch) and one mix_hyb launch a training round (unmasked), each
+    # plan's Mᵀ built once; then each
     # plan's mix_bsr at full width and over its Mᵀ at the gossip payloads
     # against the plain version, and timed against the static graph's
     send_builds = []
@@ -2567,7 +2682,9 @@ def main() -> int:
           f"{ {k: n for k, n in launches_f.items() if n} }; Mᵀ built {len(send_builds)} times for "
           f"{len(set(send_builds))} plans; losses {hist_f['train_loss']} / {hist_f['test_loss']}")
     check(all(math.isfinite(x) for k in ("train_loss", "test_loss") for x in hist_f[k]), "churn CLI: non-finite loss")
-    check(launches_f == {**none_launched, "mix_bsr": 32 + 6}, f"churn CLI launches {launches_f}, want 38 mix_bsr")
+    sched_launches["mix_hyb"] = launches_f["mix_hyb"]
+    check(launches_f == {**none_launched, "mix_bsr": 32, "mix_hyb": 6},
+          f"churn CLI launches {launches_f}, want 32 mix_bsr (gossip) and 6 mix_hyb (training)")
     check(len(send_builds) == len(set(send_builds)) == 8, f"churn CLI built Mᵀ {len(send_builds)} times")
     base_256 = cli.build_graph("kregular", 256, 0)
     churned = compile_schedule(T.churn_sequence(base_256, 8, 0.2, seed=1), "sparse", device=dev)
@@ -3803,6 +3920,7 @@ if __name__ == "__main__":
               f"health mass_drift_max {drift_b:.3e} (fp32 level 1e-05), fitted {recs_b[-1]['fitted_rate']}")
         check(wire_b == kept_b and all(k < 2048 for k in kept_b), f"4j ring-1024: wire {wire_b} vs operators {kept_b}")
         check(train_b == {**none_launched, "mix_bsr": 3}, f"4j ring-1024: training launches {train_b}")
+        masked_ring_launches = train_b["mix_bsr"]  # the kernels line's mix_bsr row: masked rounds
         check(health_b == {**none_launched, "mix_bsr": 128}, f"4j ring-1024: health launches {health_b}")
         check(0.0 <= drift_b < 1e-5, f"4j ring-1024: mass drift {drift_b}")
         del dense_b, eye_b
@@ -3928,7 +4046,7 @@ if __name__ == "__main__":
         def inside(ts, spans):
             return any(a <= ts <= b for a, b in spans)
 
-        mix_name = "mix_wide_kernel" if label == "complete-16" else "mix_bsr_kernel"
+        mix_name = "mix_wide_kernel" if label == "complete-16" else "mix_hyb_kernel"
         mix_k = [e for e in kern_ev if mix_name in e["name"]]
         mix_in = [inside(launch_ts.get(e["args"].get("correlation"), -1.0), scopes["dfl_mix"]) for e in mix_k]
         split = {}
@@ -4286,7 +4404,8 @@ if __name__ == "__main__":
     check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist[k]),
           "CLI history not finite")
     check(len(hist["round"]) == 3, "CLI recorded rounds")
-    check(cli_launches == {**none_launched, "mix_bsr": 3},
+    # every round unmasked: the row-list kernel, one launch a round
+    check(cli_launches == {**none_launched, "mix_hyb": 3},
           f"CLI launch counts {cli_launches}")
 
     # the same CLI with int8 gossip: every round one scales pass and one
@@ -4311,6 +4430,30 @@ if __name__ == "__main__":
           f"compressed CLI launch counts {cli_c_launches}")
     torch.cuda.empty_cache()
 
+    # the CLI's BA-1024 (m 8) with the uncoordinated init: the leader's
+    # warmup (32 + 32 push-sum rounds, kernel 2 over Mᵀ at d ≤ 4, the shape
+    # phase 3's gossip rows held), then 3 unmasked training rounds on the
+    # row-list kernel, its 86 hub rows included: finite losses
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist_ba = cli.main([
+        "--model", "mlp", "--topology", "ba", "--nodes", "1024", "--rounds", "3", "--local-batches", "2",
+        "--uncoordinated-init", "--estimate-rounds", "32",
+    ])
+    torch.cuda.synchronize()
+    cli_ba_launches = {kern.__name__: kern.launches for kern in kernels}
+    print(f"  --topology ba --uncoordinated-init: {time.perf_counter() - t0:.1f} s incl. data generation; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          + str({k: v for k, v in cli_ba_launches.items() if v}) + f"; train loss {hist_ba['train_loss']}, test "
+          f"loss {hist_ba['test_loss']}")
+    check(all(math.isfinite(v) for k in ("train_loss", "test_loss", "sigma_ap", "sigma_an") for v in hist_ba[k]),
+          "BA-1024 uncoordinated CLI history not finite")
+    check(len(hist_ba["round"]) == 3, "BA-1024 uncoordinated CLI recorded rounds")
+    check(cli_ba_launches == {**none_launched, "mix_bsr": 64, "mix_hyb": 3},
+          f"BA-1024 uncoordinated CLI launches {cli_ba_launches}")
+    torch.cuda.empty_cache()
+
     # --------------------- 6b. the node-sharded rendering at one NCCL rank
     phase("6b. node-sharded rendering at one NCCL rank: run_sharded_trajectory, gossip, fig10 quick")
     import torch.distributed as dist
@@ -4330,7 +4473,8 @@ if __name__ == "__main__":
     ring_state = init_fl_state(0, ring_n, lambda g, gains: init_mlp(InitConfig("he_normal", gains), g), sgd(1e-3, 0.5),
                                device=dev)
     # (a) the quickstart's complete-16 (dense, kernel 1) and the CLI's
-    # ring-1024 (sparse, kernel 2), clean and with a failure model: the
+    # ring-1024 (sparse: clean the row-list kernel 2y, with a failure model
+    # kernel 2), clean and with a failure model: the
     # sharded trajectory at one rank against the unsharded one, the same
     # inputs and generator seed: params and losses bit for bit
     shard_launches, shard_rounds = {}, {}
@@ -4350,7 +4494,7 @@ if __name__ == "__main__":
             reset_counts()
             fin_s, h_s = run_sharded_trajectory(st, loss_6b, opt_6b, sp_6b, xs_6b, ys_6b, sched_6b, **common_6b)
             launched = {kern.__name__: kern.launches for kern in kernels}
-            kern_6b = "mix_matmul" if backend == "dense" else "mix_bsr"
+            kern_6b = "mix_matmul" if backend == "dense" else ("mix_bsr" if fm.active else "mix_hyb")
             shard_launches[kern_6b] = shard_launches.get(kern_6b, 0) + launched[kern_6b]
             check(launched == {**none_launched, kern_6b: rounds}, f"6b {tag}: launches {launched}")
             same = bool(torch.equal(fin_s.params, fin_u.params))
@@ -4527,7 +4671,7 @@ if __name__ == "__main__":
             zeros_t = type(args_t[1])(*(tree_map(torch.zeros_like, tree_6c) for _ in args_t[1]))
             sh_t = launch_steps.shard_args((tree_6c, zeros_t, batch_6c), in_t)
             (p_t, o_t, loss_t), wall_t, launched_t = counted(lambda: step_t(*sh_t))
-            kern_t = {"dense": "mix_matmul", "sparse": "mix_bsr"}.get(backend)
+            kern_t = {"dense": "mix_matmul", "sparse": "mix_hyb"}.get(backend)
             check(launched_t == {**none_launched, **({kern_t: 1} if kern_t else {})},
                   f"6c train {backend}: launches {launched_t}")
             if kern_t:
@@ -5296,7 +5440,19 @@ if __name__ == "__main__":
     rows = []
     for name, replaces, source, launches in (
         ("mix_matmul", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", quick_launches["mix_matmul"]),
-        ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", cli_launches["mix_bsr"]),
+        # kernel 2 on the training path: the masked rounds (phase 4j's
+        # ring-1024 at link_p 0.9); the unmasked ones run the row-list kernel
+        ("mix_bsr", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", masked_ring_launches),
+        # the row-list kernel (2y): every unmasked sparse round.  The JAX
+        # package renders it in XLA (decavg.mix_pytree_hyb, no pallas_call).
+        # Phase 6's CLI ring-1024, the BA-1024 uncoordinated run (hub rows),
+        # the churn CLI's training rounds (4f), phase 6b's clean sharded
+        # runs at one NCCL rank, phase 6c's sparse train step
+        ("mix_hyb", "src/repro/core/decavg.py:127", f"{src}/mix_hyb.cu", cli_launches["mix_hyb"]),
+        ("mix_hyb_ba", "src/repro/core/decavg.py:127", f"{src}/mix_hyb.cu", cli_ba_launches["mix_hyb"]),
+        ("mix_hyb_schedule", "src/repro/core/decavg.py:127", f"{src}/mix_hyb.cu", sched_launches["mix_hyb"]),
+        ("mix_hyb_halo", "src/repro/core/decavg.py:127", f"{src}/mix_hyb.cu", shard_launches["mix_hyb"]),
+        ("mix_hyb_launch", "src/repro/core/decavg.py:127", f"{src}/mix_hyb.cu", mix_launches_6c["mix_hyb"]),
         ("flash_mha", "src/repro/kernels/flash/flash.py:130", "src/repro_torch/kernels/flash/csrc/flash_sm90.cu",
          serve_launches["flash_mha"]),
         # the fp32 route: phase 8's card-vs-CPU serving (the head dims with an
@@ -5398,7 +5554,6 @@ if __name__ == "__main__":
         ("flash_mha_launch", "src/repro/kernels/flash/flash.py:130",
          "src/repro_torch/kernels/flash/csrc/flash_sm90.cu", launch_flash),
         ("mix_matmul_launch", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", mix_launches_6c["mix_matmul"]),
-        ("mix_bsr_launch", "src/repro/kernels/mix/sparse.py:114", f"{src}/mix_bsr.cu", mix_launches_6c["mix_bsr"]),
     ):
         t = timing[name]
         row = {
@@ -5409,6 +5564,10 @@ if __name__ == "__main__":
         }
         if name.startswith("mix_matmul"):
             row["dense_route"] = t["dense_route"]
+        if name.startswith("mix_hyb"):
+            row.update(shape=t["shape"], mix_bsr_ms=t["mix_bsr_ms"])
+            if "shapes" in t:
+                row["shapes"] = t["shapes"]
         if name.endswith("_gossip"):
             kname = name.removesuffix("_gossip")
             row["shape"] = t["shape"]

@@ -3,9 +3,10 @@
 
 The sharded rendering (``core.shardplan``, DESIGN.md §15) partitions the FL
 node axis contiguously over the ranks of a process group: a rank's rows of
-the operator run through the block-sparse kernel over its ``[local |
-halo]`` buffer, the remote rows arriving by ONE padded
-``all_to_all_single`` a round.  The question this benchmark asks: **does the
+the operator run through the row-list kernel over its ``[local | halo]``
+buffer, the remote rows arriving by ONE padded ``all_to_all_single`` a
+round (and, on a graph with hub rows, the hubs over one all-gather of the
+payload).  The question this benchmark asks: **does the
 per-round time stay flat as nodes and shards grow together?**
 
 * Weak scaling: nodes per shard fixed (64 quick, 256 full), shards

@@ -13,7 +13,8 @@ difference from the kernel's plain version on the same inputs
 On the CPU a wrapper runs its plain version, so the error is 0.
 
 ``run_mixing`` sweeps the three ``CommPlan`` backends (dense: the dense mix
-kernel; sparse: the block-sparse walk; ppermute: the edge-coloured gather)
+kernel; sparse: the row-list (HYB) kernel of the unmasked round; ppermute:
+the edge-coloured gather)
 over ring / kreg / ba / heavytail at n = 16, 64, 256, 1024 and d = 4096,
 best of ``iters`` rounds each, and writes the JAX driver's schema (``{d,
 iters, device, records: [{family, n, d, n_edges, mean_degree, us_dense,

@@ -6,11 +6,16 @@ hand-written kernels (``repro_torch.kernels.mix``) on the card and through
 the kernels' plain versions on the CPU:
 
 ``dense``   the (n, n) receive operator, mixed by the dense kernel.
-``sparse``  the receive operator in BSR form, mixed by the block-sparse
-            kernel.  ``compile_plan`` also precomputes, for every CSR entry
-            and every diagonal entry, its slot in the tile array, so a
-            masked round writes its renormalised weights into zeroed tiles
-            by index assignment and runs the same kernel.
+``sparse``  the JAX package's HYB layout (``_hyb_layout``: ELL slots for
+            the low-degree rows, the whole receive row of each heavy hub),
+            which every unmasked round mixes through the row-list kernel
+            (``kernels/mix/hyb.py``), as the JAX package's clean rounds take
+            ``mix_pytree_hyb``; and the receive operator in BSR form, which
+            masked rounds, ``spread`` and the codecs run through the
+            block-sparse kernel.  ``compile_plan`` also precomputes, for
+            every CSR entry and every diagonal entry, its slot in the tile
+            array, so a masked round writes its renormalised weights into
+            zeroed tiles by index assignment and runs the same kernel.
 
 ``spread`` applies the transpose Mᵀ (column-stochastic, mass-conserving:
 the send form push-sum gossip needs, ``repro_torch.gossip``) through the
@@ -80,7 +85,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.flat import FlatLayout, tree_map
-from repro_torch.kernels.mix import BSR, bsr_from_dense, bsr_slots, decavg_mix, mix_flat
+from repro_torch.kernels.mix import BSR, HYB, bsr_from_dense, bsr_slots, decavg_mix, hyb_from_tables, mix_flat
 
 from .compress import Compression, compressed_mix, compressed_spread, init_residuals
 from .decavg import (
@@ -212,6 +217,13 @@ class CommPlan:
     bsr: BSR | None = None  # the static operator
     edge_slot: torch.Tensor | None = None  # (nnz,) int64 flat slot in bsr.tiles
     self_slot: torch.Tensor | None = None  # (n,) int64 flat slot of each diagonal entry
+    # the HYB layout of the static operator, the JAX package's tables
+    slot_idx: torch.Tensor | None = None  # (n_slots, n) int32 ELL slot sources (self index when padding)
+    slot_w: torch.Tensor | None = None  # (n_slots, n) fp32 slot weights (0 when padding or a hub row)
+    hyb_self_w: torch.Tensor | None = None  # (n,) fp32 self weights (0 on hub rows)
+    hub_rows: torch.Tensor | None = None  # (H,) int32 rows held whole
+    hub_m: torch.Tensor | None = None  # (H, n) fp32 their receive rows, self weight included
+    hyb: HYB | None = None  # the same, as the row-list kernel reads it
     # ---- ppermute (edge-coloured) ----
     partners: np.ndarray | None = None  # (n_colors, n) int32 per-colour matchings
     color_edge_uid: torch.Tensor | None = None  # (n_colors, n) int64, -1 unmatched
@@ -293,7 +305,7 @@ class CommPlan:
         if self.backend == "ppermute":
             color_w, self_w = self.color_round_weights(generator, active=active, edge_live=edge_live)
             return mix_pytree_colored(params, self._partners_dev, color_w, self_w)
-        op = self.round_operator(generator, active=active, edge_live=edge_live)
+        op = self.mix_operator(generator, active=active, edge_live=edge_live)
         if isinstance(params, torch.Tensor):
             return mix_flat(op, params)
         return decavg_mix(op, params)
@@ -435,10 +447,21 @@ class CommPlan:
             return m.T.contiguous()
         return self._transpose_tiles(m, *self._send)
 
+    def mix_operator(
+        self, generator: torch.Generator | None = None, *, active=None, edge_live=None
+    ) -> torch.Tensor | BSR | HYB:
+        """What ``mix`` runs this round: on an unmasked sparse round the HYB
+        layout (the JAX package's clean-path ``mix_pytree_hyb``), else
+        ``round_operator``'s matrix or renormalised tiles."""
+        if self.backend == "sparse" and not self._masked(active, edge_live):
+            return self.hyb
+        return self.round_operator(generator, active=active, edge_live=edge_live)
+
     def round_operator(
         self, generator: torch.Generator | None = None, *, active=None, edge_live=None
     ) -> torch.Tensor | BSR:
-        """This round's operator: the (n, n) matrix or the BSR tiles."""
+        """This round's operator: the (n, n) matrix or the BSR tiles (what a
+        masked round, ``spread`` and the codecs run)."""
         if self.backend == "ppermute":
             raise ValueError("a ppermute plan holds no operator matrix: use color_round_weights")
         if self.backend == "dense":
@@ -730,6 +753,7 @@ def compile_plan(
         tiles=f32(tiles.reshape(nrb, max_nnz, block_n, block_n)),
         counts=torch.as_tensor(counts, device=dev),
     )
+    hyb = _hyb_layout(indptr, src, raw_edge, s, den)
     return CommPlan(
         **common,
         src=i64(src),
@@ -740,6 +764,55 @@ def compile_plan(
         bsr=bsr,
         edge_slot=i64(edge_slot),
         self_slot=i64(self_slot),
+        **{k: torch.as_tensor(v, device=dev) for k, v in hyb.items()},
+        hyb=hyb_from_tables(hyb["slot_idx"], hyb["slot_w"], hyb["hyb_self_w"], hyb["hub_rows"], hyb["hub_m"], dev),
+    )
+
+
+def _hyb_layout(indptr: np.ndarray, src: np.ndarray, raw_edge: np.ndarray, s: np.ndarray, den: np.ndarray) -> dict:
+    """The sparse backend's HYB layout (ELL slots + dense hub rows), the JAX
+    package's ``_hyb_layout`` table for table: numpy ``slot_idx`` (n_slots,
+    n) int32, ``slot_w`` (n_slots, n) float32, ``hyb_self_w`` (n,) float32,
+    ``hub_rows`` (H,) int32 and ``hub_m`` (H, n) float32.
+
+    Its degree threshold t minimises ``n_slots(t) + n_hub(t)/6`` (the JAX
+    package's CPU cost model: a hub row costs about a sixth of a slot pass),
+    the first such t in ascending order.  Rows of degree above t are hubs,
+    held whole (their self weight included); the others fill slot s with
+    their s-th in-edge in CSR order, padding with their own index at weight
+    0.  A hub row's ``hyb_self_w`` is 0: the hub row replaces it.
+    """
+    n = len(indptr) - 1
+    deg = np.diff(indptr)
+    candidates = sorted(set(deg.tolist()) | {0})
+
+    def cost(t):
+        return min(t, int(deg[deg <= t].max()) if (deg <= t).any() else 0) + (deg > t).sum() / 6.0
+
+    t = min(candidates, key=cost)
+    hub = np.nonzero(deg > t)[0].astype(np.int32)
+    n_slots = int(deg[deg <= t].max()) if (deg <= t).any() else 0
+    slot_idx = np.tile(np.arange(n, dtype=np.int32)[None, :], (n_slots, 1))
+    slot_w = np.zeros((n_slots, n), np.float64)
+    is_hub = np.zeros(n, dtype=bool)
+    is_hub[hub] = True
+    for i in range(n):
+        if is_hub[i]:
+            continue
+        lo, hi = indptr[i], indptr[i + 1]
+        slot_idx[: hi - lo, i] = src[lo:hi]
+        slot_w[: hi - lo, i] = raw_edge[lo:hi] / den[i]
+    hub_m = np.zeros((len(hub), n), np.float64)
+    for r, i in enumerate(hub):
+        lo, hi = indptr[i], indptr[i + 1]
+        hub_m[r, src[lo:hi]] = raw_edge[lo:hi] / den[i]
+        hub_m[r, i] = s[i] / den[i]
+    return dict(
+        slot_idx=slot_idx,
+        slot_w=slot_w.astype(np.float32),
+        hyb_self_w=np.where(is_hub, 0.0, s / den).astype(np.float32),
+        hub_rows=hub,
+        hub_m=hub_m.astype(np.float32),
     )
 
 

@@ -30,7 +30,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.flat import tree_map
+from repro_torch.flat import tree_leaves, tree_map
+from repro_torch.kernels.mix.hyb import hyb_from_tables
+from repro_torch.kernels.mix.ops import decavg_mix, mix_flat
 from repro_torch.kernels.mix.ref import decavg_mix_ref, pair_mix_ref
 
 from .topology import Graph
@@ -43,6 +45,7 @@ __all__ = [
     "mix_pytree",
     "mix_pytree_circulant",
     "mix_pytree_colored",
+    "mix_pytree_hyb",
     "mix_pytree_pairwise",
     "mix_pytree_pairwise_batch",
     "mix_pytree_sparse",
@@ -121,7 +124,7 @@ def mix_pytree_sparse(
 
     CPU only: ``index_add_`` accumulates with atomics on CUDA, whose order —
     and so whose fp32 result — changes from run to run.  The card path sums
-    in the fixed tile order of the block-sparse kernel instead.
+    in the fixed orders of the row-list and block-sparse kernels instead.
     """
 
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +136,35 @@ def mix_pytree_sparse(
         return out.to(x.dtype)
 
     return tree_map(mix_leaf, params)
+
+
+def mix_pytree_hyb(
+    params: torch.Tensor | Tree,
+    slot_idx,
+    slot_w,
+    self_w,
+    hub_rows,
+    hub_m,
+) -> torch.Tensor | Tree:
+    """DecAvg over the HYB (ELL + dense hub rows) layout of the sparse
+    backend's static operator, the JAX ``mix_pytree_hyb``'s arguments:
+    ``slot_idx`` / ``slot_w`` (S, n), slot s of node i its s-th neighbour
+    (its own index at weight 0 when exhausted or when i is a hub);
+    ``self_w`` (n,); ``hub_rows`` (H,) and ``hub_m`` (H, n), the hubs' whole
+    receive rows, self weight included.  Weights must be normalised.
+
+    In the JAX order: the self term, then the slots in slot order, then the
+    hub rows overwrite their rows, fp32 accumulation.  A flat (n, d) buffer
+    or a node-stacked tree; one launch of the row-list kernel a buffer on
+    the card (a tree's leaves packed per dtype, as ``decavg_mix`` packs
+    them), its plain version on the CPU.  The tables become the kernel's
+    operator on the host at every call: ``CommPlan.mix`` keeps its own.
+    """
+    first = params if isinstance(params, torch.Tensor) else tree_leaves(params)[0][1]
+    op = hyb_from_tables(slot_idx, slot_w, self_w, hub_rows, hub_m, first.device)
+    if isinstance(params, torch.Tensor):
+        return mix_flat(op, params.reshape(params.shape[0], -1).contiguous()).reshape(params.shape)
+    return decavg_mix(op, params)
 
 
 def mix_pytree_colored(

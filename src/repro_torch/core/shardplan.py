@@ -19,9 +19,9 @@ Renderings, each through the port's kernels in their row-block form:
   contiguous slice of the dst-sorted CSR, and the remote endpoints it needs
   arrive by ONE ``all_to_all_single`` of the padded (S, h_max, d) send block
   a round, appended to the local rows in a fixed order (``[local | halo]``).
-  The rank's rows of the operator are a BSR over that buffer, built once per
-  plan (``_LocalOp``), and the block-sparse kernel (#2) mixes ``nps`` output
-  rows over the ``nps + S·h_max`` buffer rows.  A masked round writes the
+  A masked round's rows of the operator are a BSR over that buffer, built
+  once per plan (``_LocalOp``), and the block-sparse kernel (#2) mixes
+  ``nps`` output rows over the ``nps + S·h_max`` buffer rows; it writes the
   surviving raw weights into zeroed tiles by slot and divides each row by its
   own sum, as the unsharded plan does.  ``spread`` runs the src-sorted layout
   the same way; ``spread_min`` the receive layout with a scatter min.
@@ -30,20 +30,25 @@ Renderings, each through the port's kernels in their row-block form:
 * ``ppermute``: one node a rank, each colour one ``batch_isend_irecv``
   exchange (``decavg.mix_pytree_colored``'s process-group form).
 
-The JAX package's clean-path HYB tables (its ELL slot chain and the hub rows
-contracted against an all-gathered payload) are not ported: the port's
-unsharded plan has no HYB rendering either, so a graph with hub rows needs
-no hub all-gather and its traffic counts differ from the JAX counts there
-(ROADMAP.md Queue 3).
+An unmasked sparse round takes the JAX package's sharded HYB instead
+(``_build_hyb_tables``): each ELL slot re-pointed into the rank's
+``[local | halo]`` buffer, so the slot chain runs over the same halo, and
+the hub rows the rank owns, whole, contracted against ONE all-gather of the
+payload, made (by every rank) only when some rank owns a hub.  The
+row-list kernel runs both in one launch (the slots over the halo buffer,
+the hubs over the gathered rows).  The traffic counts include that
+all-gather as the JAX package's do.
 
 Failure draws stay global: every rank draws the full (n_edges,) / (n,)
 masks from its CPU ``torch.Generator``, in the same state on every rank, so
 a round's masks are those of the unsharded plan.  At one shard the round is
-the unsharded plan's, bit for bit (the same tiles, the same kernel call).
-At more shards a row sums its terms in the ``[local | halo]`` order, so the
-result is the unsharded one to fp32 rounding, not bitwise (the JAX package's
-segment-sum rendering keeps the order; the kernels' walk goes by column).
-``spread_min`` is exact at any shard count.
+the unsharded plan's, bit for bit (the same tables, the same kernel call).
+The unmasked HYB round keeps its slot order at any shard count, so it is
+the unsharded one bit for bit there too; a masked round or a spread sums a
+row's terms in the ``[local | halo]`` order, so the result is the unsharded
+one to fp32 rounding, not bitwise (the JAX package's segment-sum rendering
+keeps the order; the kernels' walk goes by column).  ``spread_min`` is
+exact at any shard count.
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.flat import tree_leaves, tree_structure, tree_unflatten
-from repro_torch.kernels.mix import BSR, bsr_slots, mix_flat
+from repro_torch.kernels.mix import BSR, HYB, bsr_slots, hyb_from_tables, mix_flat
 from repro_torch.kernels.mix.ops import per_dtype
 
 from .commplan import CommPlan
@@ -247,8 +252,6 @@ class _LocalOp:
     perm: torch.Tensor  # (m,) int64
     raw_edge_w: torch.Tensor  # (m,) fp32
     raw_self_w: torch.Tensor  # (nps,) fp32
-    send_idx: torch.Tensor  # (S·h_max,) int64 rows of the halo send block
-    n_cols: int
 
 
 def _local_op(layout: _Layout, rank: int, bn: int, device: torch.device) -> _LocalOp:
@@ -272,8 +275,46 @@ def _local_op(layout: _Layout, rank: int, bn: int, device: torch.device) -> _Loc
         uid=i64(layout.uid[rank, :m]), gown=i64(layout.gown[rank, :m]), gfar=i64(layout.gfar[rank, :m]),
         perm=i64(layout.perm[rank, :m]), raw_edge_w=f32(layout.raw_edge_w[rank, :m]),
         raw_self_w=f32(layout.raw_self_w[rank]),
-        send_idx=i64(layout.send[rank, :, : layout.h_max].reshape(-1)), n_cols=layout.buffer_rows,
     )
+
+
+def _build_hyb_tables(plan: CommPlan, recv: _Layout, n_shards: int) -> dict[str, np.ndarray]:
+    """The sparse plan's HYB layout sharded against the receive halo plan,
+    the JAX package's ``_build_hyb_tables`` table for table (numpy, a leading
+    (n_shards, ...) axis): ``slot_pos`` (S, n_slots, nps) each slot's row in
+    the shard's ``[local | halo]`` buffer, ``slot_w`` (S, n_slots, nps),
+    ``hyb_self`` (S, nps), ``hub_loc`` (S, h) the local row of each hub a
+    shard owns (``nps`` in the padding) and ``hub_m`` (S, h, n) its whole
+    receive row, h the most hubs one shard owns.  The slot chain is
+    row-parallel, so re-pointing the slots keeps its order."""
+    slot_idx = plan.slot_idx.cpu().numpy()
+    slot_w = plan.slot_w.cpu().numpy()
+    hub_rows, hub_m = plan.hub_rows.cpu().numpy(), plan.hub_m.cpu().numpy()
+    n = plan.n
+    nps = n // n_shards
+    n_slots = slot_idx.shape[0]
+    slot_pos = np.zeros((n_shards, n_slots, nps), np.int32)
+    for q in range(n_shards):
+        lo = q * nps
+        for s in range(n_slots):
+            for r in range(nps):
+                g = int(slot_idx[s, lo + r])
+                slot_pos[q, s, r] = g - lo if lo <= g < lo + nps else recv.pos[q][g]
+    owner = hub_rows // nps
+    h_max = int(max(np.sum(owner == q) for q in range(n_shards))) if len(hub_rows) else 0
+    hub_loc = np.full((n_shards, h_max), nps, np.int32)
+    hub_m_t = np.zeros((n_shards, h_max, n), np.float32)
+    for q in range(n_shards):
+        for j, ri in enumerate(np.nonzero(owner == q)[0]):
+            hub_loc[q, j] = int(hub_rows[ri]) - q * nps
+            hub_m_t[q, j] = hub_m[ri]
+    return {
+        "slot_pos": slot_pos,
+        "slot_w": np.ascontiguousarray(slot_w.reshape(n_slots, n_shards, nps).transpose(1, 0, 2), np.float32),
+        "hyb_self": plan.hyb_self_w.cpu().numpy().reshape(n_shards, nps).astype(np.float32),
+        "hub_loc": hub_loc,
+        "hub_m": hub_m_t,
+    }
 
 
 def _refill(op: _LocalOp, edge_values: torch.Tensor, self_values: torch.Tensor) -> BSR:
@@ -309,6 +350,7 @@ class ShardedCommPlan:
     rank: int
     recv: _Layout | None = None  # sparse backend
     send: _Layout | None = None
+    hyb: dict | None = None  # sparse backend: the sharded HYB tables (unmasked mix)
     # the rank's device-side operators, made at first use and shared with
     # the failure-free twin (``_clean``)
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -363,6 +405,17 @@ class ShardedCommPlan:
         """The unsharded plan's per-round failure draws, replicated."""
         return self.base.round_masks(generator)
 
+    @property
+    def hub_gather(self) -> bool:
+        """Does the unmasked mix all-gather the payload for hub rows (some
+        shard owns a hub)?"""
+        return self.hyb is not None and self.hyb["hub_loc"].shape[-1] > 0
+
+    def _counts_hub_gather(self, op: str) -> bool:
+        """The JAX package's counts take the hub all-gather into every mix of
+        a plan without a failure model (a static count)."""
+        return op == "mix" and not self.failures.active and self.hub_gather
+
     def cross_shard_rows_per_round(self, op: str = "mix") -> int:
         """Rows moved between ranks a round, every collective of ``op``
         counted (static: the weak-scaling benchmark's traffic axis)."""
@@ -374,7 +427,8 @@ class ShardedCommPlan:
             # each colour moves the row of every matched node
             return int((self.base.partners != np.arange(self.n)[None, :]).sum())
         layout = self.send if op == "spread" else self.recv
-        return self.n_shards * layout.halo_rows
+        hub_rows = self.n_shards * (self.n - self.nps) if self._counts_hub_gather(op) else 0
+        return self.n_shards * layout.halo_rows + hub_rows
 
     def collectives_per_round(self, op: str = "mix") -> int:
         """Collective launches a round per payload buffer (static)."""
@@ -385,7 +439,7 @@ class ShardedCommPlan:
         if self.backend == "ppermute":
             return sum(1 for p in self.base.color_perms() if p)
         layout = self.send if op == "spread" else self.recv
-        return 1 if layout.h_max else 0
+        return (1 if layout.h_max else 0) + int(self._counts_hub_gather(op))
 
     def cross_shard_bytes_per_round(self, row_bytes: int, op: str = "mix") -> int:
         """Traffic between ranks a round for ``row_bytes`` a node row."""
@@ -398,13 +452,29 @@ class ShardedCommPlan:
             self._cache[name] = _local_op(getattr(self, name), self.rank, self.base.bsr.block_n, self.device)
         return self._cache[name]
 
-    def _halo(self, x: torch.Tensor, op: _LocalOp) -> torch.Tensor:
-        """(nps, k) local block → (nps + S·h_max, k) ``[local | halo]``: ONE
-        ``all_to_all_single`` moves every rank's padded send blocks, the
-        block of source rank q landing at rows ``nps + q·h_max``."""
-        if op.n_cols == self.nps:
+    def _hyb_op(self) -> HYB:
+        """The rank's rows of the static operator in HYB form: the slots over
+        its ``[local | halo]`` buffer, the hub lists over the gathered rows."""
+        if "hyb" not in self._cache:
+            t, r = self.hyb, self.rank
+            hubs = t["hub_loc"][r] < self.nps  # the padding is dropped
+            self._cache["hyb"] = hyb_from_tables(t["slot_pos"][r], t["slot_w"][r], t["hyb_self"][r],
+                                                 t["hub_loc"][r][hubs], t["hub_m"][r][hubs], self.device)
+        return self._cache["hyb"]
+
+    def _halo(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """(nps, k) local block → (nps + S·h_max, k) ``[local | halo]`` of the
+        ``name`` layout: ONE ``all_to_all_single`` moves every rank's padded
+        send blocks, the block of source rank q landing at rows
+        ``nps + q·h_max``."""
+        layout = getattr(self, name)
+        if layout.buffer_rows == self.nps:
             return x
-        buf = x.index_select(0, op.send_idx)
+        key = f"send_idx_{name}"
+        if key not in self._cache:
+            rows = layout.send[self.rank, :, : layout.h_max].reshape(-1)
+            self._cache[key] = torch.as_tensor(rows.astype(np.int64), device=self.device)
+        buf = x.index_select(0, self._cache[key])
         got = torch.empty_like(buf)
         dist.all_to_all_single(got, buf, group=self.group)
         return torch.cat([x, got], dim=0)
@@ -437,9 +507,13 @@ class ShardedCommPlan:
         return _refill(op, m_flat[self.base.edge_slot[op.perm]], m_flat[self.base.self_slot[self.rows]])
 
     # -------------------------------------------------------- local bodies
-    def local_mix(self, params, generator: torch.Generator | None = None, *, active=None, edge_live=None):
+    def local_mix(self, params, generator: torch.Generator | None = None, *, active=None, edge_live=None,
+                  compressed: bool = False):
         """One DecAvg round on this rank's block: a flat (nps, d) buffer (one
-        launch) or a dict of (nps, ...) leaves (one buffer a dtype)."""
+        launch) or a dict of (nps, ...) leaves (one buffer a dtype).  An
+        unmasked sparse round runs the HYB operator, a masked one the tiles;
+        ``compressed`` marks the mix of a codec's mirrors h', which takes
+        the tiles as the unsharded codec rounds do (``compressed_mix``)."""
         if self.failures.active and generator is None:
             raise ValueError("failure model active: the sharded mix needs a torch.Generator")
         base = self.base
@@ -451,9 +525,15 @@ class ShardedCommPlan:
         if self.backend == "dense":
             block = base._dense_round_matrix(generator, active, edge_live)[self.rows]
             mix_fn = lambda x: mix_flat(block, self._gather(x))  # noqa: E731
+        elif not (compressed or base._masked(active, edge_live)):
+            op = self._hyb_op()
+
+            def mix_fn(x):
+                full = self._gather(x) if self.hub_gather else None
+                return mix_flat(op, self._halo(x, "recv"), w_hub=full)
         else:
-            op, bsr = self._op("recv"), self._recv_round(generator, active, edge_live)
-            mix_fn = lambda x: mix_flat(bsr, self._halo(x, op), self.nps)  # noqa: E731
+            bsr = self._recv_round(generator, active, edge_live)
+            mix_fn = lambda x: mix_flat(bsr, self._halo(x, "recv"), self.nps)  # noqa: E731
         return mix_fn(params) if isinstance(params, torch.Tensor) else per_dtype(mix_fn, params)
 
     def local_spread(self, x: torch.Tensor, generator=None, *, active=None, edge_live=None) -> torch.Tensor:
@@ -470,8 +550,8 @@ class ShardedCommPlan:
         if self.backend == "dense":
             m = base._dense_round_matrix(generator, active, edge_live)
             return mix_flat(m[:, self.rows].T.contiguous(), self._gather(x))
-        op, bsr = self._op("send"), self._send_round(generator, active, edge_live)
-        return mix_flat(bsr, self._halo(x, op), self.nps)
+        bsr = self._send_round(generator, active, edge_live)
+        return mix_flat(bsr, self._halo(x, "send"), self.nps)
 
     def local_spread_min(self, x: torch.Tensor, generator=None, *, active=None, edge_live=None) -> torch.Tensor:
         """Min-exchange round on the (nps, k) fp32 local block."""
@@ -500,7 +580,7 @@ class ShardedCommPlan:
             nbr = torch.where(keep[self.rows][:, :, None], x_full[None, :, :], inf).amin(dim=1)
             return torch.minimum(x, nbr)
         op = self._op("recv")
-        gathered = self._halo(x, op)[op.gat]
+        gathered = self._halo(x, "recv")[op.gat]
         if masked:
             keep = edge_keep[op.uid] & node_act[op.gfar] & node_act[op.gown]
             gathered = torch.where(keep[:, None], gathered, inf)
@@ -596,7 +676,7 @@ def shard_plan(plan: CommPlan, *, group=None, n_shards: int | None = None) -> Sh
     if plan.backend != "sparse":
         return ShardedCommPlan(**common)
     recv, send = _layouts(plan, shards)
-    return ShardedCommPlan(**common, recv=recv, send=send)
+    return ShardedCommPlan(**common, recv=recv, send=send, hyb=_build_hyb_tables(plan, recv, shards))
 
 
 def _layouts(plan: CommPlan, n_shards: int) -> tuple[_Layout, _Layout]:

@@ -503,8 +503,8 @@ def run_sharded_trajectory(
                                                      gather_batch(sched[r]))
         with scope("dfl_mix"):
             if comp is not None:
-                params, residual = compressed_mix_with(lambda h: plan.local_mix(h, generator), params, residual,
-                                                       comp, layout=layout)
+                params, residual = compressed_mix_with(lambda h: plan.local_mix(h, generator, compressed=True),
+                                                       params, residual, comp, layout=layout)
             else:
                 params = plan.local_mix(params, generator)
         if reinit_opt:  # Algorithm 1 line 15

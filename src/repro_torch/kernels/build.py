@@ -23,6 +23,7 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 LIBRARIES = {
     "mix": KERNELS_DIR / "mix" / "csrc" / "mix.cu",
     "mix_bsr": KERNELS_DIR / "mix" / "csrc" / "mix_bsr.cu",
+    "mix_hyb": KERNELS_DIR / "mix" / "csrc" / "mix_hyb.cu",
     "quant_mix": KERNELS_DIR / "mix" / "csrc" / "quant_mix.cu",
     "flash_sm90": KERNELS_DIR / "flash" / "csrc" / "flash_sm90.cu",
     "rwkv_sm90": KERNELS_DIR / "rwkv" / "csrc" / "rwkv_sm90.cu",

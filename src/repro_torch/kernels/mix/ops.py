@@ -2,7 +2,8 @@
 
 ``mix_flat(op, w)`` is the entry ``CommPlan.mix`` uses: one flat ``(n, d)``
 buffer, one kernel launch — the dense kernel for an ``(n, n)`` operator
-tensor, the block-sparse kernel for a ``BSR``.  ``quant_mix_flat(op, x, h,
+tensor, the block-sparse kernel for a ``BSR``, the row-list kernel for a
+``HYB``.  ``quant_mix_flat(op, x, h,
 edges, ...)`` is its compressed counterpart, one int8 / fp8 gossip round:
 with M dense one launch that reduces the scales, decodes and mixes; with a
 ``BSR`` the scales pass, then the block-sparse quantised mix.
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.flat import tree_leaves, tree_structure, tree_unflatten
 
+from .hyb import HYB, mix_hyb
 from .mix import mix_matmul
 from .quant import quant_mix_bsr, quant_mix_dense, quant_scales, table_bounds
 from .sparse import BSR, bsr_from_dense, mix_bsr
@@ -42,10 +44,18 @@ def _bsr_of(m: torch.Tensor, block_n: int) -> BSR:
     return _BSR_CACHE[key]
 
 
-def mix_flat(op: torch.Tensor | BSR, w: torch.Tensor, n_rows: int | None = None) -> torch.Tensor:
+def mix_flat(
+    op: torch.Tensor | BSR | HYB, w: torch.Tensor, n_rows: int | None = None, w_hub: torch.Tensor | None = None
+) -> torch.Tensor:
     """``w_new[i] = Σ_j M[i, j] w[j]`` over one flat (n, d) buffer.  A row
-    block of M gives ``n_rows`` rows: a dense (n_rows, n) operator, or a
-    ``BSR`` whose row blocks cover ``n_rows`` (omitted: n)."""
+    block of M gives ``n_rows`` rows: a dense (n_rows, n) operator, a
+    ``BSR`` whose row blocks cover ``n_rows`` (omitted: n), or a ``HYB``
+    whose tables have ``n_rows`` rows; a ``HYB``'s hub rows read ``w_hub``
+    (omitted: w)."""
+    if isinstance(op, HYB):
+        if n_rows is not None and n_rows != op.n_rows:
+            raise ValueError(f"a HYB of {op.n_rows} rows asked for {n_rows}")
+        return mix_hyb(op, w, w_hub)
     if isinstance(op, BSR):
         return mix_bsr(op.block_cols, op.tiles, op.counts, w, n_rows)
     return mix_matmul(op, w)
@@ -98,15 +108,16 @@ def per_dtype(fn, tree: dict[str, Any]) -> dict[str, Any]:
 
 
 def decavg_mix(
-    m: torch.Tensor | BSR,
+    m: torch.Tensor | BSR | HYB,
     tree: dict[str, Any],
     *,
     backend: str = "dense",
     block_n: int = 32,
 ) -> dict[str, Any]:
     """Apply M to every leaf of a node-stacked dict (leaves share the leading
-    node axis); leaf dtypes are kept.  ``m`` may already be a ``BSR``."""
-    if not isinstance(m, BSR):
+    node axis); leaf dtypes are kept.  ``m`` may already be a ``BSR`` or a
+    ``HYB``."""
+    if not isinstance(m, (BSR, HYB)):
         if backend == "sparse":
             m = _bsr_of(m, block_n)
         elif backend != "dense":

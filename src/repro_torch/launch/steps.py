@@ -25,7 +25,9 @@ leaf mixes its local columns:
 
     mixing="dense"      one all-gather of the rows, the rank's rows of the
                         round matrix through the dense kernel (#1).
-    mixing="sparse"     the halo exchange, the block-sparse kernel (#2).
+    mixing="sparse"     the halo exchange, the row-list kernel (#2y; the
+                        hub rows over one all-gather when a rank owns a
+                        hub; a masked round the block-sparse kernel, #2).
     mixing="ppermute"   edge-coloured exchanges, one node a rank
                         (``mix_pytree_colored``'s process-group form; with
                         every node on one rank, its one-device form);

@@ -41,8 +41,9 @@ Examples:
     python -m repro_torch.launch.train --model mlp --rounds 100 --chunk-rounds 25 --resume /tmp/ck
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the mixing rounds go
-through the hand-written kernels there (dense for n ≤ 64, block-sparse
-beyond; an int8 / fp8 round is one pass of the quantised-mix kernel).
+through the hand-written kernels there (dense for n ≤ 64; beyond it the
+row-list kernel on an unmasked round, the block-sparse one on a masked
+round; an int8 / fp8 round is one pass of the quantised-mix kernel).
 With ``--uncoordinated-init`` every estimation round is one launch of the
 same mixing kernels over Mᵀ (``repro_torch.gossip``, ``run_warmup_trajectory``).
 ``--topology-schedule cyclic|churn`` compiles a ``PlanSchedule`` of

@@ -22,7 +22,12 @@ tables, and compressed plan rounds against the CPU (new mirrors bitwise:
 the kernel does the plain version's arithmetic element for element).  The
 block-sparse walks also at kreg4-1024 (bn 32), with rows walked in pieces
 (complete-300 at bn 64) and in a masked round with all-zero tiles;
-``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.  The zoo's last
+``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.  The row-list
+(HYB) kernel ``mix_hyb``: every family's layout (no hubs, a few, all hub
+rows), fp32 and bf16, misaligned rows, a shard's rows over its
+[local | halo] buffer with the hubs over the gathered rows, out-of-range
+indices read nothing; bitwise its plain version ``mix_hyb_ref`` and a clean
+sparse plan round bitwise the CPU's.  The zoo's last
 configs: reduced jamba, llava and musicgen (with frontend embeddings) and
 llama4-scout card vs CPU in fp32, a jamba decode step in bf16 replayed as a
 CUDA graph, and an RWKV training step (no kernel launch under grad).
@@ -52,9 +57,12 @@ from repro_torch.kernels.mix import (  # noqa: E402
     chunk_bounds,
     decavg_mix_ref,
     dense_route,
+    hyb_from_tables,
     mix_bsr,
     mix_bsr_ref,
     mix_bsr_rows_ref,
+    mix_hyb,
+    mix_hyb_ref,
     mix_matmul,
     pallas_bounds,
     quant_mix_bsr,
@@ -239,6 +247,146 @@ def test_sharded_round_at_one_nccl_rank(dev, tmp_path):
             assert launched == ((2, 0) if backend == "dense" else (0, 2))
             for op in ("spread", "spread_min"):
                 assert torch.equal(getattr(sp, op)(x[:, :3], gen()), getattr(plan, op)(x[:, :3], gen()))
+    finally:
+        dist.destroy_process_group()
+
+
+HYB_GRAPHS = {
+    "ring-200": lambda: T.ring(200),
+    "kreg4-300": lambda: T.random_k_regular(300, 4, seed=0),
+    "ba-256": lambda: T.barabasi_albert(256, 3, seed=2),
+    "heavytail-150": lambda: T.configuration_heavy_tail(150, 2.2, seed=1),
+    "complete-70": lambda: T.complete(70),
+    "kreg4-16": lambda: T.random_k_regular(16, 4, seed=1),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(HYB_GRAPHS))
+@pytest.mark.parametrize("d", [1, 3, 777, 4097])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hyb_kernel_matches_plain(dev, graph, d, dtype):
+    """One launch, bitwise the plain version (the same roundings in the same
+    order), within the tolerance of M·W, two launches bitwise: ELL rows only
+    (ring, kreg4-300), a few hub rows (BA, heavy-tail), all hub rows
+    (complete-70, kreg4-16)."""
+    from repro_torch.core.commplan import compile_plan
+
+    g = HYB_GRAPHS[graph]()
+    op = compile_plan(g, "sparse", device=dev).hyb
+    w = torch.randn(g.n, d, device=dev).to(dtype)
+    before = mix_hyb.launches
+    got = mix_hyb(op, w)
+    assert mix_hyb.launches == before + 1
+    assert torch.equal(got, mix_hyb_ref(op, w))
+    _close(got, decavg_mix_ref(torch.as_tensor(receive_matrix(g), dtype=torch.float32, device=dev), w), w)
+    assert torch.equal(got, mix_hyb(op, w))
+
+
+@pytest.mark.parametrize("d", [3, 1002, 567_434])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hyb_kernel_misaligned_rows(dev, d, dtype):
+    """A W one element into its allocation: the same sums as the aligned
+    copy, bit for bit."""
+    from repro_torch.core.commplan import compile_plan
+
+    op = compile_plan(T.barabasi_albert(128, 3, seed=2), "sparse", device=dev).hyb
+    buf = torch.randn(128 * d + 1, device=dev).to(dtype)
+    w = buf[1:].view(128, d)
+    assert torch.equal(mix_hyb(op, w), mix_hyb(op, w.clone()))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("graph", ["ba-256", "kreg4-300"])
+def test_hyb_kernel_halo_row_block(dev, graph, n_shards):
+    """Each shard's rows (the sharded round's call): the slots over its
+    [local | halo] buffer, the hubs over the gathered rows; bitwise the
+    unsharded call's rows and the plain version."""
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.core.shardplan import _build_hyb_tables, _layouts
+
+    g = HYB_GRAPHS[graph]()
+    plan = compile_plan(g, "sparse", device=dev)
+    recv, _ = _layouts(plan, n_shards)
+    tabs = _build_hyb_tables(plan, recv, n_shards)
+    x = torch.randn(g.n, 513, device=dev)
+    want = mix_hyb(plan.hyb, x)
+    for rank in range(n_shards):
+        real = tabs["hub_loc"][rank] < recv.nps
+        op = hyb_from_tables(tabs["slot_pos"][rank], tabs["slot_w"][rank], tabs["hyb_self"][rank],
+                             tabs["hub_loc"][rank][real], tabs["hub_m"][rank][real], dev)
+        lo = rank * recv.nps
+        halo = recv.send[:, rank, : recv.h_max] + np.arange(n_shards)[:, None] * recv.nps
+        buf = torch.cat([x[lo : lo + recv.nps], x[torch.as_tensor(halo.reshape(-1), dtype=torch.int64)]])
+        before = mix_hyb.launches
+        got = mix_hyb(op, buf, x)
+        assert mix_hyb.launches == before + 1 and got.shape == (recv.nps, 513)
+        assert torch.equal(got, want[lo : lo + recv.nps])
+        assert torch.equal(got, mix_hyb_ref(op, buf, x))
+
+
+def test_hyb_kernel_reads_nothing_out_of_range(dev):
+    """Slot and hub indices outside their buffers add nothing: the result of
+    the same tables with those weights zeroed.  A hub list past the end of
+    the nonzeros is clipped to it, and a hub index past the hubs makes an
+    ELL row (a hub row's slots and self weight are 0: a zero row)."""
+    from repro_torch.core.commplan import compile_plan
+
+    op = compile_plan(T.barabasi_albert(96, 3, seed=2), "sparse", device=dev).hyb
+    w = torch.randn(96, 300, device=dev)
+    bad_idx = op.slot_idx.clone()
+    bad_idx[0, :5] = torch.tensor([96, 10_000, -1, -7, 2**30], dtype=torch.int32, device=dev)
+    bad_col = op.hub_col.clone()
+    bad_col[:3] = torch.tensor([96, -1, 2**30], dtype=torch.int32, device=dev)
+    zero_w, zero_v = op.slot_w.clone(), op.hub_val.clone()
+    zero_w[0, :5] = 0.0
+    zero_v[:3] = 0.0
+    got = mix_hyb(op._replace(slot_idx=bad_idx, hub_col=bad_col), w)
+    assert torch.equal(got, mix_hyb(op._replace(slot_w=zero_w, hub_val=zero_v), w))
+    long_ptr = op.hub_ptr.clone()
+    long_ptr[-1] += 1000
+    assert torch.equal(mix_hyb(op._replace(hub_ptr=long_ptr), w), mix_hyb(op, w))
+    bad_of = op.hub_of.clone()
+    row = int(op.hub_rows[0])
+    bad_of[row] = op.n_hubs + 5
+    got = mix_hyb(op._replace(hub_of=bad_of), w)
+    assert bool((got[row] == 0).all())
+    keep = torch.arange(96, device=dev) != row
+    assert torch.equal(got[keep], mix_hyb(op, w)[keep])
+
+
+def test_hyb_plan_round_on_the_card_is_the_cpus(dev):
+    """A clean sparse plan round launches mix_hyb once and nothing else, and
+    equals the CPU's round (the plain version) bit for bit; a masked round
+    launches mix_bsr."""
+    from repro_torch.core.commplan import compile_plan
+
+    g = T.barabasi_albert(300, 3, seed=1)
+    plan = compile_plan(g, "sparse", device=dev)
+    x = torch.randn(300, 777, device=dev)
+    before = (mix_hyb.launches, mix_bsr.launches)
+    got = plan.mix(x)
+    assert (mix_hyb.launches - before[0], mix_bsr.launches - before[1]) == (1, 0)
+    assert torch.equal(got.cpu(), compile_plan(g, "sparse", device="cpu").mix(x.cpu()))
+    plan.mix(x, active=torch.ones(300, dtype=torch.bool, device=dev))
+    assert (mix_hyb.launches - before[0], mix_bsr.launches - before[1]) == (1, 1)
+
+
+def test_sharded_hyb_at_one_nccl_rank(dev, tmp_path):
+    """One NCCL rank: the sharded clean mix runs mix_hyb once and is the
+    unsharded plan's bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.core.commplan import compile_plan
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        plan = compile_plan(T.barabasi_albert(1024, 3, seed=2), "sparse", device=dev)
+        sp = plan.shard(n_shards=1)
+        x = torch.randn(1024, 1000, device=dev)
+        before = mix_hyb.launches
+        got = sp.mix(x)
+        assert mix_hyb.launches == before + 1
+        assert torch.equal(got, plan.mix(x))
     finally:
         dist.destroy_process_group()
 

@@ -390,6 +390,7 @@ def _port_unbound(plan, n_shards: int) -> PS.ShardedCommPlan:
     kw = {}
     if plan.backend == "sparse":
         kw = dict(zip(("recv", "send"), PS._layouts(plan, n_shards)))
+        kw["hyb"] = PS._build_hyb_tables(plan, kw["recv"], n_shards)
     return PS.ShardedCommPlan(base=plan, group=None, n_shards=n_shards, nps=plan.n // n_shards, rank=0, **kw)
 
 
@@ -427,27 +428,19 @@ def test_layout_tables_equal_jax(family, n, n_shards):
 @pytest.mark.parametrize("backend", ["sparse", "dense"])
 @pytest.mark.parametrize("family", sorted(LAYOUT_GRAPHS))
 def test_counts_match_jax(family, backend):
-    """Static traffic counts equal the JAX ``ShardedCommPlan``'s, except on
-    graphs whose clean JAX mix has HYB hub rows: the port has no hub
-    all-gather, so it moves S·(n − nps) rows and one collective fewer."""
+    """Static traffic counts equal the JAX ``ShardedCommPlan``'s on every
+    family, the hub all-gather of the clean HYB mix included (BA's hub rows
+    contract against the all-gathered payload: S·(n − nps) rows and one
+    collective more a round)."""
     jax_counts = _jax_counts()
     for case in [c for c in COUNT_CASES if c[0] == family and c[3] == backend]:
         _, n, s, _ = case
         sp = _port_unbound(PC.compile_plan(LAYOUT_GRAPHS[family](PT, n), backend, device="cpu"), s)
         j = jax_counts[tuple(case)]
-        hub = j["hub"] and s > 1
-        assert sp.cross_shard_rows_per_round("mix") == j["rows_mix"] - (s * (n - n // s) if hub else 0), case
-        assert sp.collectives_per_round("mix") == j["coll_mix"] - int(hub), case
-        for op in ("spread", "spread_min"):
+        assert sp.hub_gather == j["hub"] or backend == "dense", case
+        for op in ("mix", "spread", "spread_min"):
             assert sp.cross_shard_rows_per_round(op) == j[f"rows_{op}"], (case, op)
             assert sp.collectives_per_round(op) == j[f"coll_{op}"], (case, op)
-    if family == "ba" and backend == "sparse":  # the differences by design, printed for the record
-        for case in [c for c in COUNT_CASES if c[0] == "ba" and c[3] == "sparse"]:
-            _, n, s, _ = case
-            sp = _port_unbound(PC.compile_plan(PT.barabasi_albert(n, 3, seed=2), "sparse", device="cpu"), s)
-            j = jax_counts[tuple(case)]
-            print(f"BA-{n} S={s}: rows port {sp.cross_shard_rows_per_round()} jax {j['rows_mix']}, "
-                  f"collectives port {sp.collectives_per_round()} jax {j['coll_mix']}")
 
 
 def test_local_bsr_at_one_shard_is_the_plan_bsr():
@@ -559,7 +552,11 @@ def test_sharded_trajectory(n_shards):
         if n_shards == 1:
             assert wire == {"wire_bytes": 0, "wire_rows": 0, "wire_collectives": 0}, name
         else:
-            assert wire["wire_collectives"] == 1 and wire["wire_bytes"] >= wire["wire_rows"] * row_bytes > 0, name
+            # the halo exchange, and on a sparse plan without a failure model
+            # the hub all-gather, which the JAX package counts: kreg4-8's HYB
+            # layout holds every row as a hub row (its cost picks t = 0)
+            want_coll = 2 if backend == "sparse" and name != "sparse-link0.8" else 1
+            assert wire["wire_collectives"] == want_coll and wire["wire_bytes"] >= wire["wire_rows"] * row_bytes > 0, name
     # the JAX executor on the clean plan
     tree = results[0]["traj"]["sparse-clean"]["params_tree"]
     for layer in jax_params:
