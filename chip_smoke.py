@@ -76,9 +76,10 @@ run with a non-zero exit:
    its columns past a 32-bit offset against the plain version; the int8
    dense round at complete-8 on the reduced qwen2.5-3b's row and chunk
    table (phase 4j's ``--model transformer``); flash at the
-   head dims it runs zero-padded (hd 30 fp32, 40 and 160 bf16; causal,
-   windowed and not causal) and timed at stablelm-12b's prefill and the
-   reduced configs' shapes; the gossip shapes, a round of
+   head dims it runs zero-padded (hd 30 fp32, 40 bf16; causal, windowed
+   and not causal) and timed at the reduced configs' shapes, and at
+   stablelm-12b's hd 160 on its own instance (both dtypes), timed in turns
+   with q, k and v zero-padded to the hd-256 instance; the gossip shapes, a round of
    ``CommPlan.spread``: mix_matmul over the dense Mᵀ of complete-8,
    kreg4-8 (phase 4j's health reports), complete-16, kreg4-16, kreg4-64 and
    kreg4-256 (held at most 1.25 × torch.matmul's time, the share within 5%
@@ -157,7 +158,8 @@ run with a non-zero exit:
    unchunked one; fig8 quick and the rounds bench quick at 40 rounds a
    trajectory (their JSON under ``build/``);
 4g. event-driven gossip — the CLI with ``--async`` at full width on
-   kreg4-16 (20 units of virtual time): plain (no listed kernel launches,
+   kreg4-16 (10 units of virtual time, cut from 20 for the script's
+   time): plain (no listed kernel launches,
    messages twice the events), ``--compress int8`` (one ``quant_mix_dense``
    launch an event, all staged, the final test loss within 2% of the
    plain run's) and ``--uncoordinated-init --estimate-rounds 32 --link-p
@@ -545,6 +547,8 @@ def kernel_counters():
         rwkv6_chunked.one_launch = 0
         quant_mix_dense.launches_by_route.update(dict.fromkeys(quant_mix_dense.launches_by_route, 0))
         mix_matmul.launches_by_route.update(dict.fromkeys(mix_kernel.ROUTES, 0))
+        mix_hyb.launches_by_route.update(dict.fromkeys(mix_hyb.launches_by_route, 0))
+        flash_mha.padded = 0
 
     return kernels, reset_counts
 
@@ -587,6 +591,7 @@ def main() -> int:
     from repro_torch.kernels.flash import HEAD_DIMS as FLASH_HEAD_DIMS
     from repro_torch.kernels.flash import ROUTES, attention_ref, flash_mha
     from repro_torch.kernels.flash import route as flash_route
+    from repro_torch.kernels.flash import flash as flash_kernel
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.mix import (
         BSR, bsr_from_dense, chunk_bounds, decavg_mix_ref, dense_route, hyb_from_tables, mix_bsr, mix_bsr_ref,
@@ -594,6 +599,8 @@ def main() -> int:
         pallas_bounds, quant_mix_bsr,
         quant_mix_dense, quant_scales,
     )
+    from repro_torch.kernels.mix import hyb as mix_hyb_kernel
+    from repro_torch.kernels.mix import hyb_route
     from repro_torch.kernels.mix import mix as mix_kernel
     from repro_torch.kernels.mix import ops as mix_ops
     from repro_torch.kernels.mix import quant as mix_quant
@@ -618,6 +625,17 @@ def main() -> int:
     kernels, reset_counts = kernel_counters()
     none_launched = {kern.__name__: 0 for kern in kernels}
     t_start = time.perf_counter()
+    # mix_hyb's launches by route, for the kernels line's rows: every
+    # main-path run stages at most SLAB_MAX_ROWS rows, so each of its
+    # launches must take the slab route
+    hyb_by_route = {}
+
+    def hyb_on_slab(row, launched, tag, routes=None):
+        # routes: the run's launches by route, read before any later reset
+        routes = dict(mix_hyb.launches_by_route) if routes is None else routes
+        check(routes == {"slab": launched, "rows": 0}, f"{tag}: mix_hyb routes {routes}, want {launched} on slab")
+        prev = hyb_by_route.get(row, dict.fromkeys(routes, 0))
+        hyb_by_route[row] = {k: prev[k] + routes[k] for k in routes}
 
     # ------------------------------------------------------------ 1. header
     phase("1. header")
@@ -932,14 +950,22 @@ def main() -> int:
         for s_len in (1, 77, 300) for hd in (32, 64, 128, 256) for causal in (False, True) for group in (1, 8)
     ] + [
         # head dims without an instance, run zero-padded to the next one:
-        # reduced qwen1.5-4b (hd 30, fp32 rows of 120 B), reduced stablelm-12b
-        # (hd 40, bf16 rows of 80 B) and stablelm-12b (hd 160)
+        # reduced qwen1.5-4b (hd 30, fp32 rows of 120 B) and reduced
+        # stablelm-12b (hd 40, bf16 rows of 80 B)
         ("padded", (2, h, kvh, s_len, hd, dtype), causal, window, "bshd")
-        for h, kvh, hd, dtype in ((4, 4, 30, torch.float32), (4, 2, 40, torch.bfloat16), (32, 8, 160, torch.bfloat16))
+        for h, kvh, hd, dtype in ((4, 4, 30, torch.float32), (4, 2, 40, torch.bfloat16))
         for s_len, causal, window in ((40, True, 0), (300, True, 17), (300, False, 0), (2048, True, 0))
     ] + [
+        # stablelm-12b's hd 160 at its own instance (row 4c), both dtypes:
+        # causal, windowed, non-causal, GQA 32 / 8 and a group of 8, ragged S
+        ("hd160", (2, h, kvh, s_len, 160, dtype), causal, window, layout)
+        for dtype in (torch.bfloat16, torch.float32) for h, kvh in ((32, 8), (16, 2))
+        for s_len, causal, window, layout in ((1, True, 0, "bshd"), (40, True, 0, "bshd"), (300, True, 17, "bhsd"),
+                                              (300, False, 0, "bshd"), (2047, True, 1024, "bhsd"),
+                                              (2048, True, 0, "bshd"))
+    ] + [
         # phase 7's granite-moe-1b-a400m (prefill 4 × 2048, per-node serve 1 ×
-        # 512), qwen1.5-4b and stablelm-12b (hd 160, zero-padded) prefills,
+        # 512), qwen1.5-4b and stablelm-12b (hd 160, its own instance) prefills,
         # and the swa variant's 1 × 16,384 prompt (window 8192); phase 8's
         # reduced fp32 prefills of the three (2 × 40; stablelm hd 40 and
         # qwen1.5 hd 30 zero-padded)
@@ -966,7 +992,7 @@ def main() -> int:
                     torch.float32) for a in NEW_ARCHS]
     # errors by route: the bf16 route's row is flash_mha, the fp32 route's
     # flash_mha_fp32; a head dim run zero-padded has a row of its own, and so
-    # have the new configs' serve shapes
+    # have stablelm-12b's bf16 hd 160 and the new configs' serve shapes
     row_of = {"wgmma": "flash_mha", "wgmma_tf32x3": "flash_mha_fp32"}
     row_of_label = {"granite prefill": "flash_mha_granite", "granite serve": "flash_mha_granite",
                     "qwen1.5 prefill": "flash_mha_qwen15", "swa prefill": "flash_mha_swa",
@@ -988,7 +1014,7 @@ def main() -> int:
         q, k, v = attn_inputs(*shape, layout=layout)
         b, h, kvh, s_len, hd, dtype = shape
         want = flash_route(dtype, hd)
-        before = dict(flash_mha.launches_by_route)
+        before, padded_before = dict(flash_mha.launches_by_route), flash_mha.padded
         plain_attention = attention_ref_by_head if s_len > 8192 else (
             lambda q, k, v, causal, window: attention_ref(q, k, v, causal=causal, window=window))
         e = compare(
@@ -999,8 +1025,12 @@ def main() -> int:
         )
         check(flash_mha.launches_by_route == {**before, want: before[want] + 2},
               f"{label}: not launched on {want}")
+        check(flash_mha.padded == padded_before + (0 if hd in FLASH_HEAD_DIMS else 2),
+              f"{label}: {flash_mha.padded - padded_before} padded calls of 2 at hd {hd}")
         if hd not in FLASH_HEAD_DIMS:
             row = f"flash_mha_hd{hd}{'_fp32' if dtype == torch.float32 else ''}"
+        elif hd == 160 and dtype == torch.bfloat16:
+            row = "flash_mha_hd160"
         else:
             row = row_of_label.get(label, row_of[want])
         if label.startswith("example"):
@@ -1197,12 +1227,15 @@ def main() -> int:
 
     # the row-list kernel (2y): every unmasked sparse round (the JAX
     # package's clean-path HYB rendering, mix_pytree_hyb, XLA there, no
-    # pallas_call).  At each shape: bitwise its plain version mix_hyb_ref
-    # (the same roundings in the same order), and within the fp32 tolerance
-    # of the dense M·W (rows of M for a shard's block); timed, L2 flushed,
-    # median of 7, in turns with mix_bsr on the same operator (the plan's
-    # tiles, or the rank's tiles over its [local | halo] buffer), beside
-    # torch.sparse.mm on M's CSR (fp32 only) and the plain version.  Byte
+    # pallas_call).  At each shape: launched on the route hyb_route names
+    # (the slab route at every shape here), bitwise its plain version
+    # mix_hyb_ref (the same roundings in the same order) and the other
+    # route, and within the fp32 tolerance of the dense M·W (rows of M for a
+    # shard's block); timed, L2 flushed, median of 7, in turns (slab, rows,
+    # mix_bsr, mix_bsr, rows, slab) with the rows route and mix_bsr on the
+    # same operator (the plan's tiles, or the rank's tiles over its
+    # [local | halo] buffer), beside torch.sparse.mm on M's CSR (fp32 only)
+    # and the plain version.  Byte
     # bound as row 2h counts it: each nonzero's weight and index (8 B; an
     # ELL row's self term, its nonzero slots, a hub row's nonzeros), each
     # input row some nonzero reads (in W, and in the gathered payload for a
@@ -1211,11 +1244,21 @@ def main() -> int:
 
     def hyb_case(key, op_y, w_y, m_rows, x_full, run_bsr, w_hub=None, csr_y=None):
         label = f"mix_hyb {key} d={w_y.shape[1]} {str(w_y.dtype).removeprefix('torch.')}"
+        route_y = hyb_route(w_y.shape[0], (w_y if w_hub is None else w_hub).shape[0] if op_y.n_hubs else 0,
+                            w_hub is None, w_y.dtype)
+        check(route_y == "slab", f"{label}: route {route_y}, want slab")
+        before = dict(mix_hyb.launches_by_route)
         e = compare(label, lambda: mix_hyb(op_y, w_y, w_hub), decavg_mix_ref(m_rows, x_full), w_y,
                     bf16=w_y.dtype == torch.bfloat16)
-        same = bool(torch.equal(mix_hyb(op_y, w_y, w_hub), mix_hyb_ref(op_y, w_y, w_hub)))
-        print(f"    {label}: bitwise mix_hyb_ref {same}")
+        check(mix_hyb.launches_by_route == {**before, route_y: before[route_y] + 2},
+              f"{label}: routes {mix_hyb.launches_by_route}, want two launches on {route_y}")
+        y_slab = mix_hyb(op_y, w_y, w_hub)
+        same = bool(torch.equal(y_slab, mix_hyb_ref(op_y, w_y, w_hub)))
+        same_rows = bool(torch.equal(y_slab, mix_hyb_kernel._launch(op_y, w_y, w_hub, "rows")))
+        print(f"    {label} ({route_y}): bitwise mix_hyb_ref {same}, the rows route {same_rows}")
         check(same, f"{label}: the kernel differs from mix_hyb_ref")
+        check(same_rows, f"{label}: the slab route differs from the rows route")
+        del y_slab
         # the walk on the same operator sums in another order: the fp32
         # tolerance, and in bf16 one bf16 rounding of either sum
         y_b = run_bsr().float()
@@ -1233,21 +1276,23 @@ def main() -> int:
         elem, d_y = w_y.element_size(), w_y.shape[1]
         bytes_y = 8 * nnz_y + elem * d_y * (n_read + op_y.n_rows)
         b_y, by_y = bound(bytes_y, 2 * nnz_y * d_y)
-        turns = {"mix_hyb": [], "mix_bsr": []}
-        for _ in range(2):
-            turns["mix_hyb"].append(time_ms(lambda: mix_hyb(op_y, w_y, w_hub), flush=flush))
-            turns["mix_bsr"].append(time_ms(run_bsr, flush=flush))
+        turns = {"mix_hyb": [], "rows": [], "mix_bsr": []}
+        runs = {"mix_hyb": lambda: mix_hyb(op_y, w_y, w_hub),
+                "rows": lambda: mix_hyb_kernel._launch(op_y, w_y, w_hub, "rows"), "mix_bsr": run_bsr}
+        for name in ("mix_hyb", "rows", "mix_bsr", "mix_bsr", "rows", "mix_hyb"):
+            turns[name].append(time_ms(runs[name], flush=flush))
         hyb_shapes[key] = dict(
             shape=f"{key}: {op_y.n_rows} rows, {op_y.slot_idx.shape[0]} slots, {op_y.n_hubs} hub rows "
                   f"({op_y.hub_col.numel()} nonzeros), {n_read} input rows read, d={d_y} "
-                  f"{str(w_y.dtype).removeprefix('torch.')}", max_abs_err=e,
-            ms=min(turns["mix_hyb"]), mix_bsr_ms=min(turns["mix_bsr"]), turns_ms=turns,
+                  f"{str(w_y.dtype).removeprefix('torch.')}", max_abs_err=e, hyb_route=route_y,
+            ms=min(turns["mix_hyb"]), rows_ms=min(turns["rows"]), mix_bsr_ms=min(turns["mix_bsr"]), turns_ms=turns,
             plain_ms=time_ms(lambda: mix_hyb_ref(op_y, w_y, w_hub), reps=3, flush=flush),
             library_ms=None if csr_y is None else time_ms(lambda: torch.sparse.mm(csr_y, x_full), flush=flush),
             bound_ms=b_y, bound_by=by_y, bytes=bytes_y,
         )
         t = hyb_shapes[key]
-        print(f"    {key}: mix_hyb {t['ms']:.4f} ms, mix_bsr {t['mix_bsr_ms']:.4f} (in turns {turns}), plain "
+        print(f"    {key}: mix_hyb {t['ms']:.4f} ms ({route_y}), the rows route {t['rows_ms']:.4f}, mix_bsr "
+              f"{t['mix_bsr_ms']:.4f} (in turns {turns}), plain "
               f"{t['plain_ms']:.4f}, torch.sparse.mm {t['library_ms']}, bound {b_y:.4f} ({by_y}; "
               f"{100 * b_y / t['ms']:.1f}% of it)")
         return e
@@ -1268,6 +1313,11 @@ def main() -> int:
     )
     torch.cuda.empty_cache()
     errs["mix_hyb_ba"] = hyb_plan_case("ba-1024 (the CLI's: m 8, seed 0)", cli.build_graph("ba", 1024, 0), D_MAIN)
+    # the slab route's reason to be: at the CLI's BA-1024 it must beat the
+    # rows route of the same call, in turns
+    t_ba = hyb_shapes["ba-1024 (the CLI's: m 8, seed 0)"]
+    check(t_ba["ms"] < t_ba["rows_ms"], f"BA-1024 (m 8): the slab route {t_ba['turns_ms']['mix_hyb']} ms not faster "
+          f"than the rows route {t_ba['turns_ms']['rows']}")
     errs["mix_hyb_schedule"] = hyb_plan_case("kreg4-256 (the churn CLI's base graph)",
                                              cli.build_graph("kregular", 256, 0), D_MAIN)
     errs["mix_hyb_launch"] = hyb_plan_case("circulant-16 (1, 2) (launch layer)", g_launch, D_LAUNCH, w_y=w_launch)
@@ -1293,6 +1343,26 @@ def main() -> int:
         errs["mix_hyb_halo"] = max(errs["mix_hyb_halo"], hyb_case(
             key, op_y, buf_y, m_rows, x_y, lambda: mix_bsr(*op_bsr.bsr, buf_y, recv_y.nps), w_hub=x_y,
             csr_y=m_rows.to_sparse_csr()))
+        # the other ranks: the slab route bitwise the plain version, the
+        # rows route and the unsharded call's rows
+        for rank in range(1, 4):
+            real = tabs["hub_loc"][rank] < recv_y.nps
+            op_r = hyb_from_tables(tabs["slot_pos"][rank], tabs["slot_w"][rank], tabs["hyb_self"][rank],
+                                   tabs["hub_loc"][rank][real], tabs["hub_m"][rank][real], dev)
+            lo = rank * recv_y.nps
+            halo_r = recv_y.send[:, rank, : recv_y.h_max] + np.arange(4)[:, None] * recv_y.nps
+            buf_r = torch.cat([x_y[lo: lo + recv_y.nps],
+                               x_y[torch.as_tensor(halo_r.reshape(-1), dtype=torch.int64, device=dev)]])
+            before = dict(mix_hyb.launches_by_route)
+            y_r = mix_hyb(op_r, buf_r, x_y)
+            check(mix_hyb.launches_by_route == {**before, "slab": before["slab"] + 1},
+                  f"mix_hyb {key.replace('rank 0', f'rank {rank}')}: routes {mix_hyb.launches_by_route}")
+            check(torch.equal(y_r, mix_hyb_ref(op_r, buf_r, x_y))
+                  and torch.equal(y_r, mix_hyb_kernel._launch(op_r, buf_r, x_y, "rows"))
+                  and torch.equal(y_r, mix_hyb(plan_y.hyb, x_y)[lo: lo + recv_y.nps]),
+                  f"mix_hyb {key.replace('rank 0', f'rank {rank}')}: not bitwise")
+        print(f"    {key.removesuffix(' rank 0')} ranks 1–3: the slab route bitwise mix_hyb_ref, the rows route "
+              "and the unsharded call's rows")
     print(f"  {len(hyb_shapes)} mix_hyb shapes held against mix_hyb_ref (bitwise) and M·W")
     timing["mix_hyb"] = dict(hyb_shapes["ring-1024"], shapes=[dict(t, key=k) for k, t in hyb_shapes.items()])
     timing["mix_hyb_ba"] = hyb_shapes["ba-1024 (the CLI's: m 8, seed 0)"]
@@ -1385,10 +1455,13 @@ def main() -> int:
         ("example consensus fp32", get_reduced_config("qwen2.5-3b"), 4, 8, 0, torch.float32),
         ("qwen prefill fp32", qcfg, 4, 2048, 0, torch.float32), ("gemma3 global fp32", gcfg, 2, 2048, 0, torch.float32),
         ("gemma3 local fp32", gcfg, 2, 2048, gcfg.sliding_window, torch.float32),
-        # the padded head dims: stablelm-12b's prefill (4 × 2048), the
-        # reduced stablelm-12b's and qwen1.5-4b's (2 × 40, as phase 8's)
+        # stablelm-12b's prefill (4 × 2048, hd 160 at its own instance; fp32
+        # beside it), then the padded head dims: the reduced stablelm-12b's
+        # and qwen1.5-4b's (2 × 40, as phase 8's)
         ("stablelm-12b hd160", SimpleNamespace(n_heads=32, n_kv_heads=8, resolved_head_dim=160), 4, 2048, 0,
          torch.bfloat16),
+        ("stablelm-12b hd160 fp32", SimpleNamespace(n_heads=32, n_kv_heads=8, resolved_head_dim=160), 4, 2048, 0,
+         torch.float32),
         ("reduced stablelm-12b hd40", SimpleNamespace(n_heads=4, n_kv_heads=2, resolved_head_dim=40), 2, 40, 0,
          torch.bfloat16),
         ("reduced qwen1.5-4b hd30 fp32", SimpleNamespace(n_heads=4, n_kv_heads=4, resolved_head_dim=30), 2, 40, 0,
@@ -1411,6 +1484,40 @@ def main() -> int:
             qc, kc, vc = (t.contiguous() for t in qkv)
             flash_contiguous_ms = time_ms(lambda: flash_mha(qc, kc, vc), reps=21, flush=flush)
             del qc, kc, vc
+        if label == "stablelm-12b hd160":
+            # row 4c: the hd-160 instance in turns with the route hd 160
+            # took before it had one (zero-padded copies of q, k and v at
+            # hd 256, the hd-256 instance at hd 160's softmax scale, the
+            # output sliced back), as a caller pays for each (L2 flushed,
+            # unheld) and device time alone (held)
+            q4c, k4c, v4c = qkv
+
+            def padded_hd256():
+                def pad(t):
+                    out = torch.zeros(*t.shape[:-1], 256, dtype=t.dtype, device=t.device)
+                    out[..., :160] = t
+                    return out
+
+                return flash_kernel._launch(pad(q4c), pad(k4c), pad(v4c), scale=1.0 / math.sqrt(160), causal=True,
+                                            window=0)[..., :160]
+
+            runs_4c = {"native": lambda: flash_mha(q4c, k4c, v4c), "padded": padded_hd256}
+            check(bool(torch.equal(runs_4c["native"](), runs_4c["native"]())),
+                  "stablelm-12b hd160: two launches differ")
+            compare("flash_mha stablelm-12b hd160, the padded hd-256 route against the instance", padded_hd256,
+                    runs_4c["native"](), v4c, bf16=True)
+            turns_4c = {"native": [], "padded": [], "native_held": [], "padded_held": []}
+            for name in ("native", "padded", "padded", "native"):
+                turns_4c[name].append(time_ms(runs_4c[name], reps=21, flush=flush))
+                turns_4c[f"{name}_held"].append(time_ms(runs_4c[name], reps=21, flush=flush, hold=True))
+            flash_shapes[label].update(padded_ms=min(turns_4c["padded"]), padded_held_ms=min(turns_4c["padded_held"]),
+                                       turns_ms=turns_4c)
+            print(f"  row 4c, stablelm-12b 4 × 2048 H32/8 hd160 bf16 causal, in turns: the hd-160 instance "
+                  f"{turns_4c['native']} ms (held {turns_4c['native_held']}), the padded hd-256 route "
+                  f"{turns_4c['padded']} ms (held {turns_4c['padded_held']})")
+            check(min(turns_4c["native"]) < min(turns_4c["padded"]),
+                  f"stablelm-12b hd160: the instance is not faster than the padded route ({turns_4c})")
+            del q4c, k4c, v4c
         del qkv
     timing["flash_mha"] = flash_shapes["qwen prefill"]
     # the fp32 route's row: phase 8's launches (the reduced qwen2.5-3b, 2 prompts of 40)
@@ -1421,6 +1528,7 @@ def main() -> int:
     # phase 8's reduced stablelm-12b (hd 40 fp32) and qwen1.5-4b (hd 30
     # fp32); no path launches hd 40 in bf16
     timing["flash_mha_hd160"] = flash_shapes["stablelm-12b hd160"]
+    timing["flash_mha_hd160"]["fp32"] = flash_shapes["stablelm-12b hd160 fp32"]
     timing["flash_mha_hd40"] = flash_shapes["reduced stablelm-12b hd40"]
     timing["flash_mha_hd30_fp32"] = flash_shapes["reduced qwen1.5-4b hd30 fp32"]
     timing["flash_mha_hd40_fp32"] = flash_shapes["reduced stablelm-12b hd40 fp32"]
@@ -2561,6 +2669,7 @@ def main() -> int:
     )
     for clabel, argv, kname, n_gossip, tname, n_train in cli_runs:
         hist_c, wall_c, launches_c = counted(lambda: cli.main(["--model", "mlp", "--uncoordinated-init", *argv]))
+        routes_c = dict(mix_hyb.launches_by_route)
         args_c = dict(zip(argv[::2], argv[1::2]))
         graph_c = cli.build_graph(args_c["--topology"], int(args_c["--nodes"]), 0)
         plan_c = compile_plan(graph_c, failures=FailureModel(link_p=float(args_c.get("--link-p", 1.0))), device="cpu")
@@ -2581,6 +2690,8 @@ def main() -> int:
         want_c[kname] += n_gossip
         want_c[tname] += n_train
         check(launches_c == want_c, f"CLI {clabel}: launches {launches_c}")
+        if tname == "mix_hyb":
+            hyb_on_slab("4e", launches_c["mix_hyb"], f"CLI {clabel}", routes_c)
         check(launches_alone == {**none_launched, kname: n_gossip}, f"CLI {clabel}: estimator launches {launches_alone}")
         check(torch.equal(gains_alone.cpu(), gains_card), f"CLI {clabel}: the estimator alone gives other gains")
         check(err_c <= 1e-4, f"CLI {clabel}: gains card vs CPU {err_c}")
@@ -2685,6 +2796,7 @@ def main() -> int:
     sched_launches["mix_hyb"] = launches_f["mix_hyb"]
     check(launches_f == {**none_launched, "mix_bsr": 32, "mix_hyb": 6},
           f"churn CLI launches {launches_f}, want 32 mix_bsr (gossip) and 6 mix_hyb (training)")
+    hyb_on_slab("mix_hyb_schedule", launches_f["mix_hyb"], "churn CLI")
     check(len(send_builds) == len(set(send_builds)) == 8, f"churn CLI built Mᵀ {len(send_builds)} times")
     base_256 = cli.build_graph("kregular", 256, 0)
     churned = compile_schedule(T.churn_sequence(base_256, 8, 0.2, seed=1), "sparse", device=dev)
@@ -2917,12 +3029,12 @@ def main() -> int:
     from repro_torch.fed import executor as executor_mod
     from repro_torch.fed import run_event_trajectory
 
-    # (a)–(c) the CLI at full width on kreg4-16 over 20 units of virtual time
+    # (a)–(c) the CLI at full width on kreg4-16 over 10 units of virtual time
     # (8 local batches an endpoint and event, the CLI's default; (c) 2): the
     # executor's call timed by a wrapper that waits for the card (what a
     # caller pays), the stream the CLI samples (seed + 2) drawn here too
     kreg16 = cli.build_graph("kregular", 16, 0)
-    stream_cli = T.poisson_event_stream(kreg16, 20.0, 1.0, seed=2)
+    stream_cli = T.poisson_event_stream(kreg16, 10.0, 1.0, seed=2)
     n_ev = stream_cli.n_events
     run_walls = []
     real_run_event = cli.run_event_trajectory
@@ -2936,7 +3048,7 @@ def main() -> int:
         return out
 
     runs_4g = {}
-    base_4g = ["--model", "mlp", "--topology", "kregular", "--nodes", "16", "--async", "--rounds", "20"]
+    base_4g = ["--model", "mlp", "--topology", "kregular", "--nodes", "16", "--async", "--rounds", "10"]
     cli.run_event_trajectory = timed_run_event
     try:
         for label, extra in (("plain", []), ("int8", ["--compress", "int8"]),
@@ -2954,7 +3066,9 @@ def main() -> int:
               f"caller pays, the card finished; {r['wall']:.1f} s with data and init); messages {sum(h['messages'])}; "
               f"launches { {k: n for k, n in r['launches'].items() if n} }; final train {h['train_loss'][-1]:.4f} "
               f"test {h['test_loss'][-1]:.4f}")
-        check(sum(h["events"]) == n_ev and h["bin"] == list(range(20)), f"CLI {label}: {sum(h['events'])} events")
+        # the CLI bins its horizon in 20 (half a unit of virtual time each at 10)
+        check(sum(h["events"]) == n_ev and h["bin"] == list(range(20)),
+              f"CLI {label}: {sum(h['events'])} events of {n_ev}, bins {h['bin']}")
         check(all(math.isfinite(h[k][i]) for k in ("train_loss", "test_loss", "staleness") for i in live_bins),
               f"CLI {label}: a non-finite loss")
     check(sum(runs_4g["plain"]["hist"]["messages"]) == 2 * n_ev and runs_4g["plain"]["launches"] == none_launched,
@@ -4046,7 +4160,7 @@ if __name__ == "__main__":
         def inside(ts, spans):
             return any(a <= ts <= b for a, b in spans)
 
-        mix_name = "mix_wide_kernel" if label == "complete-16" else "mix_hyb_kernel"
+        mix_name = "mix_wide_kernel" if label == "complete-16" else "mix_hyb_slab_kernel"
         mix_k = [e for e in kern_ev if mix_name in e["name"]]
         mix_in = [inside(launch_ts.get(e["args"].get("correlation"), -1.0), scopes["dfl_mix"]) for e in mix_k]
         split = {}
@@ -4407,6 +4521,7 @@ if __name__ == "__main__":
     # every round unmasked: the row-list kernel, one launch a round
     check(cli_launches == {**none_launched, "mix_hyb": 3},
           f"CLI launch counts {cli_launches}")
+    hyb_on_slab("mix_hyb", cli_launches["mix_hyb"], "CLI ring-1024")
 
     # the same CLI with int8 gossip: every round one scales pass and one
     # quantised block-sparse walk, no plain block-sparse launch
@@ -4452,6 +4567,7 @@ if __name__ == "__main__":
     check(len(hist_ba["round"]) == 3, "BA-1024 uncoordinated CLI recorded rounds")
     check(cli_ba_launches == {**none_launched, "mix_bsr": 64, "mix_hyb": 3},
           f"BA-1024 uncoordinated CLI launches {cli_ba_launches}")
+    hyb_on_slab("mix_hyb_ba", cli_ba_launches["mix_hyb"], "BA-1024 uncoordinated CLI")
     torch.cuda.empty_cache()
 
     # --------------------- 6b. the node-sharded rendering at one NCCL rank
@@ -4497,6 +4613,8 @@ if __name__ == "__main__":
             kern_6b = "mix_matmul" if backend == "dense" else ("mix_bsr" if fm.active else "mix_hyb")
             shard_launches[kern_6b] = shard_launches.get(kern_6b, 0) + launched[kern_6b]
             check(launched == {**none_launched, kern_6b: rounds}, f"6b {tag}: launches {launched}")
+            if kern_6b == "mix_hyb":
+                hyb_on_slab("mix_hyb_halo", launched["mix_hyb"], f"6b {tag}")
             same = bool(torch.equal(fin_s.params, fin_u.params))
             check(same and all(h_s[k] == h_u[k] for k in ("round", "train_loss", "test_loss")),
                   f"6b {tag}: sharded at one rank not bitwise the unsharded run (params {same})")
@@ -4676,6 +4794,8 @@ if __name__ == "__main__":
                   f"6c train {backend}: launches {launched_t}")
             if kern_t:
                 mix_launches_6c[kern_t] = launched_t[kern_t]
+            if kern_t == "mix_hyb":
+                hyb_on_slab("mix_hyb_launch", launched_t["mix_hyb"], f"6c train {backend}")
             # the unsharded round: each node's gradient step, then the plan's mix
             nodes = []
             for j in range(n_6c):
@@ -5021,12 +5141,15 @@ if __name__ == "__main__":
     def serve_end(name, want_flash):
         launches_s = {kern.__name__: kern.launches for kern in kernels}
         peak = torch.cuda.max_memory_allocated() / 2**30
-        new_serve[name].update(flash=launches_s["flash_mha"], peak_gib=peak, s=time.perf_counter() - new_serve[name]["t0"])
-        print(f"  {name}: launches { {k: v for k, v in launches_s.items() if v} }, routes {flash_mha.launches_by_route}; "
-              f"peak device memory {peak:.2f} GiB; {new_serve[name]['s']:.1f} s")
+        new_serve[name].update(flash=launches_s["flash_mha"], padded=flash_mha.padded, peak_gib=peak,
+                               s=time.perf_counter() - new_serve[name]["t0"])
+        print(f"  {name}: launches { {k: v for k, v in launches_s.items() if v} }, routes {flash_mha.launches_by_route}, "
+              f"padded calls {flash_mha.padded}; peak device memory {peak:.2f} GiB; {new_serve[name]['s']:.1f} s")
         check(launches_s == {**none_launched, "flash_mha": want_flash}
               and flash_mha.launches_by_route == {"wgmma": want_flash, "wgmma_tf32x3": 0},
               f"{name}: launches {launches_s}, routes {flash_mha.launches_by_route}, want {want_flash} flash on wgmma")
+        # every 7c head dim has an instance (stablelm-12b's 160 too): no padded copy
+        check(flash_mha.padded == 0, f"{name}: {flash_mha.padded} flash calls through zero-padded copies")
 
     def decode_ms(params, cfg, first_tok, pos, steps=8):
         cache = TF.init_cache(cfg, (first_tok.shape[0],), 4096, device=dev)
@@ -5123,8 +5246,8 @@ if __name__ == "__main__":
     torch.cuda.empty_cache()
 
     # stablelm-12b: one parameter set (24.3 GB; four nodes would take ~97
-    # GB), layernorm, hd 160 run zero-padded to 256: a prefill 4 × 2048,
-    # generate 4 × 2048 → 16, 8 decode steps
+    # GB), layernorm, hd 160 at its own flash instance (no padded copy): a
+    # prefill 4 × 2048, generate 4 × 2048 → 16, 8 decode steps
     serve_start("stablelm-12b")
     sparams = TF.init_params(gen_p, scfg, InitConfig("trunc_normal", 1.0), device=dev)
     check(n_elements(sparams) == scfg.n_params() + scfg.d_model * (2 + 2 * scfg.n_layers),
@@ -5564,8 +5687,12 @@ if __name__ == "__main__":
         }
         if name.startswith("mix_matmul"):
             row["dense_route"] = t["dense_route"]
+        if name == "flash_mha_hd160":  # row 4c: the padded route of the same call, timed in turns
+            row.update(padded_ms=t["padded_ms"], padded_calls=new_serve["stablelm-12b"]["padded"],
+                       fp32_ms=t["fp32"]["ms"], fp32_library_ms=t["fp32"]["library_ms"])
         if name.startswith("mix_hyb"):
-            row.update(shape=t["shape"], mix_bsr_ms=t["mix_bsr_ms"])
+            row.update(shape=t["shape"], mix_bsr_ms=t["mix_bsr_ms"], rows_ms=t["rows_ms"],
+                       launches_by_route=hyb_by_route[name], hyb_route=t["hyb_route"])
             if "shapes" in t:
                 row["shapes"] = t["shapes"]
         if name.endswith("_gossip"):

@@ -1,5 +1,5 @@
 """Flash attention: the CUDA kernel (``csrc/flash_sm90.cu``, bf16 and fp32 at
-hd 32 / 64 / 128 / 256) behind ``flash_mha``, its (…, S, H, hd) wrapper
+hd 32 / 64 / 128 / 160 / 256) behind ``flash_mha``, its (…, S, H, hd) wrapper
 ``flash_attention`` and the plain ``attention_ref``."""
 from .flash import HEAD_DIMS, ROUTES, flash_mha, route
 from .ops import flash_attention

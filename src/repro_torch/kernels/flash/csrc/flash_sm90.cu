@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a): wgmma + TMA, bf16 or fp32
-// q/k/v at head dims 32, 64, 128 and 256.
+// q/k/v at head dims 32, 64, 128, 160 and 256.
 //
 // Replaces: src/repro/kernels/flash/flash.py::flash_mha (Pallas body
 // _flash_kernel), the TPU kernel of full-sequence attention.  q (B, H, S,
@@ -23,7 +23,7 @@
 // Two kernels, one per input type, on one frame:
 // - Loads: one producer warp issues TMA loads (Q once, then K and V into a
 //   ring of STAGES tiles, completing on mbarriers), 128-byte swizzled boxes
-//   (64-byte at bf16 hd 32) that match the wgmma descriptors.  The tensor
+//   (64-byte at bf16 hd 32 and 160) that match the wgmma descriptors.  The tensor
 //   maps are rank 4 over (hd, S, heads, B) with the tensors' own byte
 //   strides, so strided views need no copy; TMA zero-fills rows past S.
 // - One CTA per (b, h, tile of 64 W query rows): W consumer warpgroups of
@@ -46,6 +46,17 @@
 // rows with few keys, so P is split into hi = bf16(p) and lo = bf16(p - hi)
 // and both go through the same accumulator (~2^-17 of p left).  W = 2
 // (1 at hd 256, whose O accumulator alone is 128 registers a thread).
+//
+// hd 160 (stablelm-12b) is its own instance, not a zero-padded hd-256 call:
+// 160 is a multiple of 16 (QK^T's k16 steps) and of 8 (P V's n), so both
+// products run at the true width, m64n64k16 over 10 k-steps and m64n160k16.
+// 160 columns are not a whole number of the 64-column boxes a 128-byte
+// swizzle takes, so the bf16 tiles use the 64-byte swizzle of hd 32: boxes
+// of 32 columns, 5 to a row, the descriptors of hd 32 with 5 column blocks
+// (K-major Q and K: 2 k16 steps a block; MN-major V: N = 160 across 5
+// swizzle atoms, the leading byte offset between them).  A 128-byte swizzle
+// over 3 boxes would load, hold and multiply 192 columns, 20% more than
+// needed.  Shared memory at W = 2: Q 40 KB, 3 stages of K and V 120 KB.
 //
 // fp32 (flash_tf32_kernel, route "wgmma_tf32x3"): the products run on the
 // tensor cores in TF32 on split operands: x = hi + lo, hi = tf32(x), lo =
@@ -85,7 +96,7 @@ struct Cfg {
   static constexpr int STAGES = HD >= 256 ? 2 : 3;
   static constexpr int BQ = kBM * W;  // query rows per CTA
   static constexpr int THREADS = 128 * W + 32;  // + one producer warp
-  static constexpr int SW = HD >= 64 ? 128 : 64;  // bytes of a swizzled row (its box's hd columns)
+  static constexpr int SW = HD % 64 == 0 ? 128 : 64;  // bytes of a swizzled row (its box's hd columns)
   static constexpr int CCOLS = SW / 2;
   static constexpr int CHUNKS = HD / CCOLS;
   static constexpr int Q_BYTES = BQ * HD * 2;
@@ -94,10 +105,12 @@ struct Cfg {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
 };
 
-// the fp32 route: boxes of 32 fp32 (128 bytes); V^T rows of VT_RB bytes
+// the fp32 route: boxes of 32 fp32 (128 bytes); V^T rows of VT_RB bytes.
+// hd 160 takes W = 1 as hd 256 does: at W = 2 Q hi + lo alone would be
+// 160 KB, and with the raw and split K / V tiles ~280 KB; at W = 1 ~201 KB.
 template <int HD>
 struct Cfg32 {
-  static constexpr int W = HD >= 256 ? 1 : 2;
+  static constexpr int W = HD > 128 ? 1 : 2;
   static constexpr int BK = HD >= 256 ? 16 : (HD >= 128 ? 32 : 64);  // keys a kv tile
   static constexpr int STAGES = HD >= 128 ? 1 : 2;  // raw K / V tiles in flight
   static constexpr int BQ = kBM * W;
@@ -188,6 +201,7 @@ __device__ __forceinline__ void pv_mma(float (&o)[HD / 2], const uint32_t (&a)[4
   if constexpr (HD == 32) wgmma_m64n32k16_rs_bf16(o, a, desc_v);
   else if constexpr (HD == 64) wgmma_m64n64k16_rs_bf16(o, a, desc_v);
   else if constexpr (HD == 128) wgmma_m64n128k16_rs_bf16(o, a, desc_v);
+  else if constexpr (HD == 160) wgmma_m64n160k16_rs_bf16(o, a, desc_v);
   else wgmma_m64n256k16_rs_bf16(o, a, desc_v);
 }
 
@@ -401,6 +415,7 @@ __device__ __forceinline__ void pv_mma_tf32(float (&o)[HD / 2], const uint32_t (
   if constexpr (HD == 32) wgmma_m64n32k8_rs_tf32(o, a, desc_v);
   else if constexpr (HD == 64) wgmma_m64n64k8_rs_tf32(o, a, desc_v);
   else if constexpr (HD == 128) wgmma_m64n128k8_rs_tf32(o, a, desc_v);
+  else if constexpr (HD == 160) wgmma_m64n160k8_rs_tf32(o, a, desc_v);
   else wgmma_m64n256k8_rs_tf32(o, a, desc_v);
 }
 
@@ -725,7 +740,7 @@ int launch_hd(int dtype, const void* q, const void* k, const void* v, void* o, i
 }  // namespace
 
 // dtype: 0 = fp32 (route wgmma_tf32x3), 1 = bf16 (route wgmma); q, k, v
-// and o alike; hd 32, 64, 128 or 256.  Strides are in elements, hd is
+// and o alike; hd 32, 64, 128, 160 or 256.  Strides are in elements, hd is
 // contiguous; the host checked that every row starts 16-byte aligned.
 // Returns a cudaError_t, or 10000 + the CUresult of a failed tensor-map
 // encode.
@@ -743,6 +758,7 @@ extern "C" int flash_sm90_fwd(int dtype, int hd, const void* q, const void* k, c
     case 32: return launch_hd<32>(dtype, q, k, v, o, batch, heads, kv_heads, seq, st, causal, window, scale, s);
     case 64: return launch_hd<64>(dtype, q, k, v, o, batch, heads, kv_heads, seq, st, causal, window, scale, s);
     case 128: return launch_hd<128>(dtype, q, k, v, o, batch, heads, kv_heads, seq, st, causal, window, scale, s);
+    case 160: return launch_hd<160>(dtype, q, k, v, o, batch, heads, kv_heads, seq, st, causal, window, scale, s);
     case 256: return launch_hd<256>(dtype, q, k, v, o, batch, heads, kv_heads, seq, st, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -8,15 +8,17 @@ bf16 products (``"wgmma"``), fp32 three TF32 products of hi + lo parts
 (``"wgmma_tf32x3"``).  There is no fallback to another kernel or to the
 plain version: a build or launch error is raised.  ``flash_mha.launches``
 counts kernel launches and ``flash_mha.launches_by_route`` splits them by
-route.  The kernel has no backward: a CUDA call that autograd would record
+route; ``flash_mha.padded`` counts the launches that went through
+zero-padded copies.  The kernel has no backward: a CUDA call that autograd would record
 (grad enabled and q, k or v requiring grad) raises, rather than return an
 output that no gradient flows through.
 
 The kernels read q, k and v through their strides (the last axis
 contiguous), so a ``(B, S, H, hd)`` activation transposed to ``(B, H, S, hd)``
-is passed as a view, and the output takes q's memory layout.  A head dim
-the kernel is not instantiated for (hd 30, 40, 160 ...), or rows that are
-not 16-byte aligned, go through ``padded_head_dim``: q, k and v are copied
+is passed as a view, and the output takes q's memory layout.  hd 160
+(stablelm-12b) has an instance of its own.  A head dim the kernel is not
+instantiated for (hd 30, 40 ...), or rows that are not 16-byte aligned, go
+through ``padded_head_dim``: q, k and v are copied
 zero-padded up to the next size in ``HEAD_DIMS``, the kernel runs with the
 true hd's softmax scale and the output is sliced back.  Zero columns add
 nothing to q·k, and v's zero columns give zero outputs, which are cut.
@@ -36,7 +38,7 @@ from .ref import attention_ref
 
 __all__ = ["HEAD_DIMS", "ROUTES", "flash_mha", "padded_head_dim", "route"]
 
-HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for, in each dtype
+HEAD_DIMS = (32, 64, 128, 160, 256)  # head dims the kernel is instantiated for, in each dtype
 ROUTES = ("wgmma", "wgmma_tf32x3")
 
 
@@ -114,7 +116,9 @@ def flash_mha(
         raise ValueError(f"q lies on {q.device}; flash_mha takes cuda or cpu tensors")
     K.no_backward("flash_mha", q, k, v)
     if q.shape[-1] not in HEAD_DIMS or not all(K.aligned16(t) for t in (q, k, v)):
-        return with_padded_head_dim(_launch, q, k, v, causal=causal, window=window)
+        out = with_padded_head_dim(_launch, q, k, v, causal=causal, window=window)
+        flash_mha.padded += 1
+        return out
     return _launch(q, k, v, scale=1.0 / (q.shape[-1] ** 0.5), causal=causal, window=window)
 
 
@@ -139,3 +143,4 @@ def _launch(q, k, v, *, scale: float, causal: bool, window: int) -> torch.Tensor
 
 flash_mha.launches = 0
 flash_mha.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_mha.padded = 0

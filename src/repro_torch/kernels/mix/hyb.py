@@ -13,8 +13,14 @@ nonzeros.
 ``mix_hyb`` launches the CUDA kernel of ``csrc/mix_hyb.cu`` on CUDA tensors
 and runs its plain version ``mix_hyb_ref`` on CPU tensors; anything else
 raises, and there is no fallback from the kernel to the plain version.
-``mix_hyb.launches`` counts kernel launches.  The plain version is the
-kernel's arithmetic bit for bit: each ELL row ``self_w·x[i]``, then each
+``hyb_route`` names the kernel's route from the staged rows alone:
+``"slab"`` (a block stages a column strip of every source row in shared
+memory and gathers from there) while those rows fit, ``"rows"`` (blocks of
+output rows gathering from device memory) beyond.  No pointer enters the
+choice, so chunked and resumed runs sum alike; the two routes sum in the
+same order and give the same bits.  ``mix_hyb.launches`` counts kernel
+launches and ``mix_hyb.launches_by_route`` splits them by route.  The plain
+version is the kernel's arithmetic bit for bit: each ELL row ``self_w·x[i]``, then each
 slot in order ``+ slot_w·x[src]`` (the product and the sum rounded
 separately, a weight of exactly 0 skipped), each hub row one fp32 FMA chain
 from 0 over its nonzeros, ascending column.
@@ -39,7 +45,15 @@ from repro_torch.kernels.build import load_library
 from . import _launch as L
 from .ref import fma_f32
 
-__all__ = ["HYB", "hyb_from_tables", "mix_hyb", "mix_hyb_ref"]
+__all__ = ["HYB", "ROUTES", "SLAB_MAX_ROWS", "hyb_from_tables", "hyb_route", "mix_hyb", "mix_hyb_ref"]
+
+ROUTES = ("slab", "rows")
+# the most source rows the slab route stages: 160 bytes a row (a 128-byte
+# strip and the 32-byte sector before it), and 16 for an output row's info
+# (there are no more output rows than staged ones), beside a row of zeros
+# in the 227 KB a block may take (mix_hyb.cu's kSlabMaxRows, which the card
+# tests hold this equal to)
+SLAB_MAX_ROWS = 1319
 
 
 class HYB(NamedTuple):
@@ -53,6 +67,15 @@ class HYB(NamedTuple):
     hub_ptr: torch.Tensor  # (H + 1,) int32 start of each hub's nonzeros
     hub_col: torch.Tensor  # (nnz,) int32 source row of each hub nonzero
     hub_val: torch.Tensor  # (nnz,) float32 its weight
+    # the slab route's lists: walk (n_rows, 4) int32, the rows heaviest first
+    # (the order it deals them to warps) as (row, first entry, entries, 1 for
+    # a hub row); entries (n_ent, 2) int32, (source row, the fp32 weight's
+    # bits): an ELL row's self term, then its live slots; a hub's nonzeros;
+    # the lists one after another in the walk's order.  hyb_from_tables
+    # builds both from the tables: replace a table, and build the operator
+    # again
+    walk: torch.Tensor
+    entries: torch.Tensor
 
     @property
     def n_rows(self) -> int:
@@ -67,7 +90,10 @@ def hyb_from_tables(slot_idx, slot_w, self_w, hub_rows, hub_m, device) -> HYB:
     """The ``HYB`` operator of the JAX-form tables (numpy arrays or tensors):
     ``slot_idx`` / ``slot_w`` (S, n_rows), ``self_w`` (n_rows,), ``hub_rows``
     (H,) and ``hub_m`` (H, n_src), each hub row's nonzeros kept in ascending
-    column.  Built on the host, once per operator."""
+    column, and the slab route's lists: each row's entries (an ELL row's
+    self term, then its slots of nonzero weight in slot order; a hub row's
+    nonzeros), and ``walk``, the rows by their entries, most first, ties in
+    row order.  Built on the host, once per operator."""
     host = lambda a: a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)  # noqa: E731
     slot_idx, slot_w, self_w = host(slot_idx), host(slot_w), host(self_w)
     hub_rows, hub_m = host(hub_rows).astype(np.int64), host(hub_m).astype(np.float32)
@@ -76,12 +102,36 @@ def hyb_from_tables(slot_idx, slot_w, self_w, hub_rows, hub_m, device) -> HYB:
     hub_of[hub_rows] = np.arange(len(hub_rows), dtype=np.int32)
     hubs, cols = np.nonzero(hub_m)  # row-major: each hub's columns ascending
     hub_ptr = np.searchsorted(hubs, np.arange(len(hub_rows) + 1)).astype(np.int32)
+    slot_idx, slot_w = slot_idx.reshape(-1, n_rows), slot_w.reshape(-1, n_rows).astype(np.float32)
+    # each row's entries, a hub row's nonzeros or an ELL row's self term and
+    # live slots (slot order: the nonzero weights of column i, top down),
+    # the rows' lists one after another in the walk's order
+    is_hub = hub_of >= 0
+    live = (slot_w != 0) & ~is_hub[None, :]
+    count = np.where(is_hub, 0, live.sum(0) + 1)
+    count[hub_rows] = np.diff(hub_ptr)
+    order = np.argsort(-count, kind="stable")  # the walk; the lists lie in its order
+    first = np.empty_like(count)
+    first[order] = np.concatenate([[0], np.cumsum(count[order])[:-1]])
+    ent = np.zeros((int(count.sum()), 2), np.int32)
+    ell = np.flatnonzero(~is_hub)
+    ent[first[ell], 0] = ell
+    ent[first[ell], 1] = self_w.astype(np.float32)[ell].view(np.int32)
+    s_live, r_live = np.nonzero(live.T)[::-1]  # by row, then slot
+    rank = np.arange(len(r_live)) - np.searchsorted(r_live, r_live)
+    ent[first[r_live] + 1 + rank, 0] = slot_idx[s_live, r_live]
+    ent[first[r_live] + 1 + rank, 1] = slot_w[s_live, r_live].view(np.int32)
+    for h, row in enumerate(hub_rows):
+        e = slice(first[row], first[row] + count[row])
+        ent[e, 0] = cols[hub_ptr[h] : hub_ptr[h + 1]]
+        ent[e, 1] = hub_m[h, ent[e, 0]].view(np.int32)
+    walk = np.stack([order, first[order], count[order], is_hub[order]], 1)
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)  # noqa: E731
     f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)  # noqa: E731
     return HYB(
         slot_idx=i32(slot_idx.reshape(-1, n_rows)), slot_w=f32(slot_w.reshape(-1, n_rows)), self_w=f32(self_w),
         hub_rows=i32(hub_rows), hub_of=i32(hub_of), hub_ptr=i32(hub_ptr), hub_col=i32(cols),
-        hub_val=f32(hub_m[hubs, cols]),
+        hub_val=f32(hub_m[hubs, cols]), walk=i32(walk), entries=i32(ent),
     )
 
 
@@ -118,7 +168,26 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, *([ctypes.c_void_p] * 10), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.mix_hyb_slab.restype = ctypes.c_int
+    lib.mix_hyb_slab.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *([ctypes.c_void_p] * 3),
+        *([ctypes.c_int] * 4), ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.mix_hyb_slab_max_rows.restype = ctypes.c_int
+    lib.mix_hyb_slab_max_rows.argtypes = []
     return lib
+
+
+def hyb_route(n_src: int, n_hub_src: int, same_buffer: bool, dtype: torch.dtype) -> str:
+    """The kernel's route for W of ``n_src`` rows and hub lists over
+    ``n_hub_src`` rows, of W itself (``same_buffer``) or of another buffer:
+    ``"slab"`` while the rows it stages (W's, and the other buffer's) fit,
+    ``"rows"`` beyond.  A staged row is 160 bytes in either dtype (a strip of
+    32 fp32 or 64 bf16 columns, and the sector before it)."""
+    if dtype not in K.DTYPE_CODES:
+        raise TypeError(f"W must be float32 or bfloat16, got {dtype}")
+    staged = n_src + (0 if same_buffer else n_hub_src)
+    return "slab" if staged <= SLAB_MAX_ROWS else "rows"
 
 
 def mix_hyb(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None = None) -> torch.Tensor:
@@ -138,25 +207,46 @@ def mix_hyb(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None = None) -> torc
                          f"{hub_src.dtype} on {hub_src.device}")
     nnz = op.hub_col.shape[0]
     shapes = dict(slot_idx=(n_slots, n_rows), slot_w=(n_slots, n_rows), self_w=(n_rows,), hub_rows=(n_hubs,),
-                  hub_of=(n_rows,), hub_ptr=(n_hubs + 1,), hub_col=(nnz,), hub_val=(nnz,))
+                  hub_of=(n_rows,), hub_ptr=(n_hubs + 1,), hub_col=(nnz,), hub_val=(nnz,), walk=(n_rows, 4),
+                  entries=(op.entries.shape[0], 2))
     for name, t in op._asdict().items():
         dtype = torch.float32 if name in ("slot_w", "self_w", "hub_val") else torch.int32
         L.check_operand(t, name, dtype, shapes[name], w.device)
     if w.device.type == "cpu":
         return mix_hyb_ref(op, w, w_hub)
-    y = torch.empty((n_rows, d), dtype=w.dtype, device=w.device)
     if d == 0:
-        return y
+        return torch.empty((n_rows, d), dtype=w.dtype, device=w.device)
+    route = hyb_route(n_src, hub_src.shape[0] if n_hubs else 0, w_hub is None, w.dtype)
+    y = _launch(op, w, w_hub, route)
+    mix_hyb.launches += 1
+    mix_hyb.launches_by_route[route] += 1
+    return y
+
+
+def _launch(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None, route: str) -> torch.Tensor:
+    """One call of ``route`` on checked CUDA tensors with d > 0 (the slab
+    route where its rows fit: the C entry refuses more); counts nothing."""
+    n_src, d = w.shape
+    hub_src = w if w_hub is None else w_hub
+    n_rows, n_slots, n_hubs, nnz = op.n_rows, op.slot_idx.shape[0], op.n_hubs, op.hub_col.shape[0]
+    y = torch.empty((n_rows, d), dtype=w.dtype, device=w.device)
     vec = min(L.vec_width(w, y), L.vec_width(hub_src, y))
     with torch.cuda.device(w.device):
-        err = _lib().mix_hyb(
-            K.DTYPE_CODES[w.dtype], K.ptr(op.slot_idx), K.ptr(op.slot_w), K.ptr(op.self_w), K.ptr(op.hub_of),
-            K.ptr(op.hub_ptr), K.ptr(op.hub_col), K.ptr(op.hub_val), K.ptr(w), K.ptr(hub_src), K.ptr(y),
-            n_src, hub_src.shape[0], n_rows, d, n_slots, n_hubs, nnz, vec, K.stream_of(w),
-        )
-    K.raise_on_error(err, "mix_hyb")
-    mix_hyb.launches += 1
+        if route == "slab":
+            n_stage_hub = hub_src.shape[0] if (w_hub is not None and n_hubs) else 0
+            err = _lib().mix_hyb_slab(
+                K.DTYPE_CODES[w.dtype], K.ptr(op.walk), K.ptr(op.entries), op.entries.shape[0], K.ptr(w),
+                K.ptr(hub_src), K.ptr(y), n_src, hub_src.shape[0], n_stage_hub, n_rows, d, vec, K.stream_of(w),
+            )
+        else:
+            tables = (op.slot_idx, op.slot_w, op.self_w, op.hub_of, op.hub_ptr, op.hub_col, op.hub_val)
+            err = _lib().mix_hyb(
+                K.DTYPE_CODES[w.dtype], *map(K.ptr, tables), K.ptr(w), K.ptr(hub_src), K.ptr(y), n_src,
+                hub_src.shape[0], n_rows, d, n_slots, n_hubs, nnz, vec, K.stream_of(w),
+            )
+    K.raise_on_error(err, f"mix_hyb ({route})")
     return y
 
 
 mix_hyb.launches = 0
+mix_hyb.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -27,7 +27,9 @@ block-sparse walks also at kreg4-1024 (bn 32), with rows walked in pieces
 rows), fp32 and bf16, misaligned rows, a shard's rows over its
 [local | halo] buffer with the hubs over the gathered rows, out-of-range
 indices read nothing; bitwise its plain version ``mix_hyb_ref`` and a clean
-sparse plan round bitwise the CPU's.  The zoo's last
+sparse plan round bitwise the CPU's; its slab route (every stageable shape:
+K = 4, 2 and 1 sub-strips, one and two slabs, misaligned rows, a shard's
+rows with hubs over a second buffer) bitwise its rows route.  The zoo's last
 configs: reduced jamba, llava and musicgen (with frontend embeddings) and
 llama4-scout card vs CPU in fp32, a jamba decode step in bf16 replayed as a
 CUDA graph, and an RWKV training step (no kernel launch under grad).
@@ -72,6 +74,8 @@ from repro_torch.kernels.mix import (  # noqa: E402
     quantised_decavg_mix_ref,
     quantised_mix_bsr,
 )
+from repro_torch.kernels.mix import hyb as hyb_kernel  # noqa: E402
+from repro_torch.kernels.mix.hyb import SLAB_MAX_ROWS, hyb_route  # noqa: E402
 from repro_torch.kernels.mix.mix import D_THIN, ROUTES  # noqa: E402
 from repro_torch.kernels.mix.quant import _lib as quant_lib  # noqa: E402
 from repro_torch.kernels.mix.quant import plan_tiles, round_smem_bytes  # noqa: E402
@@ -325,14 +329,19 @@ def test_hyb_kernel_halo_row_block(dev, graph, n_shards):
 
 
 def test_hyb_kernel_reads_nothing_out_of_range(dev):
-    """Slot and hub indices outside their buffers add nothing: the result of
-    the same tables with those weights zeroed.  A hub list past the end of
-    the nonzeros is clipped to it, and a hub index past the hubs makes an
-    ELL row (a hub row's slots and self weight are 0: a zero row)."""
+    """Each route on the tables it reads.  The rows route: slot and hub
+    indices outside their buffers add nothing (the result of the same tables
+    with those weights zeroed), a hub list past the end of the nonzeros is
+    clipped to it, and a hub index past the hubs makes an ELL row (a hub
+    row's slots and self weight are 0: a zero row).  The slab route: sources
+    in its entry lists outside W add nothing, bit for bit the lists with
+    those weights zeroed, and a row's list past the entries is clipped."""
     from repro_torch.core.commplan import compile_plan
 
     op = compile_plan(T.barabasi_albert(96, 3, seed=2), "sparse", device=dev).hyb
     w = torch.randn(96, 300, device=dev)
+    rows = lambda o: hyb_kernel._launch(o, w, None, "rows")  # noqa: E731
+    slab = lambda o: hyb_kernel._launch(o, w, None, "slab")  # noqa: E731
     bad_idx = op.slot_idx.clone()
     bad_idx[0, :5] = torch.tensor([96, 10_000, -1, -7, 2**30], dtype=torch.int32, device=dev)
     bad_col = op.hub_col.clone()
@@ -340,18 +349,34 @@ def test_hyb_kernel_reads_nothing_out_of_range(dev):
     zero_w, zero_v = op.slot_w.clone(), op.hub_val.clone()
     zero_w[0, :5] = 0.0
     zero_v[:3] = 0.0
-    got = mix_hyb(op._replace(slot_idx=bad_idx, hub_col=bad_col), w)
-    assert torch.equal(got, mix_hyb(op._replace(slot_w=zero_w, hub_val=zero_v), w))
+    got = rows(op._replace(slot_idx=bad_idx, hub_col=bad_col))
+    assert torch.equal(got, rows(op._replace(slot_w=zero_w, hub_val=zero_v)))
     long_ptr = op.hub_ptr.clone()
     long_ptr[-1] += 1000
-    assert torch.equal(mix_hyb(op._replace(hub_ptr=long_ptr), w), mix_hyb(op, w))
+    assert torch.equal(rows(op._replace(hub_ptr=long_ptr)), rows(op))
     bad_of = op.hub_of.clone()
     row = int(op.hub_rows[0])
     bad_of[row] = op.n_hubs + 5
-    got = mix_hyb(op._replace(hub_of=bad_of), w)
+    got = rows(op._replace(hub_of=bad_of))
     assert bool((got[row] == 0).all())
     keep = torch.arange(96, device=dev) != row
-    assert torch.equal(got[keep], mix_hyb(op, w)[keep])
+    assert torch.equal(got[keep], rows(op)[keep])
+    # the slab route: a hub row's entries (the walk's first) and an ELL
+    # row's slots (not its self term) pointed outside W
+    walk = op.walk.cpu()
+    ell = next(i for i in range(96) if not walk[i, 3] and walk[i, 2] >= 3)
+    picks = [int(walk[0, 1]), int(walk[0, 1]) + 1, int(walk[ell, 1]) + 1, int(walk[ell, 1]) + 2]
+    assert walk[0, 3] == 1
+    bad_ent, zero_ent = op.entries.clone(), op.entries.clone()
+    bad_ent[picks, 0] = torch.tensor([96, -1, 2**30, -7], dtype=torch.int32, device=dev)
+    zero_ent[picks, 1] = 0
+    got = slab(op._replace(entries=bad_ent))
+    assert torch.equal(got, slab(op._replace(entries=zero_ent)))
+    assert not torch.equal(got, slab(op))
+    last = int(walk[:, 1].argmax())
+    long_walk = op.walk.clone()
+    long_walk[last, 2] += 1000
+    assert torch.equal(slab(op._replace(walk=long_walk)), slab(op))
 
 
 def test_hyb_plan_round_on_the_card_is_the_cpus(dev):
@@ -389,6 +414,107 @@ def test_sharded_hyb_at_one_nccl_rank(dev, tmp_path):
         assert torch.equal(got, plan.mix(x))
     finally:
         dist.destroy_process_group()
+
+
+# the slab route at every shape of its own: K = 4 sub-strips and two slabs
+# (16 rows), K = 2 (150 to 300 rows), K = 1 with two slabs (600), one slab
+# (the CLI's BA-1024, m 8), and the most rows it stages
+SLAB_GRAPHS = {**HYB_GRAPHS, "kreg4-600": lambda: T.random_k_regular(600, 4, seed=3),
+               "ba-1024-m8": lambda: T.barabasi_albert(1024, 8, seed=0), "ring-max": lambda: T.ring(SLAB_MAX_ROWS)}
+
+
+@pytest.mark.parametrize("graph", sorted(SLAB_GRAPHS))
+@pytest.mark.parametrize("d", [1, 3, 62, 777, 20_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hyb_slab_route_is_the_rows_route(dev, graph, d, dtype):
+    """mix_hyb on the slab route (every operator here stages at most
+    SLAB_MAX_ROWS rows): one launch on it, bitwise the plain version and the
+    rows route on the same operator and W, two launches bitwise."""
+    from repro_torch.core.commplan import compile_plan
+
+    g = SLAB_GRAPHS[graph]()
+    op = compile_plan(g, "sparse", device=dev).hyb
+    w = torch.randn(g.n, d, device=dev).to(dtype)
+    assert hyb_route(g.n, g.n, True, dtype) == "slab"
+    before = dict(mix_hyb.launches_by_route)
+    got = mix_hyb(op, w)
+    assert mix_hyb.launches_by_route == {**before, "slab": before["slab"] + 1}
+    assert torch.equal(got, mix_hyb_ref(op, w))
+    assert torch.equal(got, hyb_kernel._launch(op, w, None, "rows"))
+    assert torch.equal(got, hyb_kernel._launch(op, w, None, "slab"))
+
+
+@pytest.mark.parametrize("d", [3, 1002, 567_434])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hyb_routes_agree_on_misaligned_rows(dev, d, dtype):
+    """A W one element into its allocation (4-byte, 2-byte or plain copies
+    into the slab): both routes give the aligned copy's bits."""
+    from repro_torch.core.commplan import compile_plan
+
+    op = compile_plan(T.barabasi_albert(128, 3, seed=2), "sparse", device=dev).hyb
+    buf = torch.randn(128 * d + 1, device=dev).to(dtype)
+    w = buf[1:].view(128, d)
+    want = mix_hyb(op, w.clone())
+    for route in ("slab", "rows"):
+        assert torch.equal(hyb_kernel._launch(op, w, None, route), want)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("graph", ["ba-256", "heavytail-256", "kreg4-300"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hyb_slab_route_halo_row_block(dev, graph, n_shards, dtype):
+    """A shard's rows with the hubs over a second buffer: the slab route
+    stages [local | halo] and the gathered rows, and gives the rows route's
+    bits, the unsharded call's rows and the plain version's."""
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.core.shardplan import _build_hyb_tables, _layouts
+
+    g = {**HYB_GRAPHS, "heavytail-256": lambda: T.configuration_heavy_tail(256, 2.2, seed=1)}[graph]()
+    plan = compile_plan(g, "sparse", device=dev)
+    recv, _ = _layouts(plan, n_shards)
+    tabs = _build_hyb_tables(plan, recv, n_shards)
+    x = torch.randn(g.n, 1001, device=dev).to(dtype)
+    want = mix_hyb(plan.hyb, x)
+    for rank in range(n_shards):
+        real = tabs["hub_loc"][rank] < recv.nps
+        op = hyb_from_tables(tabs["slot_pos"][rank], tabs["slot_w"][rank], tabs["hyb_self"][rank],
+                             tabs["hub_loc"][rank][real], tabs["hub_m"][rank][real], dev)
+        lo = rank * recv.nps
+        halo = recv.send[:, rank, : recv.h_max] + np.arange(n_shards)[:, None] * recv.nps
+        buf = torch.cat([x[lo : lo + recv.nps], x[torch.as_tensor(halo.reshape(-1), dtype=torch.int64)]])
+        route = hyb_route(buf.shape[0], g.n if op.n_hubs else 0, False, dtype)
+        assert route == "slab"
+        before = dict(mix_hyb.launches_by_route)
+        got = mix_hyb(op, buf, x)
+        assert mix_hyb.launches_by_route == {**before, route: before[route] + 1}
+        assert torch.equal(got, want[lo : lo + recv.nps])
+        assert torch.equal(got, mix_hyb_ref(op, buf, x))
+        assert torch.equal(got, hyb_kernel._launch(op, buf, x, "rows"))
+
+
+def test_hyb_rows_route_beyond_the_slab(dev):
+    """An operator over more rows than the slab stages runs the rows route:
+    counted on it, bitwise the plain version."""
+    from repro_torch.core.commplan import compile_plan
+
+    g = T.barabasi_albert(4096, 3, seed=1)
+    op = compile_plan(g, "sparse", device=dev).hyb
+    w = torch.randn(4096, 333, device=dev)
+    before = dict(mix_hyb.launches_by_route)
+    got = mix_hyb(op, w)
+    assert mix_hyb.launches_by_route == {**before, "rows": before["rows"] + 1}
+    assert torch.equal(got, mix_hyb_ref(op, w))
+
+
+def test_slab_max_rows_is_the_kernels(dev):
+    """The host's SLAB_MAX_ROWS is the library's kSlabMaxRows, and the C
+    entry refuses one row more (no route is picked there from a pointer)."""
+    from repro_torch.core.commplan import compile_plan
+
+    assert hyb_kernel._lib().mix_hyb_slab_max_rows() == SLAB_MAX_ROWS
+    op = compile_plan(T.ring(SLAB_MAX_ROWS + 1), "sparse", device=dev).hyb
+    with pytest.raises(RuntimeError, match="slab"):
+        hyb_kernel._launch(op, torch.randn(SLAB_MAX_ROWS + 1, 8, device=dev), None, "slab")
 
 
 def test_bsr_kernel_skips_padding_tiles(dev):
@@ -464,7 +590,7 @@ def _launch_once(q, k, v, **mask):
     return got
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160, 256])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 17), (False, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -476,15 +602,15 @@ def test_flash_kernel_matches_plain(dev, hd, s, causal, window, dtype):
     assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 300, 2047])
 @pytest.mark.parametrize("group", [1, 2, 8])
 @pytest.mark.parametrize("window", [0, 17, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_flash_wgmma_kernel_ragged(dev, hd, s, group, window, causal, layout):
-    """The wgmma kernel (bf16, hd 64 / 128 / 256) at ragged S around its
-    64-row tiles, GQA groups, windows inside and past S, both layouts."""
+    """The wgmma kernel (bf16, hd 64 / 128 / 160 / 256) at ragged S around
+    its 64-row tiles, GQA groups, windows inside and past S, both layouts."""
     q, k, v = _attn_inputs(dev, 2, 2 * group, 2, s, hd, torch.bfloat16, seed=s + hd + group, layout=layout)
     assert route(q.dtype, hd) == "wgmma"
     got = _launch_once(q, k, v, causal=causal, window=window)
@@ -535,7 +661,7 @@ def test_flash_strided_views_need_no_copy(dev):
 @pytest.mark.parametrize(
     "arch,b,s,swa",
     [("qwen2.5-3b", 4, 2048, False), ("qwen2.5-3b", 1, 512, False), ("gemma3-4b", 2, 2048, False),
-     ("gemma3-4b", 2, 2048, True)],
+     ("gemma3-4b", 2, 2048, True), ("stablelm-12b", 4, 2048, False)],
 )
 def test_flash_kernel_at_full_width_prefill_shapes(dev, arch, b, s, swa):
     """The full-width configs' prefill launches, in the decoder's (B, S, H, hd)
@@ -591,12 +717,31 @@ def test_flash_rejects_unaligned_rows(dev):
 @pytest.mark.parametrize("hd,dtype", [(30, torch.float32), (40, torch.bfloat16), (160, torch.bfloat16)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 17), (False, 0)])
 def test_flash_pads_head_dims_it_has_no_instance_for(dev, hd, dtype, causal, window):
-    """hd 30 (reduced qwen1.5-4b), 40 (reduced stablelm-12b) and 160
-    (stablelm-12b) in the decoder's (B, S, H, hd) view layout: one launch."""
+    """hd 30 (reduced qwen1.5-4b) and 40 (reduced stablelm-12b) in the
+    decoder's (B, S, H, hd) view layout: one launch through zero-padded
+    copies; hd 160 (stablelm-12b) has its own instance and pads nothing."""
     q, k, v = _attn_inputs(dev, 2, 4, 2, 70, hd, dtype, layout="bshd")
+    padded = flash_mha.padded
     got = _launch_once(q, k, v, causal=causal, window=window)
+    assert flash_mha.padded == padded + (hd != 160)
     assert got.shape == q.shape
     _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kvh", [(2048, 32, 8), (300, 8, 1), (129, 4, 4)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100), (False, 0), (False, 64)])
+def test_flash_hd160_instance(dev, dtype, s, h, kvh, causal, window):
+    """hd 160 at its own instance in both dtypes (bf16: 64-byte swizzled
+    boxes, 5 a row, P·V as m64n160k16; fp32: W = 1, m64n160k8), causal,
+    windowed and GQA, in the decoder's view layout: one launch, no padded
+    copy, within the tolerance of every flash case, bitwise on a rerun."""
+    q, k, v = _attn_inputs(dev, 2 if s < 2048 else 1, h, kvh, s, 160, dtype, seed=s + h, layout="bshd")
+    padded = flash_mha.padded
+    got = _launch_once(q, k, v, causal=causal, window=window)
+    assert flash_mha.padded == padded
+    _close(got, attention_ref(q, k, v, causal=causal, window=window), v)
+    assert torch.equal(got, flash_mha(q, k, v, causal=causal, window=window))
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b"])

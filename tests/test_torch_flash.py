@@ -8,11 +8,13 @@ CUDA kernel itself is held against ``attention_ref`` on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); here its
 arithmetic on fp32 inputs (``attention_split_ref``: 3×TF32 products, P
 split) is held against the JAX package at the same 1e-5, and the rule that
-picks its route (``route``) is checked.  Head dims the kernel has no
-instance for (hd 30 of reduced qwen1.5-4b, 40 and 160 of stablelm-12b) run
-on the card zero-padded to the next instantiated size with the true hd's
-scale (``with_padded_head_dim``); that rendering, driven through
-``attention_ref``, is held against the JAX package's any-hd attention.
+picks its route (``route``) is checked.  hd 160 (stablelm-12b) has an
+instance of its own; its route's arithmetic is held at hd 160 below.  Head
+dims the kernel has no instance for (hd 30 of reduced qwen1.5-4b, 40 of
+reduced stablelm-12b) run on the card zero-padded to the next instantiated
+size with the true hd's scale (``with_padded_head_dim``); that rendering,
+driven through ``attention_ref``, is held against the JAX package's any-hd
+attention, at hd 160 too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -119,6 +121,26 @@ def test_tf32x3_rendering_matches_jax(s, hd, kvh, causal, window):
                                **TOL)
 
 
+HD160_CASES = [(1, 1, True, 0), (37, 2, True, 0), (70, 4, True, 17), (70, 1, False, 0), (130, 2, True, 64)]
+
+
+@pytest.mark.parametrize("s,kvh,causal,window", HD160_CASES)
+def test_hd160_instance_arithmetic_matches_jax(s, kvh, causal, window):
+    """hd 160 runs at its own width on the card, with no padded copy: the
+    fp32 route's 3×TF32 arithmetic at hd 160 within 1e-5 of the JAX
+    package's attention, and a CPU call counts no launch and no padding."""
+    q, k, v = _qkv(s, 160, kvh)
+    want = np.asarray(jax_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal, window=window))
+    qt, kt, vt = map(torch.as_tensor, (q, k, v))
+    got = attention_split_ref(qt, kt, vt, causal=causal, window=window, split="tf32")
+    assert got.shape == (2, 4, s, 160)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    before = (flash_mha.launches, flash_mha.padded)
+    np.testing.assert_allclose(flash_mha(qt, kt, vt, causal=causal, window=window).numpy(), want, **TOL)
+    assert (flash_mha.launches, flash_mha.padded) == before
+    assert padded_head_dim(160) == 160 and route(torch.bfloat16, 160) == "wgmma"
+
+
 def test_bf16_split_misses_the_fp32_bound():
     """The bf16 hi + lo split the bf16 route uses for P leaves ~2^-17 of each
     term, which exp amplifies: on fp32 inputs it misses 1e-5 on some case,
@@ -136,8 +158,8 @@ def test_bf16_split_misses_the_fp32_bound():
 # bf16 products, fp32 to its 3×TF32 route
 @pytest.mark.parametrize(
     "dtype,hd,want",
-    [(torch.bfloat16, hd, "wgmma") for hd in (32, 64, 128, 256)]
-    + [(torch.float32, hd, "wgmma_tf32x3") for hd in (32, 64, 128, 256)],
+    [(torch.bfloat16, hd, "wgmma") for hd in (32, 64, 128, 160, 256)]
+    + [(torch.float32, hd, "wgmma_tf32x3") for hd in (32, 64, 128, 160, 256)],
 )
 def test_route_is_picked_by_dtype_and_head_dim(dtype, hd, want):
     assert route(dtype, hd) == want
@@ -171,7 +193,7 @@ def test_padded_head_dims_match_jax(hd, causal, window):
 
 
 def test_padded_head_dim_is_the_next_instance():
-    assert [padded_head_dim(hd) for hd in (8, 30, 32, 40, 64, 100, 128, 160, 256)] == [
-        32, 32, 32, 64, 64, 128, 128, 256, 256]
+    assert [padded_head_dim(hd) for hd in (8, 30, 32, 40, 64, 100, 128, 160, 200, 256)] == [
+        32, 32, 32, 64, 64, 128, 128, 160, 256, 256]
     with pytest.raises(ValueError, match="head_dim 288 exceeds 256"):
         padded_head_dim(288)

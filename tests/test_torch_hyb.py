@@ -36,7 +36,9 @@ from repro_torch.core import shardplan as PS  # noqa: E402
 from repro_torch.core import topology as PT  # noqa: E402
 from repro_torch.core.compress import Compression  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
-from repro_torch.kernels.mix import BSR, HYB, hyb_from_tables, mix_flat, mix_hyb, mix_hyb_ref  # noqa: E402
+from repro_torch.kernels.mix import BSR, HYB, hyb_from_tables, hyb_route, mix_flat, mix_hyb, mix_hyb_ref  # noqa: E402
+from repro_torch.kernels.mix.hyb import ROUTES as HYB_ROUTES  # noqa: E402
+from repro_torch.kernels.mix.hyb import SLAB_MAX_ROWS  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 
 FAMILIES = {
@@ -279,6 +281,86 @@ def test_wrapper_checks_and_counts_nothing_on_the_cpu():
     # an operator built from tensors equals the one from numpy arrays
     again = hyb_from_tables(pp.slot_idx, pp.slot_w, pp.hyb_self_w, pp.hub_rows, pp.hub_m, "cpu")
     assert all(torch.equal(a, b) for a, b in zip(again, op))
+
+
+# the staged rows a call makes: W's n rows (the unsharded call passes W for
+# the hub lists too), or a rank's [local | halo] rows at S = 4 plus the n
+# gathered rows its hub lists read, or at S = 1 its n rows plus the n
+# gathered ones; the slab route while they fit in SLAB_MAX_ROWS
+ROUTE_CASES = [
+    (16, 16, True, "slab"), (256, 256, True, "slab"), (1024, 1024, True, "slab"), (4096, 4096, True, "rows"),
+    (6, 16, False, "slab"), (66, 256, False, "slab"), (258, 1024, False, "slab"), (1026, 4096, False, "rows"),
+    (1024, 1024, False, "rows"), (SLAB_MAX_ROWS, SLAB_MAX_ROWS, True, "slab"),
+    (SLAB_MAX_ROWS + 1, SLAB_MAX_ROWS + 1, True, "rows"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_src,n_hub_src,same,want", ROUTE_CASES)
+def test_hyb_route_is_picked_by_staged_rows(n_src, n_hub_src, same, want, dtype):
+    assert hyb_route(n_src, n_hub_src, same, dtype) == want
+    assert set(mix_hyb.launches_by_route) == set(HYB_ROUTES) == {"slab", "rows"}
+
+
+def test_hyb_route_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        hyb_route(16, 16, True, torch.float64)
+
+
+@pytest.mark.parametrize("family", ["ba", "heavy_tail", "ring", "complete"])
+def test_cpu_calls_count_on_no_route(family):
+    """A call on CPU tensors runs the plain version: no launch on any route,
+    in either form (W for the hubs, or a second buffer)."""
+    _, pp = _plans(family, 64)
+    x = torch.randn(64, 9, generator=torch.Generator().manual_seed(2))
+    before = (mix_hyb.launches, dict(mix_hyb.launches_by_route))
+    mix_hyb(pp.hyb, x)
+    mix_hyb(pp.hyb, x, x.clone())
+    assert (mix_hyb.launches, mix_hyb.launches_by_route) == before
+
+
+@pytest.mark.parametrize("family,n", [("ba", 64), ("ba", 256), ("heavy_tail", 256), ("ring", 64), ("kreg", 64)])
+def test_walk_deals_the_heaviest_rows_first(family, n):
+    """The operator's walk is a permutation of its rows by their entries (a
+    hub row's nonzeros, an ELL row's self term and live slots), most first,
+    ties in row order: the slab route deals it to warps in that order.  The
+    entries it points at are M's nonzeros, an ELL row's self term first,
+    then its slots in slot order; a hub row's in ascending column."""
+    _, pp = _plans(family, n)
+    op = pp.hyb
+    assert op.walk.dtype == op.entries.dtype == torch.int32 and op.walk.shape == (n, 4)
+    walk, first, count, is_hub = op.walk.numpy().T
+    assert sorted(walk.tolist()) == list(range(n))
+    cost = (op.slot_w.numpy() != 0).sum(0) + 1
+    hub_len = np.diff(op.hub_ptr.numpy())
+    cost[op.hub_rows.numpy()] = hub_len
+    assert np.array_equal(count, cost[walk])
+    assert np.array_equal(is_hub, np.isin(walk, op.hub_rows.numpy()))
+    assert np.all(np.diff(cost[walk]) <= 0)
+    ties = np.diff(cost[walk]) == 0
+    assert np.all(np.diff(walk)[ties] > 0)
+    if op.n_hubs:  # the hub rows of a hub graph lead the walk
+        assert set(walk[: op.n_hubs].tolist()) >= set(op.hub_rows.numpy()[hub_len > cost.max() // 2].tolist())
+    m = receive_matrix(FAMILIES[family](PT, n))
+    assert int(cost.sum()) == int((m != 0).sum())
+    # the lists lie one after another in the walk's order
+    assert np.array_equal(first, np.r_[0, np.cumsum(count)[:-1]]) and op.entries.shape[0] == int(count.sum())
+    src, wbits = op.entries.numpy().T
+    wt = wbits.view(np.float32)
+    slot_idx, slot_w, self_w = op.slot_idx.numpy(), op.slot_w.numpy(), op.self_w.numpy()
+    for row, f, c, hub in op.walk.numpy():
+        got = (src[f : f + c], wt[f : f + c])
+        if hub:
+            h = int(np.flatnonzero(op.hub_rows.numpy() == row)[0])
+            lo, hi = op.hub_ptr.numpy()[h : h + 2]
+            want = (op.hub_col.numpy()[lo:hi], op.hub_val.numpy()[lo:hi])
+        else:
+            live = slot_w[:, row] != 0
+            want = (np.r_[row, slot_idx[live, row]], np.r_[self_w[row], slot_w[live, row]].astype(np.float32))
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        dense = np.zeros(n, np.float64)
+        np.add.at(dense, got[0], got[1])
+        np.testing.assert_allclose(dense, m[row], rtol=1e-6, atol=1e-7)
 
 
 # -------------------------------------------------------- sharded, spawned
