@@ -33,8 +33,12 @@ run with a non-zero exit:
    CLI's m 8 and m 3), heavytail-1024, kreg4-256 (d = 567,434),
    circulant-16 (1, 2) at the launch layer's width and a shard's rows of
    kreg4-256 and BA-256 at S = 4 (d = 256, hubs over the gathered rows),
-   each bitwise ``mix_hyb_ref``, within the fp32 tolerance of M·W, timed in
-   turns with ``mix_bsr`` on the same operator beside torch.sparse.mm;
+   each launched on the route ``hyb_route`` names, bitwise ``mix_hyb_ref``
+   and the other route, within the fp32 tolerance of M·W, timed in turns
+   with the other route and ``mix_bsr`` on the same operator beside
+   torch.sparse.mm, the named route within 3% of the faster (fp32
+   ring-1024 and circulant-16 on ``rows``, circulant-16 below
+   torch.sparse.mm; bf16 ring, heavy-tail and BA on ``slab``);
    flash attention:
    every shape phase 7 launches, in the decoder's (B, S, H, hd) layout
    (qwen2.5-3b prefill 4 × 2048 and per-node serve 1 × 512, gemma3-4b
@@ -86,10 +90,12 @@ run with a non-zero exit:
    printed), mix_bsr over the BSR Mᵀ of ring-1024, kreg4-1024
    and heavytail-1024, at d ∈ {1, 2, 3, 4}, each timed against its bound and
    torch.matmul / torch.sparse.mm; the compressed exchange of an
-   asynchronous event (``quant_mix_pair``: the dense round over the pair's
-   two rows with its 2 × 2 operator) at full width, int8 and fp8, γ 1 and
-   0.5, against the plain version in the JAX pairwise form (scales and H'
-   bitwise, X' within fp32 rounding), timed against its bound; flash at
+   asynchronous event (``quant_mix_pair``, route ``pair``: a kernel of its
+   own over the pair's two rows with its 2 × 2 operator) at full width,
+   int8 and fp8, γ 1 and 0.5, against the plain version in the JAX
+   pairwise form (scales and H' bitwise, X' within fp32 rounding) and
+   bitwise the dense round on the staged route and ``pair_round_ref``,
+   timed in turns with the staged route against its bound; flash at
    the new configs' serve shapes (granite-moe-1b-a400m 4 × 2048 and
    1 × 512, qwen1.5-4b and stablelm-12b 4 × 2048, the swa variant's
    1 × 16,384 at window 8192, its plain version one head at a time) and
@@ -160,8 +166,8 @@ run with a non-zero exit:
 4g. event-driven gossip — the CLI with ``--async`` at full width on
    kreg4-16 (10 units of virtual time, cut from 20 for the script's
    time): plain (no listed kernel launches,
-   messages twice the events), ``--compress int8`` (one ``quant_mix_dense``
-   launch an event, all staged, the final test loss within 2% of the
+   messages twice the events), ``--compress int8`` (one ``quant_mix_pair``
+   launch an event, the final test loss within 2% of the
    plain run's) and ``--uncoordinated-init --estimate-rounds 32 --link-p
    0.8 --local-batches 2``, each timed as a caller pays (µs an event);
    one event step eager
@@ -246,10 +252,13 @@ run with a non-zero exit:
    uncompressed and int8 (quantisation-code flips counted, each within one
    code step), and the paper CNN (He init);
 6. CLI     — ``repro_torch.launch.train`` on a 1024-node ring (sparse
-   backend, 3 row-list launches; then ``--compress int8``, 3 quantised
-   block-sparse launches), and with ``--uncoordinated-init`` on the CLI's
-   BA-1024 (the warmup's 64 block-sparse gossip launches over Mᵀ, then 3
-   row-list launches with hub rows; finite losses);
+   backend, 3 row-list launches on the ``rows`` route; then ``--compress
+   int8``, 3 quantised block-sparse launches), and with
+   ``--uncoordinated-init`` on the CLI's BA-1024 (the warmup's 64
+   block-sparse gossip launches over Mᵀ, then 3 row-list launches with hub
+   rows on the ``slab`` route; finite losses); every row-list launch of a
+   run on the route ``hyb_route`` names for its operator (so too in 4e,
+   4f, 4j, 6b and 6c);
 6c. the launch layer — a world-size-1 NCCL group and the (1, 1)
    ``("data", "model")`` DeviceMesh over it (``launch/mesh.py``): the
    prefill step (``launch/steps.py``) of qwen2.5-3b at full width in bf16
@@ -385,6 +394,11 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+# row 2y: the route hyb_route names must be within 3% of the faster route,
+# in turns at each of phase 3's shapes
+HYB_ROUTE_SLACK = 1.03
 
 
 def time_ms(fn, reps: int = 7, flush=None, hold: bool = False) -> float:
@@ -532,12 +546,15 @@ def kernel_counters():
     """The port's kernel wrappers (each counts the launches it makes) and a
     function that sets every count, by route too, to 0."""
     from repro_torch.kernels.flash import ROUTES, flash_mha
-    from repro_torch.kernels.mix import mix_bsr, mix_hyb, mix_matmul, quant_mix_bsr, quant_mix_dense, quant_scales
+    from repro_torch.kernels.mix import (
+        mix_bsr, mix_hyb, mix_matmul, quant_mix_bsr, quant_mix_dense, quant_mix_pair, quant_scales,
+    )
     from repro_torch.kernels.mix import mix as mix_kernel
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
     from repro_torch.kernels.rwkv import rwkv6_chunked
 
-    kernels = [mix_matmul, mix_bsr, mix_hyb, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr]
+    kernels = [mix_matmul, mix_bsr, mix_hyb, flash_mha, rwkv6_chunked, quant_scales, quant_mix_dense, quant_mix_bsr,
+               quant_mix_pair]
 
     def reset_counts():
         for kern in kernels:
@@ -605,7 +622,7 @@ def main() -> int:
     from repro_torch.kernels.mix import ops as mix_ops
     from repro_torch.kernels.mix import quant as mix_quant
     from repro_torch.kernels.mix import pair_mix_ref, quant_mix_pair
-    from repro_torch.kernels.mix.ref import quant_mix_ref, quant_scales_ref
+    from repro_torch.kernels.mix.ref import pair_round_ref, quant_mix_ref, quant_scales_ref
     from repro_torch.kernels.rwkv import ops as rwkv_ops
     from repro_torch.kernels.rwkv import rwkv as rwkv_kernels
     from repro_torch.kernels.rwkv import rwkv6_chunked, rwkv6_chunked_ref
@@ -622,18 +639,38 @@ def main() -> int:
     from repro_torch.optim import sgd
 
     dev = resolve_device("cuda")
-    kernels, reset_counts = kernel_counters()
+    kernels, reset_kernel_counts = kernel_counters()
     none_launched = {kern.__name__: 0 for kern in kernels}
     t_start = time.perf_counter()
-    # mix_hyb's launches by route, for the kernels line's rows: every
-    # main-path run stages at most SLAB_MAX_ROWS rows, so each of its
-    # launches must take the slab route
+    # mix_hyb's launches by route, for the kernels line's rows.  Every
+    # main-path call goes through kernels/mix/ops.py (mix_flat, its one
+    # caller): a wrapper there tallies the route hyb_route names for each
+    # card call from the call's own operator and W (route_of), and each run
+    # must have launched exactly those routes
     hyb_by_route = {}
+    hyb_named = dict.fromkeys(mix_hyb_kernel.ROUTES, 0)
 
-    def hyb_on_slab(row, launched, tag, routes=None):
-        # routes: the run's launches by route, read before any later reset
+    def naming_mix_hyb(op, w, w_hub=None):
+        if w.is_cuda:
+            hyb_named[mix_hyb_kernel.route_of(op, w, w_hub)] += 1
+        return mix_hyb(op, w, w_hub)
+
+    mix_ops.mix_hyb = naming_mix_hyb
+
+    def reset_counts():
+        reset_kernel_counts()
+        hyb_named.update(dict.fromkeys(hyb_named, 0))
+
+    def hyb_on_route(row, launched, tag, routes=None, named=None, want=None):
+        # routes / named: the run's launches by route and the routes the
+        # rule named, read before any later reset; want: the one route a
+        # run of one operator must take (phase 3 times it at that shape)
         routes = dict(mix_hyb.launches_by_route) if routes is None else routes
-        check(routes == {"slab": launched, "rows": 0}, f"{tag}: mix_hyb routes {routes}, want {launched} on slab")
+        named = dict(hyb_named) if named is None else named
+        check(sum(routes.values()) == launched and routes == named,
+              f"{tag}: mix_hyb routes {routes}, the rule named {named} for its {launched} launches")
+        if want is not None:
+            check(routes[want] == launched, f"{tag}: mix_hyb routes {routes}, want {launched} on {want}")
         prev = hyb_by_route.get(row, dict.fromkeys(routes, 0))
         hyb_by_route[row] = {k: prev[k] + routes[k] for k in routes}
 
@@ -1228,14 +1265,16 @@ def main() -> int:
     # the row-list kernel (2y): every unmasked sparse round (the JAX
     # package's clean-path HYB rendering, mix_pytree_hyb, XLA there, no
     # pallas_call).  At each shape: launched on the route hyb_route names
-    # (the slab route at every shape here), bitwise its plain version
-    # mix_hyb_ref (the same roundings in the same order) and the other
-    # route, and within the fp32 tolerance of the dense M·W (rows of M for a
-    # shard's block); timed, L2 flushed, median of 7, in turns (slab, rows,
-    # mix_bsr, mix_bsr, rows, slab) with the rows route and mix_bsr on the
-    # same operator (the plan's tiles, or the rank's tiles over its
-    # [local | halo] buffer), beside torch.sparse.mm on M's CSR (fp32 only)
-    # and the plain version.  Byte
+    # (route_of: the operator's rows, ELL width and hub rows, W's dtype,
+    # the staged rows), bitwise its plain version mix_hyb_ref (the same
+    # roundings in the same order) and the other route, and within the fp32
+    # tolerance of the dense M·W (rows of M for a shard's block); timed, L2
+    # flushed, median of 7, in turns (the named route, the other, mix_bsr,
+    # mix_bsr, the other, the named; twice; each route through
+    # hyb._launch) with mix_bsr on the same operator (the
+    # plan's tiles, or the rank's tiles over its [local | halo] buffer),
+    # beside torch.sparse.mm on M's CSR (fp32 only) and the plain version;
+    # the named route must be within 3% of the faster in those turns.  Byte
     # bound as row 2h counts it: each nonzero's weight and index (8 B; an
     # ELL row's self term, its nonzero slots, a hub row's nonzeros), each
     # input row some nonzero reads (in W, and in the gathered payload for a
@@ -1244,21 +1283,20 @@ def main() -> int:
 
     def hyb_case(key, op_y, w_y, m_rows, x_full, run_bsr, w_hub=None, csr_y=None):
         label = f"mix_hyb {key} d={w_y.shape[1]} {str(w_y.dtype).removeprefix('torch.')}"
-        route_y = hyb_route(w_y.shape[0], (w_y if w_hub is None else w_hub).shape[0] if op_y.n_hubs else 0,
-                            w_hub is None, w_y.dtype)
-        check(route_y == "slab", f"{label}: route {route_y}, want slab")
+        route_y = mix_hyb_kernel.route_of(op_y, w_y, w_hub)
+        other_y = "rows" if route_y == "slab" else "slab"
         before = dict(mix_hyb.launches_by_route)
         e = compare(label, lambda: mix_hyb(op_y, w_y, w_hub), decavg_mix_ref(m_rows, x_full), w_y,
                     bf16=w_y.dtype == torch.bfloat16)
         check(mix_hyb.launches_by_route == {**before, route_y: before[route_y] + 2},
               f"{label}: routes {mix_hyb.launches_by_route}, want two launches on {route_y}")
-        y_slab = mix_hyb(op_y, w_y, w_hub)
-        same = bool(torch.equal(y_slab, mix_hyb_ref(op_y, w_y, w_hub)))
-        same_rows = bool(torch.equal(y_slab, mix_hyb_kernel._launch(op_y, w_y, w_hub, "rows")))
-        print(f"    {label} ({route_y}): bitwise mix_hyb_ref {same}, the rows route {same_rows}")
+        y_got = mix_hyb(op_y, w_y, w_hub)
+        same = bool(torch.equal(y_got, mix_hyb_ref(op_y, w_y, w_hub)))
+        same_other = bool(torch.equal(y_got, mix_hyb_kernel._launch(op_y, w_y, w_hub, other_y)))
+        print(f"    {label} ({route_y}): bitwise mix_hyb_ref {same}, the {other_y} route {same_other}")
         check(same, f"{label}: the kernel differs from mix_hyb_ref")
-        check(same_rows, f"{label}: the slab route differs from the rows route")
-        del y_slab
+        check(same_other, f"{label}: the {route_y} route differs from the {other_y} route")
+        del y_got
         # the walk on the same operator sums in another order: the fp32
         # tolerance, and in bf16 one bf16 rounding of either sum
         y_b = run_bsr().float()
@@ -1276,25 +1314,33 @@ def main() -> int:
         elem, d_y = w_y.element_size(), w_y.shape[1]
         bytes_y = 8 * nnz_y + elem * d_y * (n_read + op_y.n_rows)
         b_y, by_y = bound(bytes_y, 2 * nnz_y * d_y)
-        turns = {"mix_hyb": [], "rows": [], "mix_bsr": []}
-        runs = {"mix_hyb": lambda: mix_hyb(op_y, w_y, w_hub),
-                "rows": lambda: mix_hyb_kernel._launch(op_y, w_y, w_hub, "rows"), "mix_bsr": run_bsr}
-        for name in ("mix_hyb", "rows", "mix_bsr", "mix_bsr", "rows", "mix_hyb"):
+        # both routes through the one launcher (the wrapper's argument checks
+        # are host time that a launch-bound shape would count on one side)
+        turns = {route_y: [], other_y: [], "mix_bsr": []}
+        runs = {r: (lambda r=r: mix_hyb_kernel._launch(op_y, w_y, w_hub, r)) for r in (route_y, other_y)}
+        runs["mix_bsr"] = run_bsr
+        for name in (route_y, other_y, "mix_bsr", "mix_bsr", other_y, route_y) * 2:
             turns[name].append(time_ms(runs[name], flush=flush))
+        by_route_ms = {route_y: min(turns[route_y]), other_y: min(turns[other_y])}
         hyb_shapes[key] = dict(
             shape=f"{key}: {op_y.n_rows} rows, {op_y.slot_idx.shape[0]} slots, {op_y.n_hubs} hub rows "
                   f"({op_y.hub_col.numel()} nonzeros), {n_read} input rows read, d={d_y} "
                   f"{str(w_y.dtype).removeprefix('torch.')}", max_abs_err=e, hyb_route=route_y,
-            ms=min(turns["mix_hyb"]), rows_ms=min(turns["rows"]), mix_bsr_ms=min(turns["mix_bsr"]), turns_ms=turns,
+            ms=by_route_ms[route_y], slab_ms=by_route_ms["slab"], rows_ms=by_route_ms["rows"],
+            mix_bsr_ms=min(turns["mix_bsr"]), turns_ms=turns,
             plain_ms=time_ms(lambda: mix_hyb_ref(op_y, w_y, w_hub), reps=3, flush=flush),
             library_ms=None if csr_y is None else time_ms(lambda: torch.sparse.mm(csr_y, x_full), flush=flush),
             bound_ms=b_y, bound_by=by_y, bytes=bytes_y,
         )
         t = hyb_shapes[key]
-        print(f"    {key}: mix_hyb {t['ms']:.4f} ms ({route_y}), the rows route {t['rows_ms']:.4f}, mix_bsr "
+        print(f"    {key}: mix_hyb {t['ms']:.4f} ms ({route_y}), the {other_y} route {by_route_ms[other_y]:.4f} "
+              f"(the named route {t['ms'] / min(by_route_ms.values()):.3f}× the faster), mix_bsr "
               f"{t['mix_bsr_ms']:.4f} (in turns {turns}), plain "
               f"{t['plain_ms']:.4f}, torch.sparse.mm {t['library_ms']}, bound {b_y:.4f} ({by_y}; "
               f"{100 * b_y / t['ms']:.1f}% of it)")
+        check(t["ms"] <= HYB_ROUTE_SLACK * min(by_route_ms.values()),
+              f"{label}: the named route {route_y} {t['ms']:.4f} ms, more than 3% above the {other_y} route's "
+              f"{by_route_ms[other_y]:.4f} (in turns {turns})")
         return e
 
     def hyb_plan_case(key, graph_y, d_y, dtype=torch.float32, w_y=None):
@@ -1316,8 +1362,9 @@ def main() -> int:
     # the slab route's reason to be: at the CLI's BA-1024 it must beat the
     # rows route of the same call, in turns
     t_ba = hyb_shapes["ba-1024 (the CLI's: m 8, seed 0)"]
-    check(t_ba["ms"] < t_ba["rows_ms"], f"BA-1024 (m 8): the slab route {t_ba['turns_ms']['mix_hyb']} ms not faster "
-          f"than the rows route {t_ba['turns_ms']['rows']}")
+    check(t_ba["hyb_route"] == "slab" and t_ba["slab_ms"] < t_ba["rows_ms"],
+          f"BA-1024 (m 8): the slab route {t_ba['slab_ms']} ms not named or not faster than the rows route "
+          f"{t_ba['rows_ms']}")
     errs["mix_hyb_schedule"] = hyb_plan_case("kreg4-256 (the churn CLI's base graph)",
                                              cli.build_graph("kregular", 256, 0), D_MAIN)
     errs["mix_hyb_launch"] = hyb_plan_case("circulant-16 (1, 2) (launch layer)", g_launch, D_LAUNCH, w_y=w_launch)
@@ -1354,16 +1401,28 @@ def main() -> int:
             buf_r = torch.cat([x_y[lo: lo + recv_y.nps],
                                x_y[torch.as_tensor(halo_r.reshape(-1), dtype=torch.int64, device=dev)]])
             before = dict(mix_hyb.launches_by_route)
+            route_r = mix_hyb_kernel.route_of(op_r, buf_r, x_y)
             y_r = mix_hyb(op_r, buf_r, x_y)
-            check(mix_hyb.launches_by_route == {**before, "slab": before["slab"] + 1},
-                  f"mix_hyb {key.replace('rank 0', f'rank {rank}')}: routes {mix_hyb.launches_by_route}")
+            check(mix_hyb.launches_by_route == {**before, route_r: before[route_r] + 1},
+                  f"mix_hyb {key.replace('rank 0', f'rank {rank}')}: routes {mix_hyb.launches_by_route}, want one "
+                  f"on {route_r}")
             check(torch.equal(y_r, mix_hyb_ref(op_r, buf_r, x_y))
-                  and torch.equal(y_r, mix_hyb_kernel._launch(op_r, buf_r, x_y, "rows"))
+                  and all(torch.equal(y_r, mix_hyb_kernel._launch(op_r, buf_r, x_y, r)) for r in ("slab", "rows"))
                   and torch.equal(y_r, mix_hyb(plan_y.hyb, x_y)[lo: lo + recv_y.nps]),
                   f"mix_hyb {key.replace('rank 0', f'rank {rank}')}: not bitwise")
-        print(f"    {key.removesuffix(' rank 0')} ranks 1–3: the slab route bitwise mix_hyb_ref, the rows route "
-              "and the unsharded call's rows")
+        print(f"    {key.removesuffix(' rank 0')} ranks 1–3: each on the route hyb_route names, bitwise "
+              "mix_hyb_ref, both routes and the unsharded call's rows")
     print(f"  {len(hyb_shapes)} mix_hyb shapes held against mix_hyb_ref (bitwise) and M·W")
+    # the rule's picks at the shapes that decided it (hyb.py::hyb_route):
+    # fp32 ring-1024 and circulant-16 on the rows route, circulant-16 below
+    # torch.sparse.mm; the hub graphs and bf16 ring on the slab route
+    for key, want in (("ring-1024", "rows"), ("circulant-16 (1, 2) (launch layer)", "rows"),
+                      ("ring-1024 bf16", "slab"), ("ba-1024 (the CLI's: m 8, seed 0)", "slab"),
+                      ("heavytail-1024", "slab")):
+        check(hyb_shapes[key]["hyb_route"] == want, f"mix_hyb {key}: route {hyb_shapes[key]['hyb_route']}, want {want}")
+    t_circ = hyb_shapes["circulant-16 (1, 2) (launch layer)"]
+    check(t_circ["ms"] < t_circ["library_ms"], f"mix_hyb circulant-16: {t_circ['ms']:.4f} ms, not below "
+          f"torch.sparse.mm's {t_circ['library_ms']:.4f}")
     timing["mix_hyb"] = dict(hyb_shapes["ring-1024"], shapes=[dict(t, key=k) for k, t in hyb_shapes.items()])
     timing["mix_hyb_ba"] = hyb_shapes["ba-1024 (the CLI's: m 8, seed 0)"]
     timing["mix_hyb_schedule"] = hyb_shapes["kreg4-256 (the churn CLI's base graph)"]
@@ -1670,9 +1729,11 @@ def main() -> int:
                       keep=None):
         """With ``route`` the kernel is the dense round: it takes the table as
         host ints and returns its scales, both its launches take that route,
-        and the host's count of its shared memory is the kernel's; else a BSR
-        walk given the scales pass's.  ``keep`` freezes the mirrors of the
-        rows it marks False (the elastic round's non-members)."""
+        and the host's count of its shared memory is the kernel's; route
+        "pair" is the event's pair kernel, which takes the table so too and
+        counts its own launches; else a BSR walk given the scales pass's.
+        ``keep`` freezes the mirrors of the rows it marks False (the elastic
+        round's non-members)."""
         ref_scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef and h is not None, floor=floor)
         kw = dict(codec=codec, gamma=gamma, error_feedback=ef, **({} if keep is None else {"keep": keep}))
         if route is None:
@@ -1680,6 +1741,12 @@ def main() -> int:
 
             def run():
                 return kernel(x, h, bounds, scales, **kw), scales
+        elif route == "pair":
+            pair_before = quant_mix_pair.launches
+            edges = tuple(bounds.tolist())
+
+            def run():
+                return kernel(x, h, edges, floor=floor, **kw)
         else:
             by_route = dict(quant_mix_dense.launches_by_route)
             edges = tuple(bounds.tolist())
@@ -1694,7 +1761,10 @@ def main() -> int:
         torch.cuda.synchronize()
         check(torch.equal(scales, ref_scales) and torch.equal(scales, scales_again),
               f"{label}: scales differ from the plain version")
-        if route is not None:
+        if route == "pair":
+            check(quant_mix_pair.launches == pair_before + 2,
+                  f"{label}: {quant_mix_pair.launches - pair_before} pair launches, want 2")
+        elif route is not None:
             check(quant_mix_dense.launches_by_route == {**by_route, route: by_route[route] + 2},
                   f"{label}: routes {quant_mix_dense.launches_by_route}, want two launches on {route}")
         ref = quant_mix_ref(plain_mix, x, h, bounds, ref_scales, codec=codec, gamma=gamma,
@@ -1863,45 +1933,69 @@ def main() -> int:
     )
     del x8m, h8m
     # the compressed exchange of an asynchronous event (phase 4g's int8
-    # exchanges): the dense round over the pair's two rows with its 2 × 2
-    # operator [[1 − w_uv, w_uv], [w_vu, 1 − w_vu]] (BA-16 with data sizes,
-    # its first and last edge), against the plain version, which mixes in
-    # the JAX package's pairwise form h'_u + w_uv (h'_v − h'_u): scales and
-    # H' bitwise, X' within fp32 rounding of the two forms; compare_quant
-    # holds the host's shared-memory count at n = 2 to the kernel's
+    # exchanges, row 3e): the pair kernel (route pair) over the pair's two
+    # rows with its 2 × 2 operator [[1 − w_uv, w_uv], [w_vu, 1 − w_vu]]
+    # (BA-16 with data sizes, its first and last edge), against the plain
+    # version, which mixes in the JAX package's pairwise form h'_u + w_uv
+    # (h'_v − h'_u): scales and H' bitwise, X' within fp32 rounding of the
+    # two forms; and bitwise (scales, H', X') the dense round on the staged
+    # route with the same operator (the route the exchange took before it
+    # had a kernel of its own) and the kernel's arithmetic on the card
+    # (ref.pair_round_ref)
     pair_plan = compile_plan(T.barabasi_albert(16, 3, seed=0), "dense", data_sizes=np.linspace(1.0, 2.0, 16),
                              device=dev)
     x2, h2 = quant_inputs(2)
-    errs["quant_mix_dense_event"] = 0.0
+    errs["quant_mix_pair"] = 0.0
     for e_p in (0, pair_plan.n_edges - 1):
         m2_p, w2_p = pair_plan.event_m2[e_p], pair_plan.event_w[e_p]
         for codec in ("int8", "fp8"):
             for gamma in (1.0, 0.5):
-                errs["quant_mix_dense_event"] = max(errs["quant_mix_dense_event"], compare_quant(
-                    f"quant_mix_pair {codec} BA-16 edge {e_p} γ={gamma}",
-                    lambda x, h, edges, floor="codec", m2=m2_p, **kw: quant_mix_pair(m2, x, h, edges, **kw),
+                label_p = f"quant_mix_pair {codec} BA-16 edge {e_p} γ={gamma}"
+                errs["quant_mix_pair"] = max(errs["quant_mix_pair"], compare_quant(
+                    label_p, lambda x, h, edges, floor="codec", m2=m2_p, **kw: quant_mix_pair(m2, x, h, edges, **kw),
                     lambda hq, w=w2_p: pair_mix_ref(hq, w), x2, h2, mlp_bounds, codec=codec, gamma=gamma,
-                    route="staged"))
+                    route="pair"))
+                kw_p = dict(codec=codec, gamma=gamma)
+                (xp, hp), sp = quant_mix_pair(m2_p, x2, h2, mlp_edges, **kw_p)
+                (xs, hs), ss = quant_mix_dense(m2_p, x2, h2, mlp_edges, **kw_p)
+                xr, hr = pair_round_ref(m2_p, x2, h2, mlp_bounds, sp, **kw_p)
+                same_s = bool(torch.equal(sp, ss) and torch.equal(hp, hs) and torch.equal(xp, xs))
+                same_r = bool(torch.equal(hp, hr) and torch.equal(xp, xr))
+                print(f"    {label_p}: bitwise the staged route (scales, H', X') {same_s}, pair_round_ref {same_r}")
+                check(same_s and same_r, f"{label_p}: the pair route is not bitwise the staged route or "
+                      f"pair_round_ref ({same_s}, {same_r})")
+                del xp, hp, sp, xs, hs, ss, xr, hr
     m2_p, w2_p = pair_plan.event_m2[0], pair_plan.event_w[0]
     pair_tiles = mix_quant.tile_plan(mlp_edges, 2, torch.float32, dev)[0]
+    pair_threads, pair_blocks, pair_passes = mix_quant.pair_launch(mlp_edges)
     # bytes: X and H of the two rows read once, X' and H' written once, M,
     # the scales and the chunk table; flops: the mix's 2 n² d and ~12 per
-    # element, as the dense round's row above
+    # element, as the dense round's row above.  Timed held (device time), L2
+    # flushed, in turns with the staged route: pair, staged, staged, pair
     b_qp, op_qp = bound(16 * 2 * D_MAIN + 4 * 4 + 4 * 2 * n_chunks + table_bytes, 2 * 4 * D_MAIN + 12 * 2 * D_MAIN)
-    timing["quant_mix_dense_event"] = dict(
-        ms=time_ms(lambda: quant_mix_pair(m2_p, x2, h2, mlp_edges, codec="int8", gamma=1.0), flush=flush, hold=True),
+    runs_p = {"pair": lambda: quant_mix_pair(m2_p, x2, h2, mlp_edges, codec="int8", gamma=1.0),
+              "staged": lambda: quant_mix_dense(m2_p, x2, h2, mlp_edges, codec="int8", gamma=1.0)}
+    turns_p = {"pair": [], "staged": []}
+    for name in ("pair", "staged", "staged", "pair"):
+        turns_p[name].append(time_ms(runs_p[name], flush=flush, hold=True))
+    timing["quant_mix_pair"] = dict(
+        ms=min(turns_p["pair"]), staged_ms=min(turns_p["staged"]), turns_ms=turns_p,
         plain_ms=time_ms(lambda: quant_mix_ref(lambda hq: pair_mix_ref(hq, w2_p), x2, h2, mlp_bounds,
                                                quant_scales_ref(x2, h2, mlp_bounds, codec="int8"), codec="int8",
                                                gamma=1.0), flush=flush),
         library_ms=None,  # no one PyTorch call quantises and mixes
         bound_ms=b_qp, bound_by=op_qp,
-        shape=f"an event's pair (n = 2) int8 round, d={D_MAIN}, fp32, scales included, {len(pair_tiles.tiles)} "
-              f"tiles of {pair_tiles.cluster} CTAs",
+        shape=f"an event's pair (n = 2) int8 round, d={D_MAIN}, fp32, scales included, {n_chunks} chunks: "
+              f"{pair_blocks} blocks of {pair_threads} threads, {pair_passes} pass(es) a chunk",
     )
-    t_p = timing["quant_mix_dense_event"]
-    print(f"  quant_mix_pair int8 at n = 2: {t_p['ms']:.4f} ms held, bound {t_p['bound_ms']:.4f} ms "
-          f"({t_p['bound_by']}; {t_p['bound_ms'] / t_p['ms']:.1%} of it), plain {t_p['plain_ms']:.4f} ms; "
-          f"{len(pair_tiles.tiles)} tiles of {pair_tiles.cluster} CTAs ({pair_tiles.cols} columns staged a CTA)")
+    t_p = timing["quant_mix_pair"]
+    print(f"  quant_mix_pair int8 at n = 2: {t_p['ms']:.4f} ms held (route pair: {pair_blocks} blocks of "
+          f"{pair_threads} threads), "
+          f"bound {t_p['bound_ms']:.4f} ms ({t_p['bound_by']}; {t_p['bound_ms'] / t_p['ms']:.1%} of it), plain "
+          f"{t_p['plain_ms']:.4f} ms; in turns {turns_p} against the staged route ({len(pair_tiles.tiles)} tiles of "
+          f"{pair_tiles.cluster} CTAs, {pair_tiles.cols} columns staged a CTA)")
+    check(t_p["ms"] < t_p["staged_ms"], f"quant_mix_pair: the pair route {turns_p['pair']} ms not faster than the "
+          f"staged route {turns_p['staged']}")
     del x2, h2
     b_qb, op_qb = bound(16 * 1024 * D_MAIN + tile_bytes + 4 * 1024 * n_chunks + table_bytes,
                         2 * nnz * D_MAIN + 9 * 1024 * D_MAIN)
@@ -2669,7 +2763,7 @@ def main() -> int:
     )
     for clabel, argv, kname, n_gossip, tname, n_train in cli_runs:
         hist_c, wall_c, launches_c = counted(lambda: cli.main(["--model", "mlp", "--uncoordinated-init", *argv]))
-        routes_c = dict(mix_hyb.launches_by_route)
+        routes_c, named_c = dict(mix_hyb.launches_by_route), dict(hyb_named)
         args_c = dict(zip(argv[::2], argv[1::2]))
         graph_c = cli.build_graph(args_c["--topology"], int(args_c["--nodes"]), 0)
         plan_c = compile_plan(graph_c, failures=FailureModel(link_p=float(args_c.get("--link-p", 1.0))), device="cpu")
@@ -2691,7 +2785,7 @@ def main() -> int:
         want_c[tname] += n_train
         check(launches_c == want_c, f"CLI {clabel}: launches {launches_c}")
         if tname == "mix_hyb":
-            hyb_on_slab("4e", launches_c["mix_hyb"], f"CLI {clabel}", routes_c)
+            hyb_on_route("4e", launches_c["mix_hyb"], f"CLI {clabel}", routes_c, named_c)
         check(launches_alone == {**none_launched, kname: n_gossip}, f"CLI {clabel}: estimator launches {launches_alone}")
         check(torch.equal(gains_alone.cpu(), gains_card), f"CLI {clabel}: the estimator alone gives other gains")
         check(err_c <= 1e-4, f"CLI {clabel}: gains card vs CPU {err_c}")
@@ -2796,7 +2890,7 @@ def main() -> int:
     sched_launches["mix_hyb"] = launches_f["mix_hyb"]
     check(launches_f == {**none_launched, "mix_bsr": 32, "mix_hyb": 6},
           f"churn CLI launches {launches_f}, want 32 mix_bsr (gossip) and 6 mix_hyb (training)")
-    hyb_on_slab("mix_hyb_schedule", launches_f["mix_hyb"], "churn CLI")
+    hyb_on_route("mix_hyb_schedule", launches_f["mix_hyb"], "churn CLI")
     check(len(send_builds) == len(set(send_builds)) == 8, f"churn CLI built Mᵀ {len(send_builds)} times")
     base_256 = cli.build_graph("kregular", 256, 0)
     churned = compile_schedule(T.churn_sequence(base_256, 8, 0.2, seed=1), "sparse", device=dev)
@@ -3055,8 +3149,7 @@ def main() -> int:
                              ("uncoordinated", ["--uncoordinated-init", "--estimate-rounds", "32", "--link-p", "0.8",
                                                 "--local-batches", "2"])):
             hist_g, wall_g, launches_g = counted(lambda: cli.main(base_4g + extra))
-            runs_4g[label] = dict(hist=hist_g, wall=wall_g, launches=launches_g, run_s=run_walls[-1],
-                                  routes=dict(quant_mix_dense.launches_by_route))
+            runs_4g[label] = dict(hist=hist_g, wall=wall_g, launches=launches_g, run_s=run_walls[-1])
     finally:
         cli.run_event_trajectory = real_run_event
     for label, r in runs_4g.items():
@@ -3073,15 +3166,14 @@ def main() -> int:
               f"CLI {label}: a non-finite loss")
     check(sum(runs_4g["plain"]["hist"]["messages"]) == 2 * n_ev and runs_4g["plain"]["launches"] == none_launched,
           f"CLI plain: messages / launches {runs_4g['plain']['launches']}")
-    check(runs_4g["int8"]["launches"] == {**none_launched, "quant_mix_dense": n_ev}
-          and runs_4g["int8"]["routes"] == {"staged": n_ev, "wide": 0},
-          f"CLI int8: launches {runs_4g['int8']['launches']} routes {runs_4g['int8']['routes']}, want {n_ev} staged")
+    check(runs_4g["int8"]["launches"] == {**none_launched, "quant_mix_pair": n_ev},
+          f"CLI int8: launches {runs_4g['int8']['launches']}, want {n_ev} on the pair kernel")
     t_plain, t_int8 = runs_4g["plain"]["hist"]["test_loss"][-1], runs_4g["int8"]["hist"]["test_loss"][-1]
     check(abs(t_int8 - t_plain) <= 0.02 * abs(t_plain), f"CLI int8 final test loss {t_int8} vs {t_plain}")
     msgs_u = sum(runs_4g["uncoordinated"]["hist"]["messages"])
     check(0 < msgs_u < 2 * n_ev and runs_4g["uncoordinated"]["launches"] == none_launched,
           f"CLI uncoordinated (link_p 0.8): {msgs_u} messages, launches {runs_4g['uncoordinated']['launches']}")
-    event_launches = runs_4g["int8"]["launches"]["quant_mix_dense"]
+    event_launches = runs_4g["int8"]["launches"]["quant_mix_pair"]
 
     # one event step of the CLI's run (kreg4-16, full width, 8 local
     # batches an endpoint), eager against one step captured as a CUDA graph
@@ -3216,7 +3308,7 @@ def main() -> int:
             executor_mod.quant_mix_pair = quant_mix_pair
     (fin_g, h_g, aux_g), (fin_c, h_c, aux_c) = res_e["cuda"], res_e["cpu"]
     delivered_e = sum(h_g["messages"]) // 2
-    check(launches_e == {**none_launched, "quant_mix_dense": delivered_e} and len(scales_e["cpu"]) == delivered_e,
+    check(launches_e == {**none_launched, "quant_mix_pair": delivered_e} and len(scales_e["cpu"]) == delivered_e,
           f"BA-16 int8 events: launches {launches_e}, {delivered_e} delivered")
     for key in ("events", "messages", "wire_bytes", "staleness"):
         check(h_g[key] == h_c[key], f"BA-16 events card vs CPU: {key} {h_g[key]} vs {h_c[key]}")
@@ -4160,7 +4252,11 @@ if __name__ == "__main__":
         def inside(ts, spans):
             return any(a <= ts <= b for a, b in spans)
 
-        mix_name = "mix_wide_kernel" if label == "complete-16" else "mix_hyb_slab_kernel"
+        # ring-1024's rounds on the route hyb_route names for its operator
+        route_4j = mix_hyb_kernel.route_of(compile_plan(T.ring(1024), "sparse", device="cpu").hyb,
+                                           torch.empty(1024, 1))
+        mix_name = "mix_wide_kernel" if label == "complete-16" else {"slab": "mix_hyb_slab_kernel",
+                                                                      "rows": "mix_hyb_kernel"}[route_4j]
         mix_k = [e for e in kern_ev if mix_name in e["name"]]
         mix_in = [inside(launch_ts.get(e["args"].get("correlation"), -1.0), scopes["dfl_mix"]) for e in mix_k]
         split = {}
@@ -4521,7 +4617,7 @@ if __name__ == "__main__":
     # every round unmasked: the row-list kernel, one launch a round
     check(cli_launches == {**none_launched, "mix_hyb": 3},
           f"CLI launch counts {cli_launches}")
-    hyb_on_slab("mix_hyb", cli_launches["mix_hyb"], "CLI ring-1024")
+    hyb_on_route("mix_hyb", cli_launches["mix_hyb"], "CLI ring-1024", want="rows")
 
     # the same CLI with int8 gossip: every round one scales pass and one
     # quantised block-sparse walk, no plain block-sparse launch
@@ -4567,7 +4663,7 @@ if __name__ == "__main__":
     check(len(hist_ba["round"]) == 3, "BA-1024 uncoordinated CLI recorded rounds")
     check(cli_ba_launches == {**none_launched, "mix_bsr": 64, "mix_hyb": 3},
           f"BA-1024 uncoordinated CLI launches {cli_ba_launches}")
-    hyb_on_slab("mix_hyb_ba", cli_ba_launches["mix_hyb"], "BA-1024 uncoordinated CLI")
+    hyb_on_route("mix_hyb_ba", cli_ba_launches["mix_hyb"], "BA-1024 uncoordinated CLI", want="slab")
     torch.cuda.empty_cache()
 
     # --------------------- 6b. the node-sharded rendering at one NCCL rank
@@ -4614,7 +4710,7 @@ if __name__ == "__main__":
             shard_launches[kern_6b] = shard_launches.get(kern_6b, 0) + launched[kern_6b]
             check(launched == {**none_launched, kern_6b: rounds}, f"6b {tag}: launches {launched}")
             if kern_6b == "mix_hyb":
-                hyb_on_slab("mix_hyb_halo", launched["mix_hyb"], f"6b {tag}")
+                hyb_on_route("mix_hyb_halo", launched["mix_hyb"], f"6b {tag}", want="rows")
             same = bool(torch.equal(fin_s.params, fin_u.params))
             check(same and all(h_s[k] == h_u[k] for k in ("round", "train_loss", "test_loss")),
                   f"6b {tag}: sharded at one rank not bitwise the unsharded run (params {same})")
@@ -4795,7 +4891,7 @@ if __name__ == "__main__":
             if kern_t:
                 mix_launches_6c[kern_t] = launched_t[kern_t]
             if kern_t == "mix_hyb":
-                hyb_on_slab("mix_hyb_launch", launched_t["mix_hyb"], f"6c train {backend}")
+                hyb_on_route("mix_hyb_launch", launched_t["mix_hyb"], f"6c train {backend}", want="rows")
             # the unsharded round: each node's gradient step, then the plan's mix
             nodes = []
             for j in range(n_6c):
@@ -5612,11 +5708,11 @@ if __name__ == "__main__":
         ("quant_mix_dense_schedule", "src/repro/kernels/mix/quant.py:109", f"{src}/quant_mix.cu",
          sched_launches["quant_mix_dense"]),
         # the event exchanges of phase 4g: the CLI's --async --compress int8
-        # run, one dense round over the pair's two rows a delivered event.
-        # The JAX event executor compresses the exchange with the plain
-        # codec (compressed_mix_with, no pallas_call); the port runs it
-        # through kernel 3's dense round, whose design it reuses
-        ("quant_mix_dense_event", "src/repro/core/compress.py:251", f"{src}/quant_mix.cu", event_launches),
+        # run, one launch of the pair kernel a delivered event.  The JAX
+        # event executor compresses the exchange with the plain codec
+        # (compressed_mix_with, no pallas_call); the port gives it a kernel
+        # of its own beside kernel 3's dense round, whose arithmetic it keeps
+        ("quant_mix_pair", "src/repro/core/compress.py:251", f"{src}/quant_mix.cu", event_launches),
         # the consensus example of phase 4h: its DecAvg rounds (n = 8 over
         # the reduced qwen2.5-3b's row) and its fp32 flash prefills
         ("mix_matmul_decoder", "src/repro/kernels/mix/mix.py:76", f"{src}/mix.cu", lm_launches["mix_matmul"]),
@@ -5690,8 +5786,10 @@ if __name__ == "__main__":
         if name == "flash_mha_hd160":  # row 4c: the padded route of the same call, timed in turns
             row.update(padded_ms=t["padded_ms"], padded_calls=new_serve["stablelm-12b"]["padded"],
                        fp32_ms=t["fp32"]["ms"], fp32_library_ms=t["fp32"]["library_ms"])
+        if name == "quant_mix_pair":  # row 3e: the staged route of the same call, timed in turns
+            row.update(shape=t["shape"], staged_ms=t["staged_ms"])
         if name.startswith("mix_hyb"):
-            row.update(shape=t["shape"], mix_bsr_ms=t["mix_bsr_ms"], rows_ms=t["rows_ms"],
+            row.update(shape=t["shape"], mix_bsr_ms=t["mix_bsr_ms"], slab_ms=t["slab_ms"], rows_ms=t["rows_ms"],
                        launches_by_route=hyb_by_route[name], hyb_route=t["hyb_route"])
             if "shapes" in t:
                 row["shapes"] = t["shapes"]

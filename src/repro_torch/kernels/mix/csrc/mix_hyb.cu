@@ -41,16 +41,18 @@
 // What bounds it on an H100: reading W once and writing Y once, 8 n d bytes
 // in fp32, against 2 d flops a nonzero: memory-bound for every sparse family.
 //
-// Two routes, picked on the host from the staged rows alone (hyb.py::
-// hyb_route; no pointer enters, so chunked and resumed runs sum alike), with
-// the same sums in the same order: the results are bitwise equal.
+// Two routes, picked on the host from the operator's shape, W's dtype and
+// the staged rows (hyb.py::hyb_route, by the routes' times in turns on an
+// H100; no pointer enters, so chunked and resumed runs sum alike), with the
+// same sums in the same order: the results are bitwise equal.
 //
 // Route "rows" (mix_hyb_kernel; any n): the work above.  Its time follows
 // the gathered rows at about L2's rate: a source row is read again from L2
 // for every output row that reads it, and a hub row of hundreds of nonzeros
 // is walked serially by one block while the others wait on theirs.
 //
-// Route "slab" (mix_hyb_slab_kernel; staged rows <= kSlabMaxRows): a block
+// Route "slab" (mix_hyb_slab_kernel; staged rows <= kSlabMaxRows, but for
+// few output rows and fp32 rings, where the rows route wins): a block
 // owns a column strip of every output row.  It stages the strip of all n_src
 // rows of W (and, in the sharded form, of the n_hub_src rows of W_hub; the
 // unsharded call passes W twice and stages it once) in shared memory, then

@@ -21,7 +21,10 @@
 //
 // The kernels.  quant_mix_dense, M dense: one launch a round,
 // quant_round_kernel (its own section below), which reduces the scales,
-// decodes, mixes and writes in one pass over X and H.  quant_scales: one
+// decodes, mixes and writes in one pass over X and H.  quant_mix_pair, an
+// asynchronous event's exchange over its two rows: quant_pair_kernel (its
+// own section), the dense round's arithmetic at n = 2 in a shape that two
+// rows fill.  quant_scales: one
 // block per (row, chunk) reduces the chunk's absmax of X - H (n * C floats
 // out), for the block-sparse round.  quant_mix_bsr, the walk of
 // bsr_walk.cuh over the nonzeros of M, with the scales quant_scales gave:
@@ -86,6 +89,13 @@ __device__ __forceinline__ float decode(float xv, float hv, float s, int codec, 
   const float t = ef ? xv - hv : xv;
   const float q = quantise(t, s, codec);
   return ef ? __fmaf_rn(q, s, hv) : __fmul_rn(q, s);
+}
+
+// Round mode's X' element: x + gamma (acc - h'), the sum and the product
+// contracted into one FMA (quant_round_kernel and quant_pair_kernel share
+// it, so the two give the same bits).
+__device__ __forceinline__ float round_out(float xv, float acc, float hq, float gamma) {
+  return __fmaf_rn(gamma, __fsub_rn(acc, hq), xv);
 }
 
 // Row `row` of X (and H) at columns c0 .. c0+VEC, and what its peers decode
@@ -517,7 +527,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) quant_round_kernel(RoundA
               static_cast<T*>(a.y)[o] = mixk::from_f32<T>(acc[r][v]);
             } else {
               const float xv = mixk::to_f32(xs[xb[row] + c]), hq = hs[hb[row] + c];
-              static_cast<T*>(a.x_out)[o] = mixk::from_f32<T>(xv + a.gamma * (acc[r][v] - hq));
+              static_cast<T*>(a.x_out)[o] = mixk::from_f32<T>(round_out(xv, acc[r][v], hq, a.gamma));
             }
           }
         }
@@ -572,6 +582,331 @@ cudaError_t dispatch_round(const RoundArgs& a, int cluster, cudaStream_t s) {
   if (a.n <= kMResidentMax) return launch_round<T, round_rg(kMResidentMax), 4, false, 512, 1>(a, cluster, s);
   return launch_round<T, round_rg(kMore), 1, true, 256, 1>(a, cluster, s);
 }
+
+// ------------------------------------------------------------ the pair exchange
+// One compressed exchange of an asynchronous event (quant.py::quant_mix_pair):
+// rows u and v of X (2, d), their fp32 mirrors H (or none), the 2 x 2
+// operator M = [[1 - w_uv, w_uv], [w_vu, 1 - w_vu]].  Round mode: the
+// (row, chunk) scales of X - H under the codec's floor, H' = H + Q(X - H)
+// and X' = X + gamma (M H' - H'), in quant_round_kernel's arithmetic at
+// n = 2 (each output one FMA chain from 0 over k = 0, 1, then round_out):
+// the scales, H' and X' are the staged route's bit for bit.
+//
+// Why a kernel of its own: the dense round at n = 2 is a chain of barriers
+// that two rows cannot fill.  Three of its four phases give a warp a row,
+// so 2 of 8 warps work; each CTA pays a cluster barrier pair, a stage of
+// M^T and a column-by-column chunk map; the staged copy goes through
+// shared memory.  Its 0.031 ms against a 0.0054 ms byte bound at the MLP's
+// width (PERF.md, row 3e) was latency: too few bytes in flight.
+//
+// Here a block walks a few chunks (quant.py PAIR_CHUNKS_PER_BLOCK): while
+// it finishes one, the next one's loads are in flight.  A chunk's columns
+// fall into groups of 4 that start where row 0 of H (of X without a
+// mirror) is 16-byte aligned (fp32; 8-byte for bf16 X), and each thread
+// holds kPairSlots groups of both rows, X and H, in registers: no
+// shared-memory copy, every warp in every phase.  A group inside the
+// chunk is loaded as wide as each row's own alignment allows (16, 8 or 4
+// bytes; the second row of the MLP's (2, 567,434) pair starts 8 bytes past
+// a line), a group at the chunk's edges element by element.  A chunk's
+// absmax is a warp shuffle, then one exchange through shared memory and
+// one __syncthreads; the four weights of M sit in registers.  The host
+// sizes the block to hold the widest chunk (quant.py::pair_launch; 288
+// threads for 2,048 columns); a chunk wider than the block holds
+// (Compression.chunk allows 65,536) takes two passes, the absmax from
+// device memory, then decode and mix, the second read from L2.  Bytes: X
+// and H in, X' and H' out, 16 an fp32 element.  No atomics: each element
+// is written by one thread of one block.  What holds it (PERF.md, row 3e;
+// tools/pair_probe.py): at 118 registers a thread one block fits an SM,
+// and the exchange's ~10 us past an empty launch are its reads, then its
+// writes, each at about a third of the card's rate.
+#ifndef QUANT_PAIR_SLOTS
+#define QUANT_PAIR_SLOTS 2
+#endif
+constexpr int kPairSlots = QUANT_PAIR_SLOTS;  // a thread's groups of 4 columns in a one-pass chunk
+constexpr int kPairMaxThreads = 512;  // the block's threads at most (quant.py PAIR_MAX_THREADS)
+
+struct PairArgs {
+  const float* m;           // (2, 2)
+  const void* x;            // (2, d) fp32 or bf16
+  const float* h;           // (2, d) fp32 mirror, or null
+  const long long* bounds;  // (n_chunks + 1,) the chunk table
+  float* scales;            // (2, n_chunks) out
+  void* x_out;              // (2, d) X's dtype
+  float* h_out;             // (2, d)
+  long long d;
+  int n_chunks, codec, ef;
+  float gamma;
+};
+
+// The widest access, in bytes, that `p` allows, up to `cap`.
+__device__ __forceinline__ int align_of(const void* p, int cap) {
+  const unsigned a = (unsigned)(reinterpret_cast<uintptr_t>(p) & 15u);
+  return min(cap, a == 0 ? 16 : (int)(a & (0u - a)));
+}
+
+// Four consecutive elements at p, as wide as the alignment `al` allows.
+__device__ __forceinline__ void load4(const float* p, int al, float (&v)[4]) {
+  if (al >= 16) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else if (al >= 8) {
+    const float2 f0 = *reinterpret_cast<const float2*>(p), f1 = *reinterpret_cast<const float2*>(p + 2);
+    v[0] = f0.x, v[1] = f0.y, v[2] = f1.x, v[3] = f1.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = p[i];
+  }
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int al, float (&v)[4]) {
+  if (al >= 8) {
+    const mixk::Pack<__nv_bfloat16, 4> pk = *reinterpret_cast<const mixk::Pack<__nv_bfloat16, 4>*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = mixk::to_f32(pk.v[i]);
+  } else if (al >= 4) {
+    const __nv_bfloat162 b0 = *reinterpret_cast<const __nv_bfloat162*>(p);
+    const __nv_bfloat162 b1 = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
+    v[0] = __low2float(b0), v[1] = __high2float(b0), v[2] = __low2float(b1), v[3] = __high2float(b1);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = mixk::to_f32(p[i]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, int al, const float (&v)[4]) {
+  T o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = mixk::from_f32<T>(v[i]);
+  if (al >= 4 * (int)sizeof(T)) {
+    mixk::Pack<T, 4> pk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pk.v[i] = o[i];
+    *reinterpret_cast<mixk::Pack<T, 4>*>(p) = pk;
+  } else if (al >= 2 * (int)sizeof(T)) {
+    mixk::Pack<T, 2> p0, p1;
+    p0.v[0] = o[0], p0.v[1] = o[1], p1.v[0] = o[2], p1.v[1] = o[3];
+    reinterpret_cast<mixk::Pack<T, 2>*>(p)[0] = p0;
+    reinterpret_cast<mixk::Pack<T, 2>*>(p + 2)[0] = p1;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = o[i];
+  }
+}
+
+// The pair's rows as a block sees them: row pointers and the alignment of
+// each row's group starts.
+template <typename T>
+struct PairRows {
+  const T* x[2];
+  const float* h[2];
+  T* xo[2];
+  float* ho[2];
+  int ax[2], ah[2], axo[2], aho[2];
+  long long anchor;  // group starts are the columns = anchor (mod 4)
+};
+
+template <typename T>
+__device__ __forceinline__ PairRows<T> pair_rows(const PairArgs& a) {
+  PairRows<T> p;
+  const T* x = static_cast<const T*>(a.x);
+  T* xo = static_cast<T*>(a.x_out);
+  const uintptr_t base = a.h != nullptr ? reinterpret_cast<uintptr_t>(a.h) : reinterpret_cast<uintptr_t>(x);
+  const int esize = a.h != nullptr ? 4 : (int)sizeof(T);
+  const int line = 4 * esize;  // a group's bytes in row 0 of that tensor
+  p.anchor = (long long)((line - (int)(base % line)) % line) / esize;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long o = r * a.d + p.anchor;
+    p.x[r] = x + r * a.d, p.xo[r] = xo + r * a.d, p.ho[r] = a.h_out + r * a.d;
+    p.h[r] = a.h != nullptr ? a.h + r * a.d : nullptr;
+    p.ax[r] = align_of(x + o, 4 * (int)sizeof(T));
+    p.axo[r] = align_of(xo + o, 4 * (int)sizeof(T));
+    p.aho[r] = align_of(a.h_out + o, 16);
+    p.ah[r] = a.h != nullptr ? align_of(a.h + o, 16) : 16;
+  }
+  return p;
+}
+
+// Group c (its first column; it may start before lo) of both rows: X and
+// H, zero outside [lo, hi).  `full`: the group lies inside the chunk.
+template <typename T>
+__device__ __forceinline__ void load_group(const PairRows<T>& p, long long c, long long lo, long long hi, bool full,
+                                           float (&xv)[2][4], float (&hv)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (full) {
+      load4(p.x[r] + c, p.ax[r], xv[r]);
+      if (p.h[r] != nullptr) {
+        load4(p.h[r] + c, p.ah[r], hv[r]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hv[r][i] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = c + i >= lo && c + i < hi;
+        xv[r][i] = in ? mixk::to_f32(p.x[r][c + i]) : 0.f;
+        hv[r][i] = in && p.h[r] != nullptr ? p.h[r][c + i] : 0.f;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void group_amax(const float (&xv)[2][4], const float (&hv)[2][4], int ef,
+                                           float (&amax)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) amax[r] = fmaxf(amax[r], fabsf(ef ? xv[r][i] - hv[r][i] : xv[r][i]));
+}
+
+// Decode group c under the scales s, mix, and write H' and X'.
+template <typename T>
+__device__ __forceinline__ void finish_group(const PairArgs& a, const PairRows<T>& p, const float (&m)[2][2],
+                                             const float (&s)[2], long long c, long long lo, long long hi, bool full,
+                                             const float (&xv)[2][4], const float (&hv)[2][4]) {
+  float hq[2][4], xo[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hq[r][i] = decode(xv[r][i], hv[r][i], s[r], a.codec, a.ef);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) acc = fmaf(m[r][k], hq[k][i], acc);
+      xo[r][i] = round_out(xv[r][i], acc, hq[r][i], a.gamma);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (full) {
+      store4(p.ho[r] + c, p.aho[r], hq[r]);
+      store4(p.xo[r] + c, p.axo[r], xo[r]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c + i >= lo && c + i < hi) p.ho[r][c + i] = hq[r][i], p.xo[r][c + i] = mixk::from_f32<T>(xo[r][i]);
+    }
+  }
+}
+
+// A chunk as a block sees it: its columns [lo, hi), its first group start
+// g0 (at or before lo) and its groups; one_pass: its groups fit the
+// block's registers.
+struct PairChunk {
+  long long lo, hi, g0, groups;
+  bool one_pass;
+};
+
+__device__ __forceinline__ PairChunk pair_chunk(const PairArgs& a, long long anchor, int j, int nt) {
+  PairChunk c;
+  c.lo = a.bounds[j], c.hi = a.bounds[j + 1];
+  c.g0 = c.lo - (((c.lo - anchor) % 4) + 4) % 4;
+  c.groups = c.hi > c.lo ? (c.hi - c.g0 + 3) / 4 : 0;
+  c.one_pass = c.groups <= (long long)kPairSlots * nt;
+  return c;
+}
+
+// A one-pass chunk's groups into registers: kPairSlots a thread.
+template <typename T>
+__device__ __forceinline__ void load_chunk(const PairRows<T>& p, const PairChunk& c, int tid, int nt,
+                                           float (&xv)[kPairSlots][2][4], float (&hv)[kPairSlots][2][4]) {
+#pragma unroll
+  for (int k = 0; k < kPairSlots; ++k) {
+    const long long q = tid + (long long)k * nt, g = c.g0 + 4 * q;
+    if (q < c.groups) load_group(p, g, c.lo, c.hi, g >= c.lo && g + 4 <= c.hi, xv[k], hv[k]);
+  }
+}
+
+// Test hooks (tools/pair_probe.py builds copies with -DQUANT_PAIR_PROBE=):
+// 1 loads and reduces only (the stores behind a test the compiler cannot
+// fold), 2 stores only (no loads).  0, the default, is the kernel whole.
+// The probe also builds other QUANT_PAIR_SLOTS (quant.py PAIR_SLOTS).
+#ifndef QUANT_PAIR_PROBE
+#define QUANT_PAIR_PROBE 0
+#endif
+
+// A block walks the chunks j = blockIdx.x, + gridDim.x, ...: while it
+// reduces, decodes and stores one chunk, the next one's loads are in
+// flight (a one-pass chunk's, into the second register set).
+template <typename T>
+__global__ void __launch_bounds__(kPairMaxThreads) quant_pair_kernel(PairArgs a) {
+  __shared__ float red[2][kPairMaxThreads / 32][2];  // two, so that a block's next chunk never overwrites a read
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nt = blockDim.x;
+  const PairRows<T> p = pair_rows<T>(a);
+  const float m[2][2] = {{a.m[0], a.m[1]}, {a.m[2], a.m[3]}};
+  const float inv = a.codec == 0 ? 1.0f / 127.0f : 1.0f / 448.0f;
+  float xv[kPairSlots][2][4], hv[kPairSlots][2][4];  // this chunk's groups
+  float xn[kPairSlots][2][4], hn[kPairSlots][2][4];  // the next chunk's, in flight
+  int j = blockIdx.x;
+  PairChunk c = pair_chunk(a, p.anchor, j, nt);
+  if (QUANT_PAIR_PROBE != 2 && c.one_pass) load_chunk(p, c, tid, nt, xv, hv);
+  for (int it = 0; j < a.n_chunks; j += gridDim.x, ++it) {
+    const int jn = j + gridDim.x;
+    const PairChunk cn = jn < a.n_chunks ? pair_chunk(a, p.anchor, jn, nt) : PairChunk{0, 0, 0, 0, false};
+    if (QUANT_PAIR_PROBE != 2 && cn.one_pass) load_chunk(p, cn, tid, nt, xn, hn);
+
+    float amax[2] = {0.f, 0.f};
+    if (QUANT_PAIR_PROBE == 2) {
+#pragma unroll
+      for (int k = 0; k < kPairSlots; ++k)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xv[k][r][i] = (float)(tid + i), hv[k][r][i] = 0.f;
+    } else if (c.one_pass) {
+#pragma unroll
+      for (int k = 0; k < kPairSlots; ++k)
+        if (tid + (long long)k * nt < c.groups) group_amax(xv[k], hv[k], a.ef, amax);
+    } else {  // two passes: the absmax from device memory
+      for (long long q = tid; q < c.groups; q += nt) {
+        const long long g = c.g0 + 4 * q;
+        load_group(p, g, c.lo, c.hi, g >= c.lo && g + 4 <= c.hi, xv[0], hv[0]);
+        group_amax(xv[0], hv[0], a.ef, amax);
+      }
+    }
+    amax[0] = warp_max(amax[0]), amax[1] = warp_max(amax[1]);
+    if (lane == 0) red[it & 1][warp][0] = amax[0], red[it & 1][warp][1] = amax[1];
+    __syncthreads();
+    float s[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float am = 0.f;
+      for (int w = 0; w < (nt >> 5); ++w) am = fmaxf(am, red[it & 1][w][r]);
+      s[r] = __fmul_rn(fmaxf(am, 1e-30f), inv);
+    }
+    if (tid == 0) a.scales[j] = s[0], a.scales[a.n_chunks + j] = s[1];
+
+    if (QUANT_PAIR_PROBE == 1) {
+      if (s[0] < 0.f) finish_group(a, p, m, s, c.g0, c.lo, c.hi, false, xv[0], hv[0]);
+    } else if (c.one_pass || QUANT_PAIR_PROBE == 2) {
+#pragma unroll
+      for (int k = 0; k < kPairSlots; ++k) {
+        const long long q = tid + (long long)k * nt, g = c.g0 + 4 * q;
+        if (q < c.groups) finish_group(a, p, m, s, g, c.lo, c.hi, g >= c.lo && g + 4 <= c.hi, xv[k], hv[k]);
+      }
+    } else {  // the second pass: decode and mix, the chunk read again (from L2)
+      for (long long q = tid; q < c.groups; q += nt) {
+        const long long g = c.g0 + 4 * q;
+        const bool full = g >= c.lo && g + 4 <= c.hi;
+        load_group(p, g, c.lo, c.hi, full, xv[0], hv[0]);
+        finish_group(a, p, m, s, g, c.lo, c.hi, full, xv[0], hv[0]);
+      }
+    }
+    c = cn;
+#pragma unroll
+    for (int k = 0; k < kPairSlots; ++k)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[k][r][i] = xn[k][r][i], hv[k][r][i] = hn[k][r][i];
+  }
+}
+
 // Raw mode's source rows for the BSR walk (bsr_walk.cuh): what peers decode
 // from rows of X.  A thread's chunk of each of its VEC columns advances
 // with its column strip.
@@ -799,6 +1134,32 @@ extern "C" int quant_mix_dense(int dtype, const float* m, const void* x, const f
   if (dtype == 0) return (int)dispatch_round<float>(a, cluster, s);
   if (dtype == 1) return (int)dispatch_round<__nv_bfloat16>(a, cluster, s);
   return cudaErrorInvalidValue;
+}
+
+// One event's compressed exchange over its pair's rows: x (2, d) in dtype
+// (0 fp32, 1 bf16), h (2, d) fp32 or null (then ef = 0), m the (2, 2)
+// operator; writes scales (2, n_chunks), x_out (X's dtype) and h_out
+// (fp32).  threads: the block's, a multiple of 32 up to kPairMaxThreads;
+// blocks: the grid, each block walking every blocks-th chunk
+// (quant.py::pair_launch).  Returns a cudaError_t.
+extern "C" int quant_mix_pair(int dtype, const float* m, const void* x, const float* h, const long long* bounds,
+                              float* scales, void* x_out, float* h_out, long long d, int n_chunks, int threads,
+                              int blocks, int codec, int ef, float gamma, void* stream) {
+  if (d <= 0 || n_chunks <= 0 || threads < 32 || threads > kPairMaxThreads || threads % 32 != 0 || blocks < 1 ||
+      (ef && h == nullptr) || codec < 0 || codec > 1 || x_out == nullptr || h_out == nullptr || m == nullptr)
+    return cudaErrorInvalidValue;
+  PairArgs a;
+  a.m = m, a.x = x, a.h = h, a.bounds = bounds, a.scales = scales, a.x_out = x_out, a.h_out = h_out, a.d = d;
+  a.n_chunks = n_chunks, a.codec = codec, a.ef = ef, a.gamma = gamma;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    quant_pair_kernel<float><<<(unsigned)min(blocks, n_chunks), threads, 0, s>>>(a);
+  } else if (dtype == 1) {
+    quant_pair_kernel<__nv_bfloat16><<<(unsigned)min(blocks, n_chunks), threads, 0, s>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // The dynamic shared memory of quant_mix_dense's kernel for n rows, `cols`

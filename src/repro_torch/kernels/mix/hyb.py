@@ -13,12 +13,14 @@ nonzeros.
 ``mix_hyb`` launches the CUDA kernel of ``csrc/mix_hyb.cu`` on CUDA tensors
 and runs its plain version ``mix_hyb_ref`` on CPU tensors; anything else
 raises, and there is no fallback from the kernel to the plain version.
-``hyb_route`` names the kernel's route from the staged rows alone:
-``"slab"`` (a block stages a column strip of every source row in shared
-memory and gathers from there) while those rows fit, ``"rows"`` (blocks of
-output rows gathering from device memory) beyond.  No pointer enters the
-choice, so chunked and resumed runs sum alike; the two routes sum in the
-same order and give the same bits.  ``mix_hyb.launches`` counts kernel
+The kernel has two routes: ``"slab"`` (a block stages a column strip of
+every source row in shared memory and gathers from there) and ``"rows"``
+(blocks of output rows gathering from device memory).  ``hyb_route`` picks
+one from the operator's shape (its output rows, ELL width and hub rows),
+W's dtype and width and the rows the slab would stage (``route_of`` reads
+them off a call's arguments): the rule the card's timings in turns gave.  No pointer
+enters the choice, so chunked and resumed runs sum alike; the two routes
+sum in the same order and give the same bits.  ``mix_hyb.launches`` counts kernel
 launches and ``mix_hyb.launches_by_route`` splits them by route.  The plain
 version is the kernel's arithmetic bit for bit: each ELL row ``self_w·x[i]``, then each
 slot in order ``+ slot_w·x[src]`` (the product and the sum rounded
@@ -45,7 +47,8 @@ from repro_torch.kernels.build import load_library
 from . import _launch as L
 from .ref import fma_f32
 
-__all__ = ["HYB", "ROUTES", "SLAB_MAX_ROWS", "hyb_from_tables", "hyb_route", "mix_hyb", "mix_hyb_ref"]
+__all__ = ["FEW_ROWS", "FEW_ROWS_MIN_D", "HYB", "ROUTES", "SLAB_MAX_ROWS", "THIN_SLOTS", "hyb_from_tables",
+           "hyb_route", "mix_hyb", "mix_hyb_ref", "route_of"]
 
 ROUTES = ("slab", "rows")
 # the most source rows the slab route stages: 160 bytes a row (a 128-byte
@@ -54,6 +57,13 @@ ROUTES = ("slab", "rows")
 # in the 227 KB a block may take (mix_hyb.cu's kSlabMaxRows, which the card
 # tests hold this equal to)
 SLAB_MAX_ROWS = 1319
+# hyb_route's rule (PERF.md, row 2y): the rows route for up to FEW_ROWS
+# fp32 output rows (half as many bf16 ones) of at least FEW_ROWS_MIN_D
+# columns, and in fp32 for an operator without hub rows whose ELL rows hold
+# at most 1 + THIN_SLOTS entries
+FEW_ROWS = 64
+FEW_ROWS_MIN_D = 65_536
+THIN_SLOTS = 2
 
 
 class HYB(NamedTuple):
@@ -178,16 +188,46 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def hyb_route(n_src: int, n_hub_src: int, same_buffer: bool, dtype: torch.dtype) -> str:
-    """The kernel's route for W of ``n_src`` rows and hub lists over
-    ``n_hub_src`` rows, of W itself (``same_buffer``) or of another buffer:
-    ``"slab"`` while the rows it stages (W's, and the other buffer's) fit,
-    ``"rows"`` beyond.  A staged row is 160 bytes in either dtype (a strip of
-    32 fp32 or 64 bf16 columns, and the sector before it)."""
+def hyb_route(n_src: int, n_hub_src: int, same_buffer: bool, dtype: torch.dtype, *, n_rows: int, n_slots: int,
+              n_hubs: int, d: int) -> str:
+    """The kernel's route for an operator of ``n_rows`` output rows,
+    ``n_slots`` ELL slots (an ELL row holds its self term and up to that
+    many live slots) and ``n_hubs`` hub rows, over W of ``n_src`` rows of
+    ``d`` columns and hub lists over ``n_hub_src`` rows, of W itself
+    (``same_buffer``) or of another buffer.  The slab route stages W's rows
+    and the other buffer's, 160 bytes a row in either dtype (a strip of 32
+    fp32 or 64 bf16 columns and the sector before it), up to
+    ``SLAB_MAX_ROWS``.  Where they fit, the rows route still wins, in turns
+    on an H100 (PERF.md, row 2y; ``tools/hyb_route_sweep.py``), for
+
+    * at most ``FEW_ROWS`` fp32 output rows (``FEW_ROWS / 2`` bf16 ones, a
+      strip holding twice the columns) of at least ``FEW_ROWS_MIN_D``
+      columns: a slab block's 128 row groups mostly idle, where the rows
+      route's blocks of 8 rows fill the card (circulant-16, whose 16 rows
+      are all hub rows of 5 entries).  Narrower, the rows route has too few
+      blocks (a shard's 64 rows at d = 256);
+    * fp32 W and an operator without hub rows whose ELL rows hold at most
+      ``1 + THIN_SLOTS`` entries: the slab route pays for each row's walk
+      as much as for its gathers, and the rows route's re-reads of a source
+      row come from L2 (ring-1024).
+
+    Else the slab route: it reads W from device memory once, where the rows
+    route walks a hub row serially and gathers each source row again for
+    every output row that reads it."""
     if dtype not in K.DTYPE_CODES:
         raise TypeError(f"W must be float32 or bfloat16, got {dtype}")
     staged = n_src + (0 if same_buffer else n_hub_src)
-    return "slab" if staged <= SLAB_MAX_ROWS else "rows"
+    few = 4 * n_rows <= FEW_ROWS * dtype.itemsize and d >= FEW_ROWS_MIN_D
+    if staged > SLAB_MAX_ROWS or few or (n_hubs == 0 and dtype == torch.float32 and n_slots <= THIN_SLOTS):
+        return "rows"
+    return "slab"
+
+
+def route_of(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None = None) -> str:
+    """``hyb_route`` for the call ``mix_hyb(op, w, w_hub)``."""
+    n_hub_src = (w if w_hub is None else w_hub).shape[0] if op.n_hubs else 0
+    return hyb_route(w.shape[0], n_hub_src, w_hub is None, w.dtype, n_rows=op.n_rows,
+                     n_slots=op.slot_idx.shape[0], n_hubs=op.n_hubs, d=w.shape[1])
 
 
 def mix_hyb(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None = None) -> torch.Tensor:
@@ -216,7 +256,7 @@ def mix_hyb(op: HYB, w: torch.Tensor, w_hub: torch.Tensor | None = None) -> torc
         return mix_hyb_ref(op, w, w_hub)
     if d == 0:
         return torch.empty((n_rows, d), dtype=w.dtype, device=w.device)
-    route = hyb_route(n_src, hub_src.shape[0] if n_hubs else 0, w_hub is None, w.dtype)
+    route = route_of(op, w, w_hub)
     y = _launch(op, w, w_hub, route)
     mix_hyb.launches += 1
     mix_hyb.launches_by_route[route] += 1

@@ -16,9 +16,12 @@ plain version.  ``<wrapper>.launches`` counts kernel launches.
 * ``quant_mix_bsr`` — ``M · (H + Q(X − H))`` with M in BSR form and the
   scales ``quant_scales`` gave.
 * ``quant_mix_pair`` — one compressed exchange of an asynchronous event
-  over its two endpoint rows: on the card one launch of the dense round
-  with the pair's 2 × 2 operator; its plain version mixes in the JAX
-  package's pairwise form (``ref.pair_mix_ref``).
+  over its two endpoint rows, route ``pair``: on the card one launch of a
+  kernel of its own (``quant_pair_kernel``: a block walks two chunks,
+  both rows in registers; ``pair_launch`` sizes its grid), the dense round's
+  arithmetic at n = 2 bit for bit; its plain version mixes in the JAX
+  package's pairwise form (``ref.pair_mix_ref``), and ``ref.pair_round_ref``
+  is the kernel's own arithmetic.
 
 Raw mode (``gamma=None``) gives Y = M·Q(X) in X's dtype; round mode one
 compressed gossip round, (X' = X + γ (M·H' − H'), H').
@@ -54,8 +57,8 @@ from .ref import (
 )
 from .sparse import MAX_BLOCK_N, mix_bsr_ref
 
-__all__ = ["ROUTES", "TilePlan", "plan_tiles", "quant_mix_bsr", "quant_mix_dense", "quant_mix_pair", "quant_scales",
-           "quantised_mix_bsr", "round_smem_bytes", "table_bounds", "tile_plan"]
+__all__ = ["ROUTES", "TilePlan", "pair_launch", "plan_tiles", "quant_mix_bsr", "quant_mix_dense", "quant_mix_pair",
+           "quant_scales", "quantised_mix_bsr", "round_smem_bytes", "table_bounds", "tile_plan"]
 
 CODEC_CODES = {"int8": 0, "fp8": 1}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -70,6 +73,7 @@ def _lib() -> ctypes.CDLL:
                              _I, _F, _P]),
         ("quant_mix_bsr", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
                            _I, _I, _F, _I, _P]),
+        ("quant_mix_pair", [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P]),
     ):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
@@ -308,6 +312,26 @@ def quant_mix_dense(
     return _result(y, x_out, h_out), scales
 
 
+# ------------------------------------------------------------ the pair exchange
+PAIR_SLOTS = 2  # a thread's groups of 4 columns in a one-pass chunk (kPairSlots)
+PAIR_MAX_THREADS = 512  # the pair kernel's block at most (kPairMaxThreads)
+PAIR_CHUNKS_PER_BLOCK = 2  # chunks a block walks, the next one's loads in flight during this one
+
+
+@functools.lru_cache(maxsize=64)
+def pair_launch(edges: tuple[int, ...]) -> tuple[int, int, int]:
+    """The pair kernel's launch for the chunk table ``edges``: (threads,
+    blocks, passes).  A block walks ``PAIR_CHUNKS_PER_BLOCK`` chunks; its
+    threads are the fewest warps that hold the widest chunk's groups of 4
+    columns (one more for a chunk that starts mid-group), ``PAIR_SLOTS`` a
+    thread, up to ``PAIR_MAX_THREADS``.  A chunk wider than that takes two
+    passes (its absmax from device memory, then decode and mix)."""
+    widths = [b - a for a, b in zip(edges, edges[1:])]
+    groups = -(-max(widths, default=0) // 4) + 1
+    threads = min(PAIR_MAX_THREADS, max(32, -(-groups // (PAIR_SLOTS * 32)) * 32))
+    return threads, -(-len(widths) // PAIR_CHUNKS_PER_BLOCK), 1 if groups <= PAIR_SLOTS * threads else 2
+
+
 def quant_mix_pair(
     m2: torch.Tensor,
     x: torch.Tensor,
@@ -324,27 +348,45 @@ def quant_mix_pair(
     (``CommPlan.event_m2``), ``edges`` the chunk table as host ints.
     Returns ``((X', H'), scales)`` as ``quant_mix_dense``.
 
-    On CUDA tensors it is one launch of the dense round (counted by
-    ``quant_mix_dense``).  On CPU tensors it runs the plain version, the
-    JAX package's compressed event: the same scales and H', and the mix in
-    its pairwise form ``h'_u + w_uv·(h'_v − h'_u)``, where the kernel sums
-    ``(1 − w_uv)·h'_u + w_uv·h'_v``: X' differs by fp32 rounding only."""
+    On CUDA tensors it is one launch of the pair kernel (route ``pair``,
+    counted by ``quant_mix_pair.launches``): the scales, H' and X' of the
+    dense round at n = 2, bit for bit (``ref.pair_round_ref``).  On CPU
+    tensors it runs the plain version, the JAX package's compressed event:
+    the same scales and H', and the mix in its pairwise form ``h'_u +
+    w_uv·(h'_v − h'_u)``, where the kernel sums ``(1 − w_uv)·h'_u +
+    w_uv·h'_v``: X' differs by fp32 rounding only."""
     if x.ndim != 2 or x.shape[0] != 2:
         raise ValueError(f"a pair exchange takes (2, d) rows, got {tuple(x.shape)}")
     L.check_operand(m2, "M", torch.float32, (2, 2), x.device)
-    if x.device.type != "cpu":
-        return quant_mix_dense(m2, x, h, edges, codec=codec, gamma=gamma, error_feedback=error_feedback)
     check_codec(codec)
-    bounds = table_bounds(tuple(edges), x.device)
+    edges = tuple(edges)
+    bounds = table_bounds(edges, x.device)
     _check_inputs(x, h, bounds)
-    if edges[-1] != x.shape[1]:
-        raise ValueError(f"the chunk table ends at column {edges[-1]}, X has {x.shape[1]}")
+    d = x.shape[1]
+    if edges[-1] != d:
+        raise ValueError(f"the chunk table ends at column {edges[-1]}, X has {d}")
     ef = error_feedback and h is not None
-    scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef)
-    w = torch.stack([m2[0, 1], m2[1, 0]])
-    out = quant_mix_ref(lambda hq: pair_mix_ref(hq, w), x, h, bounds, scales, codec=codec, gamma=gamma,
-                        error_feedback=ef)
-    return out, scales
+    if x.device.type == "cpu":
+        scales = quant_scales_ref(x, h, bounds, codec=codec, error_feedback=ef)
+        w = torch.stack([m2[0, 1], m2[1, 0]])
+        out = quant_mix_ref(lambda hq: pair_mix_ref(hq, w), x, h, bounds, scales, codec=codec, gamma=gamma,
+                            error_feedback=ef)
+        return out, scales
+    n_chunks = bounds.numel() - 1
+    scales = torch.empty(2, n_chunks, dtype=torch.float32, device=x.device)
+    _, x_out, h_out = _outputs(x, gamma)
+    if d == 0:
+        return (x_out, h_out), scales
+    threads, blocks, _ = pair_launch(edges)
+    with torch.cuda.device(x.device):
+        err = _lib().quant_mix_pair(
+            K.DTYPE_CODES[x.dtype], K.ptr(m2), K.ptr(x), _ptr(h if ef else None), K.ptr(bounds), K.ptr(scales),
+            K.ptr(x_out), K.ptr(h_out), d, n_chunks, threads, blocks, CODEC_CODES[codec], int(ef), float(gamma),
+            K.stream_of(x),
+        )
+    K.raise_on_error(err, "quant_mix_pair")
+    quant_mix_pair.launches += 1
+    return (x_out, h_out), scales
 
 
 def quant_mix_bsr(
@@ -421,3 +463,4 @@ quant_scales.launches = 0
 quant_mix_dense.launches = 0
 quant_mix_dense.launches_by_route = dict.fromkeys(ROUTES, 0)
 quant_mix_bsr.launches = 0
+quant_mix_pair.launches = 0

@@ -26,6 +26,7 @@ __all__ = [
     "dequantise_ref",
     "fma_f32",
     "pair_mix_ref",
+    "pair_round_ref",
     "pallas_bounds",
     "quant_mix_ref",
     "quant_scales_ref",
@@ -50,6 +51,30 @@ def pair_mix_ref(pair: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     separate fp32 sub, mul and add, cast back to ``pair``'s dtype."""
     p = pair.to(torch.float32)
     return (p + w.to(torch.float32).reshape(2, *([1] * (p.ndim - 1))) * (p.flip(0) - p)).to(pair.dtype)
+
+
+def pair_round_ref(
+    m2: torch.Tensor,
+    x: torch.Tensor,
+    h: torch.Tensor | None,
+    bounds: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    codec: str,
+    gamma: float,
+    error_feedback: bool = True,
+):
+    """An event's compressed exchange in the pair kernel's arithmetic
+    (``csrc/quant_mix.cu::quant_pair_kernel``, and the dense round's at
+    n = 2): H' = ``dequantise_ref``; output row r is ``acc = fma(M[r, 1],
+    h'_1, fma(M[r, 0], h'_0, 0))`` and ``X' = fma(γ, acc − h'_r, x_r)`` in X's
+    dtype.  Returns (X', H')."""
+    ef = error_feedback and h is not None
+    hq = dequantise_ref(x, h, bounds, scales, codec=codec, error_feedback=ef)
+    m2 = m2.to(torch.float32)
+    acc = fma_f32(m2[:, 1:2], hq[1:2], fma_f32(m2[:, 0:1], hq[0:1], torch.zeros_like(hq)))
+    g = torch.tensor(gamma, dtype=torch.float32, device=hq.device)
+    return fma_f32(g, acc - hq, x.to(torch.float32)).to(x.dtype), hq
 
 
 def chunk_bounds(sizes, chunk: int, device=None) -> torch.Tensor:

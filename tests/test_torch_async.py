@@ -454,6 +454,45 @@ def test_quant_pair_plain_is_the_jax_compressed_event():
         quant_mix_pair(pp.event_m2[0], torch.zeros(3, 8), None, (0, 8), codec="int8", gamma=1.0)
 
 
+@pytest.mark.parametrize("codec,gamma", [("int8", 1.0), ("fp8", 0.5)])
+@pytest.mark.parametrize("ef", [True, False])
+def test_quant_pair_kernel_order_is_the_jax_compressed_event(codec, gamma, ef):
+    """The pair kernel's arithmetic (``ref.pair_round_ref``: the dense
+    round's FMA chain at n = 2) against the JAX package's compressed event
+    (``compressed_mix_with`` around ``event_mix``, jitted, error feedback on
+    and off): H' bitwise, X' to fp32 rounding (rtol and atol 1e-6, as the
+    plain version's test above)."""
+    from repro_torch.kernels.mix.ref import pair_round_ref, quant_scales_ref
+
+    g = PT.barabasi_albert(10, 2, seed=0)
+    pj = JC.compile_plan(JT.barabasi_albert(10, 2, seed=0), "dense")
+    pp = PC.compile_plan(g, "dense", device="cpu")
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((10, 4103)) * 0.4).astype(np.float32)
+    h = (rng.standard_normal((10, 4103)) * 0.3).astype(np.float32)
+    sizes = (4099, 1, 3)
+    bounds = chunk_bounds(sizes, 2048)
+    comp_j = JCC.Compression(codec, chunk=2048, gamma=gamma, error_feedback=ef)
+    tree_x = {"a": x[:, :4099], "b": x[:, 4099:4100], "c": x[:, 4100:]}
+    tree_h = {"a": h[:, :4099], "b": h[:, 4099:4100], "c": h[:, 4100:]}
+    for e in (0, 7):
+        u, v = (int(a) for a in g.edge_list()[e])
+        upd = jnp.zeros(10, bool).at[jnp.array([u, v])].set(True)
+
+        @jax.jit
+        def jax_event(tx, th, e=e, upd=upd):
+            return JCC.compressed_mix_with(lambda q: pj.event_mix(q, e), tx, th, comp_j, update_mask=upd)
+
+        xj, hj = jax_event(jax.tree_util.tree_map(jnp.asarray, tree_x), jax.tree_util.tree_map(jnp.asarray, tree_h))
+        xj = np.concatenate([np.asarray(xj[k]) for k in "abc"], 1)[[u, v]]
+        hj = np.concatenate([np.asarray(hj[k]) for k in "abc"], 1)[[u, v]]
+        xp, hp = torch.tensor(x[[u, v]]), torch.tensor(h[[u, v]]) if ef else None
+        scales = quant_scales_ref(xp, hp, bounds, codec=codec, error_feedback=ef)
+        xo, ho = pair_round_ref(pp.event_m2[e], xp, hp, bounds, scales, codec=codec, gamma=gamma, error_feedback=ef)
+        assert np.array_equal(_np(ho), hj), (codec, ef, e)
+        np.testing.assert_allclose(_np(xo), xj, rtol=1e-6, atol=1e-6)
+
+
 # ---------------------------------------------------------------- executor
 @pytest.fixture(scope="module")
 def setup():

@@ -19,7 +19,10 @@ for bf16, tc_fp32 for fp32) launched, and unaligned rows are rejected.  Quantise
 the dense and block-sparse walks in raw and round mode, fp32 and bf16, int8
 and fp8, both scale floors, masked operators, frozen mirrors, leaf chunk
 tables, and compressed plan rounds against the CPU (new mirrors bitwise:
-the kernel does the plain version's arithmetic element for element).  The
+the kernel does the plain version's arithmetic element for element); an
+asynchronous event's pair kernel bitwise the dense round on the same two
+rows and ``ref.pair_round_ref`` (one- and two-pass chunk tables, X off
+H's alignment, error feedback on and off).  The
 block-sparse walks also at kreg4-1024 (bn 32), with rows walked in pieces
 (complete-300 at bn 64) and in a masked round with all-zero tiles;
 ``mix_bsr`` bitwise its rendering ``mix_bsr_rows_ref``.  The row-list
@@ -29,7 +32,8 @@ rows), fp32 and bf16, misaligned rows, a shard's rows over its
 indices read nothing; bitwise its plain version ``mix_hyb_ref`` and a clean
 sparse plan round bitwise the CPU's; its slab route (every stageable shape:
 K = 4, 2 and 1 sub-strips, one and two slabs, misaligned rows, a shard's
-rows with hubs over a second buffer) bitwise its rows route.  The zoo's last
+rows with hubs over a second buffer) bitwise its rows route, each call
+launched on the route ``hyb_route`` names.  The zoo's last
 configs: reduced jamba, llava and musicgen (with frontend embeddings) and
 llama4-scout card vs CPU in fp32, a jamba decode step in bf16 replayed as a
 CUDA graph, and an RWKV training step (no kernel launch under grad).
@@ -427,18 +431,23 @@ SLAB_GRAPHS = {**HYB_GRAPHS, "kreg4-600": lambda: T.random_k_regular(600, 4, see
 @pytest.mark.parametrize("d", [1, 3, 62, 777, 20_001])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hyb_slab_route_is_the_rows_route(dev, graph, d, dtype):
-    """mix_hyb on the slab route (every operator here stages at most
-    SLAB_MAX_ROWS rows): one launch on it, bitwise the plain version and the
-    rows route on the same operator and W, two launches bitwise."""
+    """The slab route (every operator here stages at most SLAB_MAX_ROWS
+    rows) bitwise the plain version and the rows route on the same
+    operator and W; mix_hyb launches once on the route ``route_of`` names
+    (the rows route for fp32 rings, the slab route for the rest: these
+    widths are below FEW_ROWS_MIN_D), two launches bitwise."""
     from repro_torch.core.commplan import compile_plan
 
     g = SLAB_GRAPHS[graph]()
     op = compile_plan(g, "sparse", device=dev).hyb
     w = torch.randn(g.n, d, device=dev).to(dtype)
-    assert hyb_route(g.n, g.n, True, dtype) == "slab"
+    route = hyb_kernel.route_of(op, w)
+    few = 4 * g.n <= hyb_kernel.FEW_ROWS * w.element_size() and d >= hyb_kernel.FEW_ROWS_MIN_D
+    thin = few or (op.n_hubs == 0 and dtype == torch.float32 and op.slot_idx.shape[0] <= hyb_kernel.THIN_SLOTS)
+    assert route == ("rows" if thin else "slab")
     before = dict(mix_hyb.launches_by_route)
     got = mix_hyb(op, w)
-    assert mix_hyb.launches_by_route == {**before, "slab": before["slab"] + 1}
+    assert mix_hyb.launches_by_route == {**before, route: before[route] + 1}
     assert torch.equal(got, mix_hyb_ref(op, w))
     assert torch.equal(got, hyb_kernel._launch(op, w, None, "rows"))
     assert torch.equal(got, hyb_kernel._launch(op, w, None, "slab"))
@@ -482,14 +491,16 @@ def test_hyb_slab_route_halo_row_block(dev, graph, n_shards, dtype):
         lo = rank * recv.nps
         halo = recv.send[:, rank, : recv.h_max] + np.arange(n_shards)[:, None] * recv.nps
         buf = torch.cat([x[lo : lo + recv.nps], x[torch.as_tensor(halo.reshape(-1), dtype=torch.int64)]])
-        route = hyb_route(buf.shape[0], g.n if op.n_hubs else 0, False, dtype)
-        assert route == "slab"
+        route = hyb_kernel.route_of(op, buf, x)
+        assert route == hyb_route(buf.shape[0], g.n if op.n_hubs else 0, False, dtype, n_rows=recv.nps,
+                                  n_slots=op.slot_idx.shape[0], n_hubs=op.n_hubs, d=1001)
         before = dict(mix_hyb.launches_by_route)
         got = mix_hyb(op, buf, x)
         assert mix_hyb.launches_by_route == {**before, route: before[route] + 1}
         assert torch.equal(got, want[lo : lo + recv.nps])
         assert torch.equal(got, mix_hyb_ref(op, buf, x))
         assert torch.equal(got, hyb_kernel._launch(op, buf, x, "rows"))
+        assert torch.equal(got, hyb_kernel._launch(op, buf, x, "slab"))
 
 
 def test_hyb_rows_route_beyond_the_slab(dev):
@@ -1179,11 +1190,11 @@ PAIR_SHAPES = {"ragged": ((777, 1, 301), 128), "mlp": (MLP_SIZES, 2048)}
 @pytest.mark.parametrize("gamma", [1.0, 0.5])
 @pytest.mark.parametrize("shape", sorted(PAIR_SHAPES))
 def test_quant_pair_exchange_matches_plain(dev, codec, gamma, shape):
-    """An event's compressed exchange on the card: one launch of the dense
-    round on the staged route with the pair's 2 × 2 operator, against the
-    plain version on the CPU (the JAX form h'_u + w_uv·(h'_v − h'_u)):
-    scales and H' bitwise, X' within 1e-5 · max|X| (the kernel sums
-    (1 − w)·h'_u + w·h'_v), two launches bitwise equal."""
+    """An event's compressed exchange on the card: one launch of the pair
+    kernel (route ``pair``, no dense-round launch) with the pair's 2 × 2
+    operator, against the plain version on the CPU (the JAX form h'_u +
+    w_uv·(h'_v − h'_u)): scales and H' bitwise, X' within 1e-5 · max|X| (the
+    kernel sums (1 − w)·h'_u + w·h'_v), two launches bitwise equal."""
     from repro_torch.core.commplan import compile_plan
 
     sizes, chunk = PAIR_SHAPES[shape]
@@ -1193,10 +1204,9 @@ def test_quant_pair_exchange_matches_plain(dev, codec, gamma, shape):
     edges = tuple(chunk_bounds(sizes, chunk).tolist())
     for e in (0, plan.n_edges - 1):
         m2 = plan.event_m2[e]
-        before, routes = quant_mix_dense.launches, dict(quant_mix_dense.launches_by_route)
+        before, dense_before = quant_mix_pair.launches, quant_mix_dense.launches
         (xo, ho), sc = quant_mix_pair(m2, x, h, edges, codec=codec, gamma=gamma)
-        assert quant_mix_dense.launches == before + 1
-        assert quant_mix_dense.launches_by_route == {**routes, "staged": routes["staged"] + 1}
+        assert (quant_mix_pair.launches, quant_mix_dense.launches) == (before + 1, dense_before)
         (xc, hc), sc_c = quant_mix_pair(m2.cpu(), x.cpu(), h.cpu(), edges, codec=codec, gamma=gamma)
         assert torch.equal(sc.cpu(), sc_c) and torch.equal(ho.cpu(), hc)
         torch.testing.assert_close(xo.cpu(), xc, atol=1e-5 * max(float(x.abs().max()), 1.0), rtol=0)
@@ -1204,10 +1214,55 @@ def test_quant_pair_exchange_matches_plain(dev, codec, gamma, shape):
         assert torch.equal(xa, xo) and torch.equal(ha, ho)
 
 
+# chunk tables of the pair kernel: the MLP's (2,048-column chunks, one pass
+# of 288 threads), ragged leaves of narrow chunks, a d that is no multiple
+# of 4, chunks of 65,536 columns (two passes) and of 4,000 (one pass of the
+# most threads a block takes), and one column a chunk
+PAIR_TABLES = {"mlp": (MLP_SIZES, 2048), "ragged": ((777, 1, 301), 128), "odd": ((4099, 3, 2050), 2048),
+               "wide": ((150_001,), 65536), "most": ((12_345,), 4000), "one": ((67,), 1)}
+
+
+@pytest.mark.parametrize("table", sorted(PAIR_TABLES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("codec,gamma,ef", [("int8", 1.0, True), ("fp8", 0.5, True), ("int8", 0.5, False)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_quant_pair_route_is_the_staged_route(dev, table, dtype, codec, gamma, ef, offset):
+    """The pair kernel against the dense round on the staged (or wide)
+    route with the same 2 × 2 operator: scales, H' and X' bitwise, and
+    bitwise its plain version in the kernel's arithmetic
+    (``ref.pair_round_ref``); X one element into its allocation (``offset``)
+    so that the rows' alignments differ from H's; a one-pass and a
+    two-pass table as ``pair_launch`` names them."""
+    from repro_torch.core.commplan import compile_plan
+    from repro_torch.kernels.mix.quant import PAIR_MAX_THREADS, PAIR_SLOTS, pair_launch
+    from repro_torch.kernels.mix.ref import pair_round_ref
+
+    sizes, chunk = PAIR_TABLES[table]
+    d = sum(sizes)
+    edges = tuple(chunk_bounds(sizes, chunk).tolist())
+    threads, _, passes = pair_launch(edges)
+    widest = max(b - a for a, b in zip(edges, edges[1:]))
+    assert threads % 32 == 0 and threads <= PAIR_MAX_THREADS
+    assert passes == (1 if -(-widest // 4) + 1 <= PAIR_SLOTS * threads else 2)
+    assert passes == (2 if table == "wide" else 1)
+    plan = compile_plan(T.barabasi_albert(16, 3, seed=0), "dense", data_sizes=np.linspace(1, 2, 16), device=dev)
+    m2 = plan.event_m2[plan.n_edges - 1]
+    x0, h = _quant_inputs(dev, 2, d, dtype, seed=d + offset)
+    x = torch.empty(2 * d + offset, dtype=dtype, device=dev)[offset:].view(2, d)
+    x.copy_(x0)
+    h_in = h if ef else None
+    (xo, ho), sc = quant_mix_pair(m2, x, h_in, edges, codec=codec, gamma=gamma, error_feedback=ef)
+    (xs, hs), sc_s = quant_mix_dense(m2, x, h_in, edges, codec=codec, gamma=gamma, error_feedback=ef)
+    assert torch.equal(sc, sc_s) and torch.equal(ho, hs) and torch.equal(xo, xs)
+    xr, hr = pair_round_ref(m2, x, h_in, chunk_bounds(sizes, chunk, dev), sc, codec=codec, gamma=gamma,
+                            error_feedback=ef)
+    assert torch.equal(ho, hr) and torch.equal(xo, xr)
+
+
 @pytest.mark.parametrize("delivered", [True, False])
 def test_event_step_quantised_exchange_on_the_card(dev, delivered):
     """The event executor's step with int8 on the card: a delivered draw is
-    one dense-round launch, a failed one launches nothing and leaves the
+    one launch of the pair kernel, a failed one launches nothing and leaves the
     pair's rows as the local phase left them (the uncompressed step's,
     bitwise) and their mirrors as they were; the card's rows match the
     CPU's (H' bitwise, X' to fp32 rounding).  The loss is scaled by 0, so
@@ -1241,10 +1296,10 @@ def test_event_step_quantised_exchange_on_the_card(dev, delivered):
             step = PX._make_event_step(loss, opt, plan, sched.to(where), 2, torch.as_tensor(xs, device=where),
                                        torch.as_tensor(ys, device=where), layout=state.layout, reinit_opt=True,
                                        comp=comp)
-            before = quant_mix_dense.launches
+            before = quant_mix_pair.launches
             step(p, o, mirror, np.zeros(8, np.int32), np.zeros(8, np.float32), 3, np.float32(0.5), delivered)
             if where == "cuda":
-                assert quant_mix_dense.launches - before == int(delivered and comp is not None)
+                assert quant_mix_pair.launches - before == int(delivered and comp is not None)
             outs[where, comp is None] = (p.cpu(), mirror.cpu())
     u, v = plan.event_uv[3].tolist()
     if not delivered:

@@ -12,7 +12,8 @@ against the JAX package, on the CPU.
   bitwise an independent numpy loop of the same roundings, its hub rows
   and the whole product within 1e-6 · max|x| of the dense operator.
 * Which rounds take HYB: every unmasked sparse round; masked rounds,
-  ``spread`` and the codecs keep the BSR tiles.
+  ``spread`` and the codecs keep the BSR tiles.  The kernel's route
+  (``hyb_route``) at the card's shapes and its crossings.
 * The sharded HYB on spawned gloo ranks (S = 2, 4; S = 1 in this process)
   at BA-64 and kreg4-64: the unsharded round bit for bit (the slot order is
   kept), the op each rank ran, and a masked round still through the tiles.
@@ -38,7 +39,7 @@ from repro_torch.core.compress import Compression  # noqa: E402
 from repro_torch.core.mixing import receive_matrix  # noqa: E402
 from repro_torch.kernels.mix import BSR, HYB, hyb_from_tables, hyb_route, mix_flat, mix_hyb, mix_hyb_ref  # noqa: E402
 from repro_torch.kernels.mix.hyb import ROUTES as HYB_ROUTES  # noqa: E402
-from repro_torch.kernels.mix.hyb import SLAB_MAX_ROWS  # noqa: E402
+from repro_torch.kernels.mix.hyb import FEW_ROWS, FEW_ROWS_MIN_D, SLAB_MAX_ROWS, THIN_SLOTS, route_of  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
 
 FAMILIES = {
@@ -283,28 +284,85 @@ def test_wrapper_checks_and_counts_nothing_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(again, op))
 
 
-# the staged rows a call makes: W's n rows (the unsharded call passes W for
-# the hub lists too), or a rank's [local | halo] rows at S = 4 plus the n
-# gathered rows its hub lists read, or at S = 1 its n rows plus the n
-# gathered ones; the slab route while they fit in SLAB_MAX_ROWS
+# hyb_route's cases: (label, n_src, n_hub_src, same buffer, dtype, the
+# operator's output rows, ELL slots and hub rows, the row's width d, the
+# route).  The staged rows a call makes: W's n rows (the unsharded call
+# passes W for the hub lists too), or a rank's [local | halo] rows at S = 4
+# plus the n gathered rows its hub lists read, or at S = 1 its n rows plus
+# the n gathered ones; the slab route while they fit in SLAB_MAX_ROWS, for
+# an operator with hub rows (these cases: 8 slots, 4 hubs) at d = 4096
+F32, BF16 = torch.float32, torch.bfloat16
+D_MAIN, D_LAUNCH = 567_434, 361_600  # the paper MLP's row; the launch layer's reduced qwen2.5-3b
+STAGED_CASES = [
+    (16, 16, True, 16, "slab"), (256, 256, True, 256, "slab"), (1024, 1024, True, 1024, "slab"),
+    (4096, 4096, True, 4096, "rows"), (6, 16, False, 4, "slab"), (66, 256, False, 64, "slab"),
+    (258, 1024, False, 256, "slab"), (1026, 4096, False, 1024, "rows"), (1024, 1024, False, 1024, "rows"),
+    (SLAB_MAX_ROWS, SLAB_MAX_ROWS, True, SLAB_MAX_ROWS, "slab"),
+    (SLAB_MAX_ROWS + 1, SLAB_MAX_ROWS + 1, True, SLAB_MAX_ROWS + 1, "rows"),
+]
 ROUTE_CASES = [
-    (16, 16, True, "slab"), (256, 256, True, "slab"), (1024, 1024, True, "slab"), (4096, 4096, True, "rows"),
-    (6, 16, False, "slab"), (66, 256, False, "slab"), (258, 1024, False, "slab"), (1026, 4096, False, "rows"),
-    (1024, 1024, False, "rows"), (SLAB_MAX_ROWS, SLAB_MAX_ROWS, True, "slab"),
-    (SLAB_MAX_ROWS + 1, SLAB_MAX_ROWS + 1, True, "rows"),
+    *((f"staged {n_src} + {n_hub} ({'same' if same else 'two'} buffers) {str(dt)[6:]}", n_src, n_hub, same, dt,
+       n_rows, 8, 4, 4096, want)
+      for n_src, n_hub, same, n_rows, want in STAGED_CASES for dt in (F32, BF16)),
+    # chip_smoke.py phase 3's ten shapes of row 2y (the operators' own
+    # features), the winner in turns on the card (PERF.md, row 2y)
+    ("ring-1024", 1024, 0, True, F32, 1024, 2, 0, D_MAIN, "rows"),
+    ("ring-1024 bf16", 1024, 0, True, BF16, 1024, 2, 0, D_MAIN, "slab"),
+    ("kreg4-1024", 1024, 0, True, F32, 1024, 4, 0, D_MAIN, "slab"),
+    ("ba-1024 (m 3)", 1024, 1024, True, F32, 1024, 13, 61, D_MAIN, "slab"),
+    ("heavytail-1024", 1024, 1024, True, F32, 1024, 12, 52, D_MAIN, "slab"),
+    ("ba-1024 (m 8)", 1024, 1024, True, F32, 1024, 27, 86, D_MAIN, "slab"),
+    ("kreg4-256", 256, 0, True, F32, 256, 4, 0, D_MAIN, "slab"),
+    ("circulant-16 (1, 2): 16 hub rows", 16, 16, True, F32, 16, 0, 16, D_LAUNCH, "rows"),
+    ("kreg4-256 S=4 rank 0", 256, 0, False, F32, 64, 4, 0, 256, "slab"),
+    ("ba-256 S=4 rank 0", 320, 256, False, F32, 64, 8, 31, 256, "slab"),
+    # the crossings: FEW_ROWS rows in fp32 (FEW_ROWS / 2 in bf16) with and
+    # without hub rows, at FEW_ROWS_MIN_D columns and one fewer; the thin
+    # ELL rows (fp32, no hub rows, at most 1 + THIN_SLOTS entries)
+    ("few rows with hubs", 128, 128, True, F32, FEW_ROWS, 4, FEW_ROWS, FEW_ROWS_MIN_D, "rows"),
+    ("one row more with hubs", 128, 128, True, F32, FEW_ROWS + 1, 4, FEW_ROWS + 1, FEW_ROWS_MIN_D, "slab"),
+    ("few rows, one column short", 128, 128, True, F32, FEW_ROWS, 4, FEW_ROWS, FEW_ROWS_MIN_D - 1, "slab"),
+    ("few rows bf16", 128, 0, True, BF16, FEW_ROWS // 2, 4, 0, D_LAUNCH, "rows"),
+    ("one row more bf16", 128, 0, True, BF16, FEW_ROWS // 2 + 1, 4, 0, D_LAUNCH, "slab"),
+    ("thin ELL rows", 512, 0, True, F32, 512, THIN_SLOTS, 0, D_LAUNCH, "rows"),
+    ("one slot more", 512, 0, True, F32, 512, THIN_SLOTS + 1, 0, D_LAUNCH, "slab"),
+    ("thin ELL rows and a hub", 512, 512, True, F32, 512, THIN_SLOTS, 1, D_LAUNCH, "slab"),
+    ("thin ELL rows in bf16", 512, 0, True, BF16, 512, THIN_SLOTS, 0, D_LAUNCH, "slab"),
+    ("thin ELL rows past the slab", SLAB_MAX_ROWS + 1, 0, True, BF16, SLAB_MAX_ROWS + 1, THIN_SLOTS, 0, D_LAUNCH,
+     "rows"),
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_src,n_hub_src,same,want", ROUTE_CASES)
-def test_hyb_route_is_picked_by_staged_rows(n_src, n_hub_src, same, want, dtype):
-    assert hyb_route(n_src, n_hub_src, same, dtype) == want
+@pytest.mark.parametrize("label,n_src,n_hub_src,same,dtype,n_rows,n_slots,n_hubs,d,want", ROUTE_CASES,
+                         ids=[c[0] for c in ROUTE_CASES])
+def test_hyb_route_is_picked_by_staged_rows(label, n_src, n_hub_src, same, dtype, n_rows, n_slots, n_hubs, d, want):
+    """The route from the staged rows and the operator's shape: the rows
+    route past SLAB_MAX_ROWS staged rows, at up to FEW_ROWS fp32 (FEW_ROWS / 2
+    bf16) output rows of at least FEW_ROWS_MIN_D columns, and for fp32
+    hub-free ELL rows of at most 1 + THIN_SLOTS entries; else the slab
+    route."""
+    assert hyb_route(n_src, n_hub_src, same, dtype, n_rows=n_rows, n_slots=n_slots, n_hubs=n_hubs, d=d) == want
     assert set(mix_hyb.launches_by_route) == set(HYB_ROUTES) == {"slab", "rows"}
+
+
+@pytest.mark.parametrize("family", ["ring", "kreg", "ba"])
+@pytest.mark.parametrize("n", [16, 128])
+def test_route_of_reads_the_operator(family, n):
+    """``route_of`` passes the call's staged rows and the operator's own
+    rows, ELL width and hub rows to ``hyb_route``, for W alone and for a
+    second hub buffer."""
+    op = PC.compile_plan(FAMILIES[family](PT, n), "sparse", device="cpu").hyb
+    for dtype in (F32, BF16):
+        w = torch.zeros(n, 3, dtype=dtype)
+        for w_hub, n_hub, same in ((None, n if op.n_hubs else 0, True), (torch.zeros(2 * n, 3, dtype=dtype),
+                                                                          2 * n if op.n_hubs else 0, False)):
+            assert route_of(op, w, w_hub) == hyb_route(n, n_hub, same, dtype, n_rows=op.n_rows,
+                                                       n_slots=op.slot_idx.shape[0], n_hubs=op.n_hubs, d=3)
 
 
 def test_hyb_route_refuses_other_dtypes():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        hyb_route(16, 16, True, torch.float64)
+        hyb_route(16, 16, True, torch.float64, n_rows=16, n_slots=4, n_hubs=0, d=8)
 
 
 @pytest.mark.parametrize("family", ["ba", "heavy_tail", "ring", "complete"])
